@@ -1,0 +1,67 @@
+"""Carry the JAX package's solver state across to the port.
+
+`from_reference` takes the reference's snapshot arrays, GangBatch fields and
+SolverParams as plain numpy arrays and floats (never JAX or grove_tpu
+objects, so this module imports neither) and returns the port's tensors on a
+given device, its GangBatch and its SolverParams. The tests feed the
+reference's own encoded batch to the port's solver through it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from grove_tpu_torch.solver.core import SolverParams, resolve_device
+from grove_tpu_torch.solver.encode import GangBatch
+
+_DTYPES = {
+    "group_req": np.float32,
+    "set_member": np.bool_,
+    "group_valid": np.bool_,
+    "set_valid": np.bool_,
+    "gang_valid": np.bool_,
+    "reuse_nodes": np.bool_,
+    "group_node_ok": np.bool_,
+    "spread_avoid": np.bool_,
+}
+
+
+def from_reference(
+    free,
+    capacity,
+    schedulable,
+    node_domain_id,
+    batch_arrays: dict,
+    params: dict,
+    device=None,
+):
+    """-> (free, capacity, schedulable, node_domain_id tensors on `device`,
+    GangBatch of numpy arrays, SolverParams).
+
+    `batch_arrays` maps GangBatch field names to numpy arrays or None (the
+    reference's `batch._asdict()` with each field passed through
+    np.asarray); `params` maps SolverParams field names to floats. Missing
+    optional fields are None. `device` None means the card."""
+    dev = resolve_device(device)
+    unknown = set(batch_arrays) - set(GangBatch._fields)
+    if unknown:
+        raise ValueError(f"unknown GangBatch fields: {sorted(unknown)}")
+    fields = {}
+    for name in GangBatch._fields:
+        x = batch_arrays.get(name)
+        fields[name] = None if x is None else np.ascontiguousarray(
+            x, dtype=_DTYPES.get(name, np.int32)
+        )
+    unknown = set(params) - set(SolverParams._fields)
+    if unknown:
+        raise ValueError(f"unknown SolverParams fields: {sorted(unknown)}")
+    sp = SolverParams(**{k: float(v) for k, v in params.items()})
+    return (
+        torch.as_tensor(np.array(free, dtype=np.float32), device=dev),
+        torch.as_tensor(np.array(capacity, dtype=np.float32), device=dev),
+        torch.as_tensor(np.array(schedulable, dtype=np.bool_), device=dev),
+        torch.as_tensor(np.array(node_domain_id, dtype=np.int32), device=dev),
+        GangBatch(**fields),
+        sp,
+    )

@@ -1,0 +1,219 @@
+"""Wrapper of the place_wave CUDA kernel (csrc/place_wave.cu): one launch
+solves one wave — B1, the per-wave gang solve, with B2, the cross-wave
+verdict gating, folded into the same launch.
+
+It replaces the XLA program of grove_tpu/solver/core.py `solve_batch_impl`
+(+ `_place_gang`, `_apply_global_deps`, `_scatter_global_ok`). Its plain
+PyTorch version is grove_tpu_torch/solver/reference.py `solve_batch_ref`;
+`solver.core.solve_batch` picks one or the other by the device of its
+tensors, never both.
+
+The kernel launches on PyTorch's current stream and does not synchronise;
+`free` and `ok_global` are updated in place. `place_wave.launches` counts the
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from grove_tpu_torch.solver.encode import GangBatch
+
+R_MAX, MG_MAX, MS_MAX, L_MAX = 8, 16, 8, 8
+# Dynamic shared memory holds the free carry and the gang's working copy.
+SMEM_LIMIT = 200 * 1024
+
+_P = ctypes.c_void_p
+_FIELDS = [(k, ctypes.c_int) for k in ("N", "R", "L", "G", "MG", "MS", "MP", "T")]
+_FIELDS += [(k, ctypes.c_float) for k in ("w_tight", "w_pref", "w_reuse", "w_reserve")]
+_POINTERS = (
+    "free_io", "capacity", "schedulable", "node_domain_id", "dom_count", "dom_offsets",
+    "dom_nodes", "group_req", "group_total", "group_required", "group_valid", "set_member",
+    "set_req_level", "set_pref_level", "set_valid", "set_pinned", "pod_group", "pod_rank",
+    "gang_valid", "group_order", "depends_on", "global_index", "depends_global",
+    "reuse_nodes", "group_node_ok", "ok_global", "assigned", "ok", "score", "slots_all",
+    "tables", "agg", "feas2", "node_feas2", "node_ok", "ok_nodes", "taken", "used",
+    "a_slots", "a_score", "entries",
+)
+_FIELDS += [(k, _P) for k in _POINTERS]
+
+
+class PlaceWaveArgs(ctypes.Structure):
+    """Mirror of `struct PlaceWaveArgs` in csrc/place_wave.cu (same order)."""
+
+    _fields_ = _FIELDS
+
+
+class DomainIndex(NamedTuple):
+    """Per-level CSR of node indices by domain ordinal, in node order — the
+    fixed order the kernel sums domains in. Built once per snapshot."""
+
+    count: torch.Tensor  # i32 [L] domains per level
+    offsets: torch.Tensor  # i32 [L, N + 1]
+    nodes: torch.Tensor  # i32 [L, N]
+
+
+def domain_index(node_domain_id, device) -> DomainIndex:
+    ndid = np.asarray(
+        node_domain_id.cpu() if torch.is_tensor(node_domain_id) else node_domain_id,
+        dtype=np.int64,
+    )
+    levels, n = ndid.shape
+    count = np.zeros((levels,), dtype=np.int32)
+    offsets = np.zeros((levels, n + 1), dtype=np.int32)
+    nodes = np.zeros((levels, n), dtype=np.int32)
+    for lv in range(levels):
+        dom = ndid[lv]
+        labeled = np.flatnonzero(dom >= 0)
+        d = int(dom[labeled].max()) + 1 if labeled.size else 0
+        count[lv] = d
+        order = labeled[np.argsort(dom[labeled], kind="stable")]
+        nodes[lv, : order.size] = order
+        offsets[lv, 1 : d + 1] = np.cumsum(np.bincount(dom[labeled], minlength=d))
+        offsets[lv, d + 1 :] = order.size
+    return DomainIndex(
+        *(torch.as_tensor(x, device=device) for x in (count, offsets, nodes))
+    )
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"place_wave: {name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"place_wave: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"place_wave: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"place_wave: {name} is not contiguous")
+
+
+def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
+               ok_global, domains: DomainIndex):
+    """Check every input, allocate outputs and scratch, and fill the kernel's
+    argument struct. Returns (args, smem_bytes, outputs, keepalive)."""
+    dev = free.device
+    n, r = free.shape
+    levels = node_domain_id.shape[0]
+    g, mg, _ = batch.group_req.shape
+    ms = batch.set_member.shape[1]
+    mp = batch.pod_group.shape[1]
+    if batch.spread_level is not None:
+        raise NotImplementedError(
+            "place_wave: replica-spread planes (spread_level/spread_family/spread_avoid) "
+            "are not in the CUDA kernel yet — ROADMAP Queue B, 'spread planes in the B1 kernel'"
+        )
+    if r > R_MAX or mg > MG_MAX or ms > MS_MAX or levels > L_MAX:
+        raise ValueError(
+            f"place_wave: R={r}, MG={mg}, MS={ms}, L={levels} exceed the kernel's "
+            f"limits R<={R_MAX}, MG<={MG_MAX}, MS<={MS_MAX}, L<={L_MAX}"
+        )
+    smem = 2 * n * r * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"place_wave: N*R={n * r} needs {smem} B of shared memory > {SMEM_LIMIT}")
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    _check("free", free, f32, (n, r), dev)
+    _check("capacity", capacity, f32, (n, r), dev)
+    _check("schedulable", schedulable, b8, (n,), dev)
+    _check("node_domain_id", node_domain_id, i32, (levels, n), dev)
+    _check("dom_count", domains.count, i32, (levels,), dev)
+    _check("dom_offsets", domains.offsets, i32, (levels, n + 1), dev)
+    _check("dom_nodes", domains.nodes, i32, (levels, n), dev)
+    shapes = {
+        "group_req": (f32, (g, mg, r)), "group_total": (i32, (g, mg)),
+        "group_required": (i32, (g, mg)), "group_valid": (b8, (g, mg)),
+        "set_member": (b8, (g, ms, mg)), "set_req_level": (i32, (g, ms)),
+        "set_pref_level": (i32, (g, ms)), "set_valid": (b8, (g, ms)),
+        "set_pinned": (i32, (g, ms)), "pod_group": (i32, (g, mp)), "pod_rank": (i32, (g, mp)),
+        "gang_valid": (b8, (g,)), "group_order": (i32, (g, mg)), "depends_on": (i32, (g,)),
+        "global_index": (i32, (g,)), "depends_global": (i32, (g,)),
+        "reuse_nodes": (b8, (g, n)), "group_node_ok": (b8, (g, mg, n)),
+    }
+    for name, (dtype, shape) in shapes.items():
+        t = getattr(batch, name)
+        if t is not None:
+            _check(name, t, dtype, shape, dev)
+    t_len = 0
+    if ok_global is not None:
+        t_len = ok_global.shape[0]
+        _check("ok_global", ok_global, b8, (t_len,), dev)
+
+    c = r + mg + 1
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {
+        "assigned": empty((g, mp), i32),
+        "ok": torch.zeros((g,), dtype=b8, device=dev),
+        "score": empty((g,), f32),
+    }
+    scratch = {
+        "slots_all": empty((max(mg, 1) * n,), i32),
+        "tables": empty((levels * n * c,), f32),
+        "agg": empty((n * (c + 1 + ms),), f32),
+        "feas2": empty((max(ms, 1) * n,), torch.uint8),
+        "node_feas2": empty((max(ms, 1) * n,), torch.uint8),
+        "node_ok": empty((n,), torch.uint8),
+        "ok_nodes": empty((n,), torch.uint8),
+        "taken": empty((n,), torch.uint8),
+        "used": empty((n,), torch.uint8),
+        "a_slots": empty((n,), i32),
+        "a_score": empty((n,), f32),
+        "entries": empty((max(2 * mg * mp, 1) * 3,), i32),
+    }
+    tensors = {
+        "free_io": free, "capacity": capacity, "schedulable": schedulable,
+        "node_domain_id": node_domain_id, "dom_count": domains.count,
+        "dom_offsets": domains.offsets, "dom_nodes": domains.nodes,
+        "ok_global": ok_global, **out, **scratch,
+    }
+    for name in shapes:
+        tensors[name] = getattr(batch, name)
+    args = PlaceWaveArgs(
+        N=n, R=r, L=levels, G=g, MG=mg, MS=ms, MP=mp, T=t_len,
+        w_tight=float(params.w_tight), w_pref=float(params.w_pref),
+        w_reuse=float(params.w_reuse), w_reserve=float(params.w_reserve),
+    )
+    for name in _POINTERS:
+        t = tensors[name]
+        setattr(args, name, None if t is None else t.data_ptr())
+    return args, smem, out, tensors
+
+
+def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
+               ok_global=None, *, domains: DomainIndex):
+    """Solve one wave on the card with one kernel launch.
+
+    All tensors lie on one CUDA device; `batch` is a GangBatch of tensors and
+    `domains` the snapshot's DomainIndex (built once by the caller, so the
+    wrapper never copies to the host). Returns (assigned i32 [G, MP], ok
+    bool [G], score f32 [G], free_after, ok_global) where free_after is
+    `free` and ok_global is `ok_global`, both updated in place."""
+    if not free.is_cuda:
+        raise ValueError("place_wave: the kernel runs on a CUDA device only")
+    from grove_tpu_torch.kernels.build import load
+
+    lib = load("place_wave")
+    lib.place_wave_args_size.argtypes = []
+    lib.place_wave_args_size.restype = ctypes.c_int
+    if lib.place_wave_args_size() != ctypes.sizeof(PlaceWaveArgs):
+        raise RuntimeError("place_wave: PlaceWaveArgs differs between Python and CUDA")
+    args, smem, out, _keep = build_args(
+        free, capacity, schedulable, node_domain_id, batch, params, ok_global, domains
+    )
+    fn = lib.place_wave_launch
+    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(free.device).cuda_stream
+    rc = fn(ctypes.byref(args), stream, smem)
+    if rc != 0:
+        raise RuntimeError(f"place_wave: kernel launch failed with CUDA error {rc}")
+    place_wave.launches += 1
+    return out["assigned"], out["ok"], out["score"], free, ok_global
+
+
+place_wave.launches = 0

@@ -1,0 +1,426 @@
+"""Synthetic clusters and workload backlogs for benchmarks and scale tests.
+
+Shapes mirror the reference's sample workloads and e2e fixtures
+(operator/samples/user-guide/01_core-concepts/*.yaml: single-node
+disaggregated, multi-node aggregated leader/worker, multi-node disaggregated;
+scale rig: KWOK fake nodes, operator/hack/kind-up.sh:252-265; topology label
+shape: operator/hack/e2e-cluster/create-e2e-cluster.py:133-135).
+
+The TPU analog of the GPU fleet: hosts carry `google.com/tpu` chips, racks are
+the ICI-domain analog (pack constraints target them), zones/blocks the DCN
+level.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from grove_tpu_torch.api import PodCliqueSet, default_podcliqueset
+from grove_tpu_torch.api.types import ClusterTopology, TopologyDomain, TopologyLevel
+from grove_tpu_torch.state.cluster import Node
+
+ZONE_KEY = "topology.kubernetes.io/zone"
+BLOCK_KEY = "topology.kubernetes.io/block"
+RACK_KEY = "topology.kubernetes.io/rack"
+
+
+def bench_topology() -> ClusterTopology:
+    return ClusterTopology(
+        name="bench",
+        levels=[
+            TopologyLevel(TopologyDomain.ZONE, ZONE_KEY),
+            TopologyLevel(TopologyDomain.BLOCK, BLOCK_KEY),
+            TopologyLevel(TopologyDomain.RACK, RACK_KEY),
+        ],
+    )
+
+
+def synthetic_cluster(
+    zones: int = 4,
+    blocks_per_zone: int = 4,
+    racks_per_block: int = 16,
+    hosts_per_rack: int = 20,
+    cpu: float = 32.0,
+    memory: float = 128 * 2**30,
+    tpu: float = 8.0,
+) -> list[Node]:
+    """Defaults: 4*4*16*20 = 5120 hosts — the 5k-node north-star scale."""
+    nodes: list[Node] = []
+    for z in range(zones):
+        for b in range(blocks_per_zone):
+            for r in range(racks_per_block):
+                for h in range(hosts_per_rack):
+                    nodes.append(
+                        Node(
+                            name=f"z{z}b{b}r{r}h{h}",
+                            capacity={
+                                "cpu": cpu,
+                                "memory": memory,
+                                "google.com/tpu": tpu,
+                            },
+                            labels={
+                                ZONE_KEY: f"z{z}",
+                                BLOCK_KEY: f"b{b}",
+                                RACK_KEY: f"r{r}",
+                            },
+                        )
+                    )
+    return nodes
+
+
+def _clique(name: str, replicas: int, cpu: str, tpu: int = 0,
+            min_available: int | None = None) -> dict[str, Any]:
+    requests: dict[str, Any] = {"cpu": cpu, "memory": "1Gi"}
+    if tpu:
+        requests["google.com/tpu"] = str(tpu)
+    spec: dict[str, Any] = {
+        "roleName": name,
+        "replicas": replicas,
+        "podSpec": {
+            "containers": [
+                {"name": name, "image": f"registry.local/{name}:latest",
+                 "resources": {"requests": requests}}
+            ]
+        },
+    }
+    if min_available is not None:
+        spec["minAvailable"] = min_available
+    return {"name": name, "spec": spec}
+
+
+def _pcs(name: str, cliques: list[dict], scaling_groups: list[dict] | None = None,
+         constraint_domain: str | None = None, replicas: int = 1) -> PodCliqueSet:
+    template: dict[str, Any] = {"cliques": cliques}
+    if scaling_groups:
+        template["podCliqueScalingGroups"] = scaling_groups
+    if constraint_domain:
+        template["topologyConstraint"] = {"packDomain": constraint_domain}
+    doc = {
+        "apiVersion": "grove.io/v1alpha1",
+        "kind": "PodCliqueSet",
+        "metadata": {"name": name},
+        "spec": {"replicas": replicas, "template": template},
+    }
+    return default_podcliqueset(PodCliqueSet.from_dict(doc))
+
+
+def disagg_pcs(name: str) -> PodCliqueSet:
+    """Single-node-disaggregated shape: prefill+decode scaled together behind a
+    router, PCSG rack-packed (single-node-disaggregated.yaml pattern)."""
+    return _pcs(
+        name,
+        cliques=[
+            _clique("router", 2, "500m"),
+            _clique("prefill", 4, "1", tpu=1),
+            _clique("decode", 4, "1", tpu=1),
+        ],
+        scaling_groups=[
+            {
+                "name": "workers",
+                "cliqueNames": ["prefill", "decode"],
+                "replicas": 2,
+                "minAvailable": 1,
+                "topologyConstraint": {"packDomain": "rack"},
+            }
+        ],
+    )
+
+
+def aggregated_pcs(name: str) -> PodCliqueSet:
+    """Multi-node-aggregated shape: leader + workers gang, rack-required
+    (multi-node-aggregated.yaml pattern)."""
+    return _pcs(
+        name,
+        cliques=[
+            _clique("frontend", 2, "500m"),
+            _clique("leader", 1, "1", tpu=2),
+            _clique("worker", 7, "1", tpu=2),
+        ],
+        scaling_groups=[
+            {
+                "name": "model",
+                "cliqueNames": ["leader", "worker"],
+                "replicas": 1,
+                "minAvailable": 1,
+                "topologyConstraint": {"packDomain": "rack"},
+            }
+        ],
+        constraint_domain="block",
+    )
+
+
+def frontend_pcs(name: str) -> PodCliqueSet:
+    """Small standalone-clique workload (simple1 frontend analog)."""
+    return _pcs(name, cliques=[_clique("frontend", 4, "250m")])
+
+
+def synthetic_backlog(
+    n_disagg: int = 350, n_agg: int = 250, n_frontend: int = 300
+) -> list[PodCliqueSet]:
+    """~10k pods with defaults: 350*18 + 250*10 + 300*4 = 10000."""
+    out: list[PodCliqueSet] = []
+    for i in range(n_disagg):
+        out.append(disagg_pcs(f"disagg-{i}"))
+    for i in range(n_agg):
+        out.append(aggregated_pcs(f"agg-{i}"))
+    for i in range(n_frontend):
+        out.append(frontend_pcs(f"fe-{i}"))
+    return out
+
+
+# --- contended quality scenario (round-2 weak #5) ---------------------------------
+#
+# The uncontended bench admits 100% both ways, proving nothing. This scenario
+# makes the batched solver and the per-pod greedy cycle diverge on a property
+# the reference path genuinely lacks: HIERARCHICAL feasibility. "Trap" blocks
+# are the best-fit choice by aggregate capacity/slots, but their free hosts
+# are spread one-per-rack, so a rack-packed group can never fit inside them;
+# "good" blocks look worse (more free) but hold whole racks of empty hosts.
+# A scheduler that commits the block before checking rack nesting (greedy,
+# KAI-style Filter/Score/Permit) strands every gang on a trap; the solver's
+# nested-feasibility guard (solver/core.py) skips traps outright.
+
+
+def contended_cluster(
+    trap_blocks: int = 8,
+    good_blocks: int = 8,
+    racks_per_block: int = 4,
+    hosts_per_rack: int = 4,
+    cpu: float = 8.0,
+    memory: float = 32 * 2**30,
+) -> tuple[list[Node], list]:
+    """Returns (nodes, squatter_pods). Squatters pre-occupy capacity:
+
+    - trap blocks: every rack keeps ONE empty host (block slots ample,
+      rack slots insufficient for a 2-pod rack-packed gang)
+    - good blocks: every rack keeps TWO empty hosts (gang fits), total free
+      2x the trap's — so best-fit aggregate ordering prefers traps
+    """
+    from grove_tpu_torch.api.pod import Pod
+    from grove_tpu_torch.api.types import Container as C, PodSpec
+
+    nodes: list[Node] = []
+    squatters: list = []
+
+    def host(b: int, r: int, h: int) -> Node:
+        return Node(
+            name=f"cb{b}r{r}h{h}",
+            capacity={"cpu": cpu, "memory": memory},
+            labels={ZONE_KEY: "z0", BLOCK_KEY: f"b{b}", RACK_KEY: f"r{r}"},
+        )
+
+    def squat(node: Node, frac: float, idx: int) -> None:
+        squatters.append(
+            Pod(
+                name=f"squat-{idx}",
+                spec=PodSpec(
+                    containers=[
+                        C(name="s", requests={"cpu": cpu * frac, "memory": memory * frac})
+                    ]
+                ),
+                node_name=node.name,
+                pclq_fqn="squatters",
+            )
+        )
+
+    si = 0
+    for b in range(trap_blocks + good_blocks):
+        empty_per_rack = 1 if b < trap_blocks else 2
+        for r in range(racks_per_block):
+            for h in range(hosts_per_rack):
+                node = host(b, r, h)
+                nodes.append(node)
+                if h >= empty_per_rack:  # fully squat the non-empty hosts
+                    squat(node, 1.0, si)
+                    si += 1
+    return nodes, squatters
+
+
+def contended_backlog(n_gangs: int = 24) -> list[PodCliqueSet]:
+    """Rack-packed 2-pod full-host gangs under a block-level gang constraint."""
+    out = []
+    for i in range(n_gangs):
+        doc = {
+            "apiVersion": "grove.io/v1alpha1",
+            "kind": "PodCliqueSet",
+            "metadata": {"name": f"packed-{i}"},
+            "spec": {
+                "replicas": 1,
+                "template": {
+                    "topologyConstraint": {"packDomain": "block"},
+                    "cliques": [
+                        {
+                            "name": "w",
+                            "topologyConstraint": {"packDomain": "rack"},
+                            "spec": {
+                                "roleName": "w",
+                                "replicas": 2,
+                                "podSpec": {
+                                    "containers": [
+                                        {
+                                            "name": "w",
+                                            "image": "registry.local/w:latest",
+                                            "resources": {
+                                                "requests": {"cpu": "8", "memory": "32Gi"}
+                                            },
+                                        }
+                                    ]
+                                },
+                            },
+                        }
+                    ],
+                },
+            },
+        }
+        out.append(default_podcliqueset(PodCliqueSet.from_dict(doc)))
+    return out
+
+
+def binpack_trap_cluster(n_nodes: int = 6, node_cpu: float = 7.0) -> list[Node]:
+    """Identical nodes sized so only one packing admits the whole trap
+    backlog (see binpack_trap_backlog)."""
+    return [
+        Node(
+            name=f"bp-{i}",
+            capacity={"cpu": node_cpu, "memory": 64.0 * 2**30},
+            labels={
+                "topology.kubernetes.io/zone": "z0",
+                "topology.kubernetes.io/block": "b0",
+                "topology.kubernetes.io/rack": f"r{i}",
+            },
+        )
+        for i in range(n_nodes)
+    ]
+
+
+def binpack_trap_backlog(n_pairs: int = 6) -> list[PodCliqueSet]:
+    """The packing-polarity trap (portfolio quality scenario).
+
+    n_pairs small gangs (3 cpu) arrive BEFORE n_pairs big gangs (4 cpu) on
+    n_pairs 7-cpu nodes — demand exactly equals capacity, so only the
+    4+3-per-node pairing admits everything. Best-fit doubles the smalls up
+    (3+3 on one node leaves 1 cpu: dead) and strands bigs; worst-fit
+    (spread-first, negative w_tight) spreads the smalls one-per-node and
+    every big fits. No single score polarity wins both this and the tight-
+    consolidation workloads — which is exactly the regime the solver
+    portfolio (parallel/portfolio.py params_population) exists for.
+    """
+
+    def one(name: str, cpu: str) -> PodCliqueSet:
+        doc = {
+            "apiVersion": "grove.io/v1alpha1",
+            "kind": "PodCliqueSet",
+            "metadata": {"name": name},
+            "spec": {
+                "replicas": 1,
+                "template": {
+                    "cliques": [
+                        {
+                            "name": "w",
+                            "spec": {
+                                "roleName": "w",
+                                "replicas": 1,
+                                "podSpec": {
+                                    "containers": [
+                                        {
+                                            "name": "w",
+                                            "image": "registry.local/w:latest",
+                                            "resources": {"requests": {"cpu": cpu}},
+                                        }
+                                    ]
+                                },
+                            },
+                        }
+                    ],
+                },
+            },
+        }
+        return default_podcliqueset(PodCliqueSet.from_dict(doc))
+
+    smalls = [one(f"bp-small-{i}", "3") for i in range(n_pairs)]
+    bigs = [one(f"bp-big-{i}", "4") for i in range(n_pairs)]
+    return smalls + bigs
+
+
+# --- placement-quality scenario: mixed Required / Preferred pack-sets ------------
+#
+# The synthetic bench backlog carries only REQUIRED pack-sets, so every
+# admitted gang scores exactly 1.0 and solver-vs-greedy score comparisons
+# are vacuous (round-5 verdict: saturated quality metrics). These workloads
+# make `placement_score < 1.0` reachable: Preferred gangs are sized so the
+# backlog exactly fills the fleet — once Required gangs carve 2-host chunks
+# out of racks, the remnants cannot hold a whole Preferred gang, and every
+# policy must split SOME of them across racks (score < 1.0). How MUCH each
+# policy splits is the discriminating signal.
+
+
+def quality_cluster(
+    blocks: int = 2,
+    racks_per_block: int = 4,
+    hosts_per_rack: int = 4,
+    cpu: float = 8.0,
+    memory: float = 32 * 2**30,
+) -> list[Node]:
+    """Small empty fleet for the mixed-quality scenario (one zone; rack is
+    the contended preferred level)."""
+    return synthetic_cluster(
+        zones=1,
+        blocks_per_zone=blocks,
+        racks_per_block=racks_per_block,
+        hosts_per_rack=hosts_per_rack,
+        cpu=cpu,
+        memory=memory,
+    )
+
+
+def required_pcs(name: str, pods: int = 2, cpu: str = "8") -> PodCliqueSet:
+    """Full-host gang with a REQUIRED rack pack (all-or-nothing in one rack)."""
+    return _pcs(
+        name,
+        cliques=[_clique("w", pods, cpu, min_available=pods)],
+        constraint_domain="rack",
+    )
+
+
+def preferred_pcs(name: str, pods: int = 3, cpu: str = "8") -> PodCliqueSet:
+    """Full-host gang with a PREFERRED rack pack: admission never depends on
+    the rack, but the PlacementScore does — the NetworkPackGroupConfigs
+    soft-pack semantics (podgang.go:101-117 Preferred)."""
+    doc = {
+        "apiVersion": "grove.io/v1alpha1",
+        "kind": "PodCliqueSet",
+        "metadata": {"name": name},
+        "spec": {
+            "replicas": 1,
+            "template": {
+                "topologyConstraint": {"preferredDomain": "rack"},
+                "cliques": [
+                    _clique("w", pods, cpu, min_available=pods)
+                ],
+            },
+        },
+    }
+    return default_podcliqueset(PodCliqueSet.from_dict(doc))
+
+
+def mixed_backlog(
+    n_required: int = 4,
+    n_preferred: int = 8,
+    required_pods: int = 2,
+    preferred_pods: int = 3,
+    cpu: str = "8",
+) -> list[PodCliqueSet]:
+    """Required gangs first (they carve the racks), then Preferred gangs.
+
+    Defaults fill `quality_cluster()` exactly: 4*2 + 8*3 = 32 full-host pods
+    on 2 blocks x 4 racks x 4 hosts = 32 hosts — every gang is admissible,
+    but the 3-pod Preferred gangs cannot all find whole racks once the
+    2-host Required chunks land, so mean placement score < 1.0 for ANY
+    policy and the solver-vs-greedy delta is real signal.
+    """
+    out: list[PodCliqueSet] = []
+    for i in range(n_required):
+        out.append(required_pcs(f"mix-req-{i}", pods=required_pods, cpu=cpu))
+    for i in range(n_preferred):
+        out.append(preferred_pcs(f"mix-pref-{i}", pods=preferred_pods, cpu=cpu))
+    return out

@@ -1,0 +1,460 @@
+"""Encode PodGangs into the dense, padded batch the solver consumes.
+
+Shapes are static per (MG, MS, MP) bucket, so every wave of a bucket has one
+shape (SURVEY.md §7 "ragged shapes" discipline):
+  G  gangs in the batch          MG max PodGroups per gang
+  MS max pack-sets per gang      MP max pods per gang
+  N  nodes                       R  resource kinds
+  L  topology levels
+
+A *pack-set* is one packing constraint instance: (subset of groups, level) —
+"all pods of these groups must land in ONE domain at this level". Gang-level
+TopologyConstraint covers all groups (scheduler podgang.go:55-57), each
+TopologyConstraintGroupConfig covers its subset (podgang.go:120-128), each
+PodGroup constraint covers itself (podgang.go:84-88). Sets are ordered
+broadest→narrowest so domain commitment can proceed top-down.
+
+Every pod of a PodGroup shares one template (podgang.go:75 "share the same
+PodTemplateSpec"), so a group is encoded as (request-vector, total, required)
+and placement is count allocation, not per-pod assignment.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+
+from grove_tpu_torch.api.pod import Pod
+from grove_tpu_torch.api.podgang import PodGang
+from grove_tpu_torch.state.cluster import ClusterSnapshot, pod_request_vector
+
+
+class GangBatch(NamedTuple):
+    """Dense solver input; all arrays are numpy (device put happens in solve)."""
+
+    group_req: np.ndarray  # f32 [G, MG, R] per-pod request of each group
+    group_total: np.ndarray  # i32 [G, MG] pods referenced
+    group_required: np.ndarray  # i32 [G, MG] gang floor (min_replicas, clamped)
+    group_valid: np.ndarray  # bool [G, MG]
+    set_member: np.ndarray  # bool [G, MS, MG]
+    set_req_level: np.ndarray  # i32 [G, MS] topology level index, -1 = none
+    set_pref_level: np.ndarray  # i32 [G, MS] topology level index, -1 = none
+    set_valid: np.ndarray  # bool [G, MS]
+    # Domain pin for incremental re-solve (a required pack-set stays in the
+    # domain its already-bound pods occupy). The JAX package's serving path
+    # sets it; this encoder leaves every set unpinned (-1), and the solver
+    # honours pins it is given (convert.from_reference).
+    set_pinned: np.ndarray  # i32 [G, MS] domain ordinal at set_req_level
+    pod_group: np.ndarray  # i32 [G, MP] group index of each pod slot, -1 pad
+    pod_rank: np.ndarray  # i32 [G, MP] rank of pod within its group
+    gang_valid: np.ndarray  # bool [G]
+    # Allocation order over groups: required-pack-constrained groups first so
+    # unconstrained groups can't consume a committed domain's capacity, then
+    # biggest demand first (classic first-fit-decreasing).
+    group_order: np.ndarray  # i32 [G, MG] permutation of group indices
+    # Scaled gangs only schedule once their base gang is scheduled
+    # (grove.io/base-podgang; podclique/components/pod/syncflow.go:347-387).
+    # Index of the base gang within this batch (must be earlier), -1 = no dep.
+    depends_on: np.ndarray  # i32 [G]
+    # Cross-batch chaining (pipelined waves): each gang's slot in a
+    # caller-defined global gang table, and the base gang's slot there when
+    # the base was solved in an EARLIER batch. The solver resolves these
+    # against the `ok_global` verdict bitmap it carries between waves, so
+    # wave k+1 can be encoded and dispatched before wave k's results reach
+    # the host. -1 = unset / no cross-batch dependency.
+    global_index: np.ndarray  # i32 [G]
+    depends_global: np.ndarray  # i32 [G]
+    # ReuseReservationRef bias (podgang.go:65-71): nodes the gang's previous
+    # incarnation occupied. Seeds the solver's per-gang locality (w_reuse), so
+    # a rolling-updated gang prefers its old placement when capacity allows.
+    reuse_nodes: np.ndarray = None  # bool [G, N]
+    # Per-group node eligibility from pod nodeSelector (we ARE the scheduler,
+    # so selector semantics are enforced here, not delegated): bool [G, MG, N]
+    # or None when no pod in the batch carries a selector — the common case
+    # pays nothing.
+    group_node_ok: np.ndarray = None
+    # Replica spread (PCS topologySpreadDomain): base gangs of one PCS repel
+    # the spread-level domains sibling replicas occupy (w_spread). All three
+    # are None unless some gang in the batch carries a spread constraint.
+    spread_level: np.ndarray = None  # i32 [G] topology level index, -1 = none
+    spread_family: np.ndarray = None  # i32 [G] batch slot of family root, -1
+    spread_avoid: np.ndarray = None  # bool [G, N] sibling nodes live in store
+
+    @property
+    def n_gangs(self) -> int:
+        return self.group_req.shape[0]
+
+
+@dataclass
+class GangDecodeInfo:
+    """Host-side mapping from batch slots back to object names."""
+
+    gang_names: list[str]
+    # per gang, per pod slot: pod name ("" for padding)
+    pod_names: list[list[str]]
+
+    def slot_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(slot_gang i32 [S], slot_col i32 [S], slot_pod object [S]) over the
+        NON-EMPTY pod-name slots, row-major (sorted by gang); decode_bindings
+        gathers admitted (gang, slot) pairs against these."""
+        if not self.pod_names:
+            empty = np.zeros((0,), dtype=np.int32)
+            return empty, empty, np.zeros((0,), dtype=object)
+        pod_arr = np.asarray(self.pod_names, dtype=object)  # [G, MP]
+        gi, sj = np.nonzero(pod_arr != "")
+        return gi.astype(np.int32), sj.astype(np.int32), pod_arr[gi, sj]
+
+
+def _level_index(snapshot: ClusterSnapshot, label_key: str | None) -> int:
+    """Node-label key (IR constraint) → topology level index in the snapshot."""
+    if label_key is None:
+        return -1
+    for li, domain in enumerate(snapshot.level_domains):
+        level = snapshot.topology.label_key_for(domain)
+        if level == label_key:
+            return li
+    return -1
+
+
+def next_pow2(v: int) -> int:
+    """Next power of two >= v (min 1) — THE bucketing rounding, shared by the
+    sidecar's shape buckets and the drain planner so policy cannot diverge."""
+    return max(1, 1 << (max(v, 1) - 1).bit_length())
+
+
+_BLOCKING_EFFECTS = ("NoSchedule", "NoExecute")
+
+
+def _tolerates(tolerations: list[dict], taint: dict) -> bool:
+    """k8s toleration-vs-taint match: key equal (or empty key + Exists),
+    operator Equal -> values equal, effect empty-or-equal."""
+    for tol in tolerations:
+        op = tol.get("operator", "Equal")
+        key = tol.get("key", "")
+        if key and key != taint.get("key"):
+            continue
+        if not key and op != "Exists":
+            continue
+        if op == "Equal" and tol.get("value", "") != taint.get("value", ""):
+            continue
+        eff = tol.get("effect", "")
+        if eff and eff != taint.get("effect", ""):
+            continue
+        return True
+    return False
+
+
+def node_tolerated(tolerations: list[dict], taints: list[dict]) -> bool:
+    """True iff every scheduling-blocking taint on the node is tolerated
+    (PreferNoSchedule is soft and never blocks)."""
+    return all(
+        _tolerates(tolerations, t)
+        for t in taints
+        if t.get("effect") in _BLOCKING_EFFECTS
+    )
+
+
+def pack_set_count(gang: PodGang) -> int:
+    """Number of pack-sets this gang encodes to (shape-bucketing input)."""
+    tc = gang.spec.topology_constraint
+    n = 1 if tc is not None and tc.pack_constraint is not None else 0
+    n += sum(
+        1
+        for gc in gang.spec.topology_constraint_group_configs
+        if gc.topology_constraint is not None
+        and gc.topology_constraint.pack_constraint is not None
+    )
+    n += sum(
+        1
+        for grp in gang.spec.pod_groups
+        if grp.topology_constraint is not None
+        and grp.topology_constraint.pack_constraint is not None
+    )
+    return n
+
+
+def gang_shape(gang: PodGang) -> tuple[int, int, int]:
+    """(groups, pack-sets, pods) — the encode-shape signature. Batching gangs
+    of one shape class instead of padding everything to the global maxima
+    keeps small gangs on small compiled programs (measured 3.5x on the bench
+    backlog's frontend class)."""
+    return (len(gang.spec.pod_groups), pack_set_count(gang), gang.total_pods())
+
+
+def _encode_cross_batch_fields(
+    batch: GangBatch,
+    gi: int,
+    gang: PodGang,
+    gang_index: dict[str, int],
+    global_index_of: dict[str, int] | None,
+) -> None:
+    """Batch-positional fields: global table slot + the base-gang gate."""
+    if global_index_of is not None:
+        batch.global_index[gi] = global_index_of.get(gang.name, -1)
+    if gang.base_podgang_name is not None:
+        base_idx = gang_index.get(gang.base_podgang_name, -1)
+        if 0 <= base_idx < gi:
+            batch.depends_on[gi] = base_idx
+        elif (
+            global_index_of is not None
+            and gang.base_podgang_name in global_index_of
+        ):
+            # Base solved in an earlier wave: resolve the verdict on-device
+            # via the solver's ok_global bitmap (pipelined chaining).
+            batch.depends_global[gi] = global_index_of[gang.base_podgang_name]
+        else:
+            # Base gang in neither this batch nor the global table: gate
+            # this gang out.
+            batch.gang_valid[gi] = False
+
+
+def _seed_reuse_row(
+    reuse_arr: np.ndarray | None,
+    gi: int,
+    gang: PodGang,
+    reuse_nodes_by_gang: dict[str, list[int]] | None,
+    snapshot: ClusterSnapshot,
+    g_count: int,
+) -> np.ndarray | None:
+    """ReuseReservationRef seed row; lazily materializes the [G, N] tensor."""
+    for node_idx in (reuse_nodes_by_gang or {}).get(gang.name, []):
+        if 0 <= node_idx < snapshot.capacity.shape[0]:
+            if reuse_arr is None:
+                reuse_arr = np.zeros((g_count, snapshot.capacity.shape[0]), dtype=bool)
+            reuse_arr[gi, node_idx] = True
+    return reuse_arr
+
+
+def encode_gangs(
+    gangs: list[PodGang],
+    pods_by_name: dict[str, Pod],
+    snapshot: ClusterSnapshot,
+    *,
+    max_groups: int | None = None,
+    max_sets: int | None = None,
+    max_pods: int | None = None,
+    pad_gangs_to: int | None = None,
+    global_index_of: dict[str, int] | None = None,
+    reuse_nodes_by_gang: dict[str, list[int]] | None = None,
+    spread_avoid_by_gang: dict[str, list[int]] | None = None,
+) -> tuple[GangBatch, GangDecodeInfo]:
+    """Flatten gang CRs into the padded batch + decode info (the JAX
+    package's encode_gangs without its encode-row cache; the output is the
+    same array for array).
+
+    A scaled gang whose base gang is neither in this batch (at an earlier
+    index) nor in `global_index_of` is marked invalid (syncflow.go:347-387).
+
+    `reuse_nodes_by_gang`: gang name -> snapshot node indices its previous
+    incarnation occupied (ReuseReservationRef, podgang.go:65-71).
+
+    `global_index_of`: gang name -> slot in a caller-defined global gang table
+    (wave chaining). A base-gang dependency on a gang outside this batch
+    becomes a `depends_global` reference resolved on the device against the
+    solver's `ok_global` bitmap.
+
+    `spread_avoid_by_gang`: gang name -> node indices sibling replicas occupy
+    in the store (replica spread seed).
+    """
+    g_count = pad_gangs_to if pad_gangs_to is not None else len(gangs)
+    if g_count < len(gangs):
+        raise ValueError("pad_gangs_to smaller than gang count")
+    r = len(snapshot.resource_names)
+
+    def _sets_of(gang: PodGang):
+        """Return ((member group indices, req_level, pref_level) broad→narrow,
+        schedulable). A REQUIRED key that doesn't resolve to a snapshot
+        topology level makes the gang unschedulable."""
+        group_idx = {grp.name: k for k, grp in enumerate(gang.spec.pod_groups)}
+        raw: list[tuple[list[int], int, int]] = []
+        unresolved_required = False
+
+        def levels_of(pc) -> tuple[int, int]:
+            nonlocal unresolved_required
+            req = _level_index(snapshot, pc.required)
+            if pc.required is not None and req < 0:
+                unresolved_required = True
+            return req, _level_index(snapshot, pc.preferred)
+
+        if gang.spec.topology_constraint and gang.spec.topology_constraint.pack_constraint:
+            req, pref = levels_of(gang.spec.topology_constraint.pack_constraint)
+            raw.append((list(range(len(gang.spec.pod_groups))), req, pref))
+        for gc in gang.spec.topology_constraint_group_configs:
+            if gc.topology_constraint and gc.topology_constraint.pack_constraint:
+                members = [group_idx[n] for n in gc.pod_group_names if n in group_idx]
+                if members:
+                    req, pref = levels_of(gc.topology_constraint.pack_constraint)
+                    raw.append((members, req, pref))
+        for k, grp in enumerate(gang.spec.pod_groups):
+            if grp.topology_constraint and grp.topology_constraint.pack_constraint:
+                req, pref = levels_of(grp.topology_constraint.pack_constraint)
+                raw.append(([k], req, pref))
+        # Drop sets with neither level resolvable.
+        raw = [s for s in raw if s[1] >= 0 or s[2] >= 0]
+        # Broadest required level first (-1 required sorts last).
+        raw.sort(key=lambda s: (s[1] if s[1] >= 0 else 10**6))
+        return raw, not unresolved_required
+
+    mg = max_groups or max((len(g.spec.pod_groups) for g in gangs), default=1) or 1
+    mp = max_pods or max((g.total_pods() for g in gangs), default=1) or 1
+    sets_and_ok = [_sets_of(g) for g in gangs]
+    ms = max_sets or max((len(s[0]) for s in sets_and_ok), default=1) or 1
+
+    batch = GangBatch(
+        group_req=np.zeros((g_count, mg, r), dtype=np.float32),
+        group_total=np.zeros((g_count, mg), dtype=np.int32),
+        group_required=np.zeros((g_count, mg), dtype=np.int32),
+        group_valid=np.zeros((g_count, mg), dtype=bool),
+        set_member=np.zeros((g_count, ms, mg), dtype=bool),
+        set_req_level=np.full((g_count, ms), -1, dtype=np.int32),
+        set_pref_level=np.full((g_count, ms), -1, dtype=np.int32),
+        set_valid=np.zeros((g_count, ms), dtype=bool),
+        set_pinned=np.full((g_count, ms), -1, dtype=np.int32),
+        pod_group=np.full((g_count, mp), -1, dtype=np.int32),
+        pod_rank=np.zeros((g_count, mp), dtype=np.int32),
+        gang_valid=np.zeros((g_count,), dtype=bool),
+        group_order=np.tile(np.arange(mg, dtype=np.int32), (g_count, 1)),
+        depends_on=np.full((g_count,), -1, dtype=np.int32),
+        global_index=np.full((g_count,), -1, dtype=np.int32),
+        depends_global=np.full((g_count,), -1, dtype=np.int32),
+        # reuse_nodes / group_node_ok / spread_* stay None unless some gang
+        # needs them: the dense [G, N] planes only materialize when in play.
+    )
+    decode = GangDecodeInfo(gang_names=[], pod_names=[])
+    gang_index = {g.name: i for i, g in enumerate(gangs)}
+    selector_masks: np.ndarray | None = None  # bool [G, MG, N], lazy
+    reuse_arr: np.ndarray | None = None  # bool [G, N], lazy
+    # One O(N) label scan per UNIQUE selector / toleration set, not per group.
+    selector_rows: dict[tuple, np.ndarray] = {}
+    toleration_rows: dict[tuple, np.ndarray] = {}
+    tainted_idx = snapshot.tainted_node_indices(_BLOCKING_EFFECTS)
+    # Normalize per resource before summing — raw units are incomparable.
+    cap_scale = snapshot.cap_scale()
+    n_nodes = snapshot.capacity.shape[0]
+
+    for gi, gang in enumerate(gangs):
+        all_sets, resolvable = sets_and_ok[gi]
+        if len(gang.spec.pod_groups) > mg:
+            raise ValueError(f"gang {gang.name}: {len(gang.spec.pod_groups)} groups > bucket {mg}")
+        if gang.total_pods() > mp:
+            raise ValueError(f"gang {gang.name}: {gang.total_pods()} pods > bucket {mp}")
+        decode.gang_names.append(gang.name)
+        pod_names: list[str] = []
+        batch.gang_valid[gi] = resolvable
+        reuse_arr = _seed_reuse_row(
+            reuse_arr, gi, gang, reuse_nodes_by_gang, snapshot, g_count
+        )
+        _encode_cross_batch_fields(
+            batch, gi, gang, gang_index, global_index_of
+        )
+        slot = 0
+        for k, grp in enumerate(gang.spec.pod_groups):
+            refs = [ref.name for ref in grp.pod_references]
+            batch.group_total[gi, k] = len(refs)
+            batch.group_required[gi, k] = min(grp.min_replicas, len(refs))
+            batch.group_valid[gi, k] = True
+            if refs:
+                first = pods_by_name.get(refs[0])
+                if first is None:
+                    raise ValueError(
+                        f"gang {gang.name}: pod {refs[0]!r} referenced by group "
+                        f"{grp.name!r} not found in pods_by_name"
+                    )
+                batch.group_req[gi, k] = pod_request_vector(first, snapshot.resource_names)
+                selector = first.spec.node_selector
+                if selector or tainted_idx:
+                    # nodeSelector + taint semantics: a node is eligible iff
+                    # its labels are a superset of the selector AND every
+                    # blocking taint is tolerated. Pods of one group share a
+                    # template, so the first pod speaks for the group.
+                    if selector_masks is None:
+                        selector_masks = np.ones((g_count, mg, n_nodes), dtype=bool)
+                    row = np.ones((n_nodes,), dtype=bool)
+                    if selector:
+                        key = tuple(sorted(selector.items()))
+                        sel_row = selector_rows.get(key)
+                        if sel_row is None:
+                            sel_row = np.fromiter(
+                                (
+                                    all(lbl.get(sk) == sv for sk, sv in key)
+                                    for lbl in snapshot.node_labels
+                                ),
+                                dtype=bool,
+                                count=len(snapshot.node_labels),
+                            )
+                            selector_rows[key] = sel_row
+                        row = row & sel_row
+                    if tainted_idx:
+                        tols = first.spec.tolerations
+                        tkey = tuple(tuple(sorted(t.items())) for t in tols)
+                        tol_row = toleration_rows.get(tkey)
+                        if tol_row is None:
+                            tol_row = np.ones((n_nodes,), dtype=bool)
+                            for i in tainted_idx:
+                                tol_row[i] = node_tolerated(tols, snapshot.node_taints[i])
+                            toleration_rows[tkey] = tol_row
+                        row = row & tol_row
+                    selector_masks[gi, k] = row
+            nr = len(refs)
+            batch.pod_group[gi, slot : slot + nr] = k
+            batch.pod_rank[gi, slot : slot + nr] = np.arange(nr, dtype=np.int32)
+            pod_names.extend(refs)
+            slot += nr
+        if len(all_sets) > ms:
+            raise ValueError(f"gang {gang.name}: {len(all_sets)} pack-sets > bucket {ms}")
+        req_constrained: set[int] = set()
+        for si, (members, req_l, pref_l) in enumerate(all_sets):
+            batch.set_valid[gi, si] = True
+            batch.set_req_level[gi, si] = req_l
+            batch.set_pref_level[gi, si] = pref_l
+            for k in members:
+                batch.set_member[gi, si, k] = True
+                if req_l >= 0:
+                    req_constrained.add(k)
+        # Constrained groups first, then biggest normalized demand first.
+        demand = (
+            batch.group_total[gi] * (batch.group_req[gi] / cap_scale[None, :]).sum(axis=1)
+        ).tolist()
+        batch.group_order[gi] = np.array(
+            sorted(range(mg), key=lambda k: (k not in req_constrained, -demand[k])),
+            dtype=np.int32,
+        )
+        pod_names += [""] * (mp - len(pod_names))
+        decode.pod_names.append(pod_names)
+
+    if selector_masks is not None:
+        batch = batch._replace(group_node_ok=selector_masks)
+    if reuse_arr is not None:
+        batch = batch._replace(reuse_nodes=reuse_arr)
+
+    # Replica spread: base gangs whose spec carries a resolvable spread_key
+    # get a level, a family root (first base sibling of the same PCS in this
+    # batch), and an avoid seed. No spread in the batch → all three None.
+    spread_active = [
+        gi
+        for gi, gang in enumerate(gangs)
+        if gang.spec.spread_key is not None
+        and gang.base_podgang_name is None
+        and _level_index(snapshot, gang.spec.spread_key) >= 0
+    ]
+    if spread_active:
+        spread_level = np.full((g_count,), -1, dtype=np.int32)
+        spread_family = np.full((g_count,), -1, dtype=np.int32)
+        spread_avoid = np.zeros((g_count, n_nodes), dtype=bool)
+        family_root: dict[str, int] = {}
+        for gi in spread_active:
+            gang = gangs[gi]
+            spread_level[gi] = _level_index(snapshot, gang.spec.spread_key)
+            fam_key = gang.pcs_name or gang.name
+            spread_family[gi] = family_root.setdefault(fam_key, gi)
+            for node_idx in (spread_avoid_by_gang or {}).get(gang.name, []):
+                if 0 <= node_idx < n_nodes:
+                    spread_avoid[gi, node_idx] = True
+        batch = batch._replace(
+            spread_level=spread_level,
+            spread_family=spread_family,
+            spread_avoid=spread_avoid,
+        )
+    return batch, decode

@@ -1,0 +1,446 @@
+"""Plain PyTorch versions of the per-wave gang solve (B1) and the cross-wave
+verdict gating (B2).
+
+They compute what `grove_tpu/solver/core.py` computes — `_place_gang`,
+`solve_batch_impl`, `_apply_global_deps`, `_scatter_global_ok` — over the
+same inputs and layout, op for op:
+
+  - each `lax.scan` is a Python loop, with no data-dependent Python control
+    flow (every branch is a `torch.where`);
+  - `segment_sum` is `index_add_` over the node axis, made on the host, where
+    it adds each domain's nodes one after another in node order (CUDA's
+    index_add_ adds with atomics in no fixed order). On the card that costs
+    a round trip per domain sum: this is the yardstick, not the main path;
+  - `lax.top_k` is a stable sort of the negated score (lower index first on
+    ties, as `lax.top_k` orders them);
+  - short reductions over the resource and pack-set axes are summed in index
+    order, as the CUDA kernel sums them.
+
+The CPU tests hold these against the JAX package, and `chip_smoke.py` holds
+the CUDA kernel (`grove_tpu_torch/kernels/place_wave.py`) against them on the
+card. Nothing on the main path calls them when a card is present.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from grove_tpu_torch.solver.encode import GangBatch
+
+SLOT_CAP = 1 << 20  # slots for a zero-request group (effectively unbounded)
+_EPS = 1e-6
+_F32 = torch.float32
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in index order (a fixed order, not a tree)."""
+    acc = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def _domain_sum(values: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-domain sums of `values` [N, C], each domain's nodes added in node
+    order; unlabeled nodes (seg == n) spill into a dropped padding row. Rows
+    >= the level's domain count stay 0."""
+    out = torch.zeros((n + 1, values.shape[1]), dtype=values.dtype)
+    out.index_add_(0, seg.cpu(), values.cpu())
+    return out[:n].to(values.device)
+
+
+def group_slots_ref(free: torch.Tensor, group_req: torch.Tensor) -> torch.Tensor:
+    """Per-node pod capacity for each group's request vector.
+
+    free [N,R], group_req [MG,R] -> i32 [MG,N] (core.py `_group_slots`)."""
+    dev = free.device
+    eps = torch.tensor(_EPS, dtype=_F32, device=dev)
+    tiny = torch.tensor(1e-9, dtype=_F32, device=dev)
+    inf = torch.tensor(float("inf"), dtype=_F32, device=dev)
+    pos = group_req > 0
+    ratio = torch.floor((free[None, :, :] + eps) / torch.maximum(group_req[:, None, :], tiny))
+    ratio = torch.where(pos[:, None, :], ratio, inf)
+    slots = ratio.amin(dim=-1)
+    slots = torch.where(torch.isinf(slots), torch.tensor(float(SLOT_CAP), device=dev), slots)
+    return slots.clamp(0, SLOT_CAP).to(torch.int32)
+
+
+def place_gang_ref(
+    free,
+    used_carry,
+    gang: dict,
+    *,
+    schedulable,
+    node_domain_id,
+    cap_scale,
+    params,
+    spread_avoid=None,
+):
+    """Place one gang against `free` (core.py `_place_gang`).
+
+    Returns (free_out [N,R], assigned i32 [MP], gang_ok bool [], score f32 [])."""
+    dev = free.device
+    n, r = free.shape
+    levels = node_domain_id.shape[0]
+    eps = torch.tensor(_EPS, dtype=_F32, device=dev)
+    inf = torch.tensor(float("inf"), dtype=_F32, device=dev)
+    ninf = -inf
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    one = torch.ones((), dtype=_F32, device=dev)
+    w_tight, w_pref, w_reuse, w_reserve, w_spread = (
+        torch.tensor(float(getattr(params, k)), dtype=_F32, device=dev)
+        for k in ("w_tight", "w_pref", "w_reuse", "w_reserve", "w_spread")
+    )
+    group_req = gang["group_req"]  # [MG, R]
+    group_total = gang["group_total"]  # [MG]
+    group_required = gang["group_required"]  # [MG]
+    group_valid = gang["group_valid"]  # [MG]
+    set_member = gang["set_member"]  # [MS, MG]
+    set_req_level = gang["set_req_level"]  # [MS]
+    set_pref_level = gang["set_pref_level"]  # [MS]
+    set_valid = gang["set_valid"]  # [MS]
+    set_pinned = gang["set_pinned"]  # [MS]
+    mg = group_req.shape[0]
+    ms = set_member.shape[0]
+    mp_bound = gang["pod_group"].shape[0]
+
+    dom_all = node_domain_id  # [L, N]
+    seg_all = torch.where(dom_all >= 0, dom_all, n).long()  # [L, N]
+
+    def lvl_clip(level):
+        return level.clamp(0, levels - 1).long()
+
+    def agg(vals, level):
+        return _domain_sum(vals, seg_all[lvl_clip(level)], n)
+
+    slots_all = group_slots_ref(free, group_req)  # [MG, N]
+    eligible = gang.get("group_node_ok")  # bool [MG, N] or None
+    if eligible is not None:
+        slots_all = torch.where(eligible, slots_all, 0)
+    feat = torch.cat(
+        [free, slots_all.T.to(_F32), torch.ones((n, 1), dtype=_F32, device=dev)], dim=1
+    )
+
+    def joint_slots_ok(dom_slots, members):
+        membersf = members.to(_F32)
+        any_member = members.any()
+        req_lo = torch.where(members[:, None], group_req, inf).amin(dim=0)
+        req_hi = torch.where(members[:, None], group_req, ninf).amax(dim=0)
+        homogeneous = any_member & ((req_hi - req_lo) <= eps).all()
+        joint_need = _seq_sum(group_required.to(_F32) * membersf)
+        min_slots = torch.where(members[None, :], dom_slots, inf).amin(dim=-1)
+        return torch.where(homogeneous, min_slots >= joint_need, True)
+
+    def dom_tables(ok_nodes, level):
+        table = agg(torch.where(ok_nodes[:, None], feat, zero), level)
+        return table[:, :r], table[:, r : r + mg], table[:, r + mg]
+
+    def demand_of(members):
+        # [R]: summed over groups in index order.
+        return _seq_sum((group_req * (group_required * members).to(_F32)[:, None]).T)
+
+    tables_l = torch.stack(
+        [
+            agg(torch.where(schedulable[:, None], feat, zero), torch.tensor(lv, device=dev))
+            for lv in range(levels)
+        ]
+    )  # [L, N, C]
+
+    spread_pen = None
+    if spread_avoid is not None:
+        s_lvl = gang["spread_level"]
+        lvl_c = lvl_clip(s_lvl)
+        used_cnt = agg(spread_avoid[:, None].to(_F32), lvl_c)[:, 0]
+        s_dom = dom_all[lvl_c]
+        spread_pen = torch.where(
+            (s_lvl >= 0) & (s_dom >= 0),
+            used_cnt[s_dom.clamp(0, n - 1).long()] > 0.5,
+            False,
+        ).to(_F32)
+
+    def set_dom_feasible(s2):
+        member2 = set_member[s2] & group_valid
+        demand2 = demand_of(member2)
+        t2 = tables_l[lvl_clip(set_req_level[s2])]
+        return (
+            (t2[:, :r] >= demand2[None, :] - eps).all(dim=-1)
+            & ((t2[:, r : r + mg] >= group_required[None, :]) | ~member2[None, :]).all(dim=-1)
+            & joint_slots_ok(t2[:, r : r + mg], member2)
+        )
+
+    feas2_all = torch.stack([set_dom_feasible(s2) for s2 in range(ms)])  # [MS, N]
+    dom_req_all = dom_all[lvl_clip(set_req_level)]  # [MS, N]
+    dom_pref_all = dom_all[lvl_clip(set_pref_level)]  # [MS, N]
+    node_feas2_all = torch.where(
+        dom_req_all >= 0,
+        torch.gather(feas2_all, 1, dom_req_all.clamp(0, n - 1).long()),
+        False,
+    )  # [MS, N]
+
+    # ---- Stage 1: commit a domain per pack-set, broadest first --------------
+    committed_req = torch.full((ms,), -1, dtype=torch.int32, device=dev)
+    committed_pref = torch.full((ms,), -1, dtype=torch.int32, device=dev)
+    set_fail = torch.zeros((), dtype=torch.bool, device=dev)
+    for s in range(ms):
+        member = set_member[s]
+        req_level = set_req_level[s]
+        pref_level = set_pref_level[s]
+        active = set_valid[s]
+        overlap = (set_member & member[None, :]).any(dim=-1)  # [MS]
+        masks = torch.where(
+            ((committed_req >= 0) & overlap)[:, None],
+            dom_req_all == committed_req[:, None],
+            True,
+        )
+        node_ok = schedulable & masks.all(dim=0)
+        memberf = member & group_valid
+        demand = demand_of(memberf)
+        taken_node = (
+            (set_valid & ~overlap & (committed_req >= 0))[:, None]
+            & (dom_req_all == committed_req[:, None])
+        ).any(dim=0)  # [N]
+
+        def nested_feasible(level, ok_nodes):
+            active2 = set_valid & (set_req_level > level) & overlap
+            witness = (node_feas2_all & ok_nodes[None, :]).to(_F32)
+            nested_cnt = agg(witness.T.contiguous(), level)  # [N_dom, MS]
+            return ((nested_cnt > 0.5) | ~active2[None, :]).all(dim=-1)
+
+        def pick_domain(level, extra_node_mask, check_nested=False):
+            ok_nodes = node_ok & extra_node_mask
+            dom_free, dom_slots, dom_count = dom_tables(ok_nodes, level)
+            feas_cap = (dom_free >= demand[None, :] - eps).all(dim=-1)
+            feas_slots = ((dom_slots >= group_required[None, :]) | ~memberf[None, :]).all(dim=-1)
+            feasible = feas_cap & feas_slots & joint_slots_ok(dom_slots, memberf) & (dom_count > 0)
+            if check_nested:
+                feasible = feasible & nested_feasible(level, ok_nodes)
+            taken_frac = agg(
+                torch.where(ok_nodes & taken_node, one, zero)[:, None], level
+            )[:, 0] / torch.clamp_min(dom_count, 1.0)
+            norm_free = _seq_sum(dom_free / cap_scale[None, :])
+            score = torch.where(feasible, -norm_free - w_reserve * taken_frac, ninf)
+            if spread_pen is not None:
+                touched = agg(torch.where(ok_nodes, spread_pen, zero)[:, None], level)[:, 0] > 0.5
+                big = float(n * r) + w_reserve + 2.0
+                score = score - torch.where(w_spread > 0, big, zero) * touched.to(_F32)
+            return torch.argmax(score).to(torch.int32), feasible.any()
+
+        req_dom = dom_all[lvl_clip(req_level)]
+        pinned = set_pinned[s]
+        pin_mask = torch.where(pinned >= 0, req_dom == pinned, True)
+        has_req = active & (req_level >= 0)
+        req_choice, req_any = pick_domain(req_level, pin_mask, check_nested=True)
+        new_req = torch.where(has_req & req_any, req_choice, -1).to(torch.int32)
+        set_fail = set_fail | (has_req & ~req_any)
+        inside_req = torch.where(new_req >= 0, req_dom == new_req, True)
+        has_pref = active & (pref_level >= 0)
+        pref_choice, pref_any = pick_domain(pref_level, inside_req)
+        new_pref = torch.where(has_pref & pref_any, pref_choice, -1).to(torch.int32)
+        committed_req = committed_req.clone()
+        committed_req[s] = new_req
+        committed_pref = committed_pref.clone()
+        committed_pref[s] = new_pref
+
+    # ---- Stage 2: allocate counts per group, floors first, then extras -----
+    order = gang["group_order"].long()  # [MG]
+    free_g = free
+    used = used_carry
+    groups_ok = torch.ones((), dtype=torch.bool, device=dev)
+    k = min(n, mp_bound)
+    phase_counts = []
+    for t in range(2 * mg):
+        g = order[t % mg]
+        phase = t // mg
+        valid = group_valid[g]
+        req = group_req[g]
+        if phase == 0:
+            total = group_required[g]
+            required = group_required[g]
+        else:
+            total = group_total[g] - group_required[g]
+            required = torch.zeros((), dtype=torch.int32, device=dev)
+        member_g = set_member[:, g]  # [MS]
+        masks = torch.where(
+            (member_g & (committed_req >= 0))[:, None],
+            dom_req_all == committed_req[:, None],
+            True,
+        )
+        node_ok = schedulable & masks.all(dim=0)
+        if eligible is not None:
+            node_ok = node_ok & eligible[g]
+        slots = group_slots_ref(free_g, req[None, :])[0]
+        slots = torch.where(node_ok, torch.minimum(slots, total), 0)
+        pref_bonus = (
+            ((member_g & (committed_pref >= 0))[:, None] & (dom_pref_all == committed_pref[:, None]))
+            .to(_F32)
+            .sum(dim=0)
+        )
+        reserved = (
+            ((~member_g & (committed_req >= 0))[:, None] & (dom_req_all == committed_req[:, None]))
+            .to(_F32)
+            .sum(dim=0)
+        )
+        norm_free = _seq_sum(free_g / cap_scale[None, :]) / float(r)
+        score = (
+            w_pref * pref_bonus
+            + w_reuse * used.to(_F32)
+            - w_tight * norm_free
+            - w_reserve * reserved
+        )
+        if spread_pen is not None:
+            score = score - w_spread * spread_pen
+        masked_score = torch.where(slots > 0, score, ninf)
+        neg_sorted, idx = torch.sort(-masked_score, stable=True)
+        top_order = idx[:k]
+        top_score = -neg_sorted[:k]
+        slots_top = torch.where(torch.isfinite(top_score), slots[top_order], 0)
+        csum = torch.cumsum(slots_top, dim=0, dtype=torch.int32)
+        take_top = torch.minimum(torch.clamp_min(total - (csum - slots_top), 0), slots_top)
+        counts = torch.zeros((n,), dtype=torch.int32, device=dev).scatter(0, top_order, take_top)
+        counts = torch.where(valid, counts, 0)
+        placed = counts.sum()
+        groups_ok = groups_ok & ((placed >= required) | ~valid)
+        free_g = free_g - counts.to(_F32)[:, None] * req[None, :]
+        used = used | (counts > 0)
+        phase_counts.append(counts)
+
+    counts = torch.zeros((mg, n), dtype=torch.int32, device=dev)
+    counts = counts.index_copy(0, order, torch.stack(phase_counts[:mg]))
+    counts = counts.index_add(0, order, torch.stack(phase_counts[mg:]))
+
+    gang_ok = gang["gang_valid"] & groups_ok & ~set_fail
+
+    # ---- Stage 3: counts -> per-pod node assignment --------------------------
+    ccum = torch.cumsum(counts, dim=1)  # [MG, N] (int64)
+    placed_per_group = counts.sum(dim=1)  # [MG]
+    pod_group = gang["pod_group"]
+    pod_rank = gang["pod_rank"]
+    gidx = pod_group.clamp(0, mg - 1).long()
+    idx = torch.searchsorted(ccum[gidx], pod_rank.long()[:, None], right=True)[:, 0]
+    live = (pod_group >= 0) & (pod_rank < placed_per_group[gidx]) & gang_ok
+    assigned = torch.where(live, idx, -1).to(torch.int32)
+
+    # ---- Stage 4: placement quality (1.0 = optimal) --------------------------
+    in_dom = (dom_pref_all == committed_pref[:, None]).to(_F32)  # [MS, N]
+    memb = set_member.to(_F32)  # [MS, MG]
+    cnt = counts.to(_F32)[None, :, :] * memb[:, :, None]  # [MS, MG, N]
+    tot = cnt.sum(dim=(1, 2))
+    hits = (cnt * in_dom[:, None, :]).sum(dim=(1, 2))
+    frac = torch.where(tot > 0, hits / torch.clamp_min(tot, 1.0), one)
+    active = set_pref_level >= 0
+    fracs = torch.where(active & (committed_pref >= 0), frac, torch.where(active, zero, one))
+    has_pref = set_valid & active
+    mean_frac = torch.where(
+        has_pref.any(),
+        _seq_sum(torch.where(has_pref, fracs, zero)) / torch.clamp_min(has_pref.sum(), 1),
+        one,
+    )
+    placement_score = torch.where(gang_ok, 0.5 + 0.5 * mean_frac, zero)
+
+    free_out = torch.where(gang_ok, free_g, free)
+    return free_out, assigned, gang_ok, placement_score
+
+
+def apply_global_deps_ref(batch: GangBatch, ok_global):
+    """gang_valid with cross-batch base-gang verdicts folded in (B2)."""
+    if ok_global is None:
+        return batch.gang_valid
+    t = ok_global.shape[0]
+    dg = batch.depends_global
+    ext_ok = torch.where(dg >= 0, ok_global[dg.clamp(0, t - 1).long()], True)
+    return batch.gang_valid & ext_ok
+
+
+def scatter_global_ok_ref(batch: GangBatch, ok, ok_global):
+    """Write this batch's verdicts into the global bitmap at global_index
+    (scatter-max, B2)."""
+    if ok_global is None:
+        return None
+    t = ok_global.shape[0]
+    gidx = batch.global_index
+    src = (ok & (gidx >= 0)).to(torch.uint8)
+    out = ok_global.to(torch.uint8).scatter_reduce(
+        0, gidx.clamp(0, t - 1).long(), src, reduce="amax"
+    )
+    return out.to(torch.bool)
+
+
+def solve_batch_ref(
+    free0, capacity, schedulable, node_domain_id, batch: GangBatch, params, ok_global=None
+):
+    """Sequentially commit every gang of the batch (core.py
+    `solve_batch_impl`); `batch` holds tensors on free0's device.
+
+    Returns (assigned i32 [G, MP], ok bool [G], score f32 [G],
+    free_after f32 [N, R], ok_global bool [T] or None)."""
+    dev = free0.device
+    n = free0.shape[0]
+    g = batch.gang_valid.shape[0]
+    cap_scale = torch.clamp_min(capacity.amax(dim=0), 1e-9)
+    gang_valid0 = apply_global_deps_ref(batch, ok_global)
+    has_spread = batch.spread_level is not None
+    reuse = (
+        batch.reuse_nodes
+        if batch.reuse_nodes is not None
+        else torch.zeros((g, n), dtype=torch.bool, device=dev)
+    )
+    fields = (
+        "group_req", "group_total", "group_required", "group_valid", "set_member",
+        "set_req_level", "set_pref_level", "set_valid", "set_pinned", "pod_group",
+        "pod_rank", "group_order",
+    )
+    free = free0
+    ok_vec = torch.zeros((g,), dtype=torch.bool, device=dev)
+    family_used = torch.zeros((g, n) if has_spread else (1, 1), dtype=torch.bool, device=dev)
+    assigned_rows, ok_rows, score_rows = [], [], []
+    for gi in range(g):
+        gang = {f: getattr(batch, f)[gi] for f in fields}
+        dep = batch.depends_on[gi]
+        dep_ok = torch.where(dep >= 0, ok_vec[dep.clamp(0, g - 1).long()], True)
+        gang["gang_valid"] = gang_valid0[gi] & dep_ok
+        if batch.group_node_ok is not None:
+            gang["group_node_ok"] = batch.group_node_ok[gi]
+        avoid = None
+        if has_spread:
+            gang["spread_level"] = batch.spread_level[gi]
+            fam = batch.spread_family[gi]
+            ridx = fam.clamp(0, g - 1).long()
+            avoid = batch.spread_avoid[gi] | (family_used[ridx] & (fam >= 0))
+        free, assigned, ok, score = place_gang_ref(
+            free,
+            reuse[gi],
+            gang,
+            schedulable=schedulable,
+            node_domain_id=node_domain_id,
+            cap_scale=cap_scale,
+            params=params,
+            spread_avoid=avoid,
+        )
+        ok_vec = ok_vec.clone()
+        ok_vec[gi] = ok
+        if has_spread:
+            placed_mask = (
+                torch.zeros((n,), dtype=torch.uint8, device=dev)
+                .scatter_reduce(
+                    0,
+                    assigned.clamp(0, n - 1).long(),
+                    ((assigned >= 0) & ok).to(torch.uint8),
+                    reduce="amax",
+                )
+                .to(torch.bool)
+            )
+            family_used = family_used.clone()
+            family_used[ridx] = torch.where(
+                fam >= 0, family_used[ridx] | placed_mask, family_used[ridx]
+            )
+        assigned_rows.append(assigned)
+        ok_rows.append(ok)
+        score_rows.append(score)
+    ok = torch.stack(ok_rows)
+    return (
+        torch.stack(assigned_rows),
+        ok,
+        torch.stack(score_rows),
+        free,
+        scatter_global_ok_ref(batch, ok, ok_global),
+    )

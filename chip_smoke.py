@@ -8,23 +8,36 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
   1. card     nvidia-smi's name and power limit, the torch device name/count
   2. build    the place_wave kernel from grove_tpu_torch/kernels/csrc
   3. exact    the place_wave kernel against its plain PyTorch version, both
-              on the card, on: the first wave (256 gangs) of the full-width
-              bench backlog on the 5120-node snapshot, the same wave with
-              seeded group_node_ok/reuse_nodes planes, a scaled-gang wave
-              gated by a seeded ok_global bitmap, the first wave on a
-              5120-node snapshot whose free capacity is not dyadic, and the
-              contended and mixed-quality scenarios as single batches —
-              torch.equal on ok, assigned, placement_score, free_after and
-              ok_global
+              on the card, tolerance 0 (torch.equal on ok, assigned,
+              placement_score, free_after and ok_global), on: the first
+              wave (256 gangs) of the full-width bench backlog on the
+              5120-node snapshot, the same wave with seeded
+              group_node_ok/reuse_nodes planes, a scaled-gang wave gated by
+              a seeded ok_global bitmap, the first wave on a 5120-node
+              snapshot whose free capacity is not dyadic, the contended and
+              mixed-quality scenarios as single batches, and the first wave
+              of the bench backlog with a quarter of its PodCliqueSets
+              spread across zones (carry in shared and in global memory);
+              then the first wave on the 20480-node fleet (global carry),
+              and the same wave candidate-pruned to its 8192-row plan (B3
+              fused: assigned in fleet ordinals, the whole fleet free_after)
   4. drain    the full 5120-node, ~10k-pod backlog through drain_backlog
               (chained harvest): launches == waves, every gang admitted,
               the kernel's free_after equal to the snapshot's free minus
               every bound pod's request recomputed on the host, no node
-              over capacity
-  5. kernels  one JSON line: per kernel its launches on the main path, its
-              error against the plain version, its time, the plain
-              version's time and its bound
-  6. the last line: {"ok": true, "device": {...}}
+              over capacity; then the per-wave kernel times
+  5. scale    the same backlog on 10240 and 20480 nodes, drained dense and
+              candidate-pruned: all 1250 gangs admitted by each, the same
+              set, free_after consistent with the bindings, no node over
+              capacity; the walls and stages of each drain
+  6. escalate a small contended fleet whose clipped candidate budget strands
+              gangs, drained pruned on the card and with the plain versions
+              on the CPU: equal bindings and escalation ledgers, at least
+              one escalation adopted
+  7. kernels  one JSON line: per kernel variant its launches on the main
+              path, its error against the plain version, its time, the
+              plain version's time, its bound and a library call's time
+  8. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -37,6 +50,11 @@ import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+# Per-wave times of the shared-carry kernel on the 5120-node drain, measured
+# before the global-carry variant and the spread planes were added (H100 80GB
+# HBM3, 700 W; PERF.md section 5): the yardstick for the repeat below.
+SHARED_CARRY_WAVE_MS_BEFORE = (115.123, 44.302, 140.428, 104.594, 18.604, 115.338, 42.716)
+SCALE_PRUNING = dict(enabled=True, max_candidates=8191, min_fleet=256)
 
 
 def check(ok: bool, message: str) -> None:
@@ -63,16 +81,23 @@ def main() -> int:
     import numpy as np
 
     from grove_tpu_torch.api import Container, Pod, PodSpec
-    from grove_tpu_torch.bench import build_scenario
+    from grove_tpu_torch.bench import (
+        admitted_free,
+        build_backlog,
+        build_fleet,
+        build_scenario,
+        stage_fields,
+    )
     from grove_tpu_torch.kernels import build
-    from grove_tpu_torch.kernels.place_wave import domain_index, place_wave
+    from grove_tpu_torch.kernels.place_wave import domain_index, place_wave, reset_launches
     from grove_tpu_torch.orchestrator import expand_podcliqueset
     from grove_tpu_torch.sim import workloads as W
     from grove_tpu_torch.solver.core import SolverParams, batch_to
     from grove_tpu_torch.solver.drain import drain_backlog, plan_waves
     from grove_tpu_torch.solver.encode import encode_gangs
-    from grove_tpu_torch.solver.reference import solve_batch_ref
-    from grove_tpu_torch.state import build_snapshot, pod_request_vector
+    from grove_tpu_torch.solver.pruning import PruningConfig, plan_candidates
+    from grove_tpu_torch.solver.reference import solve_batch_ref, solve_pruned_ref
+    from grove_tpu_torch.state import build_snapshot
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -92,6 +117,7 @@ def main() -> int:
     print(f"build: place_wave.cu in {time.perf_counter() - t0:.2f}s\n{info.get('ptxas', '')}")
 
     params = SolverParams()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def node_tensors(snap):
         return (
@@ -113,11 +139,24 @@ def main() -> int:
             cluster, bound = cluster
         return gangs, pods, build_snapshot(cluster, topo, bound_pods=bound)
 
-    def run_kernel(snap, tb, okg, domains):
-        return place_wave(*node_tensors(snap), tb, params, okg.clone(), domains=domains)
+    def timed(fn):
+        """(result, ms) of one call, timed with CUDA events."""
+        torch.cuda.synchronize()
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1)
 
-    def run_plain(snap, tb, okg):
-        return solve_batch_ref(*node_tensors(snap), tb, params, okg.clone())
+    def compare(label, got, want):
+        """Tolerance 0 on every output; returns the largest float error (0)."""
+        err = 0.0
+        for nm, a, b in zip(NAMES, got, want):
+            check(torch.equal(a, b),
+                  f"exact[{label}]: kernel != plain on {nm} at {torch.nonzero(a != b)[:8].tolist()}")
+            if a.dtype.is_floating_point and a.numel():
+                err = max(err, float((a - b).abs().max()))
+        return err
 
     # ---- 3. kernel vs plain, exact, on the card ------------------------------
     gangs_b, pods_b, snap_b, n_nodes, _ = build_scenario(1.0)
@@ -125,11 +164,11 @@ def main() -> int:
     plan_b = plan_waves(gangs_b, 256)
     dom_b = domain_index(snap_b.node_domain_id, dev)
 
-    def encode_wave(ws, snap=snap_b):
+    def encode_wave(ws, snap=snap_b, pods=pods_b, gidx=gidx_b):
         wave, (mg, ms, mp), pad = ws
         batch, _ = encode_gangs(
-            wave, pods_b, snap, max_groups=mg, max_sets=ms, max_pods=mp,
-            pad_gangs_to=pad, global_index_of=gidx_b,
+            wave, pods, snap, max_groups=mg, max_sets=ms, max_pods=mp,
+            pad_gangs_to=pad, global_index_of=gidx,
         )
         return batch
 
@@ -144,6 +183,14 @@ def main() -> int:
         for k, node in enumerate(nd_nodes[::3])
     ]
     snap_nd = build_snapshot(nd_nodes, W.bench_topology(), bound_pods=squatters)
+
+    # A quarter of the backlog's PodCliqueSets at two replicas spread across
+    # zones: the first wave carries the replica-spread planes.
+    gangs_sp, pods_sp = build_backlog(1.0, spread_every=4)
+    gidx_sp = {g.name: i for i, g in enumerate(gangs_sp)}
+    spread_first = encode_wave(plan_waves(gangs_sp, 256)[0], pods=pods_sp, gidx=gidx_sp)
+    check(spread_first.spread_level is not None and (spread_first.spread_level >= 0).any(),
+          "exact: the spread wave carries no spread planes")
 
     rng = np.random.default_rng(0)
     first = encode_wave(plan_b[0])
@@ -174,67 +221,108 @@ def main() -> int:
             gangs_s, pods_s, snap_s, global_index_of={g.name: i for i, g in enumerate(gangs_s)}
         )
         cases.append((label, snap_s, batch_s, np.zeros(len(gangs_s), bool)))
+    cases.append(("bench wave 0 with spread planes", snap_b, spread_first,
+                  np.zeros(len(gangs_sp), bool)))
 
-    names = ("assigned", "ok", "placement_score", "free_after", "ok_global")
-    max_err = 0.0
+    err = {"shared": 0.0, "global": 0.0, "pruned": 0.0}
     for label, snap, batch, okg_np in cases:
         tb = batch_to(batch, dev)
         okg = torch.as_tensor(okg_np, device=dev)
         domains = dom_b if snap is snap_b else domain_index(snap.node_domain_id, dev)
-        got = run_kernel(snap, tb, okg, domains)
-        want = run_plain(snap, tb, okg)
-        torch.cuda.synchronize()
-        for nm, a, b in zip(names, got, want):
-            check(torch.equal(a, b),
-                  f"exact[{label}]: kernel != plain on {nm} at {torch.nonzero(a != b)[:8].tolist()}")
-            if a.dtype.is_floating_point:
-                max_err = max(max_err, float((a - b).abs().max()) if a.numel() else 0.0)
+        want = solve_batch_ref(*node_tensors(snap), tb, params, okg.clone())
+        # Each batch through the shared-carry kernel; the spread batch through
+        # the global-carry one too.
+        for variant in ("shared", "global") if batch is spread_first else ("shared",):
+            got = place_wave(*node_tensors(snap), tb, params, okg.clone(), domains=domains,
+                             shared_carry=variant == "shared")
+            torch.cuda.synchronize()
+            err[variant] = max(err[variant], compare(f"{label}, {variant} carry", got, want))
         print(f"exact[{label}]: G={batch.gang_valid.shape[0]} N={snap.capacity.shape[0]} "
               f"admitted {int(want[1].sum())}/{int(np.asarray(batch.gang_valid).sum())} "
-              f"valid — kernel == plain on {', '.join(names)}")
+              f"valid — kernel == plain on {', '.join(NAMES)}")
 
-    # Times at the main path's shape: the first full wave of the bench.
+    # Times at the 5120-node main path's shape: the first full wave.
     tb0 = batch_to(first, dev)
     okg0 = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
-    frees = [node_tensors(snap_b)[0] for _ in range(6)]
-    _, cap_b, sched_b, ndid_b = node_tensors(snap_b)
-    place_wave(frees[0], cap_b, sched_b, ndid_b, tb0, params, okg0.clone(), domains=dom_b)
+    shared_ms, shared_plain_ms = time_variant(
+        place_wave, timed, node_tensors(snap_b), tb0, okg0, params, dom_b, {},
+        lambda: solve_batch_ref(*node_tensors(snap_b), tb0, params, okg0.clone()),
+    )
+    # The same wave with the carry forced into global memory: what the
+    # shared-memory layout buys at this size.
+    global_5120_ms, _ = time_variant(place_wave, timed, node_tensors(snap_b), tb0, okg0, params,
+                                     dom_b, {"shared_carry": False}, None)
+    shared_bound = place_wave_bound(first, *snap_b.capacity.shape, snap_b.node_domain_id.shape[0])
+    print(f"timing[bench wave 0, G={g0}, N={n_nodes}, shared carry]: kernel {shared_ms:.3f} "
+          f"ms/wave (global carry forced: {global_5120_ms:.3f} ms/wave), plain "
+          f"{shared_plain_ms:.1f} ms, bound {shared_bound[0]:.6f} ms ({shared_bound[1]}) on {card}")
+
+    # The first wave on the 20480-node fleet: dense (global carry), then
+    # candidate-pruned to its plan (B3 fused into the launch).
+    snap_4 = build_fleet(4.0)
+    n_4 = snap_4.capacity.shape[0]
+    dom_4 = domain_index(snap_4.node_domain_id, dev)
+    first_4 = encode_wave(plan_b[0], snap_4)
+    tb4 = batch_to(first_4, dev)
+    want, global_plain_ms = timed(
+        lambda: solve_batch_ref(*node_tensors(snap_4), tb4, params, okg0.clone()))
+    got = place_wave(*node_tensors(snap_4), tb4, params, okg0.clone(), domains=dom_4)
     torch.cuda.synchronize()
-    okgs = [okg0.clone() for _ in frees[1:]]
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for f, o in zip(frees[1:], okgs):
-        place_wave(f, cap_b, sched_b, ndid_b, tb0, params, o, domains=dom_b)
-    e1.record()
+    err["global"] = max(err["global"], compare("bench wave 0 on 20480 nodes", got, want))
+    print(f"exact[bench wave 0, N={n_4}, global carry]: admitted {int(want[1].sum())}/"
+          f"{int(first_4.gang_valid.sum())} valid — kernel == plain on {', '.join(NAMES)}")
+    global_ms, _ = time_variant(place_wave, timed, node_tensors(snap_4), tb4, okg0, params,
+                                dom_4, {}, None)
+    global_bound = place_wave_bound(first_4, *snap_4.capacity.shape, snap_4.node_domain_id.shape[0])
+
+    plan4 = plan_candidates(snap_4, first_4, PruningConfig(**SCALE_PRUNING))
+    check(plan4 is not None and plan4.pad == 8192, "exact: the 20480-node wave did not prune to 8192")
+    pt4 = plan4.tensors(dev)
+    ptb4 = batch_to(plan4.gather_batch(first_4), dev)
+    pruned_args = (pt4.capacity, pt4.schedulable, pt4.node_domain_id, ptb4, params)
+    want, pruned_plain_ms = timed(lambda: solve_pruned_ref(
+        node_tensors(snap_4)[0], *pruned_args, okg0.clone(), pt4.cand_idx, plan4.count))
+    got = place_wave(node_tensors(snap_4)[0], *pruned_args, okg0.clone(), domains=pt4.domains,
+                     cand_idx=pt4.cand_idx, cand_count=plan4.count)
     torch.cuda.synchronize()
-    kernel_ms = e0.elapsed_time(e1) / len(okgs)
-    free_p = node_tensors(snap_b)[0]
-    e0.record()
-    solve_batch_ref(free_p, cap_b, sched_b, ndid_b, tb0, params, okg0.clone())
-    e1.record()
-    torch.cuda.synchronize()
-    plain_ms = e0.elapsed_time(e1)
-    bound_ms, bound_by = place_wave_bound(first, snap_b)
-    print(f"timing[bench wave 0, G={g0}, N={n_nodes}]: kernel {kernel_ms:.3f} ms/wave, "
-          f"plain {plain_ms:.1f} ms, bound {bound_ms:.6f} ms ({bound_by}) on {card}")
+    err["pruned"] = compare("bench wave 0 on 20480 nodes, pruned", got, want)
+    print(f"exact[bench wave 0, N={n_4}, pruned to {plan4.count}/{plan4.pad}]: admitted "
+          f"{int(want[1].sum())}/{int(first_4.gang_valid.sum())} valid — kernel == plain on "
+          f"{', '.join(NAMES)} (assigned in fleet ordinals, the whole fleet free_after)")
+    pruned_ms, _ = time_variant(
+        place_wave, timed, (node_tensors(snap_4)[0],) + pruned_args[:3], ptb4, okg0, params,
+        pt4.domains, {"cand_idx": pt4.cand_idx, "cand_count": plan4.count}, None,
+    )
+    # The pruned launch moves the fleet carry only through B3's gather and
+    # scatter: count its bytes once, there, and not again on the pad axis.
+    pruned_bound = place_wave_bound(plan4.gather_batch(first_4), plan4.pad, 4,
+                                    snap_4.node_domain_id.shape[0],
+                                    carry_bytes=b3_bytes(plan4.pad, plan4.count, 4))
+    b3_bound_ms = b3_bytes(plan4.pad, plan4.count, 4) / H100_BYTES_PER_S * 1e3
+    # B3's gather and scatter as library calls, on the plan's candidate rows.
+    free_l = node_tensors(snap_4)[0]
+    idx_l = torch.as_tensor(plan4.idx, dtype=torch.long, device=dev)
+    library_ms = min(timed(lambda: free_l.index_copy_(0, idx_l, free_l.index_select(0, idx_l)))[1]
+                     for _ in range(5))
+    print(f"timing[bench wave 0, N={n_4}]: global carry {global_ms:.3f} ms (plain "
+          f"{global_plain_ms:.1f} ms, bound {global_bound[0]:.6f} ms {global_bound[1]}); "
+          f"pruned {pruned_ms:.3f} ms (plain {pruned_plain_ms:.1f} ms, bound "
+          f"{pruned_bound[0]:.6f} ms {pruned_bound[1]}; B3 alone: bound {b3_bound_ms:.6f} ms, "
+          f"index_select + index_copy_ {library_ms:.4f} ms, {idx_l.numel()} rows) on {card}")
 
     # ---- 4. the main path: full drain through the kernel ---------------------
     torch.cuda.synchronize()
-    place_wave.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     bindings, stats = drain_backlog(gangs_b, pods_b, snap_b, wave_size=256, params=params)
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
-    launches = place_wave.launches
-    check(launches > 0, "drain: the main path launched no place_wave kernel")
-    check(launches == stats.waves, f"drain: {launches} launches for {stats.waves} waves")
+    launches = dict(place_wave.variant_launches)
+    check(launches["shared"] > 0, "drain: the main path launched no shared-carry place_wave")
+    check(launches == {"shared": stats.waves, "global": 0, "pruned": 0},
+          f"drain: launches {launches} for {stats.waves} waves")
     check(stats.admitted == len(gangs_b), f"drain: admitted {stats.admitted}/{len(gangs_b)}")
-    free_host = snap_b.free.astype(np.float32)
-    idx = snap_b.node_index_map
-    for pod_bindings in bindings.values():
-        for pod_name, node_name in pod_bindings.items():
-            i = idx[node_name]
-            free_host[i] = free_host[i] - pod_request_vector(pods_b[pod_name], snap_b.resource_names)
+    free_host = admitted_free(bindings, pods_b, snap_b)
     check(
         stats.free_after is not None and np.array_equal(stats.free_after, free_host),
         "drain: kernel free_after != snapshot free minus bound pods' requests",
@@ -243,7 +331,7 @@ def main() -> int:
     n_pods = sum(len(b) for b in bindings.values())
     print(f"drain: gangs {len(gangs_b)} gangs_admitted {stats.admitted} pods {len(pods_b)} "
           f"pods_bound {stats.pods_bound} ({n_pods} bindings) waves {stats.waves} "
-          f"launches {launches} drain_s {drain_s:.4f} (encode {stats.encode_s:.4f}, "
+          f"launches {launches['shared']} drain_s {drain_s:.4f} (encode {stats.encode_s:.4f}, "
           f"dispatch {stats.dispatch_s:.4f}, harvest {stats.harvest_s:.4f}, "
           f"decode {stats.decode_s:.4f}) on {card}")
 
@@ -252,30 +340,108 @@ def main() -> int:
     free_w = node_tensors(snap_b)[0]
     okg_w = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
     batches = [batch_to(encode_wave(ws), dev) for ws in plan_b]
-    torch.cuda.synchronize()
     for tb in batches:
-        e0.record()
-        place_wave(free_w, cap_b, sched_b, ndid_b, tb, params, okg_w, domains=dom_b)
-        e1.record()
-        torch.cuda.synchronize()
-        wave_ms.append(e0.elapsed_time(e1))
-    print(f"drain kernels: per-wave ms {[round(x, 3) for x in wave_ms]} "
-          f"sum {sum(wave_ms):.3f} ms on {card}")
+        wave_ms.append(timed(lambda: place_wave(free_w, *node_tensors(snap_b)[1:], tb, params,
+                                                okg_w, domains=dom_b))[1])
+    print(f"drain kernels: per-wave ms {[round(x, 3) for x in wave_ms]} sum {sum(wave_ms):.3f} "
+          f"ms; before the global-carry variant: {list(SHARED_CARRY_WAVE_MS_BEFORE)} sum "
+          f"{sum(SHARED_CARRY_WAVE_MS_BEFORE):.3f} ms on {card}")
 
-    # ---- 5. kernels line -----------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "place_wave(B1+B2)",
-        "route": "cuda",
-        "source": "grove_tpu_torch/kernels/csrc/place_wave.cu",
-        "replaces": "grove_tpu/solver/core.py:537",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+    # ---- 5. the scale drains: 10240 and 20480 nodes, dense and pruned --------
+    pruning = PruningConfig(**SCALE_PRUNING)
+    torch.cuda.synchronize()
+    reset_launches()
+    scale_runs = []
+    for scale in (2.0, 4.0):
+        snap = build_fleet(scale)
+        admitted = {}
+        for mode, cfg in (("dense", None), ("pruned", pruning)):
+            t0 = time.perf_counter()
+            b_s, st = drain_backlog(gangs_b, pods_b, snap, wave_size=256, params=params,
+                                    pruning=cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            label = f"scale[{snap.capacity.shape[0]} nodes, {mode}]"
+            check(st.admitted == len(gangs_b), f"{label}: admitted {st.admitted}/{len(gangs_b)}")
+            free_s = admitted_free(b_s, pods_b, snap)
+            check(np.array_equal(st.free_after, free_s),
+                  f"{label}: free_after != snapshot free minus bound pods' requests")
+            check(bool((free_s >= 0).all()), f"{label}: a node is over capacity")
+            if cfg is not None:
+                check(st.pruned_waves == st.waves, f"{label}: {st.pruned_waves}/{st.waves} pruned")
+            admitted[mode] = set(b_s)
+            row = stage_fields(st)
+            scale_runs.append((label, row))
+            print(f"{label}: wall {wall:.4f} s, drain_s {row['drain_s']:.4f} (encode "
+                  f"{row['encode_s']:.4f}, prune {row['prune_s']:.4f}, dispatch "
+                  f"{row['dispatch_s']:.4f}, harvest {row['harvest_s']:.4f}, decode "
+                  f"{row['decode_s']:.4f}), waves {row['waves']}, pruned waves "
+                  f"{row['pruned_waves']}, candidates {row['candidate_nodes']}/"
+                  f"{row['candidate_pad']}, escalations {row['escalations']} (adopted "
+                  f"{row['escalations_adopted']}), round trips {row['device_roundtrips']}, "
+                  f"admitted {row['admitted']}/{len(gangs_b)} on {card}")
+        check(admitted["dense"] == admitted["pruned"],
+              f"scale[{scale}]: dense and pruned admit different gang sets")
+    scale_launches = dict(place_wave.variant_launches)
+    check(scale_launches["global"] > 0 and scale_launches["pruned"] > 0,
+          f"scale: launches {scale_launches}: a variant of the path never ran")
+    check(scale_launches["shared"] == 0, f"scale: launches {scale_launches}")
+    print(f"scale launches: {scale_launches}")
+
+    # Per-wave kernel times over the 20480-node drains' own waves, dense and
+    # pruned, each variant chained through its own carry.
+    free_d, free_p = node_tensors(snap_4)[0], node_tensors(snap_4)[0]
+    okg_d, okg_p = (torch.zeros(len(gangs_b), dtype=torch.bool, device=dev) for _ in range(2))
+    dense_ms, pruned_ms_w = [], []
+    for ws in plan_b:
+        batch = encode_wave(ws, snap_4)
+        tb = batch_to(batch, dev)
+        dense_ms.append(timed(lambda: place_wave(free_d, *node_tensors(snap_4)[1:], tb, params,
+                                                 okg_d, domains=dom_4))[1])
+        plan = plan_candidates(snap_4, batch, pruning)
+        pt = plan.tensors(dev)
+        ptb = batch_to(plan.gather_batch(batch), dev)
+        pruned_ms_w.append(timed(lambda: place_wave(
+            free_p, pt.capacity, pt.schedulable, pt.node_domain_id, ptb, params, okg_p,
+            domains=pt.domains, cand_idx=pt.cand_idx, cand_count=plan.count))[1])
+    print(f"scale kernels[{n_4} nodes]: global carry per-wave ms "
+          f"{[round(x, 3) for x in dense_ms]} sum {sum(dense_ms):.3f} ms; pruned per-wave ms "
+          f"{[round(x, 3) for x in pruned_ms_w]} sum {sum(pruned_ms_w):.3f} ms on {card}")
+
+    # ---- 6. escalation on the card against the plain drain on the CPU -------
+    esc_nodes = W.synthetic_cluster(zones=1, blocks_per_zone=1, racks_per_block=2)
+    gangs_e, pods_e, snap_e = scenario(esc_nodes, W.synthetic_backlog(10, 10, 10))
+    esc_cfg = PruningConfig(enabled=True, max_candidates=24, min_fleet=16, min_pad=8)
+    b_card, st_card = drain_backlog(gangs_e, pods_e, snap_e, wave_size=8, pruning=esc_cfg)
+    b_cpu, st_cpu = drain_backlog(gangs_e, pods_e, snap_e, wave_size=8, pruning=esc_cfg,
+                                  device="cpu")
+    ledger = lambda st: (st.escalations, st.escalations_adopted)  # noqa: E731
+    check(b_card == b_cpu, "escalate: card bindings != plain CPU bindings")
+    check(ledger(st_card) == ledger(st_cpu),
+          f"escalate: card ledger {ledger(st_card)} != CPU ledger {ledger(st_cpu)}")
+    check(st_card.escalations >= 1 and st_card.escalations_adopted >= 1,
+          f"escalate: ledger {ledger(st_card)} has no adopted escalation")
+    check(np.array_equal(st_card.free_after, st_cpu.free_after), "escalate: free_after differs")
+    print(f"escalate: {len(gangs_e)} gangs on {snap_e.capacity.shape[0]} nodes, admitted "
+          f"{st_card.admitted}, escalations {st_card.escalations} adopted "
+          f"{st_card.escalations_adopted} — card == plain CPU drain")
+
+    # ---- 7. kernels line -----------------------------------------------------
+    src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
+    print(json.dumps({"kernels": [
+        {"name": "place_wave(B1+B2, shared carry)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:537", "launches": launches["shared"],
+         "max_abs_err": err["shared"], "ms": shared_ms, "plain_ms": shared_plain_ms,
+         "bound_ms": shared_bound[0], "bound_by": shared_bound[1], "library_ms": None},
+        {"name": "place_wave(B1+B2, global carry)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:537", "launches": scale_launches["global"],
+         "max_abs_err": err["global"], "ms": global_ms, "plain_ms": global_plain_ms,
+         "bound_ms": global_bound[0], "bound_by": global_bound[1], "library_ms": None},
+        {"name": "place_wave(B1+B2+B3, pruned)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/pruning.py:166", "launches": scale_launches["pruned"],
+         "max_abs_err": err["pruned"], "ms": pruned_ms, "plain_ms": pruned_plain_ms,
+         "bound_ms": pruned_bound[0], "bound_by": pruned_bound[1], "library_ms": library_ms},
+    ]}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -285,23 +451,57 @@ def main() -> int:
     return 0
 
 
-def place_wave_bound(batch, snap) -> tuple[float, str]:
+NAMES = ("assigned", "ok", "placement_score", "free_after", "ok_global")
+
+
+def time_variant(place_wave, timed, node, tb, okg, params, domains, extra, plain):
+    """(kernel ms per launch, plain ms or None) at one wave's shape: one
+    warm-up launch, then the mean of three, each on a fresh copy of the
+    carry (the kernel updates it in place)."""
+    import torch
+
+    free, rest = node[0], node[1:]
+    copies = [free.clone() for _ in range(4)]
+    place_wave(copies[0], *rest, tb, params, okg.clone(), domains=domains, **extra)
+    okgs = [okg.clone() for _ in copies[1:]]
+
+    def run():
+        for f, o in zip(copies[1:], okgs):
+            place_wave(f, *rest, tb, params, o, domains=domains, **extra)
+
+    _, ms = timed(run)
+    plain_ms = None
+    if plain is not None:
+        torch.cuda.synchronize()
+        _, plain_ms = timed(plain)
+    return ms / len(okgs), plain_ms
+
+
+def b3_bytes(pad: int, count: int, r: int) -> int:
+    """B3's bytes at a plan's shape: the gather map read once, the
+    candidates' fleet rows read once (gather) and written once (scatter)."""
+    return 4 * pad + 2 * 4 * count * r
+
+
+def place_wave_bound(batch, n, r, levels, carry_bytes=None) -> tuple[float, str]:
     """(bound_ms, "bytes" | "operations") for one place_wave launch on this
-    batch: the larger of the bytes it must move (each input read once, each
-    output written once) over HBM bandwidth and the f32 operations its
-    valid gangs need over the f32 peak. Operations counted per valid gang:
-    slot ratios (MG*N*R*3), domain tables (L*N*C adds), narrow-set
-    feasibility (MS*N*(R+MG)), two domain picks per pack-set (N*(C+1+MS)
-    adds + N*(R+MG+MS) compares each), and per group phase the node scores
-    (N*(6R+7+3MS)) plus one argmax pass over N per pod."""
+    batch over an N-node axis: the larger of the bytes it must move (each
+    input read once, each output written once) over HBM bandwidth and the f32
+    operations its valid gangs need over the f32 peak. `carry_bytes` is the
+    free carry's traffic, by default its N rows read and written once.
+    Operations counted per valid gang: slot ratios (MG*N*R*3), domain tables
+    (L*N*C adds), narrow-set feasibility (MS*N*(R+MG)), two domain picks per
+    pack-set (N*(C+1+MS) adds + N*(R+MG+MS) compares each), and per group
+    phase the node scores (N*(6R+7+3MS)) plus one argmax pass over N per
+    pod."""
     import numpy as np
 
-    n, r = snap.capacity.shape
-    levels = snap.node_domain_id.shape[0]
     g, mg, _ = batch.group_req.shape
     ms = batch.set_member.shape[1]
     c = r + mg + 1
-    nbytes = 4 * n * r * 3 + n + 4 * levels * n  # free in/out, capacity, sched, domains
+    if carry_bytes is None:
+        carry_bytes = 2 * 4 * n * r  # free in and out
+    nbytes = carry_bytes + 4 * n * r + n + 4 * levels * n  # + capacity, sched, domains
     nbytes += sum(np.asarray(x).nbytes for x in batch if x is not None)
     nbytes += batch.pod_group.size * 4 + g * 5  # assigned, ok, score
     valid = np.asarray(batch.gang_valid, bool)

@@ -1,13 +1,24 @@
-"""The headline drain on the port: python -m grove_tpu_torch.bench
+"""The headline drains on the port: python -m grove_tpu_torch.bench
 
-Drives bench.py's default scenario (`run_bench`, chained harvest) through
-grove_tpu_torch: the 5120-node synthetic cluster, the ~10k-pod synthetic
-backlog, waves of 256 gangs, every wave solved by one place_wave kernel
-launch on the card. Prints one JSON line with run_bench's drain fields, the
-card's name and power limit, and the kernel's launch count.
+--scenario default drives bench.py's default scenario (`run_bench`, chained
+harvest) through grove_tpu_torch: the 5120-node synthetic cluster, the
+~10k-pod synthetic backlog, waves of 256 gangs, every wave solved by one
+place_wave kernel launch on the card. One JSON line with run_bench's drain
+fields, the card's name and power limit, and the kernel's launch count.
 
-  --scale S    cluster racks and backlog size times S (default 1.0)
-  --device D   "cuda" (default) or "cpu" (plain PyTorch versions)
+--scenario scale drives bench.py's `run_scale_bench` sweep: the same backlog
+on growing fleets (racks per block 16 x each scale: 5120, 10240 and 20480
+nodes at scales 1, 2, 4), drained dense and candidate-pruned
+(max_candidates 8191, min_fleet 256). One JSON line with, per scale, both
+drain walls and their stages, candidate_nodes/candidate_pad, escalations,
+the launches of each kernel variant, and whether both admit the same set.
+
+  --scale S         default: cluster racks and backlog size times S (1.0)
+  --scales A,B,..   scale: fleet scales (default 1,2,4)
+  --backlog-frac F  scale: backlog size times F (default 1.0)
+  --prune-max K     scale: candidate budget (default 8191)
+  --min-fleet M     scale: smallest fleet that prunes (default 256)
+  --device D        "cuda" (default) or "cpu" (plain PyTorch versions)
 """
 
 from __future__ import annotations
@@ -33,28 +44,84 @@ def card_line() -> str:
         return "not measured"
 
 
-def build_scenario(scale: float = 1.0):
-    """(gangs, pods_by_name, snapshot, n_nodes, setup_s) of bench.py's
-    default scenario at `scale`."""
+def build_backlog(frac: float = 1.0, spread_every: int = 0):
+    """(gangs, pods_by_name) of the synthetic backlog at `frac` of its size.
+    `spread_every` k > 0 gives every k-th PodCliqueSet two replicas spread
+    across zones (the replica-spread planes)."""
+    from grove_tpu_torch.api.types import TopologyDomain
     from grove_tpu_torch.orchestrator import expand_podcliqueset
-    from grove_tpu_torch.sim.workloads import bench_topology, synthetic_backlog, synthetic_cluster
-    from grove_tpu_torch.state import build_snapshot
+    from grove_tpu_torch.sim.workloads import bench_topology, synthetic_backlog
 
     topo = bench_topology()
-    nodes = synthetic_cluster(racks_per_block=max(1, round(16 * scale)))
     backlog = synthetic_backlog(
-        n_disagg=max(1, round(350 * scale)),
-        n_agg=max(1, round(250 * scale)),
-        n_frontend=max(1, round(300 * scale)),
+        n_disagg=max(1, round(350 * frac)),
+        n_agg=max(1, round(250 * frac)),
+        n_frontend=max(1, round(300 * frac)),
     )
-    t0 = time.perf_counter()
+    if spread_every > 0:
+        for pcs in backlog[::spread_every]:
+            pcs.spec.replicas = 2
+            pcs.spec.topology_spread_domain = TopologyDomain.ZONE
     gangs, pods = [], {}
     for pcs in backlog:
         ds = expand_podcliqueset(pcs, topo)
         gangs.extend(ds.podgangs)
         pods.update({p.name: p for p in ds.pods})
-    snapshot = build_snapshot(nodes, topo)
-    return gangs, pods, snapshot, len(nodes), time.perf_counter() - t0
+    return gangs, pods
+
+
+def build_fleet(scale: float = 1.0):
+    """The synthetic cluster's snapshot with 16 x `scale` racks per block
+    (4 zones x 4 blocks x racks x 20 hosts)."""
+    from grove_tpu_torch.sim.workloads import bench_topology, synthetic_cluster
+    from grove_tpu_torch.state import build_snapshot
+
+    return build_snapshot(synthetic_cluster(racks_per_block=max(1, round(16 * scale))),
+                          bench_topology())
+
+
+def build_scenario(scale: float = 1.0):
+    """(gangs, pods_by_name, snapshot, n_nodes, setup_s) of bench.py's
+    default scenario at `scale`."""
+    t0 = time.perf_counter()
+    gangs, pods = build_backlog(scale)
+    snapshot = build_fleet(scale)
+    return gangs, pods, snapshot, snapshot.capacity.shape[0], time.perf_counter() - t0
+
+
+def admitted_free(bindings, pods, snapshot):
+    """The snapshot's free minus every bound pod's request, recomputed on
+    the host in f32 (what a drain's free_after must equal)."""
+    from grove_tpu_torch.state import pod_request_vector
+
+    free = snapshot.free.astype(np.float32)
+    idx = snapshot.node_index_map
+    for pod_bindings in bindings.values():
+        for pod_name, node_name in pod_bindings.items():
+            i = idx[node_name]
+            free[i] = free[i] - pod_request_vector(pods[pod_name], snapshot.resource_names)
+    return free
+
+
+def stage_fields(stats) -> dict:
+    """A drain's wall and stages, unrounded."""
+    return {
+        "drain_s": stats.total_s,
+        "encode_s": stats.encode_s,
+        "prune_s": stats.prune_s,
+        "dispatch_s": stats.dispatch_s,
+        "harvest_s": stats.harvest_s,
+        "decode_s": stats.decode_s,
+        "waves": stats.waves,
+        "admitted": stats.admitted,
+        "pods_bound": stats.pods_bound,
+        "pruned_waves": stats.pruned_waves,
+        "candidate_nodes": stats.candidate_nodes,
+        "candidate_pad": stats.candidate_pad,
+        "escalations": stats.escalations,
+        "escalations_adopted": stats.escalations_adopted,
+        "device_roundtrips": stats.device_roundtrips,
+    }
 
 
 def run_bench(scale: float = 1.0, wave_size: int = 256, device=None) -> dict:
@@ -119,12 +186,82 @@ def run_bench(scale: float = 1.0, wave_size: int = 256, device=None) -> dict:
     return out
 
 
+def run_scale_bench(
+    scales=(1.0, 2.0, 4.0),
+    wave_size: int = 256,
+    backlog_frac: float = 1.0,
+    max_candidates: int = 8191,
+    min_fleet: int = 256,
+    device=None,
+) -> dict:
+    """The same backlog drained dense and candidate-pruned on each fleet
+    scale; the drains of each scale must admit the same gang set."""
+    import torch
+
+    from grove_tpu_torch.solver.core import SolverParams, resolve_device
+    from grove_tpu_torch.solver.drain import drain_backlog
+    from grove_tpu_torch.solver.pruning import PruningConfig
+
+    dev = resolve_device(device)
+    pruning = PruningConfig(enabled=True, max_candidates=max_candidates, min_fleet=min_fleet)
+    gangs, pods = build_backlog(backlog_frac)
+    points = []
+    for scale in scales:
+        snapshot = build_fleet(scale)
+        point = {"scale": scale, "nodes": int(snapshot.capacity.shape[0])}
+        admitted = {}
+        for mode, cfg in (("dense", None), ("pruned", pruning)):
+            if dev.type == "cuda":
+                from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
+
+                reset_launches()
+            bindings, stats = drain_backlog(
+                gangs, pods, snapshot, wave_size=wave_size, params=SolverParams(),
+                device=dev, pruning=cfg,
+            )
+            point[mode] = stage_fields(stats)
+            if dev.type == "cuda":
+                point[mode]["launches"] = dict(place_wave.variant_launches)
+            admitted[mode] = set(bindings)
+        point["admitted_equal"] = admitted["dense"] == admitted["pruned"]
+        point["pruned_speedup"] = point["dense"]["drain_s"] / point["pruned"]["drain_s"]
+        points.append(point)
+    out = {
+        "scenario": "scale",
+        "gangs": len(gangs),
+        "pods": len(pods),
+        "wave_size": wave_size,
+        "max_candidates": max_candidates,
+        "min_fleet": min_fleet,
+        "points": points,
+        "admitted_equal": all(p["admitted_equal"] for p in points),
+        "device": str(dev),
+    }
+    if dev.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(dev)
+        out["card"] = card_line()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scenario", choices=("default", "scale"), default="default")
     ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--scales", default="1,2,4")
+    ap.add_argument("--backlog-frac", type=float, default=1.0)
+    ap.add_argument("--prune-max", type=int, default=8191)
+    ap.add_argument("--min-fleet", type=int, default=256)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    print(json.dumps(run_bench(args.scale, device=args.device)))
+    if args.scenario == "scale":
+        out = run_scale_bench(
+            tuple(float(x) for x in args.scales.split(",") if x.strip()),
+            backlog_frac=args.backlog_frac, max_candidates=args.prune_max,
+            min_fleet=args.min_fleet, device=args.device,
+        )
+    else:
+        out = run_bench(args.scale, device=args.device)
+    print(json.dumps(out))
     return 0
 
 

@@ -5,6 +5,10 @@ SolverParams as plain numpy arrays and floats (never JAX or grove_tpu
 objects, so this module imports neither) and returns the port's tensors on a
 given device, its GangBatch and its SolverParams. The tests feed the
 reference's own encoded batch to the port's solver through it.
+
+`pruning_config_from_reference` and `plan_from_reference` do the same for a
+PruningConfig and a CandidatePlan (their fields as plain values and numpy
+arrays), so the tests feed both packages the same candidate plan.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from grove_tpu_torch.solver.core import SolverParams, resolve_device
 from grove_tpu_torch.solver.encode import GangBatch
+from grove_tpu_torch.solver.pruning import CandidatePlan, PruningConfig
 
 _DTYPES = {
     "group_req": np.float32,
@@ -65,3 +70,49 @@ def from_reference(
         GangBatch(**fields),
         sp,
     )
+
+
+def pruning_config_from_reference(fields: dict) -> PruningConfig:
+    """The reference's PruningConfig fields (`dataclasses.asdict`) -> the
+    port's PruningConfig. The port pads to powers of two from `min_pad`
+    only, so an explicit `pad_ladder` is refused."""
+    fields = dict(fields)
+    if tuple(fields.pop("pad_ladder", ())):
+        raise ValueError("the port has no pad_ladder: buckets are powers of two from min_pad")
+    unknown = set(fields) - set(PruningConfig.__dataclass_fields__)
+    if unknown:
+        raise ValueError(f"unknown PruningConfig fields: {sorted(unknown)}")
+    return PruningConfig(**fields)
+
+
+_PLAN_DTYPES = {
+    "idx": np.int32,
+    "gang_lossy": np.bool_,
+    "capacity": np.float32,
+    "schedulable": np.bool_,
+    "node_domain_id": np.int32,
+    "num_domains": np.int32,
+}
+
+
+def plan_from_reference(fields: dict) -> CandidatePlan:
+    """The reference's CandidatePlan fields (`vars(plan)`: numpy arrays,
+    ints, a bool and the per-level `_remap` dicts) -> the port's
+    CandidatePlan."""
+    names = {f for f in CandidatePlan.__dataclass_fields__ if f != "_tensors"}
+    unknown = set(fields) - names
+    if unknown:
+        raise ValueError(f"unknown CandidatePlan fields: {sorted(unknown)}")
+    out = {}
+    for name in names:
+        x = fields[name]
+        if name in _PLAN_DTYPES:
+            x = np.ascontiguousarray(x, dtype=_PLAN_DTYPES[name])
+        elif name == "_remap":
+            x = [{int(k): int(v) for k, v in level.items()} for level in x]
+        elif name == "clipped":
+            x = bool(x)
+        else:
+            x = int(x)
+        out[name] = x
+    return CandidatePlan(**out)

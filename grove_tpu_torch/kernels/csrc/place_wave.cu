@@ -2,17 +2,30 @@
 //
 // Replaces the XLA program the JAX package compiles for one wave:
 // grove_tpu/solver/core.py `solve_batch_impl` + `_place_gang` (B1: the scan
-// over gangs, the scan over pack-sets, the scan over group phases) and
-// `_apply_global_deps` / `_scatter_global_ok` (B2: the cross-wave verdict
-// gating). It computes exactly what `solve_batch_impl(..., ok_global=...)`
-// computes, gang by gang in batch order, and updates `free` and `ok_global`
-// in place (the JAX package donates both buffers to the same effect).
+// over gangs, the scan over pack-sets, the scan over group phases, the
+// replica-spread planes included) and `_apply_global_deps` /
+// `_scatter_global_ok` (B2: the cross-wave verdict gating). It computes
+// exactly what `solve_batch_impl(..., ok_global=...)` computes, gang by gang
+// in batch order, and updates `free` and `ok_global` in place (the JAX
+// package donates both buffers to the same effect).
+//
+// Given a candidate plan's gather map `cand_idx`, the same launch also does
+// B3 (grove_tpu/solver/pruning.py `CandidatePlan.gather_free` /
+// `scatter_free` / `remap_assigned`): it gathers the fleet carry's rows onto
+// the candidate axis (pad rows, whose index lies past the fleet, read 0),
+// solves the wave there, scatters the candidate rows back into the fleet
+// carry (pad rows dropped) and writes `assigned` as fleet ordinals. No
+// candidate-axis tensor lives between launches.
 //
 // Design (right first, not fast). One thread block of 1024 threads owns the
-// whole wave; each thread owns a strided set of nodes. The free carry (N x R
-// f32, 80 KB at N = 5120, R = 4) and the gang's working copy sit in dynamic
-// shared memory. Domain tables and per-gang scratch live in global scratch
-// that the wrapper allocates; the kernel allocates nothing.
+// whole wave; each thread owns a strided set of nodes. Two instantiations
+// differ only in where the wave's carry and the gang's working copy live:
+// in dynamic shared memory when both fit (2 x N x R f32: 160 KB at N = 5120,
+// R = 4), else in global memory (the fleet tensor itself, or a candidate-axis
+// scratch, and a scratch working copy), where at these sizes they stay
+// resident in the 50 MB L2 (320 KB each at N = 20480). Domain tables and
+// per-gang scratch live in global scratch that the wrapper allocates; the
+// kernel allocates nothing.
 //
 // What bounds it: a chain of dependent steps per gang (domain aggregation,
 // best-domain argmax per pack-set, one argmax per pod taken), each a few
@@ -62,9 +75,11 @@
 
 struct PlaceWaveArgs {
   int N, R, L, G, MG, MS, MP, T;  // T = ok_global length, 0 = no chaining
-  float w_tight, w_pref, w_reuse, w_reserve;
-  // node state
-  float* free_io;                // [N, R] f32, updated in place
+  int NF, cand_count;             // fleet rows of free_io; candidates (pruned)
+  float w_tight, w_pref, w_reuse, w_reserve, w_spread;
+  // node state; N is the solve's node axis (the candidate pad when pruned)
+  float* free_io;                // [NF, R] f32 fleet carry, updated in place
+  const int32_t* cand_idx;       // [N] fleet row of each candidate, or null
   const float* capacity;         // [N, R]
   const uint8_t* schedulable;    // [N]
   const int32_t* node_domain_id; // [L, N]
@@ -90,15 +105,23 @@ struct PlaceWaveArgs {
   const int32_t* depends_global; // [G]
   const uint8_t* reuse_nodes;    // [G, N] or null
   const uint8_t* group_node_ok;  // [G, MG, N] or null
+  const int32_t* spread_level;   // [G] or null (no spread planes)
+  const int32_t* spread_family;  // [G]
+  const uint8_t* spread_avoid;   // [G, N]
   uint8_t* ok_global;            // [T] or null, updated in place
   // outputs
   int32_t* assigned;             // [G, MP]
   uint8_t* ok;                   // [G], zero on entry
   float* score;                  // [G]
   // global scratch
+  float* carry;                  // [N, R] the wave's carry (global, pruned)
+  float* carry_g;                // [N, R] the gang's working copy (global)
+  uint8_t* family_used;          // [G, N] zeroed (spread family rows)
+  uint8_t* avoid;                // [N] the gang's spread avoid set
+  float* spread_pen;             // [N] the gang's hoisted spread penalty
   int32_t* slots_all;            // [MG, N]
   float* tables;                 // [L, N, C], C = R + MG + 1
-  float* agg;                    // [N, C + 1 + MS]
+  float* agg;                    // [N, C + 2 + MS]
   uint8_t* feas2;                // [MS, N] per narrow set, per domain row
   uint8_t* node_feas2;           // [MS, N] per narrow set, per node
   uint8_t* node_ok;              // [N]
@@ -230,7 +253,10 @@ __device__ __forceinline__ bool pw_domain_fits(const PwGang& s_g, const float* r
   return pw_joint_ok(s_g, row + R, s, MG);
 }
 
-extern "C" __global__ void __launch_bounds__(PW_THREADS)
+// kSharedCarry: the carry and the working copy in dynamic shared memory
+// (2 * N * R floats); otherwise in global memory.
+template <bool kSharedCarry>
+__global__ void __launch_bounds__(PW_THREADS)
 place_wave_kernel(const PlaceWaveArgs a) {
   extern __shared__ float pw_smem[];
   __shared__ PwGang s_g;
@@ -242,8 +268,12 @@ place_wave_kernel(const PlaceWaveArgs a) {
   const int NT = blockDim.x;
   const int N = a.N, R = a.R, L = a.L, MG = a.MG, MS = a.MS, MP = a.MP;
   const int C = R + MG + 1;
-  float* free_s = pw_smem;            // [N, R] the wave's carry
-  float* freeg_s = pw_smem + N * R;   // [N, R] the gang's working copy
+  const bool pruned = a.cand_idx != nullptr;
+  const bool spread = a.spread_level != nullptr;
+  // [N, R] the wave's carry and [N, R] the gang's working copy. A dense
+  // solve in global memory works on the fleet tensor itself.
+  float* free_s = kSharedCarry ? pw_smem : (pruned ? a.carry : a.free_io);
+  float* freeg_s = kSharedCarry ? pw_smem + (size_t)N * R : a.carry_g;
 
   // cap_scale = max(capacity.max(axis=0), 1e-9)
   for (int r = 0; r < R; ++r) {
@@ -254,7 +284,15 @@ place_wave_kernel(const PlaceWaveArgs a) {
     if (tid == 0) cap_scale[r] = fmaxf(s_g.best_v, 1e-9f);
     __syncthreads();
   }
-  for (int k = tid; k < N * R; k += NT) free_s[k] = a.free_io[k];
+  if (pruned) {
+    // B3 gather (gather_free, mode="fill"): pad rows point past the fleet.
+    for (int k = tid; k < N * R; k += NT) {
+      const int src = a.cand_idx[k / R];
+      free_s[k] = (src >= 0 && src < a.NF) ? a.free_io[(size_t)src * R + k % R] : 0.f;
+    }
+  } else if (kSharedCarry) {
+    for (int k = tid; k < N * R; k += NT) free_s[k] = a.free_io[k];
+  }
   __syncthreads();
 
   for (int gi = 0; gi < a.G; ++gi) {
@@ -327,6 +365,29 @@ place_wave_kernel(const PlaceWaveArgs a) {
       }
     }
     __syncthreads();
+
+    // ---- hoisted replica-spread penalty (core.py:245-261, :580-590) -------
+    // avoid = the store's seed | what earlier gangs of the family took
+    // (read before this gang writes its row); spread_pen = 1 on nodes whose
+    // spread-level domain holds an avoided node.
+    if (spread) {
+      const int fam = a.spread_family[gi];
+      const uint8_t* fam_row = a.family_used + (size_t)pw_clip(fam, 0, a.G - 1) * N;
+      const uint8_t* seed = a.spread_avoid + (size_t)gi * N;
+      for (int i = tid; i < N; i += NT) a.avoid[i] = seed[i] || (fam >= 0 && fam_row[i]);
+      __syncthreads();
+      const int s_lvl = a.spread_level[gi];
+      const int lvc = pw_clip(s_lvl, 0, L - 1);
+      auto feat = [&](int i, int) -> float { return a.avoid[i] ? 1.f : 0.f; };
+      pw_aggregate(a, lvc, lvc + 1, 1, feat, a.agg, 0);
+      __syncthreads();
+      for (int i = tid; i < N; i += NT) {
+        const int s_dom = a.node_domain_id[(size_t)lvc * N + i];
+        const bool pen = s_lvl >= 0 && s_dom >= 0 && a.agg[pw_clip(s_dom, 0, N - 1)] > 0.5f;
+        a.spread_pen[i] = pen ? 1.f : 0.f;
+      }
+      __syncthreads();
+    }
 
     // ---- hoisted per-gang tables (free is fixed during stage 1) -----------
     const uint8_t* gno = a.group_node_ok ? a.group_node_ok + (size_t)gi * MG * N : nullptr;
@@ -411,7 +472,10 @@ place_wave_kernel(const PlaceWaveArgs a) {
           a.ok_nodes[i] = a.node_ok[i] && extra;
         }
         __syncthreads();
-        const int K = C + 1 + (nested ? MS : 0);
+        // Columns: free [R] | slots [MG] | count | taken | nested [MS] (the
+        // required pick only) | spread-touched (with spread planes only).
+        const int K_core = C + 1 + (nested ? MS : 0);
+        const int K = K_core + (spread ? 1 : 0);
         auto feat = [&](int i, int c) -> float {
           const bool okn = a.ok_nodes[i] != 0;
           if (!okn) return 0.f;
@@ -419,6 +483,7 @@ place_wave_kernel(const PlaceWaveArgs a) {
           if (c < R + MG) return (float)a.slots_all[(size_t)(c - R) * N + i];
           if (c == R + MG) return 1.f;
           if (c == C) return a.taken[i] ? 1.f : 0.f;
+          if (c == K_core) return a.spread_pen[i];
           return a.node_feas2[(size_t)(c - C - 1) * N + i] ? 1.f : 0.f;
         };
         pw_aggregate(a, lv, lv + 1, K, feat, a.agg, 0);
@@ -438,7 +503,14 @@ place_wave_kernel(const PlaceWaveArgs a) {
           const float taken_frac = __fdiv_rn(row[C], fmaxf(count, 1.f));
           float norm_free = 0.f;
           for (int r = 0; r < R; ++r) norm_free = __fadd_rn(norm_free, __fdiv_rn(row[r], cap_scale[r]));
-          const float sc = __fsub_rn(-norm_free, __fmul_rn(a.w_reserve, taken_frac));
+          float sc = __fsub_rn(-norm_free, __fmul_rn(a.w_reserve, taken_frac));
+          if (spread) {
+            // A margin above every other score term (core.py:374-387): any
+            // feasible domain with no avoided node beats one with them.
+            const float big = __fadd_rn(__fadd_rn((float)(N * R), a.w_reserve), 2.f);
+            const float touched = row[K_core] > 0.5f ? 1.f : 0.f;
+            sc = __fsub_rn(sc, __fmul_rn(a.w_spread > 0.f ? big : 0.f, touched));
+          }
           if (pw_better(sc, d, best_v, best_i)) { best_v = sc; best_i = d; }
         }
         pw_block_argmax(best_v, best_i, red_v, red_i, &s_g.best_v, &s_g.best_i);
@@ -494,6 +566,7 @@ place_wave_kernel(const PlaceWaveArgs a) {
         float sc = __fadd_rn(__fmul_rn(a.w_pref, pref_bonus), __fmul_rn(a.w_reuse, a.used[i] ? 1.f : 0.f));
         sc = __fsub_rn(sc, __fmul_rn(a.w_tight, nf));
         sc = __fsub_rn(sc, __fmul_rn(a.w_reserve, reserved));
+        if (spread) sc = __fsub_rn(sc, __fmul_rn(a.w_spread, a.spread_pen[i]));
         a.a_slots[i] = sl;
         a.a_score[i] = sc;
       }
@@ -554,6 +627,11 @@ place_wave_kernel(const PlaceWaveArgs a) {
         }
         node = best;
       }
+      // Family row write after this gang's own read (core.py:597-607).
+      if (node >= 0 && spread && a.spread_family[gi] >= 0)
+        a.family_used[(size_t)pw_clip(a.spread_family[gi], 0, a.G - 1) * N + node] = 1;
+      // B3 remap (remap_assigned): candidate ordinal -> fleet ordinal.
+      if (node >= 0 && pruned) node = a.cand_idx[pw_clip(node, 0, a.cand_count - 1)];
       a.assigned[(size_t)gi * MP + p] = node;
     }
 
@@ -595,7 +673,16 @@ place_wave_kernel(const PlaceWaveArgs a) {
     __syncthreads();
   }
 
-  for (int k = tid; k < N * R; k += NT) a.free_io[k] = free_s[k];
+  if (pruned) {
+    // B3 scatter (scatter_free): candidate rows back to the fleet; pad rows
+    // drop; the plan's indices are unique, so no two threads share a row.
+    for (int k = tid; k < N * R; k += NT) {
+      const int dst = a.cand_idx[k / R];
+      if (dst >= 0 && dst < a.NF) a.free_io[(size_t)dst * R + k % R] = free_s[k];
+    }
+  } else if (kSharedCarry) {
+    for (int k = tid; k < N * R; k += NT) a.free_io[k] = free_s[k];
+  }
   // ---- B2 scatter-max of this wave's verdicts into ok_global ---------------
   if (a.T > 0) {
     for (int gi = tid; gi < a.G; gi += NT) {
@@ -607,11 +694,18 @@ place_wave_kernel(const PlaceWaveArgs a) {
 
 #ifndef PLACE_WAVE_HOST_EMULATION
 // Launch one wave on `stream`; returns cudaGetLastError() (0 = launched).
-extern "C" int place_wave_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      place_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  place_wave_kernel<<<1, PW_THREADS, smem_bytes, (cudaStream_t)stream>>>(*args);
+// shared_carry picks the instantiation; smem_bytes is its dynamic shared
+// memory (2 * N * R * 4 with the carry in shared memory, else 0).
+extern "C" int place_wave_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes,
+                                 int shared_carry) {
+  if (shared_carry) {
+    cudaError_t err = cudaFuncSetAttribute(
+        place_wave_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    place_wave_kernel<true><<<1, PW_THREADS, smem_bytes, (cudaStream_t)stream>>>(*args);
+  } else {
+    place_wave_kernel<false><<<1, PW_THREADS, 0, (cudaStream_t)stream>>>(*args);
+  }
   return (int)cudaGetLastError();
 }
 

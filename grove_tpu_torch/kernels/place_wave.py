@@ -1,16 +1,25 @@
 """Wrapper of the place_wave CUDA kernel (csrc/place_wave.cu): one launch
 solves one wave — B1, the per-wave gang solve, with B2, the cross-wave
-verdict gating, folded into the same launch.
+verdict gating, folded into the same launch, and, for a candidate-pruned
+wave, B3, the gather of the fleet carry onto the candidate axis, the scatter
+back and the remap of `assigned` to fleet ordinals.
 
 It replaces the XLA program of grove_tpu/solver/core.py `solve_batch_impl`
-(+ `_place_gang`, `_apply_global_deps`, `_scatter_global_ok`). Its plain
-PyTorch version is grove_tpu_torch/solver/reference.py `solve_batch_ref`;
-`solver.core.solve_batch` picks one or the other by the device of its
-tensors, never both.
+(+ `_place_gang`, `_apply_global_deps`, `_scatter_global_ok`) and the
+pruned solve's grove_tpu/solver/pruning.py `CandidatePlan.gather_free` /
+`scatter_free` / `remap_assigned`. Its plain PyTorch versions are
+grove_tpu_torch/solver/reference.py `solve_batch_ref` and
+`solve_pruned_ref`; `solver.core.solve_batch` picks one or the other by the
+device of its tensors, never both.
+
+Two instantiations of the kernel differ in where the wave's carry and the
+gang's working copy live: shared memory when 2 * N * R f32 fit in
+SHARED_CARRY_BYTES, global memory otherwise. Any fleet size runs.
 
 The kernel launches on PyTorch's current stream and does not synchronise;
 `free` and `ok_global` are updated in place. `place_wave.launches` counts the
-launches.
+launches, and `place_wave.variant_launches` counts them per variant:
+"shared" and "global" (dense, by where the carry lives) and "pruned".
 """
 
 from __future__ import annotations
@@ -24,20 +33,27 @@ import torch
 from grove_tpu_torch.solver.encode import GangBatch
 
 R_MAX, MG_MAX, MS_MAX, L_MAX = 8, 16, 8, 8
-# Dynamic shared memory holds the free carry and the gang's working copy.
-SMEM_LIMIT = 200 * 1024
+# The carry and the gang's working copy go to dynamic shared memory when
+# their 2 * N * R * 4 bytes fit in this much (of the 227 KB a block may use,
+# beside the kernel's ~2 KB of static shared memory).
+SHARED_CARRY_BYTES = 200 * 1024
 
 _P = ctypes.c_void_p
-_FIELDS = [(k, ctypes.c_int) for k in ("N", "R", "L", "G", "MG", "MS", "MP", "T")]
-_FIELDS += [(k, ctypes.c_float) for k in ("w_tight", "w_pref", "w_reuse", "w_reserve")]
+_FIELDS = [
+    (k, ctypes.c_int) for k in ("N", "R", "L", "G", "MG", "MS", "MP", "T", "NF", "cand_count")
+]
+_FIELDS += [
+    (k, ctypes.c_float) for k in ("w_tight", "w_pref", "w_reuse", "w_reserve", "w_spread")
+]
 _POINTERS = (
-    "free_io", "capacity", "schedulable", "node_domain_id", "dom_count", "dom_offsets",
-    "dom_nodes", "group_req", "group_total", "group_required", "group_valid", "set_member",
-    "set_req_level", "set_pref_level", "set_valid", "set_pinned", "pod_group", "pod_rank",
-    "gang_valid", "group_order", "depends_on", "global_index", "depends_global",
-    "reuse_nodes", "group_node_ok", "ok_global", "assigned", "ok", "score", "slots_all",
-    "tables", "agg", "feas2", "node_feas2", "node_ok", "ok_nodes", "taken", "used",
-    "a_slots", "a_score", "entries",
+    "free_io", "cand_idx", "capacity", "schedulable", "node_domain_id", "dom_count",
+    "dom_offsets", "dom_nodes", "group_req", "group_total", "group_required", "group_valid",
+    "set_member", "set_req_level", "set_pref_level", "set_valid", "set_pinned", "pod_group",
+    "pod_rank", "gang_valid", "group_order", "depends_on", "global_index", "depends_global",
+    "reuse_nodes", "group_node_ok", "spread_level", "spread_family", "spread_avoid",
+    "ok_global", "assigned", "ok", "score", "carry", "carry_g", "family_used", "avoid",
+    "spread_pen", "slots_all", "tables", "agg", "feas2", "node_feas2", "node_ok", "ok_nodes",
+    "taken", "used", "a_slots", "a_score", "entries",
 )
 _FIELDS += [(k, _P) for k in _POINTERS]
 
@@ -75,9 +91,9 @@ def domain_index(node_domain_id, device) -> DomainIndex:
         nodes[lv, : order.size] = order
         offsets[lv, 1 : d + 1] = np.cumsum(np.bincount(dom[labeled], minlength=d))
         offsets[lv, d + 1 :] = order.size
-    return DomainIndex(
-        *(torch.as_tensor(x, device=device) for x in (count, offsets, nodes))
-    )
+    from grove_tpu_torch.solver.core import to_device
+
+    return DomainIndex(*(to_device(x, device) for x in (count, offsets, nodes)))
 
 
 def _check(name, t, dtype, shape, device):
@@ -92,30 +108,37 @@ def _check(name, t, dtype, shape, device):
 
 
 def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
-               ok_global, domains: DomainIndex):
+               ok_global, domains: DomainIndex, cand_idx=None, cand_count=None,
+               shared_carry=None):
     """Check every input, allocate outputs and scratch, and fill the kernel's
-    argument struct. Returns (args, smem_bytes, outputs, keepalive)."""
+    argument struct. Returns (args, smem_bytes, shared_carry, outputs,
+    keepalive).
+
+    `free` is the fleet carry [NF, R]. Every other node-axis input lies on
+    the solve's node axis N: the fleet itself, or with `cand_idx` (i32 [N],
+    the fleet row of each candidate; pad rows >= NF) and `cand_count` (the
+    plan's candidates, which come first) a candidate plan's axis.
+    `shared_carry` None picks shared memory when it fits; True or False
+    forces an instantiation (True raises where it does not fit)."""
     dev = free.device
-    n, r = free.shape
-    levels = node_domain_id.shape[0]
+    nf, r = free.shape
+    levels, n = node_domain_id.shape
     g, mg, _ = batch.group_req.shape
     ms = batch.set_member.shape[1]
     mp = batch.pod_group.shape[1]
-    if batch.spread_level is not None:
-        raise NotImplementedError(
-            "place_wave: replica-spread planes (spread_level/spread_family/spread_avoid) "
-            "are not in the CUDA kernel yet — ROADMAP Queue B, 'spread planes in the B1 kernel'"
-        )
     if r > R_MAX or mg > MG_MAX or ms > MS_MAX or levels > L_MAX:
         raise ValueError(
             f"place_wave: R={r}, MG={mg}, MS={ms}, L={levels} exceed the kernel's "
             f"limits R<={R_MAX}, MG<={MG_MAX}, MS<={MS_MAX}, L<={L_MAX}"
         )
-    smem = 2 * n * r * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"place_wave: N*R={n * r} needs {smem} B of shared memory > {SMEM_LIMIT}")
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    _check("free", free, f32, (n, r), dev)
+    _check("free", free, f32, (nf, r), dev)
+    if cand_idx is None:
+        _check("node_domain_id", node_domain_id, i32, (levels, nf), dev)
+    else:
+        _check("cand_idx", cand_idx, i32, (n,), dev)
+        if cand_count is None or not 0 < cand_count <= n:
+            raise ValueError(f"place_wave: cand_count {cand_count} for a candidate axis of {n}")
     _check("capacity", capacity, f32, (n, r), dev)
     _check("schedulable", schedulable, b8, (n,), dev)
     _check("node_domain_id", node_domain_id, i32, (levels, n), dev)
@@ -131,16 +154,25 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         "gang_valid": (b8, (g,)), "group_order": (i32, (g, mg)), "depends_on": (i32, (g,)),
         "global_index": (i32, (g,)), "depends_global": (i32, (g,)),
         "reuse_nodes": (b8, (g, n)), "group_node_ok": (b8, (g, mg, n)),
+        "spread_level": (i32, (g,)), "spread_family": (i32, (g,)), "spread_avoid": (b8, (g, n)),
     }
     for name, (dtype, shape) in shapes.items():
         t = getattr(batch, name)
         if t is not None:
             _check(name, t, dtype, shape, dev)
+    spread = batch.spread_level is not None
+    if spread and (batch.spread_family is None or batch.spread_avoid is None):
+        raise ValueError("place_wave: spread_level without spread_family/spread_avoid")
     t_len = 0
     if ok_global is not None:
         t_len = ok_global.shape[0]
         _check("ok_global", ok_global, b8, (t_len,), dev)
 
+    smem = 2 * n * r * 4
+    if shared_carry is None:
+        shared_carry = smem <= SHARED_CARRY_BYTES
+    elif shared_carry and smem > SHARED_CARRY_BYTES:
+        raise ValueError(f"place_wave: a shared carry of {smem} B > {SHARED_CARRY_BYTES} B")
     c = r + mg + 1
 
     def empty(shape, dtype):
@@ -151,10 +183,16 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         "ok": torch.zeros((g,), dtype=b8, device=dev),
         "score": empty((g,), f32),
     }
+    carry_global = not shared_carry
     scratch = {
+        "carry": empty((n * r,), f32) if carry_global and cand_idx is not None else None,
+        "carry_g": empty((n * r,), f32) if carry_global else None,
+        "family_used": torch.zeros((g * n,), dtype=torch.uint8, device=dev) if spread else None,
+        "avoid": empty((n,), torch.uint8) if spread else None,
+        "spread_pen": empty((n,), f32) if spread else None,
         "slots_all": empty((max(mg, 1) * n,), i32),
         "tables": empty((levels * n * c,), f32),
-        "agg": empty((n * (c + 1 + ms),), f32),
+        "agg": empty((n * (c + 2 + ms),), f32),
         "feas2": empty((max(ms, 1) * n,), torch.uint8),
         "node_feas2": empty((max(ms, 1) * n,), torch.uint8),
         "node_ok": empty((n,), torch.uint8),
@@ -166,33 +204,39 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         "entries": empty((max(2 * mg * mp, 1) * 3,), i32),
     }
     tensors = {
-        "free_io": free, "capacity": capacity, "schedulable": schedulable,
-        "node_domain_id": node_domain_id, "dom_count": domains.count,
-        "dom_offsets": domains.offsets, "dom_nodes": domains.nodes,
-        "ok_global": ok_global, **out, **scratch,
+        "free_io": free, "cand_idx": cand_idx, "capacity": capacity,
+        "schedulable": schedulable, "node_domain_id": node_domain_id,
+        "dom_count": domains.count, "dom_offsets": domains.offsets,
+        "dom_nodes": domains.nodes, "ok_global": ok_global, **out, **scratch,
     }
     for name in shapes:
         tensors[name] = getattr(batch, name)
     args = PlaceWaveArgs(
-        N=n, R=r, L=levels, G=g, MG=mg, MS=ms, MP=mp, T=t_len,
+        N=n, R=r, L=levels, G=g, MG=mg, MS=ms, MP=mp, T=t_len, NF=nf,
+        cand_count=n if cand_idx is None else int(cand_count),
         w_tight=float(params.w_tight), w_pref=float(params.w_pref),
         w_reuse=float(params.w_reuse), w_reserve=float(params.w_reserve),
+        w_spread=float(params.w_spread),
     )
     for name in _POINTERS:
         t = tensors[name]
         setattr(args, name, None if t is None else t.data_ptr())
-    return args, smem, out, tensors
+    return args, (smem if shared_carry else 0), shared_carry, out, tensors
 
 
 def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
-               ok_global=None, *, domains: DomainIndex):
+               ok_global=None, *, domains: DomainIndex, cand_idx=None, cand_count=None,
+               shared_carry=None):
     """Solve one wave on the card with one kernel launch.
 
     All tensors lie on one CUDA device; `batch` is a GangBatch of tensors and
-    `domains` the snapshot's DomainIndex (built once by the caller, so the
-    wrapper never copies to the host). Returns (assigned i32 [G, MP], ok
-    bool [G], score f32 [G], free_after, ok_global) where free_after is
-    `free` and ok_global is `ok_global`, both updated in place."""
+    `domains` the DomainIndex of `node_domain_id` (built once by the caller,
+    so the wrapper never copies to the host). With `cand_idx`/`cand_count`
+    the node-axis inputs and the batch lie on a candidate plan's axis and
+    `free` on the fleet's (see build_args). Returns (assigned i32 [G, MP], ok
+    bool [G], score f32 [G], free_after, ok_global) where `assigned` holds
+    fleet ordinals and free_after is `free` and ok_global is `ok_global`,
+    both updated in place."""
     if not free.is_cuda:
         raise ValueError("place_wave: the kernel runs on a CUDA device only")
     from grove_tpu_torch.kernels.build import load
@@ -202,18 +246,27 @@ def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     lib.place_wave_args_size.restype = ctypes.c_int
     if lib.place_wave_args_size() != ctypes.sizeof(PlaceWaveArgs):
         raise RuntimeError("place_wave: PlaceWaveArgs differs between Python and CUDA")
-    args, smem, out, _keep = build_args(
-        free, capacity, schedulable, node_domain_id, batch, params, ok_global, domains
+    args, smem, shared, out, _keep = build_args(
+        free, capacity, schedulable, node_domain_id, batch, params, ok_global, domains,
+        cand_idx, cand_count, shared_carry,
     )
     fn = lib.place_wave_launch
-    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(free.device).cuda_stream
-    rc = fn(ctypes.byref(args), stream, smem)
+    rc = fn(ctypes.byref(args), stream, smem, int(shared))
     if rc != 0:
         raise RuntimeError(f"place_wave: kernel launch failed with CUDA error {rc}")
     place_wave.launches += 1
+    variant = "pruned" if cand_idx is not None else ("shared" if shared else "global")
+    place_wave.variant_launches[variant] += 1
     return out["assigned"], out["ok"], out["score"], free, ok_global
 
 
-place_wave.launches = 0
+def reset_launches() -> None:
+    """Set every launch count of place_wave to 0."""
+    place_wave.launches = 0
+    place_wave.variant_launches = dict.fromkeys(("shared", "global", "pruned"), 0)
+
+
+reset_launches()

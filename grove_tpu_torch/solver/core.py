@@ -5,7 +5,9 @@ bin-packing, one wave per call (grove_tpu/solver/core.py counterpart).
 launches the hand-written Hopper kernel (grove_tpu_torch/kernels/place_wave.py);
 on the CPU — only when the caller asks for it with device="cpu" — it runs
 the plain PyTorch version (solver/reference.py). There is no fallback between
-the two: a CUDA batch the kernel does not take raises.
+the two: a CUDA batch the kernel does not take raises. Given a candidate plan
+(solver/pruning.py) it solves the wave on the plan's candidate axis, inside
+the same single launch on the card.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from grove_tpu_torch.solver.encode import GangBatch
-from grove_tpu_torch.solver.reference import solve_batch_ref
+from grove_tpu_torch.solver.reference import solve_batch_ref, solve_pruned_ref
 
 
 class SolverParams(NamedTuple):
@@ -51,24 +53,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def batch_to(batch: GangBatch, device) -> GangBatch:
-    """GangBatch of numpy arrays (or tensors) -> GangBatch of tensors.
-
-    Host arrays bound for the card go through pinned memory without
-    blocking, so uploading wave k+1 does not wait for wave k's kernel."""
+def to_device(x, device):
+    """numpy array (or tensor) -> tensor on `device`. Host arrays bound for
+    the card go through pinned memory without blocking: a copy from
+    pageable memory would wait for the kernel already running, so uploading
+    wave k+1 would wait for wave k."""
     device = torch.device(device)
+    if torch.is_tensor(x):
+        return x.to(device)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
-    def one(x):
-        if x is None:
-            return None
-        if torch.is_tensor(x):
-            return x.to(device)
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
 
-    return GangBatch(*(one(x) for x in batch))
+def batch_to(batch: GangBatch, device) -> GangBatch:
+    """GangBatch of numpy arrays (or tensors) -> GangBatch of tensors on
+    `device` (see to_device)."""
+    return GangBatch(*(None if x is None else to_device(x, device) for x in batch))
 
 
 def solve_batch(
@@ -82,6 +84,7 @@ def solve_batch(
     *,
     device=None,
     domains=None,
+    plan=None,
 ) -> SolveResult:
     """Sequentially commit every gang in the batch (priority = batch order).
 
@@ -93,9 +96,17 @@ def solve_batch(
     the kernel sums domains over (kernels.place_wave.DomainIndex); when not
     given it is built here from node_domain_id, which copies that array to
     the host if it lies on the card — callers solving many waves build it
-    once."""
+    once.
+
+    `plan` (solver.pruning.CandidatePlan cut for this batch, whose fields
+    are numpy arrays) solves on the plan's candidate axis: `free` and
+    `ok_global` stay the fleet's carry, the plan's static node tensors
+    stand in for capacity/schedulable/node_domain_id (which are then not
+    read), and `assigned` comes back in fleet ordinals."""
     dev = resolve_device(device)
     params = params or SolverParams()
+    if plan is not None:
+        return _solve_pruned(free, batch, params, ok_global, dev, plan)
     if dev.type == "cuda" and domains is None:
         from grove_tpu_torch.kernels.place_wave import domain_index
 
@@ -121,6 +132,27 @@ def solve_batch(
     else:
         out = solve_batch_ref(
             free, capacity, schedulable, node_domain_id, tbatch, params, ok_global
+        )
+    return SolveResult(*out)
+
+
+def _solve_pruned(free, batch, params, ok_global, dev, plan) -> SolveResult:
+    pt = plan.tensors(dev)
+    free = torch.as_tensor(free, dtype=torch.float32, device=dev)
+    if ok_global is not None:
+        ok_global = torch.as_tensor(ok_global, dtype=torch.bool, device=dev)
+    tbatch = batch_to(plan.gather_batch(batch), dev)
+    if free.is_cuda:
+        from grove_tpu_torch.kernels.place_wave import place_wave
+
+        out = place_wave(
+            free, pt.capacity, pt.schedulable, pt.node_domain_id, tbatch, params, ok_global,
+            domains=pt.domains, cand_idx=pt.cand_idx, cand_count=plan.count,
+        )
+    else:
+        out = solve_pruned_ref(
+            free, pt.capacity, pt.schedulable, pt.node_domain_id, tbatch, params, ok_global,
+            pt.cand_idx, plan.count,
         )
     return SolveResult(*out)
 

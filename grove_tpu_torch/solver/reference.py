@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the per-wave gang solve (B1) and the cross-wave
-verdict gating (B2).
+"""Plain PyTorch versions of the per-wave gang solve (B1), the cross-wave
+verdict gating (B2) and the candidate-axis gather/scatter/remap around a
+pruned solve (B3).
 
 They compute what `grove_tpu/solver/core.py` computes — `_place_gang`,
 `solve_batch_impl`, `_apply_global_deps`, `_scatter_global_ok` — over the
@@ -14,7 +15,9 @@ same inputs and layout, op for op:
   - `lax.top_k` is a stable sort of the negated score (lower index first on
     ties, as `lax.top_k` orders them);
   - short reductions over the resource and pack-set axes are summed in index
-    order, as the CUDA kernel sums them.
+    order, as the CUDA kernel sums them;
+  - B3 (grove_tpu/solver/pruning.py `CandidatePlan.gather_free` /
+    `scatter_free` / `remap_assigned`) is torch index ops around the solve.
 
 The CPU tests hold these against the JAX package, and `chip_smoke.py` holds
 the CUDA kernel (`grove_tpu_torch/kernels/place_wave.py`) against them on the
@@ -443,4 +446,52 @@ def solve_batch_ref(
         torch.stack(score_rows),
         free,
         scatter_global_ok_ref(batch, ok, ok_global),
+    )
+
+
+def gather_free_ref(free, cand_idx):
+    """Fleet free [NF, R] -> candidate free [pad, R]; rows whose index lies
+    outside the fleet read 0 (pruning.py `gather_free`, mode="fill")."""
+    nf = free.shape[0]
+    valid = (cand_idx >= 0) & (cand_idx < nf)
+    rows = free[cand_idx.clamp(0, nf - 1).long()]
+    return torch.where(valid[:, None], rows, torch.zeros((), dtype=free.dtype, device=free.device))
+
+
+def scatter_free_ref(fleet_free, cand_free, cand_idx):
+    """Candidate rows back into a copy of the fleet free; rows whose index
+    lies outside the fleet drop (pruning.py `scatter_free`, unique indices)."""
+    valid = (cand_idx >= 0) & (cand_idx < fleet_free.shape[0])
+    out = fleet_free.clone()
+    out[cand_idx[valid].long()] = cand_free[valid]
+    return out
+
+
+def remap_assigned_ref(assigned, cand_idx, count: int):
+    """Candidate ordinals -> fleet ordinals, -1 stays -1 (pruning.py
+    `remap_assigned`)."""
+    safe = assigned.clamp(0, count - 1).long()
+    return torch.where(assigned >= 0, cand_idx[safe], -1).to(torch.int32)
+
+
+def solve_pruned_ref(
+    free, capacity, schedulable, node_domain_id, batch: GangBatch, params, ok_global,
+    cand_idx, count: int,
+):
+    """A wave solved on a candidate axis: gather the fleet carry `free`
+    [NF, R], solve on the plan's `capacity`/`schedulable`/`node_domain_id`
+    with the gathered `batch`, scatter back and remap.
+
+    Returns (assigned in fleet ordinals, ok, score, fleet free_after,
+    ok_global), as solve_batch_ref."""
+    assigned, ok, score, free_after, okg = solve_batch_ref(
+        gather_free_ref(free, cand_idx), capacity, schedulable, node_domain_id, batch, params,
+        ok_global,
+    )
+    return (
+        remap_assigned_ref(assigned, cand_idx, count),
+        ok,
+        score,
+        scatter_free_ref(free, free_after, cand_idx),
+        okg,
     )

@@ -140,6 +140,18 @@ def _bench(P, racks_per_block=1, n=(6, 4, 5), **cluster):
     return gangs, pods, P.build_snapshot(nodes, topo)
 
 
+def _bench_spread(P, n=(6, 4, 5), every=2):
+    """The bench backlog with every `every`-th PodCliqueSet at two replicas
+    spread across zones (the replica-spread planes at bench shapes)."""
+    topo = P.wl.bench_topology()
+    backlog = P.wl.synthetic_backlog(*n)
+    for pcs in backlog[::every]:
+        pcs.spec.replicas = 2
+        pcs.spec.topology_spread_domain = P.TopologyDomain("zone")
+    gangs, pods = expand_all(P, backlog, topo)
+    return gangs, pods, P.build_snapshot(P.wl.synthetic_cluster(racks_per_block=1), topo)
+
+
 def _contended(P, n_gangs=48):
     topo = P.wl.bench_topology()
     gangs, pods = expand_all(P, P.wl.contended_backlog(n_gangs), topo)
@@ -272,11 +284,12 @@ SCENARIOS = {
     "selector": lambda P: _simple1(P, selector={"pool": "tpu"}),
     "spread": _spread,
     "spread_pack": lambda P: _spread(P, pack=True),
+    "bench_spread": _bench_spread,
     "nondyadic": _nondyadic,
 }
 HOST_SCENARIOS = [
     "simple1", "wl1", "wl2", "wl3", "wl4", "wl5", "wl6", "bench_small", "contended",
-    "mixed", "binpack_trap", "selector", "spread_pack", "nondyadic",
+    "mixed", "binpack_trap", "selector", "spread_pack", "bench_spread", "nondyadic",
 ]
 
 

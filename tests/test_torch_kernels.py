@@ -6,8 +6,11 @@ fixture whether one is present and skip with a reason where there is none.
 On the card (python -m pytest -m gpu tests/test_torch_kernels.py) they repeat
 chip_smoke.py's exactness phase: the kernel and the plain version, both on
 the card, must agree exactly (torch.equal) on ok, assigned,
-placement_score, free_after and ok_global. The unmarked tests check the
-wrapper's host side, which runs anywhere.
+placement_score, free_after and ok_global — for both places the carry can
+live (shared or global memory), with the replica-spread planes, and for a
+candidate-pruned wave (the B3 gather, scatter and remap inside the launch).
+The unmarked tests check the wrapper's host side, and the kernel source
+compiled for the host (one-thread emulation), which run anywhere.
 """
 
 from __future__ import annotations
@@ -23,12 +26,65 @@ from grove_tpu_torch.kernels import build
 from grove_tpu_torch.kernels import place_wave as pwm
 from grove_tpu_torch.solver.core import SolverParams, batch_to
 from grove_tpu_torch.solver.drain import drain_backlog
-from grove_tpu_torch.solver.reference import _domain_sum, group_slots_ref, solve_batch_ref
+from grove_tpu_torch.solver.pruning import PruningConfig, plan_candidates
+from grove_tpu_torch.solver.reference import (
+    _domain_sum,
+    group_slots_ref,
+    solve_batch_ref,
+    solve_pruned_ref,
+)
 from test_torch_host import PORT, SCENARIOS, _bench
 from test_torch_solver import pinned_bench_small
 
 FIELDS = ("assigned", "ok", "placement_score", "free_after", "ok_global")
-KERNEL_SCENARIOS = sorted(n for n in SCENARIOS if not n.startswith("spread"))
+KERNEL_SCENARIOS = sorted(SCENARIOS)
+# Budgets below the test fleets, so the candidate bucket beats the fleet axis.
+CFG = PruningConfig(enabled=True, max_candidates=60, min_fleet=16, min_pad=8)
+CLIPPED = PruningConfig(enabled=True, max_candidates=24, min_fleet=16, min_pad=8)
+
+
+def _pruning_fleet(P, racks=4, n=(6, 4, 5)):
+    """tests/test_pruning.py `_setup`: one zone, one block, `racks` racks."""
+    topo = P.wl.bench_topology()
+    backlog = P.wl.synthetic_backlog(*n)
+    gangs, pods = [], {}
+    for pcs in backlog:
+        ds = P.expand(pcs, topo)
+        gangs.extend(ds.podgangs)
+        pods.update({p.name: p for p in ds.pods})
+    nodes = P.wl.synthetic_cluster(zones=1, blocks_per_zone=1, racks_per_block=racks)
+    return gangs, pods, P.build_snapshot(nodes, topo)
+
+
+def _half_full(P):
+    """tests/test_pruning.py's first fleet: half the nodes full, three
+    cordoned, so candidate ordinals differ from fleet ordinals."""
+    gangs, pods, snap = _pruning_fleet(P)
+    n = snap.capacity.shape[0]
+    snap.allocated[: n // 2] = snap.capacity[: n // 2]
+    snap.schedulable[n // 2 : n // 2 + 3] = False
+    return gangs, pods, snap
+
+
+def pruned_cases():
+    """(label, snapshot, batch, plan): candidate-pruned waves — a plan whose
+    candidates skip full and cordoned nodes, a clipped one, one with
+    pack-set pins remapped onto the candidate axis, and one carrying the
+    replica-spread planes."""
+    out = []
+    for label, (gangs, pods, snap), cfg in (
+        ("half_full", _half_full(PORT), CFG),
+        ("clipped", _pruning_fleet(PORT, racks=2, n=(10, 10, 10)), CLIPPED),
+        ("spread", SCENARIOS["bench_spread"](PORT), CFG),
+    ):
+        batch, _ = PORT.encode_gangs(gangs, pods, snap)
+        out.append((label, snap, batch, plan_candidates(snap, batch, cfg)))
+    _, rs, batch = pinned_bench_small()
+    out.append(("pinned", rs, batch, plan_candidates(rs, batch, CFG)))
+    for label, _, _, plan in out:
+        assert plan is not None, label
+    assert out[1][3].clipped
+    return out
 
 
 @pytest.fixture
@@ -48,12 +104,55 @@ def _node_tensors(snap, dev):
     )
 
 
+def _launch_vs_plain(launch, snap, batch, okg_np, dev, plan=None, shared_carry=None):
+    """One wave through `launch(args, smem, shared)` (the kernel, on the card
+    or compiled for the host) against the plain version, exactly."""
+    okg = torch.as_tensor(okg_np, device=dev)
+    free, cap, sched, ndid = _node_tensors(snap, dev)
+    cand = (None, None)
+    if plan is not None:
+        batch = plan.gather_batch(batch)
+        pt = plan.tensors(dev)
+        cap, sched, ndid, cand = pt.capacity, pt.schedulable, pt.node_domain_id, (pt.cand_idx, plan.count)
+    tb = batch_to(batch, dev)
+    okg_k = okg.clone()
+    args, smem, shared, out, _keep = pwm.build_args(
+        free, cap, sched, ndid, tb, SolverParams(), okg_k, pwm.domain_index(ndid.cpu(), dev),
+        *cand, shared_carry,
+    )
+    launch(args, smem, shared)
+    got = (out["assigned"], out["ok"], out["score"], free, okg_k)
+    free0 = _node_tensors(snap, dev)[0]
+    if plan is None:
+        want = solve_batch_ref(free0, cap, sched, ndid, tb, SolverParams(), okg.clone())
+    else:
+        want = solve_pruned_ref(free0, cap, sched, ndid, tb, SolverParams(), okg.clone(), *cand)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    for name, a, b in zip(FIELDS, got, want):
+        assert torch.equal(a, b), f"{name}: kernel != plain at {torch.nonzero(a != b)[:8].tolist()}"
+    return want
+
+
+def _card_launch(args, smem, shared):
+    import ctypes
+
+    fn = build.load("place_wave").place_wave_launch
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    assert fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream, smem, int(shared)) == 0
+    torch.cuda.synchronize()
+
+
 def _kernel_vs_plain(snap, batch, okg_np, dev):
+    """Through the public wrapper: one launch, counted."""
     tb = batch_to(batch, dev)
     okg = torch.as_tensor(okg_np, device=dev)
     free, cap, sched, ndid = _node_tensors(snap, dev)
     dom = pwm.domain_index(snap.node_domain_id, dev)
+    n0 = pwm.place_wave.launches
     got = pwm.place_wave(free, cap, sched, ndid, tb, SolverParams(), okg.clone(), domains=dom)
+    assert pwm.place_wave.launches == n0 + 1
     free, cap, sched, ndid = _node_tensors(snap, dev)
     want = solve_batch_ref(free, cap, sched, ndid, tb, SolverParams(), okg.clone())
     torch.cuda.synchronize()
@@ -76,10 +175,10 @@ def _domain_tables_vs_plain(launch, dev):
     feat = torch.where(sched[:, None], feat, 0.0)
     seg = torch.where(ndid >= 0, ndid, n).long()
     want = [_domain_sum(feat, seg[lv], n) for lv in range(ndid.shape[0])]
-    args, smem, _out, keep = pwm.build_args(
+    args, smem, shared, _out, keep = pwm.build_args(
         free, cap, sched, ndid, tb, SolverParams(), None, pwm.domain_index(snap.node_domain_id, dev)
     )
-    launch(args, smem)
+    launch(args, smem, shared)
     got = keep["tables"].view(ndid.shape[0], n, feat.shape[1])
     for lv, d in enumerate(snap.num_domains.tolist()):
         assert torch.equal(got[lv, :d], want[lv][:d]), f"level {lv}: kernel != plain domain sums"
@@ -126,28 +225,45 @@ def test_kernel_equals_plain_with_pins(cuda):
 
 @pytest.mark.gpu
 def test_kernel_domain_sums_equal_plain_on_card(cuda):
-    import ctypes
-
-    fn = build.load("place_wave").place_wave_launch
-    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
-
-    def launch(args, smem):
-        assert fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream, smem) == 0
-        torch.cuda.synchronize()
-
-    _domain_tables_vs_plain(launch, cuda)
+    _domain_tables_vs_plain(_card_launch, cuda)
 
 
 @pytest.mark.gpu
-def test_kernel_raises_on_spread_planes(cuda):
-    gangs, pods, snap = SCENARIOS["spread"](PORT)
+@pytest.mark.parametrize("name", ["bench_small", "nondyadic", "spread_pack", "bench_spread"])
+def test_kernel_global_carry_equals_plain(cuda, name):
+    gangs, pods, snap = SCENARIOS[name](PORT)
     batch, _ = PORT.encode_gangs(gangs, pods, snap)
-    assert batch.spread_level is not None
-    free, cap, sched, ndid = _node_tensors(snap, cuda)
-    dom = pwm.domain_index(snap.node_domain_id, cuda)
-    with pytest.raises(NotImplementedError, match="spread planes in the B1 kernel"):
-        pwm.place_wave(free, cap, sched, ndid, batch_to(batch, cuda), SolverParams(), domains=dom)
+    _launch_vs_plain(_card_launch, snap, batch, np.zeros(len(gangs), bool), cuda,
+                     shared_carry=False)
+
+
+@pytest.mark.gpu
+def test_kernel_spread_seeds_equal_plain(cuda):
+    snap, batch = spread_seeded_batch()
+    _kernel_vs_plain(snap, batch, np.zeros(batch.gang_valid.shape[0], bool), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared_carry", [True, False])
+def test_kernel_pruned_wave_equals_plain(cuda, shared_carry):
+    for label, snap, batch, plan in pruned_cases():
+        okg = np.zeros(batch.gang_valid.shape[0], bool)
+        _launch_vs_plain(_card_launch, snap, batch, okg, cuda, plan, shared_carry)
+
+
+@pytest.mark.gpu
+def test_pruned_solve_batch_on_card_counts_a_pruned_launch(cuda):
+    from grove_tpu_torch.solver.core import solve_batch
+
+    _, snap, batch, plan = pruned_cases()[0]
+    pwm.reset_launches()
+    res = solve_batch(snap.free, snap.capacity, snap.schedulable, snap.node_domain_id, batch,
+                      plan=plan)
+    want = solve_batch(snap.free, snap.capacity, snap.schedulable, snap.node_domain_id, batch,
+                       plan=plan, device="cpu")
+    assert pwm.place_wave.variant_launches == {"shared": 0, "global": 0, "pruned": 1}
+    for name, a, b in zip(FIELDS[:4], res, want):
+        assert torch.equal(a.cpu(), b), name
 
 
 @pytest.mark.gpu
@@ -213,10 +329,81 @@ def test_plain_domain_sum_is_a_node_order_fold():
     assert not np.array_equal(rev.numpy(), got), "the data does not tell the orders apart"
 
 
-def test_wrapper_raises_on_spread_planes_before_any_launch():
-    free, cap, sched, ndid, tb, dom = _args_for("spread")
-    with pytest.raises(NotImplementedError, match="spread planes in the B1 kernel"):
-        pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), None, dom)
+def spread_seeded_batch():
+    """bench_spread with spread_avoid seeds: sibling replicas already live in
+    the store on a few nodes."""
+    gangs, pods, snap = SCENARIOS["bench_spread"](PORT)
+    n = snap.capacity.shape[0]
+    avoid = {g.name: [(37 * i) % n, (101 * i + 5) % n] for i, g in enumerate(gangs[::3])}
+    batch, _ = PORT.encode_gangs(gangs, pods, snap, spread_avoid_by_gang=avoid)
+    assert batch.spread_avoid.any()
+    return snap, batch
+
+
+def test_spread_planes_move_placements():
+    """The spread scenarios' planes change what the plain version places,
+    so the kernel tests on them test the planes."""
+    for snap, batch in (
+        spread_seeded_batch(),
+        (lambda g, p, s: (s, PORT.encode_gangs(g, p, s)[0]))(*SCENARIOS["spread_pack"](PORT)),
+    ):
+        tb = batch_to(batch, "cpu")
+        plain = batch_to(batch._replace(spread_level=None, spread_family=None, spread_avoid=None),
+                         "cpu")
+        a = solve_batch_ref(*_node_tensors(snap, "cpu"), tb, SolverParams())
+        b = solve_batch_ref(*_node_tensors(snap, "cpu"), plain, SolverParams())
+        assert not torch.equal(a[0], b[0])
+
+
+def test_wrapper_picks_the_carry_by_size():
+    free, cap, sched, ndid, tb, dom = _args_for("contended")
+    n, r = free.shape
+    _, smem, shared, _, keep = pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), None, dom)
+    assert shared and smem == 2 * n * r * 4 <= pwm.SHARED_CARRY_BYTES
+    assert keep["carry_g"] is None
+    _, smem, shared, _, keep = pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), None,
+                                              dom, shared_carry=False)
+    assert not shared and smem == 0 and keep["carry_g"].numel() == n * r
+    assert keep["carry"] is None  # a dense solve works on the fleet tensor itself
+
+
+def test_wrapper_takes_a_fleet_past_the_shared_carry():
+    """20480 nodes x 8 resources: 1.25 MiB of carry, far past shared memory;
+    the wrapper fills the global-carry arguments and never raises on size."""
+    n, r, levels = 20480, 8, 4
+    free = torch.zeros((n, r))
+    ndid = torch.as_tensor(np.stack([np.arange(n) // (n >> k) for k in (2, 4, 6)] +
+                                    [np.arange(n)]).astype(np.int32))
+    _, _, _, _, _, dom = _args_for("mixed")
+    tb = _args_for("mixed")[4]
+    tb = tb._replace(group_req=torch.zeros(tb.group_req.shape[:2] + (r,)))
+    dom = pwm.domain_index(ndid, "cpu")
+    args, smem, shared, _, keep = pwm.build_args(
+        free, torch.ones((n, r)), torch.ones(n, dtype=torch.bool), ndid, tb, SolverParams(),
+        None, dom,
+    )
+    assert not shared and smem == 0 and args.N == n and args.R == r
+    with pytest.raises(ValueError, match="shared carry"):
+        pwm.build_args(free, torch.ones((n, r)), torch.ones(n, dtype=torch.bool), ndid, tb,
+                       SolverParams(), None, dom, shared_carry=True)
+
+
+def test_wrapper_fills_pruned_args():
+    label, snap, batch, plan = pruned_cases()[0]
+    pt = plan.tensors("cpu")
+    tb = batch_to(plan.gather_batch(batch), "cpu")
+    free = torch.as_tensor(snap.free, dtype=torch.float32)
+    args, smem, shared, _, keep = pwm.build_args(
+        free, pt.capacity, pt.schedulable, pt.node_domain_id, tb, SolverParams(), None,
+        pwm.domain_index(pt.node_domain_id, "cpu"), pt.cand_idx, plan.count,
+    )
+    assert (args.N, args.NF, args.cand_count) == (plan.pad, free.shape[0], plan.count)
+    assert args.cand_idx == pt.cand_idx.data_ptr() and args.free_io == free.data_ptr()
+    assert pt.cand_idx[plan.count:].eq(free.shape[0]).all()
+    with pytest.raises(ValueError, match="cand_count"):
+        pwm.build_args(free, pt.capacity, pt.schedulable, pt.node_domain_id, tb,
+                       SolverParams(), None, pwm.domain_index(pt.node_domain_id, "cpu"),
+                       pt.cand_idx, None)
 
 
 @pytest.mark.parametrize(
@@ -240,9 +427,11 @@ def test_wrapper_checks_inputs(mutate, match):
 def test_wrapper_fills_args_for_a_valid_batch():
     free, cap, sched, ndid, tb, dom = _args_for("contended")
     okg = torch.zeros(tb.gang_valid.shape[0], dtype=torch.bool)
-    args, smem, out, keep = pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), okg, dom)
+    args, smem, shared, out, keep = pwm.build_args(
+        free, cap, sched, ndid, tb, SolverParams(), okg, dom
+    )
     n, r = free.shape
-    assert smem == 2 * n * r * 4
+    assert shared and smem == 2 * n * r * 4
     assert (args.N, args.R, args.G, args.T) == (n, r, tb.gang_valid.shape[0], okg.shape[0])
     assert args.free_io == free.data_ptr() and args.ok_global == okg.data_ptr()
     assert args.reuse_nodes is None and args.group_node_ok is None
@@ -277,8 +466,9 @@ static inline float __fdiv_rn(float a, float b) { return a / b; }
 using std::isinf;
 float pw_smem[1 << 20];
 #include "place_wave.cu"
-extern "C" int place_wave_launch(const PlaceWaveArgs* a, void*, int) {
-  place_wave_kernel(*a);
+extern "C" int place_wave_launch(const PlaceWaveArgs* a, void*, int, int shared_carry) {
+  if (shared_carry) place_wave_kernel<true>(*a);
+  else place_wave_kernel<false>(*a);
   return 0;
 }
 extern "C" int place_wave_args_size() { return (int)sizeof(PlaceWaveArgs); }
@@ -305,29 +495,17 @@ def host_kernel(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     assert so.place_wave_args_size() == ctypes.sizeof(pwm.PlaceWaveArgs)
     fn = so.place_wave_launch
-    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
 
-    def launch(args, smem):
-        assert fn(ctypes.byref(args), None, smem) == 0
+    def launch(args, smem, shared):
+        assert fn(ctypes.byref(args), None, smem, int(shared)) == 0
 
     return launch
 
 
-def _host_vs_plain(host_kernel, snap, batch, okg_np):
-    tb = batch_to(batch, "cpu")
-    okg = torch.as_tensor(okg_np)
-    free, cap, sched, ndid = _node_tensors(snap, "cpu")
-    okg_k = okg.clone()
-    args, smem, out, _keep = pwm.build_args(
-        free, cap, sched, ndid, tb, SolverParams(), okg_k, pwm.domain_index(ndid, "cpu")
-    )
-    host_kernel(args, smem)
-    got = (out["assigned"], out["ok"], out["score"], free, okg_k)
-    want = solve_batch_ref(*_node_tensors(snap, "cpu"), tb, SolverParams(), okg.clone())
-    for name, a, b in zip(FIELDS, got, want):
-        assert torch.equal(a, b), f"{name}: kernel != plain at {torch.nonzero(a != b)[:8].tolist()}"
-    return want
+def _host_vs_plain(host_kernel, snap, batch, okg_np, plan=None, shared_carry=None):
+    return _launch_vs_plain(host_kernel, snap, batch, okg_np, "cpu", plan, shared_carry)
 
 
 def test_kernel_source_on_host_with_pins(host_kernel):
@@ -367,3 +545,35 @@ def test_kernel_source_on_host_masks_and_gating(host_kernel):
     sbatch, _ = PORT.encode_gangs(scaled, pods, snap, global_index_of=gidx)
     want = _host_vs_plain(host_kernel, snap, sbatch, rng.random(len(gangs)) < 0.5)
     assert not bool(want[1].all())
+
+
+@pytest.mark.parametrize("name", ["bench_small", "nondyadic", "spread_pack", "bench_spread"])
+def test_kernel_source_on_host_global_carry(host_kernel, name):
+    gangs, pods, snap = SCENARIOS[name](PORT)
+    batch, _ = PORT.encode_gangs(gangs, pods, snap)
+    _host_vs_plain(host_kernel, snap, batch, np.zeros(len(gangs), bool), shared_carry=False)
+
+
+def test_kernel_source_on_host_spread_seeds(host_kernel):
+    snap, batch = spread_seeded_batch()
+    for shared_carry in (True, False):
+        _host_vs_plain(host_kernel, snap, batch, np.zeros(batch.gang_valid.shape[0], bool),
+                       shared_carry=shared_carry)
+
+
+@pytest.mark.parametrize("shared_carry", [True, False])
+@pytest.mark.parametrize("case", ["half_full", "clipped", "spread", "pinned"])
+def test_kernel_source_on_host_pruned_wave(host_kernel, case, shared_carry):
+    """The fused B3: gather through cand_idx, solve on the candidate axis,
+    scatter back into the fleet carry, remap assigned to fleet ordinals."""
+    label, snap, batch, plan = next(c for c in pruned_cases() if c[0] == case)
+    want = _host_vs_plain(host_kernel, snap, batch, np.zeros(batch.gang_valid.shape[0], bool),
+                          plan, shared_carry)
+    # Candidate rows changed only where the solve placed pods; the rest of
+    # the fleet carry passes through untouched.
+    untouched = np.setdiff1d(np.arange(snap.capacity.shape[0]), plan.idx)
+    assert np.array_equal(want[3].numpy()[untouched], snap.free[untouched].astype(np.float32))
+    placed = want[0][want[0] >= 0].numpy()
+    assert placed.size and np.isin(placed, plan.idx).all()
+    if case == "half_full":
+        assert plan.idx.min() >= plan.fleet_pad // 2, "candidate ordinals equal fleet ordinals"

@@ -7,6 +7,11 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
 
   1. card     nvidia-smi's name and power limit, the torch device name/count
   2. build    the place_wave kernel from grove_tpu_torch/kernels/csrc
+     profile  the profiled instantiation on the seven waves of the 5120-node
+              drain (chained) and on wave 0 at 20480 nodes, dense and
+              pruned: clock64 cycles per section of the chain kernel, on
+              lines of their own; fails if a gang whose sets require no level
+              spent a cycle on tables (`--profile-only` stops after it)
   3. exact    the place_wave kernel against its plain PyTorch version, both
               on the card, tolerance 0 (torch.equal on ok, assigned,
               placement_score, free_after and ok_global), on: the first
@@ -17,15 +22,16 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               snapshot whose free capacity is not dyadic, the contended and
               mixed-quality scenarios as single batches, and the first wave
               of the bench backlog with a quarter of its PodCliqueSets
-              spread across zones (carry in shared and in global memory);
-              then the first wave on the 20480-node fleet (global carry),
+              spread across zones; then the first wave on the 20480-node
+              fleet (its walks staged in chunks),
               and the same wave candidate-pruned to its 8192-row plan (B3
               fused: assigned in fleet ordinals, the whole fleet free_after)
   4. drain    the full 5120-node, ~10k-pod backlog through drain_backlog
               (chained harvest): launches == waves, every gang admitted,
               the kernel's free_after equal to the snapshot's free minus
               every bound pod's request recomputed on the host, no node
-              over capacity; then the per-wave kernel times
+              over capacity; then the per-wave kernel times, whose sum
+              must fall below the earlier design's (WAVE_MS_BEFORE)
   5. scale    the same backlog on 10240 and 20480 nodes, drained dense and
               candidate-pruned: all 1250 gangs admitted by each, the same
               set, free_after consistent with the bindings, no node over
@@ -50,10 +56,11 @@ import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
-# Per-wave times of the shared-carry kernel on the 5120-node drain, measured
-# before the global-carry variant and the spread planes were added (H100 80GB
-# HBM3, 700 W; PERF.md section 5): the yardstick for the repeat below.
-SHARED_CARRY_WAVE_MS_BEFORE = (115.123, 44.302, 140.428, 104.594, 18.604, 115.338, 42.716)
+# Per-wave times of the kernel's earlier design (carry in shared memory, every
+# domain table built, walks over global memory) on the 5120-node drain (H100
+# 80GB HBM3, 700.00 W; PERF.md section 5): the yardstick the drain's per-wave
+# times are held against.
+WAVE_MS_BEFORE = (113.929, 42.452, 138.592, 103.108, 18.229, 113.476, 42.446)
 SCALE_PRUNING = dict(enabled=True, max_candidates=8191, min_fleet=256)
 
 
@@ -89,7 +96,12 @@ def main() -> int:
         stage_fields,
     )
     from grove_tpu_torch.kernels import build
-    from grove_tpu_torch.kernels.place_wave import domain_index, place_wave, reset_launches
+    from grove_tpu_torch.kernels.place_wave import (
+        SECTIONS,
+        domain_index,
+        place_wave,
+        reset_launches,
+    )
     from grove_tpu_torch.orchestrator import expand_podcliqueset
     from grove_tpu_torch.sim import workloads as W
     from grove_tpu_torch.solver.core import SolverParams, batch_to
@@ -158,7 +170,6 @@ def main() -> int:
                 err = max(err, float((a - b).abs().max()))
         return err
 
-    # ---- 3. kernel vs plain, exact, on the card ------------------------------
     gangs_b, pods_b, snap_b, n_nodes, _ = build_scenario(1.0)
     gidx_b = {g.name: i for i, g in enumerate(gangs_b)}
     plan_b = plan_waves(gangs_b, 256)
@@ -171,6 +182,76 @@ def main() -> int:
             pad_gangs_to=pad, global_index_of=gidx,
         )
         return batch
+
+    # ---- profile: cycles per section of the kernel ---------------------------
+    def profile_wave(label, batch, free, okg, node_rest, domains, **extra):
+        """One launch of the profiled instantiation; prints its cycles per
+        section (summed over the wave's gangs and its head and tail) and
+        checks that no gang whose valid sets require no level builds a
+        table."""
+        prof = {}
+        tb = batch_to(batch, dev)
+        _, ms_w = timed(lambda: place_wave(free, *node_rest, tb, params, okg, domains=domains,
+                                           profile=prof, **extra))
+        cyc = prof["prof"].cpu().numpy()
+        tot = cyc.sum(axis=0)
+        total = int(tot.sum())
+        print(f"profile[{label}]: G={cyc.shape[0] - 1} valid {int(np.asarray(batch.gang_valid).sum())} "
+              f"cycles {total} in {ms_w:.3f} ms ({total / ms_w / 1e6:.3f} GHz) on {card}")
+        print("profile[" + label + "] sections: " + "; ".join(
+            f"{nm} {int(c)} ({100 * c / max(total, 1):.1f}%)" for nm, c in zip(SECTIONS, tot)))
+        col = SECTIONS.index("tables + feas2")
+        levels = (np.asarray(batch.set_req_level) >= 0) & np.asarray(batch.set_valid, bool)
+        no_level = ~levels.any(axis=1)
+        check(not cyc[:-1][no_level, col].any(),
+              f"profile[{label}]: a gang whose sets require no level built a table")
+        print(f"profile[{label}]: {int(no_level.sum())} gangs require no level, table cycles 0; "
+              f"{int((cyc[:-1, col] > 0).sum())} gangs built a table")
+        return cyc
+
+    snap_4 = build_fleet(4.0)
+    n_4 = snap_4.capacity.shape[0]
+    dom_4 = domain_index(snap_4.node_domain_id, dev)
+    first = encode_wave(plan_b[0])
+    first_4 = encode_wave(plan_b[0], snap_4)
+    pruning = PruningConfig(**SCALE_PRUNING)
+    free_w = node_tensors(snap_b)[0]
+    okg_w = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
+    for k, ws in enumerate(plan_b):
+        profile_wave(f"{n_nodes} dense, wave {k}", encode_wave(ws), free_w, okg_w,
+                     node_tensors(snap_b)[1:], dom_b)
+    okg_4 = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
+    profile_wave(f"{n_4} dense, wave 0", first_4, node_tensors(snap_4)[0], okg_4.clone(),
+                 node_tensors(snap_4)[1:], dom_4)
+    plan4 = plan_candidates(snap_4, first_4, pruning)
+    pt4 = plan4.tensors(dev)
+    pb4 = plan4.gather_batch(first_4)
+    profile_wave(f"{n_4} pruned to {plan4.count}/{plan4.pad}, wave 0", pb4,
+                 node_tensors(snap_4)[0], okg_4.clone(),
+                 (pt4.capacity, pt4.schedulable, pt4.node_domain_id), pt4.domains,
+                 cand_idx=pt4.cand_idx, cand_count=plan4.count)
+    # The walk's pace: wave 0 with every required set moved to the zone
+    # level (no preferences), so each gang walks the broadest domains once
+    # per set; stage-1 walk cycles over (walks x the largest zone) is the
+    # cost of one node step, against the ~4-cycle latency of a dependent add.
+    for snap, batch, domains in ((snap_b, first, dom_b), (snap_4, first_4, dom_4)):
+        req = np.asarray(batch.set_req_level)
+        walks = np.asarray(batch.set_valid, bool) & (req >= 0)
+        walks &= np.asarray(batch.gang_valid, bool)[:, None]
+        zb = batch._replace(set_req_level=np.where(walks, 0, req).astype(np.int32),
+                            set_pref_level=np.full_like(req, -1))
+        zone = np.asarray(snap.node_domain_id[0])
+        longest = int(np.bincount(zone[zone >= 0]).max())
+        nn = snap.capacity.shape[0]
+        cyc = profile_wave(f"{nn} zone walks", zb, node_tensors(snap)[0], okg_4.clone(),
+                           node_tensors(snap)[1:], domains)
+        per_step = cyc[:, SECTIONS.index("stage-1 walks")].sum() / (int(walks.sum()) * longest)
+        print(f"walk pace[{nn} nodes]: {int(walks.sum())} zone walks of up to {longest} nodes, "
+              f"{per_step:.2f} cycles per node step (a dependent f32 add: ~4) on {card}")
+    if "--profile-only" in sys.argv:
+        return 0  # the breakdown alone: no result line
+
+    # ---- 3. kernel vs plain, exact, on the card ------------------------------
 
     # The bench's quantities are dyadic rationals, which any summation order
     # adds exactly. This 5120-node snapshot's are not — 31.7-cpu hosts, a
@@ -193,7 +274,6 @@ def main() -> int:
           "exact: the spread wave carries no spread planes")
 
     rng = np.random.default_rng(0)
-    first = encode_wave(plan_b[0])
     g0, mg0 = first.group_total.shape
     scaled_ws = next(ws for ws in plan_b if ws[0][0].base_podgang_name is not None)
     cases = [
@@ -224,19 +304,15 @@ def main() -> int:
     cases.append(("bench wave 0 with spread planes", snap_b, spread_first,
                   np.zeros(len(gangs_sp), bool)))
 
-    err = {"shared": 0.0, "global": 0.0, "pruned": 0.0}
+    err = {"dense": 0.0, "dense_scale": 0.0, "pruned": 0.0}
     for label, snap, batch, okg_np in cases:
         tb = batch_to(batch, dev)
         okg = torch.as_tensor(okg_np, device=dev)
         domains = dom_b if snap is snap_b else domain_index(snap.node_domain_id, dev)
         want = solve_batch_ref(*node_tensors(snap), tb, params, okg.clone())
-        # Each batch through the shared-carry kernel; the spread batch through
-        # the global-carry one too.
-        for variant in ("shared", "global") if batch is spread_first else ("shared",):
-            got = place_wave(*node_tensors(snap), tb, params, okg.clone(), domains=domains,
-                             shared_carry=variant == "shared")
-            torch.cuda.synchronize()
-            err[variant] = max(err[variant], compare(f"{label}, {variant} carry", got, want))
+        got = place_wave(*node_tensors(snap), tb, params, okg.clone(), domains=domains)
+        torch.cuda.synchronize()
+        err["dense"] = max(err["dense"], compare(label, got, want))
         print(f"exact[{label}]: G={batch.gang_valid.shape[0]} N={snap.capacity.shape[0]} "
               f"admitted {int(want[1].sum())}/{int(np.asarray(batch.gang_valid).sum())} "
               f"valid — kernel == plain on {', '.join(NAMES)}")
@@ -244,40 +320,30 @@ def main() -> int:
     # Times at the 5120-node main path's shape: the first full wave.
     tb0 = batch_to(first, dev)
     okg0 = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
-    shared_ms, shared_plain_ms = time_variant(
+    dense_ms0, dense_plain_ms = time_variant(
         place_wave, timed, node_tensors(snap_b), tb0, okg0, params, dom_b, {},
         lambda: solve_batch_ref(*node_tensors(snap_b), tb0, params, okg0.clone()),
     )
-    # The same wave with the carry forced into global memory: what the
-    # shared-memory layout buys at this size.
-    global_5120_ms, _ = time_variant(place_wave, timed, node_tensors(snap_b), tb0, okg0, params,
-                                     dom_b, {"shared_carry": False}, None)
-    shared_bound = place_wave_bound(first, *snap_b.capacity.shape, snap_b.node_domain_id.shape[0])
-    print(f"timing[bench wave 0, G={g0}, N={n_nodes}, shared carry]: kernel {shared_ms:.3f} "
-          f"ms/wave (global carry forced: {global_5120_ms:.3f} ms/wave), plain "
-          f"{shared_plain_ms:.1f} ms, bound {shared_bound[0]:.6f} ms ({shared_bound[1]}) on {card}")
+    dense_bound = place_wave_bound(first, *snap_b.capacity.shape, snap_b.node_domain_id.shape[0])
+    print(f"timing[bench wave 0, G={g0}, N={n_nodes}]: kernel {dense_ms0:.3f} ms/wave, plain "
+          f"{dense_plain_ms:.1f} ms, bound {dense_bound[0]:.6f} ms ({dense_bound[1]}) on {card}")
 
-    # The first wave on the 20480-node fleet: dense (global carry), then
-    # candidate-pruned to its plan (B3 fused into the launch).
-    snap_4 = build_fleet(4.0)
-    n_4 = snap_4.capacity.shape[0]
-    dom_4 = domain_index(snap_4.node_domain_id, dev)
-    first_4 = encode_wave(plan_b[0], snap_4)
+    # The first wave on the 20480-node fleet (snap_4, first_4 of the profile
+    # phase): dense, then candidate-pruned to its plan (B3 fused into the
+    # launch).
     tb4 = batch_to(first_4, dev)
-    want, global_plain_ms = timed(
+    want, dense4_plain_ms = timed(
         lambda: solve_batch_ref(*node_tensors(snap_4), tb4, params, okg0.clone()))
     got = place_wave(*node_tensors(snap_4), tb4, params, okg0.clone(), domains=dom_4)
     torch.cuda.synchronize()
-    err["global"] = max(err["global"], compare("bench wave 0 on 20480 nodes", got, want))
-    print(f"exact[bench wave 0, N={n_4}, global carry]: admitted {int(want[1].sum())}/"
+    err["dense_scale"] = compare("bench wave 0 on 20480 nodes", got, want)
+    print(f"exact[bench wave 0, N={n_4}]: admitted {int(want[1].sum())}/"
           f"{int(first_4.gang_valid.sum())} valid — kernel == plain on {', '.join(NAMES)}")
-    global_ms, _ = time_variant(place_wave, timed, node_tensors(snap_4), tb4, okg0, params,
+    dense4_ms, _ = time_variant(place_wave, timed, node_tensors(snap_4), tb4, okg0, params,
                                 dom_4, {}, None)
-    global_bound = place_wave_bound(first_4, *snap_4.capacity.shape, snap_4.node_domain_id.shape[0])
+    dense4_bound = place_wave_bound(first_4, *snap_4.capacity.shape, snap_4.node_domain_id.shape[0])
 
-    plan4 = plan_candidates(snap_4, first_4, PruningConfig(**SCALE_PRUNING))
     check(plan4 is not None and plan4.pad == 8192, "exact: the 20480-node wave did not prune to 8192")
-    pt4 = plan4.tensors(dev)
     ptb4 = batch_to(plan4.gather_batch(first_4), dev)
     pruned_args = (pt4.capacity, pt4.schedulable, pt4.node_domain_id, ptb4, params)
     want, pruned_plain_ms = timed(lambda: solve_pruned_ref(
@@ -304,8 +370,8 @@ def main() -> int:
     idx_l = torch.as_tensor(plan4.idx, dtype=torch.long, device=dev)
     library_ms = min(timed(lambda: free_l.index_copy_(0, idx_l, free_l.index_select(0, idx_l)))[1]
                      for _ in range(5))
-    print(f"timing[bench wave 0, N={n_4}]: global carry {global_ms:.3f} ms (plain "
-          f"{global_plain_ms:.1f} ms, bound {global_bound[0]:.6f} ms {global_bound[1]}); "
+    print(f"timing[bench wave 0, N={n_4}]: dense {dense4_ms:.3f} ms (plain "
+          f"{dense4_plain_ms:.1f} ms, bound {dense4_bound[0]:.6f} ms {dense4_bound[1]}); "
           f"pruned {pruned_ms:.3f} ms (plain {pruned_plain_ms:.1f} ms, bound "
           f"{pruned_bound[0]:.6f} ms {pruned_bound[1]}; B3 alone: bound {b3_bound_ms:.6f} ms, "
           f"index_select + index_copy_ {library_ms:.4f} ms, {idx_l.numel()} rows) on {card}")
@@ -318,8 +384,7 @@ def main() -> int:
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
     launches = dict(place_wave.variant_launches)
-    check(launches["shared"] > 0, "drain: the main path launched no shared-carry place_wave")
-    check(launches == {"shared": stats.waves, "global": 0, "pruned": 0},
+    check(launches == {"dense": stats.waves, "pruned": 0} and stats.waves > 0,
           f"drain: launches {launches} for {stats.waves} waves")
     check(stats.admitted == len(gangs_b), f"drain: admitted {stats.admitted}/{len(gangs_b)}")
     free_host = admitted_free(bindings, pods_b, snap_b)
@@ -331,7 +396,7 @@ def main() -> int:
     n_pods = sum(len(b) for b in bindings.values())
     print(f"drain: gangs {len(gangs_b)} gangs_admitted {stats.admitted} pods {len(pods_b)} "
           f"pods_bound {stats.pods_bound} ({n_pods} bindings) waves {stats.waves} "
-          f"launches {launches['shared']} drain_s {drain_s:.4f} (encode {stats.encode_s:.4f}, "
+          f"launches {launches['dense']} drain_s {drain_s:.4f} (encode {stats.encode_s:.4f}, "
           f"dispatch {stats.dispatch_s:.4f}, harvest {stats.harvest_s:.4f}, "
           f"decode {stats.decode_s:.4f}) on {card}")
 
@@ -344,11 +409,13 @@ def main() -> int:
         wave_ms.append(timed(lambda: place_wave(free_w, *node_tensors(snap_b)[1:], tb, params,
                                                 okg_w, domains=dom_b))[1])
     print(f"drain kernels: per-wave ms {[round(x, 3) for x in wave_ms]} sum {sum(wave_ms):.3f} "
-          f"ms; before the global-carry variant: {list(SHARED_CARRY_WAVE_MS_BEFORE)} sum "
-          f"{sum(SHARED_CARRY_WAVE_MS_BEFORE):.3f} ms on {card}")
+          f"ms; the earlier design: {list(WAVE_MS_BEFORE)} sum {sum(WAVE_MS_BEFORE):.3f} ms "
+          f"({sum(WAVE_MS_BEFORE) / sum(wave_ms):.2f}x) on {card}")
+    check(sum(wave_ms) < sum(WAVE_MS_BEFORE),
+          f"drain kernels: {sum(wave_ms):.3f} ms per drain, not below the earlier design's "
+          f"{sum(WAVE_MS_BEFORE):.3f} ms")
 
     # ---- 5. the scale drains: 10240 and 20480 nodes, dense and pruned --------
-    pruning = PruningConfig(**SCALE_PRUNING)
     torch.cuda.synchronize()
     reset_launches()
     scale_runs = []
@@ -383,9 +450,8 @@ def main() -> int:
         check(admitted["dense"] == admitted["pruned"],
               f"scale[{scale}]: dense and pruned admit different gang sets")
     scale_launches = dict(place_wave.variant_launches)
-    check(scale_launches["global"] > 0 and scale_launches["pruned"] > 0,
+    check(scale_launches["dense"] > 0 and scale_launches["pruned"] > 0,
           f"scale: launches {scale_launches}: a variant of the path never ran")
-    check(scale_launches["shared"] == 0, f"scale: launches {scale_launches}")
     print(f"scale launches: {scale_launches}")
 
     # Per-wave kernel times over the 20480-node drains' own waves, dense and
@@ -404,7 +470,7 @@ def main() -> int:
         pruned_ms_w.append(timed(lambda: place_wave(
             free_p, pt.capacity, pt.schedulable, pt.node_domain_id, ptb, params, okg_p,
             domains=pt.domains, cand_idx=pt.cand_idx, cand_count=plan.count))[1])
-    print(f"scale kernels[{n_4} nodes]: global carry per-wave ms "
+    print(f"scale kernels[{n_4} nodes]: dense per-wave ms "
           f"{[round(x, 3) for x in dense_ms]} sum {sum(dense_ms):.3f} ms; pruned per-wave ms "
           f"{[round(x, 3) for x in pruned_ms_w]} sum {sum(pruned_ms_w):.3f} ms on {card}")
 
@@ -429,14 +495,14 @@ def main() -> int:
     # ---- 7. kernels line -----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": [
-        {"name": "place_wave(B1+B2, shared carry)", "route": "cuda", "source": src,
-         "replaces": "grove_tpu/solver/core.py:537", "launches": launches["shared"],
-         "max_abs_err": err["shared"], "ms": shared_ms, "plain_ms": shared_plain_ms,
-         "bound_ms": shared_bound[0], "bound_by": shared_bound[1], "library_ms": None},
-        {"name": "place_wave(B1+B2, global carry)", "route": "cuda", "source": src,
-         "replaces": "grove_tpu/solver/core.py:537", "launches": scale_launches["global"],
-         "max_abs_err": err["global"], "ms": global_ms, "plain_ms": global_plain_ms,
-         "bound_ms": global_bound[0], "bound_by": global_bound[1], "library_ms": None},
+        {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:537", "launches": launches["dense"],
+         "max_abs_err": err["dense"], "ms": dense_ms0, "plain_ms": dense_plain_ms,
+         "bound_ms": dense_bound[0], "bound_by": dense_bound[1], "library_ms": None},
+        {"name": "place_wave(B1+B2, dense, 10240/20480 nodes)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:537", "launches": scale_launches["dense"],
+         "max_abs_err": err["dense_scale"], "ms": dense4_ms, "plain_ms": dense4_plain_ms,
+         "bound_ms": dense4_bound[0], "bound_by": dense4_bound[1], "library_ms": None},
         {"name": "place_wave(B1+B2+B3, pruned)", "route": "cuda", "source": src,
          "replaces": "grove_tpu/solver/pruning.py:166", "launches": scale_launches["pruned"],
          "max_abs_err": err["pruned"], "ms": pruned_ms, "plain_ms": pruned_plain_ms,
@@ -489,16 +555,17 @@ def place_wave_bound(batch, n, r, levels, carry_bytes=None) -> tuple[float, str]
     input read once, each output written once) over HBM bandwidth and the f32
     operations its valid gangs need over the f32 peak. `carry_bytes` is the
     free carry's traffic, by default its N rows read and written once.
-    Operations counted per valid gang: slot ratios (MG*N*R*3), domain tables
-    (L*N*C adds), narrow-set feasibility (MS*N*(R+MG)), two domain picks per
-    pack-set (N*(C+1+MS) adds + N*(R+MG+MS) compares each), and per group
-    phase the node scores (N*(6R+7+3MS)) plus one argmax pass over N per
-    pod."""
+    Operations counted per valid gang, for what this batch's data needs:
+    slot ratios (MG*N*R*3); the narrow-set tables at each level some nested
+    pass reads (N*(R+MG) adds) and their feasibility (N*(R+MG) compares per
+    set read); per pass that runs (a valid set with a required, or a
+    preferred, level) its domain sums (N*(R+MG+2+MS) adds) and domain
+    feasibility (N*(R+MG+MS) compares); and per group phase the node scores
+    (N*(6R+7+3MS)) plus one argmax pass over N per pod."""
     import numpy as np
 
     g, mg, _ = batch.group_req.shape
     ms = batch.set_member.shape[1]
-    c = r + mg + 1
     if carry_bytes is None:
         carry_bytes = 2 * 4 * n * r  # free in and out
     nbytes = carry_bytes + 4 * n * r + n + 4 * levels * n  # + capacity, sched, domains
@@ -506,12 +573,23 @@ def place_wave_bound(batch, n, r, levels, carry_bytes=None) -> tuple[float, str]
     nbytes += batch.pod_group.size * 4 + g * 5  # assigned, ok, score
     valid = np.asarray(batch.gang_valid, bool)
     pods = int(np.asarray(batch.group_total)[valid].sum())
-    per_gang = (
-        mg * n * r * 3 + levels * n * c + ms * n * (r + mg)
-        + 2 * ms * (n * (c + 1 + ms) + n * (r + mg + ms))
-        + 2 * mg * n * (6 * r + 7 + 3 * ms)
-    )
-    ops = int(valid.sum()) * per_gang + pods * n
+    req = np.asarray(batch.set_req_level)
+    pref = np.asarray(batch.set_pref_level)
+    sval = np.asarray(batch.set_valid, bool)
+    member = np.asarray(batch.set_member, bool)
+    ops = pods * n
+    for gi in np.flatnonzero(valid):
+        nested = sval[gi] & (req[gi] >= 0)
+        read = [s2 for s2 in range(ms) if sval[gi, s2] and any(
+            nested[s] and req[gi, s2] > req[gi, s] and (member[gi, s] & member[gi, s2]).any()
+            for s in range(ms))]
+        table_levels = {int(np.clip(req[gi, s2], 0, levels - 1)) for s2 in read}
+        passes = int(nested.sum() + (sval[gi] & (pref[gi] >= 0)).sum())
+        ops += (
+            mg * n * r * 3 + len(table_levels) * n * (r + mg) + len(read) * n * (r + mg)
+            + passes * (n * (r + mg + 2 + ms) + n * (r + mg + ms))
+            + 2 * mg * n * (6 * r + 7 + 3 * ms)
+        )
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

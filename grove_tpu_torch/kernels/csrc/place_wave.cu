@@ -17,25 +17,39 @@
 // carry (pad rows dropped) and writes `assigned` as fleet ordinals. No
 // candidate-axis tensor lives between launches.
 //
-// Design (right first, not fast). One thread block of 1024 threads owns the
-// whole wave; each thread owns a strided set of nodes. Two instantiations
-// differ only in where the wave's carry and the gang's working copy live:
-// in dynamic shared memory when both fit (2 x N x R f32: 160 KB at N = 5120,
-// R = 4), else in global memory (the fleet tensor itself, or a candidate-axis
-// scratch, and a scratch working copy), where at these sizes they stay
-// resident in the 50 MB L2 (320 KB each at N = 20480). Domain tables and
-// per-gang scratch live in global scratch that the wrapper allocates; the
-// kernel allocates nothing.
-//
-// What bounds it: a chain of dependent steps per gang (domain aggregation,
-// best-domain argmax per pack-set, one argmax per pod taken), each a few
-// __syncthreads apart; each domain sum is itself a sequential walk over the
-// domain's nodes, as long as the broadest level's largest domain. It is
-// latency-bound: one SM works, 131 of the 132 SMs of an H100 idle, and the
-// bytes moved are tiny. A later design would spread the per-gang node work
-// over a cluster of blocks (distributed shared memory for the free carry) or
-// solve independent shape classes on separate SMs, keep the hoisted domain
-// tables in shared memory, and update the domain sums incrementally.
+// What bounds it. Gangs commit one after another, each against the carry
+// its predecessors left, so a wave is one chain of dependent steps per gang
+// on one thread block (1024 threads, one SM). The bytes moved and the
+// operations done are tiny; the chain is the time. Its longest links are the
+// domain sums: each is a sequential walk over one domain's nodes in node
+// order (below), as long as the broadest level's largest domain (1280 nodes
+// of a zone at 5120 nodes, 5120 at 20480), and a walk cannot go faster than
+// one dependent f32 add per node, about 4 cycles. What the design does:
+//  - a launch is a prologue kernel, one block per gang on the otherwise idle
+//    SMs, that computes everything depending only on a gang's own rows
+//    (member2, demand, joint_need, homogeneous, overlap, each nested pass's
+//    active2, the gate on ok_global, which sets' tables are read and which
+//    slot columns each walk needs) into one PwGangInv record per gang; then
+//    the chain kernel, which copies gang i + 1's record into a second
+//    shared-memory buffer with cp.async while gang i runs;
+//  - only what is read is built: the hoisted narrow-set tables (and their
+//    feasibility rows) only at the levels of sets that some nested pass
+//    reads, with only the slot columns their fits read; a walk carries only
+//    the slot columns of its own set's groups and the nested columns of its
+//    active2 sets; slots are computed where a walk stages a node;
+//  - a walk first stages its masked feature columns into shared memory in
+//    the level's domain-major node order (one coalesced pass over the
+//    nodes), then each (domain, column) item adds consecutive shared words
+//    with the loads unrolled ahead of the add chain; where the columns do
+//    not fit, in chunks of positions, each item carrying its running sum
+//    from one chunk to the next in the same order;
+//  - the carry lives in global memory (L2) at every size: the fleet tensor
+//    itself, or a candidate-axis scratch when pruned. A gang takes nodes in
+//    place and logs each row before it changes it, so a rejected gang
+//    restores its rows from the log instead of copying the carry per gang;
+//  - stage 2 keeps each warp's best (score, index): after a take only the
+//    warp that owned the node rescans its nodes, then one 32-way reduction
+//    and one barrier pick the next node.
 //
 // Exactness against the JAX package and the plain PyTorch version
 // (grove_tpu_torch/solver/reference.py):
@@ -45,17 +59,19 @@
 //    floor((free + 1e-6) / max(req, 1e-9)) is a correctly rounded division;
 //  - scores are built in the reference's operation order, and sums over the
 //    resource and pack-set axes run in index order;
-//  - top-k by (score desc, node index asc) is an iterated block argmax with
-//    the lower index winning ties, as lax.top_k orders ties; the first
-//    maximum wins an argmax, and an all -inf argmax returns 0;
-//  - domain sums walk a per-level CSR of node indices built once on the host
-//    in node order, one thread per (domain, column), adding each node in
-//    turn: the sequential order of index_add_ on the host and of the JAX
-//    package's segment_sum on the CPU, with no atomics and no TF32. The
-//    kernel equals the plain version on any request sizes (100m cpu, 300Mi),
-//    not only on the dyadic ones of the bench, where every order sums exactly.
+//  - top-k by (score desc, node index asc) is an iterated argmax with the
+//    lower index winning ties, as lax.top_k orders ties; the first maximum
+//    wins an argmax, and an all -inf argmax returns 0;
+//  - domain sums add each domain's nodes one after another in node order,
+//    over a per-level CSR of node indices built once on the host: the
+//    sequential order of index_add_ on the host and of the JAX package's
+//    segment_sum on the CPU, with no atomics, no tree and no TF32. Staging
+//    and chunking move the operands, not the order. The kernel equals the
+//    plain version on any request sizes (100m cpu, 300Mi), not only on the
+//    dyadic ones of the bench, where every order sums exactly.
 
 #include <cstdint>
+#include <cstring>
 
 #ifndef PLACE_WAVE_HOST_EMULATION
 #include <cuda_runtime.h>
@@ -71,11 +87,19 @@
 #define PW_MS_MAX 8
 #define PW_L_MAX 8
 #define PW_THREADS 1024
+#define PW_NWARPS (PW_THREADS / 32)
 #define PW_EPS 1e-6f
+#define PW_INV_BYTES 2048  // global bytes per gang record (kernels/place_wave.py INV_BYTES)
+// A node's stage-2 word: bits 0-7 inside set s's committed required domain,
+// 8-15 inside its committed preferred domain, then these.
+#define PW_NW_SCHED (1u << 16)
+#define PW_NW_USED (1u << 17)
+#define PW_NW_SPREAD (1u << 18)
 
 struct PlaceWaveArgs {
   int N, R, L, G, MG, MS, MP, T;  // T = ok_global length, 0 = no chaining
   int NF, cand_count;             // fleet rows of free_io; candidates (pruned)
+  int plane_words;                // f32 words of dynamic shared memory for walks
   float w_tight, w_pref, w_reuse, w_reserve, w_spread;
   // node state; N is the solve's node axis (the candidate pad when pruned)
   float* free_io;                // [NF, R] f32 fleet carry, updated in place
@@ -114,24 +138,86 @@ struct PlaceWaveArgs {
   uint8_t* ok;                   // [G], zero on entry
   float* score;                  // [G]
   // global scratch
-  float* carry;                  // [N, R] the wave's carry (global, pruned)
-  float* carry_g;                // [N, R] the gang's working copy (global)
+  float* carry;                  // [N, R] the wave's carry (pruned only)
   uint8_t* family_used;          // [G, N] zeroed (spread family rows)
-  uint8_t* avoid;                // [N] the gang's spread avoid set
   float* spread_pen;             // [N] the gang's hoisted spread penalty
-  int32_t* slots_all;            // [MG, N]
-  float* tables;                 // [L, N, C], C = R + MG + 1
-  float* agg;                    // [N, C + 2 + MS]
+  float* tables;                 // [L, N, R + MG] narrow-set domain tables
+  float* agg;                    // [N, R + MG + MS + 3] a stage-1 walk's sums
   uint8_t* feas2;                // [MS, N] per narrow set, per domain row
-  uint8_t* node_feas2;           // [MS, N] per narrow set, per node
-  uint8_t* node_ok;              // [N]
-  uint8_t* ok_nodes;             // [N]
-  uint8_t* taken;                // [N]
-  uint8_t* used;                 // [N]
+  int32_t* nword;                // [N] per node: PW_NW_* bits of the gang's stage 2
   int32_t* a_slots;              // [N]
   float* a_score;                // [N]
+  float* norm_free;              // [N] sum_r free / cap_scale over R, per carry row
   int32_t* entries;              // [2 * MG * MP, 3]: (group, node, count)
+  float* undo;                   // [2 * MG * MP, R] each taken row before the take
+  uint8_t* ginv;                 // [G, PW_INV_BYTES] PwGangInv per gang
+  int64_t* prof;                 // [G + 1, PW_NSEC] clock64 cycles per section
 };
+
+// Sections of the profiled instantiation, one column each of `prof`; row gi
+// is gang gi, row G the wave's head (cap_scale, B3 gather: column 1) and
+// tail (B3 scatter, ok_global: column 11).
+#define PW_NSEC 12
+#define PW_SEC_GATE 0
+#define PW_SEC_SETUP 1
+#define PW_SEC_SPREAD 2
+#define PW_SEC_SLOTS 3  // 0 since slots are computed where a walk stages a node
+#define PW_SEC_TABLES 4
+#define PW_SEC_S1_NODES 5
+#define PW_SEC_S1_WALKS 6
+#define PW_SEC_S1_ARGMAX 7
+#define PW_SEC_S2_SCORE 8
+#define PW_SEC_S2_TAKE 9
+#define PW_SEC_S34 10
+#define PW_SEC_COMMIT 11
+
+// Thread 0 charges the cycles since its last mark to one section; marks sit
+// after a barrier, so they time the block. A section that is skipped gets 0.
+template <bool kProfile>
+struct PwProf {
+  long long t;
+  int64_t* row;
+  __device__ void start(int64_t* r) {
+    if (kProfile) { row = r; t = clock64(); }
+  }
+  __device__ void mark(int sec) {
+    if (kProfile && threadIdx.x == 0) {
+      const long long now = clock64();
+      row[sec] += now - t;
+      t = now;
+    }
+  }
+};
+
+// Everything about one gang that depends only on its own rows, computed by
+// the prologue for every gang of the wave before the chain starts.
+struct __align__(16) PwGangInv {
+  float req[PW_MG_MAX * PW_R_MAX];
+  float demand[PW_MS_MAX * PW_R_MAX];      // per set: sum_g req * required * member2
+  float joint_need[PW_MS_MAX];
+  int total[PW_MG_MAX], required[PW_MG_MAX], order[PW_MG_MAX];
+  int req_level[PW_MS_MAX], pref_level[PW_MS_MAX], pinned[PW_MS_MAX];
+  int valid0;          // gang_valid and the ok_global gate (B2)
+  int depends_on;      // in-wave base gang, or -1
+  int spread_level, spread_family;
+  int table_levels;    // bit lv: the narrow-set tables at level lv are read
+  uint8_t gvalid[PW_MG_MAX];
+  uint8_t member[PW_MS_MAX * PW_MG_MAX];   // raw set_member
+  uint8_t svalid[PW_MS_MAX], homogeneous[PW_MS_MAX];
+  uint8_t need_table[PW_MS_MAX];           // set s2's feasibility row is read
+  uint8_t overlap[PW_MS_MAX * PW_MS_MAX];  // [s][s2]: they share a group
+  uint8_t active2[PW_MS_MAX * PW_MS_MAX];  // [s][s2]: s's nested pass reads s2
+  uint8_t memb_bits[PW_MG_MAX];            // bit s: set s holds group g (raw)
+  // slot columns of set s: its member2 groups in index order, and where each
+  // sits in the table of s's required level
+  uint8_t s_ng[PW_MS_MAX];
+  uint8_t s_grp[PW_MS_MAX * PW_MG_MAX];
+  uint8_t s_tcol[PW_MS_MAX * PW_MG_MAX];
+  uint8_t tab_ng[PW_L_MAX];                // slot columns of each level's table
+  uint8_t tab_grp[PW_L_MAX * PW_MG_MAX];
+};
+static_assert(sizeof(PwGangInv) % 16 == 0, "PwGangInv is copied in 16-byte pieces");
+static_assert(sizeof(PwGangInv) <= PW_INV_BYTES, "PwGangInv outgrew its global record");
 
 __device__ __forceinline__ int pw_clip(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -141,13 +227,14 @@ __device__ __forceinline__ bool pw_better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
-// Block-wide argmax by (value desc, index asc). Every thread of the block
-// must call it; all get the winner. Index INT32_MAX marks "no candidate".
-__device__ void pw_block_argmax(float v, int i, float* red_v, int* red_i,
-                                float* out_v, int* out_i) {
-  const int lane = threadIdx.x % PW_WARP;
-  const int warp = threadIdx.x / PW_WARP;
-  const int nwarps = (blockDim.x + PW_WARP - 1) / PW_WARP;
+__device__ __forceinline__ int pw_popc(unsigned v) {
+  int c = 0;
+  for (; v; v &= v - 1) ++c;
+  return c;
+}
+
+// Warp-wide argmax by (value desc, index asc); every lane gets the winner.
+__device__ __forceinline__ void pw_warp_argmax(float& v, int& i) {
 #if PW_WARP > 1
   for (int off = PW_WARP / 2; off > 0; off >>= 1) {
     float ov = __shfl_xor_sync(PW_FULL_MASK, v, off);
@@ -155,21 +242,64 @@ __device__ void pw_block_argmax(float v, int i, float* red_v, int* red_i,
     if (pw_better(ov, oi, v, i)) { v = ov; i = oi; }
   }
 #endif
+}
+
+__device__ __forceinline__ void pw_syncwarp() {
+#if PW_WARP > 1
+  __syncwarp();
+#endif
+}
+
+// Block-wide argmax by (value desc, index asc). Every thread of the block
+// must call it; all get the winner. Index INT32_MAX marks "no candidate".
+__device__ void pw_block_argmax(float v, int i, float* red_v, int* red_i,
+                                float* out_v, int* out_i) {
+  const int lane = threadIdx.x % PW_WARP;
+  const int warp = threadIdx.x / PW_WARP;
+  const int nwarps = (blockDim.x + PW_WARP - 1) / PW_WARP;
+  pw_warp_argmax(v, i);
   if (lane == 0) { red_v[warp] = v; red_i[warp] = i; }
   __syncthreads();
   if (warp == 0) {
     v = lane < nwarps ? red_v[lane] : -INFINITY;
     i = lane < nwarps ? red_i[lane] : INT32_MAX;
-#if PW_WARP > 1
-    for (int off = PW_WARP / 2; off > 0; off >>= 1) {
-      float ov = __shfl_xor_sync(PW_FULL_MASK, v, off);
-      int oi = __shfl_xor_sync(PW_FULL_MASK, i, off);
-      if (pw_better(ov, oi, v, i)) { v = ov; i = oi; }
-    }
-#endif
+    pw_warp_argmax(v, i);
     if (lane == 0) { *out_v = v; *out_i = i; }
   }
   __syncthreads();
+}
+
+// Copies of a gang record into shared memory: cp.async on the card (16
+// bytes a piece, completion by commit group), a plain copy in emulation.
+__device__ __forceinline__ void pw_copy16_async(void* dst, const void* src) {
+#ifndef PLACE_WAVE_HOST_EMULATION
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+#else
+  std::memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void pw_async_commit() {
+#ifndef PLACE_WAVE_HOST_EMULATION
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+// Wait until at most one commit group (the newest) is still in flight.
+__device__ __forceinline__ void pw_async_wait_all_but_one() {
+#ifndef PLACE_WAVE_HOST_EMULATION
+  asm volatile("cp.async.wait_group 1;\n" ::);
+#endif
+}
+
+__device__ void pw_fetch_gang(PwGangInv* dst, const PlaceWaveArgs& a, int gi) {
+  if (gi < a.G) {
+    const uint8_t* src = a.ginv + (size_t)gi * PW_INV_BYTES;
+    for (int k = threadIdx.x; k < (int)(sizeof(PwGangInv) / 16); k += blockDim.x)
+      pw_copy16_async((uint8_t*)dst + 16 * k, src + 16 * k);
+  }
+  pw_async_commit();  // an empty group past the last gang keeps the count
 }
 
 // Per-node pod capacity of one request vector (core.py `_group_slots`).
@@ -186,102 +316,275 @@ __device__ __forceinline__ int pw_slots(const float* free_row, const float* req,
   return (int)m;
 }
 
-// Domain sums at levels [lv0, lv1): out[(lv - lv0) * level_stride + d * K + k]
-// = the sum over the nodes i of domain d, in node order, of feat(i, k), k < K.
-// One thread owns each (level, domain, column) item and adds the domain's
-// nodes one after another, starting from 0 — the order of index_add_ on the
-// host — so the sums equal the plain version's on any data. Items are dealt
-// to threads in one sequence across the levels, so the long walks of the
-// broad levels run side by side with the many short ones of the narrow levels.
-template <class Feat>
-__device__ void pw_aggregate(const PlaceWaveArgs& a, int lv0, int lv1, int K, Feat feat,
-                             float* out, size_t level_stride) {
-  const int NT = blockDim.x;
-  int base = 0;  // items dealt at earlier levels
-  for (int lv = lv0; lv < lv1; ++lv) {
-    const int items = a.dom_count[lv] * K;
-    const int32_t* off = a.dom_offsets + (size_t)lv * (a.N + 1);
-    const int32_t* nodes = a.dom_nodes + (size_t)lv * a.N;
-    float* out_lv = out + (size_t)(lv - lv0) * level_stride;
-    int first = (int)threadIdx.x - base % NT;
-    if (first < 0) first += NT;
-    for (int w = first; w < items; w += NT) {
-      const int d = w / K, k = w % K;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int p = off[d]; p < off[d + 1]; ++p) acc = __fadd_rn(acc, feat(nodes[p], k));
-      out_lv[(size_t)d * K + k] = acc;
+// mean_r(free / cap_scale) of one carry row, in the reference's order
+// (core.py alloc_group's norm_free).
+__device__ __forceinline__ float pw_norm_free(const float* free_row, const float* cap_scale, int R) {
+  float nf = 0.f;
+  for (int r = 0; r < R; ++r) nf = __fadd_rn(nf, __fdiv_rn(free_row[r], cap_scale[r]));
+  return __fdiv_rn(nf, (float)R);
+}
+
+// Slots of group g on node i (carry row `free_row`), masked by the gang's
+// group_node_ok rows (`gno`, or null).
+__device__ __forceinline__ float pw_node_slots(const PwGangInv& v, const float* free_row,
+                                               const uint8_t* gno, int g, int i, int N, int R) {
+  if (gno && !gno[(size_t)g * N + i]) return 0.f;
+  return (float)pw_slots(free_row, v.req + g * PW_R_MAX, R);
+}
+
+// Domain feasibility of set s on a row [free R | slot columns]: the slot of
+// s's j-th member2 group sits at row[R + col[j]], or row[R + j] without
+// `col` (core.py pick_domain's feas_cap and feas_slots, `_joint_slots_ok`).
+__device__ __forceinline__ bool pw_domain_fits(const PwGangInv& v, const float* row, int s,
+                                               const uint8_t* col, int R) {
+  for (int r = 0; r < R; ++r)
+    if (!(row[r] >= __fsub_rn(v.demand[s * PW_R_MAX + r], PW_EPS))) return false;
+  const int ng = v.s_ng[s];
+  float mn = INFINITY;
+  for (int j = 0; j < ng; ++j) {
+    const float sl = row[R + (col ? col[j] : j)];
+    if (!(sl >= (float)v.required[v.s_grp[s * PW_MG_MAX + j]])) return false;
+    mn = fminf(mn, sl);
+  }
+  return !v.homogeneous[s] || mn >= v.joint_need[s];
+}
+
+// acc + col[p0] + ... + col[p1 - 1], added one after another; the loads of
+// the next eight words are issued before the adds of the current eight.
+__device__ __forceinline__ float pw_sum_run(const float* col, int p0, int p1, float acc) {
+  int p = p0;
+  if (p + 8 <= p1) {
+    float x0 = col[p], x1 = col[p + 1], x2 = col[p + 2], x3 = col[p + 3];
+    float x4 = col[p + 4], x5 = col[p + 5], x6 = col[p + 6], x7 = col[p + 7];
+    for (p += 8; p + 8 <= p1; p += 8) {
+      const float y0 = col[p], y1 = col[p + 1], y2 = col[p + 2], y3 = col[p + 3];
+      const float y4 = col[p + 4], y5 = col[p + 5], y6 = col[p + 6], y7 = col[p + 7];
+      acc = __fadd_rn(acc, x0); acc = __fadd_rn(acc, x1);
+      acc = __fadd_rn(acc, x2); acc = __fadd_rn(acc, x3);
+      acc = __fadd_rn(acc, x4); acc = __fadd_rn(acc, x5);
+      acc = __fadd_rn(acc, x6); acc = __fadd_rn(acc, x7);
+      x0 = y0; x1 = y1; x2 = y2; x3 = y3; x4 = y4; x5 = y5; x6 = y6; x7 = y7;
     }
-    base += items;
+    acc = __fadd_rn(acc, x0); acc = __fadd_rn(acc, x1);
+    acc = __fadd_rn(acc, x2); acc = __fadd_rn(acc, x3);
+    acc = __fadd_rn(acc, x4); acc = __fadd_rn(acc, x5);
+    acc = __fadd_rn(acc, x6); acc = __fadd_rn(acc, x7);
+  }
+  for (; p < p1; ++p) acc = __fadd_rn(acc, col[p]);
+  return acc;
+}
+
+// Domain sums of K staged columns at level lv: out[d * K + k] = the sum, in
+// node order, of column k over domain d's nodes. `stage(i, dst, P)` writes
+// node i's K values to dst[k * P]. Positions (the level's domain-major node
+// order) are staged into `plane` in chunks of P <= plane_words / K; then each
+// (domain, column) item adds its domain's words of the chunk one after
+// another, from 0 at the domain's first position and from its running sum in
+// `out` past a chunk boundary: one sequential sum per item, the order of
+// index_add_ on the host. Every domain < dom_count[lv] is written.
+//
+// A level of at most PW_NWARPS domains (the broad levels, whose walks are
+// long) is walked in rounds instead: round r stages the next Q = P / D
+// positions of every domain side by side, so all domains advance together
+// and the chain is the longest domain, not the level. Each warp walks one
+// domain, a lane per column: with P = 1 (mod 32) the lanes' words sit in
+// distinct banks, so a step costs one conflict-free load and one add. In a
+// chunk that holds few domains the warps walk them the same way; otherwise
+// the items are dealt to the threads in one sequence.
+template <class Stage, class Prof>
+__device__ void pw_walk(const PlaceWaveArgs& a, int lv, int K, Stage stage, float* out,
+                        float* plane, Prof& prof, int stage_sec, int walk_sec) {
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int lane = tid % PW_WARP, warp = tid / PW_WARP, NW = (NT + PW_WARP - 1) / PW_WARP;
+  const int N = a.N;
+  const int32_t* off = a.dom_offsets + (size_t)lv * (N + 1);
+  const int32_t* nodes = a.dom_nodes + (size_t)lv * N;
+  const int32_t* ndid = a.node_domain_id + (size_t)lv * N;
+  const int D = a.dom_count[lv];
+  const int total = off[D];
+  int P = a.plane_words / K;
+  if (P > 32) P = ((P - 1) & ~31) + 1;  // P = 1 (mod 32)
+  if (D > 0 && D <= PW_NWARPS && P >= D) {
+    const int Q = P / D;
+    int longest = 0;
+    for (int d = 0; d < D; ++d)
+      if (off[d + 1] - off[d] > longest) longest = off[d + 1] - off[d];
+    for (int r0 = 0; r0 == 0 || r0 < longest; r0 += Q) {
+      for (int w = tid; w < D * Q; w += NT) {
+        const int d = w / Q, p = off[d] + r0 + w % Q;
+        if (p < off[d + 1]) stage(nodes[p], plane + w, P);
+      }
+      __syncthreads();
+      prof.mark(stage_sec);
+      for (int d = warp; d < D; d += NW) {
+        const int o0 = off[d] + r0, o1 = off[d + 1] < o0 + Q ? off[d + 1] : o0 + Q;
+        for (int k = lane; k < K; k += PW_WARP) {
+          const float acc = r0 == 0 ? 0.f : out[(size_t)d * K + k];
+          out[(size_t)d * K + k] = pw_sum_run(plane + (size_t)k * P + d * Q - o0, o0, o1, acc);
+        }
+      }
+      __syncthreads();
+      prof.mark(walk_sec);
+    }
+    return;
+  }
+  for (int c0 = 0; c0 < total; c0 += P) {
+    const int c1 = c0 + P < total ? c0 + P : total;
+    for (int p = c0 + tid; p < c1; p += NT) stage(nodes[p], plane + (p - c0), P);
+    __syncthreads();
+    prof.mark(stage_sec);
+    const int d_lo = c0 == 0 ? 0 : ndid[nodes[c0]];
+    const int d_hi = c1 == total ? D - 1 : ndid[nodes[c1 - 1]];
+    auto item = [&](int d, int k) {
+      const int o0 = off[d], o1 = off[d + 1];
+      const int p0 = o0 > c0 ? o0 : c0, p1 = o1 < c1 ? o1 : c1;
+      const float acc = o0 >= c0 ? 0.f : out[(size_t)d * K + k];
+      out[(size_t)d * K + k] = pw_sum_run(plane + (size_t)k * P - c0, p0, p1, acc);
+    };
+    if (d_hi - d_lo < NW) {
+      for (int d = d_lo + warp; d <= d_hi; d += NW)
+        for (int k = lane; k < K; k += PW_WARP) item(d, k);
+    } else {
+      const int items = (d_hi - d_lo + 1) * K;
+      for (int w = tid; w < items; w += NT) item(d_lo + w / K, w % K);
+    }
+    __syncthreads();
+    prof.mark(walk_sec);
   }
 }
 
-struct PwGang {
-  float req[PW_MG_MAX * PW_R_MAX];
-  int total[PW_MG_MAX], required[PW_MG_MAX], order[PW_MG_MAX];
-  bool gvalid[PW_MG_MAX];
-  bool member[PW_MS_MAX * PW_MG_MAX];  // raw set_member
-  bool member2[PW_MS_MAX * PW_MG_MAX]; // set_member & group_valid
-  int req_level[PW_MS_MAX], pref_level[PW_MS_MAX], pinned[PW_MS_MAX];
-  bool svalid[PW_MS_MAX];
-  float demand[PW_MS_MAX * PW_R_MAX];  // per set: sum_g req * required * member2
-  bool homogeneous[PW_MS_MAX];
-  float joint_need[PW_MS_MAX];
-  int creq[PW_MS_MAX], cpref[PW_MS_MAX];
-  bool overlap[PW_MS_MAX], active2[PW_MS_MAX];
-  bool valid, fail, groups_ok;
-  int remaining, n_entries;
-  float best_v;
-  int best_i;
-};
-
-// core.py `_joint_slots_ok` for set s on one domain row's slot sums.
-__device__ __forceinline__ bool pw_joint_ok(const PwGang& s_g, const float* slots_row, int s, int MG) {
-  if (!s_g.homogeneous[s]) return true;
-  float mn = INFINITY;
-  for (int g = 0; g < MG; ++g)
-    if (s_g.member2[s * PW_MG_MAX + g]) mn = fminf(mn, slots_row[g]);
-  return mn >= s_g.joint_need[s];
+// ---- prologue: one gang's invariants ----------------------------------------
+__device__ void pw_gang_invariants(const PlaceWaveArgs& a, int gi) {
+  PwGangInv& v = *(PwGangInv*)(a.ginv + (size_t)gi * PW_INV_BYTES);
+  memset(&v, 0, sizeof(PwGangInv));
+  const int R = a.R, L = a.L, MG = a.MG, MS = a.MS;
+  for (int k = 0; k < MG * R; ++k)
+    v.req[(k / R) * PW_R_MAX + k % R] = a.group_req[(size_t)gi * MG * R + k];
+  for (int g = 0; g < MG; ++g) {
+    v.total[g] = a.group_total[gi * MG + g];
+    v.required[g] = a.group_required[gi * MG + g];
+    v.gvalid[g] = a.group_valid[gi * MG + g] != 0;
+    v.order[g] = a.group_order[gi * MG + g];
+  }
+  for (int s = 0; s < MS; ++s) {
+    v.req_level[s] = a.set_req_level[gi * MS + s];
+    v.pref_level[s] = a.set_pref_level[gi * MS + s];
+    v.svalid[s] = a.set_valid[gi * MS + s] != 0;
+    v.pinned[s] = a.set_pinned[gi * MS + s];
+    for (int g = 0; g < MG; ++g) {
+      const bool m = a.set_member[((size_t)gi * MS + s) * MG + g] != 0;
+      v.member[s * PW_MG_MAX + g] = m;
+      if (m) v.memb_bits[g] |= (uint8_t)(1u << s);
+    }
+  }
+  // B2 fold of the cross-wave gate: ok_global changes only after the wave.
+  bool valid = a.gang_valid[gi] != 0;
+  if (a.T > 0) {
+    const int dg = a.depends_global[gi];
+    if (dg >= 0) valid = valid && a.ok_global[pw_clip(dg, 0, a.T - 1)] != 0;
+  }
+  v.valid0 = valid;
+  v.depends_on = a.depends_on[gi];
+  v.spread_level = a.spread_level ? a.spread_level[gi] : -1;
+  v.spread_family = a.spread_level ? a.spread_family[gi] : -1;
+  for (int s = 0; s < MS; ++s) {
+    bool any = false;
+    float need = 0.f;
+    for (int g = 0; g < MG; ++g) {
+      const bool m2 = v.member[s * PW_MG_MAX + g] && v.gvalid[g];
+      if (m2) v.s_grp[s * PW_MG_MAX + v.s_ng[s]++] = (uint8_t)g;
+      any = any || m2;
+      need = __fadd_rn(need, __fmul_rn((float)v.required[g], m2 ? 1.f : 0.f));
+    }
+    v.joint_need[s] = need;
+    bool homog = any;
+    for (int r = 0; r < R; ++r) {
+      float lo = INFINITY, hi = -INFINITY, dem = 0.f;
+      for (int g = 0; g < MG; ++g) {
+        const bool m2 = v.member[s * PW_MG_MAX + g] && v.gvalid[g];
+        const float q = v.req[g * PW_R_MAX + r];
+        if (m2) { lo = fminf(lo, q); hi = fmaxf(hi, q); }
+        dem = __fadd_rn(dem, __fmul_rn(q, (float)(m2 ? v.required[g] : 0)));
+      }
+      v.demand[s * PW_R_MAX + r] = dem;
+      homog = homog && (__fsub_rn(hi, lo) <= PW_EPS);
+    }
+    v.homogeneous[s] = homog;
+    for (int s2 = 0; s2 < MS; ++s2) {
+      bool ov = false;
+      for (int g = 0; g < MG; ++g)
+        ov = ov || (v.member[s2 * PW_MG_MAX + g] && v.member[s * PW_MG_MAX + g]);
+      v.overlap[s * PW_MS_MAX + s2] = ov;
+    }
+  }
+  // Which feasibility rows a nested pass reads: set s's nested pass runs when
+  // s is valid with a required level, and reads set s2 when s2 is valid,
+  // overlaps s and requires a narrower level (core.py nested_feasible).
+  for (int s = 0; s < MS; ++s) {
+    if (!v.svalid[s] || v.req_level[s] < 0) continue;
+    for (int s2 = 0; s2 < MS; ++s2) {
+      const bool act = v.svalid[s2] && v.req_level[s2] > v.req_level[s] &&
+                       v.overlap[s * PW_MS_MAX + s2];
+      v.active2[s * PW_MS_MAX + s2] = act;
+      if (act) v.need_table[s2] = 1;
+    }
+  }
+  for (int s2 = 0; s2 < MS; ++s2) {
+    if (!v.need_table[s2]) continue;
+    const int lv = pw_clip(v.req_level[s2], 0, L - 1);
+    v.table_levels |= 1 << lv;
+    for (int j = 0; j < v.s_ng[s2]; ++j) {
+      const int g = v.s_grp[s2 * PW_MG_MAX + j];
+      int c = 0;
+      while (c < v.tab_ng[lv] && v.tab_grp[lv * PW_MG_MAX + c] != g) ++c;
+      if (c == v.tab_ng[lv]) v.tab_grp[lv * PW_MG_MAX + v.tab_ng[lv]++] = (uint8_t)g;
+      v.s_tcol[s2 * PW_MG_MAX + j] = (uint8_t)c;
+    }
+  }
 }
 
-// Domain feasibility shared by the hoisted narrow-set table and pick_domain.
-__device__ __forceinline__ bool pw_domain_fits(const PwGang& s_g, const float* row, int s, int R, int MG) {
-  for (int r = 0; r < R; ++r)
-    if (!(row[r] >= __fsub_rn(s_g.demand[s * PW_R_MAX + r], PW_EPS))) return false;
-  for (int g = 0; g < MG; ++g)
-    if (s_g.member2[s * PW_MG_MAX + g] && !(row[R + g] >= (float)s_g.required[g])) return false;
-  return pw_joint_ok(s_g, row + R, s, MG);
+#ifndef PLACE_WAVE_HOST_EMULATION
+__global__ void place_wave_prologue(const PlaceWaveArgs a) {
+  if (threadIdx.x == 0) pw_gang_invariants(a, blockIdx.x);
 }
+#endif
 
-// kSharedCarry: the carry and the working copy in dynamic shared memory
-// (2 * N * R floats); otherwise in global memory.
-template <bool kSharedCarry>
+// ---- the chain: every gang of the wave, in batch order ----------------------
+template <bool kProfile>
 __global__ void __launch_bounds__(PW_THREADS)
 place_wave_kernel(const PlaceWaveArgs a) {
-  extern __shared__ float pw_smem[];
-  __shared__ PwGang s_g;
+  extern __shared__ float pw_plane[];  // a.plane_words f32 for the walks
+  __shared__ PwGangInv s_inv[2];
   __shared__ float cap_scale[PW_R_MAX];
   __shared__ float red_v[32];
   __shared__ int red_i[32];
+  __shared__ float wb_v[2][PW_NWARPS];  // stage 2: each warp's best, two buffers
+  __shared__ int wb_i[2][PW_NWARPS];
+  __shared__ int s_rem[2];
+  __shared__ int s_creq[PW_MS_MAX], s_cpref[PW_MS_MAX];
+  __shared__ int s_n_entries;
+  __shared__ float s_best_v;
+  __shared__ int s_best_i;
 
   const int tid = threadIdx.x;
   const int NT = blockDim.x;
+  const int lane = tid % PW_WARP, warp = tid / PW_WARP;
+  const int NW = (NT + PW_WARP - 1) / PW_WARP;
   const int N = a.N, R = a.R, L = a.L, MG = a.MG, MS = a.MS, MP = a.MP;
-  const int C = R + MG + 1;
   const bool pruned = a.cand_idx != nullptr;
   const bool spread = a.spread_level != nullptr;
-  // [N, R] the wave's carry and [N, R] the gang's working copy. A dense
-  // solve in global memory works on the fleet tensor itself.
-  float* free_s = kSharedCarry ? pw_smem : (pruned ? a.carry : a.free_io);
-  float* freeg_s = kSharedCarry ? pw_smem + (size_t)N * R : a.carry_g;
+  float* free_s = pruned ? a.carry : a.free_io;  // [N, R] the wave's carry
+  PwProf<kProfile> prof;
+  prof.start(a.prof ? a.prof + (size_t)a.G * PW_NSEC : nullptr);
 
+  pw_fetch_gang(&s_inv[0], a, 0);
   // cap_scale = max(capacity.max(axis=0), 1e-9)
   for (int r = 0; r < R; ++r) {
     float m = -INFINITY;
     for (int i = tid; i < N; i += NT) m = fmaxf(m, a.capacity[(size_t)i * R + r]);
     // argmax reduction used as a max reduction (index unused)
-    pw_block_argmax(m, 0, red_v, red_i, &s_g.best_v, &s_g.best_i);
-    if (tid == 0) cap_scale[r] = fmaxf(s_g.best_v, 1e-9f);
+    pw_block_argmax(m, 0, red_v, red_i, &s_best_v, &s_best_i);
+    if (tid == 0) cap_scale[r] = fmaxf(s_best_v, 1e-9f);
     __syncthreads();
   }
   if (pruned) {
@@ -290,217 +593,163 @@ place_wave_kernel(const PlaceWaveArgs a) {
       const int src = a.cand_idx[k / R];
       free_s[k] = (src >= 0 && src < a.NF) ? a.free_io[(size_t)src * R + k % R] : 0.f;
     }
-  } else if (kSharedCarry) {
-    for (int k = tid; k < N * R; k += NT) free_s[k] = a.free_io[k];
+    __syncthreads();
   }
+  // Each carry row's normalised free capacity, kept beside the carry and
+  // recomputed wherever a row changes: stage 2 reads it once per node.
+  for (int i = tid; i < N; i += NT) a.norm_free[i] = pw_norm_free(free_s + (size_t)i * R, cap_scale, R);
   __syncthreads();
+  prof.mark(PW_SEC_SETUP);
 
   for (int gi = 0; gi < a.G; ++gi) {
-    // ---- B2 fold + in-wave depends_on gate --------------------------------
+    if (kProfile) prof.row = a.prof + (size_t)gi * PW_NSEC;
+    // ---- gang record (prefetched) + B2/in-wave gate -----------------------
+    pw_fetch_gang(&s_inv[(gi + 1) & 1], a, gi + 1);
+    pw_async_wait_all_but_one();
     if (tid == 0) {
-      bool valid = a.gang_valid[gi] != 0;
-      if (a.T > 0) {
-        const int dg = a.depends_global[gi];
-        if (dg >= 0) valid = valid && a.ok_global[pw_clip(dg, 0, a.T - 1)] != 0;
-      }
-      const int dep = a.depends_on[gi];
-      if (dep >= 0) valid = valid && a.ok[pw_clip(dep, 0, a.G - 1)] != 0;
-      s_g.valid = valid;
+      s_n_entries = 0;
+      for (int s = 0; s < PW_MS_MAX; ++s) { s_creq[s] = -1; s_cpref[s] = -1; }
     }
     __syncthreads();
-    if (!s_g.valid) {
+    const PwGangInv& v = s_inv[gi & 1];
+    bool valid = v.valid0 != 0;
+    if (v.depends_on >= 0) valid = valid && a.ok[pw_clip(v.depends_on, 0, a.G - 1)] != 0;
+    if (!valid) {
       for (int p = tid; p < MP; p += NT) a.assigned[(size_t)gi * MP + p] = -1;
       if (tid == 0) { a.ok[gi] = 0; a.score[gi] = 0.f; }
       __syncthreads();
+      prof.mark(PW_SEC_GATE);
       continue;
     }
-
-    // ---- load the gang's rows ----------------------------------------------
-    for (int k = tid; k < MG * R; k += NT)
-      s_g.req[(k / R) * PW_R_MAX + k % R] = a.group_req[(size_t)gi * MG * R + k];
-    for (int g = tid; g < MG; g += NT) {
-      s_g.total[g] = a.group_total[gi * MG + g];
-      s_g.required[g] = a.group_required[gi * MG + g];
-      s_g.gvalid[g] = a.group_valid[gi * MG + g] != 0;
-      s_g.order[g] = a.group_order[gi * MG + g];
-    }
-    for (int k = tid; k < MS * MG; k += NT)
-      s_g.member[(k / MG) * PW_MG_MAX + k % MG] = a.set_member[(size_t)gi * MS * MG + k] != 0;
-    for (int s = tid; s < MS; s += NT) {
-      s_g.req_level[s] = a.set_req_level[gi * MS + s];
-      s_g.pref_level[s] = a.set_pref_level[gi * MS + s];
-      s_g.svalid[s] = a.set_valid[gi * MS + s] != 0;
-      s_g.pinned[s] = a.set_pinned[gi * MS + s];
-      s_g.creq[s] = -1;
-      s_g.cpref[s] = -1;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      s_g.fail = false;
-      s_g.groups_ok = true;
-      s_g.n_entries = 0;
-      for (int s = 0; s < MS; ++s) {
-        bool any = false;
-        float need = 0.f;
-        for (int g = 0; g < MG; ++g) {
-          const bool m2 = s_g.member[s * PW_MG_MAX + g] && s_g.gvalid[g];
-          s_g.member2[s * PW_MG_MAX + g] = m2;
-          any = any || m2;
-          need = __fadd_rn(need, __fmul_rn((float)s_g.required[g], m2 ? 1.f : 0.f));
-        }
-        s_g.joint_need[s] = need;
-        bool homog = any;
-        for (int r = 0; r < R; ++r) {
-          float lo = INFINITY, hi = -INFINITY, dem = 0.f;
-          for (int g = 0; g < MG; ++g) {
-            const bool m2 = s_g.member2[s * PW_MG_MAX + g];
-            const float q = s_g.req[g * PW_R_MAX + r];
-            if (m2) { lo = fminf(lo, q); hi = fmaxf(hi, q); }
-            dem = __fadd_rn(dem, __fmul_rn(q, (float)(m2 ? s_g.required[g] : 0)));
-          }
-          s_g.demand[s * PW_R_MAX + r] = dem;
-          homog = homog && (__fsub_rn(hi, lo) <= PW_EPS);
-        }
-        s_g.homogeneous[s] = homog;
-      }
-    }
-    __syncthreads();
+    prof.mark(PW_SEC_GATE);
+    const uint8_t* gno = a.group_node_ok ? a.group_node_ok + (size_t)gi * MG * N : nullptr;
 
     // ---- hoisted replica-spread penalty (core.py:245-261, :580-590) -------
     // avoid = the store's seed | what earlier gangs of the family took
     // (read before this gang writes its row); spread_pen = 1 on nodes whose
     // spread-level domain holds an avoided node.
     if (spread) {
-      const int fam = a.spread_family[gi];
+      const int fam = v.spread_family;
       const uint8_t* fam_row = a.family_used + (size_t)pw_clip(fam, 0, a.G - 1) * N;
       const uint8_t* seed = a.spread_avoid + (size_t)gi * N;
-      for (int i = tid; i < N; i += NT) a.avoid[i] = seed[i] || (fam >= 0 && fam_row[i]);
-      __syncthreads();
-      const int s_lvl = a.spread_level[gi];
+      const int s_lvl = v.spread_level;
       const int lvc = pw_clip(s_lvl, 0, L - 1);
-      auto feat = [&](int i, int) -> float { return a.avoid[i] ? 1.f : 0.f; };
-      pw_aggregate(a, lvc, lvc + 1, 1, feat, a.agg, 0);
-      __syncthreads();
+      if (s_lvl >= 0) {  // block-uniform; without a level no node is penalised
+        auto stage = [&](int i, float* dst, int) {
+          dst[0] = (seed[i] || (fam >= 0 && fam_row[i])) ? 1.f : 0.f;
+        };
+        pw_walk(a, lvc, 1, stage, a.agg, pw_plane, prof, PW_SEC_SPREAD, PW_SEC_SPREAD);
+      }
       for (int i = tid; i < N; i += NT) {
         const int s_dom = a.node_domain_id[(size_t)lvc * N + i];
         const bool pen = s_lvl >= 0 && s_dom >= 0 && a.agg[pw_clip(s_dom, 0, N - 1)] > 0.5f;
         a.spread_pen[i] = pen ? 1.f : 0.f;
       }
       __syncthreads();
+      prof.mark(PW_SEC_SPREAD);
     }
 
-    // ---- hoisted per-gang tables (free is fixed during stage 1) -----------
-    const uint8_t* gno = a.group_node_ok ? a.group_node_ok + (size_t)gi * MG * N : nullptr;
-    for (int k = tid; k < MG * N; k += NT) {
-      const int g = k / N, i = k % N;
-      int sl = pw_slots(free_s + (size_t)i * R, s_g.req + g * PW_R_MAX, R);
-      if (gno && !gno[k]) sl = 0;
-      a.slots_all[k] = sl;
+    // ---- narrow-set tables, only where a nested pass reads them ------------
+    // (free is fixed during stage 1; tables over schedulable nodes.)
+    if (v.table_levels) {
+      for (int lv = 0; lv < L; ++lv) {
+        if (!(v.table_levels >> lv & 1)) continue;
+        const int ng = v.tab_ng[lv];
+        const uint8_t* tg = v.tab_grp + lv * PW_MG_MAX;
+        auto stage = [&](int i, float* dst, int P) {
+          if (!a.schedulable[i]) {
+            for (int k = 0; k < R + ng; ++k) dst[(size_t)k * P] = 0.f;
+            return;
+          }
+          const float* fr = free_s + (size_t)i * R;
+          for (int r = 0; r < R; ++r) dst[(size_t)r * P] = fr[r];
+          for (int j = 0; j < ng; ++j)
+            dst[(size_t)(R + j) * P] = pw_node_slots(v, fr, gno, tg[j], i, N, R);
+        };
+        pw_walk(a, lv, R + ng, stage, a.tables + (size_t)lv * N * (R + MG), pw_plane, prof,
+                PW_SEC_TABLES, PW_SEC_TABLES);
+      }
+      for (int s2 = 0; s2 < MS; ++s2) {
+        if (!v.need_table[s2]) continue;  // block-uniform
+        const int lv = pw_clip(v.req_level[s2], 0, L - 1);
+        const int K = R + v.tab_ng[lv];
+        const float* tab = a.tables + (size_t)lv * N * (R + MG);
+        for (int d = tid; d < a.dom_count[lv]; d += NT)
+          a.feas2[(size_t)s2 * N + d] =
+              pw_domain_fits(v, tab + (size_t)d * K, s2, v.s_tcol + s2 * PW_MG_MAX, R);
+      }
+      __syncthreads();
+      prof.mark(PW_SEC_TABLES);
     }
-    __syncthreads();
-    {
-      auto feat = [&](int i, int c) -> float {
-        if (!a.schedulable[i]) return 0.f;
-        if (c < R) return free_s[(size_t)i * R + c];
-        if (c < R + MG) return (float)a.slots_all[(size_t)(c - R) * N + i];
-        return 1.f;
-      };
-      pw_aggregate(a, 0, L, C, feat, a.tables, (size_t)N * C);
-    }
-    __syncthreads();
-    for (int k = tid; k < MS * N; k += NT) {
-      const int s2 = k / N, d = k % N;
-      const int lv = pw_clip(s_g.req_level[s2], 0, L - 1);
-      if (d < a.dom_count[lv])
-        a.feas2[k] = pw_domain_fits(s_g, a.tables + ((size_t)lv * N + d) * C, s2, R, MG);
-    }
-    __syncthreads();
-    for (int k = tid; k < MS * N; k += NT) {
-      const int s2 = k / N, i = k % N;
-      const int lv = pw_clip(s_g.req_level[s2], 0, L - 1);
-      const int dom = a.node_domain_id[(size_t)lv * N + i];
-      a.node_feas2[k] = dom >= 0 ? a.feas2[(size_t)s2 * N + dom] : 0;
-    }
-    __syncthreads();
 
     // ---- Stage 1: commit a domain per pack-set, broadest first ------------
+    bool fail = false;
     for (int s = 0; s < MS; ++s) {
-      if (tid == 0) {
-        for (int s2 = 0; s2 < MS; ++s2) {
-          bool ov = false;
-          for (int g = 0; g < MG; ++g)
-            ov = ov || (s_g.member[s2 * PW_MG_MAX + g] && s_g.member[s * PW_MG_MAX + g]);
-          s_g.overlap[s2] = ov;
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < N; i += NT) {
-        bool nok = a.schedulable[i] != 0, tk = false;
-        for (int s2 = 0; s2 < MS; ++s2) {
-          const int c = s_g.creq[s2];
-          if (c < 0) continue;
-          const int lv = pw_clip(s_g.req_level[s2], 0, L - 1);
-          const bool in_dom = a.node_domain_id[(size_t)lv * N + i] == c;
-          if (s_g.overlap[s2]) nok = nok && in_dom;
-          else if (s_g.svalid[s2]) tk = tk || in_dom;
-        }
-        a.node_ok[i] = nok;
-        a.taken[i] = tk;
-      }
-      __syncthreads();
-
-      const int req_lv = pw_clip(s_g.req_level[s], 0, L - 1);
+      const int req_lv = pw_clip(v.req_level[s], 0, L - 1);
       const int32_t* req_dom = a.node_domain_id + (size_t)req_lv * N;
+      const int ng = v.s_ng[s];
+      const uint8_t* sg = v.s_grp + s * PW_MG_MAX;
+      const uint8_t* act = v.active2 + s * PW_MS_MAX;
+      const uint8_t* ovl = v.overlap + s * PW_MS_MAX;
       int new_req = -1, new_pref = -1;
       for (int pass = 0; pass < 2; ++pass) {
         const bool nested = pass == 0;
-        const int level = nested ? s_g.req_level[s] : s_g.pref_level[s];
-        if (!s_g.svalid[s] || level < 0) continue;  // block-uniform
+        const int level = nested ? v.req_level[s] : v.pref_level[s];
+        if (!v.svalid[s] || level < 0) continue;  // block-uniform
         const int lv = pw_clip(level, 0, L - 1);
-        if (tid == 0) {
-          for (int s2 = 0; s2 < MS; ++s2)
-            s_g.active2[s2] = s_g.svalid[s2] && s_g.req_level[s2] > level && s_g.overlap[s2];
-        }
-        for (int i = tid; i < N; i += NT) {
-          bool extra;
-          if (nested) {
-            const int pin = s_g.pinned[s];
-            extra = pin < 0 || req_dom[i] == pin;
-          } else {
-            extra = new_req < 0 || req_dom[i] == new_req;
+        int n_act = 0;
+        if (nested)
+          for (int s2 = 0; s2 < MS; ++s2) n_act += act[s2];
+        // Columns: free [R] | slots of s's member2 groups [ng] | count |
+        // taken | feasibility of each active2 set (nested pass) | spread.
+        const int c_cnt = R + ng, c_nest = c_cnt + 2;
+        const int c_spread = c_nest + n_act;
+        const int K = c_spread + (spread ? 1 : 0);
+        const int extra_dom = nested ? v.pinned[s] : new_req;
+        auto stage = [&](int i, float* dst, int P) {
+          // node_ok / taken from the sets committed so far (only s2 < s).
+          bool nok = a.schedulable[i] != 0, tk = false;
+          for (int s2 = 0; s2 < s; ++s2) {
+            const int c = s_creq[s2];
+            if (c < 0) continue;
+            const int lv2 = pw_clip(v.req_level[s2], 0, L - 1);
+            const bool in_dom = a.node_domain_id[(size_t)lv2 * N + i] == c;
+            if (ovl[s2]) nok = nok && in_dom;
+            else if (v.svalid[s2]) tk = tk || in_dom;
           }
-          a.ok_nodes[i] = a.node_ok[i] && extra;
-        }
-        __syncthreads();
-        // Columns: free [R] | slots [MG] | count | taken | nested [MS] (the
-        // required pick only) | spread-touched (with spread planes only).
-        const int K_core = C + 1 + (nested ? MS : 0);
-        const int K = K_core + (spread ? 1 : 0);
-        auto feat = [&](int i, int c) -> float {
-          const bool okn = a.ok_nodes[i] != 0;
-          if (!okn) return 0.f;
-          if (c < R) return free_s[(size_t)i * R + c];
-          if (c < R + MG) return (float)a.slots_all[(size_t)(c - R) * N + i];
-          if (c == R + MG) return 1.f;
-          if (c == C) return a.taken[i] ? 1.f : 0.f;
-          if (c == K_core) return a.spread_pen[i];
-          return a.node_feas2[(size_t)(c - C - 1) * N + i] ? 1.f : 0.f;
+          if (!(nok && (extra_dom < 0 || req_dom[i] == extra_dom))) {
+            for (int k = 0; k < K; ++k) dst[(size_t)k * P] = 0.f;
+            return;
+          }
+          const float* fr = free_s + (size_t)i * R;
+          for (int r = 0; r < R; ++r) dst[(size_t)r * P] = fr[r];
+          for (int j = 0; j < ng; ++j)
+            dst[(size_t)(R + j) * P] = pw_node_slots(v, fr, gno, sg[j], i, N, R);
+          dst[(size_t)c_cnt * P] = 1.f;
+          dst[(size_t)(c_cnt + 1) * P] = tk ? 1.f : 0.f;
+          if (nested) {
+            int c = c_nest;
+            for (int s2 = 0; s2 < MS; ++s2) {
+              if (!act[s2]) continue;
+              const int lv2 = pw_clip(v.req_level[s2], 0, L - 1);
+              const int dom = a.node_domain_id[(size_t)lv2 * N + i];
+              dst[(size_t)c++ * P] = dom >= 0 && a.feas2[(size_t)s2 * N + dom] ? 1.f : 0.f;
+            }
+          }
+          if (spread) dst[(size_t)c_spread * P] = a.spread_pen[i];
         };
-        pw_aggregate(a, lv, lv + 1, K, feat, a.agg, 0);
-        __syncthreads();
+        pw_walk(a, lv, K, stage, a.agg, pw_plane, prof, PW_SEC_S1_NODES, PW_SEC_S1_WALKS);
         float best_v = -INFINITY;
         int best_i = INT32_MAX;
         const int D = a.dom_count[lv];
         for (int d = tid; d < D; d += NT) {
           const float* row = a.agg + (size_t)d * K;
-          const float count = row[R + MG];
-          bool feasible = count > 0.f && pw_domain_fits(s_g, row, s, R, MG);
-          if (feasible && nested) {
-            for (int s2 = 0; s2 < MS; ++s2)
-              if (s_g.active2[s2] && !(row[C + 1 + s2] > 0.5f)) feasible = false;
-          }
+          const float count = row[c_cnt];
+          bool feasible = count > 0.f && pw_domain_fits(v, row, s, nullptr, R);
+          for (int c = c_nest; feasible && c < c_spread; ++c)
+            if (!(row[c] > 0.5f)) feasible = false;
           if (!feasible) continue;
-          const float taken_frac = __fdiv_rn(row[C], fmaxf(count, 1.f));
+          const float taken_frac = __fdiv_rn(row[c_cnt + 1], fmaxf(count, 1.f));
           float norm_free = 0.f;
           for (int r = 0; r < R; ++r) norm_free = __fadd_rn(norm_free, __fdiv_rn(row[r], cap_scale[r]));
           float sc = __fsub_rn(-norm_free, __fmul_rn(a.w_reserve, taken_frac));
@@ -508,102 +757,151 @@ place_wave_kernel(const PlaceWaveArgs a) {
             // A margin above every other score term (core.py:374-387): any
             // feasible domain with no avoided node beats one with them.
             const float big = __fadd_rn(__fadd_rn((float)(N * R), a.w_reserve), 2.f);
-            const float touched = row[K_core] > 0.5f ? 1.f : 0.f;
+            const float touched = row[c_spread] > 0.5f ? 1.f : 0.f;
             sc = __fsub_rn(sc, __fmul_rn(a.w_spread > 0.f ? big : 0.f, touched));
           }
           if (pw_better(sc, d, best_v, best_i)) { best_v = sc; best_i = d; }
         }
-        pw_block_argmax(best_v, best_i, red_v, red_i, &s_g.best_v, &s_g.best_i);
-        const bool any = s_g.best_v > -INFINITY;
+        // Every thread reads the winner before the next argmax's first
+        // barrier, after which alone it is written again.
+        pw_block_argmax(best_v, best_i, red_v, red_i, &s_best_v, &s_best_i);
+        const bool any = s_best_v > -INFINITY;
         if (nested) {
-          new_req = any ? s_g.best_i : -1;
-          if (tid == 0 && !any) s_g.fail = true;
+          new_req = any ? s_best_i : -1;
+          fail = fail || !any;
         } else {
-          new_pref = any ? s_g.best_i : -1;
+          new_pref = any ? s_best_i : -1;
         }
-        __syncthreads();
+        prof.mark(PW_SEC_S1_ARGMAX);
       }
-      if (tid == 0) { s_g.creq[s] = new_req; s_g.cpref[s] = new_pref; }
-      __syncthreads();
+      if (new_req >= 0 || new_pref >= 0) {  // block-uniform
+        if (tid == 0) { s_creq[s] = new_req; s_cpref[s] = new_pref; }
+        __syncthreads();
+        prof.mark(PW_SEC_S1_ARGMAX);
+      }
     }
 
     // ---- Stage 2: allocate counts per group, floors first, then extras ----
-    for (int k = tid; k < N * R; k += NT) freeg_s[k] = free_s[k];
-    for (int i = tid; i < N; i += NT)
-      a.used[i] = a.reuse_nodes ? (a.reuse_nodes[(size_t)gi * N + i] != 0) : 0;
-    __syncthreads();
+    // Each node's word: its committed-domain bits (bit s: inside set s's
+    // committed required / preferred domain), schedulable, the gang's reuse
+    // seed (then every node it takes) and the spread penalty.
+    unsigned committed = 0;
+    for (int s = 0; s < MS; ++s)
+      if (s_creq[s] >= 0) committed |= 1u << s;
+    for (int i = tid; i < N; i += NT) {
+      unsigned in_req = 0, in_pref = 0;
+      for (int s = 0; s < MS; ++s) {
+        const int cr = s_creq[s], cp = s_cpref[s];
+        if (cr >= 0 && a.node_domain_id[(size_t)pw_clip(v.req_level[s], 0, L - 1) * N + i] == cr)
+          in_req |= 1u << s;
+        if (cp >= 0 && a.node_domain_id[(size_t)pw_clip(v.pref_level[s], 0, L - 1) * N + i] == cp)
+          in_pref |= 1u << s;
+      }
+      unsigned w = in_req | in_pref << 8;
+      if (a.schedulable[i]) w |= PW_NW_SCHED;
+      if (a.reuse_nodes && a.reuse_nodes[(size_t)gi * N + i]) w |= PW_NW_USED;
+      if (spread && a.spread_pen[i] > 0.5f) w |= PW_NW_SPREAD;  // spread_pen is 0 or 1
+      a.nword[i] = (int32_t)w;
+    }
+    bool groups_ok = true;
     int32_t* ent = a.entries;
     for (int t = 0; t < 2 * MG; ++t) {
-      const int g = s_g.order[t % MG];
+      const int g = v.order[t % MG];
       const int phase = t / MG;
-      if (!s_g.gvalid[g]) continue;  // block-uniform; counts stay 0
-      const int total = phase == 0 ? s_g.required[g] : s_g.total[g] - s_g.required[g];
-      const int floor_req = phase == 0 ? s_g.required[g] : 0;
-      const float* req = s_g.req + g * PW_R_MAX;
+      const int total = phase == 0 ? v.required[g] : v.total[g] - v.required[g];
+      // Block-uniform: an invalid group, or a phase with nothing to place,
+      // takes no node and leaves every count 0.
+      if (!v.gvalid[g] || total <= 0) continue;
+      const int floor_req = phase == 0 ? v.required[g] : 0;
+      const float* req = v.req + g * PW_R_MAX;
+      const unsigned mb = v.memb_bits[g];
+      // The node words and the last phase's takes are in place, and nobody
+      // still reads the last phase's warp bests.
+      __syncthreads();
+      float bv = -INFINITY;
+      int bi = INT32_MAX;
+#pragma unroll 4
       for (int i = tid; i < N; i += NT) {
-        bool nok = a.schedulable[i] != 0;
-        float pref_bonus = 0.f, reserved = 0.f;
-        for (int s = 0; s < MS; ++s) {
-          const bool memb = s_g.member[s * PW_MG_MAX + g];
-          const int cr = s_g.creq[s], cp = s_g.cpref[s];
-          const int rl = pw_clip(s_g.req_level[s], 0, L - 1);
-          const int pl = pw_clip(s_g.pref_level[s], 0, L - 1);
-          const bool in_req = a.node_domain_id[(size_t)rl * N + i] == cr;
-          if (memb && cr >= 0) nok = nok && in_req;
-          if (memb && cp >= 0 && a.node_domain_id[(size_t)pl * N + i] == cp)
-            pref_bonus = __fadd_rn(pref_bonus, 1.f);
-          if (!memb && cr >= 0 && in_req) reserved = __fadd_rn(reserved, 1.f);
-        }
-        if (gno) nok = nok && gno[(size_t)g * N + i] != 0;
+        const unsigned w = (unsigned)a.nword[i];
+        bool nok = (w & PW_NW_SCHED) && (mb & committed & ~w & 0xffu) == 0;
+        if (nok && gno) nok = gno[(size_t)g * N + i] != 0;
         int sl = 0;
         if (nok) {
-          sl = pw_slots(freeg_s + (size_t)i * R, req, R);
+          sl = pw_slots(free_s + (size_t)i * R, req, R);
           sl = sl < total ? sl : total;
         }
-        float nf = 0.f;
-        for (int r = 0; r < R; ++r) nf = __fadd_rn(nf, __fdiv_rn(freeg_s[(size_t)i * R + r], cap_scale[r]));
-        nf = __fdiv_rn(nf, (float)R);
-        float sc = __fadd_rn(__fmul_rn(a.w_pref, pref_bonus), __fmul_rn(a.w_reuse, a.used[i] ? 1.f : 0.f));
-        sc = __fsub_rn(sc, __fmul_rn(a.w_tight, nf));
-        sc = __fsub_rn(sc, __fmul_rn(a.w_reserve, reserved));
-        if (spread) sc = __fsub_rn(sc, __fmul_rn(a.w_spread, a.spread_pen[i]));
         a.a_slots[i] = sl;
+        if (sl <= 0) continue;  // never a candidate: its score is never read
+        const unsigned in_req = w & 0xffu, in_pref = (w >> 8) & 0xffu;
+        // pref_bonus and reserved are counts of 1.0 added in set order: exact.
+        const float pref_bonus = (float)pw_popc(in_pref & mb);
+        const float reserved = (float)pw_popc(in_req & ~mb);
+        float sc = __fadd_rn(__fmul_rn(a.w_pref, pref_bonus),
+                             __fmul_rn(a.w_reuse, (w & PW_NW_USED) ? 1.f : 0.f));
+        sc = __fsub_rn(sc, __fmul_rn(a.w_tight, a.norm_free[i]));
+        sc = __fsub_rn(sc, __fmul_rn(a.w_reserve, reserved));
+        if (spread) sc = __fsub_rn(sc, __fmul_rn(a.w_spread, (w & PW_NW_SPREAD) ? 1.f : 0.f));
         a.a_score[i] = sc;
+        if (pw_better(sc, i, bv, bi)) { bv = sc; bi = i; }
       }
-      if (tid == 0) s_g.remaining = total;
+      pw_warp_argmax(bv, bi);
+      if (lane == 0) { wb_v[0][warp] = bv; wb_i[0][warp] = bi; }
+      if (tid == 0) s_rem[0] = total;
       __syncthreads();
+      prof.mark(PW_SEC_S2_SCORE);
       // Top-k as iterated argmax: the best node by (score desc, index asc)
-      // takes min(slots, remaining) until the phase's total is placed.
-      while (s_g.remaining > 0) {
-        float bv = -INFINITY;
-        int bi = INT32_MAX;
-        for (int i = tid; i < N; i += NT)
-          if (a.a_slots[i] > 0 && pw_better(a.a_score[i], i, bv, bi)) { bv = a.a_score[i]; bi = i; }
-        pw_block_argmax(bv, bi, red_v, red_i, &s_g.best_v, &s_g.best_i);
-        const int node = s_g.best_i;
+      // takes min(slots, remaining) until the phase's total is placed. Only
+      // the warp that owns the taken node rescans; one barrier per take.
+      int rem = total;
+      for (int it = 0;; ++it) {
+        const int cur = it & 1, nxt = cur ^ 1;
+        rem = s_rem[cur];
+        if (rem <= 0) break;
+        // Every warp reduces the warps' bests itself: one load a lane.
+        float bv2 = -INFINITY;
+        int node = INT32_MAX;
+        for (int w = lane; w < NW; w += PW_WARP)
+          if (pw_better(wb_v[cur][w], wb_i[cur][w], bv2, node)) { bv2 = wb_v[cur][w]; node = wb_i[cur][w]; }
+        pw_warp_argmax(bv2, node);
         if (node == INT32_MAX) break;  // block-uniform: no node has slots left
-        if (tid == 0) {
-          const int sl = a.a_slots[node];
-          const int take = sl < s_g.remaining ? sl : s_g.remaining;
-          s_g.remaining -= take;
-          a.a_slots[node] = 0;
-          const int e = s_g.n_entries++;
-          ent[3 * e] = g;
-          ent[3 * e + 1] = node;
-          ent[3 * e + 2] = take;
-          for (int r = 0; r < R; ++r)
-            freeg_s[(size_t)node * R + r] =
-                __fsub_rn(freeg_s[(size_t)node * R + r], __fmul_rn((float)take, req[r]));
-          a.used[node] = 1;
+        if (warp == (node % NT) / PW_WARP) {
+          if (lane == 0) {
+            const int sl = a.a_slots[node];
+            const int take = sl < rem ? sl : rem;
+            s_rem[nxt] = rem - take;
+            a.a_slots[node] = 0;
+            const int e = s_n_entries++;
+            ent[3 * e] = g;
+            ent[3 * e + 1] = node;
+            ent[3 * e + 2] = take;
+            for (int r = 0; r < R; ++r) {
+              const float x = free_s[(size_t)node * R + r];
+              a.undo[(size_t)e * R + r] = x;
+              free_s[(size_t)node * R + r] = __fsub_rn(x, __fmul_rn((float)take, req[r]));
+            }
+            a.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
+            a.nword[node] |= (int32_t)PW_NW_USED;
+          }
+          pw_syncwarp();
+          float wv = -INFINITY;
+          int wi = INT32_MAX;
+          for (int i = tid; i < N; i += NT)
+            if (a.a_slots[i] > 0 && pw_better(a.a_score[i], i, wv, wi)) { wv = a.a_score[i]; wi = i; }
+          pw_warp_argmax(wv, wi);
+          if (lane == 0) { wb_v[nxt][warp] = wv; wb_i[nxt][warp] = wi; }
+        } else if (lane == 0) {
+          wb_v[nxt][warp] = wb_v[cur][warp];
+          wb_i[nxt][warp] = wb_i[cur][warp];
         }
         __syncthreads();
       }
-      if (tid == 0 && total - s_g.remaining < floor_req) s_g.groups_ok = false;
-      __syncthreads();
+      if (total - rem < floor_req) groups_ok = false;
+      prof.mark(PW_SEC_S2_TAKE);
     }
+    __syncthreads();  // entries and the last takes are in place
 
-    const bool gang_ok = s_g.groups_ok && !s_g.fail;  // s_g.valid holds here
-    const int n_ent = s_g.n_entries;
+    const bool gang_ok = groups_ok && !fail;  // valid holds here
+    const int n_ent = s_n_entries;
 
     // ---- Stage 3: counts -> per-pod node (right searchsorted) --------------
     for (int p = tid; p < MP; p += NT) {
@@ -628,8 +926,8 @@ place_wave_kernel(const PlaceWaveArgs a) {
         node = best;
       }
       // Family row write after this gang's own read (core.py:597-607).
-      if (node >= 0 && spread && a.spread_family[gi] >= 0)
-        a.family_used[(size_t)pw_clip(a.spread_family[gi], 0, a.G - 1) * N + node] = 1;
+      if (node >= 0 && spread && v.spread_family >= 0)
+        a.family_used[(size_t)pw_clip(v.spread_family, 0, a.G - 1) * N + node] = 1;
       // B3 remap (remap_assigned): candidate ordinal -> fleet ordinal.
       if (node >= 0 && pruned) node = a.cand_idx[pw_clip(node, 0, a.cand_count - 1)];
       a.assigned[(size_t)gi * MP + p] = node;
@@ -640,22 +938,22 @@ place_wave_kernel(const PlaceWaveArgs a) {
       float sum = 0.f;
       int n_pref = 0;
       for (int s = 0; s < MS; ++s) {
-        const int lvl = s_g.pref_level[s];
-        const int cp = s_g.cpref[s];
+        const int lvl = v.pref_level[s];
+        const int cp = s_cpref[s];
         const bool active = lvl >= 0;
         float f = active ? 0.f : 1.f;
         if (active && cp >= 0) {
           const int pl = pw_clip(lvl, 0, L - 1);
           float tot = 0.f, hits = 0.f;
           for (int e = 0; e < n_ent; ++e) {
-            if (!s_g.member[s * PW_MG_MAX + ent[3 * e]]) continue;
+            if (!v.member[s * PW_MG_MAX + ent[3 * e]]) continue;
             const float c = (float)ent[3 * e + 2];
             tot = __fadd_rn(tot, c);
             if (a.node_domain_id[(size_t)pl * N + ent[3 * e + 1]] == cp) hits = __fadd_rn(hits, c);
           }
           f = tot > 0.f ? __fdiv_rn(hits, fmaxf(tot, 1.f)) : 1.f;
         }
-        if (s_g.svalid[s] && active) {
+        if (v.svalid[s] && active) {
           sum = __fadd_rn(sum, f);
           n_pref += 1;
         } else {
@@ -666,13 +964,24 @@ place_wave_kernel(const PlaceWaveArgs a) {
       a.score[gi] = gang_ok ? __fadd_rn(0.5f, __fmul_rn(0.5f, mean)) : 0.f;
       a.ok[gi] = gang_ok ? 1 : 0;
     }
+    if (kProfile) __syncthreads();
+    prof.mark(PW_SEC_S34);
 
-    // ---- all-or-nothing commit of the free carry -----------------------------
-    if (gang_ok)
-      for (int k = tid; k < N * R; k += NT) free_s[k] = freeg_s[k];
+    // ---- all-or-nothing: a rejected gang puts back every row it took -------
+    if (!gang_ok && tid == 0) {
+      for (int e = n_ent - 1; e >= 0; --e)
+        for (int r = 0; r < R; ++r)
+          free_s[(size_t)ent[3 * e + 1] * R + r] = a.undo[(size_t)e * R + r];
+      for (int e = 0; e < n_ent; ++e) {
+        const int node = ent[3 * e + 1];
+        a.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
+      }
+    }
     __syncthreads();
+    prof.mark(PW_SEC_COMMIT);
   }
 
+  if (kProfile) prof.row = a.prof + (size_t)a.G * PW_NSEC;
   if (pruned) {
     // B3 scatter (scatter_free): candidate rows back to the fleet; pad rows
     // drop; the plan's indices are unique, so no two threads share a row.
@@ -680,8 +989,6 @@ place_wave_kernel(const PlaceWaveArgs a) {
       const int dst = a.cand_idx[k / R];
       if (dst >= 0 && dst < a.NF) a.free_io[(size_t)dst * R + k % R] = free_s[k];
     }
-  } else if (kSharedCarry) {
-    for (int k = tid; k < N * R; k += NT) a.free_io[k] = free_s[k];
   }
   // ---- B2 scatter-max of this wave's verdicts into ok_global ---------------
   if (a.T > 0) {
@@ -690,24 +997,42 @@ place_wave_kernel(const PlaceWaveArgs a) {
       if (gidx >= 0 && a.ok[gi]) a.ok_global[pw_clip(gidx, 0, a.T - 1)] = 1;
     }
   }
+  if (kProfile) {
+    __syncthreads();
+    prof.mark(PW_SEC_COMMIT);
+  }
 }
 
+// Launch one wave on `stream`: the prologue (one block per gang), then the
+// chain kernel with `smem_bytes` = 4 * plane_words of dynamic shared memory.
+// `profile` picks the instantiation that times its sections into args->prof.
+// Returns cudaGetLastError() (0 = launched).
 #ifndef PLACE_WAVE_HOST_EMULATION
-// Launch one wave on `stream`; returns cudaGetLastError() (0 = launched).
-// shared_carry picks the instantiation; smem_bytes is its dynamic shared
-// memory (2 * N * R * 4 with the carry in shared memory, else 0).
-extern "C" int place_wave_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes,
-                                 int shared_carry) {
-  if (shared_carry) {
-    cudaError_t err = cudaFuncSetAttribute(
-        place_wave_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    place_wave_kernel<true><<<1, PW_THREADS, smem_bytes, (cudaStream_t)stream>>>(*args);
-  } else {
-    place_wave_kernel<false><<<1, PW_THREADS, 0, (cudaStream_t)stream>>>(*args);
-  }
+template <bool kProfile>
+static int pw_launch(const PlaceWaveArgs* args, cudaStream_t stream, int smem_bytes) {
+  if (args->G > 0) place_wave_prologue<<<args->G, 32, 0, stream>>>(*args);
+  cudaError_t err = cudaFuncSetAttribute(place_wave_kernel<kProfile>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  place_wave_kernel<kProfile><<<1, PW_THREADS, smem_bytes, stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
-extern "C" int place_wave_args_size() { return (int)sizeof(PlaceWaveArgs); }
+extern "C" int place_wave_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes,
+                                 int profile) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return profile ? pw_launch<true>(args, st, smem_bytes) : pw_launch<false>(args, st, smem_bytes);
+}
+#else
+// The same launch for a one-thread block on the host (the CPU tests): the
+// prologue gang by gang, then the chain.
+extern "C" int place_wave_launch(const PlaceWaveArgs* args, void*, int, int profile) {
+  for (int gi = 0; gi < args->G; ++gi) pw_gang_invariants(*args, gi);
+  if (profile) place_wave_kernel<true>(*args);
+  else place_wave_kernel<false>(*args);
+  return 0;
+}
 #endif
+
+extern "C" int place_wave_args_size() { return (int)sizeof(PlaceWaveArgs); }
+extern "C" int place_wave_inv_size() { return (int)sizeof(PwGangInv); }

@@ -12,14 +12,16 @@ grove_tpu_torch/solver/reference.py `solve_batch_ref` and
 `solve_pruned_ref`; `solver.core.solve_batch` picks one or the other by the
 device of its tensors, never both.
 
-Two instantiations of the kernel differ in where the wave's carry and the
-gang's working copy live: shared memory when 2 * N * R f32 fit in
-SHARED_CARRY_BYTES, global memory otherwise. Any fleet size runs.
+A launch is a prologue kernel (one block per gang: the gang's invariants)
+and the chain kernel (one block: the gangs in order). The carry lives in
+global memory at every fleet size; PLANE_BYTES of dynamic shared memory
+stage the domain walks. `profile` launches the instantiation that counts
+clock64 cycles per section (SECTIONS).
 
 The kernel launches on PyTorch's current stream and does not synchronise;
 `free` and `ok_global` are updated in place. `place_wave.launches` counts the
-launches, and `place_wave.variant_launches` counts them per variant:
-"shared" and "global" (dense, by where the carry lives) and "pruned".
+launches (one per wave, the prologue included), and
+`place_wave.variant_launches` counts them per variant: "dense" and "pruned".
 """
 
 from __future__ import annotations
@@ -33,14 +35,17 @@ import torch
 from grove_tpu_torch.solver.encode import GangBatch
 
 R_MAX, MG_MAX, MS_MAX, L_MAX = 8, 16, 8, 8
-# The carry and the gang's working copy go to dynamic shared memory when
-# their 2 * N * R * 4 bytes fit in this much (of the 227 KB a block may use,
-# beside the kernel's ~2 KB of static shared memory).
-SHARED_CARRY_BYTES = 200 * 1024
+# Dynamic shared memory for the staged walks (of the 227 KB a block may use,
+# beside the kernel's ~4.5 KB of static shared memory): 51200 f32 words, so
+# a walk of a 20480-node fleet stages in a few rounds or chunks.
+PLANE_BYTES = 200 * 1024
+# Global bytes of one gang's PwGangInv record (PW_INV_BYTES in the source).
+INV_BYTES = 2048
 
 _P = ctypes.c_void_p
 _FIELDS = [
-    (k, ctypes.c_int) for k in ("N", "R", "L", "G", "MG", "MS", "MP", "T", "NF", "cand_count")
+    (k, ctypes.c_int)
+    for k in ("N", "R", "L", "G", "MG", "MS", "MP", "T", "NF", "cand_count", "plane_words")
 ]
 _FIELDS += [
     (k, ctypes.c_float) for k in ("w_tight", "w_pref", "w_reuse", "w_reserve", "w_spread")
@@ -51,11 +56,18 @@ _POINTERS = (
     "set_member", "set_req_level", "set_pref_level", "set_valid", "set_pinned", "pod_group",
     "pod_rank", "gang_valid", "group_order", "depends_on", "global_index", "depends_global",
     "reuse_nodes", "group_node_ok", "spread_level", "spread_family", "spread_avoid",
-    "ok_global", "assigned", "ok", "score", "carry", "carry_g", "family_used", "avoid",
-    "spread_pen", "slots_all", "tables", "agg", "feas2", "node_feas2", "node_ok", "ok_nodes",
-    "taken", "used", "a_slots", "a_score", "entries",
+    "ok_global", "assigned", "ok", "score", "carry", "family_used", "spread_pen", "tables",
+    "agg", "feas2", "nword", "a_slots", "a_score", "norm_free", "entries", "undo", "ginv",
+    "prof",
 )
 _FIELDS += [(k, _P) for k in _POINTERS]
+# Sections of the profiled instantiation (PW_SEC_* in csrc/place_wave.cu),
+# the columns of its cycle table.
+SECTIONS = (
+    "gate + row load", "per-gang setup", "spread planes", "slots", "tables + feas2",
+    "stage-1 node passes", "stage-1 walks", "stage-1 domain argmax", "stage-2 scoring",
+    "stage-2 take loop", "stage 3-4", "commit",
+)
 
 
 class PlaceWaveArgs(ctypes.Structure):
@@ -109,17 +121,18 @@ def _check(name, t, dtype, shape, device):
 
 def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
                ok_global, domains: DomainIndex, cand_idx=None, cand_count=None,
-               shared_carry=None):
+               profile=False, plane_words=None):
     """Check every input, allocate outputs and scratch, and fill the kernel's
-    argument struct. Returns (args, smem_bytes, shared_carry, outputs,
-    keepalive).
+    argument struct. Returns (args, smem_bytes, outputs, keepalive).
 
     `free` is the fleet carry [NF, R]. Every other node-axis input lies on
     the solve's node axis N: the fleet itself, or with `cand_idx` (i32 [N],
     the fleet row of each candidate; pad rows >= NF) and `cand_count` (the
-    plan's candidates, which come first) a candidate plan's axis.
-    `shared_carry` None picks shared memory when it fits; True or False
-    forces an instantiation (True raises where it does not fit)."""
+    plan's candidates, which come first) a candidate plan's axis. With
+    `profile` the outputs hold "prof", i64 [G + 1, len(SECTIONS)] zeros for
+    the profiled instantiation's cycle counts. `plane_words` (f32 words of
+    shared memory for the staged walks, PLANE_BYTES / 4 by default) sets how
+    many node positions a walk stages at once."""
     dev = free.device
     nf, r = free.shape
     levels, n = node_domain_id.shape
@@ -131,6 +144,13 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
             f"place_wave: R={r}, MG={mg}, MS={ms}, L={levels} exceed the kernel's "
             f"limits R<={R_MAX}, MG<={MG_MAX}, MS<={MS_MAX}, L<={L_MAX}"
         )
+    # The widest walk stages free, slots, count, taken, nested and spread.
+    k_max = r + mg + ms + 3
+    if plane_words is None:
+        plane_words = PLANE_BYTES // 4
+    if not k_max <= plane_words <= PLANE_BYTES // 4:
+        raise ValueError(f"place_wave: plane_words {plane_words} outside [{k_max}, "
+                         f"{PLANE_BYTES // 4}]")
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     _check("free", free, f32, (nf, r), dev)
     if cand_idx is None:
@@ -168,13 +188,6 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         t_len = ok_global.shape[0]
         _check("ok_global", ok_global, b8, (t_len,), dev)
 
-    smem = 2 * n * r * 4
-    if shared_carry is None:
-        shared_carry = smem <= SHARED_CARRY_BYTES
-    elif shared_carry and smem > SHARED_CARRY_BYTES:
-        raise ValueError(f"place_wave: a shared carry of {smem} B > {SHARED_CARRY_BYTES} B")
-    c = r + mg + 1
-
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
@@ -183,37 +196,35 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         "ok": torch.zeros((g,), dtype=b8, device=dev),
         "score": empty((g,), f32),
     }
-    carry_global = not shared_carry
+    if profile:
+        out["prof"] = torch.zeros((g + 1, len(SECTIONS)), dtype=torch.int64, device=dev)
+    n_ent = max(2 * mg * mp, 1)
     scratch = {
-        "carry": empty((n * r,), f32) if carry_global and cand_idx is not None else None,
-        "carry_g": empty((n * r,), f32) if carry_global else None,
+        "carry": empty((n * r,), f32) if cand_idx is not None else None,
         "family_used": torch.zeros((g * n,), dtype=torch.uint8, device=dev) if spread else None,
-        "avoid": empty((n,), torch.uint8) if spread else None,
         "spread_pen": empty((n,), f32) if spread else None,
-        "slots_all": empty((max(mg, 1) * n,), i32),
-        "tables": empty((levels * n * c,), f32),
-        "agg": empty((n * (c + 2 + ms),), f32),
+        "tables": empty((levels * n * (r + mg),), f32),
+        "agg": empty((n * k_max,), f32),
         "feas2": empty((max(ms, 1) * n,), torch.uint8),
-        "node_feas2": empty((max(ms, 1) * n,), torch.uint8),
-        "node_ok": empty((n,), torch.uint8),
-        "ok_nodes": empty((n,), torch.uint8),
-        "taken": empty((n,), torch.uint8),
-        "used": empty((n,), torch.uint8),
+        "nword": empty((n,), i32),
         "a_slots": empty((n,), i32),
         "a_score": empty((n,), f32),
-        "entries": empty((max(2 * mg * mp, 1) * 3,), i32),
+        "norm_free": empty((n,), f32),
+        "entries": empty((n_ent * 3,), i32),
+        "undo": empty((n_ent * r,), f32),
+        "ginv": empty((max(g, 1) * INV_BYTES,), torch.uint8),
     }
     tensors = {
         "free_io": free, "cand_idx": cand_idx, "capacity": capacity,
         "schedulable": schedulable, "node_domain_id": node_domain_id,
         "dom_count": domains.count, "dom_offsets": domains.offsets,
-        "dom_nodes": domains.nodes, "ok_global": ok_global, **out, **scratch,
+        "dom_nodes": domains.nodes, "ok_global": ok_global, "prof": None, **out, **scratch,
     }
     for name in shapes:
         tensors[name] = getattr(batch, name)
     args = PlaceWaveArgs(
         N=n, R=r, L=levels, G=g, MG=mg, MS=ms, MP=mp, T=t_len, NF=nf,
-        cand_count=n if cand_idx is None else int(cand_count),
+        cand_count=n if cand_idx is None else int(cand_count), plane_words=plane_words,
         w_tight=float(params.w_tight), w_pref=float(params.w_pref),
         w_reuse=float(params.w_reuse), w_reserve=float(params.w_reserve),
         w_spread=float(params.w_spread),
@@ -221,12 +232,12 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     for name in _POINTERS:
         t = tensors[name]
         setattr(args, name, None if t is None else t.data_ptr())
-    return args, (smem if shared_carry else 0), shared_carry, out, tensors
+    return args, 4 * plane_words, out, tensors
 
 
 def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
                ok_global=None, *, domains: DomainIndex, cand_idx=None, cand_count=None,
-               shared_carry=None):
+               profile=None):
     """Solve one wave on the card with one kernel launch.
 
     All tensors lie on one CUDA device; `batch` is a GangBatch of tensors and
@@ -236,7 +247,11 @@ def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     `free` on the fleet's (see build_args). Returns (assigned i32 [G, MP], ok
     bool [G], score f32 [G], free_after, ok_global) where `assigned` holds
     fleet ordinals and free_after is `free` and ok_global is `ok_global`,
-    both updated in place."""
+    both updated in place.
+
+    `profile`, a dict, launches the profiled instantiation instead and
+    receives "prof": i64 [G + 1, len(SECTIONS)] clock64 cycles per section,
+    row gi gang gi, row G the wave's head and tail (see csrc/place_wave.cu)."""
     if not free.is_cuda:
         raise ValueError("place_wave: the kernel runs on a CUDA device only")
     from grove_tpu_torch.kernels.build import load
@@ -246,27 +261,28 @@ def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     lib.place_wave_args_size.restype = ctypes.c_int
     if lib.place_wave_args_size() != ctypes.sizeof(PlaceWaveArgs):
         raise RuntimeError("place_wave: PlaceWaveArgs differs between Python and CUDA")
-    args, smem, shared, out, _keep = build_args(
+    args, smem, out, _keep = build_args(
         free, capacity, schedulable, node_domain_id, batch, params, ok_global, domains,
-        cand_idx, cand_count, shared_carry,
+        cand_idx, cand_count, profile is not None,
     )
     fn = lib.place_wave_launch
     fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(free.device).cuda_stream
-    rc = fn(ctypes.byref(args), stream, smem, int(shared))
+    rc = fn(ctypes.byref(args), stream, smem, int(profile is not None))
     if rc != 0:
         raise RuntimeError(f"place_wave: kernel launch failed with CUDA error {rc}")
     place_wave.launches += 1
-    variant = "pruned" if cand_idx is not None else ("shared" if shared else "global")
-    place_wave.variant_launches[variant] += 1
+    place_wave.variant_launches["pruned" if cand_idx is not None else "dense"] += 1
+    if profile is not None:
+        profile["prof"] = out["prof"]
     return out["assigned"], out["ok"], out["score"], free, ok_global
 
 
 def reset_launches() -> None:
     """Set every launch count of place_wave to 0."""
     place_wave.launches = 0
-    place_wave.variant_launches = dict.fromkeys(("shared", "global", "pruned"), 0)
+    place_wave.variant_launches = dict.fromkeys(("dense", "pruned"), 0)
 
 
 reset_launches()

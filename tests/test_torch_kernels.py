@@ -15,6 +15,7 @@ compiled for the host (one-thread emulation), which run anywhere.
 
 from __future__ import annotations
 
+import ctypes
 import re
 
 import jax  # noqa: F401  (JAX stays on the CPU: conftest forces the platform)
@@ -104,9 +105,13 @@ def _node_tensors(snap, dev):
     )
 
 
-def _launch_vs_plain(launch, snap, batch, okg_np, dev, plan=None, shared_carry=None):
-    """One wave through `launch(args, smem, shared)` (the kernel, on the card
-    or compiled for the host) against the plain version, exactly."""
+def _launch_vs_plain(launch, snap, batch, okg_np, dev, plan=None, plane_words=None,
+                     profile=False):
+    """One wave through `launch(args, smem, profile)` (the kernel, on the card
+    or compiled for the host) against the plain version, exactly. A small
+    `plane_words` makes every walk stage its nodes in many chunks. Returns
+    the plain outputs, and with `profile` also the kernel's scratch tensors
+    (the cycle table under "prof", the gang records under "ginv")."""
     okg = torch.as_tensor(okg_np, device=dev)
     free, cap, sched, ndid = _node_tensors(snap, dev)
     cand = (None, None)
@@ -116,11 +121,11 @@ def _launch_vs_plain(launch, snap, batch, okg_np, dev, plan=None, shared_carry=N
         cap, sched, ndid, cand = pt.capacity, pt.schedulable, pt.node_domain_id, (pt.cand_idx, plan.count)
     tb = batch_to(batch, dev)
     okg_k = okg.clone()
-    args, smem, shared, out, _keep = pwm.build_args(
+    args, smem, out, _keep = pwm.build_args(
         free, cap, sched, ndid, tb, SolverParams(), okg_k, pwm.domain_index(ndid.cpu(), dev),
-        *cand, shared_carry,
+        *cand, profile=profile, plane_words=plane_words,
     )
-    launch(args, smem, shared)
+    launch(args, smem, profile)
     got = (out["assigned"], out["ok"], out["score"], free, okg_k)
     free0 = _node_tensors(snap, dev)[0]
     if plan is None:
@@ -131,16 +136,17 @@ def _launch_vs_plain(launch, snap, batch, okg_np, dev, plan=None, shared_carry=N
         torch.cuda.synchronize()
     for name, a, b in zip(FIELDS, got, want):
         assert torch.equal(a, b), f"{name}: kernel != plain at {torch.nonzero(a != b)[:8].tolist()}"
-    return want
+    return (want, {**_keep, "prof": out.get("prof")}) if profile else want
 
 
-def _card_launch(args, smem, shared):
+def _card_launch(args, smem, profile=False):
     import ctypes
 
     fn = build.load("place_wave").place_wave_launch
-    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p] + [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
-    assert fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream, smem, int(shared)) == 0
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(ctypes.byref(args), stream, smem, int(profile)) == 0
     torch.cuda.synchronize()
 
 
@@ -161,28 +167,61 @@ def _kernel_vs_plain(snap, batch, okg_np, dev):
     return want
 
 
+def table_columns(batch, gi, levels):
+    """{level: [group, ...]}: the narrow-set tables the kernel builds for gang
+    gi — at the required level of every valid set that some valid set's
+    nested pass reads (it overlaps it and requires a narrower level), with
+    the slot columns of those sets' member2 groups in first-seen order."""
+    member = np.asarray(batch.set_member[gi], bool)
+    m2 = member & np.asarray(batch.group_valid[gi], bool)[None, :]
+    req = np.asarray(batch.set_req_level[gi])
+    valid = np.asarray(batch.set_valid[gi], bool)
+    ms = member.shape[0]
+    cols: dict[int, list[int]] = {}
+    for s2 in range(ms):
+        if not any(valid[s] and req[s] >= 0 and valid[s2] and req[s2] > req[s]
+                   and (member[s] & member[s2]).any() for s in range(ms)):
+            continue
+        groups = cols.setdefault(int(np.clip(req[s2], 0, levels - 1)), [])
+        groups += [g for g in np.flatnonzero(m2[s2]).tolist() if g not in groups]
+    return cols
+
+
 def _domain_tables_vs_plain(launch, dev):
-    """The kernel's hoisted domain tables for one gang of the non-dyadic
-    scenario — per level, per domain, the sums of [free, slots per group, 1]
-    over schedulable nodes — against the plain version's domain sums."""
+    """The kernel's narrow-set tables for one gang of the non-dyadic
+    scenario — at each level some nested pass reads, per domain, the sums of
+    [free, slots of the groups the fits read] over schedulable nodes —
+    against the plain version's domain sums; no other level is written.
+    Returns {level: (features, plain sums)} and the per-level segments."""
     gangs, pods, snap = SCENARIOS["nondyadic"](PORT)
     batch, _ = PORT.encode_gangs(gangs[:1], pods, snap)
     tb = batch_to(batch, dev)
     free, cap, sched, ndid = _node_tensors(snap, dev)
     n, r = free.shape
+    levels, mg = ndid.shape[0], tb.group_req.shape[1]
+    cols = table_columns(batch, 0, levels)
+    assert cols, "the gang reads no table"
     slots = group_slots_ref(free, tb.group_req[0])
-    feat = torch.cat([free, slots.T.float(), torch.ones((n, 1), device=dev)], dim=1)
-    feat = torch.where(sched[:, None], feat, 0.0)
     seg = torch.where(ndid >= 0, ndid, n).long()
-    want = [_domain_sum(feat, seg[lv], n) for lv in range(ndid.shape[0])]
-    args, smem, shared, _out, keep = pwm.build_args(
+    want = {}
+    for lv, groups in cols.items():
+        feat = torch.where(sched[:, None], torch.cat([free, slots[groups].T.float()], dim=1), 0.0)
+        want[lv] = (feat, _domain_sum(feat, seg[lv], n)[: snap.num_domains[lv]])
+    args, smem, _out, keep = pwm.build_args(
         free, cap, sched, ndid, tb, SolverParams(), None, pwm.domain_index(snap.node_domain_id, dev)
     )
-    launch(args, smem, shared)
-    got = keep["tables"].view(ndid.shape[0], n, feat.shape[1])
-    for lv, d in enumerate(snap.num_domains.tolist()):
-        assert torch.equal(got[lv, :d], want[lv][:d]), f"level {lv}: kernel != plain domain sums"
-    return feat, seg, want
+    keep["tables"].fill_(float("nan"))
+    launch(args, smem)
+    got = keep["tables"].view(levels, n * (r + mg))
+    for lv in range(levels):
+        if lv not in want:
+            assert torch.isnan(got[lv]).all(), f"level {lv}: a table no nested pass reads was built"
+            continue
+        d, k = want[lv][1].shape
+        assert torch.equal(got[lv, : d * k].view(d, k), want[lv][1]), (
+            f"level {lv}: kernel != plain domain sums"
+        )
+    return want, seg
 
 
 # ---- on the card ------------------------------------------------------------
@@ -231,10 +270,11 @@ def test_kernel_domain_sums_equal_plain_on_card(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["bench_small", "nondyadic", "spread_pack", "bench_spread"])
 def test_kernel_global_carry_equals_plain(cuda, name):
+    """The carry in global memory with every walk staged in many chunks."""
     gangs, pods, snap = SCENARIOS[name](PORT)
     batch, _ = PORT.encode_gangs(gangs, pods, snap)
     _launch_vs_plain(_card_launch, snap, batch, np.zeros(len(gangs), bool), cuda,
-                     shared_carry=False)
+                     plane_words=min_plane_words(batch))
 
 
 @pytest.mark.gpu
@@ -244,11 +284,43 @@ def test_kernel_spread_seeds_equal_plain(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shared_carry", [True, False])
-def test_kernel_pruned_wave_equals_plain(cuda, shared_carry):
+@pytest.mark.parametrize("staging", ["whole", "chunked"])
+def test_kernel_pruned_wave_equals_plain(cuda, staging):
     for label, snap, batch, plan in pruned_cases():
         okg = np.zeros(batch.gang_valid.shape[0], bool)
-        _launch_vs_plain(_card_launch, snap, batch, okg, cuda, plan, shared_carry)
+        _launch_vs_plain(_card_launch, snap, batch, okg, cuda, plan,
+                         min_plane_words(batch) if staging == "chunked" else None)
+
+
+@pytest.mark.gpu
+def test_profiled_kernel_equals_plain_and_skips_unread_tables(cuda):
+    batch, snap = partly_active_batch()
+    _, keep = _launch_vs_plain(_card_launch, snap, batch, np.zeros(batch.gang_valid.shape[0], bool),
+                               cuda, profile=True)
+    check_table_cycles(batch, snap, keep["prof"].cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_kernel_is_deterministic_over_20_launches(cuda):
+    """The same wave launched 20 times gives bitwise-equal outputs: races
+    between threads, which the one-thread emulation cannot show, would not."""
+    snap, batch = spread_seeded_batch()
+    g, mg = batch.group_total.shape
+    rng = np.random.default_rng(7)
+    batch = batch._replace(group_node_ok=rng.random((g, mg, snap.capacity.shape[0])) < 0.9)
+    tb = batch_to(batch, cuda)
+    dom = pwm.domain_index(snap.node_domain_id, cuda)
+    runs = []
+    for _ in range(20):
+        free, cap, sched, ndid = _node_tensors(snap, cuda)
+        okg = torch.zeros(g, dtype=torch.bool, device=cuda)
+        out = pwm.place_wave(free, cap, sched, ndid, tb, SolverParams(), okg, domains=dom)
+        runs.append([x.clone() for x in out])
+    torch.cuda.synchronize()
+    assert bool(runs[0][1].any())
+    for run in runs[1:]:
+        for name, a, b in zip(FIELDS, run, runs[0]):
+            assert torch.equal(a, b), f"{name} differs between launches"
 
 
 @pytest.mark.gpu
@@ -261,7 +333,7 @@ def test_pruned_solve_batch_on_card_counts_a_pruned_launch(cuda):
                       plan=plan)
     want = solve_batch(snap.free, snap.capacity, snap.schedulable, snap.node_domain_id, batch,
                        plan=plan, device="cpu")
-    assert pwm.place_wave.variant_launches == {"shared": 0, "global": 0, "pruned": 1}
+    assert pwm.place_wave.variant_launches == {"dense": 0, "pruned": 1}
     for name, a, b in zip(FIELDS[:4], res, want):
         assert torch.equal(a.cpu(), b), name
 
@@ -355,16 +427,20 @@ def test_spread_planes_move_placements():
         assert not torch.equal(a[0], b[0])
 
 
-def test_wrapper_picks_the_carry_by_size():
+def test_wrapper_sizes_the_walk_planes():
     free, cap, sched, ndid, tb, dom = _args_for("contended")
     n, r = free.shape
-    _, smem, shared, _, keep = pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), None, dom)
-    assert shared and smem == 2 * n * r * 4 <= pwm.SHARED_CARRY_BYTES
-    assert keep["carry_g"] is None
-    _, smem, shared, _, keep = pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), None,
-                                              dom, shared_carry=False)
-    assert not shared and smem == 0 and keep["carry_g"].numel() == n * r
+    args, smem, _, keep = pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), None, dom)
+    assert smem == pwm.PLANE_BYTES and args.plane_words == pwm.PLANE_BYTES // 4
     assert keep["carry"] is None  # a dense solve works on the fleet tensor itself
+    k_max = min_plane_words(tb)
+    args, smem, _, _ = pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), None, dom,
+                                      plane_words=k_max)
+    assert smem == 4 * k_max and args.plane_words == k_max
+    for words in (k_max - 1, pwm.PLANE_BYTES // 4 + 1):
+        with pytest.raises(ValueError, match="plane_words"):
+            pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), None, dom,
+                           plane_words=words)
 
 
 def test_wrapper_takes_a_fleet_past_the_shared_carry():
@@ -378,14 +454,12 @@ def test_wrapper_takes_a_fleet_past_the_shared_carry():
     tb = _args_for("mixed")[4]
     tb = tb._replace(group_req=torch.zeros(tb.group_req.shape[:2] + (r,)))
     dom = pwm.domain_index(ndid, "cpu")
-    args, smem, shared, _, keep = pwm.build_args(
+    args, smem, _, keep = pwm.build_args(
         free, torch.ones((n, r)), torch.ones(n, dtype=torch.bool), ndid, tb, SolverParams(),
         None, dom,
     )
-    assert not shared and smem == 0 and args.N == n and args.R == r
-    with pytest.raises(ValueError, match="shared carry"):
-        pwm.build_args(free, torch.ones((n, r)), torch.ones(n, dtype=torch.bool), ndid, tb,
-                       SolverParams(), None, dom, shared_carry=True)
+    assert smem == pwm.PLANE_BYTES and args.N == n and args.R == r
+    assert keep["carry"] is None and keep["tables"].numel() == levels * n * (r + tb.group_req.shape[1])
 
 
 def test_wrapper_fills_pruned_args():
@@ -393,10 +467,11 @@ def test_wrapper_fills_pruned_args():
     pt = plan.tensors("cpu")
     tb = batch_to(plan.gather_batch(batch), "cpu")
     free = torch.as_tensor(snap.free, dtype=torch.float32)
-    args, smem, shared, _, keep = pwm.build_args(
+    args, smem, _, keep = pwm.build_args(
         free, pt.capacity, pt.schedulable, pt.node_domain_id, tb, SolverParams(), None,
         pwm.domain_index(pt.node_domain_id, "cpu"), pt.cand_idx, plan.count,
     )
+    assert keep["carry"].numel() == plan.pad * free.shape[1]
     assert (args.N, args.NF, args.cand_count) == (plan.pad, free.shape[0], plan.count)
     assert args.cand_idx == pt.cand_idx.data_ptr() and args.free_io == free.data_ptr()
     assert pt.cand_idx[plan.count:].eq(free.shape[0]).all()
@@ -427,11 +502,11 @@ def test_wrapper_checks_inputs(mutate, match):
 def test_wrapper_fills_args_for_a_valid_batch():
     free, cap, sched, ndid, tb, dom = _args_for("contended")
     okg = torch.zeros(tb.gang_valid.shape[0], dtype=torch.bool)
-    args, smem, shared, out, keep = pwm.build_args(
+    args, smem, out, keep = pwm.build_args(
         free, cap, sched, ndid, tb, SolverParams(), okg, dom
     )
     n, r = free.shape
-    assert shared and smem == 2 * n * r * 4
+    assert smem == 4 * args.plane_words and "prof" not in out
     assert (args.N, args.R, args.G, args.T) == (n, r, tb.gang_valid.shape[0], okg.shape[0])
     assert args.free_io == free.data_ptr() and args.ok_global == okg.data_ptr()
     assert args.reuse_nodes is None and args.group_node_ok is None
@@ -456,6 +531,7 @@ _HOST_SHIM = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __shared__
+#define __align__(n) alignas(n)
 struct Dim3 { unsigned x; };
 static Dim3 threadIdx = {0}, blockDim = {1};
 static inline void __syncthreads() {}
@@ -463,15 +539,10 @@ static inline float __fadd_rn(float a, float b) { return a + b; }
 static inline float __fsub_rn(float a, float b) { return a - b; }
 static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __fdiv_rn(float a, float b) { return a / b; }
+static long long clock64() { static long long t = 0; return ++t; }
 using std::isinf;
-float pw_smem[1 << 20];
+float pw_plane[1 << 16];
 #include "place_wave.cu"
-extern "C" int place_wave_launch(const PlaceWaveArgs* a, void*, int, int shared_carry) {
-  if (shared_carry) place_wave_kernel<true>(*a);
-  else place_wave_kernel<false>(*a);
-  return 0;
-}
-extern "C" int place_wave_args_size() { return (int)sizeof(PlaceWaveArgs); }
 """
 
 
@@ -494,18 +565,20 @@ def host_kernel(tmp_path_factory):
     )
     so = ctypes.CDLL(str(lib))
     assert so.place_wave_args_size() == ctypes.sizeof(pwm.PlaceWaveArgs)
+    # The record is 16-byte aligned: its size rounds the fields up to 16.
+    assert so.place_wave_inv_size() == -(-ctypes.sizeof(GangInv) // 16) * 16 <= pwm.INV_BYTES
     fn = so.place_wave_launch
-    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p] + [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
 
-    def launch(args, smem, shared):
-        assert fn(ctypes.byref(args), None, smem, int(shared)) == 0
+    def launch(args, smem, profile=False):
+        assert fn(ctypes.byref(args), None, smem, int(profile)) == 0
 
     return launch
 
 
-def _host_vs_plain(host_kernel, snap, batch, okg_np, plan=None, shared_carry=None):
-    return _launch_vs_plain(host_kernel, snap, batch, okg_np, "cpu", plan, shared_carry)
+def _host_vs_plain(host_kernel, snap, batch, okg_np, plan=None, plane_words=None):
+    return _launch_vs_plain(host_kernel, snap, batch, okg_np, "cpu", plan, plane_words)
 
 
 def test_kernel_source_on_host_with_pins(host_kernel):
@@ -514,10 +587,10 @@ def test_kernel_source_on_host_with_pins(host_kernel):
 
 
 def test_kernel_source_on_host_domain_sums_equal_plain(host_kernel):
-    feat, seg, want = _domain_tables_vs_plain(host_kernel, "cpu")
-    n = feat.shape[0]
-    rev = [_domain_sum(feat.flip(0), s.flip(0), n) for s in seg]
-    assert any(not torch.equal(a, b) for a, b in zip(rev, want)), (
+    want, seg = _domain_tables_vs_plain(host_kernel, "cpu")
+    n = seg.shape[1]
+    rev = {lv: _domain_sum(f.flip(0), seg[lv].flip(0), n)[: w.shape[0]] for lv, (f, w) in want.items()}
+    assert any(not torch.equal(rev[lv], w) for lv, (_, w) in want.items()), (
         "the scenario's domain sums do not tell the summation orders apart"
     )
 
@@ -549,26 +622,29 @@ def test_kernel_source_on_host_masks_and_gating(host_kernel):
 
 @pytest.mark.parametrize("name", ["bench_small", "nondyadic", "spread_pack", "bench_spread"])
 def test_kernel_source_on_host_global_carry(host_kernel, name):
+    """The carry in global memory with every walk staged in many chunks."""
     gangs, pods, snap = SCENARIOS[name](PORT)
     batch, _ = PORT.encode_gangs(gangs, pods, snap)
-    _host_vs_plain(host_kernel, snap, batch, np.zeros(len(gangs), bool), shared_carry=False)
+    _host_vs_plain(host_kernel, snap, batch, np.zeros(len(gangs), bool),
+                   plane_words=min_plane_words(batch))
 
 
 def test_kernel_source_on_host_spread_seeds(host_kernel):
     snap, batch = spread_seeded_batch()
-    for shared_carry in (True, False):
+    for plane_words in (None, min_plane_words(batch)):
         _host_vs_plain(host_kernel, snap, batch, np.zeros(batch.gang_valid.shape[0], bool),
-                       shared_carry=shared_carry)
+                       plane_words=plane_words)
 
 
-@pytest.mark.parametrize("shared_carry", [True, False])
+@pytest.mark.parametrize("staging", ["whole", "chunked"])
 @pytest.mark.parametrize("case", ["half_full", "clipped", "spread", "pinned"])
-def test_kernel_source_on_host_pruned_wave(host_kernel, case, shared_carry):
+def test_kernel_source_on_host_pruned_wave(host_kernel, case, staging):
     """The fused B3: gather through cand_idx, solve on the candidate axis,
     scatter back into the fleet carry, remap assigned to fleet ordinals."""
     label, snap, batch, plan = next(c for c in pruned_cases() if c[0] == case)
+    words = min_plane_words(batch) if staging == "chunked" else None
     want = _host_vs_plain(host_kernel, snap, batch, np.zeros(batch.gang_valid.shape[0], bool),
-                          plan, shared_carry)
+                          plan, words)
     # Candidate rows changed only where the solve placed pods; the rest of
     # the fleet carry passes through untouched.
     untouched = np.setdiff1d(np.arange(snap.capacity.shape[0]), plan.idx)
@@ -577,3 +653,200 @@ def test_kernel_source_on_host_pruned_wave(host_kernel, case, shared_carry):
     assert placed.size and np.isin(placed, plan.idx).all()
     if case == "half_full":
         assert plan.idx.min() >= plan.fleet_pad // 2, "candidate ordinals equal fleet ordinals"
+
+
+# ---- redesign cases: unread tables, staging chunks, the prologue -------------
+
+
+def min_plane_words(batch):
+    """The fewest shared words the wrapper takes for this batch: one node
+    position of the widest walk per chunk."""
+    r, mg, ms = batch.group_req.shape[2], batch.group_req.shape[1], batch.set_member.shape[1]
+    return r + mg + ms + 3
+
+
+def _nondyadic_batch():
+    gangs, pods, snap = SCENARIOS["nondyadic"](PORT)
+    gidx = {g.name: i for i, g in enumerate(gangs)}
+    batch, _ = PORT.encode_gangs(gangs, pods, snap, global_index_of=gidx)
+    return batch, snap
+
+
+def partly_active_batch():
+    """Non-dyadic gangs with the block pack, the rack-packed workers and (base
+    gangs) the routers preferring a rack, where the routers also require a
+    block: the block pack's nested pass reads the rack set (narrower) but
+    not the routers' (same level). Half the gangs keep their sets, a quarter have
+    no valid set, a quarter require no level and keep only preferences."""
+    batch, snap = _nondyadic_batch()
+    req = np.array(batch.set_req_level)
+    valid = np.array(batch.set_valid)
+    routers = valid[:, 2]
+    assert routers.any() and (req[routers, 2] == -1).all()
+    assert (np.asarray(batch.set_pref_level)[routers, 2] >= 0).all()
+    req[routers, 2] = 1
+    g = req.shape[0]
+    valid[g // 2 : 3 * g // 4] = False
+    req[3 * g // 4 :] = -1
+    return batch._replace(set_req_level=req, set_valid=valid), snap
+
+
+def _reads_a_level(batch, gi):
+    return bool(((np.asarray(batch.set_req_level[gi]) >= 0) & np.asarray(batch.set_valid[gi])).any())
+
+
+def check_table_cycles(batch, snap, prof):
+    """Tables are built for exactly the gangs a nested pass reads them for:
+    0 cycles in the table section for every gang whose sets require no
+    level (or that no nested pass reads), some for the others."""
+    col = pwm.SECTIONS.index("tables + feas2")
+    levels = snap.node_domain_id.shape[0]
+    reads = [bool(table_columns(batch, gi, levels)) for gi in range(batch.gang_valid.shape[0])]
+    assert any(reads) and not all(reads)
+    for gi, r in enumerate(reads):
+        if not _reads_a_level(batch, gi):
+            assert not r
+        assert (prof[gi, col] > 0) == r, f"gang {gi}: table cycles {prof[gi, col]}"
+
+
+def test_kernel_source_on_host_without_valid_sets(host_kernel):
+    batch, snap = partly_active_batch()
+    g = batch.gang_valid.shape[0]
+    none = batch._replace(set_valid=np.zeros_like(batch.set_valid))
+    _, keep = _host_vs_plain_profiled(host_kernel, snap, none)
+    assert not keep["prof"][:g, pwm.SECTIONS.index("tables + feas2")].any()
+    assert not keep["prof"][:g, pwm.SECTIONS.index("stage-1 walks")].any()
+    assert g // 4 > 0 and not bool(np.asarray(batch.set_valid[g // 2 : 3 * g // 4]).any())
+
+
+def test_kernel_source_on_host_preferred_level_without_required(host_kernel):
+    batch, snap = partly_active_batch()
+    pref_only = batch._replace(set_req_level=np.full_like(batch.set_req_level, -1))
+    assert (np.asarray(pref_only.set_pref_level) >= 0).any()
+    want, keep = _host_vs_plain_profiled(host_kernel, snap, pref_only)
+    assert bool(want[1].any())
+    assert not keep["prof"][:, pwm.SECTIONS.index("tables + feas2")].any()
+    assert keep["prof"][:-1, pwm.SECTIONS.index("stage-1 walks")].any()
+
+
+def test_kernel_source_on_host_partly_active_nested(host_kernel):
+    batch, snap = partly_active_batch()
+    want, keep = _host_vs_plain_profiled(host_kernel, snap, batch)
+    assert bool(want[1].any())
+    inv = gang_records(keep["ginv"], batch.gang_valid.shape[0])
+    act = np.array(inv[0].active2).reshape(pwm.MS_MAX, pwm.MS_MAX)
+    assert act[0, 1] and not act[0, 2], "the block pack reads the rack set, not the routers"
+    check_table_cycles(batch, snap, keep["prof"].numpy())
+
+
+@pytest.mark.parametrize("extra_words", [0, 5, 61])
+def test_kernel_source_on_host_chunked_walks(host_kernel, extra_words):
+    """Walks staged a few node positions at a time on non-dyadic free
+    capacity: every chunk boundary falls inside some domain, whose running
+    sum crosses it in node order."""
+    batch, snap = _nondyadic_batch()
+    words = min_plane_words(batch) + extra_words
+    _host_vs_plain(host_kernel, snap, batch, np.zeros(batch.gang_valid.shape[0], bool),
+                   plane_words=words)
+
+
+def _host_vs_plain_profiled(host_kernel, snap, batch):
+    return _launch_vs_plain(host_kernel, snap, batch, np.zeros(batch.gang_valid.shape[0], bool),
+                            "cpu", profile=True)
+
+
+class GangInv(ctypes.Structure):
+    """Mirror of `struct PwGangInv` in csrc/place_wave.cu (same order)."""
+
+    _MG, _MS, _L, _R = pwm.MG_MAX, pwm.MS_MAX, pwm.L_MAX, pwm.R_MAX
+    _fields_ = [
+        ("req", ctypes.c_float * (_MG * _R)), ("demand", ctypes.c_float * (_MS * _R)),
+        ("joint_need", ctypes.c_float * _MS), ("total", ctypes.c_int * _MG),
+        ("required", ctypes.c_int * _MG), ("order", ctypes.c_int * _MG),
+        ("req_level", ctypes.c_int * _MS), ("pref_level", ctypes.c_int * _MS),
+        ("pinned", ctypes.c_int * _MS), ("valid0", ctypes.c_int), ("depends_on", ctypes.c_int),
+        ("spread_level", ctypes.c_int), ("spread_family", ctypes.c_int),
+        ("table_levels", ctypes.c_int),
+        ("gvalid", ctypes.c_uint8 * _MG), ("member", ctypes.c_uint8 * (_MS * _MG)),
+        ("svalid", ctypes.c_uint8 * _MS), ("homogeneous", ctypes.c_uint8 * _MS),
+        ("need_table", ctypes.c_uint8 * _MS), ("overlap", ctypes.c_uint8 * (_MS * _MS)),
+        ("active2", ctypes.c_uint8 * (_MS * _MS)), ("memb_bits", ctypes.c_uint8 * _MG),
+        ("s_ng", ctypes.c_uint8 * _MS), ("s_grp", ctypes.c_uint8 * (_MS * _MG)),
+        ("s_tcol", ctypes.c_uint8 * (_MS * _MG)), ("tab_ng", ctypes.c_uint8 * _L),
+        ("tab_grp", ctypes.c_uint8 * (_L * _MG)),
+    ]
+
+
+def gang_records(ginv, g):
+    raw = ginv.cpu().numpy().tobytes()
+    size = ctypes.sizeof(GangInv)
+    return [GangInv.from_buffer_copy(raw[k * pwm.INV_BYTES : k * pwm.INV_BYTES + size])
+            for k in range(g)]
+
+
+def test_gang_record_mirrors_the_cuda_source():
+    src = (build.CSRC / "place_wave.cu").read_text()
+    body = re.search(r"struct __align__\(16\) PwGangInv \{(.*?)\n\};", src, re.S).group(1)
+    names = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            names += [re.sub(r"\[.*", "", x).strip()
+                      for x in re.sub(r"^\w+\s+", "", decl).split(",")]
+    assert names == [f for f, _ in GangInv._fields_]
+
+
+def _seq32(values):
+    acc = np.float32(0.0)
+    for x in values:
+        acc = np.float32(acc + np.float32(x))
+    return acc
+
+
+def test_prologue_invariants_equal_numpy(host_kernel):
+    """The prologue's record of every gang against the same invariants
+    computed here: member2, demand and joint_need summed over groups in index
+    order, homogeneous, overlap, each nested pass's active2, the ok_global
+    gate, which feasibility rows and table levels are read, and the slot
+    columns of each set."""
+    batch, snap = partly_active_batch()
+    g, mg, r = batch.group_req.shape
+    ms, levels = batch.set_member.shape[1], snap.node_domain_id.shape[0]
+    rng = np.random.default_rng(3)
+    okg = rng.random(g) < 0.5
+    dg = np.where(rng.random(g) < 0.5, rng.integers(0, g, g), -1).astype(np.int32)
+    batch = batch._replace(depends_global=dg)
+    _, keep = _launch_vs_plain(host_kernel, snap, batch, okg, "cpu", profile=True)
+    inv = gang_records(keep["ginv"], g)
+    M, S = pwm.MG_MAX, pwm.MS_MAX
+    for gi, rec in enumerate(inv):
+        req = np.asarray(batch.group_req[gi], np.float32)
+        required = np.asarray(batch.group_required[gi])
+        member = np.asarray(batch.set_member[gi], bool)
+        m2 = member & np.asarray(batch.group_valid[gi], bool)[None, :]
+        lvl = np.asarray(batch.set_req_level[gi])
+        sval = np.asarray(batch.set_valid[gi], bool)
+        got = lambda f, shape: np.array(getattr(rec, f)).reshape(shape)  # noqa: E731
+        assert rec.valid0 == bool(batch.gang_valid[gi] and (dg[gi] < 0 or okg[dg[gi]]))
+        assert np.array_equal(got("req", (M, pwm.R_MAX))[:mg, :r], req)
+        for s in range(ms):
+            dem = [_seq32(np.float32(req[k, c]) * np.float32(required[k] * m2[s, k])
+                          for k in range(mg)) for c in range(r)]
+            assert np.array_equal(got("demand", (S, pwm.R_MAX))[s, :r], np.array(dem, np.float32))
+            assert got("joint_need", S)[s] == _seq32(np.float32(required[k]) * m2[s, k]
+                                                     for k in range(mg))
+            spread = req[m2[s]].max(axis=0) - req[m2[s]].min(axis=0) if m2[s].any() else None
+            homog = spread is not None and bool((spread.astype(np.float32) <= np.float32(1e-6)).all())
+            assert got("homogeneous", S)[s] == homog
+            assert list(got("s_grp", (S, M))[s, : got("s_ng", S)[s]]) == np.flatnonzero(m2[s]).tolist()
+            for s2 in range(ms):
+                ov = bool((member[s] & member[s2]).any())
+                assert got("overlap", (S, S))[s, s2] == ov
+                act = sval[s] and lvl[s] >= 0 and sval[s2] and lvl[s2] > lvl[s] and ov
+                assert got("active2", (S, S))[s, s2] == act
+        cols = table_columns(batch, gi, levels)
+        assert rec.table_levels == sum(1 << lv for lv in cols)
+        for lv, groups in cols.items():
+            assert list(got("tab_grp", (pwm.L_MAX, M))[lv, : rec.tab_ng[lv]]) == groups
+        bits = [sum(1 << s for s in range(ms) if member[s, k]) for k in range(mg)]
+        assert list(got("memb_bits", M)[:mg]) == bits

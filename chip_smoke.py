@@ -22,7 +22,8 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               snapshot whose free capacity is not dyadic, the contended and
               mixed-quality scenarios as single batches, and the first wave
               of the bench backlog with a quarter of its PodCliqueSets
-              spread across zones; then the first wave on the 20480-node
+              spread across zones; the first wave launched 20 times, every
+              launch bitwise equal; then the first wave on the 20480-node
               fleet (its walks staged in chunks),
               and the same wave candidate-pruned to its 8192-row plan (B3
               fused: assigned in fleet ordinals, the whole fleet free_after)
@@ -305,6 +306,7 @@ def main() -> int:
                   np.zeros(len(gangs_sp), bool)))
 
     err = {"dense": 0.0, "dense_scale": 0.0, "pruned": 0.0}
+    verdicts = {}  # label -> the plain version's ok, for the bounds below
     for label, snap, batch, okg_np in cases:
         tb = batch_to(batch, dev)
         okg = torch.as_tensor(okg_np, device=dev)
@@ -313,18 +315,29 @@ def main() -> int:
         got = place_wave(*node_tensors(snap), tb, params, okg.clone(), domains=domains)
         torch.cuda.synchronize()
         err["dense"] = max(err["dense"], compare(label, got, want))
+        verdicts[label] = want[1].cpu().numpy()
         print(f"exact[{label}]: G={batch.gang_valid.shape[0]} N={snap.capacity.shape[0]} "
               f"admitted {int(want[1].sum())}/{int(np.asarray(batch.gang_valid).sum())} "
               f"valid — kernel == plain on {', '.join(NAMES)}")
 
-    # Times at the 5120-node main path's shape: the first full wave.
+    # The first full wave launched 20 times: bitwise-equal outputs every
+    # time (a race between the warps of the take loop would show here).
     tb0 = batch_to(first, dev)
     okg0 = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
+    runs = [place_wave(*node_tensors(snap_b), tb0, params, okg0.clone(), domains=dom_b)
+            for _ in range(20)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        compare("bench wave 0, 20 launches", run, runs[0])
+    print(f"exact[bench wave 0, 20 launches, N={n_nodes}]: every launch equal on {', '.join(NAMES)}")
+
+    # Times at the 5120-node main path's shape: the first full wave.
     dense_ms0, dense_plain_ms = time_variant(
         place_wave, timed, node_tensors(snap_b), tb0, okg0, params, dom_b, {},
         lambda: solve_batch_ref(*node_tensors(snap_b), tb0, params, okg0.clone()),
     )
-    dense_bound = place_wave_bound(first, *snap_b.capacity.shape, snap_b.node_domain_id.shape[0])
+    dense_bound = place_wave_bound(first, snap_b.node_domain_id, snap_b.capacity.shape[1],
+                                   np.zeros(len(gangs_b), bool), verdicts["bench wave 0"])
     print(f"timing[bench wave 0, G={g0}, N={n_nodes}]: kernel {dense_ms0:.3f} ms/wave, plain "
           f"{dense_plain_ms:.1f} ms, bound {dense_bound[0]:.6f} ms ({dense_bound[1]}) on {card}")
 
@@ -337,11 +350,13 @@ def main() -> int:
     got = place_wave(*node_tensors(snap_4), tb4, params, okg0.clone(), domains=dom_4)
     torch.cuda.synchronize()
     err["dense_scale"] = compare("bench wave 0 on 20480 nodes", got, want)
+    ok4 = want[1].cpu().numpy()
     print(f"exact[bench wave 0, N={n_4}]: admitted {int(want[1].sum())}/"
           f"{int(first_4.gang_valid.sum())} valid — kernel == plain on {', '.join(NAMES)}")
     dense4_ms, _ = time_variant(place_wave, timed, node_tensors(snap_4), tb4, okg0, params,
                                 dom_4, {}, None)
-    dense4_bound = place_wave_bound(first_4, *snap_4.capacity.shape, snap_4.node_domain_id.shape[0])
+    dense4_bound = place_wave_bound(first_4, snap_4.node_domain_id, snap_4.capacity.shape[1],
+                                    np.zeros(len(gangs_b), bool), ok4)
 
     check(plan4 is not None and plan4.pad == 8192, "exact: the 20480-node wave did not prune to 8192")
     ptb4 = batch_to(plan4.gather_batch(first_4), dev)
@@ -352,6 +367,7 @@ def main() -> int:
                      cand_idx=pt4.cand_idx, cand_count=plan4.count)
     torch.cuda.synchronize()
     err["pruned"] = compare("bench wave 0 on 20480 nodes, pruned", got, want)
+    ok4p = want[1].cpu().numpy()
     print(f"exact[bench wave 0, N={n_4}, pruned to {plan4.count}/{plan4.pad}]: admitted "
           f"{int(want[1].sum())}/{int(first_4.gang_valid.sum())} valid — kernel == plain on "
           f"{', '.join(NAMES)} (assigned in fleet ordinals, the whole fleet free_after)")
@@ -361,8 +377,8 @@ def main() -> int:
     )
     # The pruned launch moves the fleet carry only through B3's gather and
     # scatter: count its bytes once, there, and not again on the pad axis.
-    pruned_bound = place_wave_bound(plan4.gather_batch(first_4), plan4.pad, 4,
-                                    snap_4.node_domain_id.shape[0],
+    pruned_bound = place_wave_bound(plan4.gather_batch(first_4), pt4.node_domain_id, 4,
+                                    np.zeros(len(gangs_b), bool), ok4p,
                                     carry_bytes=b3_bytes(plan4.pad, plan4.count, 4))
     b3_bound_ms = b3_bytes(plan4.pad, plan4.count, 4) / H100_BYTES_PER_S * 1e3
     # B3's gather and scatter as library calls, on the plan's candidate rows.
@@ -549,21 +565,33 @@ def b3_bytes(pad: int, count: int, r: int) -> int:
     return 4 * pad + 2 * 4 * count * r
 
 
-def place_wave_bound(batch, n, r, levels, carry_bytes=None) -> tuple[float, str]:
+def place_wave_bound(batch, ndid, r, okg, ok, carry_bytes=None) -> tuple[float, str]:
     """(bound_ms, "bytes" | "operations") for one place_wave launch on this
-    batch over an N-node axis: the larger of the bytes it must move (each
-    input read once, each output written once) over HBM bandwidth and the f32
-    operations its valid gangs need over the f32 peak. `carry_bytes` is the
-    free carry's traffic, by default its N rows read and written once.
-    Operations counted per valid gang, for what this batch's data needs:
-    slot ratios (MG*N*R*3); the narrow-set tables at each level some nested
-    pass reads (N*(R+MG) adds) and their feasibility (N*(R+MG) compares per
-    set read); per pass that runs (a valid set with a required, or a
-    preferred, level) its domain sums (N*(R+MG+2+MS) adds) and domain
-    feasibility (N*(R+MG+MS) compares); and per group phase the node scores
-    (N*(6R+7+3MS)) plus one argmax pass over N per pod."""
+    batch over the node axis of `ndid` ([L, N] domain ids): the larger of
+    the bytes it must move (each input read once, each output written once)
+    over HBM bandwidth and the f32 operations this data needs over the f32
+    peak. `carry_bytes` is the free carry's traffic, by default its N rows
+    read and written once. `okg` is ok_global before the launch and `ok` the
+    launch's verdicts: a gang runs when it is valid, its cross-wave
+    dependency was admitted and its in-wave one too.
+
+    Operations per gang that runs, one per add, compare or division: its
+    spread walk (2N, with a spread level); the narrow-set tables at the
+    levels some nested pass reads (N*(R + groups) adds), their feasibility
+    (D*(R + groups) per set read) and the slots of each group a stage-1 walk
+    reads, once per node (3R each); per pass that runs (a valid set with a
+    required, or a preferred, level) its domain sums over the columns it
+    carries (N*(R + groups + 2 + active sets + spread)) and each domain's
+    feasibility and score (D*(that + R)); per group phase with pods to
+    place (valid group, phase total > 0) the node scores (N*(6R + 7 + 3MS))
+    and one top-k pass over N. The f32 peak of 67 TFLOP/s counts an FMA as
+    two operations: these plain operations issue at half that rate, so the
+    bound is up to 2x below what the SMs could reach."""
     import numpy as np
 
+    ndid = np.asarray(ndid.cpu() if hasattr(ndid, "cpu") else ndid)
+    levels, n = ndid.shape
+    doms = [int(ndid[lv].max()) + 1 for lv in range(levels)]
     g, mg, _ = batch.group_req.shape
     ms = batch.set_member.shape[1]
     if carry_bytes is None:
@@ -571,25 +599,47 @@ def place_wave_bound(batch, n, r, levels, carry_bytes=None) -> tuple[float, str]
     nbytes = carry_bytes + 4 * n * r + n + 4 * levels * n  # + capacity, sched, domains
     nbytes += sum(np.asarray(x).nbytes for x in batch if x is not None)
     nbytes += batch.pod_group.size * 4 + g * 5  # assigned, ok, score
-    valid = np.asarray(batch.gang_valid, bool)
-    pods = int(np.asarray(batch.group_total)[valid].sum())
-    req = np.asarray(batch.set_req_level)
-    pref = np.asarray(batch.set_pref_level)
+    okg, ok = np.asarray(okg, bool), np.asarray(ok, bool)
+    dg, dep = np.asarray(batch.depends_global), np.asarray(batch.depends_on)
+    ran = np.asarray(batch.gang_valid, bool).copy()
+    ran &= (dg < 0) | okg[np.clip(dg, 0, len(okg) - 1)]
+    ran &= (dep < 0) | ok[np.clip(dep, 0, g - 1)]
+    req, pref = np.asarray(batch.set_req_level), np.asarray(batch.set_pref_level)
     sval = np.asarray(batch.set_valid, bool)
-    member = np.asarray(batch.set_member, bool)
-    ops = pods * n
-    for gi in np.flatnonzero(valid):
+    gval = np.asarray(batch.group_valid, bool)
+    raw_member = np.asarray(batch.set_member, bool)  # overlap reads it as is
+    member = raw_member & gval[:, None, :]  # a set's valid groups
+    total, required = np.asarray(batch.group_total), np.asarray(batch.group_required)
+    spread_level = batch.spread_level
+    ops = 0
+    for gi in np.flatnonzero(ran):
+        sp = spread_level is not None and int(spread_level[gi]) >= 0
+        ops += 2 * n if sp else 0
         nested = sval[gi] & (req[gi] >= 0)
-        read = [s2 for s2 in range(ms) if sval[gi, s2] and any(
-            nested[s] and req[gi, s2] > req[gi, s] and (member[gi, s] & member[gi, s2]).any()
-            for s in range(ms))]
-        table_levels = {int(np.clip(req[gi, s2], 0, levels - 1)) for s2 in read}
-        passes = int(nested.sum() + (sval[gi] & (pref[gi] >= 0)).sum())
-        ops += (
-            mg * n * r * 3 + len(table_levels) * n * (r + mg) + len(read) * n * (r + mg)
-            + passes * (n * (r + mg + 2 + ms) + n * (r + mg + ms))
-            + 2 * mg * n * (6 * r + 7 + 3 * ms)
-        )
+        active = [[s2 for s2 in range(ms) if sval[gi, s2] and req[gi, s2] > req[gi, s]
+                   and (raw_member[gi, s] & raw_member[gi, s2]).any()]
+                  if nested[s] else [] for s in range(ms)]
+        read = sorted({s2 for a in active for s2 in a})
+        tables = {}
+        for s2 in read:
+            lv = int(np.clip(req[gi, s2], 0, levels - 1))
+            tables.setdefault(lv, set()).update(np.flatnonzero(member[gi, s2]).tolist())
+            ops += doms[lv] * (r + int(member[gi, s2].sum()))
+        ops += sum(n * (r + len(grp)) for grp in tables.values())
+        slot_groups = set().union(*tables.values()) if tables else set()
+        for s in range(ms):
+            ng = int(member[gi, s].sum())
+            for level, acts in ((req[gi, s], active[s]), (pref[gi, s], [])):
+                if not sval[gi, s] or level < 0:
+                    continue
+                slot_groups.update(np.flatnonzero(member[gi, s]).tolist())
+                k = r + ng + 2 + len(acts) + sp
+                ops += n * k + doms[int(np.clip(level, 0, levels - 1))] * (k + r)
+        ops += len(slot_groups) * n * 3 * r
+        for grp in np.flatnonzero(gval[gi]):
+            for phase_total in (required[gi, grp], total[gi, grp] - required[gi, grp]):
+                if phase_total > 0:
+                    ops += n * (6 * r + 7 + 3 * ms) + n
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

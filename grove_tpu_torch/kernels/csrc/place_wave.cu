@@ -25,8 +25,8 @@
 // order (below), as long as the broadest level's largest domain (1280 nodes
 // of a zone at 5120 nodes, 5120 at 20480), and a walk cannot go faster than
 // one dependent f32 add per node, about 4 cycles. What the design does:
-//  - a launch is a prologue kernel, one block per gang on the otherwise idle
-//    SMs, that computes everything depending only on a gang's own rows
+//  - a launch is a prologue kernel, one one-thread block per gang on the
+//    otherwise idle SMs, that computes everything depending only on a gang's own rows
 //    (member2, demand, joint_need, homogeneous, overlap, each nested pass's
 //    active2, the gate on ok_global, which sets' tables are read and which
 //    slot columns each walk needs) into one PwGangInv record per gang; then
@@ -156,20 +156,20 @@ struct PlaceWaveArgs {
 
 // Sections of the profiled instantiation, one column each of `prof`; row gi
 // is gang gi, row G the wave's head (cap_scale, B3 gather: column 1) and
-// tail (B3 scatter, ok_global: column 11).
-#define PW_NSEC 12
+// tail (B3 scatter, ok_global: column 10). Slots have no section: a walk
+// computes them where it stages a node, and stage 2 where it scores one.
+#define PW_NSEC 11
 #define PW_SEC_GATE 0
 #define PW_SEC_SETUP 1
 #define PW_SEC_SPREAD 2
-#define PW_SEC_SLOTS 3  // 0 since slots are computed where a walk stages a node
-#define PW_SEC_TABLES 4
-#define PW_SEC_S1_NODES 5
-#define PW_SEC_S1_WALKS 6
-#define PW_SEC_S1_ARGMAX 7
-#define PW_SEC_S2_SCORE 8
-#define PW_SEC_S2_TAKE 9
-#define PW_SEC_S34 10
-#define PW_SEC_COMMIT 11
+#define PW_SEC_TABLES 3
+#define PW_SEC_S1_NODES 4
+#define PW_SEC_S1_WALKS 5
+#define PW_SEC_S1_ARGMAX 6
+#define PW_SEC_S2_SCORE 7
+#define PW_SEC_S2_TAKE 8
+#define PW_SEC_S34 9
+#define PW_SEC_COMMIT 10
 
 // Thread 0 charges the cycles since its last mark to one section; marks sit
 // after a barrier, so they time the block. A section that is skipped gets 0.
@@ -544,9 +544,7 @@ __device__ void pw_gang_invariants(const PlaceWaveArgs& a, int gi) {
 }
 
 #ifndef PLACE_WAVE_HOST_EMULATION
-__global__ void place_wave_prologue(const PlaceWaveArgs a) {
-  if (threadIdx.x == 0) pw_gang_invariants(a, blockIdx.x);
-}
+__global__ void place_wave_prologue(const PlaceWaveArgs a) { pw_gang_invariants(a, blockIdx.x); }
 #endif
 
 // ---- the chain: every gang of the wave, in batch order ----------------------
@@ -1003,14 +1001,15 @@ place_wave_kernel(const PlaceWaveArgs a) {
   }
 }
 
-// Launch one wave on `stream`: the prologue (one block per gang), then the
+// Launch one wave on `stream`: the prologue (one one-thread block per gang:
+// its loops are short and serial, and G blocks fill the idle SMs), then the
 // chain kernel with `smem_bytes` = 4 * plane_words of dynamic shared memory.
 // `profile` picks the instantiation that times its sections into args->prof.
 // Returns cudaGetLastError() (0 = launched).
 #ifndef PLACE_WAVE_HOST_EMULATION
 template <bool kProfile>
 static int pw_launch(const PlaceWaveArgs* args, cudaStream_t stream, int smem_bytes) {
-  if (args->G > 0) place_wave_prologue<<<args->G, 32, 0, stream>>>(*args);
+  if (args->G > 0) place_wave_prologue<<<args->G, 1, 0, stream>>>(*args);
   cudaError_t err = cudaFuncSetAttribute(place_wave_kernel<kProfile>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

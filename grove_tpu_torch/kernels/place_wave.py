@@ -64,7 +64,7 @@ _FIELDS += [(k, _P) for k in _POINTERS]
 # Sections of the profiled instantiation (PW_SEC_* in csrc/place_wave.cu),
 # the columns of its cycle table.
 SECTIONS = (
-    "gate + row load", "per-gang setup", "spread planes", "slots", "tables + feas2",
+    "gate + row load", "per-gang setup", "spread planes", "tables + feas2",
     "stage-1 node passes", "stage-1 walks", "stage-1 domain argmax", "stage-2 scoring",
     "stage-2 take loop", "stage 3-4", "commit",
 )

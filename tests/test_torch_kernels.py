@@ -6,9 +6,9 @@ fixture whether one is present and skip with a reason where there is none.
 On the card (python -m pytest -m gpu tests/test_torch_kernels.py) they repeat
 chip_smoke.py's exactness phase: the kernel and the plain version, both on
 the card, must agree exactly (torch.equal) on ok, assigned,
-placement_score, free_after and ok_global — for both places the carry can
-live (shared or global memory), with the replica-spread planes, and for a
-candidate-pruned wave (the B3 gather, scatter and remap inside the launch).
+placement_score, free_after and ok_global — with walks staged whole or in
+many chunks, with the replica-spread planes, and for a candidate-pruned wave
+(the B3 gather, scatter and remap inside the launch).
 The unmarked tests check the wrapper's host side, and the kernel source
 compiled for the host (one-thread emulation), which run anywhere.
 """
@@ -324,6 +324,37 @@ def test_kernel_is_deterministic_over_20_launches(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_kernel_is_deterministic_at_full_width(cuda, scale):
+    """The bench's first wave on 5120 or 20480 nodes, launched 20 times,
+    gives bitwise-equal outputs: every warp owns nodes, so the cross-warp
+    take and the owner warp's rescan run at full width."""
+    from grove_tpu_torch.bench import build_backlog, build_fleet
+    from grove_tpu_torch.solver.drain import plan_waves
+
+    gangs, pods = build_backlog(1.0)
+    snap = build_fleet(scale)
+    wave, (mg, ms, mp), pad = plan_waves(gangs, 256)[0]
+    batch, _ = PORT.encode_gangs(wave, pods, snap, max_groups=mg, max_sets=ms, max_pods=mp,
+                                 pad_gangs_to=pad,
+                                 global_index_of={g.name: i for i, g in enumerate(gangs)})
+    tb = batch_to(batch, cuda)
+    dom = pwm.domain_index(snap.node_domain_id, cuda)
+    runs = []
+    for _ in range(20):
+        free, cap, sched, ndid = _node_tensors(snap, cuda)
+        okg = torch.zeros(len(gangs), dtype=torch.bool, device=cuda)
+        out = pwm.place_wave(free, cap, sched, ndid, tb, SolverParams(), okg, domains=dom)
+        runs.append([x.clone() for x in out])
+    torch.cuda.synchronize()
+    # Nodes are strided over the block's 1024 threads: every warp owns some.
+    assert snap.capacity.shape[0] >= 1024 and bool(runs[0][1].all())
+    for run in runs[1:]:
+        for name, a, b in zip(FIELDS, run, runs[0]):
+            assert torch.equal(a, b), f"{name} differs between launches"
+
+
+@pytest.mark.gpu
 def test_pruned_solve_batch_on_card_counts_a_pruned_launch(cuda):
     from grove_tpu_torch.solver.core import solve_batch
 
@@ -444,8 +475,10 @@ def test_wrapper_sizes_the_walk_planes():
 
 
 def test_wrapper_takes_a_fleet_past_the_shared_carry():
-    """20480 nodes x 8 resources: 1.25 MiB of carry, far past shared memory;
-    the wrapper fills the global-carry arguments and never raises on size."""
+    """20480 nodes x 8 resources: 1.25 MiB of carry, far past what shared
+    memory could hold; the carry stays the fleet tensor in global memory, the
+    tables' scratch covers every level, and the wrapper never raises on
+    size."""
     n, r, levels = 20480, 8, 4
     free = torch.zeros((n, r))
     ndid = torch.as_tensor(np.stack([np.arange(n) // (n >> k) for k in (2, 4, 6)] +
@@ -794,6 +827,17 @@ def test_gang_record_mirrors_the_cuda_source():
             names += [re.sub(r"\[.*", "", x).strip()
                       for x in re.sub(r"^\w+\s+", "", decl).split(",")]
     assert names == [f for f, _ in GangInv._fields_]
+
+
+def test_sections_mirror_the_cuda_source():
+    """SECTIONS names the profiled instantiation's PW_SEC_* columns, in
+    order, and every column is one the kernel marks."""
+    src = (build.CSRC / "place_wave.cu").read_text()
+    cols = {m[0]: int(m[1]) for m in re.findall(r"#define (PW_SEC_\w+) (\d+)", src)}
+    nsec = int(re.search(r"#define PW_NSEC (\d+)", src).group(1))
+    assert sorted(cols.values()) == list(range(nsec)) and nsec == len(pwm.SECTIONS)
+    for name in cols:
+        assert re.search(rf"prof\.mark\({name}\)|, {name}[,)]", src), f"{name} is never marked"
 
 
 def _seq32(values):

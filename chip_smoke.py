@@ -41,10 +41,23 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               gangs, drained pruned on the card and with the plain versions
               on the CPU: equal bindings and escalation ledgers, at least
               one escalation adopted
-  7. kernels  one JSON line: per kernel variant its launches on the main
+  7. portfolio the stacked launch (B5) on the bench's first wave at 5120
+              nodes under params_population(4) and (8): every row bitwise
+              equal to a single place_wave launch under that row (free_after
+              included); at K = 4 the plain portfolio (every row, then the
+              select) against the kernel's rows, winner, objectives and the
+              carry it chains; 20 select launches bitwise equal; CUDA-event
+              times of the stacked launch at K = 1, 4 and 8 beside the single
+              chain, and of the select kernel alone; the full drain at
+              portfolio=4 (one "portfolio" launch per wave, every gang
+              admitted, the set the single-variant drain admits, free_after
+              consistent with the bindings, its wall and stages); solve()
+              with escalate_portfolio=4 on the bin-packing trap and the
+              contended scenario, card against the plain versions on the CPU
+  8. kernels  one JSON line: per kernel variant its launches on the main
               path, its error against the plain version, its time, the
               plain version's time, its bound and a library call's time
-  8. the last line: {"ok": true, "device": {...}}
+  9. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -101,14 +114,16 @@ def main() -> int:
         SECTIONS,
         domain_index,
         place_wave,
+        place_wave_stacked,
         reset_launches,
     )
     from grove_tpu_torch.orchestrator import expand_podcliqueset
     from grove_tpu_torch.sim import workloads as W
-    from grove_tpu_torch.solver.core import SolverParams, batch_to
+    from grove_tpu_torch.solver.core import SolverParams, batch_to, solve, stack_on
     from grove_tpu_torch.solver.drain import drain_backlog, plan_waves
     from grove_tpu_torch.solver.encode import encode_gangs
     from grove_tpu_torch.solver.pruning import PruningConfig, plan_candidates
+    from grove_tpu_torch.parallel.portfolio import params_population
     from grove_tpu_torch.solver.reference import solve_batch_ref, solve_pruned_ref
     from grove_tpu_torch.state import build_snapshot
 
@@ -400,8 +415,8 @@ def main() -> int:
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
     launches = dict(place_wave.variant_launches)
-    check(launches == {"dense": stats.waves, "pruned": 0} and stats.waves > 0,
-          f"drain: launches {launches} for {stats.waves} waves")
+    check(launches == {"dense": stats.waves, "pruned": 0, "stacked": 0, "portfolio": 0}
+          and stats.waves > 0, f"drain: launches {launches} for {stats.waves} waves")
     check(stats.admitted == len(gangs_b), f"drain: admitted {stats.admitted}/{len(gangs_b)}")
     free_host = admitted_free(bindings, pods_b, snap_b)
     check(
@@ -508,7 +523,59 @@ def main() -> int:
           f"{st_card.admitted}, escalations {st_card.escalations} adopted "
           f"{st_card.escalations_adopted} — card == plain CPU drain")
 
-    # ---- 7. kernels line -----------------------------------------------------
+    # ---- 7. portfolio: the stacked launch (B5) ------------------------------
+    pf = portfolio_phase(dev, card, timed, compare, node_tensors, snap_b, first, dom_b,
+                         len(gangs_b))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    b_pf, st_pf = drain_backlog(gangs_b, pods_b, snap_b, wave_size=256, params=params,
+                                portfolio=4)
+    torch.cuda.synchronize()
+    pf_wall = time.perf_counter() - t0
+    pf_launches = dict(place_wave.variant_launches)
+    check(pf_launches == {"dense": 0, "pruned": 0, "stacked": 0, "portfolio": st_pf.waves}
+          and st_pf.waves == stats.waves,
+          f"portfolio drain: launches {pf_launches} for {st_pf.waves} waves")
+    check(st_pf.admitted == len(gangs_b),
+          f"portfolio drain: admitted {st_pf.admitted}/{len(gangs_b)}")
+    check(set(b_pf) == set(bindings), "portfolio drain: admits another set than the drain")
+    free_pf = admitted_free(b_pf, pods_b, snap_b)
+    check(np.array_equal(st_pf.free_after, free_pf),
+          "portfolio drain: free_after != snapshot free minus bound pods' requests")
+    check(bool((free_pf >= 0).all()), "portfolio drain: a node is over capacity")
+    row = stage_fields(st_pf)
+    print(f"portfolio drain[P=4, {n_nodes} nodes]: wall {pf_wall:.4f} s, drain_s "
+          f"{row['drain_s']:.4f} (encode {row['encode_s']:.4f}, dispatch "
+          f"{row['dispatch_s']:.4f}, harvest {row['harvest_s']:.4f}, decode "
+          f"{row['decode_s']:.4f}), waves {row['waves']}, launches {pf_launches['portfolio']}, "
+          f"admitted {row['admitted']}/{len(gangs_b)}, the single drain's set, on {card}")
+    # Per-wave kernel time over the portfolio drain's own waves, chained
+    # through one carry (measured as phase 4 measures the single drain's).
+    pstack4 = stack_on(params_population(4), dev)
+    free_w = node_tensors(snap_b)[0]
+    okg_w = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
+    pf_wave_ms = [timed(lambda: place_wave_stacked(free_w, *node_tensors(snap_b)[1:], tb, pstack4,
+                                                   okg_w, domains=dom_b, select=True))[1]
+                  for tb in batches]
+    print(f"portfolio drain kernels[P=4]: per-wave ms {[round(x, 3) for x in pf_wave_ms]} sum "
+          f"{sum(pf_wave_ms):.3f} ms; the single drain's sum {sum(wave_ms):.3f} ms on {card}")
+    for label, (cluster, backlog) in (
+        ("bin-packing trap", (W.binpack_trap_cluster(), W.binpack_trap_backlog())),
+        ("contended", (W.contended_cluster(), W.contended_backlog(48))),
+    ):
+        g_e, p_e, s_e = scenario(cluster, backlog)
+        batch_e, _ = encode_gangs(g_e, p_e, s_e)
+        on_card = solve(s_e, batch_e, params, escalate_portfolio=4)
+        on_cpu = solve(s_e, batch_e, params, escalate_portfolio=4, device="cpu")
+        single = solve(s_e, batch_e, params, device="cpu")
+        compare(f"escalation, {label}", [x.cpu() for x in on_card[:4]], on_cpu[:4])
+        print(f"escalation[{label}]: G={len(g_e)} N={s_e.capacity.shape[0]} admitted "
+              f"{int(single.ok.sum())} by the base solve, {int(on_card.ok.sum())} after "
+              f"escalate_portfolio=4 — card == plain CPU on ok, assigned, placement_score, "
+              f"free_after")
+
+    # ---- 8. kernels line -----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": [
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
@@ -523,6 +590,10 @@ def main() -> int:
          "replaces": "grove_tpu/solver/pruning.py:166", "launches": scale_launches["pruned"],
          "max_abs_err": err["pruned"], "ms": pruned_ms, "plain_ms": pruned_plain_ms,
          "bound_ms": pruned_bound[0], "bound_by": pruned_bound[1], "library_ms": library_ms},
+        {"name": "place_wave_stacked(B5, K=4, select)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:650", "launches": pf_launches["portfolio"],
+         "max_abs_err": pf["err"], "ms": pf["ms"], "plain_ms": pf["plain_ms"],
+         "bound_ms": pf["bound"][0], "bound_by": pf["bound"][1], "library_ms": None},
     ]}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -559,6 +630,121 @@ def time_variant(place_wave, timed, node, tb, okg, params, domains, extra, plain
     return ms / len(okgs), plain_ms
 
 
+def portfolio_phase(dev, card, timed, compare, node_tensors, snap, batch, domains,
+                    t_len) -> dict:
+    """Phase 7's checks and times on one wave (the bench's first, 5120
+    nodes); returns the kernels line's numbers for the K = 4 select."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.kernels import build
+    from grove_tpu_torch.kernels.place_wave import (
+        PlaceWaveArgs,
+        build_args,
+        place_wave,
+        place_wave_stacked,
+    )
+    from grove_tpu_torch.parallel.portfolio import params_population
+    from grove_tpu_torch.solver.core import batch_to, stack_on
+    from grove_tpu_torch.solver.reference import (
+        params_row,
+        portfolio_select_ref,
+        stacked_solve_ref,
+    )
+
+    tb = batch_to(batch, dev)
+    n, r = snap.capacity.shape
+    okg0 = torch.zeros(t_len, dtype=torch.bool, device=dev)
+    rest = node_tensors(snap)[1:]
+    err = 0.0
+
+    def stacked(pstack, select, free=None, okg=None):
+        free = node_tensors(snap)[0] if free is None else free
+        okg = okg0.clone() if okg is None else okg
+        return place_wave_stacked(free, *rest, tb, pstack, okg, domains=domains, select=select)
+
+    # Every row equals a single launch under that row, bit for bit.
+    stacks = {k: stack_on(params_population(k), dev) for k in (1, 4, 8)}
+    rows4 = None
+    for k in (4, 8):
+        rows = stacked(stacks[k], False)
+        for j in range(k):
+            single = place_wave(node_tensors(snap)[0], *rest, tb, params_row(stacks[k][j]),
+                                okg0.clone(), domains=domains)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"portfolio K={k}, row {j} vs a single launch",
+                                   single[:4], [x[j] for x in rows]))
+        rows4 = rows if k == 4 else rows4
+        print(f"portfolio[K={k}, G={tb.gang_valid.shape[0]}, N={n}]: every row == a single "
+              f"place_wave launch under its weights; admitted per row "
+              f"{rows[1].sum(dim=1).tolist()}")
+    # The plain portfolio (every row, then the select) against the kernel.
+    free_k, okg_k = node_tensors(snap)[0], okg0.clone()
+    got = stacked(stacks[4], True, free_k, okg_k)
+    torch.cuda.synchronize()
+
+    def plain():
+        rows_p = stacked_solve_ref(node_tensors(snap)[0], *rest, tb, stacks[4], okg0)
+        return rows_p, portfolio_select_ref(*rows_p, tb, okg0.clone())
+
+    (rows_p, want), plain_ms = timed(plain)
+    for j in range(4):  # odd rows worst-fit
+        err = max(err, compare(f"portfolio K=4, row {j} vs plain", [x[j] for x in rows4],
+                               [x[j] for x in rows_p]))
+    err = max(err, compare("portfolio K=4 select vs plain", got[:5], want[:5]))
+    check(torch.equal(got[5], want[5]) and torch.equal(got[6], want[6]),
+          f"portfolio: winner {int(got[5])} / objectives {got[6].tolist()} != plain "
+          f"{int(want[5])} / {want[6].tolist()}")
+    print(f"portfolio[K=4 select]: winner {int(got[5])}, objectives {got[6].tolist()} — "
+          f"kernel == plain on rows, winner, objectives, its rows, the chained carry and "
+          f"ok_global; plain {plain_ms:.1f} ms")
+    runs = [[x.clone() for x in stacked(stacks[4], True)] for _ in range(20)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        compare("portfolio K=4 select, 20 launches", run, runs[0])
+    print("portfolio[K=4 select, 20 launches]: every launch equal")
+
+    def launch_ms(fn, reps=3):
+        """ms per launch of fn(free, okg): a warm-up, then the mean of
+        `reps`, each on its own copy of the carry made before the clock
+        starts."""
+        copies = [(node_tensors(snap)[0], okg0.clone()) for _ in range(reps + 1)]
+        fn(*copies[0])
+        _, ms = timed(lambda: [fn(*c) for c in copies[1:]])
+        return ms / reps
+
+    ms = {"single": launch_ms(lambda f, o: place_wave(f, *rest, tb, params_row(stacks[1][0]), o,
+                                                      domains=domains))}
+    for k in (1, 4, 8):
+        ms[f"K={k}"] = launch_ms(lambda f, o: stacked(stacks[k], False, f, o))
+    ms["K=4 select"] = launch_ms(lambda f, o: stacked(stacks[4], True, f, o))
+    args, smem, _out, keep = build_args(node_tensors(snap)[0], *rest, tb, None, okg0.clone(),
+                                        domains, params_stack=stacks[4], select=True)
+    lib = build.load("place_wave")
+    stream = torch.cuda.current_stream().cuda_stream
+    for fn, extra in ((lib.place_wave_stacked_launch, [ctypes.c_int, ctypes.c_int]),
+                      (lib.place_wave_select_launch, [])):
+        fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p] + extra
+        fn.restype = ctypes.c_int
+    check(lib.place_wave_stacked_launch(ctypes.byref(args), stream, smem, 1) == 0,
+          "portfolio: stacked launch failed")
+    ms["select alone"] = launch_ms(
+        lambda f, o: check(lib.place_wave_select_launch(ctypes.byref(args), stream) == 0,
+                           "portfolio: select launch failed"), reps=20)
+    print("timing[portfolio, bench wave 0, N=%d]: " % n + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ms.items()) + f" on {card}")
+    # Bound: place_wave's work for every row under its own verdicts, plus
+    # each row's copy of the carry (read and written once).
+    okg_np = np.zeros(t_len, bool)
+    work = [place_wave_work(batch, snap.node_domain_id, r, okg_np, rows4[1][j].cpu().numpy())
+            for j in range(4)]
+    nbytes = sum(w[0] for w in work) + 4 * 2 * 4 * n * r
+    bound = bound_of(nbytes, sum(w[1] for w in work))
+    return {"err": err, "ms": ms["K=4 select"], "plain_ms": plain_ms, "bound": bound}
+
+
 def b3_bytes(pad: int, count: int, r: int) -> int:
     """B3's bytes at a plan's shape: the gather map read once, the
     candidates' fleet rows read once (gather) and written once (scatter)."""
@@ -570,7 +756,18 @@ def place_wave_bound(batch, ndid, r, okg, ok, carry_bytes=None) -> tuple[float, 
     batch over the node axis of `ndid` ([L, N] domain ids): the larger of
     the bytes it must move (each input read once, each output written once)
     over HBM bandwidth and the f32 operations this data needs over the f32
-    peak. `carry_bytes` is the free carry's traffic, by default its N rows
+    peak (place_wave_work)."""
+    return bound_of(*place_wave_work(batch, ndid, r, okg, ok, carry_bytes))
+
+
+def bound_of(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def place_wave_work(batch, ndid, r, okg, ok, carry_bytes=None) -> tuple[int, int]:
+    """(bytes, f32 operations) of one place_wave launch. `carry_bytes` is the free carry's traffic, by default its N rows
     read and written once. `okg` is ok_global before the launch and `ok` the
     launch's verdicts: a gang runs when it is valid, its cross-wave
     dependency was admitted and its in-wave one too.
@@ -640,9 +837,7 @@ def place_wave_bound(batch, ndid, r, okg, ok, carry_bytes=None) -> tuple[float, 
             for phase_total in (required[gi, grp], total[gi, grp] - required[gi, grp]):
                 if phase_total > 0:
                     ops += n * (6 * r + 7 + 3 * ms) + n
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes, ops
 
 
 if __name__ == "__main__":

@@ -3,8 +3,15 @@
 --scenario default drives bench.py's default scenario (`run_bench`, chained
 harvest) through grove_tpu_torch: the 5120-node synthetic cluster, the
 ~10k-pod synthetic backlog, waves of 256 gangs, every wave solved by one
-place_wave kernel launch on the card. One JSON line with run_bench's drain
-fields, the card's name and power limit, and the kernel's launch count.
+place_wave kernel launch on the card (with --portfolio P > 1 one stacked
+launch of P weight variants, the winner picked on the card). One JSON line
+with run_bench's drain fields, the card's name and power limit, and the
+kernel's launch counts; unless --no-baseline, also run_bench's quality
+fields under its names: the greedy per-pod baseline on the same backlog
+(baseline_*, quality_admitted_ratio), the contended scenario solved by the
+port's solve() against greedy (contended_*), and the mixed Required /
+Preferred backlog scored by the placement-quality report (mixed_*), both
+solves at the same portfolio width as the drain.
 
 --scenario scale drives bench.py's `run_scale_bench` sweep: the same backlog
 on growing fleets (racks per block 16 x each scale: 5120, 10240 and 20480
@@ -14,6 +21,8 @@ drain walls and their stages, candidate_nodes/candidate_pad, escalations,
 the launches of each kernel variant, and whether both admit the same set.
 
   --scale S         default: cluster racks and backlog size times S (1.0)
+  --portfolio P     default: weight variants per wave and per solve (1)
+  --no-baseline     default: skip the greedy baseline and the quality fields
   --scales A,B,..   scale: fleet scales (default 1,2,4)
   --backlog-frac F  scale: backlog size times F (default 1.0)
   --prune-max K     scale: candidate budget (default 8191)
@@ -124,26 +133,27 @@ def stage_fields(stats) -> dict:
     }
 
 
-def run_bench(scale: float = 1.0, wave_size: int = 256, device=None) -> dict:
+def run_bench(scale: float = 1.0, wave_size: int = 256, device=None, portfolio: int = 1,
+              baseline: bool = True) -> dict:
     import torch
 
+    from grove_tpu_torch.kernels.place_wave import place_wave
     from grove_tpu_torch.solver.core import SolverParams, resolve_device
     from grove_tpu_torch.solver.drain import drain_backlog
 
     dev = resolve_device(device)
     gangs, pods, snapshot, n_nodes, setup_s = build_scenario(scale)
     build_s = 0.0
-    launches0 = 0
+    launches0 = dict(place_wave.variant_launches)
     if dev.type == "cuda":
         from grove_tpu_torch.kernels import build
-        from grove_tpu_torch.kernels.place_wave import place_wave
 
         t0 = time.perf_counter()
         build.load("place_wave")
         build_s = time.perf_counter() - t0
-        launches0 = place_wave.launches
     bindings, stats = drain_backlog(
-        gangs, pods, snapshot, wave_size=wave_size, params=SolverParams(), device=dev
+        gangs, pods, snapshot, wave_size=wave_size, params=SolverParams(), device=dev,
+        portfolio=portfolio,
     )
     total_s = stats.total_s
     admitted = stats.admitted
@@ -166,6 +176,7 @@ def run_bench(scale: float = 1.0, wave_size: int = 256, device=None) -> dict:
         "nodes": n_nodes,
         "scale": scale,
         "wave_size": wave_size,
+        "portfolio": portfolio,
         "waves": stats.waves,
         "setup_s": round(setup_s, 3),
         "build_s": round(build_s, 3),
@@ -178,11 +189,74 @@ def run_bench(scale: float = 1.0, wave_size: int = 256, device=None) -> dict:
         "device": str(dev),
     }
     if dev.type == "cuda":
-        from grove_tpu_torch.kernels.place_wave import place_wave
-
-        out["kernel_launches"] = place_wave.launches - launches0
+        out["kernel_launches"] = {
+            k: n - launches0[k] for k, n in place_wave.variant_launches.items()
+        }
         out["device_name"] = torch.cuda.get_device_name(dev)
         out["card"] = card_line()
+    if baseline:
+        out.update(quality_fields(gangs, pods, snapshot, admitted, portfolio, dev))
+    return out
+
+
+def _expand(backlog):
+    from grove_tpu_torch.orchestrator import expand_podcliqueset
+    from grove_tpu_torch.sim.workloads import bench_topology
+
+    gangs, pods = [], {}
+    for pcs in backlog:
+        ds = expand_podcliqueset(pcs, bench_topology())
+        gangs.extend(ds.podgangs)
+        pods.update({p.name: p for p in ds.pods})
+    return gangs, pods
+
+
+def quality_fields(gangs, pods, snapshot, admitted, portfolio, dev) -> dict:
+    """bench.py run_bench's quality fields, under its names: the greedy
+    per-pod baseline on the drained backlog, the contended scenario
+    (solver vs greedy admissions) and the mixed Required/Preferred backlog
+    (placement-quality reports of both), the solves at `portfolio`."""
+    from grove_tpu_torch.quality.report import evaluate_placement
+    from grove_tpu_torch.sim import workloads as W
+    from grove_tpu_torch.solver.core import SolverParams, decode_bindings, solve
+    from grove_tpu_torch.solver.encode import encode_gangs
+    from grove_tpu_torch.solver.greedy import greedy_drain
+    from grove_tpu_torch.state import build_snapshot
+
+    def solved(snap, g, p):
+        batch, decode = encode_gangs(g, p, snap)
+        res = solve(snap, batch, SolverParams(), portfolio=portfolio, device=dev)
+        return decode_bindings(res.ok.cpu().numpy(), res.assigned.cpu().numpy(), decode, snap)
+
+    gstats = greedy_drain(gangs, pods, snapshot)
+    out = {
+        "baseline_admitted": gstats.admitted,
+        "baseline_pods_bound": gstats.pods_bound,
+        "baseline_score": round(gstats.mean_score, 4),
+        "baseline_elapsed_s": round(gstats.elapsed_s, 2),
+        "quality_admitted_ratio": (
+            round(admitted / gstats.admitted, 3) if gstats.admitted else None
+        ),
+    }
+    nodes, squatters = W.contended_cluster()
+    cgangs, cpods = _expand(W.contended_backlog(n_gangs=48))
+    csnap = build_snapshot(nodes, W.bench_topology(), bound_pods=squatters)
+    out.update(
+        contended_gangs=len(cgangs),
+        contended_solver_admitted=len(solved(csnap, cgangs, cpods)),
+        contended_baseline_admitted=greedy_drain(cgangs, cpods, csnap).admitted,
+        contended_portfolio=portfolio,
+    )
+    mgangs, mpods = _expand(W.mixed_backlog())
+    msnap = build_snapshot(W.quality_cluster(), W.bench_topology())
+    mrep = evaluate_placement(mgangs, mpods, msnap, solved(msnap, mgangs, mpods))
+    grep = evaluate_placement(mgangs, mpods, msnap, greedy_drain(mgangs, mpods, msnap).bindings)
+    out.update(mixed_gangs=len(mgangs), mixed_portfolio=portfolio)
+    for who, rep in (("solver", mrep), ("greedy", grep)):
+        out[f"mixed_{who}_admitted"] = rep.admitted
+        out[f"mixed_{who}_placement_score"] = round(rep.mean_placement_score, 4)
+        out[f"mixed_{who}_preferred_fraction"] = round(rep.preferred_fraction, 4)
+        out[f"mixed_{who}_stranding_delta"] = round(rep.stranding_delta, 4)
     return out
 
 
@@ -247,6 +321,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario", choices=("default", "scale"), default="default")
     ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--portfolio", type=int, default=1)
+    ap.add_argument("--no-baseline", dest="baseline", action="store_false")
     ap.add_argument("--scales", default="1,2,4")
     ap.add_argument("--backlog-frac", type=float, default=1.0)
     ap.add_argument("--prune-max", type=int, default=8191)
@@ -260,7 +336,8 @@ def main(argv=None) -> int:
             min_fleet=args.min_fleet, device=args.device,
         )
     else:
-        out = run_bench(args.scale, device=args.device)
+        out = run_bench(args.scale, device=args.device, portfolio=args.portfolio,
+                        baseline=args.baseline)
     print(json.dumps(out))
     return 0
 

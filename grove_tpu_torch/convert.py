@@ -9,6 +9,8 @@ reference's own encoded batch to the port's solver through it.
 `pruning_config_from_reference` and `plan_from_reference` do the same for a
 PruningConfig and a CandidatePlan (their fields as plain values and numpy
 arrays), so the tests feed both packages the same candidate plan.
+`params_stack_from_reference` turns a reference SolverParams stack (each
+field [K]) into the port's weight stack, f32 [K, 5].
 """
 
 from __future__ import annotations
@@ -116,3 +118,19 @@ def plan_from_reference(fields: dict) -> CandidatePlan:
             x = int(x)
         out[name] = x
     return CandidatePlan(**out)
+
+
+def params_stack_from_reference(fields: dict, device=None) -> torch.Tensor:
+    """The reference's stacked SolverParams (`stack._asdict()` with each
+    field passed through np.asarray: f32 [K] per weight) -> the port's
+    weight stack, f32 [K, 5] on `device` (None = the card), columns in
+    SolverParams' field order."""
+    unknown = set(fields) - set(SolverParams._fields)
+    missing = set(SolverParams._fields) - set(fields)
+    if unknown or missing:
+        raise ValueError(f"SolverParams stack fields: unknown {sorted(unknown)}, "
+                         f"missing {sorted(missing)}")
+    cols = [np.asarray(fields[k], dtype=np.float32).reshape(-1) for k in SolverParams._fields]
+    if len({c.shape[0] for c in cols}) != 1:
+        raise ValueError("SolverParams stack fields differ in length")
+    return torch.as_tensor(np.stack(cols, axis=1), device=resolve_device(device))

@@ -51,6 +51,20 @@
 //    warp that owned the node rescans its nodes, then one 32-way reduction
 //    and one barrier pick the next node.
 //
+// The stacked launch (B5: grove_tpu/solver/core.py `stacked_solve_batch_impl`,
+// grove_tpu/parallel/portfolio.py `portfolio_solve_batch`) solves the same
+// wave under K weight rows at once: one prologue (it reads no weight), then
+// K chain blocks, block k on its own SM with its own weights, carry (a copy
+// of the fleet's free taken at its head), scratch and output rows, so the
+// launch lasts about as long as its slowest chain. No chain
+// writes the fleet carry or ok_global: every variant judges its cross-wave
+// dependencies against the one committed history. With `select`, one more
+// kernel then ranks the rows as `_objective` does (admitted count, then the
+// quality sum in XLA's CPU order, first index on ties), copies the winner's
+// rows out and its carry into the fleet's, and scatters its verdicts into
+// ok_global. Each row equals a single launch under that row's weights bit
+// for bit: the chains run the same code on the same inputs.
+//
 // Exactness against the JAX package and the plain PyTorch version
 // (grove_tpu_torch/solver/reference.py):
 //  - arithmetic uses the IEEE round-to-nearest intrinsics (__fadd_rn,
@@ -100,7 +114,8 @@ struct PlaceWaveArgs {
   int N, R, L, G, MG, MS, MP, T;  // T = ok_global length, 0 = no chaining
   int NF, cand_count;             // fleet rows of free_io; candidates (pruned)
   int plane_words;                // f32 words of dynamic shared memory for walks
-  float w_tight, w_pref, w_reuse, w_reserve, w_spread;
+  int K;                          // weight rows: 1, or the stacked launch's K
+  float w_tight, w_pref, w_reuse, w_reserve, w_spread;  // the single launch's
   // node state; N is the solve's node axis (the candidate pad when pruned)
   float* free_io;                // [NF, R] f32 fleet carry, updated in place
   const int32_t* cand_idx;       // [N] fleet row of each candidate, or null
@@ -133,12 +148,12 @@ struct PlaceWaveArgs {
   const int32_t* spread_family;  // [G]
   const uint8_t* spread_avoid;   // [G, N]
   uint8_t* ok_global;            // [T] or null, updated in place
-  // outputs
+  // outputs, one row per weight variant: [K, ...]
   int32_t* assigned;             // [G, MP]
   uint8_t* ok;                   // [G], zero on entry
   float* score;                  // [G]
-  // global scratch
-  float* carry;                  // [N, R] the wave's carry (pruned only)
+  // global scratch, one copy per weight variant: [K, ...]
+  float* carry;                  // [N, R] the wave's carry (pruned, stacked)
   uint8_t* family_used;          // [G, N] zeroed (spread family rows)
   float* spread_pen;             // [N] the gang's hoisted spread penalty
   float* tables;                 // [L, N, R + MG] narrow-set domain tables
@@ -152,7 +167,77 @@ struct PlaceWaveArgs {
   float* undo;                   // [2 * MG * MP, R] each taken row before the take
   uint8_t* ginv;                 // [G, PW_INV_BYTES] PwGangInv per gang
   int64_t* prof;                 // [G + 1, PW_NSEC] clock64 cycles per section
+  // stacked launch
+  const float* params_stack;     // [K, 5] weight rows (SolverParams order)
+  float* sel_terms;              // [K, G] select scratch: each row's quality terms
+  int32_t* sel_admitted;         // [K] select scratch
+  float* sel_quality;            // [K] select scratch
+  float* objectives;             // [K] admitted * 1e6 + quality
+  int32_t* winner;               // [] the selected row
+  int32_t* win_assigned;         // [G, MP] the winner's rows
+  uint8_t* win_ok;               // [G]
+  float* win_score;              // [G]
 };
+
+// The block's weight variant: blockIdx.x on the card; the host emulation runs
+// the stacked launch's blocks one after another and sets pw_emu_block.
+#ifndef PLACE_WAVE_HOST_EMULATION
+#define PW_BLOCK() ((int)blockIdx.x)
+#else
+static int pw_emu_block = 0;
+#define PW_BLOCK() pw_emu_block
+#endif
+
+// One weight variant's weights, output rows and scratch: row k of each [K,
+// ...] array. The single launch has one (k = 0, the scalar weights).
+struct PwVariant {
+  float w_tight, w_pref, w_reuse, w_reserve, w_spread;
+  int32_t* assigned;
+  uint8_t* ok;
+  float* score;
+  float* carry;
+  uint8_t* family_used;
+  float* spread_pen;
+  float* tables;
+  float* agg;
+  uint8_t* feas2;
+  int32_t* nword;
+  int32_t* a_slots;
+  float* a_score;
+  float* norm_free;
+  int32_t* entries;
+  float* undo;
+};
+
+template <bool kStacked>
+__device__ __forceinline__ PwVariant pw_variant(const PlaceWaveArgs& a) {
+  PwVariant V;
+  const size_t k = kStacked ? (size_t)PW_BLOCK() : 0;
+  if (kStacked) {
+    const float* w = a.params_stack + 5 * k;
+    V.w_tight = w[0]; V.w_pref = w[1]; V.w_reuse = w[2]; V.w_reserve = w[3]; V.w_spread = w[4];
+  } else {
+    V.w_tight = a.w_tight; V.w_pref = a.w_pref; V.w_reuse = a.w_reuse;
+    V.w_reserve = a.w_reserve; V.w_spread = a.w_spread;
+  }
+  const size_t N = a.N, G = a.G, n_ent = 2 * a.MG * a.MP > 1 ? 2 * a.MG * a.MP : 1;
+  V.assigned = a.assigned + k * G * a.MP;
+  V.ok = a.ok + k * G;
+  V.score = a.score + k * G;
+  V.carry = a.carry ? a.carry + k * N * a.R : nullptr;
+  V.family_used = a.family_used ? a.family_used + k * G * N : nullptr;
+  V.spread_pen = a.spread_pen ? a.spread_pen + k * N : nullptr;
+  V.tables = a.tables + k * a.L * N * (a.R + a.MG);
+  V.agg = a.agg + k * N * (a.R + a.MG + a.MS + 3);
+  V.feas2 = a.feas2 + k * (a.MS > 1 ? a.MS : 1) * N;
+  V.nword = a.nword + k * N;
+  V.a_slots = a.a_slots + k * N;
+  V.a_score = a.a_score + k * N;
+  V.norm_free = a.norm_free + k * N;
+  V.entries = a.entries + k * n_ent * 3;
+  V.undo = a.undo + k * n_ent * a.R;
+  return V;
+}
 
 // Sections of the profiled instantiation, one column each of `prof`; row gi
 // is gang gi, row G the wave's head (cap_scale, B3 gather: column 1) and
@@ -548,7 +633,7 @@ __global__ void place_wave_prologue(const PlaceWaveArgs a) { pw_gang_invariants(
 #endif
 
 // ---- the chain: every gang of the wave, in batch order ----------------------
-template <bool kProfile>
+template <bool kProfile, bool kStacked>
 __global__ void __launch_bounds__(PW_THREADS)
 place_wave_kernel(const PlaceWaveArgs a) {
   extern __shared__ float pw_plane[];  // a.plane_words f32 for the walks
@@ -571,7 +656,8 @@ place_wave_kernel(const PlaceWaveArgs a) {
   const int N = a.N, R = a.R, L = a.L, MG = a.MG, MS = a.MS, MP = a.MP;
   const bool pruned = a.cand_idx != nullptr;
   const bool spread = a.spread_level != nullptr;
-  float* free_s = pruned ? a.carry : a.free_io;  // [N, R] the wave's carry
+  const PwVariant V = pw_variant<kStacked>(a);
+  float* free_s = pruned || kStacked ? V.carry : a.free_io;  // [N, R] the wave's carry
   PwProf<kProfile> prof;
   prof.start(a.prof ? a.prof + (size_t)a.G * PW_NSEC : nullptr);
 
@@ -592,10 +678,14 @@ place_wave_kernel(const PlaceWaveArgs a) {
       free_s[k] = (src >= 0 && src < a.NF) ? a.free_io[(size_t)src * R + k % R] : 0.f;
     }
     __syncthreads();
+  } else if (kStacked) {
+    // Each variant starts from its own copy of the fleet carry.
+    for (int k = tid; k < N * R; k += NT) free_s[k] = a.free_io[k];
+    __syncthreads();
   }
   // Each carry row's normalised free capacity, kept beside the carry and
   // recomputed wherever a row changes: stage 2 reads it once per node.
-  for (int i = tid; i < N; i += NT) a.norm_free[i] = pw_norm_free(free_s + (size_t)i * R, cap_scale, R);
+  for (int i = tid; i < N; i += NT) V.norm_free[i] = pw_norm_free(free_s + (size_t)i * R, cap_scale, R);
   __syncthreads();
   prof.mark(PW_SEC_SETUP);
 
@@ -611,10 +701,10 @@ place_wave_kernel(const PlaceWaveArgs a) {
     __syncthreads();
     const PwGangInv& v = s_inv[gi & 1];
     bool valid = v.valid0 != 0;
-    if (v.depends_on >= 0) valid = valid && a.ok[pw_clip(v.depends_on, 0, a.G - 1)] != 0;
+    if (v.depends_on >= 0) valid = valid && V.ok[pw_clip(v.depends_on, 0, a.G - 1)] != 0;
     if (!valid) {
-      for (int p = tid; p < MP; p += NT) a.assigned[(size_t)gi * MP + p] = -1;
-      if (tid == 0) { a.ok[gi] = 0; a.score[gi] = 0.f; }
+      for (int p = tid; p < MP; p += NT) V.assigned[(size_t)gi * MP + p] = -1;
+      if (tid == 0) { V.ok[gi] = 0; V.score[gi] = 0.f; }
       __syncthreads();
       prof.mark(PW_SEC_GATE);
       continue;
@@ -628,7 +718,7 @@ place_wave_kernel(const PlaceWaveArgs a) {
     // spread-level domain holds an avoided node.
     if (spread) {
       const int fam = v.spread_family;
-      const uint8_t* fam_row = a.family_used + (size_t)pw_clip(fam, 0, a.G - 1) * N;
+      const uint8_t* fam_row = V.family_used + (size_t)pw_clip(fam, 0, a.G - 1) * N;
       const uint8_t* seed = a.spread_avoid + (size_t)gi * N;
       const int s_lvl = v.spread_level;
       const int lvc = pw_clip(s_lvl, 0, L - 1);
@@ -636,12 +726,12 @@ place_wave_kernel(const PlaceWaveArgs a) {
         auto stage = [&](int i, float* dst, int) {
           dst[0] = (seed[i] || (fam >= 0 && fam_row[i])) ? 1.f : 0.f;
         };
-        pw_walk(a, lvc, 1, stage, a.agg, pw_plane, prof, PW_SEC_SPREAD, PW_SEC_SPREAD);
+        pw_walk(a, lvc, 1, stage, V.agg, pw_plane, prof, PW_SEC_SPREAD, PW_SEC_SPREAD);
       }
       for (int i = tid; i < N; i += NT) {
         const int s_dom = a.node_domain_id[(size_t)lvc * N + i];
-        const bool pen = s_lvl >= 0 && s_dom >= 0 && a.agg[pw_clip(s_dom, 0, N - 1)] > 0.5f;
-        a.spread_pen[i] = pen ? 1.f : 0.f;
+        const bool pen = s_lvl >= 0 && s_dom >= 0 && V.agg[pw_clip(s_dom, 0, N - 1)] > 0.5f;
+        V.spread_pen[i] = pen ? 1.f : 0.f;
       }
       __syncthreads();
       prof.mark(PW_SEC_SPREAD);
@@ -664,16 +754,16 @@ place_wave_kernel(const PlaceWaveArgs a) {
           for (int j = 0; j < ng; ++j)
             dst[(size_t)(R + j) * P] = pw_node_slots(v, fr, gno, tg[j], i, N, R);
         };
-        pw_walk(a, lv, R + ng, stage, a.tables + (size_t)lv * N * (R + MG), pw_plane, prof,
+        pw_walk(a, lv, R + ng, stage, V.tables + (size_t)lv * N * (R + MG), pw_plane, prof,
                 PW_SEC_TABLES, PW_SEC_TABLES);
       }
       for (int s2 = 0; s2 < MS; ++s2) {
         if (!v.need_table[s2]) continue;  // block-uniform
         const int lv = pw_clip(v.req_level[s2], 0, L - 1);
         const int K = R + v.tab_ng[lv];
-        const float* tab = a.tables + (size_t)lv * N * (R + MG);
+        const float* tab = V.tables + (size_t)lv * N * (R + MG);
         for (int d = tid; d < a.dom_count[lv]; d += NT)
-          a.feas2[(size_t)s2 * N + d] =
+          V.feas2[(size_t)s2 * N + d] =
               pw_domain_fits(v, tab + (size_t)d * K, s2, v.s_tcol + s2 * PW_MG_MAX, R);
       }
       __syncthreads();
@@ -731,17 +821,17 @@ place_wave_kernel(const PlaceWaveArgs a) {
               if (!act[s2]) continue;
               const int lv2 = pw_clip(v.req_level[s2], 0, L - 1);
               const int dom = a.node_domain_id[(size_t)lv2 * N + i];
-              dst[(size_t)c++ * P] = dom >= 0 && a.feas2[(size_t)s2 * N + dom] ? 1.f : 0.f;
+              dst[(size_t)c++ * P] = dom >= 0 && V.feas2[(size_t)s2 * N + dom] ? 1.f : 0.f;
             }
           }
-          if (spread) dst[(size_t)c_spread * P] = a.spread_pen[i];
+          if (spread) dst[(size_t)c_spread * P] = V.spread_pen[i];
         };
-        pw_walk(a, lv, K, stage, a.agg, pw_plane, prof, PW_SEC_S1_NODES, PW_SEC_S1_WALKS);
+        pw_walk(a, lv, K, stage, V.agg, pw_plane, prof, PW_SEC_S1_NODES, PW_SEC_S1_WALKS);
         float best_v = -INFINITY;
         int best_i = INT32_MAX;
         const int D = a.dom_count[lv];
         for (int d = tid; d < D; d += NT) {
-          const float* row = a.agg + (size_t)d * K;
+          const float* row = V.agg + (size_t)d * K;
           const float count = row[c_cnt];
           bool feasible = count > 0.f && pw_domain_fits(v, row, s, nullptr, R);
           for (int c = c_nest; feasible && c < c_spread; ++c)
@@ -750,13 +840,13 @@ place_wave_kernel(const PlaceWaveArgs a) {
           const float taken_frac = __fdiv_rn(row[c_cnt + 1], fmaxf(count, 1.f));
           float norm_free = 0.f;
           for (int r = 0; r < R; ++r) norm_free = __fadd_rn(norm_free, __fdiv_rn(row[r], cap_scale[r]));
-          float sc = __fsub_rn(-norm_free, __fmul_rn(a.w_reserve, taken_frac));
+          float sc = __fsub_rn(-norm_free, __fmul_rn(V.w_reserve, taken_frac));
           if (spread) {
             // A margin above every other score term (core.py:374-387): any
             // feasible domain with no avoided node beats one with them.
-            const float big = __fadd_rn(__fadd_rn((float)(N * R), a.w_reserve), 2.f);
+            const float big = __fadd_rn(__fadd_rn((float)(N * R), V.w_reserve), 2.f);
             const float touched = row[c_spread] > 0.5f ? 1.f : 0.f;
-            sc = __fsub_rn(sc, __fmul_rn(a.w_spread > 0.f ? big : 0.f, touched));
+            sc = __fsub_rn(sc, __fmul_rn(V.w_spread > 0.f ? big : 0.f, touched));
           }
           if (pw_better(sc, d, best_v, best_i)) { best_v = sc; best_i = d; }
         }
@@ -798,11 +888,11 @@ place_wave_kernel(const PlaceWaveArgs a) {
       unsigned w = in_req | in_pref << 8;
       if (a.schedulable[i]) w |= PW_NW_SCHED;
       if (a.reuse_nodes && a.reuse_nodes[(size_t)gi * N + i]) w |= PW_NW_USED;
-      if (spread && a.spread_pen[i] > 0.5f) w |= PW_NW_SPREAD;  // spread_pen is 0 or 1
-      a.nword[i] = (int32_t)w;
+      if (spread && V.spread_pen[i] > 0.5f) w |= PW_NW_SPREAD;  // spread_pen is 0 or 1
+      V.nword[i] = (int32_t)w;
     }
     bool groups_ok = true;
-    int32_t* ent = a.entries;
+    int32_t* ent = V.entries;
     for (int t = 0; t < 2 * MG; ++t) {
       const int g = v.order[t % MG];
       const int phase = t / MG;
@@ -820,7 +910,7 @@ place_wave_kernel(const PlaceWaveArgs a) {
       int bi = INT32_MAX;
 #pragma unroll 4
       for (int i = tid; i < N; i += NT) {
-        const unsigned w = (unsigned)a.nword[i];
+        const unsigned w = (unsigned)V.nword[i];
         bool nok = (w & PW_NW_SCHED) && (mb & committed & ~w & 0xffu) == 0;
         if (nok && gno) nok = gno[(size_t)g * N + i] != 0;
         int sl = 0;
@@ -828,18 +918,18 @@ place_wave_kernel(const PlaceWaveArgs a) {
           sl = pw_slots(free_s + (size_t)i * R, req, R);
           sl = sl < total ? sl : total;
         }
-        a.a_slots[i] = sl;
+        V.a_slots[i] = sl;
         if (sl <= 0) continue;  // never a candidate: its score is never read
         const unsigned in_req = w & 0xffu, in_pref = (w >> 8) & 0xffu;
         // pref_bonus and reserved are counts of 1.0 added in set order: exact.
         const float pref_bonus = (float)pw_popc(in_pref & mb);
         const float reserved = (float)pw_popc(in_req & ~mb);
-        float sc = __fadd_rn(__fmul_rn(a.w_pref, pref_bonus),
-                             __fmul_rn(a.w_reuse, (w & PW_NW_USED) ? 1.f : 0.f));
-        sc = __fsub_rn(sc, __fmul_rn(a.w_tight, a.norm_free[i]));
-        sc = __fsub_rn(sc, __fmul_rn(a.w_reserve, reserved));
-        if (spread) sc = __fsub_rn(sc, __fmul_rn(a.w_spread, (w & PW_NW_SPREAD) ? 1.f : 0.f));
-        a.a_score[i] = sc;
+        float sc = __fadd_rn(__fmul_rn(V.w_pref, pref_bonus),
+                             __fmul_rn(V.w_reuse, (w & PW_NW_USED) ? 1.f : 0.f));
+        sc = __fsub_rn(sc, __fmul_rn(V.w_tight, V.norm_free[i]));
+        sc = __fsub_rn(sc, __fmul_rn(V.w_reserve, reserved));
+        if (spread) sc = __fsub_rn(sc, __fmul_rn(V.w_spread, (w & PW_NW_SPREAD) ? 1.f : 0.f));
+        V.a_score[i] = sc;
         if (pw_better(sc, i, bv, bi)) { bv = sc; bi = i; }
       }
       pw_warp_argmax(bv, bi);
@@ -864,27 +954,27 @@ place_wave_kernel(const PlaceWaveArgs a) {
         if (node == INT32_MAX) break;  // block-uniform: no node has slots left
         if (warp == (node % NT) / PW_WARP) {
           if (lane == 0) {
-            const int sl = a.a_slots[node];
+            const int sl = V.a_slots[node];
             const int take = sl < rem ? sl : rem;
             s_rem[nxt] = rem - take;
-            a.a_slots[node] = 0;
+            V.a_slots[node] = 0;
             const int e = s_n_entries++;
             ent[3 * e] = g;
             ent[3 * e + 1] = node;
             ent[3 * e + 2] = take;
             for (int r = 0; r < R; ++r) {
               const float x = free_s[(size_t)node * R + r];
-              a.undo[(size_t)e * R + r] = x;
+              V.undo[(size_t)e * R + r] = x;
               free_s[(size_t)node * R + r] = __fsub_rn(x, __fmul_rn((float)take, req[r]));
             }
-            a.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
-            a.nword[node] |= (int32_t)PW_NW_USED;
+            V.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
+            V.nword[node] |= (int32_t)PW_NW_USED;
           }
           pw_syncwarp();
           float wv = -INFINITY;
           int wi = INT32_MAX;
           for (int i = tid; i < N; i += NT)
-            if (a.a_slots[i] > 0 && pw_better(a.a_score[i], i, wv, wi)) { wv = a.a_score[i]; wi = i; }
+            if (V.a_slots[i] > 0 && pw_better(V.a_score[i], i, wv, wi)) { wv = V.a_score[i]; wi = i; }
           pw_warp_argmax(wv, wi);
           if (lane == 0) { wb_v[nxt][warp] = wv; wb_i[nxt][warp] = wi; }
         } else if (lane == 0) {
@@ -925,10 +1015,10 @@ place_wave_kernel(const PlaceWaveArgs a) {
       }
       // Family row write after this gang's own read (core.py:597-607).
       if (node >= 0 && spread && v.spread_family >= 0)
-        a.family_used[(size_t)pw_clip(v.spread_family, 0, a.G - 1) * N + node] = 1;
+        V.family_used[(size_t)pw_clip(v.spread_family, 0, a.G - 1) * N + node] = 1;
       // B3 remap (remap_assigned): candidate ordinal -> fleet ordinal.
       if (node >= 0 && pruned) node = a.cand_idx[pw_clip(node, 0, a.cand_count - 1)];
-      a.assigned[(size_t)gi * MP + p] = node;
+      V.assigned[(size_t)gi * MP + p] = node;
     }
 
     // ---- Stage 4: placement quality -----------------------------------------
@@ -959,8 +1049,8 @@ place_wave_kernel(const PlaceWaveArgs a) {
         }
       }
       const float mean = n_pref > 0 ? __fdiv_rn(sum, (float)n_pref) : 1.f;
-      a.score[gi] = gang_ok ? __fadd_rn(0.5f, __fmul_rn(0.5f, mean)) : 0.f;
-      a.ok[gi] = gang_ok ? 1 : 0;
+      V.score[gi] = gang_ok ? __fadd_rn(0.5f, __fmul_rn(0.5f, mean)) : 0.f;
+      V.ok[gi] = gang_ok ? 1 : 0;
     }
     if (kProfile) __syncthreads();
     prof.mark(PW_SEC_S34);
@@ -969,10 +1059,10 @@ place_wave_kernel(const PlaceWaveArgs a) {
     if (!gang_ok && tid == 0) {
       for (int e = n_ent - 1; e >= 0; --e)
         for (int r = 0; r < R; ++r)
-          free_s[(size_t)ent[3 * e + 1] * R + r] = a.undo[(size_t)e * R + r];
+          free_s[(size_t)ent[3 * e + 1] * R + r] = V.undo[(size_t)e * R + r];
       for (int e = 0; e < n_ent; ++e) {
         const int node = ent[3 * e + 1];
-        a.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
+        V.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
       }
     }
     __syncthreads();
@@ -989,10 +1079,11 @@ place_wave_kernel(const PlaceWaveArgs a) {
     }
   }
   // ---- B2 scatter-max of this wave's verdicts into ok_global ---------------
-  if (a.T > 0) {
+  // (the stacked launch leaves it to the select, or to nobody)
+  if (!kStacked && a.T > 0) {
     for (int gi = tid; gi < a.G; gi += NT) {
       const int gidx = a.global_index[gi];
-      if (gidx >= 0 && a.ok[gi]) a.ok_global[pw_clip(gidx, 0, a.T - 1)] = 1;
+      if (gidx >= 0 && V.ok[gi]) a.ok_global[pw_clip(gidx, 0, a.T - 1)] = 1;
     }
   }
   if (kProfile) {
@@ -1001,34 +1092,140 @@ place_wave_kernel(const PlaceWaveArgs a) {
   }
 }
 
+// ---- portfolio select: the winner among the stacked launch's rows ----------
+
+// sum(x[0..n)) in the order XLA's CPU backend sums a reduction of n f32
+// values (its tree-reduction rewrite, as the JAX package's `_objective` runs
+// it): while n >= 32, the values are padded with zeros to a multiple of 32 —
+// half the padding, rounded down, in front and the rest behind — and each
+// window of 32 is summed in index order into one value; the fewer than 32
+// values left are summed in index order. Overwrites x.
+__device__ float pw_xla_sum(float* x, int n) {
+  while (n >= 32) {
+    const int pad = (32 - n % 32) % 32, lo = pad / 2, m = (n + pad) / 32;
+    for (int j = 0; j < m; ++j) {
+      float acc = 0.f;  // a padding zero adds nothing
+      for (int p = 32 * j - lo; p < 32 * j - lo + 32; ++p)
+        if (p >= 0 && p < n) acc = __fadd_rn(acc, x[p]);
+      x[j] = acc;  // every later window starts past x[j]
+    }
+    n = m;
+  }
+  float acc = 0.f;
+  for (int p = 0; p < n; ++p) acc = __fadd_rn(acc, x[p]);
+  return acc;
+}
+
+// One block, after the K chains (grove_tpu/parallel/portfolio.py
+// `_objective` and `portfolio_solve_batch`): per row its admitted count and
+// its quality, the sum of the admitted gangs' placement scores; the winner
+// has the most admitted gangs, then the highest quality, then the lowest
+// index. Its rows are copied out, its carry becomes the fleet's, and its
+// verdicts are scatter-maxed into ok_global (B2), as the single launch does.
+__global__ void place_wave_select(const PlaceWaveArgs a) {
+  __shared__ int s_win;
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int G = a.G, K = a.K;
+  for (int k = tid; k < K; k += NT) {
+    const uint8_t* ok = a.ok + (size_t)k * G;
+    const float* sc = a.score + (size_t)k * G;
+    float* terms = a.sel_terms + (size_t)k * G;
+    int adm = 0;
+    for (int g = 0; g < G; ++g) {
+      adm += ok[g] != 0;
+      terms[g] = ok[g] ? sc[g] : 0.f;
+    }
+    const float q = pw_xla_sum(terms, G);
+    a.sel_admitted[k] = adm;
+    a.sel_quality[k] = q;
+    a.objectives[k] = __fadd_rn(__fmul_rn((float)adm, 1e6f), q);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int best = a.sel_admitted[0];
+    for (int k = 1; k < K; ++k) best = a.sel_admitted[k] > best ? a.sel_admitted[k] : best;
+    int w = -1;
+    for (int k = 0; k < K; ++k)
+      if (a.sel_admitted[k] == best && (w < 0 || a.sel_quality[k] > a.sel_quality[w])) w = k;
+    s_win = w;
+    *a.winner = w;
+  }
+  __syncthreads();
+  const size_t w = s_win;
+  const int MP = a.MP, NR = a.N * a.R;
+  for (int i = tid; i < G * MP; i += NT) a.win_assigned[i] = a.assigned[w * G * MP + i];
+  for (int i = tid; i < G; i += NT) {
+    const uint8_t okw = a.ok[w * G + i];
+    a.win_ok[i] = okw;
+    a.win_score[i] = a.score[w * G + i];
+    const int gidx = a.global_index[i];
+    if (a.T > 0 && gidx >= 0 && okw) a.ok_global[pw_clip(gidx, 0, a.T - 1)] = 1;
+  }
+  for (int i = tid; i < NR; i += NT) a.free_io[i] = a.carry[w * NR + i];
+}
+
 // Launch one wave on `stream`: the prologue (one one-thread block per gang:
 // its loops are short and serial, and G blocks fill the idle SMs), then the
 // chain kernel with `smem_bytes` = 4 * plane_words of dynamic shared memory.
 // `profile` picks the instantiation that times its sections into args->prof.
 // Returns cudaGetLastError() (0 = launched).
+//
+// The stacked launch: the prologue, K chain blocks (one per weight row), and
+// with `select` the select kernel.
 #ifndef PLACE_WAVE_HOST_EMULATION
-template <bool kProfile>
+template <bool kProfile, bool kStacked>
 static int pw_launch(const PlaceWaveArgs* args, cudaStream_t stream, int smem_bytes) {
   if (args->G > 0) place_wave_prologue<<<args->G, 1, 0, stream>>>(*args);
-  cudaError_t err = cudaFuncSetAttribute(place_wave_kernel<kProfile>,
+  cudaError_t err = cudaFuncSetAttribute(place_wave_kernel<kProfile, kStacked>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  place_wave_kernel<kProfile><<<1, PW_THREADS, smem_bytes, stream>>>(*args);
+  place_wave_kernel<kProfile, kStacked><<<kStacked ? args->K : 1, PW_THREADS, smem_bytes, stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
 extern "C" int place_wave_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes,
                                  int profile) {
   cudaStream_t st = (cudaStream_t)stream;
-  return profile ? pw_launch<true>(args, st, smem_bytes) : pw_launch<false>(args, st, smem_bytes);
+  return profile ? pw_launch<true, false>(args, st, smem_bytes)
+                 : pw_launch<false, false>(args, st, smem_bytes);
+}
+
+extern "C" int place_wave_stacked_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes,
+                                         int select) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = pw_launch<false, true>(args, st, smem_bytes);
+  if (err != 0 || !select) return err;
+  place_wave_select<<<1, PW_THREADS, 0, st>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+// The select kernel alone, on the rows a stacked launch left in `args`'
+// arrays (chip_smoke.py times it so).
+extern "C" int place_wave_select_launch(const PlaceWaveArgs* args, void* stream) {
+  place_wave_select<<<1, PW_THREADS, 0, (cudaStream_t)stream>>>(*args);
+  return (int)cudaGetLastError();
 }
 #else
-// The same launch for a one-thread block on the host (the CPU tests): the
-// prologue gang by gang, then the chain.
+// The same launches for a one-thread block on the host (the CPU tests): the
+// prologue gang by gang, then the chain (block by block when stacked).
 extern "C" int place_wave_launch(const PlaceWaveArgs* args, void*, int, int profile) {
   for (int gi = 0; gi < args->G; ++gi) pw_gang_invariants(*args, gi);
-  if (profile) place_wave_kernel<true>(*args);
-  else place_wave_kernel<false>(*args);
+  if (profile) place_wave_kernel<true, false>(*args);
+  else place_wave_kernel<false, false>(*args);
+  return 0;
+}
+
+extern "C" int place_wave_stacked_launch(const PlaceWaveArgs* args, void*, int, int select) {
+  for (int gi = 0; gi < args->G; ++gi) pw_gang_invariants(*args, gi);
+  for (pw_emu_block = 0; pw_emu_block < args->K; ++pw_emu_block)
+    place_wave_kernel<false, true>(*args);
+  pw_emu_block = 0;
+  if (select) place_wave_select(*args);
+  return 0;
+}
+
+extern "C" int place_wave_select_launch(const PlaceWaveArgs* args, void*) {
+  place_wave_select(*args);
   return 0;
 }
 #endif

@@ -18,10 +18,19 @@ global memory at every fleet size; PLANE_BYTES of dynamic shared memory
 stage the domain walks. `profile` launches the instantiation that counts
 clock64 cycles per section (SECTIONS).
 
-The kernel launches on PyTorch's current stream and does not synchronise;
+`place_wave_stacked` is B5 (grove_tpu/solver/core.py
+`stacked_solve_batch_impl`, grove_tpu/parallel/portfolio.py
+`portfolio_solve_batch`): the same wave under K weight rows in one launch,
+K chain blocks side by side, and with `select` the portfolio's winner
+picked on the card. Its plain versions are solver/reference.py
+`stacked_solve_ref` and `portfolio_select_ref`.
+
+The kernels launch on PyTorch's current stream and do not synchronise;
 `free` and `ok_global` are updated in place. `place_wave.launches` counts the
 launches (one per wave, the prologue included), and
-`place_wave.variant_launches` counts them per variant: "dense" and "pruned".
+`place_wave.variant_launches` counts them per variant: "dense" and "pruned"
+for place_wave, "stacked" (select=False) and "portfolio" (select=True) for
+place_wave_stacked.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ INV_BYTES = 2048
 _P = ctypes.c_void_p
 _FIELDS = [
     (k, ctypes.c_int)
-    for k in ("N", "R", "L", "G", "MG", "MS", "MP", "T", "NF", "cand_count", "plane_words")
+    for k in ("N", "R", "L", "G", "MG", "MS", "MP", "T", "NF", "cand_count", "plane_words", "K")
 ]
 _FIELDS += [
     (k, ctypes.c_float) for k in ("w_tight", "w_pref", "w_reuse", "w_reserve", "w_spread")
@@ -58,8 +67,10 @@ _POINTERS = (
     "reuse_nodes", "group_node_ok", "spread_level", "spread_family", "spread_avoid",
     "ok_global", "assigned", "ok", "score", "carry", "family_used", "spread_pen", "tables",
     "agg", "feas2", "nword", "a_slots", "a_score", "norm_free", "entries", "undo", "ginv",
-    "prof",
+    "prof", "params_stack", "sel_terms", "sel_admitted", "sel_quality", "objectives", "winner",
+    "win_assigned", "win_ok", "win_score",
 )
+N_WEIGHTS = 5  # SolverParams' fields, the columns of a weight stack
 _FIELDS += [(k, _P) for k in _POINTERS]
 # Sections of the profiled instantiation (PW_SEC_* in csrc/place_wave.cu),
 # the columns of its cycle table.
@@ -121,9 +132,16 @@ def _check(name, t, dtype, shape, device):
 
 def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
                ok_global, domains: DomainIndex, cand_idx=None, cand_count=None,
-               profile=False, plane_words=None):
+               profile=False, plane_words=None, params_stack=None, select=False):
     """Check every input, allocate outputs and scratch, and fill the kernel's
     argument struct. Returns (args, smem_bytes, outputs, keepalive).
+
+    With `params_stack` (f32 [K, 5], SolverParams' fields in order; `params`
+    is then not read) the args are the stacked launch's: every output and
+    scratch array gains a leading [K] axis, the outputs are "assigned"
+    [K, G, MP], "ok" [K, G], "score" [K, G] and "free_after" [K, N, R] (each
+    variant's carry), and with `select` also "win_assigned", "win_ok",
+    "win_score", "winner" (i32 []) and "objectives" (f32 [K]).
 
     `free` is the fleet carry [NF, R]. Every other node-axis input lies on
     the solve's node axis N: the fleet itself, or with `cand_idx` (i32 [N],
@@ -152,6 +170,17 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         raise ValueError(f"place_wave: plane_words {plane_words} outside [{k_max}, "
                          f"{PLANE_BYTES // 4}]")
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    stacked = params_stack is not None
+    K = 1
+    if stacked:
+        K = params_stack.shape[0] if params_stack.dim() == 2 else 0
+        _check("params_stack", params_stack, f32, (K, N_WEIGHTS), dev)
+        if K < 1:
+            raise ValueError("place_wave: params_stack holds no weight row")
+        if cand_idx is not None:
+            raise ValueError("place_wave: a stacked launch solves the fleet dense; a candidate "
+                             "plan cannot go with a weight stack (the JAX package never prunes a "
+                             "portfolio solve)")
     _check("free", free, f32, (nf, r), dev)
     if cand_idx is None:
         _check("node_domain_id", node_domain_id, i32, (levels, nf), dev)
@@ -191,29 +220,43 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
+    rows = (K,) if stacked else ()
     out = {
-        "assigned": empty((g, mp), i32),
-        "ok": torch.zeros((g,), dtype=b8, device=dev),
-        "score": empty((g,), f32),
+        "assigned": empty(rows + (g, mp), i32),
+        "ok": torch.zeros(rows + (g,), dtype=b8, device=dev),
+        "score": empty(rows + (g,), f32),
     }
     if profile:
         out["prof"] = torch.zeros((g + 1, len(SECTIONS)), dtype=torch.int64, device=dev)
     n_ent = max(2 * mg * mp, 1)
+    # One copy of every per-gang scratch array for each weight variant.
     scratch = {
-        "carry": empty((n * r,), f32) if cand_idx is not None else None,
-        "family_used": torch.zeros((g * n,), dtype=torch.uint8, device=dev) if spread else None,
-        "spread_pen": empty((n,), f32) if spread else None,
-        "tables": empty((levels * n * (r + mg),), f32),
-        "agg": empty((n * k_max,), f32),
-        "feas2": empty((max(ms, 1) * n,), torch.uint8),
-        "nword": empty((n,), i32),
-        "a_slots": empty((n,), i32),
-        "a_score": empty((n,), f32),
-        "norm_free": empty((n,), f32),
-        "entries": empty((n_ent * 3,), i32),
-        "undo": empty((n_ent * r,), f32),
+        "carry": empty((K * n * r,), f32) if cand_idx is not None or stacked else None,
+        "family_used": torch.zeros((K * g * n,), dtype=torch.uint8, device=dev) if spread else None,
+        "spread_pen": empty((K * n,), f32) if spread else None,
+        "tables": empty((K * levels * n * (r + mg),), f32),
+        "agg": empty((K * n * k_max,), f32),
+        "feas2": empty((K * max(ms, 1) * n,), torch.uint8),
+        "nword": empty((K * n,), i32),
+        "a_slots": empty((K * n,), i32),
+        "a_score": empty((K * n,), f32),
+        "norm_free": empty((K * n,), f32),
+        "entries": empty((K * n_ent * 3,), i32),
+        "undo": empty((K * n_ent * r,), f32),
         "ginv": empty((max(g, 1) * INV_BYTES,), torch.uint8),
+        "params_stack": params_stack,
     }
+    if stacked:
+        out["free_after"] = scratch["carry"].view(K, n, r)
+    if select:
+        if not stacked:
+            raise ValueError("place_wave: select needs a weight stack")
+        out.update(
+            win_assigned=empty((g, mp), i32), win_ok=empty((g,), b8), win_score=empty((g,), f32),
+            winner=empty((), i32), objectives=empty((K,), f32),
+        )
+        scratch.update(sel_terms=empty((K * max(g, 1),), f32), sel_admitted=empty((K,), i32),
+                       sel_quality=empty((K,), f32))
     tensors = {
         "free_io": free, "cand_idx": cand_idx, "capacity": capacity,
         "schedulable": schedulable, "node_domain_id": node_domain_id,
@@ -222,15 +265,17 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     }
     for name in shapes:
         tensors[name] = getattr(batch, name)
+    weights = {}
+    if not stacked:
+        weights = {k: float(getattr(params, k))
+                   for k in ("w_tight", "w_pref", "w_reuse", "w_reserve", "w_spread")}
     args = PlaceWaveArgs(
         N=n, R=r, L=levels, G=g, MG=mg, MS=ms, MP=mp, T=t_len, NF=nf,
-        cand_count=n if cand_idx is None else int(cand_count), plane_words=plane_words,
-        w_tight=float(params.w_tight), w_pref=float(params.w_pref),
-        w_reuse=float(params.w_reuse), w_reserve=float(params.w_reserve),
-        w_spread=float(params.w_spread),
+        cand_count=n if cand_idx is None else int(cand_count), plane_words=plane_words, K=K,
+        **weights,
     )
     for name in _POINTERS:
-        t = tensors[name]
+        t = tensors.get(name)
         setattr(args, name, None if t is None else t.data_ptr())
     return args, 4 * plane_words, out, tensors
 
@@ -254,13 +299,7 @@ def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     row gi gang gi, row G the wave's head and tail (see csrc/place_wave.cu)."""
     if not free.is_cuda:
         raise ValueError("place_wave: the kernel runs on a CUDA device only")
-    from grove_tpu_torch.kernels.build import load
-
-    lib = load("place_wave")
-    lib.place_wave_args_size.argtypes = []
-    lib.place_wave_args_size.restype = ctypes.c_int
-    if lib.place_wave_args_size() != ctypes.sizeof(PlaceWaveArgs):
-        raise RuntimeError("place_wave: PlaceWaveArgs differs between Python and CUDA")
+    lib = _library()
     args, smem, out, _keep = build_args(
         free, capacity, schedulable, node_domain_id, batch, params, ok_global, domains,
         cand_idx, cand_count, profile is not None,
@@ -279,10 +318,61 @@ def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     return out["assigned"], out["ok"], out["score"], free, ok_global
 
 
+def place_wave_stacked(free, capacity, schedulable, node_domain_id, batch: GangBatch,
+                       params_stack, ok_global=None, *, domains: DomainIndex, select: bool):
+    """Solve one wave under K weight rows with one launch on the card (B5).
+
+    `params_stack` is f32 [K, 5] on the card (SolverParams' fields in
+    order, parallel.portfolio.params_population). Every row solves from
+    `free` and judges its cross-wave dependencies against the one
+    `ok_global`; row k equals place_wave under row k's weights bit for bit.
+
+    `select=False` (core.stacked_solve_batch) returns (assigned i32
+    [K, G, MP], ok bool [K, G], score f32 [K, G], free_after f32 [K, N, R])
+    and leaves `free` and `ok_global` as they were.
+
+    `select=True` (the portfolio solve) returns (assigned [G, MP], ok [G],
+    score [G], free, ok_global, winner i32 [], objectives f32 [K]): the
+    winner's rows, with `free` and `ok_global` updated in place by the
+    winner alone, as place_wave updates them. Stacked launches solve the
+    fleet dense (build_args refuses a candidate plan with a weight stack)."""
+    if not free.is_cuda:
+        raise ValueError("place_wave_stacked: the kernel runs on a CUDA device only")
+    lib = _library()
+    args, smem, out, _keep = build_args(
+        free, capacity, schedulable, node_domain_id, batch, None, ok_global, domains,
+        params_stack=params_stack, select=select,
+    )
+    fn = lib.place_wave_stacked_launch
+    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(free.device).cuda_stream
+    rc = fn(ctypes.byref(args), stream, smem, int(select))
+    if rc != 0:
+        raise RuntimeError(f"place_wave_stacked: kernel launch failed with CUDA error {rc}")
+    place_wave.launches += 1
+    place_wave.variant_launches["portfolio" if select else "stacked"] += 1
+    if select:
+        return (out["win_assigned"], out["win_ok"], out["win_score"], free, ok_global,
+                out["winner"], out["objectives"])
+    return out["assigned"], out["ok"], out["score"], out["free_after"]
+
+
+def _library():
+    from grove_tpu_torch.kernels.build import load
+
+    lib = load("place_wave")
+    lib.place_wave_args_size.argtypes = []
+    lib.place_wave_args_size.restype = ctypes.c_int
+    if lib.place_wave_args_size() != ctypes.sizeof(PlaceWaveArgs):
+        raise RuntimeError("place_wave: PlaceWaveArgs differs between Python and CUDA")
+    return lib
+
+
 def reset_launches() -> None:
-    """Set every launch count of place_wave to 0."""
+    """Set every launch count of place_wave and place_wave_stacked to 0."""
     place_wave.launches = 0
-    place_wave.variant_launches = dict.fromkeys(("dense", "pruned"), 0)
+    place_wave.variant_launches = dict.fromkeys(("dense", "pruned", "stacked", "portfolio"), 0)
 
 
 reset_launches()

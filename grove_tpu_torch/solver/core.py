@@ -8,6 +8,11 @@ the plain PyTorch version (solver/reference.py). There is no fallback between
 the two: a CUDA batch the kernel does not take raises. Given a candidate plan
 (solver/pruning.py) it solves the wave on the plan's candidate axis, inside
 the same single launch on the card.
+
+`stacked_solve_batch` solves one wave under K weight rows (B5, one stacked
+launch on the card), and `solve` is the serving entry: a snapshot and a
+batch, one solve or a portfolio of them, and the portfolio escalation
+when a valid gang is rejected.
 """
 
 from __future__ import annotations
@@ -18,7 +23,13 @@ import numpy as np
 import torch
 
 from grove_tpu_torch.solver.encode import GangBatch
-from grove_tpu_torch.solver.reference import solve_batch_ref, solve_pruned_ref
+from grove_tpu_torch.solver.reference import (
+    apply_global_deps_ref,
+    portfolio_select_ref,
+    solve_batch_ref,
+    solve_pruned_ref,
+    stacked_solve_ref,
+)
 
 
 class SolverParams(NamedTuple):
@@ -67,10 +78,24 @@ def to_device(x, device):
     return t.to(device)
 
 
+def tensor_on(x, dtype, device):
+    """`x` (numpy array, tensor or None) as a `dtype` tensor on `device`; a
+    tensor already there is returned as is."""
+    return None if x is None else torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def batch_to(batch: GangBatch, device) -> GangBatch:
     """GangBatch of numpy arrays (or tensors) -> GangBatch of tensors on
     `device` (see to_device)."""
     return GangBatch(*(None if x is None else to_device(x, device) for x in batch))
+
+
+def stack_on(params_stack, dev) -> torch.Tensor:
+    """A weight stack (numpy, possibly read-only, or a tensor) as an f32
+    tensor on `dev`."""
+    if torch.is_tensor(params_stack):
+        return params_stack.to(device=dev, dtype=torch.float32)
+    return to_device(np.array(params_stack, dtype=np.float32), dev)
 
 
 def solve_batch(
@@ -112,15 +137,11 @@ def solve_batch(
 
         domains = domain_index(node_domain_id, dev)
 
-    def on(x, dtype):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
-
-    free = on(free, torch.float32)
-    capacity = on(capacity, torch.float32)
-    schedulable = on(schedulable, torch.bool)
-    node_domain_id = on(node_domain_id, torch.int32)
-    if ok_global is not None:
-        ok_global = on(ok_global, torch.bool)
+    free = tensor_on(free, torch.float32, dev)
+    capacity = tensor_on(capacity, torch.float32, dev)
+    schedulable = tensor_on(schedulable, torch.bool, dev)
+    node_domain_id = tensor_on(node_domain_id, torch.int32, dev)
+    ok_global = tensor_on(ok_global, torch.bool, dev)
     tbatch = batch_to(batch, dev)
     if free.is_cuda:
         from grove_tpu_torch.kernels.place_wave import place_wave
@@ -134,6 +155,120 @@ def solve_batch(
             free, capacity, schedulable, node_domain_id, tbatch, params, ok_global
         )
     return SolveResult(*out)
+
+
+def stacked_solve_batch(free0, capacity, schedulable, node_domain_id, batch: GangBatch,
+                        params_stack, ok_global=None, *, device=None, domains=None) -> SolveResult:
+    """Solve the same wave under K weight rows at once (core.py
+    `stacked_solve_batch_impl`): every result gains a leading [K] axis
+    (assigned [K, G, MP], ok [K, G], placement_score [K, G], free_after
+    [K, N, R]), and row k equals solve_batch under row k's weights bit for
+    bit. `params_stack` is f32 [K, 5] (SolverParams' fields in order). Every
+    row solves from `free0` and judges its cross-wave dependencies against
+    `ok_global`; neither is changed, and the result carries no ok_global.
+    On the card it is one stacked launch (kernels/place_wave.py
+    `place_wave_stacked`, select=False)."""
+    return SolveResult(*stacked_dispatch(free0, capacity, schedulable, node_domain_id, batch,
+                                         params_stack, ok_global, select=False, device=device,
+                                         domains=domains))
+
+
+def stacked_dispatch(free0, capacity, schedulable, node_domain_id, batch: GangBatch,
+                     params_stack, ok_global, *, select: bool, device, domains):
+    """The stacked solve shared by stacked_solve_batch (select=False) and
+    parallel/portfolio.py's portfolio_solve_batch (select=True): the arrays
+    to `device` (None = the card), then one stacked launch with the select
+    on the card, or the plain versions on the CPU. Returns the kernel's
+    tuple (kernels/place_wave.py `place_wave_stacked`)."""
+    dev = resolve_device(device)
+    free0 = tensor_on(free0, torch.float32, dev)
+    capacity = tensor_on(capacity, torch.float32, dev)
+    schedulable = tensor_on(schedulable, torch.bool, dev)
+    node_domain_id = tensor_on(node_domain_id, torch.int32, dev)
+    ok_global = tensor_on(ok_global, torch.bool, dev)
+    tbatch = batch_to(batch, dev)
+    pstack = stack_on(params_stack, dev)
+    if dev.type == "cuda":
+        from grove_tpu_torch.kernels.place_wave import domain_index, place_wave_stacked
+
+        if domains is None:
+            domains = domain_index(node_domain_id, dev)
+        return place_wave_stacked(free0, capacity, schedulable, node_domain_id, tbatch, pstack,
+                                  ok_global, domains=domains, select=select)
+    rows = stacked_solve_ref(free0, capacity, schedulable, node_domain_id, tbatch, pstack,
+                             ok_global)
+    return portfolio_select_ref(*rows, tbatch, ok_global) if select else rows
+
+
+def solve(
+    snapshot,
+    batch: GangBatch,
+    params: SolverParams | None = None,
+    free=None,
+    schedulable=None,
+    ok_global=None,
+    portfolio: int = 1,
+    escalate_portfolio: int = 1,
+    *,
+    device=None,
+) -> SolveResult:
+    """The serving entry (core.py `solve`, dense and unsharded): snapshot
+    (numpy) -> device -> one solve, or a portfolio of them.
+
+    `free`/`schedulable` override the snapshot's (wave chaining: pass the
+    previous result's free_after); `ok_global` threads the cross-wave verdict
+    bitmap. The caller's arrays are never changed: the result's free_after
+    and ok_global are new tensors.
+
+    `portfolio` > 1 solves the batch under P weight variants
+    (parallel/portfolio.py) and keeps the winner by (admitted count,
+    quality). `escalate_portfolio` > portfolio: when the first solve leaves
+    a valid gang rejected (its cross-wave base admitted, or none), the same
+    batch is solved once more under that many variants, from the same
+    entering state, and that winner is returned; slot 0 of the population
+    is the base, so it never admits fewer gangs.
+
+    `device` None means the card; "cpu" runs the plain PyTorch versions."""
+    from grove_tpu_torch.parallel.portfolio import portfolio_solve
+
+    dev = resolve_device(device)
+    params = params or SolverParams()
+
+    def on(x, dtype):
+        # A copy of the caller's tensor: the kernels update their carry in place.
+        t = tensor_on(x, dtype, dev)
+        return t.clone() if t is x else t
+
+    free0 = on(snapshot.free if free is None else free, torch.float32)
+    capacity = on(snapshot.capacity, torch.float32)
+    sched = on(snapshot.schedulable if schedulable is None else schedulable, torch.bool)
+    node_domain_id = on(snapshot.node_domain_id, torch.int32)
+    okg = None if ok_global is None else on(ok_global, torch.bool)
+    tbatch = batch_to(batch, dev)
+    domains = None
+    if dev.type == "cuda":
+        from grove_tpu_torch.kernels.place_wave import domain_index
+
+        domains = domain_index(snapshot.node_domain_id, dev)
+    escalate = escalate_portfolio > portfolio
+    if escalate:
+        # Escalation re-solves from the state the first solve entered with.
+        entry = (free0.clone(), None if okg is None else okg.clone())
+        valid = apply_global_deps_ref(batch_to(batch, "cpu"),
+                                      None if okg is None else okg.cpu()).numpy()
+
+    def psolve(width, free_in, okg_in):
+        return portfolio_solve(free_in, capacity, sched, node_domain_id, tbatch, params, width,
+                               okg_in, device=dev, domains=domains)
+
+    if portfolio > 1:
+        result = psolve(portfolio, free0, okg)
+    else:
+        result = solve_batch(free0, capacity, sched, node_domain_id, tbatch, params, okg,
+                             device=dev, domains=domains)
+    if escalate and bool((valid & ~result.ok.cpu().numpy()).any()):
+        return psolve(escalate_portfolio, *entry)
+    return result
 
 
 def _solve_pruned(free, batch, params, ok_global, dev, plan) -> SolveResult:

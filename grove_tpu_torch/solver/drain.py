@@ -22,6 +22,12 @@ identical verdicts CONFIRM the pruned result; changed ones ADOPT the dense
 result, re-chain every later wave from the adopted carry and harvest them
 again. Admitted sets equal the dense drain's.
 
+Portfolio (`portfolio` P > 1, the solver.portfolio knob): every wave is
+solved under P weight variants and the winner's free_after and verdicts
+chain forward — on the card one stacked launch per wave, the winner picked
+on the card and written into the carry in place. The population is drawn
+once per drain. Portfolio drains never prune (the JAX package's rule).
+
 Warm paths, recording, meshes, faults and the other harvest modes of the
 JAX package are later slices of the port.
 """
@@ -39,6 +45,7 @@ from grove_tpu_torch.solver.core import (
     decode_bindings,
     resolve_device,
     solve_batch,
+    stack_on,
 )
 from grove_tpu_torch.solver.encode import encode_gangs, gang_shape, next_pow2
 from grove_tpu_torch.solver.pruning import PruningConfig, lossy_rejections, plan_candidates
@@ -71,6 +78,7 @@ class DrainStats:
     # Host-blocking device->host fetches: 1 + escalations + adoptions that
     # left later waves to re-chain (each re-chain is harvested in one fetch).
     device_roundtrips: int = 0
+    portfolio: int = 1  # weight variants per wave
     # The fleet's free capacity after the last wave, as the solver left it
     # (fetched in the one harvest).
     free_after: np.ndarray | None = None
@@ -116,23 +124,26 @@ def drain_backlog(
     params: SolverParams | None = None,
     device=None,
     pruning: PruningConfig | None = None,
+    portfolio: int = 1,
 ) -> tuple[dict[str, dict[str, str]], DrainStats]:
     """Admit a whole backlog; returns ({gang: {pod: node}}, DrainStats).
 
     All-or-nothing per gang; scaled gangs wait for their base's verdict on
     the device. `device` None means the card; "cpu" runs the plain PyTorch
     versions. `pruning` (enabled) solves each wave on its candidate axis,
-    with the escalation described in the module docstring."""
+    with the escalation described in the module docstring. `portfolio` > 1
+    solves every wave under that many weight variants (pruning is then
+    off)."""
     dev = resolve_device(device)
     params = params or SolverParams()
-    if pruning is not None and not pruning.enabled:
+    if pruning is not None and (not pruning.enabled or portfolio > 1):
         pruning = None
-    stats = DrainStats(gangs=len(gangs))
+    stats = DrainStats(gangs=len(gangs), portfolio=portfolio)
     if not gangs:
         return {}, stats
     waves = plan_waves(gangs, wave_size)
     gidx = {g.name: i for i, g in enumerate(gangs)}
-    chain = _Chain(snapshot, params, dev, len(gangs), stats)
+    chain = _Chain(snapshot, params, dev, len(gangs), stats, portfolio)
 
     t0 = time.perf_counter()
     recs = []
@@ -189,8 +200,14 @@ class _Chain:
     three things a drain does with them: dispatch a wave, harvest waves,
     escalate a lossy-rejected pruned wave."""
 
-    def __init__(self, snapshot, params, dev, n_gangs, stats):
+    def __init__(self, snapshot, params, dev, n_gangs, stats, portfolio=1):
         self.params, self.dev, self.stats = params, dev, stats
+        self.portfolio, self.pstack = portfolio, None
+        if portfolio > 1:
+            from grove_tpu_torch.parallel.portfolio import params_population
+
+            # Hoisted: drawn and uploaded once per drain, not per wave.
+            self.pstack = stack_on(params_population(portfolio, base=params), dev)
         self.capacity = torch.as_tensor(snapshot.capacity, device=dev)
         self.schedulable = torch.as_tensor(snapshot.schedulable, device=dev)
         self.node_domain_id = torch.as_tensor(snapshot.node_domain_id, device=dev)
@@ -204,6 +221,14 @@ class _Chain:
         self.ok_g = torch.zeros((n_gangs,), dtype=torch.bool, device=dev)
 
     def _solve(self, rec, free, ok_g, plan):
+        if self.pstack is not None:
+            from grove_tpu_torch.parallel.portfolio import portfolio_solve
+
+            return portfolio_solve(
+                free, self.capacity, self.schedulable, self.node_domain_id, rec["batch"],
+                self.params, self.portfolio, ok_g, pstack=self.pstack, device=self.dev,
+                domains=self.domains,
+            )
         return solve_batch(
             free, self.capacity, self.schedulable, self.node_domain_id, rec["batch"],
             self.params, ok_g, device=self.dev, domains=self.domains, plan=plan,

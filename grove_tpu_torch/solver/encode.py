@@ -188,6 +188,7 @@ def _encode_cross_batch_fields(
     gi: int,
     gang: PodGang,
     gang_index: dict[str, int],
+    scheduled_gangs: set[str],
     global_index_of: dict[str, int] | None,
 ) -> None:
     """Batch-positional fields: global table slot + the base-gang gate."""
@@ -204,9 +205,9 @@ def _encode_cross_batch_fields(
             # Base solved in an earlier wave: resolve the verdict on-device
             # via the solver's ok_global bitmap (pipelined chaining).
             batch.depends_global[gi] = global_index_of[gang.base_podgang_name]
-        else:
-            # Base gang in neither this batch nor the global table: gate
-            # this gang out.
+        elif gang.base_podgang_name not in scheduled_gangs:
+            # Base gang in neither this batch, the global table nor the
+            # scheduled set: gate this gang out.
             batch.gang_valid[gi] = False
 
 
@@ -236,6 +237,7 @@ def encode_gangs(
     max_sets: int | None = None,
     max_pods: int | None = None,
     pad_gangs_to: int | None = None,
+    scheduled_gangs: set[str] | None = None,
     global_index_of: dict[str, int] | None = None,
     reuse_nodes_by_gang: dict[str, list[int]] | None = None,
     spread_avoid_by_gang: dict[str, list[int]] | None = None,
@@ -245,7 +247,9 @@ def encode_gangs(
     same array for array).
 
     A scaled gang whose base gang is neither in this batch (at an earlier
-    index) nor in `global_index_of` is marked invalid (syncflow.go:347-387).
+    index), nor in `global_index_of`, nor in `scheduled_gangs` (names of
+    gangs admitted by earlier solves) is marked invalid
+    (syncflow.go:347-387).
 
     `reuse_nodes_by_gang`: gang name -> snapshot node indices its previous
     incarnation occupied (ReuseReservationRef, podgang.go:65-71).
@@ -347,7 +351,7 @@ def encode_gangs(
             reuse_arr, gi, gang, reuse_nodes_by_gang, snapshot, g_count
         )
         _encode_cross_batch_fields(
-            batch, gi, gang, gang_index, global_index_of
+            batch, gi, gang, gang_index, scheduled_gangs or set(), global_index_of
         )
         slot = 0
         for k, grp in enumerate(gang.spec.pod_groups):

@@ -17,7 +17,10 @@ same inputs and layout, op for op:
   - short reductions over the resource and pack-set axes are summed in index
     order, as the CUDA kernel sums them;
   - B3 (grove_tpu/solver/pruning.py `CandidatePlan.gather_free` /
-    `scatter_free` / `remap_assigned`) is torch index ops around the solve.
+    `scatter_free` / `remap_assigned`) is torch index ops around the solve;
+  - B5 (core.py `stacked_solve_batch_impl`, parallel/portfolio.py
+    `_objective` / `portfolio_solve_batch`) is a loop over the weight rows,
+    and the winner's quality sum adds in XLA's CPU order (`xla_sum_ref`).
 
 The CPU tests hold these against the JAX package, and `chip_smoke.py` holds
 the CUDA kernel (`grove_tpu_torch/kernels/place_wave.py`) against them on the
@@ -26,6 +29,9 @@ card. Nothing on the main path calls them when a card is present.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
+import numpy as np
 import torch
 
 from grove_tpu_torch.solver.encode import GangBatch
@@ -494,4 +500,85 @@ def solve_pruned_ref(
         score,
         scatter_free_ref(free, free_after, cand_idx),
         okg,
+    )
+
+
+# ---- B5: the same wave under K weight rows, and the portfolio's winner ------
+
+WEIGHT_FIELDS = ("w_tight", "w_pref", "w_reuse", "w_reserve", "w_spread")
+
+
+def params_row(row):
+    """Row k of a weight stack [K, 5] (f32) -> what the solve reads as its
+    params: the five weights by name, as Python floats of the same f32
+    values."""
+    return SimpleNamespace(**dict(zip(WEIGHT_FIELDS, (float(x) for x in row.tolist()))))
+
+
+def stacked_solve_ref(
+    free0, capacity, schedulable, node_domain_id, batch: GangBatch, params_stack, ok_global=None
+):
+    """Solve the same wave under every row of `params_stack` (f32 [K, 5])
+    (core.py `stacked_solve_batch_impl`): row k is `solve_batch_ref` under
+    row k's weights. Every row solves from `free0` and judges its
+    cross-wave dependencies against the same `ok_global`, which no row
+    changes.
+
+    Returns (assigned i32 [K, G, MP], ok bool [K, G], score f32 [K, G],
+    free_after f32 [K, N, R])."""
+    rows = [
+        solve_batch_ref(free0, capacity, schedulable, node_domain_id, batch,
+                        params_row(params_stack[k]), ok_global)
+        for k in range(params_stack.shape[0])
+    ]
+    return tuple(torch.stack([row[i] for row in rows]) for i in range(4))
+
+
+def xla_sum_ref(values) -> torch.Tensor:
+    """The f32 sum of `values` [n] in the order XLA's CPU backend reduces
+    them (its tree-reduction rewrite, as the JAX package's `_objective`
+    sums the admitted gangs' scores): while n >= 32 the values are padded
+    with zeros to a multiple of 32 — half the padding, rounded down, in
+    front, the rest behind — and each window of 32 is summed in index order
+    into one value; the fewer than 32 values left are summed in index
+    order."""
+    x = [np.float32(v) for v in values.tolist()]
+    while len(x) >= 32:
+        pad = -len(x) % 32
+        x = [np.float32(0)] * (pad // 2) + x + [np.float32(0)] * (pad - pad // 2)
+        x = [_index_order_sum(x[j : j + 32]) for j in range(0, len(x), 32)]
+    return torch.tensor(_index_order_sum(x), dtype=_F32)
+
+
+def _index_order_sum(xs) -> np.float32:
+    acc = np.float32(0)
+    for v in xs:
+        acc = np.float32(acc + v)
+    return acc
+
+
+def objective_ref(ok, score) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gangs admitted i32, total placement quality f32) of one solve
+    (portfolio.py `_objective`), compared lexicographically."""
+    admitted = ok.sum(dtype=torch.int32)
+    return admitted, xla_sum_ref(torch.where(ok, score, 0.0).cpu()).to(score.device)
+
+
+def portfolio_select_ref(assigned, ok, score, free_after, batch: GangBatch, ok_global=None):
+    """The portfolio's winner among K stacked rows (portfolio.py
+    `portfolio_solve_batch`): the most admitted gangs, then the highest
+    quality, then the lowest index. Returns the winner's (assigned, ok,
+    score, free_after, ok_global with its verdicts scattered in (None
+    without one), winner i32 [], objectives f32 [K] = admitted * 1e6 +
+    quality)."""
+    rows = [objective_ref(ok[k], score[k]) for k in range(ok.shape[0])]
+    admitted = torch.stack([a for a, _ in rows])
+    quality = torch.stack([q for _, q in rows])
+    best = torch.where(admitted == admitted.max(), quality, float("-inf"))
+    w = int(torch.argmax(best))  # the first maximum
+    objectives = admitted.to(_F32) * 1e6 + quality
+    return (
+        assigned[w], ok[w], score[w], free_after[w],
+        scatter_global_ok_ref(batch, ok[w], ok_global),
+        torch.tensor(w, dtype=torch.int32, device=ok.device), objectives,
     )

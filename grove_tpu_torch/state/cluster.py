@@ -49,6 +49,7 @@ class ClusterSnapshot:
     topology: ClusterTopology
     level_domains: list[TopologyDomain]  # broad→narrow, length L
     node_domain_id: np.ndarray  # i32 [L, N]
+    domain_names: list[list[str]]  # per level: ordinal -> "/"-joined label path
     num_domains: np.ndarray  # i32 [L] (actual domain count per level)
     node_index_map: dict[str, int] = field(default_factory=dict)
     # Raw node labels and taints — nodeSelector and
@@ -100,6 +101,7 @@ def build_snapshot(
             capacity[i, j] = node.capacity.get(res, 0.0)
 
     node_domain_id = np.full((len(levels), n), -1, dtype=np.int32)
+    domain_names: list[list[str]] = []
     num_domains = np.zeros((len(levels),), dtype=np.int32)
     # Domain identity is the PATH of label values down the hierarchy, not the
     # raw value: rack "rack-1" in zone "z0" is a different physical rack than
@@ -119,6 +121,7 @@ def build_snapshot(
             if path not in ordinals:
                 ordinals[path] = len(ordinals)
             node_domain_id[li, i] = ordinals[path]
+        domain_names.append(["/".join(p) for p in ordinals])  # dicts keep ordinal order
         num_domains[li] = len(ordinals)
         if level.domain == TopologyDomain.HOST and len(ordinals) != n:
             raise ValueError(
@@ -135,6 +138,7 @@ def build_snapshot(
         topology=topology,
         level_domains=[lv.domain for lv in levels],
         node_domain_id=node_domain_id,
+        domain_names=domain_names,
         num_domains=num_domains,
         node_index_map={x.name: i for i, x in enumerate(nodes)},
         node_labels=[x.labels for x in nodes],

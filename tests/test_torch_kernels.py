@@ -9,6 +9,10 @@ the card, must agree exactly (torch.equal) on ok, assigned,
 placement_score, free_after and ok_global — with walks staged whole or in
 many chunks, with the replica-spread planes, and for a candidate-pruned wave
 (the B3 gather, scatter and remap inside the launch).
+The stacked launch (B5, `place_wave_stacked`) is held against the plain
+stacked solve and the plain portfolio select the same way: every weight row
+(odd rows worst-fit), the winner, its rows, the carry and ok_global it
+leaves, and the objectives.
 The unmarked tests check the wrapper's host side, and the kernel source
 compiled for the host (one-thread emulation), which run anywhere.
 """
@@ -28,11 +32,15 @@ from grove_tpu_torch.kernels import place_wave as pwm
 from grove_tpu_torch.solver.core import SolverParams, batch_to
 from grove_tpu_torch.solver.drain import drain_backlog
 from grove_tpu_torch.solver.pruning import PruningConfig, plan_candidates
+from grove_tpu_torch.parallel.portfolio import params_population
 from grove_tpu_torch.solver.reference import (
     _domain_sum,
     group_slots_ref,
+    params_row,
+    portfolio_select_ref,
     solve_batch_ref,
     solve_pruned_ref,
+    stacked_solve_ref,
 )
 from test_torch_host import PORT, SCENARIOS, _bench
 from test_torch_solver import pinned_bench_small
@@ -364,7 +372,8 @@ def test_pruned_solve_batch_on_card_counts_a_pruned_launch(cuda):
                       plan=plan)
     want = solve_batch(snap.free, snap.capacity, snap.schedulable, snap.node_domain_id, batch,
                        plan=plan, device="cpu")
-    assert pwm.place_wave.variant_launches == {"dense": 0, "pruned": 1}
+    assert pwm.place_wave.variant_launches == {"dense": 0, "pruned": 1, "stacked": 0,
+                                               "portfolio": 0}
     for name, a, b in zip(FIELDS[:4], res, want):
         assert torch.equal(a.cpu(), b), name
 
@@ -580,7 +589,8 @@ float pw_plane[1 << 16];
 
 
 @pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+def host_lib(tmp_path_factory):
+    """The kernel source compiled for the host, loaded."""
     import ctypes
     import shutil
     import subprocess
@@ -600,7 +610,12 @@ def host_kernel(tmp_path_factory):
     assert so.place_wave_args_size() == ctypes.sizeof(pwm.PlaceWaveArgs)
     # The record is 16-byte aligned: its size rounds the fields up to 16.
     assert so.place_wave_inv_size() == -(-ctypes.sizeof(GangInv) // 16) * 16 <= pwm.INV_BYTES
-    fn = so.place_wave_launch
+    return so
+
+
+@pytest.fixture(scope="module")
+def host_kernel(host_lib):
+    fn = host_lib.place_wave_launch
     fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p] + [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
 
@@ -894,3 +909,200 @@ def test_prologue_invariants_equal_numpy(host_kernel):
             assert list(got("tab_grp", (pwm.L_MAX, M))[lv, : rec.tab_ng[lv]]) == groups
         bits = [sum(1 << s for s in range(ms) if member[s, k]) for k in range(mg)]
         assert list(got("memb_bits", M)[:mg]) == bits
+
+
+# ---- B5: the stacked launch and the portfolio select -------------------------
+
+STACK_CASES = ["bench_spread", "binpack_trap", "contended", "gated"]
+
+
+def stack_case(case):
+    """(snapshot, batch, ok_global): a scenario of the corpus with every gang
+    in one batch, or ("gated") the scaled gangs of a bench backlog gated by
+    a seeded cross-wave bitmap."""
+    if case == "gated":
+        gangs, pods, snap = _bench(PORT, n=(12, 8, 10))
+        gidx = {g.name: i for i, g in enumerate(gangs)}
+        scaled = [g for g in gangs if g.base_podgang_name is not None]
+        batch, _ = PORT.encode_gangs(scaled, pods, snap, global_index_of=gidx)
+        return snap, batch, np.random.default_rng(11).random(len(gangs)) < 0.6
+    gangs, pods, snap = SCENARIOS[case](PORT)
+    gidx = {g.name: i for i, g in enumerate(gangs)}
+    batch, _ = PORT.encode_gangs(gangs, pods, snap, global_index_of=gidx)
+    return snap, batch, np.zeros(len(gangs), bool)
+
+
+def stack_rows(k):
+    """k weight rows of the population, odd rows worst-fit; for k = 1 the
+    worst-fit row alone."""
+    pop = params_population(max(k, 2))
+    return torch.as_tensor(np.array(pop[1:2] if k == 1 else pop[:k]))
+
+
+def _card_stacked_launch(args, smem, select):
+    fn = build.load("place_wave").place_wave_stacked_launch
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p] + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    assert fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream, smem, int(select)) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def host_stacked(host_lib):
+    fn = host_lib.place_wave_stacked_launch
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p] + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+
+    def launch(args, smem, select):
+        assert fn(ctypes.byref(args), None, smem, int(select)) == 0
+
+    return launch
+
+
+def _stacked_vs_plain(launch, snap, batch, okg_np, dev, pstack, select=True, plane_words=None):
+    """One stacked launch (the kernel on the card or compiled for the host)
+    against the plain versions, exactly: every row against
+    stacked_solve_ref; with `select` the winner, its rows, the carry it
+    leaves in `free`, ok_global and the objectives against
+    portfolio_select_ref, and without it `free` and ok_global untouched.
+    Returns the plain rows and the plain select."""
+    okg = torch.as_tensor(okg_np, device=dev)
+    free, cap, sched, ndid = _node_tensors(snap, dev)
+    tb = batch_to(batch, dev)
+    pstack = pstack.to(dev)
+    okg_k = okg.clone()
+    args, smem, out, _keep = pwm.build_args(
+        free, cap, sched, ndid, tb, None, okg_k, pwm.domain_index(ndid.cpu(), dev),
+        plane_words=plane_words, params_stack=pstack, select=select,
+    )
+    launch(args, smem, select)
+    free0 = _node_tensors(snap, dev)[0]
+    rows = stacked_solve_ref(free0, cap, sched, ndid, tb, pstack, okg)
+    sel = portfolio_select_ref(*rows, tb, okg.clone())
+    got = (out["assigned"], out["ok"], out["score"], out["free_after"])
+    for name, a, b in zip(FIELDS, got, rows):
+        assert torch.equal(a, b), f"{name}: stacked kernel != plain at {torch.nonzero(a != b)[:8].tolist()}"
+    if not select:
+        assert torch.equal(free, free0) and torch.equal(okg_k, okg), "a stacked row wrote the carry"
+        return rows, sel
+    got = (out["win_assigned"], out["win_ok"], out["win_score"], free, okg_k, out["winner"],
+           out["objectives"])
+    for name, a, b in zip(FIELDS + ("winner", "objectives"), got, sel):
+        assert torch.equal(a, b), f"select {name}: kernel != plain"
+    return rows, sel
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("staging", ["whole", "chunked"])
+@pytest.mark.parametrize("case", STACK_CASES)
+def test_kernel_source_on_host_stacked_and_select(host_stacked, case, staging, k):
+    snap, batch, okg = stack_case(case)
+    words = min_plane_words(batch) if staging == "chunked" else None
+    rows, sel = _stacked_vs_plain(host_stacked, snap, batch, okg, "cpu", stack_rows(k),
+                                  plane_words=words)
+    if case == "binpack_trap" and k > 1:
+        assert not torch.equal(rows[1][0], rows[1][1]), "the worst-fit row admits what best-fit does"
+        assert int(sel[5]) == 1, "the trap's winner is the worst-fit row"
+
+
+def test_kernel_source_on_host_stacked_without_select(host_stacked):
+    snap, batch, okg = stack_case("gated")
+    _stacked_vs_plain(host_stacked, snap, batch, okg, "cpu", stack_rows(4), select=False)
+
+
+def test_kernel_source_on_host_rows_equal_single_launches(host_kernel, host_stacked):
+    """Row k of the stacked launch equals one place_wave launch under row k's
+    weights, bit for bit (the contract the JAX package pins for its
+    stacked solve)."""
+    snap, batch, okg = stack_case("bench_spread")
+    pstack = stack_rows(4)
+    rows, _ = _stacked_vs_plain(host_stacked, snap, batch, okg, "cpu", pstack, select=False)
+    tb = batch_to(batch, "cpu")
+    for k in range(pstack.shape[0]):
+        free, cap, sched, ndid = _node_tensors(snap, "cpu")
+        args, smem, out, _ = pwm.build_args(free, cap, sched, ndid, tb, params_row(pstack[k]),
+                                            torch.as_tensor(okg), pwm.domain_index(ndid, "cpu"))
+        host_kernel(args, smem)
+        for name, a, b in zip(FIELDS, (out["assigned"], out["ok"], out["score"], free), rows):
+            assert torch.equal(a, b[k]), f"row {k} {name}: stacked != single launch"
+
+
+def test_stacked_wrapper_refuses_a_candidate_plan():
+    _, snap, batch, plan = pruned_cases()[0]
+    pt = plan.tensors("cpu")
+    tb = batch_to(plan.gather_batch(batch), "cpu")
+    free = torch.as_tensor(snap.free, dtype=torch.float32)
+    rest = (pt.capacity, pt.schedulable, pt.node_domain_id, tb)
+    for k in (2, 4):
+        with pytest.raises(ValueError, match="dense"):
+            pwm.build_args(free, *rest, None, None, pt.domains, pt.cand_idx, plan.count,
+                           params_stack=stack_rows(k), select=k == 4)
+
+
+def test_wrapper_fills_stacked_args():
+    free, cap, sched, ndid, tb, dom = _args_for("contended")
+    n, r = free.shape
+    g, mg, _ = tb.group_req.shape
+    okg = torch.zeros(g, dtype=torch.bool)
+    single = pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), okg, dom)[3]
+    args, smem, out, keep = pwm.build_args(free, cap, sched, ndid, tb, None, okg, dom,
+                                           params_stack=stack_rows(4), select=True)
+    assert args.K == 4 and args.params_stack == keep["params_stack"].data_ptr()
+    assert args.free_io == free.data_ptr() and args.ok_global == okg.data_ptr()
+    assert out["assigned"].shape == (4, g, tb.pod_group.shape[1]) and out["ok"].shape == (4, g)
+    assert out["free_after"].shape == (4, n, r) and not out["ok"].any()
+    assert out["winner"].shape == () and out["objectives"].shape == (4,)
+    for name in ("tables", "agg", "feas2", "nword", "entries", "undo", "norm_free"):
+        assert keep[name].numel() == 4 * single[name].numel(), name
+    assert keep["ginv"].numel() == single["ginv"].numel(), "one prologue for every row"
+    with pytest.raises(ValueError, match="params_stack"):
+        pwm.build_args(free, cap, sched, ndid, tb, None, okg, dom,
+                       params_stack=torch.zeros((4, 3)))
+    with pytest.raises(ValueError, match="select needs a weight stack"):
+        pwm.build_args(free, cap, sched, ndid, tb, SolverParams(), okg, dom, select=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", STACK_CASES)
+def test_stacked_kernel_equals_plain(cuda, case):
+    snap, batch, okg = stack_case(case)
+    _stacked_vs_plain(_card_stacked_launch, snap, batch, okg, cuda, stack_rows(4))
+    _stacked_vs_plain(_card_stacked_launch, snap, batch, okg, cuda, stack_rows(2), select=False)
+
+
+@pytest.mark.gpu
+def test_stacked_rows_equal_single_launches_on_card(cuda):
+    snap, batch, okg = stack_case("bench_spread")
+    pstack = stack_rows(4)
+    tb = batch_to(batch, cuda)
+    dom = pwm.domain_index(snap.node_domain_id, cuda)
+    okg_t = torch.as_tensor(okg, device=cuda)
+    free, cap, sched, ndid = _node_tensors(snap, cuda)
+    rows = pwm.place_wave_stacked(free, cap, sched, ndid, tb, pstack.to(cuda), okg_t,
+                                  domains=dom, select=False)
+    for k in range(pstack.shape[0]):
+        free, cap, sched, ndid = _node_tensors(snap, cuda)
+        single = pwm.place_wave(free, cap, sched, ndid, tb, params_row(pstack[k]), okg_t.clone(),
+                                domains=dom)
+        torch.cuda.synchronize()
+        for name, a, b in zip(FIELDS, single, rows):
+            assert torch.equal(a, b[k]), f"row {k} {name}: stacked != single launch"
+
+
+@pytest.mark.gpu
+def test_stacked_select_is_deterministic_over_20_launches(cuda):
+    snap, batch, okg = stack_case("contended")
+    tb = batch_to(batch, cuda)
+    dom = pwm.domain_index(snap.node_domain_id, cuda)
+    pstack = stack_rows(4).to(cuda)
+    runs = []
+    for _ in range(20):
+        free, cap, sched, ndid = _node_tensors(snap, cuda)
+        okg_t = torch.as_tensor(okg, device=cuda)
+        out = pwm.place_wave_stacked(free, cap, sched, ndid, tb, pstack, okg_t, domains=dom,
+                                     select=True)
+        runs.append([x.clone() for x in out])
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for name, a, b in zip(FIELDS + ("winner", "objectives"), run, runs[0]):
+            assert torch.equal(a, b), f"{name} differs between launches"

@@ -6,7 +6,9 @@ Needs one NVIDIA Hopper card and the CUDA toolkit (nvcc); imports nothing of
 JAX or of the grove_tpu package. Phases, each fatal on failure:
 
   1. card     nvidia-smi's name and power limit, the torch device name/count
-  2. build    the place_wave kernel from grove_tpu_torch/kernels/csrc
+  2. build    the place_wave kernel from grove_tpu_torch/kernels/csrc (nvcc
+              runs while the host builds the scenarios and runs phase 3's
+              plain versions, which need none of the port's kernels)
      profile  the profiled instantiation on the seven waves of the 5120-node
               drain (chained) and on wave 0 at 20480 nodes, dense and
               pruned: clock64 cycles per section of the chain kernel, on
@@ -16,13 +18,14 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               on the card, tolerance 0 (torch.equal on ok, assigned,
               placement_score, free_after and ok_global), on: the first
               wave (256 gangs) of the full-width bench backlog on the
-              5120-node snapshot, the same wave with seeded
+              5120-node snapshot; at a depth of 64 gangs (their plain
+              versions cost 15-25 ms a gang): the same wave with seeded
               group_node_ok/reuse_nodes planes, a scaled-gang wave gated by
               a seeded ok_global bitmap, the first wave on a 5120-node
-              snapshot whose free capacity is not dyadic, the contended and
-              mixed-quality scenarios as single batches, and the first wave
+              snapshot whose free capacity is not dyadic, and the first wave
               of the bench backlog with a quarter of its PodCliqueSets
-              spread across zones; the first wave launched 20 times, every
+              spread across zones; the contended and mixed-quality
+              scenarios as single batches; the first wave launched 20 times, every
               launch bitwise equal; then the first wave on the 20480-node
               fleet (its walks staged in chunks),
               and the same wave candidate-pruned to its 8192-row plan (B3
@@ -54,10 +57,25 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               consistent with the bindings, its wall and stages); solve()
               with escalate_portfolio=4 on the bin-packing trap and the
               contended scenario, card against the plain versions on the CPU
-  8. kernels  one JSON line: per kernel variant its launches on the main
+  8. scan     the scan (B4) and the five harvest disciplines: the 5120-node
+              backlog drained "chained", "wave", "pipeline", "scan" and
+              "resident" at wave_size 256 and "scan" at 32, each with the
+              counts set to 0 before it: the chained drain's bindings (order
+              included), every gang admitted, free_after consistent with the
+              bindings, the round-trip ledger of its discipline (dispatches,
+              device_roundtrips == 1 + escalations when resident), one
+              "scan" launch per chunk; the first chunk at each wave size (2
+              and 11 waves) with retained carries against the plain scan on
+              the card, tolerance 0, and each step against a single
+              place_wave launch on the carry it entered with; a pruned chunk
+              at 20480 nodes likewise, and the pruned scan drain's bindings
+              equal to the pruned chained drain's; CUDA-event times of each
+              chunk beside the sum of its steps' single launches, kernel ms
+              per drain, and the wave harvest's measured p50/p99
+  9. kernels  one JSON line: per kernel variant its launches on the main
               path, its error against the plain version, its time, the
               plain version's time, its bound and a library call's time
-  9. the last line: {"ok": true, "device": {...}}
+ 10. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -112,6 +130,7 @@ def main() -> int:
     from grove_tpu_torch.kernels import build
     from grove_tpu_torch.kernels.place_wave import (
         SECTIONS,
+        VARIANTS,
         domain_index,
         place_wave,
         place_wave_stacked,
@@ -139,10 +158,16 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # ---- 2. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.load("place_wave")
-    info = build.build_info.get("place_wave", {})
-    print(f"build: place_wave.cu in {time.perf_counter() - t0:.2f}s\n{info.get('ptxas', '')}")
+    # nvcc runs in a thread while the host builds the scenarios below; the
+    # first launch waits for it (a failed build raises there, again).
+    import threading
+
+    t_build = time.perf_counter()
+    nvcc_thread = threading.Thread(target=build.compile_source, args=("place_wave",), daemon=True)
+    nvcc_thread.start()
+
+    def phase_done(name):
+        print(f"phase {name}: done at {time.perf_counter() - t_start:.1f}s")
 
     params = SolverParams()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -199,6 +224,102 @@ def main() -> int:
         )
         return batch
 
+    snap_4 = build_fleet(4.0)
+    n_4 = snap_4.capacity.shape[0]
+    dom_4 = domain_index(snap_4.node_domain_id, dev)
+    first = encode_wave(plan_b[0])
+    first_4 = encode_wave(plan_b[0], snap_4)
+    pruning = PruningConfig(**SCALE_PRUNING)
+    plan4 = plan_candidates(snap_4, first_4, pruning)
+    check(plan4 is not None and plan4.pad == 8192, "exact: the 20480-node wave did not prune to 8192")
+    pt4 = plan4.tensors(dev)
+    pb4 = plan4.gather_batch(first_4)
+
+    # The bench's quantities are dyadic rationals, which any summation order
+    # adds exactly. This 5120-node snapshot's are not — 31.7-cpu hosts, a
+    # third of them part-filled in 0.3-cpu / 300Mi steps — so the order of
+    # every domain sum shows in its last bits.
+    nd_nodes = W.synthetic_cluster(cpu=31.7, memory=100.3 * 2**30)
+    squatters = [
+        Pod(name=f"squat-{k}", node_name=node.name, spec=PodSpec(containers=[Container(
+            name="c", requests={"cpu": 0.3 * (k % 7 + 1), "memory": 300 * 2**20 * (k % 3 + 1)})]))
+        for k, node in enumerate(nd_nodes[::3])
+    ]
+    snap_nd = build_snapshot(nd_nodes, W.bench_topology(), bound_pods=squatters)
+
+    # A quarter of the backlog's PodCliqueSets at two replicas spread across
+    # zones: the first wave carries the replica-spread planes.
+    gangs_sp, pods_sp = build_backlog(1.0, spread_every=4)
+    gidx_sp = {g.name: i for i, g in enumerate(gangs_sp)}
+    spread_ws = plan_waves(gangs_sp, 256)[0]
+
+    rng = np.random.default_rng(0)
+    scaled_ws = next(ws for ws in plan_b if ws[0][0].base_podgang_name is not None)
+
+    def cut(ws, k=64):
+        """A wave's first k gangs: the variant cases below run at this depth
+        (their plain versions cost 15-25 ms a gang), the full wave above."""
+        return ws[0][:k], ws[1], k
+
+    first64 = encode_wave(cut(plan_b[0]))
+    spread_first = encode_wave(cut(spread_ws), pods=pods_sp, gidx=gidx_sp)
+    check(spread_first.spread_level is not None and (spread_first.spread_level >= 0).any(),
+          "exact: the spread wave carries no spread planes")
+    g0, mg0 = first64.group_total.shape
+    cases = [
+        ("bench wave 0", snap_b, first, np.zeros(len(gangs_b), bool)),
+        (
+            "bench wave 0's first 64 gangs + group_node_ok/reuse_nodes",
+            snap_b,
+            first64._replace(
+                group_node_ok=rng.random((g0, mg0, n_nodes)) < 0.9,
+                reuse_nodes=rng.random((g0, n_nodes)) < 0.01,
+            ),
+            np.zeros(len(gangs_b), bool),
+        ),
+        ("bench scaled wave's first 64 gangs, gated by ok_global", snap_b,
+         encode_wave(cut(scaled_ws)), rng.random(len(gangs_b)) < 0.7),
+        ("bench wave 0's first 64 gangs on non-dyadic free capacity", snap_nd,
+         encode_wave(cut(plan_b[0]), snap_nd), np.zeros(len(gangs_b), bool)),
+    ]
+    for label, cluster, backlog in (
+        ("contended", W.contended_cluster(), W.contended_backlog(48)),
+        ("mixed quality", W.quality_cluster(), W.mixed_backlog()),
+    ):
+        gangs_s, pods_s, snap_s = scenario(cluster, backlog)
+        batch_s, _ = encode_gangs(
+            gangs_s, pods_s, snap_s, global_index_of={g.name: i for i, g in enumerate(gangs_s)}
+        )
+        cases.append((label, snap_s, batch_s, np.zeros(len(gangs_s), bool)))
+    cases.append(("bench wave 0's first 64 gangs with spread planes", snap_b, spread_first,
+                  np.zeros(len(gangs_sp), bool)))
+
+    # ---- phase 3's plain versions, while nvcc builds --------------------------
+    # (PyTorch on the card and the host, none of the port's kernels: they fill
+    # the build's wait; their times are taken beside the running nvcc)
+    okg0 = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
+    tb4 = batch_to(first_4, dev)
+    ptb4 = batch_to(pb4, dev)
+    pruned_args = (pt4.capacity, pt4.schedulable, pt4.node_domain_id, ptb4, params)
+    profile_only = "--profile-only" in sys.argv
+    plain = {}
+    if not profile_only:
+        for label, snap, batch, okg_np in cases:
+            tb = batch_to(batch, dev)
+            okg = torch.as_tensor(okg_np, device=dev)
+            plain[label] = timed(lambda: solve_batch_ref(*node_tensors(snap), tb, params,
+                                                         okg.clone()))
+        plain["20480 dense"] = timed(
+            lambda: solve_batch_ref(*node_tensors(snap_4), tb4, params, okg0.clone()))
+        plain["20480 pruned"] = timed(lambda: solve_pruned_ref(
+            node_tensors(snap_4)[0], *pruned_args, okg0.clone(), pt4.cand_idx, plan4.count))
+
+    nvcc_thread.join()
+    build.load("place_wave")
+    info = build.build_info.get("place_wave", {})
+    print(f"build: place_wave.cu in {info.get('seconds', 0.0):.2f}s (nvcc), ready "
+          f"{time.perf_counter() - t_build:.2f}s after the start\n{info.get('ptxas', '')}")
+
     # ---- profile: cycles per section of the kernel ---------------------------
     def profile_wave(label, batch, free, okg, node_rest, domains, **extra):
         """One launch of the profiled instantiation; prints its cycles per
@@ -225,12 +346,6 @@ def main() -> int:
               f"{int((cyc[:-1, col] > 0).sum())} gangs built a table")
         return cyc
 
-    snap_4 = build_fleet(4.0)
-    n_4 = snap_4.capacity.shape[0]
-    dom_4 = domain_index(snap_4.node_domain_id, dev)
-    first = encode_wave(plan_b[0])
-    first_4 = encode_wave(plan_b[0], snap_4)
-    pruning = PruningConfig(**SCALE_PRUNING)
     free_w = node_tensors(snap_b)[0]
     okg_w = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
     for k, ws in enumerate(plan_b):
@@ -239,9 +354,6 @@ def main() -> int:
     okg_4 = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
     profile_wave(f"{n_4} dense, wave 0", first_4, node_tensors(snap_4)[0], okg_4.clone(),
                  node_tensors(snap_4)[1:], dom_4)
-    plan4 = plan_candidates(snap_4, first_4, pruning)
-    pt4 = plan4.tensors(dev)
-    pb4 = plan4.gather_batch(first_4)
     profile_wave(f"{n_4} pruned to {plan4.count}/{plan4.pad}, wave 0", pb4,
                  node_tensors(snap_4)[0], okg_4.clone(),
                  (pt4.capacity, pt4.schedulable, pt4.node_domain_id), pt4.domains,
@@ -264,61 +376,11 @@ def main() -> int:
         per_step = cyc[:, SECTIONS.index("stage-1 walks")].sum() / (int(walks.sum()) * longest)
         print(f"walk pace[{nn} nodes]: {int(walks.sum())} zone walks of up to {longest} nodes, "
               f"{per_step:.2f} cycles per node step (a dependent f32 add: ~4) on {card}")
-    if "--profile-only" in sys.argv:
+    if profile_only:
         return 0  # the breakdown alone: no result line
+    phase_done("2, build + profile")
 
     # ---- 3. kernel vs plain, exact, on the card ------------------------------
-
-    # The bench's quantities are dyadic rationals, which any summation order
-    # adds exactly. This 5120-node snapshot's are not — 31.7-cpu hosts, a
-    # third of them part-filled in 0.3-cpu / 300Mi steps — so the order of
-    # every domain sum shows in its last bits.
-    nd_nodes = W.synthetic_cluster(cpu=31.7, memory=100.3 * 2**30)
-    squatters = [
-        Pod(name=f"squat-{k}", node_name=node.name, spec=PodSpec(containers=[Container(
-            name="c", requests={"cpu": 0.3 * (k % 7 + 1), "memory": 300 * 2**20 * (k % 3 + 1)})]))
-        for k, node in enumerate(nd_nodes[::3])
-    ]
-    snap_nd = build_snapshot(nd_nodes, W.bench_topology(), bound_pods=squatters)
-
-    # A quarter of the backlog's PodCliqueSets at two replicas spread across
-    # zones: the first wave carries the replica-spread planes.
-    gangs_sp, pods_sp = build_backlog(1.0, spread_every=4)
-    gidx_sp = {g.name: i for i, g in enumerate(gangs_sp)}
-    spread_first = encode_wave(plan_waves(gangs_sp, 256)[0], pods=pods_sp, gidx=gidx_sp)
-    check(spread_first.spread_level is not None and (spread_first.spread_level >= 0).any(),
-          "exact: the spread wave carries no spread planes")
-
-    rng = np.random.default_rng(0)
-    g0, mg0 = first.group_total.shape
-    scaled_ws = next(ws for ws in plan_b if ws[0][0].base_podgang_name is not None)
-    cases = [
-        ("bench wave 0", snap_b, first, np.zeros(len(gangs_b), bool)),
-        (
-            "bench wave 0 + group_node_ok/reuse_nodes",
-            snap_b,
-            first._replace(
-                group_node_ok=rng.random((g0, mg0, n_nodes)) < 0.9,
-                reuse_nodes=rng.random((g0, n_nodes)) < 0.01,
-            ),
-            np.zeros(len(gangs_b), bool),
-        ),
-        ("bench scaled wave, gated by ok_global", snap_b, encode_wave(scaled_ws),
-         rng.random(len(gangs_b)) < 0.7),
-        ("bench wave 0 on non-dyadic free capacity", snap_nd, encode_wave(plan_b[0], snap_nd),
-         np.zeros(len(gangs_b), bool)),
-    ]
-    for label, cluster, backlog in (
-        ("contended", W.contended_cluster(), W.contended_backlog(48)),
-        ("mixed quality", W.quality_cluster(), W.mixed_backlog()),
-    ):
-        gangs_s, pods_s, snap_s = scenario(cluster, backlog)
-        batch_s, _ = encode_gangs(
-            gangs_s, pods_s, snap_s, global_index_of={g.name: i for i, g in enumerate(gangs_s)}
-        )
-        cases.append((label, snap_s, batch_s, np.zeros(len(gangs_s), bool)))
-    cases.append(("bench wave 0 with spread planes", snap_b, spread_first,
-                  np.zeros(len(gangs_sp), bool)))
 
     err = {"dense": 0.0, "dense_scale": 0.0, "pruned": 0.0}
     verdicts = {}  # label -> the plain version's ok, for the bounds below
@@ -326,7 +388,9 @@ def main() -> int:
         tb = batch_to(batch, dev)
         okg = torch.as_tensor(okg_np, device=dev)
         domains = dom_b if snap is snap_b else domain_index(snap.node_domain_id, dev)
-        want = solve_batch_ref(*node_tensors(snap), tb, params, okg.clone())
+        want, plain_ms = plain[label]
+        if label == "bench wave 0":
+            dense_plain_ms = plain_ms
         got = place_wave(*node_tensors(snap), tb, params, okg.clone(), domains=domains)
         torch.cuda.synchronize()
         err["dense"] = max(err["dense"], compare(label, got, want))
@@ -338,7 +402,6 @@ def main() -> int:
     # The first full wave launched 20 times: bitwise-equal outputs every
     # time (a race between the warps of the take loop would show here).
     tb0 = batch_to(first, dev)
-    okg0 = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
     runs = [place_wave(*node_tensors(snap_b), tb0, params, okg0.clone(), domains=dom_b)
             for _ in range(20)]
     torch.cuda.synchronize()
@@ -347,21 +410,16 @@ def main() -> int:
     print(f"exact[bench wave 0, 20 launches, N={n_nodes}]: every launch equal on {', '.join(NAMES)}")
 
     # Times at the 5120-node main path's shape: the first full wave.
-    dense_ms0, dense_plain_ms = time_variant(
-        place_wave, timed, node_tensors(snap_b), tb0, okg0, params, dom_b, {},
-        lambda: solve_batch_ref(*node_tensors(snap_b), tb0, params, okg0.clone()),
-    )
+    dense_ms0, _ = time_variant(place_wave, timed, node_tensors(snap_b), tb0, okg0, params, dom_b,
+                                {}, None)
     dense_bound = place_wave_bound(first, snap_b.node_domain_id, snap_b.capacity.shape[1],
                                    np.zeros(len(gangs_b), bool), verdicts["bench wave 0"])
-    print(f"timing[bench wave 0, G={g0}, N={n_nodes}]: kernel {dense_ms0:.3f} ms/wave, plain "
+    print(f"timing[bench wave 0, G={first.gang_valid.shape[0]}, N={n_nodes}]: kernel {dense_ms0:.3f} ms/wave, plain "
           f"{dense_plain_ms:.1f} ms, bound {dense_bound[0]:.6f} ms ({dense_bound[1]}) on {card}")
 
-    # The first wave on the 20480-node fleet (snap_4, first_4 of the profile
-    # phase): dense, then candidate-pruned to its plan (B3 fused into the
-    # launch).
-    tb4 = batch_to(first_4, dev)
-    want, dense4_plain_ms = timed(
-        lambda: solve_batch_ref(*node_tensors(snap_4), tb4, params, okg0.clone()))
+    # The first wave on the 20480-node fleet (snap_4, first_4): dense, then
+    # candidate-pruned to its plan (B3 fused into the launch).
+    want, dense4_plain_ms = plain["20480 dense"]
     got = place_wave(*node_tensors(snap_4), tb4, params, okg0.clone(), domains=dom_4)
     torch.cuda.synchronize()
     err["dense_scale"] = compare("bench wave 0 on 20480 nodes", got, want)
@@ -373,11 +431,7 @@ def main() -> int:
     dense4_bound = place_wave_bound(first_4, snap_4.node_domain_id, snap_4.capacity.shape[1],
                                     np.zeros(len(gangs_b), bool), ok4)
 
-    check(plan4 is not None and plan4.pad == 8192, "exact: the 20480-node wave did not prune to 8192")
-    ptb4 = batch_to(plan4.gather_batch(first_4), dev)
-    pruned_args = (pt4.capacity, pt4.schedulable, pt4.node_domain_id, ptb4, params)
-    want, pruned_plain_ms = timed(lambda: solve_pruned_ref(
-        node_tensors(snap_4)[0], *pruned_args, okg0.clone(), pt4.cand_idx, plan4.count))
+    want, pruned_plain_ms = plain["20480 pruned"]
     got = place_wave(node_tensors(snap_4)[0], *pruned_args, okg0.clone(), domains=pt4.domains,
                      cand_idx=pt4.cand_idx, cand_count=plan4.count)
     torch.cuda.synchronize()
@@ -407,6 +461,8 @@ def main() -> int:
           f"{pruned_bound[0]:.6f} ms {pruned_bound[1]}; B3 alone: bound {b3_bound_ms:.6f} ms, "
           f"index_select + index_copy_ {library_ms:.4f} ms, {idx_l.numel()} rows) on {card}")
 
+    phase_done("3, exact")
+
     # ---- 4. the main path: full drain through the kernel ---------------------
     torch.cuda.synchronize()
     reset_launches()
@@ -415,7 +471,7 @@ def main() -> int:
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
     launches = dict(place_wave.variant_launches)
-    check(launches == {"dense": stats.waves, "pruned": 0, "stacked": 0, "portfolio": 0}
+    check(launches == {**dict.fromkeys(VARIANTS, 0), "dense": stats.waves}
           and stats.waves > 0, f"drain: launches {launches} for {stats.waves} waves")
     check(stats.admitted == len(gangs_b), f"drain: admitted {stats.admitted}/{len(gangs_b)}")
     free_host = admitted_free(bindings, pods_b, snap_b)
@@ -446,10 +502,13 @@ def main() -> int:
           f"drain kernels: {sum(wave_ms):.3f} ms per drain, not below the earlier design's "
           f"{sum(WAVE_MS_BEFORE):.3f} ms")
 
+    phase_done("4, drain")
+
     # ---- 5. the scale drains: 10240 and 20480 nodes, dense and pruned --------
     torch.cuda.synchronize()
     reset_launches()
     scale_runs = []
+    scale_bindings = {}
     for scale in (2.0, 4.0):
         snap = build_fleet(scale)
         admitted = {}
@@ -468,6 +527,7 @@ def main() -> int:
             if cfg is not None:
                 check(st.pruned_waves == st.waves, f"{label}: {st.pruned_waves}/{st.waves} pruned")
             admitted[mode] = set(b_s)
+            scale_bindings[scale, mode] = b_s
             row = stage_fields(st)
             scale_runs.append((label, row))
             print(f"{label}: wall {wall:.4f} s, drain_s {row['drain_s']:.4f} (encode "
@@ -505,6 +565,8 @@ def main() -> int:
           f"{[round(x, 3) for x in dense_ms]} sum {sum(dense_ms):.3f} ms; pruned per-wave ms "
           f"{[round(x, 3) for x in pruned_ms_w]} sum {sum(pruned_ms_w):.3f} ms on {card}")
 
+    phase_done("5, scale")
+
     # ---- 6. escalation on the card against the plain drain on the CPU -------
     esc_nodes = W.synthetic_cluster(zones=1, blocks_per_zone=1, racks_per_block=2)
     gangs_e, pods_e, snap_e = scenario(esc_nodes, W.synthetic_backlog(10, 10, 10))
@@ -523,6 +585,8 @@ def main() -> int:
           f"{st_card.admitted}, escalations {st_card.escalations} adopted "
           f"{st_card.escalations_adopted} — card == plain CPU drain")
 
+    phase_done("6, escalate")
+
     # ---- 7. portfolio: the stacked launch (B5) ------------------------------
     pf = portfolio_phase(dev, card, timed, compare, node_tensors, snap_b, first, dom_b,
                          len(gangs_b))
@@ -534,7 +598,7 @@ def main() -> int:
     torch.cuda.synchronize()
     pf_wall = time.perf_counter() - t0
     pf_launches = dict(place_wave.variant_launches)
-    check(pf_launches == {"dense": 0, "pruned": 0, "stacked": 0, "portfolio": st_pf.waves}
+    check(pf_launches == {**dict.fromkeys(VARIANTS, 0), "portfolio": st_pf.waves}
           and st_pf.waves == stats.waves,
           f"portfolio drain: launches {pf_launches} for {st_pf.waves} waves")
     check(st_pf.admitted == len(gangs_b),
@@ -575,7 +639,15 @@ def main() -> int:
               f"escalate_portfolio=4 — card == plain CPU on ok, assigned, placement_score, "
               f"free_after")
 
-    # ---- 8. kernels line -----------------------------------------------------
+    phase_done("7, portfolio")
+
+    # ---- 8. scan: B4 and the five harvest disciplines ------------------------
+    sc = scan_phase(dev, card, timed, node_tensors, encode_wave, snap_b, gangs_b, pods_b,
+                    bindings, dom_b, snap_4, scale_bindings[4.0, "pruned"], pruning, wave_ms)
+
+    phase_done("8, scan")
+
+    # ---- 9. kernels line -----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": [
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
@@ -594,6 +666,7 @@ def main() -> int:
          "replaces": "grove_tpu/solver/core.py:650", "launches": pf_launches["portfolio"],
          "max_abs_err": pf["err"], "ms": pf["ms"], "plain_ms": pf["plain_ms"],
          "bound_ms": pf["bound"][0], "bound_by": pf["bound"][1], "library_ms": None},
+        *sc["rows"],
     ]}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -743,6 +816,225 @@ def portfolio_phase(dev, card, timed, compare, node_tensors, snap, batch, domain
     nbytes = sum(w[0] for w in work) + 4 * 2 * 4 * n * r
     bound = bound_of(nbytes, sum(w[1] for w in work))
     return {"err": err, "ms": ms["K=4 select"], "plain_ms": plain_ms, "bound": bound}
+
+
+def scan_phase(dev, card, timed, node_tensors, encode_wave, snap, gangs, pods, chained, domains,
+               snap_4, pruned_chained_4, pruning, wave_ms) -> dict:
+    """Phase 8's drains, checks and times (the 5120-node fleet `snap`, the
+    20480-node `snap_4`); returns the kernels line's two scan rows."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.bench import admitted_free
+    from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
+    from grove_tpu_torch.solver.core import SolverParams, batch_to, scan_pruned_solve, scan_solve
+    from grove_tpu_torch.solver.drain import HARVEST_MODES, class_runs, drain_backlog, plan_waves
+    from grove_tpu_torch.solver.encode import stack_batches
+    from grove_tpu_torch.solver.pruning import plan_candidates, stack_plans
+    from grove_tpu_torch.solver.reference import scan_pruned_solve_ref, scan_solve_ref
+
+    params = SolverParams()
+    t_len, r = len(gangs), snap.capacity.shape[1]
+    okg0 = torch.zeros(t_len, dtype=torch.bool, device=dev)
+
+    def drain(fleet, ws, harvest, cfg=None):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        b, st = drain_backlog(gangs, pods, fleet, wave_size=ws, params=params, harvest=harvest,
+                              pruning=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(place_wave.variant_launches)
+        n = fleet.capacity.shape[0]
+        label = f"scan[{n} nodes, wave_size {ws}, {harvest}{', pruned' if cfg else ''}]"
+        check(st.admitted == len(gangs), f"{label}: admitted {st.admitted}/{len(gangs)}")
+        free = admitted_free(b, pods, fleet)
+        check(np.array_equal(st.free_after, free) and bool((free >= 0).all()),
+              f"{label}: free_after != snapshot free minus bound pods' requests")
+        # The ledger of the discipline: one dispatch per wave, or per chunk
+        # of a run of >= 2 same-shape waves (max 32) plus its short runs.
+        planned = plan_waves(gangs, ws)
+        runs = [len(x) for x in class_runs(planned)]
+        chunks = unfused = 0
+        for n_run in runs:
+            for k in range(0, n_run, 32):
+                part = min(32, n_run - k)
+                chunks, unfused = (chunks + 1, unfused) if part >= 2 else (chunks, unfused + part)
+        fused = harvest in ("scan", "resident")
+        want_disp = (chunks + unfused if fused else len(planned)) + st.escalations
+        want_rt = 1 + st.escalations if harvest in ("chained", "resident") else want_disp
+        got = (st.dispatches, st.device_roundtrips)
+        check(got == (want_disp, want_rt) or (st.escalations_adopted and got >= (want_disp, 1)),
+              f"{label}: dispatches {st.dispatches} / round trips {st.device_roundtrips}, "
+              f"expected {want_disp} / {want_rt} (runs {runs})")
+        kind = "scan_pruned" if cfg else "scan"
+        check(launches[kind] == st.scan_chunks + st.scan_rechains
+              and st.scan_chunks == (chunks if fused else 0)
+              and sum(launches.values()) == st.dispatches,
+              f"{label}: launches {launches} for {st.scan_chunks} chunks, {st.dispatches} "
+              f"dispatches")
+        pct = st.latency_percentiles()
+        print(f"{label}: wall {wall:.4f} s, drain_s {st.total_s:.4f} (encode {st.encode_s:.4f}, "
+              f"prune {st.prune_s:.4f}, dispatch {st.dispatch_s:.4f}, harvest "
+              f"{st.harvest_s:.4f}, decode {st.decode_s:.4f}, bind {st.bind_s:.4f}), waves "
+              f"{st.waves} in runs {runs}, dispatches {st.dispatches}, round trips "
+              f"{st.device_roundtrips}, chunks {st.scan_chunks} ({st.scanned_waves} waves), "
+              f"escalations {st.escalations}, launches {launches}"
+              + (f", wave_p50_s {pct[50.0]:.4f} wave_p99_s {pct[99.0]:.4f}" if pct else "")
+              + f" on {card}")
+        return b, st, launches
+
+    runs256 = {}
+    for harvest in HARVEST_MODES:
+        b, st, launches = drain(snap, 256, harvest)
+        check(b == chained and list(b) == list(chained),
+              f"scan[{harvest}]: bindings differ from the chained drain's")
+        runs256[harvest] = (st, launches)
+    pct = runs256["wave"][0].latency_percentiles()
+    print(f"harvest[wave, {snap.capacity.shape[0]} nodes]: wave_p50_s {pct[50.0]:.6f} wave_p99_s {pct[99.0]:.6f} "
+          f"over {runs256['wave'][0].waves} waves (chained: p50 = p99 = drain_s "
+          f"{runs256['chained'][0].total_s:.6f}) on {card}")
+    chained32, _, _ = drain(snap, 32, "chained")
+    b32, st32, launches32 = drain(snap, 32, "scan")
+    check(b32 == chained32 and list(b32) == list(chained32),
+          "scan[wave_size 32]: bindings differ from the chained drain's at that wave size")
+    b_p, st_p, launches_p = drain(snap_4, 256, "scan", pruning)
+    check(b_p == pruned_chained_4 and list(b_p) == list(pruned_chained_4),
+          "scan[20480 nodes, pruned]: bindings differ from the pruned chained drain's")
+    check(st_p.pruned_waves == st_p.waves, "scan[20480 nodes, pruned]: a wave did not prune")
+
+    def exact(label, got, want):
+        for nm, a, b in zip(("assigned", "ok", "placement_score", "free_in", "okg_in",
+                             "free_after", "ok_global"), got, want):
+            check(torch.equal(a, b), f"scan[{label}]: kernel != plain on {nm} at "
+                                     f"{torch.nonzero(a != b)[:8].tolist()}")
+
+    def per_call_ms(fn, reps=3):
+        """ms per call of fn(free, okg), each on its own carry copy, after a
+        warm-up."""
+        copies = [(fresh_free(), okg0.clone()) for _ in range(reps + 1)]
+        fn(*copies[0])
+        _, ms = timed(lambda: [fn(*c) for c in copies[1:]])
+        return ms / reps
+
+    rows = {}
+    # The first chunk of the dense scan drain at each wave size.
+    cap, sched, ndid = node_tensors(snap)[1:]
+    for ws in (256, 32):
+        chunk = next(class_runs(plan_waves(gangs, ws)))[:32]
+        steps = [encode_wave(w) for w in chunk]
+        tb = batch_to(stack_batches(steps), dev)
+        label = f"{len(steps)}-wave chunk, wave_size {ws}, {snap.capacity.shape[0]} nodes"
+        fresh_free = lambda: node_tensors(snap)[0]  # noqa: E731
+        got = scan_solve(fresh_free(), cap, sched, ndid, tb, params, okg0.clone(), retain=True,
+                         device=dev, domains=domains)
+        torch.cuda.synchronize()
+        want, plain_ms = timed(lambda: scan_solve_ref(fresh_free(), cap, sched, ndid, tb, params,
+                                                      okg0.clone(), True))
+        exact(label, got, want)
+        singles = []
+        for w, b in enumerate(steps):
+            one = place_wave(want[3][w].clone(), cap, sched, ndid, batch_to(b, dev), params,
+                             want[4][w].clone(), domains=domains)
+            nxt = (want[5], want[6]) if w == len(steps) - 1 else (want[3][w + 1], want[4][w + 1])
+            for nm, a, c in zip(("assigned", "ok", "placement_score", "free_after", "ok_global"),
+                                one, (want[0][w], want[1][w], want[2][w]) + nxt):
+                check(torch.equal(a, c), f"scan[{label}]: step {w} {nm} != a single launch")
+            singles.append(batch_to(b, dev))
+        scan_ms = per_call_ms(lambda f, o: scan_solve(f, cap, sched, ndid, tb, params, o,
+                                                      retain=True, device=dev, domains=domains))
+        single_ms = per_call_ms(lambda f, o: [place_wave(f, cap, sched, ndid, b, params, o,
+                                                         domains=domains) for b in singles])
+        work = [place_wave_work(s, snap.node_domain_id, r, want[4][w].cpu().numpy(),
+                                want[1][w].cpu().numpy()) for w, s in enumerate(steps)]
+        nbytes = sum(x[0] for x in work) + len(steps) * (4 * snap.capacity.size + t_len)
+        bound = bound_of(nbytes, sum(x[1] for x in work))
+        print(f"scan[{label}]: kernel == plain on every output, every step == a single "
+              f"place_wave launch on its entering carry; scan launch {scan_ms:.3f} ms, its "
+              f"steps as single launches {single_ms:.3f} ms ({scan_ms / single_ms:.4f}x), "
+              f"plain {plain_ms:.1f} ms, bound {bound[0]:.6f} ms ({bound[1]}) on {card}")
+        rows[ws] = {"ms": scan_ms, "plain_ms": plain_ms, "bound": bound, "single_ms": single_ms}
+
+    # A pruned chunk at 20480 nodes: the first run of the pruned scan drain.
+    chunk = next(class_runs(plan_waves(gangs, 256)))
+    steps = [encode_wave(w, snap_4) for w in chunk]
+    plans = [plan_candidates(snap_4, b, pruning) for b in steps]
+    check(all(p is not None for p in plans), "scan[pruned chunk]: a wave did not prune")
+    sp = stack_plans(plans, steps, dev)
+    fresh_free = lambda: node_tensors(snap_4)[0]  # noqa: E731
+    pargs = (sp.cand_idx, sp.capacity, sp.schedulable, sp.node_domain_id, sp.batch, params)
+    label = f"{len(steps)}-wave pruned chunk, {snap_4.capacity.shape[0]} nodes"
+    got = scan_pruned_solve(fresh_free(), *pargs, okg0.clone(), retain=True, device=dev,
+                            domains=sp.domains)
+    torch.cuda.synchronize()
+    want, pplain_ms = timed(lambda: scan_pruned_solve_ref(fresh_free(), *pargs, okg0.clone(),
+                                                          True))
+    exact(label, got, want)
+    singles = []
+    for w, (b, plan) in enumerate(zip(steps, plans)):
+        pt = plan.tensors(dev)
+        pb = batch_to(plan.gather_batch(b), dev)
+        single = (pt.capacity, pt.schedulable, pt.node_domain_id, pb,
+                  {"domains": pt.domains, "cand_idx": pt.cand_idx, "cand_count": plan.count})
+        one = place_wave(want[3][w].clone(), *single[:4], params, want[4][w].clone(), **single[4])
+        nxt = (want[5], want[6]) if w == len(steps) - 1 else (want[3][w + 1], want[4][w + 1])
+        for nm, a, c in zip(("assigned", "ok", "placement_score", "free_after", "ok_global"),
+                            one, (want[0][w], want[1][w], want[2][w]) + nxt):
+            check(torch.equal(a, c), f"scan[{label}]: step {w} {nm} != a single launch")
+        singles.append(single)
+    pscan_ms = per_call_ms(lambda f, o: scan_pruned_solve(f, *pargs, o, retain=True, device=dev,
+                                                          domains=sp.domains))
+    psingle_ms = per_call_ms(lambda f, o: [place_wave(f, *x[:4], params, o, **x[4])
+                                           for x in singles])
+    work = [place_wave_work(plan.gather_batch(b), plan.node_domain_id, r,
+                            want[4][w].cpu().numpy(), want[1][w].cpu().numpy(),
+                            carry_bytes=b3_bytes(plan.pad, plan.count, r))
+            for w, (b, plan) in enumerate(zip(steps, plans))]
+    nbytes = sum(x[0] for x in work) + len(steps) * (4 * snap_4.capacity.size + t_len)
+    pbound = bound_of(nbytes, sum(x[1] for x in work))
+    print(f"scan[{label}]: kernel == plain on every output (assigned in fleet ordinals, "
+          f"free_in fleet-shaped), every step == a single pruned launch; scan launch "
+          f"{pscan_ms:.3f} ms, its steps as single launches {psingle_ms:.3f} ms "
+          f"({pscan_ms / psingle_ms:.4f}x), plain {pplain_ms:.1f} ms, bound {pbound[0]:.6f} ms "
+          f"({pbound[1]}) on {card}")
+
+    # Kernel ms per drain: each drain's dispatch units (chunks and short
+    # runs) launched in order on one carry, against phase 4's per-wave sum.
+    for ws in (256, 32):
+        free_k, okg_k = node_tensors(snap)[0], okg0.clone()
+        total = 0.0
+        for run in class_runs(plan_waves(gangs, ws)):
+            for k in range(0, len(run), 32):
+                part = [encode_wave(w) for w in run[k : k + 32]]
+                if len(part) >= 2:
+                    tb = batch_to(stack_batches(part), dev)
+                    total += timed(lambda: scan_solve(free_k, cap, sched, ndid, tb, params, okg_k,
+                                                      device=dev, domains=domains))[1]
+                else:
+                    tb = batch_to(part[0], dev)
+                    total += timed(lambda: place_wave(free_k, cap, sched, ndid, tb, params,
+                                                      okg_k, domains=domains))[1]
+        print(f"scan kernels per drain[wave_size {ws}, {snap.capacity.shape[0]} nodes]: "
+              f"{total:.3f} ms "
+              + (f"(per-wave launches, phase 4: {sum(wave_ms):.3f} ms) " if ws == 256 else "")
+              + f"on {card}")
+        rows[ws]["per_drain_ms"] = total
+    check(math.isfinite(rows[256]["per_drain_ms"]), "scan: no kernel time per drain")
+    src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
+    return {"rows": [
+        {"name": "place_wave_scan(B4, dense)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:790", "launches": runs256["scan"][1]["scan"],
+         "max_abs_err": 0.0, "ms": rows[256]["ms"], "plain_ms": rows[256]["plain_ms"],
+         "bound_ms": rows[256]["bound"][0], "bound_by": rows[256]["bound"][1],
+         "library_ms": None},
+        {"name": "place_wave_scan(B4, pruned)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:873", "launches": launches_p["scan_pruned"],
+         "max_abs_err": 0.0, "ms": pscan_ms, "plain_ms": pplain_ms, "bound_ms": pbound[0],
+         "bound_by": pbound[1], "library_ms": None},
+    ]}
 
 
 def b3_bytes(pad: int, count: int, r: int) -> int:

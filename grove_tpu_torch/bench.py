@@ -4,7 +4,12 @@
 harvest) through grove_tpu_torch: the 5120-node synthetic cluster, the
 ~10k-pod synthetic backlog, waves of 256 gangs, every wave solved by one
 place_wave kernel launch on the card (with --portfolio P > 1 one stacked
-launch of P weight variants, the winner picked on the card). One JSON line
+launch of P weight variants, the winner picked on the card). Unless
+--harvest chained, the same backlog is drained again with harvest="wave"
+(the host waits for every wave), so wave_p50_s / wave_p99_s are measured
+per-gang bind latencies — every gang of a wave lands at that wave's
+completion stamp — where the chained headline can only say p50 = p99 = the
+drain wall. One JSON line
 with run_bench's drain fields, the card's name and power limit, and the
 kernel's launch counts; unless --no-baseline, also run_bench's quality
 fields under its names: the greedy per-pod baseline on the same backlog
@@ -18,11 +23,17 @@ on growing fleets (racks per block 16 x each scale: 5120, 10240 and 20480
 nodes at scales 1, 2, 4), drained dense and candidate-pruned
 (max_candidates 8191, min_fleet 256). One JSON line with, per scale, both
 drain walls and their stages, candidate_nodes/candidate_pad, escalations,
-the launches of each kernel variant, and whether both admit the same set.
+the launches of each kernel variant, and whether both admit the same set;
+then, at the top scale, run_scale_bench's harvest A/B: the pruned drain
+pipelined and scanned (B4: one launch per run of same-shape waves) and the
+dense drain resident (scan launches, one harvest), with their round-trip
+ledgers, host stages and launches, and whether each admits the set its
+chained counterpart admits.
 
   --scale S         default: cluster racks and backlog size times S (1.0)
   --portfolio P     default: weight variants per wave and per solve (1)
   --no-baseline     default: skip the greedy baseline and the quality fields
+  --harvest H       default: "wave" re-drains for measured latencies; "chained" skips it
   --scales A,B,..   scale: fleet scales (default 1,2,4)
   --backlog-frac F  scale: backlog size times F (default 1.0)
   --prune-max K     scale: candidate budget (default 8191)
@@ -129,12 +140,16 @@ def stage_fields(stats) -> dict:
         "candidate_pad": stats.candidate_pad,
         "escalations": stats.escalations,
         "escalations_adopted": stats.escalations_adopted,
+        "harvest": stats.harvest,
+        "dispatches": stats.dispatches,
         "device_roundtrips": stats.device_roundtrips,
+        "scan_chunks": stats.scan_chunks,
+        "scanned_waves": stats.scanned_waves,
     }
 
 
 def run_bench(scale: float = 1.0, wave_size: int = 256, device=None, portfolio: int = 1,
-              baseline: bool = True) -> dict:
+              baseline: bool = True, harvest: str = "wave") -> dict:
     import torch
 
     from grove_tpu_torch.kernels.place_wave import place_wave
@@ -185,13 +200,29 @@ def run_bench(scale: float = 1.0, wave_size: int = 256, device=None, portfolio: 
         "device_wait_s": round(stats.harvest_s, 4),
         "decode_s": round(stats.decode_s, 4),
         "solver_score": round(float(np.mean(stats.scores)), 4) if stats.scores else None,
-        "harvest": "chained",
+        "harvest": harvest,
         "device": str(dev),
     }
     if dev.type == "cuda":
         out["kernel_launches"] = {
             k: n - launches0[k] for k, n in place_wave.variant_launches.items()
         }
+    if harvest == "wave":
+        # The same backlog again, the host waiting for every wave: measured
+        # per-gang bind latencies (bench.py's GROVE_BENCH_HARVEST=wave).
+        wave_bindings, wstats = drain_backlog(
+            gangs, pods, snapshot, wave_size=wave_size, params=SolverParams(), device=dev,
+            portfolio=portfolio, harvest="wave",
+        )
+        if set(wave_bindings) != set(bindings):
+            raise RuntimeError("bench: the wave harvest admitted another set than the chained")
+        pct = wstats.latency_percentiles()
+        out["wave_p50_s"] = _num(pct[50.0], 4) if pct else None
+        out["wave_p99_s"] = _num(pct[99.0], 4) if pct else None
+        out["wave_total_s"] = round(wstats.total_s, 4)
+        out["wave_count"] = wstats.waves
+        out["wave_device_roundtrips"] = wstats.device_roundtrips
+    if dev.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(dev)
         out["card"] = card_line()
     if baseline:
@@ -300,6 +331,7 @@ def run_scale_bench(
         point["admitted_equal"] = admitted["dense"] == admitted["pruned"]
         point["pruned_speedup"] = point["dense"]["drain_s"] / point["pruned"]["drain_s"]
         points.append(point)
+    harvests = harvest_ab(gangs, pods, snapshot, wave_size, pruning, admitted, dev)
     out = {
         "scenario": "scale",
         "gangs": len(gangs),
@@ -309,11 +341,62 @@ def run_scale_bench(
         "min_fleet": min_fleet,
         "points": points,
         "admitted_equal": all(p["admitted_equal"] for p in points),
+        **harvests,
         "device": str(dev),
     }
     if dev.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(dev)
         out["card"] = card_line()
+    return out
+
+
+def harvest_ab(gangs, pods, snapshot, wave_size, pruning, admitted, dev) -> dict:
+    """bench.py run_scale_bench's harvest fields at the top scale (names as
+    there): the pruned drain pipelined and scanned, the dense drain resident
+    (twice: the second must repeat the first bitwise), each against the set
+    its chained drain (`admitted`) admitted."""
+    from grove_tpu_torch.solver.core import SolverParams
+    from grove_tpu_torch.solver.drain import class_runs, drain_backlog, plan_waves
+
+    runs = {}
+    for name, harvest, cfg in (("pipelined", "pipeline", pruning), ("scan", "scan", pruning),
+                               ("resident", "resident", None), ("resident2", "resident", None)):
+        if dev.type == "cuda":
+            from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
+
+            reset_launches()
+        b, st = drain_backlog(gangs, pods, snapshot, wave_size=wave_size, params=SolverParams(),
+                              device=dev, pruning=cfg, harvest=harvest)
+        launches = dict(place_wave.variant_launches) if dev.type == "cuda" else None
+        runs[name] = (b, st, launches)
+
+    def per_wave_ms(st):
+        return round(1000.0 * st.host_stages()["hostTotalS"] / st.waves, 3) if st.waves else None
+
+    (b_pipe, s_pipe, _), (b_scan, s_scan, _) = runs["pipelined"], runs["scan"]
+    (b_res, s_res, _), (b_res2, s_res2, _) = runs["resident"], runs["resident2"]
+    out = {
+        "scan_admitted_parity": set(b_scan) == set(b_pipe) == admitted["pruned"],
+        "shape_class_runs": len(list(class_runs(plan_waves(gangs, wave_size)))),
+        "scan_chunks": s_scan.scan_chunks,
+        "scanned_waves": s_scan.scanned_waves,
+        "scan_waves": s_scan.waves,
+        "scan_escalations": s_scan.escalations,
+        "resident_admitted_parity": set(b_res) == admitted["dense"] and b_res2 == b_res,
+        "resident_ledger_ok": all(s.device_roundtrips == 1 + s.escalations
+                                  for s in (s_res, s_res2)),
+        "resident_escalations": s_res.escalations,
+        "resident_scan_chunks": s_res.scan_chunks,
+    }
+    for name in ("scan", "pipelined", "resident"):
+        _, st, launches = runs[name]
+        out[f"device_roundtrips_{name}"] = st.device_roundtrips
+        out[f"dispatches_{name}"] = st.dispatches
+        out[f"host_per_wave_ms_{name}"] = per_wave_ms(st)
+        out[f"host_stages_{name}"] = st.host_stages()
+        out[f"drain_s_{name}"] = st.total_s
+        if launches is not None:
+            out[f"launches_{name}"] = launches
     return out
 
 
@@ -323,6 +406,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
     ap.add_argument("--no-baseline", dest="baseline", action="store_false")
+    ap.add_argument("--harvest", choices=("wave", "chained"), default="wave")
     ap.add_argument("--scales", default="1,2,4")
     ap.add_argument("--backlog-frac", type=float, default=1.0)
     ap.add_argument("--prune-max", type=int, default=8191)
@@ -337,7 +421,7 @@ def main(argv=None) -> int:
         )
     else:
         out = run_bench(args.scale, device=args.device, portfolio=args.portfolio,
-                        baseline=args.baseline)
+                        baseline=args.baseline, harvest=args.harvest)
     print(json.dumps(out))
     return 0
 

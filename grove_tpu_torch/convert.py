@@ -10,7 +10,8 @@ reference's own encoded batch to the port's solver through it.
 PruningConfig and a CandidatePlan (their fields as plain values and numpy
 arrays), so the tests feed both packages the same candidate plan.
 `params_stack_from_reference` turns a reference SolverParams stack (each
-field [K]) into the port's weight stack, f32 [K, 5].
+field [K]) into the port's weight stack, f32 [K, 5], and
+`scan_config_from_reference` a ScanConfig's fields into the port's.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from grove_tpu_torch.solver.core import SolverParams, resolve_device
+from grove_tpu_torch.solver.drain import ScanConfig
 from grove_tpu_torch.solver.encode import GangBatch
 from grove_tpu_torch.solver.pruning import CandidatePlan, PruningConfig
 
@@ -134,3 +136,13 @@ def params_stack_from_reference(fields: dict, device=None) -> torch.Tensor:
     if len({c.shape[0] for c in cols}) != 1:
         raise ValueError("SolverParams stack fields differ in length")
     return torch.as_tensor(np.stack(cols, axis=1), device=resolve_device(device))
+
+
+def scan_config_from_reference(fields: dict) -> ScanConfig:
+    """The reference's ScanConfig fields (`dataclasses.asdict`) -> the
+    port's ScanConfig, field for field."""
+    unknown = set(fields) - set(ScanConfig.__dataclass_fields__)
+    if unknown:
+        raise ValueError(f"unknown ScanConfig fields: {sorted(unknown)}")
+    cast = {"enabled": bool, "device_resident": bool}
+    return ScanConfig(**{k: cast.get(k, int)(v) for k, v in fields.items()})

@@ -65,6 +65,23 @@
 // ok_global. Each row equals a single launch under that row's weights bit
 // for bit: the chains run the same code on the same inputs.
 //
+// The scan launch (B4: grove_tpu/solver/core.py `scan_solve_fn` /
+// `scan_pruned_solve_fn`) solves W waves of one shape in one launch: one
+// prologue over the W * G gangs, then one chain block that runs the wave
+// above W times, step w on step w's rows of every step-strided array (the
+// batch, the outputs, and when pruned the plan's node tensors and domain
+// index) from the carry step w - 1 left. What a single launch settles once
+// per wave is settled at each step's head instead: the cross-wave gate on
+// ok_global (the prologue cannot see what earlier steps admit, so the chain
+// applies it per gang, after the barrier that follows the previous step's
+// scatter), the family rows (zeroed), cap_scale and, when pruned, B3's
+// gather; with `free_in`/`okg_in` the head first copies the entering fleet
+// carry and ok_global out (the JAX scan's retained, fleet-shaped carries).
+// A step whose gangs are all invalid leaves the carry as it found it. Each
+// step equals a single launch on its entering carry bit for bit: the same
+// code runs on the same inputs. The chain paces it as it paces W single
+// launches; a scan saves only the launch gaps and the prologues' waits.
+//
 // Exactness against the JAX package and the plain PyTorch version
 // (grove_tpu_torch/solver/reference.py):
 //  - arithmetic uses the IEEE round-to-nearest intrinsics (__fadd_rn,
@@ -177,7 +194,41 @@ struct PlaceWaveArgs {
   int32_t* win_assigned;         // [G, MP] the winner's rows
   uint8_t* win_ok;               // [G]
   float* win_score;              // [G]
+  // scan launch: W steps (1 for every other launch); every array named in
+  // PW_STEPPED holds step w st_<name> elements past step 0 (0: shared)
+  int W;
+  float* free_in;                // [W, NF, R] each step's entering fleet carry, or null
+  uint8_t* okg_in;               // [W, T] each step's entering ok_global, or null
+  const int32_t* cand_counts;    // [W] candidates of each step's plan (pruned)
+  int64_t st_cand_idx, st_capacity, st_schedulable, st_node_domain_id, st_dom_count;
+  int64_t st_dom_offsets, st_dom_nodes, st_group_req, st_group_total, st_group_required;
+  int64_t st_group_valid, st_set_member, st_set_req_level, st_set_pref_level, st_set_valid;
+  int64_t st_set_pinned, st_pod_group, st_pod_rank, st_gang_valid, st_group_order;
+  int64_t st_depends_on, st_global_index, st_depends_global, st_reuse_nodes;
+  int64_t st_group_node_ok, st_spread_level, st_spread_family, st_spread_avoid;
+  int64_t st_assigned, st_ok, st_score, st_ginv, st_free_in, st_okg_in;
 };
+
+// The step-strided arrays of a scan launch (kernels/place_wave.py STEPPED).
+#define PW_STEPPED(X)                                                                  \
+  X(cand_idx) X(capacity) X(schedulable) X(node_domain_id) X(dom_count) X(dom_offsets) \
+  X(dom_nodes) X(group_req) X(group_total) X(group_required) X(group_valid)            \
+  X(set_member) X(set_req_level) X(set_pref_level) X(set_valid) X(set_pinned)          \
+  X(pod_group) X(pod_rank) X(gang_valid) X(group_order) X(depends_on) X(global_index)  \
+  X(depends_global) X(reuse_nodes) X(group_node_ok) X(spread_level) X(spread_family)   \
+  X(spread_avoid) X(assigned) X(ok) X(score) X(ginv) X(free_in) X(okg_in)
+
+// Step w of a scan launch as the args of one wave. An absent array has
+// stride 0 and stays null. No branch: each step pointer is base + w * stride
+// from the launch's constants, which the compiler recomputes where it needs
+// one instead of keeping (or spilling) it.
+__device__ __forceinline__ void pw_step_args(PlaceWaveArgs& s, const PlaceWaveArgs& a, int w) {
+  s = a;
+#define PW_STEP(f) s.f = a.f + (size_t)w * a.st_##f;
+  PW_STEPPED(PW_STEP)
+#undef PW_STEP
+  if (a.cand_counts) s.cand_count = a.cand_counts[w];
+}
 
 // The block's weight variant: blockIdx.x on the card; the host emulation runs
 // the stacked launch's blocks one after another and sets pw_emu_block.
@@ -628,14 +679,26 @@ __device__ void pw_gang_invariants(const PlaceWaveArgs& a, int gi) {
   }
 }
 
+// The scan's prologue, gang b of the W * G: gang b % G of step b / G, whose
+// cross-wave gate the chain applies (T = 0 here: ok_global changes between
+// the steps).
+__device__ void pw_scan_invariants(const PlaceWaveArgs& a0, int b) {
+  PlaceWaveArgs a;
+  pw_step_args(a, a0, b / a0.G);
+  a.T = 0;
+  pw_gang_invariants(a, b % a0.G);
+}
+
 #ifndef PLACE_WAVE_HOST_EMULATION
 __global__ void place_wave_prologue(const PlaceWaveArgs a) { pw_gang_invariants(a, blockIdx.x); }
+__global__ void place_wave_scan_prologue(const PlaceWaveArgs a) { pw_scan_invariants(a, blockIdx.x); }
 #endif
 
 // ---- the chain: every gang of the wave, in batch order ----------------------
-template <bool kProfile, bool kStacked>
+// (the scan: every gang of each step in turn, the steps in order)
+template <bool kProfile, bool kStacked, bool kScan>
 __global__ void __launch_bounds__(PW_THREADS)
-place_wave_kernel(const PlaceWaveArgs a) {
+place_wave_kernel(const PlaceWaveArgs a0) {
   extern __shared__ float pw_plane[];  // a.plane_words f32 for the walks
   __shared__ PwGangInv s_inv[2];
   __shared__ float cap_scale[PW_R_MAX];
@@ -653,443 +716,472 @@ place_wave_kernel(const PlaceWaveArgs a) {
   const int NT = blockDim.x;
   const int lane = tid % PW_WARP, warp = tid / PW_WARP;
   const int NW = (NT + PW_WARP - 1) / PW_WARP;
-  const int N = a.N, R = a.R, L = a.L, MG = a.MG, MS = a.MS, MP = a.MP;
-  const bool pruned = a.cand_idx != nullptr;
-  const bool spread = a.spread_level != nullptr;
-  const PwVariant V = pw_variant<kStacked>(a);
-  float* free_s = pruned || kStacked ? V.carry : a.free_io;  // [N, R] the wave's carry
-  PwProf<kProfile> prof;
-  prof.start(a.prof ? a.prof + (size_t)a.G * PW_NSEC : nullptr);
-
-  pw_fetch_gang(&s_inv[0], a, 0);
-  // cap_scale = max(capacity.max(axis=0), 1e-9)
-  for (int r = 0; r < R; ++r) {
-    float m = -INFINITY;
-    for (int i = tid; i < N; i += NT) m = fmaxf(m, a.capacity[(size_t)i * R + r]);
-    // argmax reduction used as a max reduction (index unused)
-    pw_block_argmax(m, 0, red_v, red_i, &s_best_v, &s_best_i);
-    if (tid == 0) cap_scale[r] = fmaxf(s_best_v, 1e-9f);
-    __syncthreads();
-  }
-  if (pruned) {
-    // B3 gather (gather_free, mode="fill"): pad rows point past the fleet.
-    for (int k = tid; k < N * R; k += NT) {
-      const int src = a.cand_idx[k / R];
-      free_s[k] = (src >= 0 && src < a.NF) ? a.free_io[(size_t)src * R + k % R] : 0.f;
-    }
-    __syncthreads();
-  } else if (kStacked) {
-    // Each variant starts from its own copy of the fleet carry.
-    for (int k = tid; k < N * R; k += NT) free_s[k] = a.free_io[k];
-    __syncthreads();
-  }
-  // Each carry row's normalised free capacity, kept beside the carry and
-  // recomputed wherever a row changes: stage 2 reads it once per node.
-  for (int i = tid; i < N; i += NT) V.norm_free[i] = pw_norm_free(free_s + (size_t)i * R, cap_scale, R);
-  __syncthreads();
-  prof.mark(PW_SEC_SETUP);
-
-  for (int gi = 0; gi < a.G; ++gi) {
-    if (kProfile) prof.row = a.prof + (size_t)gi * PW_NSEC;
-    // ---- gang record (prefetched) + B2/in-wave gate -----------------------
-    pw_fetch_gang(&s_inv[(gi + 1) & 1], a, gi + 1);
-    pw_async_wait_all_but_one();
-    if (tid == 0) {
-      s_n_entries = 0;
-      for (int s = 0; s < PW_MS_MAX; ++s) { s_creq[s] = -1; s_cpref[s] = -1; }
-    }
-    __syncthreads();
-    const PwGangInv& v = s_inv[gi & 1];
-    bool valid = v.valid0 != 0;
-    if (v.depends_on >= 0) valid = valid && V.ok[pw_clip(v.depends_on, 0, a.G - 1)] != 0;
-    if (!valid) {
-      for (int p = tid; p < MP; p += NT) V.assigned[(size_t)gi * MP + p] = -1;
-      if (tid == 0) { V.ok[gi] = 0; V.score[gi] = 0.f; }
+  for (int step = 0; step < (kScan ? a0.W : 1); ++step) {
+    // The scan's step view is every thread's own: a copy in shared memory
+    // made each field a load and spilled, 1.2x the steps' single launches
+    // on the H100 (PERF.md).
+    PlaceWaveArgs a_step;
+    if constexpr (kScan) {
+      // The previous step's tail (the carry's scatter, ok_global) is in
+      // place for this step's head to read.
       __syncthreads();
+      pw_step_args(a_step, a0, step);
+    }
+    const PlaceWaveArgs& a = kScan ? a_step : a0;
+    const int N = a.N, R = a.R, L = a.L, MG = a.MG, MS = a.MS, MP = a.MP;
+    const bool pruned = a.cand_idx != nullptr;
+    const bool spread = a.spread_level != nullptr;
+    const PwVariant V = pw_variant<kStacked>(a);
+    float* free_s = pruned || kStacked ? V.carry : a.free_io;  // [N, R] the wave's carry
+    PwProf<kProfile> prof;
+    prof.start(a.prof ? a.prof + (size_t)a.G * PW_NSEC : nullptr);
+    if (kScan) {
+      // The entering fleet carry, before the pruned gather (fleet-shaped, as
+      // the JAX scan retains it), and a fresh set of family rows.
+      if (a.free_in)
+        for (int k = tid; k < a.NF * R; k += NT) a.free_in[k] = a.free_io[k];
+      if (a.okg_in)
+        for (int k = tid; k < a.T; k += NT) a.okg_in[k] = a.ok_global[k];
+      if (spread)
+        for (size_t k = tid; k < (size_t)a.G * N; k += NT) V.family_used[k] = 0;
+    }
+
+    pw_fetch_gang(&s_inv[0], a, 0);
+    // cap_scale = max(capacity.max(axis=0), 1e-9)
+    for (int r = 0; r < R; ++r) {
+      float m = -INFINITY;
+      for (int i = tid; i < N; i += NT) m = fmaxf(m, a.capacity[(size_t)i * R + r]);
+      // argmax reduction used as a max reduction (index unused)
+      pw_block_argmax(m, 0, red_v, red_i, &s_best_v, &s_best_i);
+      if (tid == 0) cap_scale[r] = fmaxf(s_best_v, 1e-9f);
+      __syncthreads();
+    }
+    if (pruned) {
+      // B3 gather (gather_free, mode="fill"): pad rows point past the fleet.
+      for (int k = tid; k < N * R; k += NT) {
+        const int src = a.cand_idx[k / R];
+        free_s[k] = (src >= 0 && src < a.NF) ? a.free_io[(size_t)src * R + k % R] : 0.f;
+      }
+      __syncthreads();
+    } else if (kStacked) {
+      // Each variant starts from its own copy of the fleet carry.
+      for (int k = tid; k < N * R; k += NT) free_s[k] = a.free_io[k];
+      __syncthreads();
+    }
+    // Each carry row's normalised free capacity, kept beside the carry and
+    // recomputed wherever a row changes: stage 2 reads it once per node.
+    for (int i = tid; i < N; i += NT) V.norm_free[i] = pw_norm_free(free_s + (size_t)i * R, cap_scale, R);
+    __syncthreads();
+    prof.mark(PW_SEC_SETUP);
+
+    for (int gi = 0; gi < a.G; ++gi) {
+      if (kProfile) prof.row = a.prof + (size_t)gi * PW_NSEC;
+      // ---- gang record (prefetched) + B2/in-wave gate -----------------------
+      pw_fetch_gang(&s_inv[(gi + 1) & 1], a, gi + 1);
+      pw_async_wait_all_but_one();
+      if (tid == 0) {
+        s_n_entries = 0;
+        for (int s = 0; s < PW_MS_MAX; ++s) { s_creq[s] = -1; s_cpref[s] = -1; }
+      }
+      __syncthreads();
+      const PwGangInv& v = s_inv[gi & 1];
+      bool valid = v.valid0 != 0;
+      if (kScan && a.T > 0) {
+        // B2's gate against ok_global as the earlier steps left it (it
+        // changes only at a step's tail).
+        const int dg = a.depends_global[gi];
+        if (dg >= 0) valid = valid && a.ok_global[pw_clip(dg, 0, a.T - 1)] != 0;
+      }
+      if (v.depends_on >= 0) valid = valid && V.ok[pw_clip(v.depends_on, 0, a.G - 1)] != 0;
+      if (!valid) {
+        for (int p = tid; p < MP; p += NT) V.assigned[(size_t)gi * MP + p] = -1;
+        if (tid == 0) { V.ok[gi] = 0; V.score[gi] = 0.f; }
+        __syncthreads();
+        prof.mark(PW_SEC_GATE);
+        continue;
+      }
       prof.mark(PW_SEC_GATE);
-      continue;
-    }
-    prof.mark(PW_SEC_GATE);
-    const uint8_t* gno = a.group_node_ok ? a.group_node_ok + (size_t)gi * MG * N : nullptr;
+      const uint8_t* gno = a.group_node_ok ? a.group_node_ok + (size_t)gi * MG * N : nullptr;
 
-    // ---- hoisted replica-spread penalty (core.py:245-261, :580-590) -------
-    // avoid = the store's seed | what earlier gangs of the family took
-    // (read before this gang writes its row); spread_pen = 1 on nodes whose
-    // spread-level domain holds an avoided node.
-    if (spread) {
-      const int fam = v.spread_family;
-      const uint8_t* fam_row = V.family_used + (size_t)pw_clip(fam, 0, a.G - 1) * N;
-      const uint8_t* seed = a.spread_avoid + (size_t)gi * N;
-      const int s_lvl = v.spread_level;
-      const int lvc = pw_clip(s_lvl, 0, L - 1);
-      if (s_lvl >= 0) {  // block-uniform; without a level no node is penalised
-        auto stage = [&](int i, float* dst, int) {
-          dst[0] = (seed[i] || (fam >= 0 && fam_row[i])) ? 1.f : 0.f;
-        };
-        pw_walk(a, lvc, 1, stage, V.agg, pw_plane, prof, PW_SEC_SPREAD, PW_SEC_SPREAD);
+      // ---- hoisted replica-spread penalty (core.py:245-261, :580-590) -------
+      // avoid = the store's seed | what earlier gangs of the family took
+      // (read before this gang writes its row); spread_pen = 1 on nodes whose
+      // spread-level domain holds an avoided node.
+      if (spread) {
+        const int fam = v.spread_family;
+        const uint8_t* fam_row = V.family_used + (size_t)pw_clip(fam, 0, a.G - 1) * N;
+        const uint8_t* seed = a.spread_avoid + (size_t)gi * N;
+        const int s_lvl = v.spread_level;
+        const int lvc = pw_clip(s_lvl, 0, L - 1);
+        if (s_lvl >= 0) {  // block-uniform; without a level no node is penalised
+          auto stage = [&](int i, float* dst, int) {
+            dst[0] = (seed[i] || (fam >= 0 && fam_row[i])) ? 1.f : 0.f;
+          };
+          pw_walk(a, lvc, 1, stage, V.agg, pw_plane, prof, PW_SEC_SPREAD, PW_SEC_SPREAD);
+        }
+        for (int i = tid; i < N; i += NT) {
+          const int s_dom = a.node_domain_id[(size_t)lvc * N + i];
+          const bool pen = s_lvl >= 0 && s_dom >= 0 && V.agg[pw_clip(s_dom, 0, N - 1)] > 0.5f;
+          V.spread_pen[i] = pen ? 1.f : 0.f;
+        }
+        __syncthreads();
+        prof.mark(PW_SEC_SPREAD);
       }
-      for (int i = tid; i < N; i += NT) {
-        const int s_dom = a.node_domain_id[(size_t)lvc * N + i];
-        const bool pen = s_lvl >= 0 && s_dom >= 0 && V.agg[pw_clip(s_dom, 0, N - 1)] > 0.5f;
-        V.spread_pen[i] = pen ? 1.f : 0.f;
-      }
-      __syncthreads();
-      prof.mark(PW_SEC_SPREAD);
-    }
 
-    // ---- narrow-set tables, only where a nested pass reads them ------------
-    // (free is fixed during stage 1; tables over schedulable nodes.)
-    if (v.table_levels) {
-      for (int lv = 0; lv < L; ++lv) {
-        if (!(v.table_levels >> lv & 1)) continue;
-        const int ng = v.tab_ng[lv];
-        const uint8_t* tg = v.tab_grp + lv * PW_MG_MAX;
-        auto stage = [&](int i, float* dst, int P) {
-          if (!a.schedulable[i]) {
-            for (int k = 0; k < R + ng; ++k) dst[(size_t)k * P] = 0.f;
-            return;
-          }
-          const float* fr = free_s + (size_t)i * R;
-          for (int r = 0; r < R; ++r) dst[(size_t)r * P] = fr[r];
-          for (int j = 0; j < ng; ++j)
-            dst[(size_t)(R + j) * P] = pw_node_slots(v, fr, gno, tg[j], i, N, R);
-        };
-        pw_walk(a, lv, R + ng, stage, V.tables + (size_t)lv * N * (R + MG), pw_plane, prof,
-                PW_SEC_TABLES, PW_SEC_TABLES);
+      // ---- narrow-set tables, only where a nested pass reads them ------------
+      // (free is fixed during stage 1; tables over schedulable nodes.)
+      if (v.table_levels) {
+        for (int lv = 0; lv < L; ++lv) {
+          if (!(v.table_levels >> lv & 1)) continue;
+          const int ng = v.tab_ng[lv];
+          const uint8_t* tg = v.tab_grp + lv * PW_MG_MAX;
+          auto stage = [&](int i, float* dst, int P) {
+            if (!a.schedulable[i]) {
+              for (int k = 0; k < R + ng; ++k) dst[(size_t)k * P] = 0.f;
+              return;
+            }
+            const float* fr = free_s + (size_t)i * R;
+            for (int r = 0; r < R; ++r) dst[(size_t)r * P] = fr[r];
+            for (int j = 0; j < ng; ++j)
+              dst[(size_t)(R + j) * P] = pw_node_slots(v, fr, gno, tg[j], i, N, R);
+          };
+          pw_walk(a, lv, R + ng, stage, V.tables + (size_t)lv * N * (R + MG), pw_plane, prof,
+                  PW_SEC_TABLES, PW_SEC_TABLES);
+        }
+        for (int s2 = 0; s2 < MS; ++s2) {
+          if (!v.need_table[s2]) continue;  // block-uniform
+          const int lv = pw_clip(v.req_level[s2], 0, L - 1);
+          const int K = R + v.tab_ng[lv];
+          const float* tab = V.tables + (size_t)lv * N * (R + MG);
+          for (int d = tid; d < a.dom_count[lv]; d += NT)
+            V.feas2[(size_t)s2 * N + d] =
+                pw_domain_fits(v, tab + (size_t)d * K, s2, v.s_tcol + s2 * PW_MG_MAX, R);
+        }
+        __syncthreads();
+        prof.mark(PW_SEC_TABLES);
       }
-      for (int s2 = 0; s2 < MS; ++s2) {
-        if (!v.need_table[s2]) continue;  // block-uniform
-        const int lv = pw_clip(v.req_level[s2], 0, L - 1);
-        const int K = R + v.tab_ng[lv];
-        const float* tab = V.tables + (size_t)lv * N * (R + MG);
-        for (int d = tid; d < a.dom_count[lv]; d += NT)
-          V.feas2[(size_t)s2 * N + d] =
-              pw_domain_fits(v, tab + (size_t)d * K, s2, v.s_tcol + s2 * PW_MG_MAX, R);
-      }
-      __syncthreads();
-      prof.mark(PW_SEC_TABLES);
-    }
 
-    // ---- Stage 1: commit a domain per pack-set, broadest first ------------
-    bool fail = false;
-    for (int s = 0; s < MS; ++s) {
-      const int req_lv = pw_clip(v.req_level[s], 0, L - 1);
-      const int32_t* req_dom = a.node_domain_id + (size_t)req_lv * N;
-      const int ng = v.s_ng[s];
-      const uint8_t* sg = v.s_grp + s * PW_MG_MAX;
-      const uint8_t* act = v.active2 + s * PW_MS_MAX;
-      const uint8_t* ovl = v.overlap + s * PW_MS_MAX;
-      int new_req = -1, new_pref = -1;
-      for (int pass = 0; pass < 2; ++pass) {
-        const bool nested = pass == 0;
-        const int level = nested ? v.req_level[s] : v.pref_level[s];
-        if (!v.svalid[s] || level < 0) continue;  // block-uniform
-        const int lv = pw_clip(level, 0, L - 1);
-        int n_act = 0;
-        if (nested)
-          for (int s2 = 0; s2 < MS; ++s2) n_act += act[s2];
-        // Columns: free [R] | slots of s's member2 groups [ng] | count |
-        // taken | feasibility of each active2 set (nested pass) | spread.
-        const int c_cnt = R + ng, c_nest = c_cnt + 2;
-        const int c_spread = c_nest + n_act;
-        const int K = c_spread + (spread ? 1 : 0);
-        const int extra_dom = nested ? v.pinned[s] : new_req;
-        auto stage = [&](int i, float* dst, int P) {
-          // node_ok / taken from the sets committed so far (only s2 < s).
-          bool nok = a.schedulable[i] != 0, tk = false;
-          for (int s2 = 0; s2 < s; ++s2) {
-            const int c = s_creq[s2];
-            if (c < 0) continue;
-            const int lv2 = pw_clip(v.req_level[s2], 0, L - 1);
-            const bool in_dom = a.node_domain_id[(size_t)lv2 * N + i] == c;
-            if (ovl[s2]) nok = nok && in_dom;
-            else if (v.svalid[s2]) tk = tk || in_dom;
-          }
-          if (!(nok && (extra_dom < 0 || req_dom[i] == extra_dom))) {
-            for (int k = 0; k < K; ++k) dst[(size_t)k * P] = 0.f;
-            return;
-          }
-          const float* fr = free_s + (size_t)i * R;
-          for (int r = 0; r < R; ++r) dst[(size_t)r * P] = fr[r];
-          for (int j = 0; j < ng; ++j)
-            dst[(size_t)(R + j) * P] = pw_node_slots(v, fr, gno, sg[j], i, N, R);
-          dst[(size_t)c_cnt * P] = 1.f;
-          dst[(size_t)(c_cnt + 1) * P] = tk ? 1.f : 0.f;
-          if (nested) {
-            int c = c_nest;
-            for (int s2 = 0; s2 < MS; ++s2) {
-              if (!act[s2]) continue;
+      // ---- Stage 1: commit a domain per pack-set, broadest first ------------
+      bool fail = false;
+      for (int s = 0; s < MS; ++s) {
+        const int req_lv = pw_clip(v.req_level[s], 0, L - 1);
+        const int32_t* req_dom = a.node_domain_id + (size_t)req_lv * N;
+        const int ng = v.s_ng[s];
+        const uint8_t* sg = v.s_grp + s * PW_MG_MAX;
+        const uint8_t* act = v.active2 + s * PW_MS_MAX;
+        const uint8_t* ovl = v.overlap + s * PW_MS_MAX;
+        int new_req = -1, new_pref = -1;
+        for (int pass = 0; pass < 2; ++pass) {
+          const bool nested = pass == 0;
+          const int level = nested ? v.req_level[s] : v.pref_level[s];
+          if (!v.svalid[s] || level < 0) continue;  // block-uniform
+          const int lv = pw_clip(level, 0, L - 1);
+          int n_act = 0;
+          if (nested)
+            for (int s2 = 0; s2 < MS; ++s2) n_act += act[s2];
+          // Columns: free [R] | slots of s's member2 groups [ng] | count |
+          // taken | feasibility of each active2 set (nested pass) | spread.
+          const int c_cnt = R + ng, c_nest = c_cnt + 2;
+          const int c_spread = c_nest + n_act;
+          const int K = c_spread + (spread ? 1 : 0);
+          const int extra_dom = nested ? v.pinned[s] : new_req;
+          auto stage = [&](int i, float* dst, int P) {
+            // node_ok / taken from the sets committed so far (only s2 < s).
+            bool nok = a.schedulable[i] != 0, tk = false;
+            for (int s2 = 0; s2 < s; ++s2) {
+              const int c = s_creq[s2];
+              if (c < 0) continue;
               const int lv2 = pw_clip(v.req_level[s2], 0, L - 1);
-              const int dom = a.node_domain_id[(size_t)lv2 * N + i];
-              dst[(size_t)c++ * P] = dom >= 0 && V.feas2[(size_t)s2 * N + dom] ? 1.f : 0.f;
+              const bool in_dom = a.node_domain_id[(size_t)lv2 * N + i] == c;
+              if (ovl[s2]) nok = nok && in_dom;
+              else if (v.svalid[s2]) tk = tk || in_dom;
             }
+            if (!(nok && (extra_dom < 0 || req_dom[i] == extra_dom))) {
+              for (int k = 0; k < K; ++k) dst[(size_t)k * P] = 0.f;
+              return;
+            }
+            const float* fr = free_s + (size_t)i * R;
+            for (int r = 0; r < R; ++r) dst[(size_t)r * P] = fr[r];
+            for (int j = 0; j < ng; ++j)
+              dst[(size_t)(R + j) * P] = pw_node_slots(v, fr, gno, sg[j], i, N, R);
+            dst[(size_t)c_cnt * P] = 1.f;
+            dst[(size_t)(c_cnt + 1) * P] = tk ? 1.f : 0.f;
+            if (nested) {
+              int c = c_nest;
+              for (int s2 = 0; s2 < MS; ++s2) {
+                if (!act[s2]) continue;
+                const int lv2 = pw_clip(v.req_level[s2], 0, L - 1);
+                const int dom = a.node_domain_id[(size_t)lv2 * N + i];
+                dst[(size_t)c++ * P] = dom >= 0 && V.feas2[(size_t)s2 * N + dom] ? 1.f : 0.f;
+              }
+            }
+            if (spread) dst[(size_t)c_spread * P] = V.spread_pen[i];
+          };
+          pw_walk(a, lv, K, stage, V.agg, pw_plane, prof, PW_SEC_S1_NODES, PW_SEC_S1_WALKS);
+          float best_v = -INFINITY;
+          int best_i = INT32_MAX;
+          const int D = a.dom_count[lv];
+          for (int d = tid; d < D; d += NT) {
+            const float* row = V.agg + (size_t)d * K;
+            const float count = row[c_cnt];
+            bool feasible = count > 0.f && pw_domain_fits(v, row, s, nullptr, R);
+            for (int c = c_nest; feasible && c < c_spread; ++c)
+              if (!(row[c] > 0.5f)) feasible = false;
+            if (!feasible) continue;
+            const float taken_frac = __fdiv_rn(row[c_cnt + 1], fmaxf(count, 1.f));
+            float norm_free = 0.f;
+            for (int r = 0; r < R; ++r) norm_free = __fadd_rn(norm_free, __fdiv_rn(row[r], cap_scale[r]));
+            float sc = __fsub_rn(-norm_free, __fmul_rn(V.w_reserve, taken_frac));
+            if (spread) {
+              // A margin above every other score term (core.py:374-387): any
+              // feasible domain with no avoided node beats one with them.
+              const float big = __fadd_rn(__fadd_rn((float)(N * R), V.w_reserve), 2.f);
+              const float touched = row[c_spread] > 0.5f ? 1.f : 0.f;
+              sc = __fsub_rn(sc, __fmul_rn(V.w_spread > 0.f ? big : 0.f, touched));
+            }
+            if (pw_better(sc, d, best_v, best_i)) { best_v = sc; best_i = d; }
           }
-          if (spread) dst[(size_t)c_spread * P] = V.spread_pen[i];
-        };
-        pw_walk(a, lv, K, stage, V.agg, pw_plane, prof, PW_SEC_S1_NODES, PW_SEC_S1_WALKS);
-        float best_v = -INFINITY;
-        int best_i = INT32_MAX;
-        const int D = a.dom_count[lv];
-        for (int d = tid; d < D; d += NT) {
-          const float* row = V.agg + (size_t)d * K;
-          const float count = row[c_cnt];
-          bool feasible = count > 0.f && pw_domain_fits(v, row, s, nullptr, R);
-          for (int c = c_nest; feasible && c < c_spread; ++c)
-            if (!(row[c] > 0.5f)) feasible = false;
-          if (!feasible) continue;
-          const float taken_frac = __fdiv_rn(row[c_cnt + 1], fmaxf(count, 1.f));
-          float norm_free = 0.f;
-          for (int r = 0; r < R; ++r) norm_free = __fadd_rn(norm_free, __fdiv_rn(row[r], cap_scale[r]));
-          float sc = __fsub_rn(-norm_free, __fmul_rn(V.w_reserve, taken_frac));
-          if (spread) {
-            // A margin above every other score term (core.py:374-387): any
-            // feasible domain with no avoided node beats one with them.
-            const float big = __fadd_rn(__fadd_rn((float)(N * R), V.w_reserve), 2.f);
-            const float touched = row[c_spread] > 0.5f ? 1.f : 0.f;
-            sc = __fsub_rn(sc, __fmul_rn(V.w_spread > 0.f ? big : 0.f, touched));
+          // Every thread reads the winner before the next argmax's first
+          // barrier, after which alone it is written again.
+          pw_block_argmax(best_v, best_i, red_v, red_i, &s_best_v, &s_best_i);
+          const bool any = s_best_v > -INFINITY;
+          if (nested) {
+            new_req = any ? s_best_i : -1;
+            fail = fail || !any;
+          } else {
+            new_pref = any ? s_best_i : -1;
           }
-          if (pw_better(sc, d, best_v, best_i)) { best_v = sc; best_i = d; }
+          prof.mark(PW_SEC_S1_ARGMAX);
         }
-        // Every thread reads the winner before the next argmax's first
-        // barrier, after which alone it is written again.
-        pw_block_argmax(best_v, best_i, red_v, red_i, &s_best_v, &s_best_i);
-        const bool any = s_best_v > -INFINITY;
-        if (nested) {
-          new_req = any ? s_best_i : -1;
-          fail = fail || !any;
-        } else {
-          new_pref = any ? s_best_i : -1;
+        if (new_req >= 0 || new_pref >= 0) {  // block-uniform
+          if (tid == 0) { s_creq[s] = new_req; s_cpref[s] = new_pref; }
+          __syncthreads();
+          prof.mark(PW_SEC_S1_ARGMAX);
         }
-        prof.mark(PW_SEC_S1_ARGMAX);
       }
-      if (new_req >= 0 || new_pref >= 0) {  // block-uniform
-        if (tid == 0) { s_creq[s] = new_req; s_cpref[s] = new_pref; }
-        __syncthreads();
-        prof.mark(PW_SEC_S1_ARGMAX);
-      }
-    }
 
-    // ---- Stage 2: allocate counts per group, floors first, then extras ----
-    // Each node's word: its committed-domain bits (bit s: inside set s's
-    // committed required / preferred domain), schedulable, the gang's reuse
-    // seed (then every node it takes) and the spread penalty.
-    unsigned committed = 0;
-    for (int s = 0; s < MS; ++s)
-      if (s_creq[s] >= 0) committed |= 1u << s;
-    for (int i = tid; i < N; i += NT) {
-      unsigned in_req = 0, in_pref = 0;
-      for (int s = 0; s < MS; ++s) {
-        const int cr = s_creq[s], cp = s_cpref[s];
-        if (cr >= 0 && a.node_domain_id[(size_t)pw_clip(v.req_level[s], 0, L - 1) * N + i] == cr)
-          in_req |= 1u << s;
-        if (cp >= 0 && a.node_domain_id[(size_t)pw_clip(v.pref_level[s], 0, L - 1) * N + i] == cp)
-          in_pref |= 1u << s;
-      }
-      unsigned w = in_req | in_pref << 8;
-      if (a.schedulable[i]) w |= PW_NW_SCHED;
-      if (a.reuse_nodes && a.reuse_nodes[(size_t)gi * N + i]) w |= PW_NW_USED;
-      if (spread && V.spread_pen[i] > 0.5f) w |= PW_NW_SPREAD;  // spread_pen is 0 or 1
-      V.nword[i] = (int32_t)w;
-    }
-    bool groups_ok = true;
-    int32_t* ent = V.entries;
-    for (int t = 0; t < 2 * MG; ++t) {
-      const int g = v.order[t % MG];
-      const int phase = t / MG;
-      const int total = phase == 0 ? v.required[g] : v.total[g] - v.required[g];
-      // Block-uniform: an invalid group, or a phase with nothing to place,
-      // takes no node and leaves every count 0.
-      if (!v.gvalid[g] || total <= 0) continue;
-      const int floor_req = phase == 0 ? v.required[g] : 0;
-      const float* req = v.req + g * PW_R_MAX;
-      const unsigned mb = v.memb_bits[g];
-      // The node words and the last phase's takes are in place, and nobody
-      // still reads the last phase's warp bests.
-      __syncthreads();
-      float bv = -INFINITY;
-      int bi = INT32_MAX;
-#pragma unroll 4
+      // ---- Stage 2: allocate counts per group, floors first, then extras ----
+      // Each node's word: its committed-domain bits (bit s: inside set s's
+      // committed required / preferred domain), schedulable, the gang's reuse
+      // seed (then every node it takes) and the spread penalty.
+      unsigned committed = 0;
+      for (int s = 0; s < MS; ++s)
+        if (s_creq[s] >= 0) committed |= 1u << s;
       for (int i = tid; i < N; i += NT) {
-        const unsigned w = (unsigned)V.nword[i];
-        bool nok = (w & PW_NW_SCHED) && (mb & committed & ~w & 0xffu) == 0;
-        if (nok && gno) nok = gno[(size_t)g * N + i] != 0;
-        int sl = 0;
-        if (nok) {
-          sl = pw_slots(free_s + (size_t)i * R, req, R);
-          sl = sl < total ? sl : total;
+        unsigned in_req = 0, in_pref = 0;
+        for (int s = 0; s < MS; ++s) {
+          const int cr = s_creq[s], cp = s_cpref[s];
+          if (cr >= 0 && a.node_domain_id[(size_t)pw_clip(v.req_level[s], 0, L - 1) * N + i] == cr)
+            in_req |= 1u << s;
+          if (cp >= 0 && a.node_domain_id[(size_t)pw_clip(v.pref_level[s], 0, L - 1) * N + i] == cp)
+            in_pref |= 1u << s;
         }
-        V.a_slots[i] = sl;
-        if (sl <= 0) continue;  // never a candidate: its score is never read
-        const unsigned in_req = w & 0xffu, in_pref = (w >> 8) & 0xffu;
-        // pref_bonus and reserved are counts of 1.0 added in set order: exact.
-        const float pref_bonus = (float)pw_popc(in_pref & mb);
-        const float reserved = (float)pw_popc(in_req & ~mb);
-        float sc = __fadd_rn(__fmul_rn(V.w_pref, pref_bonus),
-                             __fmul_rn(V.w_reuse, (w & PW_NW_USED) ? 1.f : 0.f));
-        sc = __fsub_rn(sc, __fmul_rn(V.w_tight, V.norm_free[i]));
-        sc = __fsub_rn(sc, __fmul_rn(V.w_reserve, reserved));
-        if (spread) sc = __fsub_rn(sc, __fmul_rn(V.w_spread, (w & PW_NW_SPREAD) ? 1.f : 0.f));
-        V.a_score[i] = sc;
-        if (pw_better(sc, i, bv, bi)) { bv = sc; bi = i; }
+        unsigned w = in_req | in_pref << 8;
+        if (a.schedulable[i]) w |= PW_NW_SCHED;
+        if (a.reuse_nodes && a.reuse_nodes[(size_t)gi * N + i]) w |= PW_NW_USED;
+        if (spread && V.spread_pen[i] > 0.5f) w |= PW_NW_SPREAD;  // spread_pen is 0 or 1
+        V.nword[i] = (int32_t)w;
       }
-      pw_warp_argmax(bv, bi);
-      if (lane == 0) { wb_v[0][warp] = bv; wb_i[0][warp] = bi; }
-      if (tid == 0) s_rem[0] = total;
-      __syncthreads();
-      prof.mark(PW_SEC_S2_SCORE);
-      // Top-k as iterated argmax: the best node by (score desc, index asc)
-      // takes min(slots, remaining) until the phase's total is placed. Only
-      // the warp that owns the taken node rescans; one barrier per take.
-      int rem = total;
-      for (int it = 0;; ++it) {
-        const int cur = it & 1, nxt = cur ^ 1;
-        rem = s_rem[cur];
-        if (rem <= 0) break;
-        // Every warp reduces the warps' bests itself: one load a lane.
-        float bv2 = -INFINITY;
-        int node = INT32_MAX;
-        for (int w = lane; w < NW; w += PW_WARP)
-          if (pw_better(wb_v[cur][w], wb_i[cur][w], bv2, node)) { bv2 = wb_v[cur][w]; node = wb_i[cur][w]; }
-        pw_warp_argmax(bv2, node);
-        if (node == INT32_MAX) break;  // block-uniform: no node has slots left
-        if (warp == (node % NT) / PW_WARP) {
-          if (lane == 0) {
-            const int sl = V.a_slots[node];
-            const int take = sl < rem ? sl : rem;
-            s_rem[nxt] = rem - take;
-            V.a_slots[node] = 0;
-            const int e = s_n_entries++;
-            ent[3 * e] = g;
-            ent[3 * e + 1] = node;
-            ent[3 * e + 2] = take;
-            for (int r = 0; r < R; ++r) {
-              const float x = free_s[(size_t)node * R + r];
-              V.undo[(size_t)e * R + r] = x;
-              free_s[(size_t)node * R + r] = __fsub_rn(x, __fmul_rn((float)take, req[r]));
-            }
-            V.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
-            V.nword[node] |= (int32_t)PW_NW_USED;
-          }
-          pw_syncwarp();
-          float wv = -INFINITY;
-          int wi = INT32_MAX;
-          for (int i = tid; i < N; i += NT)
-            if (V.a_slots[i] > 0 && pw_better(V.a_score[i], i, wv, wi)) { wv = V.a_score[i]; wi = i; }
-          pw_warp_argmax(wv, wi);
-          if (lane == 0) { wb_v[nxt][warp] = wv; wb_i[nxt][warp] = wi; }
-        } else if (lane == 0) {
-          wb_v[nxt][warp] = wb_v[cur][warp];
-          wb_i[nxt][warp] = wb_i[cur][warp];
-        }
+      bool groups_ok = true;
+      int32_t* ent = V.entries;
+      for (int t = 0; t < 2 * MG; ++t) {
+        const int g = v.order[t % MG];
+        const int phase = t / MG;
+        const int total = phase == 0 ? v.required[g] : v.total[g] - v.required[g];
+        // Block-uniform: an invalid group, or a phase with nothing to place,
+        // takes no node and leaves every count 0.
+        if (!v.gvalid[g] || total <= 0) continue;
+        const int floor_req = phase == 0 ? v.required[g] : 0;
+        const float* req = v.req + g * PW_R_MAX;
+        const unsigned mb = v.memb_bits[g];
+        // The node words and the last phase's takes are in place, and nobody
+        // still reads the last phase's warp bests.
         __syncthreads();
-      }
-      if (total - rem < floor_req) groups_ok = false;
-      prof.mark(PW_SEC_S2_TAKE);
-    }
-    __syncthreads();  // entries and the last takes are in place
-
-    const bool gang_ok = groups_ok && !fail;  // valid holds here
-    const int n_ent = s_n_entries;
-
-    // ---- Stage 3: counts -> per-pod node (right searchsorted) --------------
-    for (int p = tid; p < MP; p += NT) {
-      const int pg = a.pod_group[(size_t)gi * MP + p];
-      const int pr = a.pod_rank[(size_t)gi * MP + p];
-      const int gc = pw_clip(pg, 0, MG - 1);
-      int placed = 0;
-      for (int e = 0; e < n_ent; ++e)
-        if (ent[3 * e] == gc) placed += ent[3 * e + 2];
-      int node = -1;
-      if (pg >= 0 && pr < placed && gang_ok) {
-        // first node j (by index) whose cumulative count exceeds the rank
-        int best = INT32_MAX;
-        for (int e = 0; e < n_ent; ++e) {
-          if (ent[3 * e] != gc) continue;
-          const int j = ent[3 * e + 1];
-          int cum = 0;
-          for (int f = 0; f < n_ent; ++f)
-            if (ent[3 * f] == gc && ent[3 * f + 1] <= j) cum += ent[3 * f + 2];
-          if (cum > pr && j < best) best = j;
-        }
-        node = best;
-      }
-      // Family row write after this gang's own read (core.py:597-607).
-      if (node >= 0 && spread && v.spread_family >= 0)
-        V.family_used[(size_t)pw_clip(v.spread_family, 0, a.G - 1) * N + node] = 1;
-      // B3 remap (remap_assigned): candidate ordinal -> fleet ordinal.
-      if (node >= 0 && pruned) node = a.cand_idx[pw_clip(node, 0, a.cand_count - 1)];
-      V.assigned[(size_t)gi * MP + p] = node;
-    }
-
-    // ---- Stage 4: placement quality -----------------------------------------
-    if (tid == 0) {
-      float sum = 0.f;
-      int n_pref = 0;
-      for (int s = 0; s < MS; ++s) {
-        const int lvl = v.pref_level[s];
-        const int cp = s_cpref[s];
-        const bool active = lvl >= 0;
-        float f = active ? 0.f : 1.f;
-        if (active && cp >= 0) {
-          const int pl = pw_clip(lvl, 0, L - 1);
-          float tot = 0.f, hits = 0.f;
-          for (int e = 0; e < n_ent; ++e) {
-            if (!v.member[s * PW_MG_MAX + ent[3 * e]]) continue;
-            const float c = (float)ent[3 * e + 2];
-            tot = __fadd_rn(tot, c);
-            if (a.node_domain_id[(size_t)pl * N + ent[3 * e + 1]] == cp) hits = __fadd_rn(hits, c);
+        float bv = -INFINITY;
+        int bi = INT32_MAX;
+  #pragma unroll 4
+        for (int i = tid; i < N; i += NT) {
+          const unsigned w = (unsigned)V.nword[i];
+          bool nok = (w & PW_NW_SCHED) && (mb & committed & ~w & 0xffu) == 0;
+          if (nok && gno) nok = gno[(size_t)g * N + i] != 0;
+          int sl = 0;
+          if (nok) {
+            sl = pw_slots(free_s + (size_t)i * R, req, R);
+            sl = sl < total ? sl : total;
           }
-          f = tot > 0.f ? __fdiv_rn(hits, fmaxf(tot, 1.f)) : 1.f;
+          V.a_slots[i] = sl;
+          if (sl <= 0) continue;  // never a candidate: its score is never read
+          const unsigned in_req = w & 0xffu, in_pref = (w >> 8) & 0xffu;
+          // pref_bonus and reserved are counts of 1.0 added in set order: exact.
+          const float pref_bonus = (float)pw_popc(in_pref & mb);
+          const float reserved = (float)pw_popc(in_req & ~mb);
+          float sc = __fadd_rn(__fmul_rn(V.w_pref, pref_bonus),
+                               __fmul_rn(V.w_reuse, (w & PW_NW_USED) ? 1.f : 0.f));
+          sc = __fsub_rn(sc, __fmul_rn(V.w_tight, V.norm_free[i]));
+          sc = __fsub_rn(sc, __fmul_rn(V.w_reserve, reserved));
+          if (spread) sc = __fsub_rn(sc, __fmul_rn(V.w_spread, (w & PW_NW_SPREAD) ? 1.f : 0.f));
+          V.a_score[i] = sc;
+          if (pw_better(sc, i, bv, bi)) { bv = sc; bi = i; }
         }
-        if (v.svalid[s] && active) {
-          sum = __fadd_rn(sum, f);
-          n_pref += 1;
-        } else {
-          sum = __fadd_rn(sum, 0.f);
+        pw_warp_argmax(bv, bi);
+        if (lane == 0) { wb_v[0][warp] = bv; wb_i[0][warp] = bi; }
+        if (tid == 0) s_rem[0] = total;
+        __syncthreads();
+        prof.mark(PW_SEC_S2_SCORE);
+        // Top-k as iterated argmax: the best node by (score desc, index asc)
+        // takes min(slots, remaining) until the phase's total is placed. Only
+        // the warp that owns the taken node rescans; one barrier per take.
+        int rem = total;
+        for (int it = 0;; ++it) {
+          const int cur = it & 1, nxt = cur ^ 1;
+          rem = s_rem[cur];
+          if (rem <= 0) break;
+          // Every warp reduces the warps' bests itself: one load a lane.
+          float bv2 = -INFINITY;
+          int node = INT32_MAX;
+          for (int w = lane; w < NW; w += PW_WARP)
+            if (pw_better(wb_v[cur][w], wb_i[cur][w], bv2, node)) { bv2 = wb_v[cur][w]; node = wb_i[cur][w]; }
+          pw_warp_argmax(bv2, node);
+          if (node == INT32_MAX) break;  // block-uniform: no node has slots left
+          if (warp == (node % NT) / PW_WARP) {
+            if (lane == 0) {
+              const int sl = V.a_slots[node];
+              const int take = sl < rem ? sl : rem;
+              s_rem[nxt] = rem - take;
+              V.a_slots[node] = 0;
+              const int e = s_n_entries++;
+              ent[3 * e] = g;
+              ent[3 * e + 1] = node;
+              ent[3 * e + 2] = take;
+              for (int r = 0; r < R; ++r) {
+                const float x = free_s[(size_t)node * R + r];
+                V.undo[(size_t)e * R + r] = x;
+                free_s[(size_t)node * R + r] = __fsub_rn(x, __fmul_rn((float)take, req[r]));
+              }
+              V.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
+              V.nword[node] |= (int32_t)PW_NW_USED;
+            }
+            pw_syncwarp();
+            float wv = -INFINITY;
+            int wi = INT32_MAX;
+            for (int i = tid; i < N; i += NT)
+              if (V.a_slots[i] > 0 && pw_better(V.a_score[i], i, wv, wi)) { wv = V.a_score[i]; wi = i; }
+            pw_warp_argmax(wv, wi);
+            if (lane == 0) { wb_v[nxt][warp] = wv; wb_i[nxt][warp] = wi; }
+          } else if (lane == 0) {
+            wb_v[nxt][warp] = wb_v[cur][warp];
+            wb_i[nxt][warp] = wb_i[cur][warp];
+          }
+          __syncthreads();
+        }
+        if (total - rem < floor_req) groups_ok = false;
+        prof.mark(PW_SEC_S2_TAKE);
+      }
+      __syncthreads();  // entries and the last takes are in place
+
+      const bool gang_ok = groups_ok && !fail;  // valid holds here
+      const int n_ent = s_n_entries;
+
+      // ---- Stage 3: counts -> per-pod node (right searchsorted) --------------
+      for (int p = tid; p < MP; p += NT) {
+        const int pg = a.pod_group[(size_t)gi * MP + p];
+        const int pr = a.pod_rank[(size_t)gi * MP + p];
+        const int gc = pw_clip(pg, 0, MG - 1);
+        int placed = 0;
+        for (int e = 0; e < n_ent; ++e)
+          if (ent[3 * e] == gc) placed += ent[3 * e + 2];
+        int node = -1;
+        if (pg >= 0 && pr < placed && gang_ok) {
+          // first node j (by index) whose cumulative count exceeds the rank
+          int best = INT32_MAX;
+          for (int e = 0; e < n_ent; ++e) {
+            if (ent[3 * e] != gc) continue;
+            const int j = ent[3 * e + 1];
+            int cum = 0;
+            for (int f = 0; f < n_ent; ++f)
+              if (ent[3 * f] == gc && ent[3 * f + 1] <= j) cum += ent[3 * f + 2];
+            if (cum > pr && j < best) best = j;
+          }
+          node = best;
+        }
+        // Family row write after this gang's own read (core.py:597-607).
+        if (node >= 0 && spread && v.spread_family >= 0)
+          V.family_used[(size_t)pw_clip(v.spread_family, 0, a.G - 1) * N + node] = 1;
+        // B3 remap (remap_assigned): candidate ordinal -> fleet ordinal.
+        if (node >= 0 && pruned) node = a.cand_idx[pw_clip(node, 0, a.cand_count - 1)];
+        V.assigned[(size_t)gi * MP + p] = node;
+      }
+
+      // ---- Stage 4: placement quality -----------------------------------------
+      if (tid == 0) {
+        float sum = 0.f;
+        int n_pref = 0;
+        for (int s = 0; s < MS; ++s) {
+          const int lvl = v.pref_level[s];
+          const int cp = s_cpref[s];
+          const bool active = lvl >= 0;
+          float f = active ? 0.f : 1.f;
+          if (active && cp >= 0) {
+            const int pl = pw_clip(lvl, 0, L - 1);
+            float tot = 0.f, hits = 0.f;
+            for (int e = 0; e < n_ent; ++e) {
+              if (!v.member[s * PW_MG_MAX + ent[3 * e]]) continue;
+              const float c = (float)ent[3 * e + 2];
+              tot = __fadd_rn(tot, c);
+              if (a.node_domain_id[(size_t)pl * N + ent[3 * e + 1]] == cp) hits = __fadd_rn(hits, c);
+            }
+            f = tot > 0.f ? __fdiv_rn(hits, fmaxf(tot, 1.f)) : 1.f;
+          }
+          if (v.svalid[s] && active) {
+            sum = __fadd_rn(sum, f);
+            n_pref += 1;
+          } else {
+            sum = __fadd_rn(sum, 0.f);
+          }
+        }
+        const float mean = n_pref > 0 ? __fdiv_rn(sum, (float)n_pref) : 1.f;
+        V.score[gi] = gang_ok ? __fadd_rn(0.5f, __fmul_rn(0.5f, mean)) : 0.f;
+        V.ok[gi] = gang_ok ? 1 : 0;
+      }
+      if (kProfile) __syncthreads();
+      prof.mark(PW_SEC_S34);
+
+      // ---- all-or-nothing: a rejected gang puts back every row it took -------
+      if (!gang_ok && tid == 0) {
+        for (int e = n_ent - 1; e >= 0; --e)
+          for (int r = 0; r < R; ++r)
+            free_s[(size_t)ent[3 * e + 1] * R + r] = V.undo[(size_t)e * R + r];
+        for (int e = 0; e < n_ent; ++e) {
+          const int node = ent[3 * e + 1];
+          V.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
         }
       }
-      const float mean = n_pref > 0 ? __fdiv_rn(sum, (float)n_pref) : 1.f;
-      V.score[gi] = gang_ok ? __fadd_rn(0.5f, __fmul_rn(0.5f, mean)) : 0.f;
-      V.ok[gi] = gang_ok ? 1 : 0;
+      __syncthreads();
+      prof.mark(PW_SEC_COMMIT);
     }
-    if (kProfile) __syncthreads();
-    prof.mark(PW_SEC_S34);
 
-    // ---- all-or-nothing: a rejected gang puts back every row it took -------
-    if (!gang_ok && tid == 0) {
-      for (int e = n_ent - 1; e >= 0; --e)
-        for (int r = 0; r < R; ++r)
-          free_s[(size_t)ent[3 * e + 1] * R + r] = V.undo[(size_t)e * R + r];
-      for (int e = 0; e < n_ent; ++e) {
-        const int node = ent[3 * e + 1];
-        V.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
+    if (kProfile) prof.row = a.prof + (size_t)a.G * PW_NSEC;
+    if (pruned) {
+      // B3 scatter (scatter_free): candidate rows back to the fleet; pad rows
+      // drop; the plan's indices are unique, so no two threads share a row.
+      for (int k = tid; k < N * R; k += NT) {
+        const int dst = a.cand_idx[k / R];
+        if (dst >= 0 && dst < a.NF) a.free_io[(size_t)dst * R + k % R] = free_s[k];
       }
     }
-    __syncthreads();
-    prof.mark(PW_SEC_COMMIT);
-  }
-
-  if (kProfile) prof.row = a.prof + (size_t)a.G * PW_NSEC;
-  if (pruned) {
-    // B3 scatter (scatter_free): candidate rows back to the fleet; pad rows
-    // drop; the plan's indices are unique, so no two threads share a row.
-    for (int k = tid; k < N * R; k += NT) {
-      const int dst = a.cand_idx[k / R];
-      if (dst >= 0 && dst < a.NF) a.free_io[(size_t)dst * R + k % R] = free_s[k];
+    // ---- B2 scatter-max of this wave's verdicts into ok_global ---------------
+    // (the stacked launch leaves it to the select, or to nobody)
+    if (!kStacked && a.T > 0) {
+      for (int gi = tid; gi < a.G; gi += NT) {
+        const int gidx = a.global_index[gi];
+        if (gidx >= 0 && V.ok[gi]) a.ok_global[pw_clip(gidx, 0, a.T - 1)] = 1;
+      }
     }
-  }
-  // ---- B2 scatter-max of this wave's verdicts into ok_global ---------------
-  // (the stacked launch leaves it to the select, or to nobody)
-  if (!kStacked && a.T > 0) {
-    for (int gi = tid; gi < a.G; gi += NT) {
-      const int gidx = a.global_index[gi];
-      if (gidx >= 0 && V.ok[gi]) a.ok_global[pw_clip(gidx, 0, a.T - 1)] = 1;
+    if (kProfile) {
+      __syncthreads();
+      prof.mark(PW_SEC_COMMIT);
     }
-  }
-  if (kProfile) {
-    __syncthreads();
-    prof.mark(PW_SEC_COMMIT);
-  }
+  }  // step
 }
 
 // ---- portfolio select: the winner among the stacked launch's rows ----------
@@ -1172,14 +1264,21 @@ __global__ void place_wave_select(const PlaceWaveArgs a) {
 //
 // The stacked launch: the prologue, K chain blocks (one per weight row), and
 // with `select` the select kernel.
+//
+// The scan launch: the scan's prologue over the W * G gangs, then one chain
+// block over the W steps.
 #ifndef PLACE_WAVE_HOST_EMULATION
-template <bool kProfile, bool kStacked>
+template <bool kProfile, bool kStacked, bool kScan = false>
 static int pw_launch(const PlaceWaveArgs* args, cudaStream_t stream, int smem_bytes) {
-  if (args->G > 0) place_wave_prologue<<<args->G, 1, 0, stream>>>(*args);
-  cudaError_t err = cudaFuncSetAttribute(place_wave_kernel<kProfile, kStacked>,
+  if (kScan && args->G > 0 && args->W > 0)
+    place_wave_scan_prologue<<<args->W * args->G, 1, 0, stream>>>(*args);
+  else if (!kScan && args->G > 0)
+    place_wave_prologue<<<args->G, 1, 0, stream>>>(*args);
+  cudaError_t err = cudaFuncSetAttribute(place_wave_kernel<kProfile, kStacked, kScan>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  place_wave_kernel<kProfile, kStacked><<<kStacked ? args->K : 1, PW_THREADS, smem_bytes, stream>>>(*args);
+  place_wave_kernel<kProfile, kStacked, kScan>
+      <<<kStacked ? args->K : 1, PW_THREADS, smem_bytes, stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
@@ -1205,20 +1304,24 @@ extern "C" int place_wave_select_launch(const PlaceWaveArgs* args, void* stream)
   place_wave_select<<<1, PW_THREADS, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
+
+extern "C" int place_wave_scan_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes) {
+  return pw_launch<false, false, true>(args, (cudaStream_t)stream, smem_bytes);
+}
 #else
 // The same launches for a one-thread block on the host (the CPU tests): the
 // prologue gang by gang, then the chain (block by block when stacked).
 extern "C" int place_wave_launch(const PlaceWaveArgs* args, void*, int, int profile) {
   for (int gi = 0; gi < args->G; ++gi) pw_gang_invariants(*args, gi);
-  if (profile) place_wave_kernel<true, false>(*args);
-  else place_wave_kernel<false, false>(*args);
+  if (profile) place_wave_kernel<true, false, false>(*args);
+  else place_wave_kernel<false, false, false>(*args);
   return 0;
 }
 
 extern "C" int place_wave_stacked_launch(const PlaceWaveArgs* args, void*, int, int select) {
   for (int gi = 0; gi < args->G; ++gi) pw_gang_invariants(*args, gi);
   for (pw_emu_block = 0; pw_emu_block < args->K; ++pw_emu_block)
-    place_wave_kernel<false, true>(*args);
+    place_wave_kernel<false, true, false>(*args);
   pw_emu_block = 0;
   if (select) place_wave_select(*args);
   return 0;
@@ -1226,6 +1329,12 @@ extern "C" int place_wave_stacked_launch(const PlaceWaveArgs* args, void*, int, 
 
 extern "C" int place_wave_select_launch(const PlaceWaveArgs* args, void*) {
   place_wave_select(*args);
+  return 0;
+}
+
+extern "C" int place_wave_scan_launch(const PlaceWaveArgs* args, void*, int) {
+  for (int b = 0; b < args->W * args->G; ++b) pw_scan_invariants(*args, b);
+  place_wave_kernel<false, false, true>(*args);
   return 0;
 }
 #endif

@@ -25,12 +25,18 @@ K chain blocks side by side, and with `select` the portfolio's winner
 picked on the card. Its plain versions are solver/reference.py
 `stacked_solve_ref` and `portfolio_select_ref`.
 
+`place_wave_scan` is B4 (grove_tpu/solver/core.py `scan_solve_fn` /
+`scan_pruned_solve_fn`): W waves of one shape in one launch, the carry
+threaded from step to step on the card, each step equal to a single launch
+on its entering carry. Its plain versions are solver/reference.py
+`scan_solve_ref` and `scan_pruned_solve_ref`.
+
 The kernels launch on PyTorch's current stream and do not synchronise;
 `free` and `ok_global` are updated in place. `place_wave.launches` counts the
-launches (one per wave, the prologue included), and
+launches (one per wave, or per scan chunk, the prologue included), and
 `place_wave.variant_launches` counts them per variant: "dense" and "pruned"
 for place_wave, "stacked" (select=False) and "portfolio" (select=True) for
-place_wave_stacked.
+place_wave_stacked, "scan" and "scan_pruned" for place_wave_scan.
 """
 
 from __future__ import annotations
@@ -72,6 +78,18 @@ _POINTERS = (
 )
 N_WEIGHTS = 5  # SolverParams' fields, the columns of a weight stack
 _FIELDS += [(k, _P) for k in _POINTERS]
+# The scan launch's arrays with a leading step axis (PW_STEPPED in the
+# source): each gets a stride, in elements, between consecutive steps.
+STEPPED = (
+    "cand_idx", "capacity", "schedulable", "node_domain_id", "dom_count", "dom_offsets",
+    "dom_nodes", "group_req", "group_total", "group_required", "group_valid", "set_member",
+    "set_req_level", "set_pref_level", "set_valid", "set_pinned", "pod_group", "pod_rank",
+    "gang_valid", "group_order", "depends_on", "global_index", "depends_global", "reuse_nodes",
+    "group_node_ok", "spread_level", "spread_family", "spread_avoid", "assigned", "ok", "score",
+    "ginv", "free_in", "okg_in",
+)
+_FIELDS += [("W", ctypes.c_int), ("free_in", _P), ("okg_in", _P), ("cand_counts", _P)]
+_FIELDS += [(f"st_{k}", ctypes.c_int64) for k in STEPPED]
 # Sections of the profiled instantiation (PW_SEC_* in csrc/place_wave.cu),
 # the columns of its cycle table.
 SECTIONS = (
@@ -97,6 +115,22 @@ class DomainIndex(NamedTuple):
 
 
 def domain_index(node_domain_id, device) -> DomainIndex:
+    from grove_tpu_torch.solver.core import to_device
+
+    return DomainIndex(*(to_device(x, device) for x in domain_index_arrays(node_domain_id)))
+
+
+def domain_index_stacked(node_domain_id, device) -> DomainIndex:
+    """The DomainIndex of each row of `node_domain_id` [W, L, N] (a scan
+    chunk's plans), stacked on a leading [W] axis."""
+    from grove_tpu_torch.solver.core import to_device
+
+    rows = [domain_index_arrays(nd) for nd in node_domain_id]
+    return DomainIndex(*(to_device(np.stack(x), device) for x in zip(*rows)))
+
+
+def domain_index_arrays(node_domain_id) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(count, offsets, nodes) of a DomainIndex as numpy arrays."""
     ndid = np.asarray(
         node_domain_id.cpu() if torch.is_tensor(node_domain_id) else node_domain_id,
         dtype=np.int64,
@@ -114,9 +148,7 @@ def domain_index(node_domain_id, device) -> DomainIndex:
         nodes[lv, : order.size] = order
         offsets[lv, 1 : d + 1] = np.cumsum(np.bincount(dom[labeled], minlength=d))
         offsets[lv, d + 1 :] = order.size
-    from grove_tpu_torch.solver.core import to_device
-
-    return DomainIndex(*(to_device(x, device) for x in (count, offsets, nodes)))
+    return count, offsets, nodes
 
 
 def _check(name, t, dtype, shape, device):
@@ -272,7 +304,7 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     args = PlaceWaveArgs(
         N=n, R=r, L=levels, G=g, MG=mg, MS=ms, MP=mp, T=t_len, NF=nf,
         cand_count=n if cand_idx is None else int(cand_count), plane_words=plane_words, K=K,
-        **weights,
+        W=1, **weights,
     )
     for name in _POINTERS:
         t = tensors.get(name)
@@ -358,6 +390,99 @@ def place_wave_stacked(free, capacity, schedulable, node_domain_id, batch: GangB
     return out["assigned"], out["ok"], out["score"], out["free_after"]
 
 
+def build_scan_args(free, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
+                    params, ok_global, domains: DomainIndex, cand_idx=None, retain=False,
+                    plane_words=None):
+    """The scan launch's args: W waves of one shape, every field of
+    `stacked_batch` with a leading [W] axis. Dense, the node tensors and
+    `domains` are the fleet's, shared by every step; with `cand_idx` (i32
+    [W, CP], each step's padded gather map) `capacity` [W, CP, R],
+    `schedulable` [W, CP], `node_domain_id` [W, L, CP] and `domains` (each
+    field [W, ...]) are per step. Step 0 is checked as one wave (build_args)
+    and every stacked array for its step axis; each step reuses the one
+    chain's scratch. Returns (args, smem_bytes, outputs, keepalive) with
+    outputs "assigned" [W, G, MP], "ok" [W, G], "score" [W, G], and with
+    `retain` "free_in" [W, NF, R] and "okg_in" [W, T] (None without
+    ok_global)."""
+    w_len = stacked_batch.gang_valid.shape[0] if stacked_batch.gang_valid.dim() == 2 else 0
+    if w_len < 1:
+        raise ValueError("place_wave_scan: stacked_batch needs a leading step axis of at least 1")
+    pruned = cand_idx is not None
+    stacked = {f: t for f, t in stacked_batch._asdict().items() if t is not None}
+    if pruned:
+        stacked.update(cand_idx=cand_idx, capacity=capacity, schedulable=schedulable,
+                       node_domain_id=node_domain_id, dom_count=domains.count,
+                       dom_offsets=domains.offsets, dom_nodes=domains.nodes)
+    for name, t in stacked.items():
+        if t.dim() < 1 or t.shape[0] != w_len:
+            raise ValueError(f"place_wave_scan: {name} has shape {tuple(t.shape)}, expected a "
+                             f"leading step axis of {w_len}")
+        if not t.is_contiguous():
+            raise ValueError(f"place_wave_scan: {name} is not contiguous")
+    step0 = GangBatch(*(None if t is None else t[0] for t in stacked_batch))
+    node0 = (capacity, schedulable, node_domain_id, domains)
+    if pruned:
+        node0 = (capacity[0], schedulable[0], node_domain_id[0],
+                 DomainIndex(*(t[0] for t in domains)))
+    args, smem, out, keep = build_args(
+        free, *node0[:3], step0, params, ok_global, node0[3],
+        cand_idx[0] if pruned else None, node0[0].shape[0] if pruned else None,
+        plane_words=plane_words,
+    )
+    dev, (g, mp), (nf, r) = free.device, step0.pod_group.shape, free.shape
+    out = {
+        "assigned": torch.empty((w_len, g, mp), dtype=torch.int32, device=dev),
+        "ok": torch.zeros((w_len, g), dtype=torch.bool, device=dev),
+        "score": torch.empty((w_len, g), dtype=torch.float32, device=dev),
+        "free_in": torch.empty((w_len, nf, r), dtype=torch.float32, device=dev) if retain else None,
+        "okg_in": (torch.empty((w_len, ok_global.shape[0]), dtype=torch.bool, device=dev)
+                   if retain and ok_global is not None else None),
+    }
+    keep.update(out, stacked=stacked,
+                ginv=torch.empty((w_len * max(g, 1) * INV_BYTES,), dtype=torch.uint8, device=dev))
+    if pruned:
+        keep["cand_counts"] = (cand_idx < nf).sum(dim=1, dtype=torch.int32)
+    args.W = w_len
+    for name in ("assigned", "ok", "score", "free_in", "okg_in", "ginv", "cand_counts"):
+        t = keep.get(name)
+        setattr(args, name, None if t is None else t.data_ptr())
+    for name in STEPPED:
+        t = keep[name] if name in ("assigned", "ok", "score", "ginv", "free_in", "okg_in") \
+            else stacked.get(name)
+        setattr(args, f"st_{name}", 0 if t is None else t.numel() // w_len)
+    return args, smem, out, keep
+
+
+def place_wave_scan(free, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
+                    params, ok_global=None, *, domains: DomainIndex, cand_idx=None,
+                    retain=False):
+    """Solve W waves of one shape with one launch on the card (B4): step w
+    solves wave w of `stacked_batch` from the carry step w - 1 left, and
+    equals a single place_wave launch on that entering carry bit for bit.
+    Arguments as build_scan_args. Returns (assigned i32 [W, G, MP] in fleet
+    ordinals, ok bool [W, G], score f32 [W, G], free_in [W, NF, R] or None,
+    okg_in [W, T] or None, free, ok_global), `free` and `ok_global` updated
+    in place to the last step's carry."""
+    if not free.is_cuda:
+        raise ValueError("place_wave_scan: the kernel runs on a CUDA device only")
+    lib = _library()
+    args, smem, out, _keep = build_scan_args(
+        free, capacity, schedulable, node_domain_id, stacked_batch, params, ok_global, domains,
+        cand_idx, retain,
+    )
+    fn = lib.place_wave_scan_launch
+    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(free.device).cuda_stream
+    rc = fn(ctypes.byref(args), stream, smem)
+    if rc != 0:
+        raise RuntimeError(f"place_wave_scan: kernel launch failed with CUDA error {rc}")
+    place_wave.launches += 1
+    place_wave.variant_launches["scan_pruned" if cand_idx is not None else "scan"] += 1
+    return (out["assigned"], out["ok"], out["score"], out["free_in"], out["okg_in"], free,
+            ok_global)
+
+
 def _library():
     from grove_tpu_torch.kernels.build import load
 
@@ -369,10 +494,14 @@ def _library():
     return lib
 
 
+VARIANTS = ("dense", "pruned", "stacked", "portfolio", "scan", "scan_pruned")
+
+
 def reset_launches() -> None:
-    """Set every launch count of place_wave and place_wave_stacked to 0."""
+    """Set every launch count of place_wave, place_wave_stacked and
+    place_wave_scan to 0."""
     place_wave.launches = 0
-    place_wave.variant_launches = dict.fromkeys(("dense", "pruned", "stacked", "portfolio"), 0)
+    place_wave.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 reset_launches()

@@ -13,6 +13,11 @@ the same single launch on the card.
 launch on the card), and `solve` is the serving entry: a snapshot and a
 batch, one solve or a portfolio of them, and the portfolio escalation
 when a valid gang is rejected.
+
+`scan_solve` and `scan_pruned_solve` solve W waves of one shape, each from
+the carry the previous one left (B4, one scan launch on the card per call):
+the drain's "scan" and "resident" harvests fuse each run of same-shape waves
+into them.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from grove_tpu_torch.solver.encode import GangBatch
 from grove_tpu_torch.solver.reference import (
     apply_global_deps_ref,
     portfolio_select_ref,
+    scan_pruned_solve_ref,
+    scan_solve_ref,
     solve_batch_ref,
     solve_pruned_ref,
     stacked_solve_ref,
@@ -50,6 +57,20 @@ class SolveResult(NamedTuple):
     # Updated global verdict bitmap (wave chaining): present iff the caller
     # passed ok_global.
     ok_global: torch.Tensor | None = None
+
+
+class ScanSolveResult(NamedTuple):
+    """W waves solved as one scan (core.py `ScanSolveResult`): the verdict
+    planes gain a leading [W] axis; free_in/okg_in are each step's entering
+    carry (present iff retain=True), free_after/ok_global the final one."""
+
+    assigned: torch.Tensor  # i32 [W, G, MP] (fleet ordinals when pruned)
+    ok: torch.Tensor  # bool [W, G]
+    placement_score: torch.Tensor  # f32 [W, G]
+    free_in: torch.Tensor | None  # f32 [W, N, R] entering fleet free per step
+    okg_in: torch.Tensor | None  # bool [W, T] entering verdict bitmap per step
+    free_after: torch.Tensor  # f32 [N, R]
+    ok_global: torch.Tensor | None  # bool [T]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -155,6 +176,76 @@ def solve_batch(
             free, capacity, schedulable, node_domain_id, tbatch, params, ok_global
         )
     return SolveResult(*out)
+
+
+def scan_solve(free0, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
+               params: SolverParams | None = None, ok_global=None, *, retain: bool = False,
+               device=None, domains=None) -> ScanSolveResult:
+    """W waves of one shape solved in order (core.py `scan_solve_fn`): every
+    field of `stacked_batch` has a leading [W] axis, and step w solves wave w
+    from the (free, ok_global) step w - 1 left, so step w's rows equal
+    solve_batch on that entering carry bit for bit. With `retain` the result
+    keeps each step's entering carry (free_in, okg_in).
+
+    On the card it is one launch (kernels/place_wave.py `place_wave_scan`)
+    that updates `free0` and `ok_global` in place when they already lie
+    there, as the JAX package donates them; `domains` is the fleet's
+    DomainIndex (built here when not given). "cpu" runs the plain version."""
+    dev = resolve_device(device)
+    params = params or SolverParams()
+    free0 = tensor_on(free0, torch.float32, dev)
+    capacity = tensor_on(capacity, torch.float32, dev)
+    schedulable = tensor_on(schedulable, torch.bool, dev)
+    node_domain_id = tensor_on(node_domain_id, torch.int32, dev)
+    ok_global = tensor_on(ok_global, torch.bool, dev)
+    tbatch = batch_to(stacked_batch, dev)
+    if dev.type == "cuda":
+        from grove_tpu_torch.kernels.place_wave import domain_index, place_wave_scan
+
+        if domains is None:
+            domains = domain_index(node_domain_id, dev)
+        out = place_wave_scan(free0, capacity, schedulable, node_domain_id, tbatch, params,
+                              ok_global, domains=domains, retain=retain)
+    else:
+        out = scan_solve_ref(free0, capacity, schedulable, node_domain_id, tbatch, params,
+                             ok_global, retain)
+    return ScanSolveResult(*out)
+
+
+def scan_pruned_solve(free0, cand_idx, capacity_p, schedulable_p, node_domain_id_p,
+                      stacked_batch: GangBatch, params: SolverParams | None = None,
+                      ok_global=None, *, retain: bool = False, device=None,
+                      domains=None) -> ScanSolveResult:
+    """The candidate-pruned scan (core.py `scan_pruned_solve_fn`): step w
+    solves wave w on its own candidate axis — `cand_idx` i32 [W, CP] (each
+    plan's padded_idx: candidates first, pad rows past the fleet),
+    `capacity_p` [W, CP, R], `schedulable_p` [W, CP], `node_domain_id_p`
+    [W, L, CP] and the candidate-axis `stacked_batch` — gathering the fleet
+    carry `free0` [N, R] at its head and scattering back at its tail;
+    `assigned` comes back in fleet ordinals and the retained free_in is
+    fleet-shaped. `domains` (on the card) is the plans' DomainIndex stacked
+    on a leading [W] axis (solver/pruning.py `stack_plans`)."""
+    dev = resolve_device(device)
+    params = params or SolverParams()
+    free0 = tensor_on(free0, torch.float32, dev)
+    cand_idx = tensor_on(cand_idx, torch.int32, dev)
+    capacity_p = tensor_on(capacity_p, torch.float32, dev)
+    schedulable_p = tensor_on(schedulable_p, torch.bool, dev)
+    node_domain_id_p = tensor_on(node_domain_id_p, torch.int32, dev)
+    ok_global = tensor_on(ok_global, torch.bool, dev)
+    tbatch = batch_to(stacked_batch, dev)
+    if dev.type == "cuda":
+        from grove_tpu_torch.kernels.place_wave import domain_index_stacked, place_wave_scan
+
+        if domains is None:
+            domains = domain_index_stacked(node_domain_id_p, dev)
+        out = place_wave_scan(free0, capacity_p, schedulable_p, node_domain_id_p, tbatch,
+                              params, ok_global, domains=domains, cand_idx=cand_idx,
+                              retain=retain)
+    else:
+        out = scan_pruned_solve_ref(free0, cand_idx, capacity_p, schedulable_p,
+                                    node_domain_id_p, tbatch, params, ok_global, retain)
+    return ScanSolveResult(*out)
 
 
 def stacked_solve_batch(free0, capacity, schedulable, node_domain_id, batch: GangBatch,

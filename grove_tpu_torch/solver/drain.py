@@ -1,35 +1,57 @@
-"""Mass admission: drain a whole gang backlog through the solver, one wave at
-a time, chained on the device (grove_tpu/solver/drain.py counterpart, the
-"chained" harvest discipline only).
+"""Mass admission: drain a whole gang backlog through the solver
+(grove_tpu/solver/drain.py counterpart).
 
   1. Shape-bucketed waves (plan_waves): gangs batch with others of their own
      padded encode shape; base gangs dispatch before scaled gangs.
   2. Every wave is encoded on the host, uploaded through pinned memory, and
-     solved by one kernel launch on the current stream. The wave carry — the
-     fleet's `free` tensor and the `ok_global` verdict bitmap — stays on the
-     card and is updated in place by each launch (the JAX package donates
-     the same two buffers), so the host never waits between waves.
-  3. One harvest: a single synchronise, then every wave's verdicts come to
-     the host. Waves retire in order and decode into pod -> node bindings.
+     solved on the current stream. The wave carry — the fleet's `free`
+     tensor and the `ok_global` verdict bitmap — stays on the card and is
+     updated in place by each launch (the JAX package donates the same two
+     buffers), so the host never waits between waves: a scaled gang's base
+     verdict is read on the card.
+  3. Right after each launch its verdict planes are copied to pinned host
+     memory without blocking and a CUDA event is recorded behind them. A
+     wave's fetch waits on its own event only, never on launches enqueued
+     after it, so a retirement overlaps the waves still in flight.
 
-Candidate pruning (`pruning`, solver/pruning.py): each wave's plan is cut
-against the initial snapshot, and the wave solves on its candidate axis —
-on the card the gather, the scatter back into the fleet carry and the remap
-run inside the wave's one launch. Each pruned wave keeps a copy of the
-carry it entered with. At retirement a wave holding a valid gang that was
-rejected and marked lossy by its plan re-solves DENSE from that copy:
-identical verdicts CONFIRM the pruned result; changed ones ADOPT the dense
-result, re-chain every later wave from the adopted carry and harvest them
-again. Admitted sets equal the dense drain's.
+Five HARVEST disciplines over that one dispatch chain (identical bindings by
+construction: the chain is the same, only where the host blocks differs):
+
+  - "chained":  retire nothing until every wave is dispatched, then wait on
+    the newest event once (one round trip) and retire in order;
+  - "wave":     retire each wave right after its dispatch: the host waits
+    for every wave, and each wave's completion stamp is measured;
+  - "pipeline": at most `depth` waves in flight; dispatching wave N first
+    retires wave N - depth, so the host's encode and decode overlap the
+    card's work, with measured stamps;
+  - "scan":     each run of same-shape waves is one scan launch (B4) per
+    chunk of up to `ScanConfig.max_scan_len` waves, retired as "pipeline"
+    retires, one fetch per chunk: dispatches and round trips drop to
+    O(chunks + escalations);
+  - "resident": the scan's dispatch with the chained retirement: the card
+    runs the whole backlog, then one wait harvests every chunk and wave, so
+    device_roundtrips == 1 + escalations.
+
+The engine (`_WavePipeline`) owns the carry, retirement order and the
+exactness escalation of candidate pruning (`pruning`, solver/pruning.py):
+each wave's plan is cut against the initial snapshot, and the wave solves on
+its candidate axis (on the card the gather, the scatter back into the fleet
+carry and the remap run inside the wave's launch). A pruned drain keeps each
+wave's entering carry on the card. At retirement a wave holding a valid gang
+that was rejected and marked lossy by its plan re-solves DENSE from that
+carry: identical verdicts CONFIRM the pruned result; changed ones ADOPT the
+dense result and re-dispatch every wave still in flight from the adopted
+carry (as fused chunks where the scan is on), each fetched again when it
+retires. Admitted sets equal the dense drain's.
 
 Portfolio (`portfolio` P > 1, the solver.portfolio knob): every wave is
 solved under P weight variants and the winner's free_after and verdicts
-chain forward — on the card one stacked launch per wave, the winner picked
-on the card and written into the carry in place. The population is drawn
-once per drain. Portfolio drains never prune (the JAX package's rule).
+chain forward — on the card one stacked launch per wave. The population is
+drawn once per drain. Portfolio drains never prune or scan (the JAX
+package's rules: "scan" and "resident" then run as "pipeline").
 
-Warm paths, recording, meshes, faults and the other harvest modes of the
-JAX package are later slices of the port.
+Warm paths, recording, meshes, faults, the streaming drain (`drain_stream`)
+and the degradation ladder of the JAX package are later slices of the port.
 """
 
 from __future__ import annotations
@@ -44,11 +66,37 @@ from grove_tpu_torch.solver.core import (
     SolverParams,
     decode_bindings,
     resolve_device,
+    scan_pruned_solve,
+    scan_solve,
     solve_batch,
     stack_on,
 )
-from grove_tpu_torch.solver.encode import encode_gangs, gang_shape, next_pow2
-from grove_tpu_torch.solver.pruning import PruningConfig, lossy_rejections, plan_candidates
+from grove_tpu_torch.solver.encode import encode_gangs, gang_shape, next_pow2, stack_batches
+from grove_tpu_torch.solver.pruning import (
+    PruningConfig,
+    lossy_rejections,
+    plan_candidates,
+    stack_plans,
+)
+
+HARVEST_MODES = ("chained", "wave", "pipeline", "scan", "resident")
+
+
+@dataclass(frozen=True)
+class ScanConfig:
+    """The `solver.scan` config block: each run of same-shape waves is one
+    scan launch per chunk."""
+
+    enabled: bool = True
+    # Longest run of waves in one scan launch; longer runs split into chunks.
+    max_scan_len: int = 32
+    # Runs (and chunks) shorter than this dispatch wave by wave.
+    min_waves_per_class: int = 2
+    # Carried for the streaming drain, `drain_stream` (a later slice of the
+    # port): waves planned up to this many windows ahead reorder by shape class.
+    affinity_lookahead: int = 4
+    # Carried for `drain_stream`: its resident saturated mode.
+    device_resident: bool = False
 
 
 @dataclass
@@ -57,10 +105,11 @@ class DrainStats:
 
     encode_s: float = 0.0  # host dense encode, all waves
     prune_s: float = 0.0  # host candidate-plan cutting, all waves
-    dispatch_s: float = 0.0  # upload + launch of every wave (no waiting)
-    harvest_s: float = 0.0  # synchronises + device->host copies
-    decode_s: float = 0.0  # host decode of all bindings into the result
-    total_s: float = 0.0  # encode + prune + dispatch + harvest + decode
+    dispatch_s: float = 0.0  # upload + launch of every wave or chunk (no waiting)
+    harvest_s: float = 0.0  # host time blocked on the card's verdicts
+    decode_s: float = 0.0  # host decode of all bindings
+    bind_s: float = 0.0  # committing decoded bindings and scores
+    total_s: float = 0.0  # the timed drain: encode through the last binding
     waves: int = 0
     gangs: int = 0
     admitted: int = 0
@@ -75,13 +124,70 @@ class DrainStats:
     candidate_pad: int = 0
     escalations: int = 0
     escalations_adopted: int = 0
-    # Host-blocking device->host fetches: 1 + escalations + adoptions that
-    # left later waves to re-chain (each re-chain is harvested in one fetch).
+    # Harvest discipline (HARVEST_MODES) and, for "pipeline" and "scan", the
+    # waves allowed in flight before the host blocks on the oldest (else 0).
+    harvest: str = "chained"
+    depth: int = 0
+    # Round-trip ledger: `dispatches` counts solves enqueued (per wave, per
+    # scan chunk, per escalation re-solve, per re-chained wave or chunk);
+    # `device_roundtrips` counts host waits on the card's verdicts (one per
+    # wave fetch, per chunk fetch, per chained/resident harvest, per
+    # escalation verdict).
+    dispatches: int = 0
     device_roundtrips: int = 0
+    # Scan ledger: chunks launched as scans and the waves they covered (the
+    # rest ran wave by wave); `scan_rechains` counts chunks re-dispatched
+    # from an adopted carry (kept out of scan_chunks).
+    scan_chunks: int = 0
+    scanned_waves: int = 0
+    scan_rechains: int = 0
+    # "wave", "pipeline" and "scan": (gangs admitted in the wave, seconds
+    # since the drain began at which its verdicts were on the host), in
+    # commit order.
+    wave_latencies: list = field(default_factory=list)
     portfolio: int = 1  # weight variants per wave
     # The fleet's free capacity after the last wave, as the solver left it
-    # (fetched in the one harvest).
+    # (copied to the host once every wave has retired and the card is idle).
     free_after: np.ndarray | None = None
+
+    def host_stages(self) -> dict:
+        """The host-stage ledger: seconds per host stage (harvest is the
+        wait for the card: reported, not in hostTotalS), the round-trip
+        ledger, and host milliseconds per wave."""
+        host_total = (self.encode_s + self.prune_s + self.dispatch_s + self.decode_s
+                      + self.bind_s)
+        doc = {
+            "hostEncodeS": round(self.encode_s, 6),
+            "hostPrefilterS": round(self.prune_s, 6),
+            "hostDispatchS": round(self.dispatch_s, 6),
+            "hostHarvestS": round(self.harvest_s, 6),
+            "hostDecodeS": round(self.decode_s, 6),
+            "hostBindS": round(self.bind_s, 6),
+            "hostTotalS": round(host_total, 6),
+            "hostHotPathS": round(self.encode_s + self.prune_s + self.decode_s + self.bind_s, 6),
+            "dispatches": self.dispatches,
+            "deviceRoundtrips": self.device_roundtrips,
+        }
+        if self.scan_chunks or self.scanned_waves:
+            doc["scanChunks"] = self.scan_chunks
+            doc["scannedWaves"] = self.scanned_waves
+        if self.scan_rechains:
+            doc["scanRechains"] = self.scan_rechains
+        if self.waves:
+            doc["hostPerWaveMs"] = round(1000.0 * host_total / self.waves, 4)
+        return doc
+
+    def latency_percentiles(self, qs=(50.0, 99.0)) -> dict | None:
+        """Measured per-gang bind-latency percentiles from `wave_latencies`
+        (every gang of a wave lands at that wave's stamp). None for a drain
+        that measured nothing: no wave, a chained or resident drain, or no
+        wave that admitted a gang. A 1-wave drain gives its stamp at every
+        percentile."""
+        series = [(n, t) for n, t in self.wave_latencies if n > 0]
+        if not series:
+            return None
+        lat = np.concatenate([np.full(n, t) for n, t in series])
+        return {float(q): float(np.percentile(lat, q)) for q in qs}
 
 
 def plan_waves(gangs: list, wave_size: int = 256) -> list[tuple[list, tuple, int]]:
@@ -115,99 +221,37 @@ def plan_waves(gangs: list, wave_size: int = 256) -> list[tuple[list, tuple, int
     return waves
 
 
-def drain_backlog(
-    gangs: list,
-    pods_by_name: dict,
-    snapshot,
-    *,
-    wave_size: int = 256,
-    params: SolverParams | None = None,
-    device=None,
-    pruning: PruningConfig | None = None,
-    portfolio: int = 1,
-) -> tuple[dict[str, dict[str, str]], DrainStats]:
-    """Admit a whole backlog; returns ({gang: {pod: node}}, DrainStats).
+class _WavePipeline:
+    """The drain engine: one chain of dispatches on the device, retired in
+    dispatch order.
 
-    All-or-nothing per gang; scaled gangs wait for their base's verdict on
-    the device. `device` None means the card; "cpu" runs the plain PyTorch
-    versions. `pruning` (enabled) solves each wave on its candidate axis,
-    with the escalation described in the module docstring. `portfolio` > 1
-    solves every wave under that many weight variants (pruning is then
-    off)."""
-    dev = resolve_device(device)
-    params = params or SolverParams()
-    if pruning is not None and (not pruning.enabled or portfolio > 1):
-        pruning = None
-    stats = DrainStats(gangs=len(gangs), portfolio=portfolio)
-    if not gangs:
-        return {}, stats
-    waves = plan_waves(gangs, wave_size)
-    gidx = {g.name: i for i, g in enumerate(gangs)}
-    chain = _Chain(snapshot, params, dev, len(gangs), stats, portfolio)
+    `retire_lag` decides where the host blocks: None — only at flush(), one
+    wait for everything ("chained", "resident"); 0 — right after each
+    dispatch ("wave"); k > 0 — at most k waves in flight ("pipeline",
+    "scan"). A retiring pruned wave with a lossy rejection escalates (see
+    the module docstring); an adoption re-chains every wave still in flight,
+    so the bindings are the same under every discipline."""
 
-    t0 = time.perf_counter()
-    recs = []
-    for wave, (mg_c, ms_c, mp_c), pad in waves:
-        te = time.perf_counter()
-        batch, decode = encode_gangs(
-            wave,
-            pods_by_name,
-            snapshot,
-            max_groups=mg_c,
-            max_sets=ms_c,
-            max_pods=mp_c,
-            pad_gangs_to=pad,
-            global_index_of=gidx,
-        )
-        tp = time.perf_counter()
-        stats.encode_s += tp - te
-        plan = None
-        if pruning is not None:
-            # Cut against the initial snapshot: free only shrinks while
-            # draining, so these candidates cover every later state.
-            plan = plan_candidates(snapshot, batch, pruning)
-            stats.prune_s += time.perf_counter() - tp
-        if plan is not None:
-            stats.pruned_waves += 1
-            stats.candidate_nodes = max(stats.candidate_nodes, plan.count)
-            stats.candidate_pad = max(stats.candidate_pad, plan.pad)
-        rec = {"batch": batch, "decode": decode, "plan": plan}
-        chain.dispatch(rec)
-        recs.append(rec)
-        stats.waves += 1
-
-    chain.harvest(recs)
-    bindings: dict[str, dict[str, str]] = {}
-    for k, rec in enumerate(recs):
-        if rec["plan"] is not None:
-            lossy = lossy_rejections(rec["plan"], rec["batch"].gang_valid, rec["ok_np"])
-            if lossy.any():
-                chain.escalate(rec, recs[k + 1 :])
-        td = time.perf_counter()
-        wave_bindings = decode_bindings(rec["ok_np"], rec["assigned_np"], rec["decode"], snapshot)
-        stats.scores.extend(rec["score_np"][rec["ok_np"]].tolist())
-        for gang_name, pod_bindings in wave_bindings.items():
-            bindings[gang_name] = pod_bindings
-            stats.admitted += 1
-            stats.pods_bound += len(pod_bindings)
-        stats.decode_s += time.perf_counter() - td
-    stats.total_s = time.perf_counter() - t0
-    return bindings, stats
-
-
-class _Chain:
-    """The fleet's static tensors and the wave carry on one device, and the
-    three things a drain does with them: dispatch a wave, harvest waves,
-    escalate a lossy-rejected pruned wave."""
-
-    def __init__(self, snapshot, params, dev, n_gangs, stats, portfolio=1):
-        self.params, self.dev, self.stats = params, dev, stats
+    def __init__(self, *, gangs, pods_by_name, snapshot, params, stats, dev, pruning=None,
+                 portfolio=1, retire_lag=None, record_stamps=False, scan=None):
+        self.pods_by_name = pods_by_name
+        self.snapshot = snapshot
+        self.params = params
+        self.stats = stats
+        self.dev = dev
+        self.pruning = pruning
         self.portfolio, self.pstack = portfolio, None
         if portfolio > 1:
             from grove_tpu_torch.parallel.portfolio import params_population
 
             # Hoisted: drawn and uploaded once per drain, not per wave.
             self.pstack = stack_on(params_population(portfolio, base=params), dev)
+        self.retire_lag = retire_lag
+        self.record_stamps = record_stamps
+        self.scan = scan if portfolio == 1 else None
+        # Escalation re-solves from each pruned wave's entering carry.
+        self.retain_carries = pruning is not None
+        self.gidx = {g.name: i for i, g in enumerate(gangs)}
         self.capacity = torch.as_tensor(snapshot.capacity, device=dev)
         self.schedulable = torch.as_tensor(snapshot.schedulable, device=dev)
         self.node_domain_id = torch.as_tensor(snapshot.node_domain_id, device=dev)
@@ -218,7 +262,40 @@ class _Chain:
             self.domains = domain_index(snapshot.node_domain_id, dev)
         # The wave carry. On the card each launch updates both in place.
         self.free = torch.as_tensor(snapshot.free, dtype=torch.float32, device=dev)
-        self.ok_g = torch.zeros((n_gangs,), dtype=torch.bool, device=dev)
+        self.ok_g = torch.zeros((len(gangs),), dtype=torch.bool, device=dev)
+        self.inflight: list[dict] = []
+        self.bindings: dict[str, dict[str, str]] = {}
+        self._last_event = None  # the newest event behind a host copy
+        self.t0 = time.perf_counter()  # restamped by drain_backlog
+
+    # ---- encode + candidate plan ---------------------------------------------
+
+    def _encode_rec(self, ws) -> dict:
+        """Encode one planned wave (and cut its plan) into an in-flight
+        record, not yet dispatched."""
+        stats = self.stats
+        wave, (mg_c, ms_c, mp_c), pad = ws
+        te = time.perf_counter()
+        batch, decode = encode_gangs(
+            wave, self.pods_by_name, self.snapshot, max_groups=mg_c, max_sets=ms_c,
+            max_pods=mp_c, pad_gangs_to=pad, global_index_of=self.gidx,
+        )
+        tp = time.perf_counter()
+        stats.encode_s += tp - te
+        plan = None
+        if self.pruning is not None:
+            # Cut against the initial snapshot: free only shrinks while
+            # draining, so these candidates cover every later state.
+            plan = plan_candidates(self.snapshot, batch, self.pruning)
+            stats.prune_s += time.perf_counter() - tp
+        if plan is not None:
+            stats.pruned_waves += 1
+            stats.candidate_nodes = max(stats.candidate_nodes, plan.count)
+            stats.candidate_pad = max(stats.candidate_pad, plan.pad)
+        return {"shape": ws[1], "pad": pad, "batch": batch, "decode": decode, "plan": plan,
+                "escalated": False}
+
+    # ---- dispatch ------------------------------------------------------------
 
     def _solve(self, rec, free, ok_g, plan):
         if self.pstack is not None:
@@ -234,58 +311,381 @@ class _Chain:
             self.params, ok_g, device=self.dev, domains=self.domains, plan=plan,
         )
 
-    def dispatch(self, rec) -> None:
-        """Solve one wave from the current carry and advance the carry. A
-        pruned wave keeps a copy of the carry it entered with."""
-        td = time.perf_counter()
-        if rec["plan"] is not None:
+    def _stage(self, holder: dict, planes) -> None:
+        """Copy verdict planes toward the host right behind their launch: on
+        the card into pinned buffers without blocking, with an event
+        recorded behind the copies (a fetch waits on that event alone)."""
+        holder["ok_np"] = None
+        if self.dev.type != "cuda":
+            holder["host"], holder["event"] = planes, None
+            return
+        host = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in planes]
+        for h, p in zip(host, planes):
+            h.copy_(p, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        holder["host"], holder["event"] = host, event
+        self._last_event = event
+
+    def _dispatch(self, rec: dict) -> None:
+        """Dispatch (or re-dispatch) one wave from the current carry and
+        advance the carry; a per-wave dispatch supersedes any scan chunk the
+        record was part of."""
+        rec.pop("scan_group", None)
+        rec.pop("scan_pos", None)
+        self.stats.dispatches += 1
+        if self.retain_carries:
+            # Copies: the launch updates the carry in place.
             rec["free_in"], rec["okg_in"] = self.free.clone(), self.ok_g.clone()
         res = self._solve(rec, self.free, self.ok_g, rec["plan"])
+        self._stage(rec, (res.ok, res.placement_score, res.assigned))
         self.free, self.ok_g = res.free_after, res.ok_global
-        rec["res"] = res
-        self.stats.dispatch_s += time.perf_counter() - td
 
-    def harvest(self, recs) -> None:
-        """One synchronise; the verdicts of `recs` and the carry's free come
-        to the host."""
+    def _dispatch_one(self, rec: dict) -> None:
+        """Dispatch one encoded record and enqueue it for retirement."""
+        ts = time.perf_counter()
+        self._dispatch(rec)
+        self.stats.dispatch_s += time.perf_counter() - ts
+        self.stats.waves += 1
+        self.inflight.append(rec)
+
+    def _retire_down(self) -> None:
+        if self.retire_lag is not None:
+            while len(self.inflight) > self.retire_lag:
+                self._retire_next()
+
+    def submit(self, ws) -> None:
+        """Encode + dispatch one planned wave, then retire down to the
+        pipeline depth."""
+        self._dispatch_one(self._encode_rec(ws))
+        self._retire_down()
+
+    # ---- the scan (B4) -------------------------------------------------------
+
+    def _scan_subkey(self, rec: dict) -> tuple:
+        """Records that stack into one scan chunk: the same optional batch
+        planes and, pruned, the same candidate pad and fleet."""
+        b = rec["batch"]
+        presence = (b.reuse_nodes is None, b.group_node_ok is None, b.spread_level is None)
+        plan = rec["plan"]
+        if plan is None:
+            return ("dense", presence)
+        return ("pruned", presence, plan.pad, plan.fleet_pad)
+
+    def submit_scan(self, class_waves: list) -> None:
+        """Encode a run of same-(shape, pad) planned waves and dispatch it as
+        scan chunks of up to `max_scan_len` waves, one launch each. Runs
+        (and sub-runs split by _scan_subkey) shorter than
+        `min_waves_per_class` dispatch wave by wave. Records retire as
+        usual, each chunk fetched once."""
+        scan = self.scan
+        if scan is None or not scan.enabled:
+            for ws in class_waves:
+                self.submit(ws)
+            return
+        recs = [self._encode_rec(ws) for ws in class_waves]
+        min_run = max(1, int(scan.min_waves_per_class))
+        max_len = max(1, int(scan.max_scan_len))
+        i = 0
+        while i < len(recs):
+            j = i
+            key = self._scan_subkey(recs[i])
+            while j < len(recs) and self._scan_subkey(recs[j]) == key:
+                j += 1
+            run = recs[i:j]
+            for k in range(0, len(run), max_len):
+                chunk = run[k : k + max_len]
+                if len(chunk) < min_run:
+                    for rec in chunk:
+                        self._dispatch_one(rec)
+                else:
+                    self._dispatch_scan_chunk(chunk)
+                self._retire_down()
+            i = j
+
+    def _solve_scan_chunk(self, run: list[dict], free_in, okg_in):
+        """Stack one run's batches (and plans) on a leading wave axis and
+        solve the run as one scan from the given carry. No null waves pad
+        the axis: the port has no compile cache to share shapes with."""
+        if run[0]["plan"] is not None:
+            sp = stack_plans([r["plan"] for r in run], [r["batch"] for r in run], self.dev)
+            return scan_pruned_solve(
+                free_in, sp.cand_idx, sp.capacity, sp.schedulable, sp.node_domain_id, sp.batch,
+                self.params, okg_in, retain=self.retain_carries, device=self.dev,
+                domains=sp.domains,
+            )
+        return scan_solve(
+            free_in, self.capacity, self.schedulable, self.node_domain_id,
+            stack_batches([r["batch"] for r in run]), self.params, okg_in,
+            retain=self.retain_carries, device=self.dev, domains=self.domains,
+        )
+
+    def _commit_scan_chunk(self, run: list[dict], res) -> None:
+        """Bind one solved chunk's planes onto its records (one host copy
+        for the chunk, every record a step of it) and advance the carry."""
+        group: dict = {}
+        self._stage(group, (res.ok, res.placement_score, res.assigned))
+        for i, rec in enumerate(run):
+            rec.update(
+                ok_np=None,
+                free_in=res.free_in[i] if self.retain_carries else None,
+                okg_in=res.okg_in[i] if self.retain_carries else None,
+                scan_group=group,
+                scan_pos=i,
+            )
+        self.free, self.ok_g = res.free_after, res.ok_global
+
+    def _dispatch_scan_chunk(self, run: list[dict]) -> None:
+        """Dispatch one chunk as a scan, then enqueue its records."""
+        ts = time.perf_counter()
+        res = self._solve_scan_chunk(run, self.free, self.ok_g)
+        self._commit_scan_chunk(run, res)
+        self.inflight.extend(run)
+        stats = self.stats
+        stats.waves += len(run)
+        stats.dispatches += 1
+        stats.scan_chunks += 1
+        stats.scanned_waves += len(run)
+        stats.dispatch_s += time.perf_counter() - ts
+
+    # ---- retirement ----------------------------------------------------------
+
+    def _host_planes(self, holder: dict) -> None:
+        """The staged planes as numpy arrays (their copies are complete)."""
+        holder["ok_np"], holder["score_np"], holder["assigned_np"] = (
+            p.numpy() for p in holder.pop("host")
+        )
+        holder.pop("event", None)
+
+    def _fetch(self, rec: dict) -> None:
+        """Make this wave's verdicts host-visible: wait on its own event
+        (later waves keep computing). A scan chunk's records share one
+        fetch."""
+        if rec.get("ok_np") is not None:
+            return
         th = time.perf_counter()
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        for r in recs:
-            res = r["res"]
-            r["ok_np"] = res.ok.cpu().numpy()
-            r["score_np"] = res.placement_score.cpu().numpy()
-            r["assigned_np"] = res.assigned.cpu().numpy()
-        self.stats.free_after = self.free.cpu().numpy()
-        self.stats.device_roundtrips += 1
+        group = rec.get("scan_group")
+        if group is not None:
+            self._fetch_scan_group(group)
+            i = rec["scan_pos"]
+            rec["ok_np"] = group["ok_np"][i]
+            rec["score_np"] = group["score_np"][i]
+            rec["assigned_np"] = group["assigned_np"][i]
+        else:
+            if rec["event"] is not None:
+                rec["event"].synchronize()
+            self._host_planes(rec)
+            self.stats.device_roundtrips += 1
         self.stats.harvest_s += time.perf_counter() - th
 
-    def escalate(self, rec, later) -> None:
-        """Re-solve a lossy-rejected pruned wave dense from its entering
-        carry. Identical verdicts confirm the pruned result; changed ones
-        adopt the dense result and re-chain every later wave from the
-        adopted carry."""
+    def _fetch_scan_group(self, group: dict) -> None:
+        """One wait for a scan chunk's planes (the first retiring record of
+        the chunk pays it)."""
+        if group.get("ok_np") is not None:
+            return
+        if group["event"] is not None:
+            group["event"].synchronize()
+        self._host_planes(group)
+        self.stats.device_roundtrips += 1
+
+    def _rechain_inflight(self) -> None:
+        """Re-dispatch every wave still in flight from the current carry (the
+        adoption point). With the scan on, consecutive records of one shape,
+        pad and subkey re-chain as fused chunks (counted on scan_rechains,
+        not scan_chunks); runs too short to fuse re-dispatch wave by wave."""
+        scan = self.scan
+        if scan is None or not scan.enabled or len(self.inflight) < 2:
+            for rec2 in self.inflight:
+                rec2["escalated"] = False
+                self._dispatch(rec2)
+            return
+        min_run = max(1, int(scan.min_waves_per_class))
+        max_len = max(1, int(scan.max_scan_len))
+
+        def key(rec):
+            return rec["shape"], rec["pad"], self._scan_subkey(rec)
+
+        n = len(self.inflight)
+        i = 0
+        while i < n:
+            j = i
+            while j < n and key(self.inflight[j]) == key(self.inflight[i]):
+                j += 1
+            run = self.inflight[i:j]
+            for k in range(0, len(run), max_len):
+                chunk = run[k : k + max_len]
+                for rec2 in chunk:
+                    rec2["escalated"] = False
+                if len(chunk) < min_run:
+                    for rec2 in chunk:
+                        self._dispatch(rec2)
+                    continue
+                res = self._solve_scan_chunk(chunk, self.free, self.ok_g)
+                self._commit_scan_chunk(chunk, res)
+                self.stats.dispatches += 1
+                self.stats.scan_rechains += 1
+            i = j
+
+    def _retire_next(self) -> None:
+        rec = self.inflight[0]
+        self._fetch(rec)
+        self.inflight.pop(0)
+        self._finalize(rec)
+
+    def _escalate(self, rec: dict) -> None:
+        """A lossy-rejected pruned wave re-solves dense from its entering
+        carry: the same verdicts CONFIRM the pruned result; changed ones
+        ADOPT the dense result and re-chain every wave still in flight."""
         stats = self.stats
+        rec["escalated"] = True
         stats.escalations += 1
+        stats.dispatches += 1
         th = time.perf_counter()
+        # Copies: the launch updates its carry in place.
         dense = self._solve(rec, rec["free_in"].clone(), rec["okg_in"].clone(), None)
-        dense_ok = dense.ok.cpu().numpy()
+        held: dict = {}
+        self._stage(held, (dense.ok, dense.placement_score, dense.assigned))
+        if held["event"] is not None:
+            held["event"].synchronize()
+        self._host_planes(held)
         stats.device_roundtrips += 1
         stats.harvest_s += time.perf_counter() - th
-        if np.array_equal(dense_ok, rec["ok_np"]):
+        if np.array_equal(held["ok_np"], rec["ok_np"]):
             return
         stats.escalations_adopted += 1
-        rec.update(
-            res=dense,
-            plan=None,
-            ok_np=dense_ok,
-            score_np=dense.placement_score.cpu().numpy(),
-            assigned_np=dense.assigned.cpu().numpy(),
-        )
+        rec.update(held, plan=None)  # dense verdicts: fleet ordinals already
         self.free, self.ok_g = dense.free_after, dense.ok_global
-        if not later:
-            stats.free_after = self.free.cpu().numpy()
+        self._rechain_inflight()
+
+    def _finalize(self, rec: dict) -> None:
+        """Escalate if needed, then commit: stamp, decode, bind."""
+        stats = self.stats
+        if rec["plan"] is not None and not rec["escalated"]:
+            lossy = lossy_rejections(rec["plan"], rec["batch"].gang_valid, rec["ok_np"])
+            if bool(lossy.any()):
+                self._escalate(rec)
+        stamp = time.perf_counter() - self.t0
+        if self.record_stamps:
+            stats.wave_latencies.append((int(rec["ok_np"].sum()), stamp))
+        td = time.perf_counter()
+        wave_bindings = decode_bindings(rec["ok_np"], rec["assigned_np"], rec["decode"],
+                                        self.snapshot)
+        stats.decode_s += time.perf_counter() - td
+        tb = time.perf_counter()
+        stats.scores.extend(rec["score_np"][rec["ok_np"]].tolist())
+        for gang_name, pod_bindings in wave_bindings.items():
+            self.bindings[gang_name] = pod_bindings
+            stats.admitted += 1
+            stats.pods_bound += len(pod_bindings)
+        stats.bind_s += time.perf_counter() - tb
+
+    def harvest_inflight(self) -> None:
+        """Make every in-flight wave's verdicts host-visible with one wait on
+        the newest event (every earlier copy is ahead of it on the stream):
+        the single round trip of the chained and resident disciplines. A
+        no-op when nothing is unfetched."""
+        plain = [r for r in self.inflight
+                 if r.get("scan_group") is None and r.get("ok_np") is None]
+        groups: dict[int, dict] = {}
+        for r in self.inflight:
+            g = r.get("scan_group")
+            if g is not None and g.get("ok_np") is None:
+                groups[id(g)] = g
+        if not plain and not groups:
             return
-        for r in later:
-            self.dispatch(r)
-        self.harvest(later)
+        th = time.perf_counter()
+        if self._last_event is not None:
+            self._last_event.synchronize()
+        for holder in plain + list(groups.values()):
+            self._host_planes(holder)
+        self.stats.harvest_s += time.perf_counter() - th
+        self.stats.device_roundtrips += 1
+
+    def flush(self) -> None:
+        """Retire everything still in flight; the chained and resident
+        disciplines harvest it first with one wait."""
+        if self.retire_lag is None:
+            self.harvest_inflight()
+        while self.inflight:
+            self._retire_next()
+
+
+def class_runs(planned):
+    """Consecutive same-(shape, pad) runs of planned waves: plan_waves emits
+    each class's waves together within a rank, so these are the scan's
+    groups."""
+    i = 0
+    while i < len(planned):
+        j = i
+        while j < len(planned) and planned[j][1:] == planned[i][1:]:
+            j += 1
+        yield planned[i:j]
+        i = j
+
+
+def drain_backlog(
+    gangs: list,
+    pods_by_name: dict,
+    snapshot,
+    *,
+    wave_size: int = 256,
+    params: SolverParams | None = None,
+    harvest: str = "chained",
+    depth: int = 2,
+    scan: ScanConfig | None = None,
+    pruning: PruningConfig | None = None,
+    portfolio: int = 1,
+    device=None,
+) -> tuple[dict[str, dict[str, str]], DrainStats]:
+    """Admit a whole backlog; returns ({gang: {pod: node}}, DrainStats).
+
+    All-or-nothing per gang; scaled gangs wait for their base's verdict on
+    the device. `harvest` picks the discipline (HARVEST_MODES, see the module
+    docstring), `depth` the waves in flight under "pipeline" and "scan", and
+    `scan` the ScanConfig of "scan" and "resident" (None = defaults; with a
+    disabled config, or `portfolio` > 1, both run as "pipeline"). `pruning`
+    (enabled) solves each wave on its candidate axis, with the escalation
+    described in the module docstring; `portfolio` > 1 solves every wave
+    under that many weight variants (pruning is then off). `device` None
+    means the card; "cpu" runs the plain PyTorch versions."""
+    if harvest not in HARVEST_MODES:
+        raise ValueError(f"harvest must be one of {'|'.join(HARVEST_MODES)}, got {harvest!r}")
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    dev = resolve_device(device)
+    params = params or SolverParams()
+    if pruning is not None and not pruning.enabled:
+        pruning = None
+    scan_cfg = None
+    if harvest in ("scan", "resident"):
+        scan_cfg = scan if scan is not None else ScanConfig()
+        if not scan_cfg.enabled or portfolio > 1:
+            # The same pipelined semantics, no fusion on the card.
+            harvest, scan_cfg = "pipeline", None
+    if portfolio > 1:
+        pruning = None  # the JAX package never prunes a portfolio solve
+    stats = DrainStats(gangs=len(gangs), harvest=harvest,
+                       depth=depth if harvest in ("pipeline", "scan") else 0,
+                       portfolio=portfolio)
+    if not gangs:
+        return {}, stats
+    waves = plan_waves(gangs, wave_size)
+    retire_lag = {"chained": None, "wave": 0, "pipeline": depth, "scan": depth,
+                  "resident": None}[harvest]
+    engine = _WavePipeline(
+        gangs=gangs, pods_by_name=pods_by_name, snapshot=snapshot, params=params, stats=stats,
+        dev=dev, pruning=pruning, portfolio=portfolio, retire_lag=retire_lag,
+        record_stamps=harvest in ("wave", "pipeline", "scan"), scan=scan_cfg,
+    )
+    t0 = time.perf_counter()
+    engine.t0 = t0
+    if harvest in ("scan", "resident"):
+        for run in class_runs(waves):
+            engine.submit_scan(run)
+    else:
+        for ws in waves:
+            engine.submit(ws)
+    engine.flush()
+    stats.free_after = engine.free.cpu().numpy()
+    stats.total_s = time.perf_counter() - t0
+    return engine.bindings, stats

@@ -107,6 +107,15 @@ class GangDecodeInfo:
         return gi.astype(np.int32), sj.astype(np.int32), pod_arr[gi, sj]
 
 
+def stack_batches(batches: list) -> GangBatch:
+    """Batches of one shape stacked field by field on a leading [W] axis
+    (a scan chunk's input; drain.py `_solve_scan_chunk`'s stack_tree)."""
+    return GangBatch(*(
+        None if fields[0] is None else np.stack([np.asarray(x) for x in fields])
+        for fields in zip(*batches)
+    ))
+
+
 def _level_index(snapshot: ClusterSnapshot, label_key: str | None) -> int:
     """Node-label key (IR constraint) → topology level index in the snapshot."""
     if label_key is None:

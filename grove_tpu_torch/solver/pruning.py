@@ -13,6 +13,8 @@
    (`gather_batch`). On the card the carry gather, the scatter back and the
    remap of `assigned` to fleet ordinals (B3) run inside the place_wave
    launch; their plain versions are in solver/reference.py.
+   `stack_plans` stacks a scan chunk's plans on a leading [W] axis for
+   the pruned scan (B4).
 3. Each gang carries a lossy witness: True iff some excluded schedulable
    node had free capacity in a resource the gang demands. A rejected gang
    whose witness is set must be re-solved dense before the rejection stands
@@ -31,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from grove_tpu_torch.solver.encode import GangBatch, next_pow2
+from grove_tpu_torch.solver.encode import GangBatch, next_pow2, stack_batches
 
 _EPS = 1e-6
 
@@ -158,6 +160,41 @@ class CandidatePlan:
             if 0 <= lvl < len(self._remap):
                 out[gi, si] = self._remap[lvl].get(int(pinned[gi, si]), self.count)
         return out
+
+
+class StackedPlans(NamedTuple):
+    """A scan chunk's plans on a leading [W] axis, on one device."""
+
+    cand_idx: torch.Tensor  # i32 [W, pad] each plan's padded_idx
+    capacity: torch.Tensor  # f32 [W, pad, R]
+    schedulable: torch.Tensor  # bool [W, pad]
+    node_domain_id: torch.Tensor  # i32 [W, L, pad]
+    batch: GangBatch  # each wave's batch gathered onto its candidate axis, [W, ...]
+    domains: object  # kernels.place_wave.DomainIndex with [W, ...] fields on the card, else None
+
+
+def stack_plans(plans: list, batches: list, device) -> StackedPlans:
+    """Stack the plans of a scan chunk (same pad, same fleet) and their
+    gathered batches on a leading [W] axis in host memory, then upload each
+    array once, without blocking (drain.py `_solve_scan_chunk`'s pruned
+    branch). On the card the stacked DomainIndex comes along."""
+    from grove_tpu_torch.solver.core import batch_to, to_device
+
+    device = torch.device(device)
+    host = (
+        np.stack([p.padded_idx() for p in plans]),
+        np.stack([np.asarray(p.capacity, np.float32) for p in plans]),
+        np.stack([np.asarray(p.schedulable, bool) for p in plans]),
+        np.stack([np.asarray(p.node_domain_id, np.int32) for p in plans]),
+    )
+    domains = None
+    if device.type == "cuda":
+        from grove_tpu_torch.kernels.place_wave import domain_index_stacked
+
+        domains = domain_index_stacked(host[3], device)
+    gathered = stack_batches([p.gather_batch(b) for p, b in zip(plans, batches)])
+    return StackedPlans(*(to_device(x, device) for x in host), batch_to(gathered, device),
+                        domains)
 
 
 def candidate_pad(count: int, cfg: PruningConfig) -> int:

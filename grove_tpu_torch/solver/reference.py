@@ -20,7 +20,9 @@ same inputs and layout, op for op:
     `scatter_free` / `remap_assigned`) is torch index ops around the solve;
   - B5 (core.py `stacked_solve_batch_impl`, parallel/portfolio.py
     `_objective` / `portfolio_solve_batch`) is a loop over the weight rows,
-    and the winner's quality sum adds in XLA's CPU order (`xla_sum_ref`).
+    and the winner's quality sum adds in XLA's CPU order (`xla_sum_ref`);
+  - B4 (core.py `scan_solve_fn` / `scan_pruned_solve_fn`) is a loop over
+    the leading wave axis that threads (free, ok_global) from step to step.
 
 The CPU tests hold these against the JAX package, and `chip_smoke.py` holds
 the CUDA kernel (`grove_tpu_torch/kernels/place_wave.py`) against them on the
@@ -582,3 +584,71 @@ def portfolio_select_ref(assigned, ok, score, free_after, batch: GangBatch, ok_g
         scatter_global_ok_ref(batch, ok[w], ok_global),
         torch.tensor(w, dtype=torch.int32, device=ok.device), objectives,
     )
+
+
+# ---- B4: W waves in one program, the carry threaded from step to step -------
+
+
+def _step(stacked_batch: GangBatch, w: int) -> GangBatch:
+    return GangBatch(*(None if x is None else x[w] for x in stacked_batch))
+
+
+def _scan_out(rows, free_in, okg_in, free, okg, retain):
+    """(assigned [W, G, MP], ok [W, G], score [W, G], free_in [W, N, R] or
+    None, okg_in [W, T] or None, free_after, ok_global)."""
+    assigned, ok, score = (torch.stack([r[i] for r in rows]) for i in range(3))
+    return (
+        assigned, ok, score,
+        torch.stack(free_in) if retain else None,
+        torch.stack(okg_in) if retain and okg is not None else None,
+        free, okg,
+    )
+
+
+def scan_solve_ref(free0, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
+                   params, ok_global=None, retain=False):
+    """W waves solved one after another, each from the carry the previous
+    one left (core.py `scan_solve_fn`): step w is `solve_batch_ref` on wave
+    w of `stacked_batch` (every field with a leading [W] axis) from the
+    (free, ok_global) that step w - 1 returned. With `retain` each step's
+    entering free and ok_global are kept.
+
+    Returns (assigned i32 [W, G, MP], ok bool [W, G], score f32 [W, G],
+    free_in f32 [W, N, R] or None, okg_in bool [W, T] or None, free_after,
+    ok_global)."""
+    free, okg = free0, ok_global
+    rows, free_in, okg_in = [], [], []
+    for w in range(stacked_batch.gang_valid.shape[0]):
+        free_in.append(free)
+        okg_in.append(okg)
+        assigned, ok, score, free, okg = solve_batch_ref(
+            free, capacity, schedulable, node_domain_id, _step(stacked_batch, w), params, okg
+        )
+        rows.append((assigned, ok, score))
+    return _scan_out(rows, free_in, okg_in, free, okg, retain)
+
+
+def scan_pruned_solve_ref(free0, cand_idx, capacity_p, schedulable_p, node_domain_id_p,
+                          stacked_batch: GangBatch, params, ok_global=None, retain=False):
+    """The candidate-pruned scan (core.py `scan_pruned_solve_fn`): step w is
+    `solve_pruned_ref` on wave w's candidate axis — `cand_idx[w]` (pad rows
+    point past the fleet, so they gather 0 and scatter nowhere),
+    `capacity_p[w]`, `schedulable_p[w]`, `node_domain_id_p[w]` and the
+    candidate-axis wave w of `stacked_batch` — from the fleet carry step
+    w - 1 left. Its candidates are the rows of `cand_idx[w]` inside the
+    fleet, which come first. The retained `free_in` is fleet-shaped.
+
+    Returns what scan_solve_ref returns, `assigned` in fleet ordinals."""
+    nf = free0.shape[0]
+    free, okg = free0, ok_global
+    rows, free_in, okg_in = [], [], []
+    for w in range(stacked_batch.gang_valid.shape[0]):
+        free_in.append(free)
+        okg_in.append(okg)
+        count = int((cand_idx[w] < nf).sum())
+        assigned, ok, score, free, okg = solve_pruned_ref(
+            free, capacity_p[w], schedulable_p[w], node_domain_id_p[w], _step(stacked_batch, w),
+            params, okg, cand_idx[w], count,
+        )
+        rows.append((assigned, ok, score))
+    return _scan_out(rows, free_in, okg_in, free, okg, retain)

@@ -30,6 +30,7 @@ import torch
 from grove_tpu_torch.kernels import build
 from grove_tpu_torch.kernels import place_wave as pwm
 from grove_tpu_torch.solver.core import SolverParams, batch_to
+from grove_tpu_torch.solver.encode import GangBatch, gang_shape, next_pow2, stack_batches
 from grove_tpu_torch.solver.drain import drain_backlog
 from grove_tpu_torch.solver.pruning import PruningConfig, plan_candidates
 from grove_tpu_torch.parallel.portfolio import params_population
@@ -372,8 +373,7 @@ def test_pruned_solve_batch_on_card_counts_a_pruned_launch(cuda):
                       plan=plan)
     want = solve_batch(snap.free, snap.capacity, snap.schedulable, snap.node_domain_id, batch,
                        plan=plan, device="cpu")
-    assert pwm.place_wave.variant_launches == {"dense": 0, "pruned": 1, "stacked": 0,
-                                               "portfolio": 0}
+    assert pwm.place_wave.variant_launches == {**dict.fromkeys(pwm.VARIANTS, 0), "pruned": 1}
     for name, a, b in zip(FIELDS[:4], res, want):
         assert torch.equal(a.cpu(), b), name
 
@@ -1106,3 +1106,260 @@ def test_stacked_select_is_deterministic_over_20_launches(cuda):
     for run in runs[1:]:
         for name, a, b in zip(FIELDS + ("winner", "objectives"), run, runs[0]):
             assert torch.equal(a, b), f"{name} differs between launches"
+
+
+# ---- B4: the scan launch -------------------------------------------------------
+
+SCAN_CASES = ["dense", "gated", "spread", "pruned", "pruned_clipped"]
+SCAN_OUT = ("assigned", "ok", "placement_score", "free_in", "okg_in", "free_after", "ok_global")
+
+
+def _spread_steps():
+    """bench_spread's gangs in three waves of one shape, its replicas spread
+    across zones, then the first wave once more: the family rows must start
+    empty at every step, or the repeat would see the rows its families left
+    the first time."""
+    gangs, pods, snap = SCENARIOS["bench_spread"](PORT)
+    gidx = {g.name: i for i, g in enumerate(gangs)}
+    shape = tuple(max(_padded_shape(g)[k] for g in gangs) for k in range(3))
+    size = -(-len(gangs) // 3)
+    steps = [PORT.encode_gangs(gangs[k : k + size], pods, snap, max_groups=shape[0],
+                               max_sets=shape[1], max_pods=shape[2], pad_gangs_to=size,
+                               global_index_of=gidx)[0]
+             for k in range(0, len(gangs), size)]
+    assert len(steps) == 3 and all(s.spread_level is not None for s in steps)
+    steps.append(steps[0])
+    steps.append(GangBatch(*(None if x is None else np.zeros_like(x) for x in steps[0])))
+    return snap, steps, np.zeros(len(gangs), bool)
+
+
+def _padded_shape(g):
+    mg, ms, mp = gang_shape(g)
+    return mg, max(ms, 1), next_pow2(mp)
+
+
+def scan_case(case):
+    """(snapshot, steps [port GangBatch of numpy], ok_global, plans or None):
+    a chunk whose steps share one shape, ending in a null wave where the
+    drain's padding would put one — "dense" and "pruned": a base gang in one
+    step gates its scaled gangs in the next, admitted and rejected
+    (test_torch_scan.scan_chunk); "gated": the same under a seeded entering
+    ok_global; "spread": the replica-spread planes in every step;
+    "pruned_clipped": plans that clip the candidate budget."""
+    from test_torch_scan import _port_stacked, scan_chunk
+
+    if case == "spread":
+        snap, steps, okg = _spread_steps()
+        return snap, steps, okg, None
+    rs, ref_steps, rg = scan_chunk()
+    stacked = _port_stacked(ref_steps)
+    steps = [GangBatch(*(None if x is None else x[w].numpy() for x in stacked))
+             for w in range(len(ref_steps))]
+    okg = np.zeros(len(rg), bool)
+    if case == "gated":
+        okg = np.random.default_rng(5).random(len(rg)) < 0.5
+    plans = None
+    if case.startswith("pruned"):
+        cfg = PruningConfig(enabled=True, max_candidates=63 if case == "pruned" else 40,
+                            min_fleet=16, min_pad=64)
+        plans = [plan_candidates(rs, b, cfg) for b in steps[:-1]] + [None]
+        assert all(p is not None and p.pad == 64 for p in plans[:-1])
+        assert case == "pruned" or any(p.clipped for p in plans[:-1])
+    return rs, steps, okg, plans
+
+
+def _pruned_stack(plans, steps, snap, dev):
+    """The pruned scan's stacked inputs; a None plan is a null step whose
+    gather map points past the fleet everywhere."""
+    from grove_tpu_torch.solver.pruning import stack_plans
+
+    real = [(p, b) for p, b in zip(plans, steps) if p is not None]
+    sp = stack_plans([p for p, _ in real], [b for _, b in real], "cpu")
+    n_null = len(plans) - len(real)
+    nf = snap.capacity.shape[0]
+
+    def pad(t, fill=0):
+        return torch.cat([t, torch.full((n_null,) + tuple(t.shape[1:]), fill, dtype=t.dtype)])
+
+    cand = pad(sp.cand_idx, nf)
+    ndid = pad(sp.node_domain_id)
+    tb = GangBatch(*(None if x is None else pad(x) for x in sp.batch))
+    return (cand.to(dev), pad(sp.capacity).to(dev), pad(sp.schedulable).to(dev), ndid.to(dev),
+            batch_to(tb, dev), pwm.domain_index_stacked(ndid, dev))
+
+
+def _scan_vs_plain(launch, case, dev, retain=True, plane_words=None):
+    """One scan launch (the kernel on the card or compiled for the host)
+    against the plain scan, exactly, on every output; returns the plain
+    outputs and the case."""
+    from grove_tpu_torch.solver.reference import scan_pruned_solve_ref, scan_solve_ref
+
+    snap, steps, okg_np, plans = scan_case(case)
+    free, cap, sched, ndid = _node_tensors(snap, dev)
+    okg = torch.as_tensor(okg_np, device=dev)
+    if plans is None:
+        tb = batch_to(stack_batches(steps), dev)
+        node = (cap, sched, ndid)
+        domains, cand = pwm.domain_index(ndid.cpu(), dev), None
+        want = scan_solve_ref(free.clone(), cap, sched, ndid, tb, SolverParams(), okg.clone(),
+                              retain)
+    else:
+        cand, *node, tb, domains = _pruned_stack(plans, steps, snap, dev)
+        want = scan_pruned_solve_ref(free.clone(), cand, *node, tb, SolverParams(), okg.clone(),
+                                     retain)
+    okg_k = okg.clone()
+    args, smem, out, _keep = pwm.build_scan_args(free, *node, tb, SolverParams(), okg_k, domains,
+                                                 cand, retain, plane_words=plane_words)
+    launch(args, smem)
+    got = (out["assigned"], out["ok"], out["score"], out["free_in"], out["okg_in"], free, okg_k)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    for name, a, b in zip(SCAN_OUT, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert torch.equal(a, b), f"scan {name}: kernel != plain at {torch.nonzero(a != b)[:8].tolist()}"
+    ok = want[1].cpu()
+    assert ok[:-1].any(dim=1).all() and not ok[-1].any(), "every step but the null one admits"
+    if retain:
+        assert torch.equal(want[3][-1], want[5]), "the null step moved the carry"
+    return want, (snap, steps, okg_np, plans)
+
+
+def _card_scan_launch(args, smem):
+    fn = build.load("place_wave").place_wave_scan_launch
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    assert fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream, smem) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def host_scan(host_lib):
+    fn = host_lib.place_wave_scan_launch
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launch(args, smem):
+        assert fn(ctypes.byref(args), None, smem) == 0
+
+    return launch
+
+
+@pytest.mark.parametrize("staging", ["whole", "chunked"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_kernel_source_on_host_scan_equals_plain(host_scan, case, staging):
+    words = None
+    if staging == "chunked":
+        words = min_plane_words(batch_to(scan_case(case)[1][0], "cpu"))
+    _scan_vs_plain(host_scan, case, "cpu", plane_words=words)
+
+
+def test_kernel_source_on_host_scan_without_retain(host_scan):
+    _scan_vs_plain(host_scan, "gated", "cpu", retain=False)
+
+
+def _steps_vs_single_launches(launch_scan, launch_single, case, dev):
+    """Every step of the scan equals a single place_wave launch on the carry
+    that step entered with, bit for bit."""
+    want, (snap, steps, okg_np, plans) = _scan_vs_plain(launch_scan, case, dev)
+    _, cap, sched, ndid = _node_tensors(snap, dev)
+    for w, batch in enumerate(steps[:-1]):
+        free, okg = want[3][w].clone().to(dev), want[4][w].clone().to(dev)
+        node, extra = (cap, sched, ndid), (None, None)
+        domains = pwm.domain_index(ndid.cpu(), dev)
+        if plans is not None:
+            pt = plans[w].tensors("cpu")
+            node = tuple(t.to(dev) for t in (pt.capacity, pt.schedulable, pt.node_domain_id))
+            extra = (pt.cand_idx.to(dev), plans[w].count)
+            domains = pwm.domain_index(pt.node_domain_id, dev)
+            batch = plans[w].gather_batch(batch)
+        args, smem, out, _ = pwm.build_args(free, *node, batch_to(batch, dev), SolverParams(),
+                                            okg, domains, *extra)
+        launch_single(args, smem)
+        nxt = want[5] if w == len(steps) - 2 else want[3][w + 1]
+        single = (out["assigned"], out["ok"], out["score"], free)
+        for name, a, b in zip(FIELDS, single, (want[0][w], want[1][w], want[2][w], nxt)):
+            assert torch.equal(a, b.to(dev)), f"step {w} {name}: scan != single launch"
+
+
+@pytest.mark.parametrize("case", ["gated", "spread", "pruned"])
+def test_kernel_source_on_host_scan_steps_equal_single_launches(host_scan, host_kernel, case):
+    _steps_vs_single_launches(host_scan, host_kernel, case, "cpu")
+
+
+def test_wrapper_fills_scan_args():
+    snap, steps, okg_np, plans = scan_case("pruned")
+    free, cap, sched, ndid = _node_tensors(snap, "cpu")
+    okg = torch.as_tensor(okg_np)
+    w_len = len(steps)
+    tb = batch_to(stack_batches(steps), "cpu")
+    g, mg, r = steps[0].group_req.shape
+    mp = steps[0].pod_group.shape[1]
+    nf = free.shape[0]
+    args, smem, out, keep = pwm.build_scan_args(free, cap, sched, ndid, tb, SolverParams(), okg,
+                                                pwm.domain_index(ndid, "cpu"), retain=True)
+    assert args.W == w_len and smem == pwm.PLANE_BYTES
+    assert (args.st_group_req, args.st_pod_group, args.st_gang_valid) == (g * mg * r, g * mp, g)
+    assert (args.st_capacity, args.st_dom_nodes, args.st_cand_idx) == (0, 0, 0)
+    assert (args.st_assigned, args.st_ok, args.st_score) == (g * mp, g, g)
+    assert (args.st_free_in, args.st_okg_in) == (nf * r, okg.shape[0])
+    assert args.st_ginv == g * pwm.INV_BYTES and keep["ginv"].numel() == w_len * g * pwm.INV_BYTES
+    assert args.st_reuse_nodes == 0 and args.reuse_nodes is None
+    assert out["free_in"].shape == (w_len, nf, r) and out["okg_in"].shape == (w_len, okg.shape[0])
+    assert out["assigned"].shape == (w_len, g, mp) and not out["ok"].any()
+    assert args.group_req == tb.group_req.data_ptr() and args.cand_counts is None
+    assert keep["carry"] is None, "a dense scan works on the fleet tensor itself"
+    # Pruned: the node tensors and domain index are per step too.
+    cand, *node, ptb, domains = _pruned_stack(plans, steps, snap, "cpu")
+    args, _, out, keep = pwm.build_scan_args(free, *node, ptb, SolverParams(), None, domains,
+                                             cand, retain=False)
+    cp = cand.shape[1]
+    assert (args.st_cand_idx, args.st_capacity, args.st_schedulable) == (cp, cp * r, cp)
+    assert (args.st_node_domain_id, args.st_dom_count) == (ndid.shape[0] * cp, ndid.shape[0])
+    assert args.st_dom_offsets == ndid.shape[0] * (cp + 1)
+    assert keep["cand_counts"].tolist() == [p.count for p in plans[:-1]] + [0]
+    assert args.free_in is None and args.okg_in is None and out["free_in"] is None
+    assert keep["carry"].numel() == cp * r, "one candidate carry, reused by every step"
+    with pytest.raises(ValueError, match="leading step axis"):
+        pwm.build_scan_args(free, *node, ptb._replace(gang_valid=ptb.gang_valid[:2]),
+                            SolverParams(), None, domains, cand)
+    with pytest.raises(ValueError, match="not contiguous"):
+        pwm.build_scan_args(free, *node, ptb._replace(pod_rank=ptb.pod_rank.transpose(1, 2)
+                                                      .contiguous().transpose(1, 2)),
+                            SolverParams(), None, domains, cand)
+
+
+def test_wrapper_refuses_cpu_tensors_for_the_scan():
+    snap, steps, okg_np, _ = scan_case("dense")
+    free, cap, sched, ndid = _node_tensors(snap, "cpu")
+    with pytest.raises(ValueError, match="CUDA device only"):
+        pwm.place_wave_scan(free, cap, sched, ndid, batch_to(stack_batches(steps), "cpu"),
+                            SolverParams(), domains=pwm.domain_index(ndid, "cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_kernel_equals_plain(cuda, case):
+    _scan_vs_plain(_card_scan_launch, case, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["gated", "spread", "pruned"])
+def test_scan_steps_equal_single_launches_on_card(cuda, case):
+    _steps_vs_single_launches(_card_scan_launch, _card_launch, case, cuda)
+
+
+@pytest.mark.gpu
+def test_scan_drain_on_card_counts_one_launch_per_chunk(cuda):
+    gangs, pods, snap = _bench(PORT, n=(18, 12, 15))
+    cpu_bindings, cpu_stats = drain_backlog(gangs, pods, snap, wave_size=4, harvest="scan",
+                                            device="cpu")
+    pwm.reset_launches()
+    bindings, stats = drain_backlog(gangs, pods, snap, wave_size=4, harvest="scan")
+    launches = pwm.place_wave.variant_launches
+    assert launches["scan"] == stats.scan_chunks > 0
+    assert launches["dense"] == stats.waves - stats.scanned_waves
+    assert bindings == cpu_bindings and np.array_equal(stats.free_after, cpu_stats.free_after)
+    for f in ("dispatches", "device_roundtrips", "scan_chunks", "scanned_waves"):
+        assert getattr(stats, f) == getattr(cpu_stats, f), f

@@ -7,7 +7,8 @@ CPU) against the JAX package's, on tests/test_pruning.py's fleets:
     in fleet ordinals, placement_score, free_after), the JAX plan carried
     across through grove_tpu_torch.convert;
   - the pruned chained drain binds exactly what the JAX pruned drain binds,
-    with the same escalation ledger, and admits the dense drain's set.
+    with the same escalation and round-trip ledger (dispatches,
+    device_roundtrips), and admits the dense drain's set.
 """
 
 from __future__ import annotations
@@ -198,7 +199,8 @@ def test_pruned_drain_equals_jax_pruned_drain(name):
     (rbind, rstats), (pbind, pstats), (dbind, dstats) = _drains(name)
     assert pbind == rbind and list(pbind) == list(rbind)
     for f in ("escalations", "escalations_adopted", "pruned_waves", "candidate_nodes",
-              "candidate_pad", "admitted", "pods_bound", "waves"):
+              "candidate_pad", "admitted", "pods_bound", "waves", "dispatches",
+              "device_roundtrips"):
         assert getattr(pstats, f) == getattr(rstats, f), f
     np.testing.assert_array_equal(np.asarray(pstats.scores), np.asarray(rstats.scores))
     assert set(pbind) == set(dbind) and pstats.admitted == dstats.admitted

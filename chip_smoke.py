@@ -72,10 +72,33 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               equal to the pruned chained drain's; CUDA-event times of each
               chunk beside the sum of its steps' single launches, kernel ms
               per drain, and the wave harvest's measured p50/p99
-  9. kernels  one JSON line: per kernel variant its launches on the main
+  9. sweep    the flight recorder, replay and the tuning sweep (B6): the
+              5120-node backlog drained "scan" at wave_size 32 with the
+              port's recorder attached (the chained drain's bindings, 40
+              waves journaled, none dropped, the record overhead against
+              the same drain unrecorded), replayed on the card with 0
+              divergences, and swept at K = 4 and 16 (the incumbent row:
+              0 divergences, the journal's admitted count; each run of
+              same-shape waves one "stacked_scan" launch, counts set to 0
+              before each sweep); every B6 launch's rows equal B5 stacked
+              launches of its waves and sampled rows single place_wave
+              launches, bit for bit; at K = 16 sampled rows of every B6
+              launch (first and last real waves, last wave, first and last
+              weight rows) against the plain version on the same card
+              inputs, tolerance 0; B6 against its plain version at a cut
+              depth as well (3 waves of 64 gangs in all, padded to 4 with a
+              null wave, K = 2; the plain version runs while nvcc builds);
+              each B6 launch's CUDA-event time beside its rows as
+              single launches and its waves as B5 launches, and the first
+              launch's beside its rounds of the slowest row; the 20480-node
+              pruned chained drain recorded, replayed and swept at K = 4
+              (candidate waves: the recorded gather, one dense B5 launch on
+              its arrays), and the JAX-recorded journal committed under
+              tests/data replayed and swept, all with 0 divergences
+ 10. kernels  one JSON line: per kernel variant its launches on the main
               path, its error against the plain version, its time, the
               plain version's time, its bound and a library call's time
- 10. the last line: {"ok": true, "device": {...}}
+ 11. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -143,7 +166,11 @@ def main() -> int:
     from grove_tpu_torch.solver.encode import encode_gangs
     from grove_tpu_torch.solver.pruning import PruningConfig, plan_candidates
     from grove_tpu_torch.parallel.portfolio import params_population
-    from grove_tpu_torch.solver.reference import solve_batch_ref, solve_pruned_ref
+    from grove_tpu_torch.solver.reference import (
+        solve_batch_ref,
+        solve_pruned_ref,
+        stacked_scan_solve_ref,
+    )
     from grove_tpu_torch.state import build_snapshot
 
     t_start = time.perf_counter()
@@ -313,6 +340,8 @@ def main() -> int:
             lambda: solve_batch_ref(*node_tensors(snap_4), tb4, params, okg0.clone()))
         plain["20480 pruned"] = timed(lambda: solve_pruned_ref(
             node_tensors(snap_4)[0], *pruned_args, okg0.clone(), pt4.cand_idx, plan4.count))
+        b6_case = sweep_case(dev, snap_b, gangs_b, pods_b)
+        plain["B6"] = timed(lambda: stacked_scan_solve_ref(*b6_case))
 
     nvcc_thread.join()
     build.load("place_wave")
@@ -647,7 +676,13 @@ def main() -> int:
 
     phase_done("8, scan")
 
-    # ---- 9. kernels line -----------------------------------------------------
+    # ---- 9. sweep: the flight recorder, replay and the tuning sweep (B6) -------
+    sw = sweep_phase(dev, card, timed, snap_b, gangs_b, pods_b, sc["chained32"], snap_4,
+                     scale_bindings[4.0, "pruned"], pruning, b6_case, plain["B6"])
+
+    phase_done("9, sweep")
+
+    # ---- 10. kernels line ----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": [
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
@@ -667,6 +702,7 @@ def main() -> int:
          "max_abs_err": pf["err"], "ms": pf["ms"], "plain_ms": pf["plain_ms"],
          "bound_ms": pf["bound"][0], "bound_by": pf["bound"][1], "library_ms": None},
         *sc["rows"],
+        sw["row"],
     ]}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -1024,7 +1060,7 @@ def scan_phase(dev, card, timed, node_tensors, encode_wave, snap, gangs, pods, c
         rows[ws]["per_drain_ms"] = total
     check(math.isfinite(rows[256]["per_drain_ms"]), "scan: no kernel time per drain")
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
-    return {"rows": [
+    return {"chained32": chained32, "rows": [
         {"name": "place_wave_scan(B4, dense)", "route": "cuda", "source": src,
          "replaces": "grove_tpu/solver/core.py:790", "launches": runs256["scan"][1]["scan"],
          "max_abs_err": 0.0, "ms": rows[256]["ms"], "plain_ms": rows[256]["plain_ms"],
@@ -1035,6 +1071,368 @@ def scan_phase(dev, card, timed, node_tensors, encode_wave, snap, gangs, pods, c
          "max_abs_err": 0.0, "ms": pscan_ms, "plain_ms": pplain_ms, "bound_ms": pbound[0],
          "bound_by": pbound[1], "library_ms": None},
     ]}
+
+
+def sweep_case(dev, snap, gangs, pods, wave_size=32):
+    """B6's inputs at a cut depth, on the card: the first three waves of the
+    first run of the backlog at wave_size 32, cut to 64 gangs (22, 21, 21) in waves of 32
+    slots, encoded as a journal's waves are (earlier admissions resolved on
+    the host), each from its own entering free (a
+    seeded quarter of the nodes at half their free capacity, a different
+    quarter each wave), then a null wave (zero free, all-invalid batch);
+    K = 2, the first two rows of the sweep's default grid. Returns the
+    arguments of stacked_scan_solve (free_stack, capacity, schedulable,
+    node_domain_id, stacked_batch, params_stack)."""
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.solver.core import SolverParams, batch_to
+    from grove_tpu_torch.solver.drain import class_runs, plan_waves
+    from grove_tpu_torch.solver.encode import GangBatch, encode_gangs, stack_batches
+    from grove_tpu_torch.tuning import SweepConfig, default_grid
+
+    rng = np.random.default_rng(6)
+    steps, frees = [], []
+    run = next(r for r in class_runs(plan_waves(gangs, wave_size)) if len(r) >= 3)
+    for cut, (wave, (mg, ms, mp), pad) in zip((22, 21, 21), run):
+        batch, _ = encode_gangs(wave[:cut], pods, snap, max_groups=mg, max_sets=ms,
+                                max_pods=mp, pad_gangs_to=pad)
+        steps.append(batch)
+        free = np.array(snap.free, dtype=np.float32)
+        half = rng.random(free.shape[0]) < 0.25
+        free[half] *= np.float32(0.5)
+        frees.append(free)
+    steps.append(GangBatch(*(None if x is None else np.zeros_like(x) for x in steps[0])))
+    frees.append(np.zeros_like(frees[0]))
+    grid = default_grid(SweepConfig("incumbent", tuple(SolverParams())), 2)
+    pstack = np.asarray([c.weights for c in grid], dtype=np.float32)
+    return (
+        torch.as_tensor(np.stack(frees), device=dev),
+        torch.as_tensor(snap.capacity, device=dev),
+        torch.as_tensor(snap.schedulable, device=dev),
+        torch.as_tensor(snap.node_domain_id, device=dev),
+        batch_to(stack_batches(steps), dev),
+        torch.as_tensor(pstack, device=dev),
+    )
+
+
+def sweep_phase(dev, card, timed, snap, gangs, pods, chained32, snap_4, pruned_chained_4,
+                pruning, b6_case, b6_plain) -> dict:
+    """Phase 9: record, replay and sweep on the card (the 5120-node fleet
+    `snap`, the 20480-node `snap_4`); B6 against its plain version on
+    `b6_case` (whose plain outputs and time, `b6_plain`, were taken while
+    nvcc built); returns the kernels line's B6 row."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import grove_tpu_torch.tuning.sweep as sweep_mod
+    from grove_tpu_torch.bench import record_drain
+    from grove_tpu_torch.kernels.place_wave import domain_index, place_wave, reset_launches
+    from grove_tpu_torch.solver.core import SolverParams, stacked_solve_batch
+    from grove_tpu_torch.solver.drain import drain_backlog
+    from grove_tpu_torch.solver.encode import GangBatch
+    from grove_tpu_torch.solver.reference import params_row, stacked_scan_solve_ref
+    from grove_tpu_torch.trace.recorder import journal_stats, read_journal
+    from grove_tpu_torch.trace.replay import replay_journal
+    from grove_tpu_torch.tuning import default_grid, incumbent_config, sweep_journal
+
+    params = SolverParams()
+    n, r = snap.capacity.shape
+    root = tempfile.mkdtemp(prefix="chip-smoke-journal-")
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def admitted_of(records):
+        return sum(1 for w in records if w.get("kind") == "wave" for v in w["ok"].values() if v)
+
+    def replay(label, records):
+        reset_launches()
+        rep, s = wall(lambda: replay_journal(records))
+        waves = sum(1 for x in records if x.get("kind") == "wave")
+        check(len(rep.waves) == waves and rep.divergence_count == 0,
+              f"sweep[{label}]: replay of {waves} waves: {rep.divergence_count} divergences")
+        print(f"replay[{label}]: {waves} waves, 0 divergences, wall {s:.4f} s, launches "
+              f"{dict(place_wave.variant_launches)} on {card}")
+        return s
+
+    captured = []
+    real_b6 = sweep_mod.stacked_scan_solve
+
+    def capture(*args, **kw):
+        out = real_b6(*args, **kw)
+        captured.append((args, kw, out))
+        return out
+
+    def sweep(label, records, k):
+        """One sweep with the counts set to 0 before it; the incumbent row
+        must reproduce the journal."""
+        captured.clear()
+        grid = default_grid(incumbent_config(records), k)
+        reset_launches()
+        sweep_mod.stacked_scan_solve = capture
+        try:
+            engine, s = wall(lambda: sweep_journal(records, grid))
+        finally:
+            sweep_mod.stacked_scan_solve = real_b6
+        launches = dict(place_wave.variant_launches)
+        inc = engine.tallies["incumbent"]
+        check(inc.divergences == 0 and inc.admitted == admitted_of(records),
+              f"sweep[{label}, K={k}]: incumbent {inc.divergences} divergences, admitted "
+              f"{inc.admitted} / {admitted_of(records)} in the journal")
+        check(launches["stacked_scan"] == engine.scan_stacked_solves
+              and launches["stacked"] == engine.stacked_solves,
+              f"sweep[{label}, K={k}]: launches {launches} for {engine.to_doc()}")
+        doc = engine.to_doc()
+        print(f"sweep[{label}, K={k}]: wall {s:.4f} s, waves {doc['waves']}, stackedSolves "
+              f"{doc['stackedSolves']}, scanStackedSolves {doc['scanStackedSolves']}, "
+              f"fallbackSolves {doc['fallbackSolves']}, incumbent 0 divergences, admitted "
+              f"{inc.admitted}; best {doc['configs'][0]['config']['name']} admitted "
+              f"{doc['configs'][0]['admitted']}; launches {launches} on {card}")
+        return engine, s, launches
+
+    try:
+        # ---- record: the scan drain at wave_size 32, journaled by the port -----
+        kw = dict(wave_size=32, params=params, harvest="scan")
+        _, unrec_s = wall(lambda: drain_backlog(gangs, pods, snap, **kw))
+        path = os.path.join(root, "scan32")
+        reset_launches()
+        b_rec, st_rec, rec, records, rwalls = record_drain(gangs, pods, snap, path, **kw)
+        rec_s = rwalls["drain_s"]
+        launches = dict(place_wave.variant_launches)
+        check(b_rec == chained32 and list(b_rec) == list(chained32),
+              "sweep[record]: the recorded drain's bindings differ from the chained drain's")
+        check(st_rec.waves == st_rec.journaled_waves == 40 and rec.dropped == 0
+              and journal_stats(path)["dropped"] == 0,
+              f"sweep[record]: {st_rec.journaled_waves}/{st_rec.waves} waves journaled, "
+              f"{rec.dropped} dropped")
+        check(launches["scan"] == st_rec.scan_chunks > 0,
+              f"sweep[record]: launches {launches} for {st_rec.scan_chunks} chunks")
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        print(f"record[{n} nodes, wave_size 32, scan]: {st_rec.journaled_waves} waves journaled, "
+              f"0 dropped, {nbytes} bytes; drain wall {rec_s:.4f} s against {unrec_s:.4f} s "
+              f"unrecorded ({rec_s / unrec_s:.4f}x; capture journal_s {st_rec.journal_s:.4f}, "
+              f"encode {st_rec.encode_s:.4f}, harvest {st_rec.harvest_s:.4f}), then the "
+              f"writer's flush {rwalls['flush_s']:.4f} s and the read back "
+              f"{rwalls['read_s']:.4f} s; the chained drain's bindings; launches {launches} "
+              f"on {card}")
+
+        # ---- replay, then the sweep at K = 4 and 16 ------------------------------
+        replay_s = replay(f"{n} nodes, scan", records)
+        walls, b6_rows, sampled, err = {}, None, [], 0.0
+        for k in (4, 16):
+            engine, walls[k], launches_k = sweep(f"{n} nodes, scan", records, k)
+            check(engine.scan_stacked_solves > 0, f"sweep[K={k}]: no B6 launch")
+            calls = list(captured)
+            # Every B6 launch's rows against B5 launches of its waves, and
+            # sampled rows against single launches, bit for bit.
+            for ci, (args, bkw, out) in enumerate(calls):
+                free_stack, cap, sched, ndid, sbatch, pstack = args
+                w_len = free_stack.shape[0]
+                pst = torch.as_tensor(pstack, device=dev)
+                for w in range(w_len):
+                    bw = GangBatch(*(None if x is None else x[w] for x in sbatch))
+                    b5 = stacked_solve_batch(free_stack[w], cap, sched, ndid, bw, pst,
+                                             domains=bkw["domains"])
+                    for nm, a, c in zip(("assigned", "ok", "placement_score"), out, b5):
+                        check(torch.equal(a[w], c),
+                              f"sweep[K={k}]: B6 launch {ci} wave {w} {nm} != a B5 launch")
+                    if w in (0, w_len - 1):
+                        for j in (0, pst.shape[0] - 1):
+                            one = place_wave(torch.as_tensor(free_stack[w], device=dev), cap_t(cap),
+                                             sched_t(sched), ndid_t(ndid), batch_t(bw),
+                                             params_row(pst[j]), None, domains=bkw["domains"])
+                            for nm, a, c in zip(("assigned", "ok", "placement_score"), out, one):
+                                check(torch.equal(a[w, j], c),
+                                      f"sweep[K={k}]: B6 row ({w}, {j}) {nm} != a single launch")
+            print(f"sweep[K={k}]: {len(calls)} B6 launches (W = "
+                  f"{[c[0][0].shape[0] for c in calls]}), every row == a B5 launch of its wave, "
+                  f"sampled rows == single place_wave launches")
+            if k == 16:
+                # Sampled rows of every B6 launch against the plain version
+                # on the same card inputs, tolerance 0: the first and last
+                # real waves and the last (null, where padded) wave under
+                # the first and last weight rows; row (10, 15) of a 16-wave
+                # launch is block 175, in the second round of 132.
+                for ci, (args, bkw, out) in enumerate(calls):
+                    free_stack, cap, sched, ndid, sbatch, pstack = args
+                    tb = batch_t(sbatch)
+                    w_len, kk = tb.gang_valid.shape[0], pstack.shape[0]
+                    real = [w for w in range(w_len) if bool(tb.gang_valid[w].any())]
+                    wi = torch.tensor(sorted({0, real[-1], w_len - 1}), device=dev)
+                    ki = torch.tensor(sorted({0, kk - 1}), device=dev)
+                    sub = (cap_t(free_stack)[wi], cap_t(cap), sched_t(sched), ndid_t(ndid),
+                           GangBatch(*(None if x is None else x[wi].contiguous() for x in tb)),
+                           cap_t(pstack)[ki])
+                    want, p_ms = timed(lambda: stacked_scan_solve_ref(*sub))
+                    for nm, a, c in zip(("assigned", "ok", "placement_score"), out, want):
+                        got = a[wi][:, ki]
+                        check(torch.equal(got, c),
+                              f"sweep[K=16]: B6 launch {ci} rows {wi.tolist()} x {ki.tolist()} "
+                              f"{nm} != the plain version at "
+                              f"{torch.nonzero(got != c)[:8].tolist()}")
+                        if got.dtype.is_floating_point and got.numel():
+                            err = max(err, float((got - c).abs().max()))
+                    sampled.append((w_len * kk, len(wi) * len(ki), p_ms))
+                    print(f"exact[B6 vs plain, K=16, launch {ci}, W={w_len}]: rows "
+                          f"{wi.tolist()} x {ki.tolist()} == the plain version on assigned, ok, "
+                          f"placement_score; plain {p_ms:.1f} ms on {card}")
+            # Times: each B6 launch beside its rows as single launches and its
+            # waves as B5 launches, all from the same inputs.
+            times = []
+            for args, bkw, out in calls:
+                free_stack, cap, sched, ndid, sbatch, pstack = args
+                w_len, kk = free_stack.shape[0], pstack.shape[0]
+                fs_t = torch.as_tensor(free_stack, device=dev)
+                pst = torch.as_tensor(pstack, device=dev)
+                node = (cap_t(cap), sched_t(sched), ndid_t(ndid))
+                tb = batch_t(sbatch)
+                waves_t = [GangBatch(*(None if x is None else x[w] for x in tb))
+                           for w in range(w_len)]
+                real_b6(fs_t, *node, tb, pst, device=dev, domains=bkw["domains"])  # warm-up
+                _, b6_ms = timed(lambda: real_b6(fs_t, *node, tb, pst, device=dev,
+                                                 domains=bkw["domains"]))
+                _, b5_ms = timed(lambda: [stacked_solve_batch(fs_t[w], *node, waves_t[w], pst,
+                                                              domains=bkw["domains"])
+                                          for w in range(w_len)])
+                copies = [fs_t[w].clone() for w in range(w_len) for _ in range(kk)]
+                rows = [params_row(pst[j]) for j in range(kk)]
+                _, single_ms = timed(lambda: [
+                    place_wave(copies[w * kk + j], *node, waves_t[w], rows[j], None,
+                               domains=bkw["domains"])
+                    for w in range(w_len) for j in range(kk)])
+                slowest = 0.0
+                if len(times) == 0:
+                    # The prediction's yardstick: the slowest row of the first
+                    # launch as one single launch (each timed alone).
+                    for w in range(w_len):
+                        for j in range(kk):
+                            f1 = fs_t[w].clone()
+                            slowest = max(slowest, timed(lambda: place_wave(
+                                f1, *node, waves_t[w], rows[j], None,
+                                domains=bkw["domains"]))[1])
+                    rounds = -(-w_len * kk // torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)
+                    print(f"timing[sweep B6, K={k}, first launch]: {b6_ms:.3f} ms against "
+                          f"{rounds} round(s) x the slowest row as a single launch "
+                          f"{slowest:.3f} ms = {rounds * slowest:.3f} ms "
+                          f"({b6_ms / (rounds * slowest):.4f}x) on {card}")
+                times.append((w_len, b6_ms, b5_ms, single_ms))
+                if k == 16 and len(times) == 1:
+                    # The kernels line's bound: the first launch's W * K
+                    # rows, each under its own verdicts.
+                    ok_rows = out[1].cpu().numpy()
+                    work = [place_wave_work(GangBatch(*(None if x is None else x[w].cpu().numpy()
+                                                        for x in tb)),
+                                            ndid, r, np.zeros(1, bool), ok_rows[w, j])
+                            for w in range(w_len) for j in range(kk)]
+                    main_bound = bound_of(sum(x[0] for x in work), sum(x[1] for x in work))
+            print(f"timing[sweep B6, K={k}, {n} nodes]: per launch (W, B6 ms, its waves as B5 "
+                  f"launches ms, its W*K rows as single launches ms): "
+                  + "; ".join(f"({w}, {a:.3f}, {b:.3f}, {c:.3f})" for w, a, b, c in times)
+                  + f" on {card}")
+            if k == 16:
+                b6_rows = (times, launches_k)
+
+        # ---- B6 against its plain version on the card, at a cut depth -----------
+        times, launches16 = b6_rows
+        want, plain_ms = b6_plain
+        b4 = b6_case[4]
+        dom4 = domain_index(snap.node_domain_id, dev)
+        real_b6(*b6_case, device=dev, domains=dom4)  # warm-up
+        got, cut_ms = timed(lambda: real_b6(*b6_case, device=dev, domains=dom4))
+        for nm, a, c in zip(("assigned", "ok", "placement_score"), got, want):
+            check(torch.equal(a, c), f"sweep[B6 vs plain]: {nm} differs at "
+                                     f"{torch.nonzero(a != c)[:8].tolist()}")
+            if a.dtype.is_floating_point:
+                err = max(err, float((a - c).abs().max()))
+        check(bool(want[1][:3].any()) and not bool(want[1][3].any()),
+              "sweep[B6 vs plain]: the null wave admitted, or no real wave did")
+        g = b4.gang_valid.shape[1]
+        work = []
+        for w in range(4):
+            bw = GangBatch(*(None if x is None else x[w].cpu().numpy() for x in b4))
+            for j in range(2):
+                work.append(place_wave_work(bw, snap.node_domain_id, r, np.zeros(1, bool),
+                                            want[1][w, j].cpu().numpy()))
+        bound = bound_of(sum(x[0] for x in work), sum(x[1] for x in work))
+        print(f"exact[B6, 3 waves (64 gangs) + a null wave, {g} slots a wave, K=2, {n} nodes]: "
+              f"kernel == plain "
+              f"on assigned, ok, placement_score; kernel {cut_ms:.3f} ms, plain {plain_ms:.1f} "
+              f"ms, bound {bound[0]:.6f} ms ({bound[1]}) on {card}")
+
+        # ---- the 20480-node pruned drain, and the committed JAX journal ---------
+        n4 = snap_4.capacity.shape[0]
+        path4 = os.path.join(root, "pruned20480")
+        b_p, st_p, rec_p, records_p, rwalls_p = record_drain(
+            gangs, pods, snap_4, path4, wave_size=256, params=params, pruning=pruning)
+        rec_p_s = rwalls_p["drain_s"]
+        check(b_p == pruned_chained_4, "sweep[pruned]: recorded bindings differ from the drain's")
+        check(st_p.journaled_waves == st_p.waves == st_p.pruned_waves and rec_p.dropped == 0,
+              f"sweep[pruned]: {st_p.journaled_waves}/{st_p.waves} journaled, "
+              f"{st_p.pruned_waves} pruned")
+        cands = sum(1 for w in records_p if w.get("kind") == "wave" and w.get("candidates"))
+        print(f"record[{n4} nodes, pruned, chained]: {st_p.journaled_waves} waves journaled "
+              f"({cands} with candidates), drain wall {rec_p_s:.4f} s (capture "
+              f"{st_p.journal_s:.4f}), flush {rwalls_p['flush_s']:.4f} s on {card}")
+        replay(f"{n4} nodes, pruned", records_p)
+        engine_p, _, _ = sweep(f"{n4} nodes, pruned", records_p, 4)
+        check(engine_p.stacked_solves >= cands > 0,
+              f"sweep[pruned]: {engine_p.stacked_solves} stacked solves for {cands} candidate waves")
+        jax_records = read_journal(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                "tests", "data", "jax_card_journal.json"))
+        replay("JAX-recorded journal", jax_records)
+        sweep("JAX-recorded journal", jax_records, 4)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    print(f"sweep walls[{n} nodes, 40 waves]: record {rec_s:.4f} s (unrecorded {unrec_s:.4f} s), "
+          f"replay {replay_s:.4f} s, sweep K=4 {walls[4]:.4f} s, K=16 {walls[16]:.4f} s "
+          f"({walls[16] / replay_s:.4f}x the replay) on {card}")
+    src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
+    # The row is the K = 16 sweep's first launch: its time and bound over
+    # its W * K rows; the plain version's time over its sampled rows
+    # (plain_rows of rows); the cut case with its null wave beside it.
+    n_rows, plain_rows, sampled_ms = sampled[0]
+    return {"row": {
+        "name": "place_wave_stacked_scan(B6)", "route": "cuda", "source": src,
+        "replaces": "grove_tpu/solver/core.py:977", "launches": launches16["stacked_scan"],
+        "max_abs_err": err, "ms": times[0][1], "plain_ms": sampled_ms,
+        "bound_ms": main_bound[0], "bound_by": main_bound[1], "library_ms": None,
+        "w": times[0][0], "k": 16, "rows": n_rows, "plain_rows": plain_rows,
+        "cut_ms": cut_ms, "cut_plain_ms": plain_ms, "cut_bound_ms": bound[0],
+    }}
+
+
+def cap_t(x):
+    import torch
+
+    return torch.as_tensor(x, dtype=torch.float32, device="cuda")
+
+
+def sched_t(x):
+    import torch
+
+    return torch.as_tensor(x, dtype=torch.bool, device="cuda")
+
+
+def ndid_t(x):
+    import torch
+
+    return torch.as_tensor(x, dtype=torch.int32, device="cuda")
+
+
+def batch_t(b):
+    from grove_tpu_torch.solver.core import batch_to
+
+    return batch_to(b, "cuda")
 
 
 def b3_bytes(pad: int, count: int, r: int) -> int:

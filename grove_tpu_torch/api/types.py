@@ -45,6 +45,13 @@ class TopologyLevel:
     domain: TopologyDomain
     node_label_key: str
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "TopologyLevel":
+        return cls(
+            domain=TopologyDomain(d["domain"]),
+            node_label_key=d.get("nodeLabelKey") or d.get("node_label_key"),
+        )
+
 
 @dataclass
 class ClusterTopology:
@@ -71,6 +78,22 @@ class ClusterTopology:
         return ClusterTopology(
             name=self.name,
             levels=[*self.levels, TopologyLevel(TopologyDomain.HOST, "kubernetes.io/hostname")],
+        )
+
+    def levels_doc(self) -> list[dict]:
+        """The wire shape of the effective hierarchy (host level included,
+        broadest first), as a journal's fleet record holds it."""
+        return [
+            {"domain": lvl.domain.value, "nodeLabelKey": lvl.node_label_key}
+            for lvl in self.with_host_level().sorted_levels()
+        ]
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ClusterTopology":
+        spec = d.get("spec", d)
+        return cls(
+            name=d.get("metadata", {}).get("name", d.get("name", "default")),
+            levels=[TopologyLevel.from_dict(x) for x in spec.get("levels", [])],
         )
 
 

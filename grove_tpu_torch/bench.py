@@ -30,6 +30,17 @@ dense drain resident (scan launches, one harvest), with their round-trip
 ledgers, host stages and launches, and whether each admits the set its
 chained counterpart admits.
 
+--scenario sweep drives bench.py's sweep scenario (`run_sweep_bench`) on the
+port, without its stream trace and `recommend` (later slices of the port):
+the default scenario's backlog drained with harvest="scan" at waves of 32
+(40 waves), once without and once with the flight recorder attached (the
+record overhead), then the journal replayed once (the single-config replay
+wall), replayed once per config of a K = 16 grid (the serial baseline) and
+swept once under the whole grid (B5 for single waves, B6 for each run of
+same-shape waves). One JSON line with the walls, the sweep's ratio to the
+single replay (bench.py's target: <= 3.0), the engine's counters, the
+incumbent row's divergences and the launches of each kernel variant.
+
   --scale S         default: cluster racks and backlog size times S (1.0)
   --portfolio P     default: weight variants per wave and per solve (1)
   --no-baseline     default: skip the greedy baseline and the quality fields
@@ -38,6 +49,7 @@ chained counterpart admits.
   --backlog-frac F  scale: backlog size times F (default 1.0)
   --prune-max K     scale: candidate budget (default 8191)
   --min-fleet M     scale: smallest fleet that prunes (default 256)
+  --k K             sweep: configs in the grid (default 16)
   --device D        "cuda" (default) or "cpu" (plain PyTorch versions)
 """
 
@@ -46,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import time
 
@@ -400,9 +413,162 @@ def harvest_ab(gangs, pods, snapshot, wave_size, pruning, admitted, dev) -> dict
     return out
 
 
+def record_drain(gangs, pods, snapshot, path: str, **drain_kw):
+    """drain_backlog with a flight recorder journaling into `path`:
+    (bindings, stats, recorder, records, walls). `walls` holds host seconds:
+    "drain_s" until the drain's last binding (the writer thread may still
+    be writing segments), "flush_s" until the writer has stopped, "read_s"
+    to read the journal back."""
+    from grove_tpu_torch.solver.drain import drain_backlog
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+
+    rec = TraceRecorder(path, max_records_per_file=64)
+    rec.start()
+    t0 = time.perf_counter()
+    try:
+        bindings, stats = drain_backlog(gangs, pods, snapshot, recorder=rec, **drain_kw)
+    finally:
+        t1 = time.perf_counter()
+        rec.stop()
+    t2 = time.perf_counter()
+    records = read_journal(path)
+    walls = {"drain_s": t1 - t0, "flush_s": t2 - t1, "read_s": time.perf_counter() - t2}
+    return bindings, stats, rec, records, walls
+
+
+def serial_replay(records, config, device) -> None:
+    """Replay every wave of `records` under one sweep config (the serial
+    baseline of tuning: one replay per config)."""
+    from grove_tpu_torch.trace.replay import snapshot_from_wave, solve_wave_record
+
+    fleets, bases = {}, {}
+    for r in records:
+        if r.get("kind") == "fleet":
+            fleets[r["digest"]] = r
+        elif r.get("kind") == "wave":
+            snap = snapshot_from_wave(r, fleets[r["fleet"]], bases=bases)
+            solve_wave_record(r, snap, params=config.solver_params(), portfolio=config.portfolio,
+                              escalate_portfolio=config.escalate_portfolio, device=device)
+
+
+SWEEP_WAVE_SIZE = 32  # the journal's waves: 40 at full scale, runs [11, 8, 10, 11]
+
+
+def run_sweep_bench(scale: float = 1.0, k: int = 16, device=None) -> dict:
+    """Record the backlog's scan drain at SWEEP_WAVE_SIZE, then replay it
+    once, once per config (serial) and as one sweep of K configs; walls on
+    the host clock after a cold pass of each, every solve on the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from grove_tpu_torch.solver.core import SolverParams, resolve_device
+    from grove_tpu_torch.solver.drain import drain_backlog
+    from grove_tpu_torch.trace.recorder import journal_stats
+    from grove_tpu_torch.trace.replay import replay_journal
+    from grove_tpu_torch.tuning import default_grid, incumbent_config, sweep_journal
+
+    dev = resolve_device(device)
+    gangs, pods, snapshot, n_nodes, setup_s = build_scenario(scale)
+    kw = dict(wave_size=SWEEP_WAVE_SIZE, params=SolverParams(), harvest="scan", device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def launches():
+        if dev.type != "cuda":
+            return None
+        from grove_tpu_torch.kernels.place_wave import place_wave
+
+        return dict(place_wave.variant_launches)
+
+    def reset():
+        if dev.type == "cuda":
+            from grove_tpu_torch.kernels.place_wave import reset_launches
+
+            reset_launches()
+
+    drain_backlog(gangs, pods, snapshot, **kw)  # warm-up: the build, first launches
+    sync()
+    t0 = time.perf_counter()
+    plain_b, _ = drain_backlog(gangs, pods, snapshot, **kw)
+    sync()
+    unrecorded_s = time.perf_counter() - t0
+    journal = tempfile.mkdtemp(prefix="grove-torch-sweep-")
+    try:
+        bindings, stats, rec, records, rwalls = record_drain(gangs, pods, snapshot, journal, **kw)
+        jstats = journal_stats(journal)
+        journal_bytes = sum(os.path.getsize(os.path.join(journal, f)) for f in os.listdir(journal))
+    finally:
+        shutil.rmtree(journal, ignore_errors=True)
+    replay_journal(records, device=dev)  # cold
+    t0 = time.perf_counter()
+    rep = replay_journal(records, device=dev)
+    sync()
+    replay_s = time.perf_counter() - t0
+    grid = default_grid(incumbent_config(records), k)
+    t0 = time.perf_counter()
+    for cfg in grid:
+        serial_replay(records, cfg, dev)
+    sync()
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep_journal(records, grid, device=dev)
+    sync()
+    sweep_cold_s = time.perf_counter() - t0
+    reset()
+    t0 = time.perf_counter()
+    engine = sweep_journal(records, grid, device=dev)
+    sync()
+    sweep_s = time.perf_counter() - t0
+    doc = engine.to_doc()
+    out = {
+        "scenario": "sweep",
+        "nodes": int(n_nodes),
+        "gangs": len(gangs),
+        "pods": len(pods),
+        "wave_size": SWEEP_WAVE_SIZE,
+        "k": k,
+        "setup_s": setup_s,
+        "waves": stats.waves,
+        "journaled_waves": stats.journaled_waves,
+        "recorder_dropped": rec.dropped,
+        "journal_dropped": jstats["dropped"],
+        "journal_bytes": journal_bytes,
+        "bindings_equal_unrecorded": bindings == plain_b,
+        "unrecorded_drain_s": unrecorded_s,
+        "recorded_drain_s": rwalls["drain_s"],
+        "journal_s": stats.journal_s,
+        "record_overhead": rwalls["drain_s"] / unrecorded_s,
+        "recorder_flush_s": rwalls["flush_s"],
+        "journal_read_s": rwalls["read_s"],
+        "replay_s": replay_s,
+        "replay_divergences": rep.divergence_count,
+        "serial_s": serial_s,
+        "sweep_cold_s": sweep_cold_s,
+        "sweep_s": sweep_s,
+        "sweep_ratio": sweep_s / replay_s,
+        "serial_ratio": serial_s / replay_s,
+        "vs_baseline": 3.0 / (sweep_s / replay_s),
+        "stackedSolves": doc["stackedSolves"],
+        "scanStackedSolves": doc["scanStackedSolves"],
+        "fallbackSolves": doc["fallbackSolves"],
+        "incumbent_divergences": engine.tallies["incumbent"].divergences,
+        "incumbent_admitted": engine.tallies["incumbent"].admitted,
+        "launches": launches(),
+        "device": str(dev),
+    }
+    if dev.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(dev)
+        out["card"] = card_line()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", choices=("default", "scale"), default="default")
+    ap.add_argument("--scenario", choices=("default", "scale", "sweep"), default="default")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
     ap.add_argument("--no-baseline", dest="baseline", action="store_false")
@@ -411,9 +577,12 @@ def main(argv=None) -> int:
     ap.add_argument("--backlog-frac", type=float, default=1.0)
     ap.add_argument("--prune-max", type=int, default=8191)
     ap.add_argument("--min-fleet", type=int, default=256)
+    ap.add_argument("--k", type=int, default=16)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    if args.scenario == "scale":
+    if args.scenario == "sweep":
+        out = run_sweep_bench(args.scale, k=args.k, device=args.device)
+    elif args.scenario == "scale":
         out = run_scale_bench(
             tuple(float(x) for x in args.scales.split(",") if x.strip()),
             backlog_frac=args.backlog_frac, max_candidates=args.prune_max,

@@ -78,11 +78,9 @@ def from_reference(
 
 def pruning_config_from_reference(fields: dict) -> PruningConfig:
     """The reference's PruningConfig fields (`dataclasses.asdict`) -> the
-    port's PruningConfig. The port pads to powers of two from `min_pad`
-    only, so an explicit `pad_ladder` is refused."""
+    port's PruningConfig."""
     fields = dict(fields)
-    if tuple(fields.pop("pad_ladder", ())):
-        raise ValueError("the port has no pad_ladder: buckets are powers of two from min_pad")
+    fields["pad_ladder"] = tuple(int(x) for x in fields.get("pad_ladder", ()))
     unknown = set(fields) - set(PruningConfig.__dataclass_fields__)
     if unknown:
         raise ValueError(f"unknown PruningConfig fields: {sorted(unknown)}")

@@ -76,7 +76,8 @@ def compile_source(name: str) -> Path:
     build_info[name] = {
         "seconds": time.perf_counter() - t0,
         "ptxas": "\n".join(
-            line for line in (proc.stdout + proc.stderr).splitlines() if "ptxas" in line
+            line for line in (proc.stdout + proc.stderr).splitlines()
+            if "ptxas" in line or "spill" in line
         ),
     }
     return out

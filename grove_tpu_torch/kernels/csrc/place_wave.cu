@@ -82,6 +82,23 @@
 // code runs on the same inputs. The chain paces it as it paces W single
 // launches; a scan saves only the launch gaps and the prologues' waits.
 //
+// The sweep launch (B6: grove_tpu/solver/core.py `stacked_scan_solve_fn`,
+// the tuning sweep's run batcher) solves W journaled waves of one shape under
+// K weight rows each, with no carry between the waves: each wave starts from
+// its own recorded entering free (`free_in`, [W, N, R], the launch's input).
+// The W * K solves are independent, so it is the stacked launch's chain over
+// W * K blocks across the SMs: the scan's prologue over the W * G gangs
+// (without the cross-wave gate: the sweep passes no ok_global), then block b
+// solves step b / K under weight row b % K on the step view of every
+// step-strided input, from its own copy of that step's free, with its own
+// scratch, into output row b of the W * K (its [b / K, b % K] rows: the
+// outputs are not step-strided, as in the stacked launch, which keeps one
+// offset fewer live in the chain); it writes no fleet carry. Each block
+// holds ~200 KB of dynamic shared memory, so one block fits an SM and the
+// launch takes ceil(W * K / SMs) rounds of its slowest chains. Row (w, k)
+// equals a single launch of wave w under row k bit for bit: the same code
+// runs on the same inputs.
+//
 // Exactness against the JAX package and the plain PyTorch version
 // (grove_tpu_torch/solver/reference.py):
 //  - arithmetic uses the IEEE round-to-nearest intrinsics (__fadd_rn,
@@ -197,7 +214,9 @@ struct PlaceWaveArgs {
   // scan launch: W steps (1 for every other launch); every array named in
   // PW_STEPPED holds step w st_<name> elements past step 0 (0: shared)
   int W;
-  float* free_in;                // [W, NF, R] each step's entering fleet carry, or null
+  // [W, NF, R] each step's entering fleet carry, or null (the scan's output;
+  // the sweep launch's input: each step's recorded free)
+  float* free_in;
   uint8_t* okg_in;               // [W, T] each step's entering ok_global, or null
   const int32_t* cand_counts;    // [W] candidates of each step's plan (pruned)
   int64_t st_cand_idx, st_capacity, st_schedulable, st_node_domain_id, st_dom_count;
@@ -240,7 +259,9 @@ static int pw_emu_block = 0;
 #endif
 
 // One weight variant's weights, output rows and scratch: row k of each [K,
-// ...] array. The single launch has one (k = 0, the scalar weights).
+// ...] array. The single launch has one (k = 0, the scalar weights). In the
+// sweep launch block b's output rows and scratch are row b of W * K (its
+// [b / K, b % K] rows) and its weights row b % K.
 struct PwVariant {
   float w_tight, w_pref, w_reuse, w_reserve, w_spread;
   int32_t* assigned;
@@ -260,10 +281,11 @@ struct PwVariant {
   float* undo;
 };
 
-template <bool kStacked>
+template <bool kStacked, bool kSweep = false>
 __device__ __forceinline__ PwVariant pw_variant(const PlaceWaveArgs& a) {
   PwVariant V;
-  const size_t k = kStacked ? (size_t)PW_BLOCK() : 0;
+  const size_t b = kStacked ? (size_t)PW_BLOCK() : 0;  // output and scratch row
+  const size_t k = kSweep ? b % (size_t)a.K : b;       // weight row
   if (kStacked) {
     const float* w = a.params_stack + 5 * k;
     V.w_tight = w[0]; V.w_pref = w[1]; V.w_reuse = w[2]; V.w_reserve = w[3]; V.w_spread = w[4];
@@ -272,21 +294,21 @@ __device__ __forceinline__ PwVariant pw_variant(const PlaceWaveArgs& a) {
     V.w_reserve = a.w_reserve; V.w_spread = a.w_spread;
   }
   const size_t N = a.N, G = a.G, n_ent = 2 * a.MG * a.MP > 1 ? 2 * a.MG * a.MP : 1;
-  V.assigned = a.assigned + k * G * a.MP;
-  V.ok = a.ok + k * G;
-  V.score = a.score + k * G;
-  V.carry = a.carry ? a.carry + k * N * a.R : nullptr;
-  V.family_used = a.family_used ? a.family_used + k * G * N : nullptr;
-  V.spread_pen = a.spread_pen ? a.spread_pen + k * N : nullptr;
-  V.tables = a.tables + k * a.L * N * (a.R + a.MG);
-  V.agg = a.agg + k * N * (a.R + a.MG + a.MS + 3);
-  V.feas2 = a.feas2 + k * (a.MS > 1 ? a.MS : 1) * N;
-  V.nword = a.nword + k * N;
-  V.a_slots = a.a_slots + k * N;
-  V.a_score = a.a_score + k * N;
-  V.norm_free = a.norm_free + k * N;
-  V.entries = a.entries + k * n_ent * 3;
-  V.undo = a.undo + k * n_ent * a.R;
+  V.assigned = a.assigned + b * G * a.MP;
+  V.ok = a.ok + b * G;
+  V.score = a.score + b * G;
+  V.carry = a.carry ? a.carry + b * N * a.R : nullptr;
+  V.family_used = a.family_used ? a.family_used + b * G * N : nullptr;
+  V.spread_pen = a.spread_pen ? a.spread_pen + b * N : nullptr;
+  V.tables = a.tables + b * a.L * N * (a.R + a.MG);
+  V.agg = a.agg + b * N * (a.R + a.MG + a.MS + 3);
+  V.feas2 = a.feas2 + b * (a.MS > 1 ? a.MS : 1) * N;
+  V.nword = a.nword + b * N;
+  V.a_slots = a.a_slots + b * N;
+  V.a_score = a.a_score + b * N;
+  V.norm_free = a.norm_free + b * N;
+  V.entries = a.entries + b * n_ent * 3;
+  V.undo = a.undo + b * n_ent * a.R;
   return V;
 }
 
@@ -695,7 +717,8 @@ __global__ void place_wave_scan_prologue(const PlaceWaveArgs a) { pw_scan_invari
 #endif
 
 // ---- the chain: every gang of the wave, in batch order ----------------------
-// (the scan: every gang of each step in turn, the steps in order)
+// (the scan: every gang of each step in turn, the steps in order; the sweep,
+// kStacked && kScan: one step per block)
 template <bool kProfile, bool kStacked, bool kScan>
 __global__ void __launch_bounds__(PW_THREADS)
 place_wave_kernel(const PlaceWaveArgs a0) {
@@ -716,7 +739,10 @@ place_wave_kernel(const PlaceWaveArgs a0) {
   const int NT = blockDim.x;
   const int lane = tid % PW_WARP, warp = tid / PW_WARP;
   const int NW = (NT + PW_WARP - 1) / PW_WARP;
-  for (int step = 0; step < (kScan ? a0.W : 1); ++step) {
+  constexpr bool kSweep = kStacked && kScan;
+  const int step_lo = kSweep ? PW_BLOCK() / a0.K : 0;
+  const int step_hi = kSweep ? step_lo + 1 : (kScan ? a0.W : 1);
+  for (int step = step_lo; step < step_hi; ++step) {
     // The scan's step view is every thread's own: a copy in shared memory
     // made each field a load and spilled, 1.2x the steps' single launches
     // on the H100 (PERF.md).
@@ -731,14 +757,14 @@ place_wave_kernel(const PlaceWaveArgs a0) {
     const int N = a.N, R = a.R, L = a.L, MG = a.MG, MS = a.MS, MP = a.MP;
     const bool pruned = a.cand_idx != nullptr;
     const bool spread = a.spread_level != nullptr;
-    const PwVariant V = pw_variant<kStacked>(a);
+    const PwVariant V = pw_variant<kStacked, kSweep>(a);
     float* free_s = pruned || kStacked ? V.carry : a.free_io;  // [N, R] the wave's carry
     PwProf<kProfile> prof;
     prof.start(a.prof ? a.prof + (size_t)a.G * PW_NSEC : nullptr);
     if (kScan) {
       // The entering fleet carry, before the pruned gather (fleet-shaped, as
       // the JAX scan retains it), and a fresh set of family rows.
-      if (a.free_in)
+      if (a.free_in && !kSweep)
         for (int k = tid; k < a.NF * R; k += NT) a.free_in[k] = a.free_io[k];
       if (a.okg_in)
         for (int k = tid; k < a.T; k += NT) a.okg_in[k] = a.ok_global[k];
@@ -764,8 +790,10 @@ place_wave_kernel(const PlaceWaveArgs a0) {
       }
       __syncthreads();
     } else if (kStacked) {
-      // Each variant starts from its own copy of the fleet carry.
-      for (int k = tid; k < N * R; k += NT) free_s[k] = a.free_io[k];
+      // Each variant starts from its own copy of the fleet carry (the sweep:
+      // of its step's recorded free).
+      const float* src = kSweep ? a.free_in : a.free_io;
+      for (int k = tid; k < N * R; k += NT) free_s[k] = src[k];
       __syncthreads();
     }
     // Each carry row's normalised free capacity, kept beside the carry and
@@ -1266,7 +1294,8 @@ __global__ void place_wave_select(const PlaceWaveArgs a) {
 // with `select` the select kernel.
 //
 // The scan launch: the scan's prologue over the W * G gangs, then one chain
-// block over the W steps.
+// block over the W steps. The sweep launch: the same prologue, then W * K
+// chain blocks.
 #ifndef PLACE_WAVE_HOST_EMULATION
 template <bool kProfile, bool kStacked, bool kScan = false>
 static int pw_launch(const PlaceWaveArgs* args, cudaStream_t stream, int smem_bytes) {
@@ -1278,7 +1307,8 @@ static int pw_launch(const PlaceWaveArgs* args, cudaStream_t stream, int smem_by
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   place_wave_kernel<kProfile, kStacked, kScan>
-      <<<kStacked ? args->K : 1, PW_THREADS, smem_bytes, stream>>>(*args);
+      <<<kStacked ? (kScan ? args->W * args->K : args->K) : 1, PW_THREADS, smem_bytes,
+         stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
@@ -1308,6 +1338,10 @@ extern "C" int place_wave_select_launch(const PlaceWaveArgs* args, void* stream)
 extern "C" int place_wave_scan_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes) {
   return pw_launch<false, false, true>(args, (cudaStream_t)stream, smem_bytes);
 }
+
+extern "C" int place_wave_sweep_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes) {
+  return pw_launch<false, true, true>(args, (cudaStream_t)stream, smem_bytes);
+}
 #else
 // The same launches for a one-thread block on the host (the CPU tests): the
 // prologue gang by gang, then the chain (block by block when stacked).
@@ -1335,6 +1369,14 @@ extern "C" int place_wave_select_launch(const PlaceWaveArgs* args, void*) {
 extern "C" int place_wave_scan_launch(const PlaceWaveArgs* args, void*, int) {
   for (int b = 0; b < args->W * args->G; ++b) pw_scan_invariants(*args, b);
   place_wave_kernel<false, false, true>(*args);
+  return 0;
+}
+
+extern "C" int place_wave_sweep_launch(const PlaceWaveArgs* args, void*, int) {
+  for (int b = 0; b < args->W * args->G; ++b) pw_scan_invariants(*args, b);
+  for (pw_emu_block = 0; pw_emu_block < args->W * args->K; ++pw_emu_block)
+    place_wave_kernel<false, true, true>(*args);
+  pw_emu_block = 0;
   return 0;
 }
 #endif

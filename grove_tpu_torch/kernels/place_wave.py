@@ -31,12 +31,20 @@ threaded from step to step on the card, each step equal to a single launch
 on its entering carry. Its plain versions are solver/reference.py
 `scan_solve_ref` and `scan_pruned_solve_ref`.
 
+`place_wave_stacked_scan` is B6 (grove_tpu/solver/core.py
+`stacked_scan_solve_fn`, the tuning sweep's run batcher): W journaled waves
+of one shape under K weight rows in one launch, W * K chain blocks across
+the SMs, each wave from its own recorded free with no carry between them;
+row (w, k) equals a single launch of wave w under row k. Its plain version
+is solver/reference.py `stacked_scan_solve_ref`.
+
 The kernels launch on PyTorch's current stream and do not synchronise;
 `free` and `ok_global` are updated in place. `place_wave.launches` counts the
 launches (one per wave, or per scan chunk, the prologue included), and
 `place_wave.variant_launches` counts them per variant: "dense" and "pruned"
 for place_wave, "stacked" (select=False) and "portfolio" (select=True) for
-place_wave_stacked, "scan" and "scan_pruned" for place_wave_scan.
+place_wave_stacked, "scan" and "scan_pruned" for place_wave_scan,
+"stacked_scan" for place_wave_stacked_scan.
 """
 
 from __future__ import annotations
@@ -164,7 +172,7 @@ def _check(name, t, dtype, shape, device):
 
 def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
                ok_global, domains: DomainIndex, cand_idx=None, cand_count=None,
-               profile=False, plane_words=None, params_stack=None, select=False):
+               profile=False, plane_words=None, params_stack=None, select=False, steps=None):
     """Check every input, allocate outputs and scratch, and fill the kernel's
     argument struct. Returns (args, smem_bytes, outputs, keepalive).
 
@@ -182,7 +190,12 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     `profile` the outputs hold "prof", i64 [G + 1, len(SECTIONS)] zeros for
     the profiled instantiation's cycle counts. `plane_words` (f32 words of
     shared memory for the staged walks, PLANE_BYTES / 4 by default) sets how
-    many node positions a walk stages at once."""
+    many node positions a walk stages at once. `steps` (W of the scan and
+    sweep launches, build_scan_args and build_sweep_args) puts a leading [W]
+    axis on every output and sizes the gang invariants for W * G gangs;
+    with a weight stack (the sweep) each of the W * K chain blocks gets its
+    own scratch, without one (the scan) the one chain reuses its scratch at
+    every step."""
     dev = free.device
     nf, r = free.shape
     levels, n = node_domain_id.shape
@@ -210,9 +223,10 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         if K < 1:
             raise ValueError("place_wave: params_stack holds no weight row")
         if cand_idx is not None:
-            raise ValueError("place_wave: a stacked launch solves the fleet dense; a candidate "
-                             "plan cannot go with a weight stack (the JAX package never prunes a "
-                             "portfolio solve)")
+            raise ValueError("place_wave: a stacked launch solves dense; a candidate plan goes "
+                             "with a weight stack as its gathered arrays (CandidatePlan "
+                             "gather_free, capacity, schedulable, node_domain_id, gather_batch), "
+                             "as the tuning sweep solves a pruned wave")
     _check("free", free, f32, (nf, r), dev)
     if cand_idx is None:
         _check("node_domain_id", node_domain_id, i32, (levels, nf), dev)
@@ -252,7 +266,9 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    rows = (K,) if stacked else ()
+    w_len = 1 if steps is None else steps
+    rows = (() if steps is None else (w_len,)) + ((K,) if stacked else ())
+    blocks = K * w_len if stacked else 1  # chain blocks, each with its own scratch
     out = {
         "assigned": empty(rows + (g, mp), i32),
         "ok": torch.zeros(rows + (g,), dtype=b8, device=dev),
@@ -263,22 +279,23 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     n_ent = max(2 * mg * mp, 1)
     # One copy of every per-gang scratch array for each weight variant.
     scratch = {
-        "carry": empty((K * n * r,), f32) if cand_idx is not None or stacked else None,
-        "family_used": torch.zeros((K * g * n,), dtype=torch.uint8, device=dev) if spread else None,
-        "spread_pen": empty((K * n,), f32) if spread else None,
-        "tables": empty((K * levels * n * (r + mg),), f32),
-        "agg": empty((K * n * k_max,), f32),
-        "feas2": empty((K * max(ms, 1) * n,), torch.uint8),
-        "nword": empty((K * n,), i32),
-        "a_slots": empty((K * n,), i32),
-        "a_score": empty((K * n,), f32),
-        "norm_free": empty((K * n,), f32),
-        "entries": empty((K * n_ent * 3,), i32),
-        "undo": empty((K * n_ent * r,), f32),
-        "ginv": empty((max(g, 1) * INV_BYTES,), torch.uint8),
+        "carry": empty((blocks * n * r,), f32) if cand_idx is not None or stacked else None,
+        "family_used": (torch.zeros((blocks * g * n,), dtype=torch.uint8, device=dev)
+                        if spread else None),
+        "spread_pen": empty((blocks * n,), f32) if spread else None,
+        "tables": empty((blocks * levels * n * (r + mg),), f32),
+        "agg": empty((blocks * n * k_max,), f32),
+        "feas2": empty((blocks * max(ms, 1) * n,), torch.uint8),
+        "nword": empty((blocks * n,), i32),
+        "a_slots": empty((blocks * n,), i32),
+        "a_score": empty((blocks * n,), f32),
+        "norm_free": empty((blocks * n,), f32),
+        "entries": empty((blocks * n_ent * 3,), i32),
+        "undo": empty((blocks * n_ent * r,), f32),
+        "ginv": empty((w_len * max(g, 1) * INV_BYTES,), torch.uint8),
         "params_stack": params_stack,
     }
-    if stacked:
+    if stacked and steps is None:
         out["free_after"] = scratch["carry"].view(K, n, r)
     if select:
         if not stacked:
@@ -304,7 +321,7 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     args = PlaceWaveArgs(
         N=n, R=r, L=levels, G=g, MG=mg, MS=ms, MP=mp, T=t_len, NF=nf,
         cand_count=n if cand_idx is None else int(cand_count), plane_words=plane_words, K=K,
-        W=1, **weights,
+        W=w_len, **weights,
     )
     for name in _POINTERS:
         t = tensors.get(name)
@@ -427,23 +444,18 @@ def build_scan_args(free, capacity, schedulable, node_domain_id, stacked_batch: 
     args, smem, out, keep = build_args(
         free, *node0[:3], step0, params, ok_global, node0[3],
         cand_idx[0] if pruned else None, node0[0].shape[0] if pruned else None,
-        plane_words=plane_words,
+        plane_words=plane_words, steps=w_len,
     )
-    dev, (g, mp), (nf, r) = free.device, step0.pod_group.shape, free.shape
-    out = {
-        "assigned": torch.empty((w_len, g, mp), dtype=torch.int32, device=dev),
-        "ok": torch.zeros((w_len, g), dtype=torch.bool, device=dev),
-        "score": torch.empty((w_len, g), dtype=torch.float32, device=dev),
-        "free_in": torch.empty((w_len, nf, r), dtype=torch.float32, device=dev) if retain else None,
-        "okg_in": (torch.empty((w_len, ok_global.shape[0]), dtype=torch.bool, device=dev)
-                   if retain and ok_global is not None else None),
-    }
-    keep.update(out, stacked=stacked,
-                ginv=torch.empty((w_len * max(g, 1) * INV_BYTES,), dtype=torch.uint8, device=dev))
+    dev, (nf, r) = free.device, free.shape
+    out.update(
+        free_in=torch.empty((w_len, nf, r), dtype=torch.float32, device=dev) if retain else None,
+        okg_in=(torch.empty((w_len, ok_global.shape[0]), dtype=torch.bool, device=dev)
+                if retain and ok_global is not None else None),
+    )
+    keep.update(out, stacked=stacked)
     if pruned:
         keep["cand_counts"] = (cand_idx < nf).sum(dim=1, dtype=torch.int32)
-    args.W = w_len
-    for name in ("assigned", "ok", "score", "free_in", "okg_in", "ginv", "cand_counts"):
+    for name in ("free_in", "okg_in", "cand_counts"):
         t = keep.get(name)
         setattr(args, name, None if t is None else t.data_ptr())
     for name in STEPPED:
@@ -483,6 +495,71 @@ def place_wave_scan(free, capacity, schedulable, node_domain_id, stacked_batch: 
             ok_global)
 
 
+def build_sweep_args(free_stack, capacity, schedulable, node_domain_id,
+                     stacked_batch: GangBatch, params_stack, domains: DomainIndex,
+                     plane_words=None):
+    """The sweep launch's args (B6): `free_stack` f32 [W, N, R], each step's
+    recorded entering free; the fleet's `capacity`, `schedulable`,
+    `node_domain_id` and `domains`, shared by every step; `stacked_batch`
+    with a leading [W] axis on every field; `params_stack` f32 [K, 5]. Step
+    0 is checked as one stacked wave (build_args) and every stacked array
+    for its step axis. No ok_global: each wave's cross-wave dependencies
+    were resolved when it was journaled. Returns (args, smem_bytes, outputs,
+    keepalive) with outputs "assigned" [W, K, G, MP], "ok" [W, K, G] and
+    "score" [W, K, G]."""
+    w_len = free_stack.shape[0] if free_stack.dim() == 3 else 0
+    if w_len < 1:
+        raise ValueError("place_wave_stacked_scan: free_stack needs a leading step axis of at "
+                         "least 1")
+    stacked = {f: t for f, t in stacked_batch._asdict().items() if t is not None}
+    stacked["free_stack"] = free_stack
+    for name, t in stacked.items():
+        if t.dim() < 1 or t.shape[0] != w_len:
+            raise ValueError(f"place_wave_stacked_scan: {name} has shape {tuple(t.shape)}, "
+                             f"expected a leading step axis of {w_len}")
+        if not t.is_contiguous():
+            raise ValueError(f"place_wave_stacked_scan: {name} is not contiguous")
+    step0 = GangBatch(*(None if t is None else t[0] for t in stacked_batch))
+    args, smem, out, keep = build_args(
+        free_stack[0], capacity, schedulable, node_domain_id, step0, None, None, domains,
+        plane_words=plane_words, params_stack=params_stack, steps=w_len,
+    )
+    keep.update(stacked=stacked, free_in=free_stack)
+    args.free_in = free_stack.data_ptr()
+    # The outputs are rows b = w * K + k of W * K, offset by the block (as
+    # the stacked launch's rows are), not step-strided.
+    for name in STEPPED:
+        t = keep[name] if name in ("ginv", "free_in") else stacked.get(name)
+        setattr(args, f"st_{name}", 0 if t is None else t.numel() // w_len)
+    return args, smem, out, keep
+
+
+def place_wave_stacked_scan(free_stack, capacity, schedulable, node_domain_id,
+                            stacked_batch: GangBatch, params_stack, *, domains: DomainIndex):
+    """Solve W journaled waves of one shape under K weight rows with one
+    launch on the card (B6): W * K chain blocks, block (w, k) solving wave w
+    of `stacked_batch` from `free_stack[w]` under row k of `params_stack`,
+    each equal to a single place_wave launch of that wave under that row
+    bit for bit. Arguments as build_sweep_args. Returns (assigned i32
+    [W, K, G, MP], ok bool [W, K, G], score f32 [W, K, G]); no input is
+    changed."""
+    if not free_stack.is_cuda:
+        raise ValueError("place_wave_stacked_scan: the kernel runs on a CUDA device only")
+    lib = _library()
+    args, smem, out, _keep = build_sweep_args(free_stack, capacity, schedulable, node_domain_id,
+                                              stacked_batch, params_stack, domains)
+    fn = lib.place_wave_sweep_launch
+    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(free_stack.device).cuda_stream
+    rc = fn(ctypes.byref(args), stream, smem)
+    if rc != 0:
+        raise RuntimeError(f"place_wave_stacked_scan: kernel launch failed with CUDA error {rc}")
+    place_wave.launches += 1
+    place_wave.variant_launches["stacked_scan"] += 1
+    return out["assigned"], out["ok"], out["score"]
+
+
 def _library():
     from grove_tpu_torch.kernels.build import load
 
@@ -494,12 +571,12 @@ def _library():
     return lib
 
 
-VARIANTS = ("dense", "pruned", "stacked", "portfolio", "scan", "scan_pruned")
+VARIANTS = ("dense", "pruned", "stacked", "portfolio", "scan", "scan_pruned", "stacked_scan")
 
 
 def reset_launches() -> None:
-    """Set every launch count of place_wave, place_wave_stacked and
-    place_wave_scan to 0."""
+    """Set every launch count of place_wave, place_wave_stacked,
+    place_wave_scan and place_wave_stacked_scan to 0."""
     place_wave.launches = 0
     place_wave.variant_launches = dict.fromkeys(VARIANTS, 0)
 

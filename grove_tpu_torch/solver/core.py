@@ -18,6 +18,11 @@ when a valid gang is rejected.
 the carry the previous one left (B4, one scan launch on the card per call):
 the drain's "scan" and "resident" harvests fuse each run of same-shape waves
 into them.
+
+`stacked_scan_solve` solves W journaled waves of one shape under K weight
+rows, each wave from its own recorded free (B6, one launch on the card per
+call): the tuning sweep batches each run of same-shape journaled waves
+into it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from grove_tpu_torch.solver.reference import (
     scan_solve_ref,
     solve_batch_ref,
     solve_pruned_ref,
+    stacked_scan_solve_ref,
     stacked_solve_ref,
 )
 
@@ -71,6 +77,15 @@ class ScanSolveResult(NamedTuple):
     okg_in: torch.Tensor | None  # bool [W, T] entering verdict bitmap per step
     free_after: torch.Tensor  # f32 [N, R]
     ok_global: torch.Tensor | None  # bool [T]
+
+
+class StackedScanResult(NamedTuple):
+    """W journaled waves under K configs (core.py `StackedScanResult`): the
+    verdict planes gain leading [W, K] axes; no carry, no free_after."""
+
+    assigned: torch.Tensor  # i32 [W, K, G, MP]
+    ok: torch.Tensor  # bool [W, K, G]
+    placement_score: torch.Tensor  # f32 [W, K, G]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -248,6 +263,38 @@ def scan_pruned_solve(free0, cand_idx, capacity_p, schedulable_p, node_domain_id
     return ScanSolveResult(*out)
 
 
+def stacked_scan_solve(free_stack, capacity, schedulable, node_domain_id,
+                       stacked_batch: GangBatch, params_stack, *, device=None,
+                       domains=None) -> StackedScanResult:
+    """W journaled waves of one shape under K weight rows (core.py
+    `stacked_scan_solve_fn`): `free_stack` f32 [W, N, R] holds each wave's
+    recorded entering free, every field of `stacked_batch` has a leading [W]
+    axis, `params_stack` is f32 [K, 5]. Step w row k equals solve_batch of
+    wave w from free_stack[w] under row k bit for bit; no ok_global, no
+    carry between the waves. A null wave (zero free, all-invalid batch)
+    admits nothing. On the card it is one launch (kernels/place_wave.py
+    `place_wave_stacked_scan`, B6); `domains` is the fleet's DomainIndex
+    (built here when not given). "cpu" runs the plain version."""
+    dev = resolve_device(device)
+    free_stack = tensor_on(free_stack, torch.float32, dev)
+    capacity = tensor_on(capacity, torch.float32, dev)
+    schedulable = tensor_on(schedulable, torch.bool, dev)
+    node_domain_id = tensor_on(node_domain_id, torch.int32, dev)
+    tbatch = batch_to(stacked_batch, dev)
+    pstack = stack_on(params_stack, dev)
+    if dev.type == "cuda":
+        from grove_tpu_torch.kernels.place_wave import domain_index, place_wave_stacked_scan
+
+        if domains is None:
+            domains = domain_index(node_domain_id, dev)
+        out = place_wave_stacked_scan(free_stack, capacity, schedulable, node_domain_id, tbatch,
+                                      pstack, domains=domains)
+    else:
+        out = stacked_scan_solve_ref(free_stack, capacity, schedulable, node_domain_id, tbatch,
+                                     pstack)
+    return StackedScanResult(*out)
+
+
 def stacked_solve_batch(free0, capacity, schedulable, node_domain_id, batch: GangBatch,
                         params_stack, ok_global=None, *, device=None, domains=None) -> SolveResult:
     """Solve the same wave under K weight rows at once (core.py
@@ -302,9 +349,11 @@ def solve(
     escalate_portfolio: int = 1,
     *,
     device=None,
+    pruning=None,
+    mesh_axis: int = 1,
 ) -> SolveResult:
-    """The serving entry (core.py `solve`, dense and unsharded): snapshot
-    (numpy) -> device -> one solve, or a portfolio of them.
+    """The serving entry (core.py `solve`, unsharded): snapshot (numpy) ->
+    device -> one solve, or a portfolio of them.
 
     `free`/`schedulable` override the snapshot's (wave chaining: pass the
     previous result's free_after); `ok_global` threads the cross-wave verdict
@@ -318,6 +367,14 @@ def solve(
     batch is solved once more under that many variants, from the same
     entering state, and that winner is returned; slot 0 of the population
     is the base, so it never admits fewer gangs.
+
+    `pruning` (an enabled solver.pruning.PruningConfig) solves a
+    single-variant solve from the snapshot's own state (no `free` or
+    `schedulable` override) on the batch's candidate axis; a valid gang
+    rejected there whose plan was lossy makes the dense solve run instead,
+    before any escalation (core.py `solve`'s pruned branch). `mesh_axis` is
+    the node axis of the mesh a journaled solve ran under: the candidate pad
+    is rounded to a multiple of it (the port itself solves on one card).
 
     `device` None means the card; "cpu" runs the plain PyTorch versions."""
     from grove_tpu_torch.parallel.portfolio import portfolio_solve
@@ -342,19 +399,33 @@ def solve(
 
         domains = domain_index(snapshot.node_domain_id, dev)
     escalate = escalate_portfolio > portfolio
+    prune = (pruning is not None and pruning.enabled and portfolio == 1 and free is None
+             and schedulable is None)
+    if escalate or prune:
+        valid = apply_global_deps_ref(batch_to(batch, "cpu"),
+                                      None if okg is None else okg.cpu()).numpy()
     if escalate:
         # Escalation re-solves from the state the first solve entered with.
         entry = (free0.clone(), None if okg is None else okg.clone())
-        valid = apply_global_deps_ref(batch_to(batch, "cpu"),
-                                      None if okg is None else okg.cpu()).numpy()
 
     def psolve(width, free_in, okg_in):
         return portfolio_solve(free_in, capacity, sched, node_domain_id, tbatch, params, width,
                                okg_in, device=dev, domains=domains)
 
-    if portfolio > 1:
+    result = None
+    if prune:
+        from grove_tpu_torch.solver.pruning import lossy_rejections, plan_candidates
+
+        plan = plan_candidates(snapshot, batch, pruning, mesh_axis=mesh_axis)
+        if plan is not None:
+            # On copies of the carry: a lossy rejection re-solves dense from it.
+            presult = solve_batch(free0.clone(), None, None, None, batch, params,
+                                  None if okg is None else okg.clone(), device=dev, plan=plan)
+            if not lossy_rejections(plan, valid, presult.ok.cpu().numpy()).any():
+                result = presult
+    if result is None and portfolio > 1:
         result = psolve(portfolio, free0, okg)
-    else:
+    elif result is None:
         result = solve_batch(free0, capacity, sched, node_domain_id, tbatch, params, okg,
                              device=dev, domains=domains)
     if escalate and bool((valid & ~result.ok.cpu().numpy()).any()):

@@ -50,8 +50,18 @@ chain forward — on the card one stacked launch per wave. The population is
 drawn once per drain. Portfolio drains never prune or scan (the JAX
 package's rules: "scan" and "resident" then run as "pipeline").
 
-Warm paths, recording, meshes, faults, the streaming drain (`drain_stream`)
-and the degradation ladder of the JAX package are later slices of the port.
+Flight recorder (`recorder`, trace/recorder.py; single-variant drains
+only, as in the JAX package): every wave journals at commit, in commit order
+with monotonic ids, with the closure replay needs to re-solve it alone — its
+exact entering free rows (each wave's entering carry is kept and copied to
+the host behind its launch, beside its verdicts), the allocation entering
+it, the earlier waves' admissions as `scheduled`, and a pruned wave's
+candidate list. A failure to journal never breaks the drain (the JAX
+package's rule); it shows as journaled_waves < waves and the recorder's
+`dropped`.
+
+Warm paths, meshes, faults, the streaming drain (`drain_stream`) and the
+degradation ladder of the JAX package are later slices of the port.
 """
 
 from __future__ import annotations
@@ -146,6 +156,10 @@ class DrainStats:
     # commit order.
     wave_latencies: list = field(default_factory=list)
     portfolio: int = 1  # weight variants per wave
+    # Waves journaled to a flight recorder, and the host seconds journaling
+    # cost (capture at commit).
+    journaled_waves: int = 0
+    journal_s: float = 0.0
     # The fleet's free capacity after the last wave, as the solver left it
     # (copied to the host once every wave has retired and the card is idle).
     free_after: np.ndarray | None = None
@@ -233,7 +247,7 @@ class _WavePipeline:
     so the bindings are the same under every discipline."""
 
     def __init__(self, *, gangs, pods_by_name, snapshot, params, stats, dev, pruning=None,
-                 portfolio=1, retire_lag=None, record_stamps=False, scan=None):
+                 portfolio=1, retire_lag=None, record_stamps=False, scan=None, recorder=None):
         self.pods_by_name = pods_by_name
         self.snapshot = snapshot
         self.params = params
@@ -249,8 +263,10 @@ class _WavePipeline:
         self.retire_lag = retire_lag
         self.record_stamps = record_stamps
         self.scan = scan if portfolio == 1 else None
-        # Escalation re-solves from each pruned wave's entering carry.
-        self.retain_carries = pruning is not None
+        self.recorder = recorder if portfolio == 1 else None
+        # Escalation re-solves from each pruned wave's entering carry, and
+        # a journaled wave records its own.
+        self.retain_carries = pruning is not None or self.recorder is not None
         self.gidx = {g.name: i for i, g in enumerate(gangs)}
         self.capacity = torch.as_tensor(snapshot.capacity, device=dev)
         self.schedulable = torch.as_tensor(snapshot.schedulable, device=dev)
@@ -267,6 +283,14 @@ class _WavePipeline:
         self.bindings: dict[str, dict[str, str]] = {}
         self._last_event = None  # the newest event behind a host copy
         self.t0 = time.perf_counter()  # restamped by drain_backlog
+        if self.recorder is not None:
+            # Wave ids in commit order, the gangs admitted by earlier waves,
+            # and the running allocation table: wave k journals the state
+            # entering it, then commits its own bindings into it.
+            self.commit_seq = 0
+            self.scheduled_admitted: set[str] = set()
+            self._alloc = np.array(snapshot.allocated, copy=True)
+            self._cap_np = np.asarray(snapshot.capacity)
 
     # ---- encode + candidate plan ---------------------------------------------
 
@@ -292,8 +316,8 @@ class _WavePipeline:
             stats.pruned_waves += 1
             stats.candidate_nodes = max(stats.candidate_nodes, plan.count)
             stats.candidate_pad = max(stats.candidate_pad, plan.pad)
-        return {"shape": ws[1], "pad": pad, "batch": batch, "decode": decode, "plan": plan,
-                "escalated": False}
+        return {"members": wave, "shape": ws[1], "pad": pad, "batch": batch, "decode": decode,
+                "plan": plan, "escalated": False}
 
     # ---- dispatch ------------------------------------------------------------
 
@@ -311,10 +335,13 @@ class _WavePipeline:
             self.params, ok_g, device=self.dev, domains=self.domains, plan=plan,
         )
 
-    def _stage(self, holder: dict, planes) -> None:
+    def _stage(self, holder: dict, planes, free_in=None) -> None:
         """Copy verdict planes toward the host right behind their launch: on
         the card into pinned buffers without blocking, with an event
-        recorded behind the copies (a fetch waits on that event alone)."""
+        recorded behind the copies (a fetch waits on that event alone). A
+        journaled drain stages the entering carry `free_in` with them."""
+        if self.recorder is not None and free_in is not None:
+            planes = tuple(planes) + (free_in,)
         holder["ok_np"] = None
         if self.dev.type != "cuda":
             holder["host"], holder["event"] = planes, None
@@ -338,7 +365,7 @@ class _WavePipeline:
             # Copies: the launch updates the carry in place.
             rec["free_in"], rec["okg_in"] = self.free.clone(), self.ok_g.clone()
         res = self._solve(rec, self.free, self.ok_g, rec["plan"])
-        self._stage(rec, (res.ok, res.placement_score, res.assigned))
+        self._stage(rec, (res.ok, res.placement_score, res.assigned), rec.get("free_in"))
         self.free, self.ok_g = res.free_after, res.ok_global
 
     def _dispatch_one(self, rec: dict) -> None:
@@ -424,7 +451,7 @@ class _WavePipeline:
         """Bind one solved chunk's planes onto its records (one host copy
         for the chunk, every record a step of it) and advance the carry."""
         group: dict = {}
-        self._stage(group, (res.ok, res.placement_score, res.assigned))
+        self._stage(group, (res.ok, res.placement_score, res.assigned), res.free_in)
         for i, rec in enumerate(run):
             rec.update(
                 ok_np=None,
@@ -452,9 +479,10 @@ class _WavePipeline:
 
     def _host_planes(self, holder: dict) -> None:
         """The staged planes as numpy arrays (their copies are complete)."""
-        holder["ok_np"], holder["score_np"], holder["assigned_np"] = (
-            p.numpy() for p in holder.pop("host")
-        )
+        planes = [p.numpy() for p in holder.pop("host")]
+        holder["ok_np"], holder["score_np"], holder["assigned_np"] = planes[:3]
+        if len(planes) > 3:
+            holder["free_in_np"] = planes[3]
         holder.pop("event", None)
 
     def _fetch(self, rec: dict) -> None:
@@ -471,6 +499,8 @@ class _WavePipeline:
             rec["ok_np"] = group["ok_np"][i]
             rec["score_np"] = group["score_np"][i]
             rec["assigned_np"] = group["assigned_np"][i]
+            if "free_in_np" in group:
+                rec["free_in_np"] = group["free_in_np"][i]
         else:
             if rec["event"] is not None:
                 rec["event"].synchronize()
@@ -578,6 +608,72 @@ class _WavePipeline:
             stats.admitted += 1
             stats.pods_bound += len(pod_bindings)
         stats.bind_s += time.perf_counter() - tb
+        if self.recorder is not None:
+            tj = time.perf_counter()
+            self._journal(rec, wave_bindings)
+            self.scheduled_admitted.update(wave_bindings)
+            self.commit_seq += 1
+            stats.journal_s += time.perf_counter() - tj
+
+    def _journal(self, rec: dict, wave_bindings: dict) -> None:
+        """Journal the committed wave (drain.py `_journal`): a monotonic id
+        and the closure replay needs to re-solve it alone — the exact
+        entering free rows (the rows that differ from capacity), the
+        allocation entering it, the earlier waves' admissions as
+        `scheduled` (cross-wave base gates resolve without ok_global), and
+        a pruned wave's candidate list (plans are cut against the initial
+        free, so replay must not re-cut them against the entering free).
+        A failure to journal never breaks the drain."""
+        from grove_tpu_torch.state.cluster import pod_request_vector
+
+        snap = self.snapshot
+        members = rec["members"]
+        try:
+            free_in = np.asarray(rec["free_in_np"], dtype=np.float32)
+            n_real = len(snap.node_names)
+            diff_rows = np.flatnonzero((free_in[:n_real] != self._cap_np[:n_real]).any(axis=1))
+            free_rows = {snap.node_names[i]: free_in[i].tolist() for i in diff_rows.tolist()}
+            mg_c, ms_c, mp_c = rec["shape"]
+            plan = rec["plan"]
+            journaled = self.recorder.capture_wave(
+                now=time.time(),
+                wave=f"drain-{self.commit_seq:06d}",
+                snapshot=snap,
+                gangs=members,
+                pods_by_name=self.pods_by_name,
+                scheduled_names=set(self.scheduled_admitted),
+                bound_nodes={},
+                reuse_nodes={},
+                spread_avoid={},
+                max_groups=mg_c,
+                max_sets=ms_c,
+                max_pods=mp_c,
+                pad_gangs_to=rec["pad"],
+                params=self.params,
+                portfolio=1,
+                escalate_portfolio=1,
+                pruning=self.pruning if plan is not None else None,
+                plan=wave_bindings,
+                ok_by_name={g.name: bool(rec["ok_np"][i]) for i, g in enumerate(members)},
+                valid_by_name={g.name: bool(rec["batch"].gang_valid[i])
+                               for i, g in enumerate(members)},
+                scores={g.name: float(rec["score_np"][i]) for i, g in enumerate(members)},
+                solve_seconds=0.0,  # asynchronous dispatch: no per-wave solve wall
+                allocated_override=self._alloc,
+                free_rows=free_rows,
+                candidates=plan.idx.tolist() if plan is not None else None,
+                mesh=None,
+            )
+            if journaled:
+                self.stats.journaled_waves += 1
+        except Exception:  # noqa: BLE001 — journaling never breaks the drain
+            pass
+        # Commit this wave's bindings into the running allocation table, so
+        # the next journaled wave records the state entering it.
+        for pod_bindings in wave_bindings.values():
+            for pod_name, node_name in pod_bindings.items():
+                self._alloc[snap.node_index(node_name)] += pod_request_vector(
+                    self.pods_by_name[pod_name], snap.resource_names)
 
     def harvest_inflight(self) -> None:
         """Make every in-flight wave's verdicts host-visible with one wait on
@@ -635,6 +731,7 @@ def drain_backlog(
     scan: ScanConfig | None = None,
     pruning: PruningConfig | None = None,
     portfolio: int = 1,
+    recorder=None,
     device=None,
 ) -> tuple[dict[str, dict[str, str]], DrainStats]:
     """Admit a whole backlog; returns ({gang: {pod: node}}, DrainStats).
@@ -646,8 +743,10 @@ def drain_backlog(
     disabled config, or `portfolio` > 1, both run as "pipeline"). `pruning`
     (enabled) solves each wave on its candidate axis, with the escalation
     described in the module docstring; `portfolio` > 1 solves every wave
-    under that many weight variants (pruning is then off). `device` None
-    means the card; "cpu" runs the plain PyTorch versions."""
+    under that many weight variants (pruning is then off). `recorder` (a
+    trace.recorder.TraceRecorder; single-variant drains only) journals every
+    committed wave, as the module docstring says. `device` None means the
+    card; "cpu" runs the plain PyTorch versions."""
     if harvest not in HARVEST_MODES:
         raise ValueError(f"harvest must be one of {'|'.join(HARVEST_MODES)}, got {harvest!r}")
     if depth < 1:
@@ -675,7 +774,7 @@ def drain_backlog(
     engine = _WavePipeline(
         gangs=gangs, pods_by_name=pods_by_name, snapshot=snapshot, params=params, stats=stats,
         dev=dev, pruning=pruning, portfolio=portfolio, retire_lag=retire_lag,
-        record_stamps=harvest in ("wave", "pipeline", "scan"), scan=scan_cfg,
+        record_stamps=harvest in ("wave", "pipeline", "scan"), scan=scan_cfg, recorder=recorder,
     )
     t0 = time.perf_counter()
     engine.t0 = t0

@@ -42,10 +42,9 @@ class GangBatch(NamedTuple):
     set_req_level: np.ndarray  # i32 [G, MS] topology level index, -1 = none
     set_pref_level: np.ndarray  # i32 [G, MS] topology level index, -1 = none
     set_valid: np.ndarray  # bool [G, MS]
-    # Domain pin for incremental re-solve (a required pack-set stays in the
-    # domain its already-bound pods occupy). The JAX package's serving path
-    # sets it; this encoder leaves every set unpinned (-1), and the solver
-    # honours pins it is given (convert.from_reference).
+    # Domain pin for incremental re-solve: when part of a gang is already
+    # bound, a required pack-set stays in the domain its bound pods occupy
+    # (encode_gangs' `bound_nodes_by_group`). -1 = unpinned.
     set_pinned: np.ndarray  # i32 [G, MS] domain ordinal at set_req_level
     pod_group: np.ndarray  # i32 [G, MP] group index of each pod slot, -1 pad
     pod_rank: np.ndarray  # i32 [G, MP] rank of pod within its group
@@ -247,6 +246,7 @@ def encode_gangs(
     max_pods: int | None = None,
     pad_gangs_to: int | None = None,
     scheduled_gangs: set[str] | None = None,
+    bound_nodes_by_group: dict[str, dict[str, list[int]]] | None = None,
     global_index_of: dict[str, int] | None = None,
     reuse_nodes_by_gang: dict[str, list[int]] | None = None,
     spread_avoid_by_gang: dict[str, list[int]] | None = None,
@@ -259,6 +259,11 @@ def encode_gangs(
     index), nor in `global_index_of`, nor in `scheduled_gangs` (names of
     gangs admitted by earlier solves) is marked invalid
     (syncflow.go:347-387).
+
+    `bound_nodes_by_group`: gang name -> group name -> node indices of that
+    group's pods bound by earlier solves. A required pack-set is pinned to
+    the domain the first bound member pod occupies (an incremental re-solve
+    must not split a co-location guarantee across domains).
 
     `reuse_nodes_by_gang`: gang name -> snapshot node indices its previous
     incarnation occupied (ReuseReservationRef, podgang.go:65-71).
@@ -277,11 +282,13 @@ def encode_gangs(
     r = len(snapshot.resource_names)
 
     def _sets_of(gang: PodGang):
-        """Return ((member group indices, req_level, pref_level) broad→narrow,
-        schedulable). A REQUIRED key that doesn't resolve to a snapshot
-        topology level makes the gang unschedulable."""
+        """Return ((member group indices, req_level, pref_level, pin_names)
+        broad→narrow, schedulable). `pin_names` are the member group names
+        the pin lookup consults, None for the whole gang. A REQUIRED key that
+        doesn't resolve to a snapshot topology level makes the gang
+        unschedulable."""
         group_idx = {grp.name: k for k, grp in enumerate(gang.spec.pod_groups)}
-        raw: list[tuple[list[int], int, int]] = []
+        raw: list[tuple[list[int], int, int, list[str] | None]] = []
         unresolved_required = False
 
         def levels_of(pc) -> tuple[int, int]:
@@ -293,17 +300,17 @@ def encode_gangs(
 
         if gang.spec.topology_constraint and gang.spec.topology_constraint.pack_constraint:
             req, pref = levels_of(gang.spec.topology_constraint.pack_constraint)
-            raw.append((list(range(len(gang.spec.pod_groups))), req, pref))
+            raw.append((list(range(len(gang.spec.pod_groups))), req, pref, None))
         for gc in gang.spec.topology_constraint_group_configs:
             if gc.topology_constraint and gc.topology_constraint.pack_constraint:
                 members = [group_idx[n] for n in gc.pod_group_names if n in group_idx]
                 if members:
                     req, pref = levels_of(gc.topology_constraint.pack_constraint)
-                    raw.append((members, req, pref))
+                    raw.append((members, req, pref, list(gc.pod_group_names)))
         for k, grp in enumerate(gang.spec.pod_groups):
             if grp.topology_constraint and grp.topology_constraint.pack_constraint:
                 req, pref = levels_of(grp.topology_constraint.pack_constraint)
-                raw.append(([k], req, pref))
+                raw.append(([k], req, pref, [grp.name]))
         # Drop sets with neither level resolvable.
         raw = [s for s in raw if s[1] >= 0 or s[2] >= 0]
         # Broadest required level first (-1 required sorts last).
@@ -343,6 +350,7 @@ def encode_gangs(
     selector_rows: dict[tuple, np.ndarray] = {}
     toleration_rows: dict[tuple, np.ndarray] = {}
     tainted_idx = snapshot.tainted_node_indices(_BLOCKING_EFFECTS)
+    bound_map = bound_nodes_by_group or {}
     # Normalize per resource before summing — raw units are incomparable.
     cap_scale = snapshot.cap_scale()
     n_nodes = snapshot.capacity.shape[0]
@@ -417,8 +425,9 @@ def encode_gangs(
             slot += nr
         if len(all_sets) > ms:
             raise ValueError(f"gang {gang.name}: {len(all_sets)} pack-sets > bucket {ms}")
+        gang_bound = bound_map.get(gang.name, {})
         req_constrained: set[int] = set()
-        for si, (members, req_l, pref_l) in enumerate(all_sets):
+        for si, (members, req_l, pref_l, pin_names) in enumerate(all_sets):
             batch.set_valid[gi, si] = True
             batch.set_req_level[gi, si] = req_l
             batch.set_pref_level[gi, si] = pref_l
@@ -426,6 +435,18 @@ def encode_gangs(
                 batch.set_member[gi, si, k] = True
                 if req_l >= 0:
                     req_constrained.add(k)
+            if req_l >= 0 and gang_bound:
+                # The original member names: a fully bound group dropped
+                # from an incremental sub-gang still anchors the pin.
+                lookup = gang_bound.keys() if pin_names is None else pin_names
+                for name in lookup:
+                    for node_idx in gang_bound.get(name, []):
+                        dom = int(snapshot.node_domain_id[req_l, node_idx])
+                        if dom >= 0:
+                            batch.set_pinned[gi, si] = dom
+                            break
+                    if batch.set_pinned[gi, si] >= 0:
+                        break
         # Constrained groups first, then biggest normalized demand first.
         demand = (
             batch.group_total[gi] * (batch.group_req[gi] / cap_scale[None, :]).sum(axis=1)

@@ -5,7 +5,8 @@
    candidate iff it is schedulable, can host at least one pod of some valid
    group, and sits in a domain that could serve some gang's broadest
    required pack-set. The list is clipped to `max_candidates` and padded to
-   a power-of-two bucket; the first pad row carries the full fleet's
+   a bucket (a power of two from `min_pad`, or the config's pad ladder,
+   rounded up to a multiple of the mesh's node axis); the first pad row carries the full fleet's
    per-resource capacity maxima (the cap anchor), so score normalisation
    matches the dense solve.
 2. `CandidatePlan` holds the gathered static node tensors, the domain ids
@@ -33,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from grove_tpu_torch.parallel.mesh import mesh_divisible_pad
 from grove_tpu_torch.solver.encode import GangBatch, next_pow2, stack_batches
 
 _EPS = 1e-6
@@ -62,7 +64,9 @@ class PruningConfig:
     # Candidate budget; the rest are clipped (clipping marks the affected
     # gangs lossy). 8191 candidates + the cap-anchor row fill the 8192 bucket.
     max_candidates: int = 8191
-    # Smallest candidate bucket; buckets are powers of two from here.
+    # The candidate buckets; () = every power of two from `min_pad` up.
+    pad_ladder: tuple = ()
+    # Smallest candidate bucket without a ladder.
     min_pad: int = 64
     # Fleets below this many nodes never prune.
     min_fleet: int = 256
@@ -125,6 +129,18 @@ class CandidatePlan:
                 domains,
             )
         return self._tensors[key]
+
+    def gather_free(self, free: np.ndarray) -> np.ndarray:
+        """Fleet free [N, R] -> candidate free [pad, R] on the host (pad rows
+        zero): the sweep's gathered stacked solve."""
+        out = np.zeros((self.pad, free.shape[1]), dtype=np.float32)
+        out[: self.count] = free[self.idx]
+        return out
+
+    def remap_assigned(self, assigned: np.ndarray) -> np.ndarray:
+        """Candidate ordinals -> fleet ordinals on the host (-1 stays)."""
+        safe = np.clip(assigned, 0, self.count - 1)
+        return np.where(assigned >= 0, self.idx[safe], -1)
 
     def gather_batch(self, batch: GangBatch) -> GangBatch:
         """Gather the batch's node-axis fields onto the candidate axis and
@@ -197,10 +213,18 @@ def stack_plans(plans: list, batches: list, device) -> StackedPlans:
                         domains)
 
 
-def candidate_pad(count: int, cfg: PruningConfig) -> int:
-    """Smallest power-of-two bucket (>= min_pad) holding `count` candidates
-    plus the cap-anchor row."""
-    return next_pow2(max(count + 1, cfg.min_pad))
+def candidate_pad(count: int, cfg: PruningConfig, mesh_axis: int = 1) -> Optional[int]:
+    """Smallest bucket holding `count` candidates plus the cap-anchor row:
+    the first fitting entry of the pad ladder (None when none fits), or
+    without a ladder the power of two >= min_pad; rounded up to a multiple
+    of `mesh_axis`, a sharded solve's node-axis device count."""
+    need = count + 1
+    if cfg.pad_ladder:
+        for v in sorted(int(x) for x in cfg.pad_ladder):
+            if v >= need:
+                return mesh_divisible_pad(v, mesh_axis)
+        return None
+    return mesh_divisible_pad(next_pow2(max(need, cfg.min_pad)), mesh_axis)
 
 
 def _eligible_nodes(free, schedulable, batch: GangBatch) -> tuple[np.ndarray, bool]:
@@ -278,11 +302,14 @@ def _domain_useful(free, schedulable, node_domain_id, batch: GangBatch) -> np.nd
     return useful
 
 
-def plan_candidates(snapshot, batch: GangBatch, cfg: PruningConfig) -> Optional[CandidatePlan]:
-    """Cut the candidate axis for one batch against `snapshot`'s free state.
+def plan_candidates(snapshot, batch: GangBatch, cfg: PruningConfig,
+                    mesh_axis: int = 1) -> Optional[CandidatePlan]:
+    """Cut the candidate axis for one batch against `snapshot`'s free state;
+    `mesh_axis` as candidate_pad.
 
     None when pruning is not worthwhile: fleet below `min_fleet`, no valid
-    gang, no candidate, or a bucket not smaller than the fleet axis."""
+    gang, no candidate, no ladder entry that fits, or a bucket not smaller
+    than the fleet axis."""
     free = np.asarray(snapshot.free, dtype=np.float32)
     schedulable = np.asarray(snapshot.schedulable, dtype=bool)
     node_domain_id = np.asarray(snapshot.node_domain_id)
@@ -304,8 +331,8 @@ def plan_candidates(snapshot, batch: GangBatch, cfg: PruningConfig) -> Optional[
     count = int(cand.shape[0])
     if count == 0:
         return None
-    pad = candidate_pad(count, cfg)
-    if pad >= n:
+    pad = candidate_pad(count, cfg, mesh_axis)
+    if pad is None or pad >= n:
         return None
 
     # Lossy witness: an excluded schedulable node with free capacity in a
@@ -367,6 +394,23 @@ def _assemble_plan(snapshot, cand: np.ndarray, pad: int, clipped: bool, gang_los
         num_domains=num_domains,
         _remap=remap,
     )
+
+
+def plan_from_indices(snapshot, indices, cfg: PruningConfig, n_gangs: int,
+                      mesh_axis: int = 1) -> CandidatePlan:
+    """Rebuild a plan from a journaled candidate list (trace/replay.py): a
+    live plan is cut against a free state the wave record does not carry,
+    so replay gathers the recorded list. The lossy witness is all-False (the
+    recorded verdicts already absorbed any escalation). `mesh_axis` is the
+    recorded mesh's node axis, so the pad equals the recorded solve's."""
+    cand = np.asarray(indices, dtype=np.int32)
+    pad = candidate_pad(int(cand.shape[0]), cfg, mesh_axis)
+    if pad is None:
+        raise ValueError(
+            f"recorded candidate list ({cand.shape[0]} nodes) does not fit "
+            f"the recorded pad ladder {cfg.pad_ladder!r}"
+        )
+    return _assemble_plan(snapshot, cand, pad, False, np.zeros((n_gangs,), dtype=bool))
 
 
 def lossy_rejections(plan: CandidatePlan, gang_valid, ok) -> np.ndarray:

@@ -23,6 +23,8 @@ same inputs and layout, op for op:
     and the winner's quality sum adds in XLA's CPU order (`xla_sum_ref`);
   - B4 (core.py `scan_solve_fn` / `scan_pruned_solve_fn`) is a loop over
     the leading wave axis that threads (free, ok_global) from step to step.
+  - B6 (core.py `stacked_scan_solve_fn`) is a loop over the leading wave
+    axis of B5, each step from its own recorded free, with no carry.
 
 The CPU tests hold these against the JAX package, and `chip_smoke.py` holds
 the CUDA kernel (`grove_tpu_torch/kernels/place_wave.py`) against them on the
@@ -652,3 +654,20 @@ def scan_pruned_solve_ref(free0, cand_idx, capacity_p, schedulable_p, node_domai
         )
         rows.append((assigned, ok, score))
     return _scan_out(rows, free_in, okg_in, free, okg, retain)
+
+
+def stacked_scan_solve_ref(free_stack, capacity, schedulable, node_domain_id,
+                           stacked_batch: GangBatch, params_stack):
+    """W journaled waves under every row of `params_stack` (core.py
+    `stacked_scan_solve_fn`): step w is `stacked_solve_ref` on wave w of
+    `stacked_batch` from `free_stack[w]`, with no ok_global and no carry
+    between the steps.
+
+    Returns (assigned i32 [W, K, G, MP], ok bool [W, K, G], score f32
+    [W, K, G])."""
+    rows = [
+        stacked_solve_ref(free_stack[w], capacity, schedulable, node_domain_id,
+                          _step(stacked_batch, w), params_stack)[:3]
+        for w in range(free_stack.shape[0])
+    ]
+    return tuple(torch.stack([row[i] for row in rows]) for i in range(3))

@@ -83,14 +83,23 @@ class ClusterSnapshot:
 
 
 def build_snapshot(
-    nodes: list[Node], topology: ClusterTopology, bound_pods: list[Pod] | None = None
+    nodes: list[Node],
+    topology: ClusterTopology,
+    bound_pods: list[Pod] | None = None,
+    *,
+    resource_names: tuple[str, ...] = DEFAULT_RESOURCES,
+    pad_nodes_to: int | None = None,
 ) -> ClusterSnapshot:
     """Flatten node objects + topology labels into the dense snapshot over
-    DEFAULT_RESOURCES; `bound_pods` already hold capacity on their nodes."""
+    `resource_names`; `bound_pods` already hold capacity on their nodes.
+    `pad_nodes_to` pads the node axis with unschedulable zero-capacity rows
+    (a journaled wave's recorded node pad)."""
     topology = topology.with_host_level()
     levels = topology.sorted_levels()
-    n = len(nodes)
-    resource_names = DEFAULT_RESOURCES
+    n_real = len(nodes)
+    n = pad_nodes_to if pad_nodes_to is not None else n_real
+    if n < n_real:
+        raise ValueError(f"pad_nodes_to={n} < node count {n_real}")
     r = len(resource_names)
 
     capacity = np.zeros((n, r), dtype=np.float32)
@@ -107,7 +116,7 @@ def build_snapshot(
     # raw value: rack "rack-1" in zone "z0" is a different physical rack than
     # "rack-1" in zone "z1". Every node gets a host value (label or node
     # name), so host-level ordinal == node index.
-    node_paths: list[tuple[str, ...]] = [() for _ in range(n)]
+    node_paths: list[tuple[str, ...]] = [() for _ in range(n_real)]
     for li, level in enumerate(levels):
         ordinals: dict[tuple[str, ...], int] = {}
         for i, node in enumerate(nodes):
@@ -123,14 +132,14 @@ def build_snapshot(
             node_domain_id[li, i] = ordinals[path]
         domain_names.append(["/".join(p) for p in ordinals])  # dicts keep ordinal order
         num_domains[li] = len(ordinals)
-        if level.domain == TopologyDomain.HOST and len(ordinals) != n:
+        if level.domain == TopologyDomain.HOST and len(ordinals) != n_real:
             raise ValueError(
                 f"duplicate host-level domain values: {len(ordinals)} host "
-                f"domains for {n} nodes (host labels must be unique)"
+                f"domains for {n_real} nodes (host labels must be unique)"
             )
 
     snap = ClusterSnapshot(
-        resource_names=resource_names,
+        resource_names=tuple(resource_names),
         node_names=[x.name for x in nodes],
         capacity=capacity,
         allocated=np.zeros_like(capacity),
@@ -141,8 +150,8 @@ def build_snapshot(
         domain_names=domain_names,
         num_domains=num_domains,
         node_index_map={x.name: i for i, x in enumerate(nodes)},
-        node_labels=[x.labels for x in nodes],
-        node_taints=[x.taints for x in nodes],
+        node_labels=[x.labels for x in nodes] + [{} for _ in range(n - n_real)],
+        node_taints=[x.taints for x in nodes] + [[] for _ in range(n - n_real)],
     )
     for pod in bound_pods or []:
         # Skip stale bindings to nodes that no longer exist: the binding

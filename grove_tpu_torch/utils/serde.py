@@ -1,0 +1,110 @@
+"""Typed JSON codec for the port's objects (grove_tpu/utils/serde.py
+counterpart): a journal's wave records carry their gangs and pods in it.
+
+Encoding rules:
+  dataclass -> {"!t": "<registered name>", <field>: <encoded>, ...}
+  Enum      -> {"!e": "<registered name>", "v": <value>}
+  set       -> {"!s": [..]}     tuple -> {"!u": [..]}
+  dict with non-str keys -> {"!d": [[k, v], ..]}
+  primitives/list/str-key dict pass through.
+
+Decoding maps each tag onto the registered port type of that name. The
+port's types are cut down to what placement reads, so a document written
+by the JAX package carries fields the port's type lacks (a Pod's labels and
+phase, a PodGang's queue and status, ...): those are dropped without being
+decoded, and the fields the port's type has are kept. A tag with no port
+type of that name is a hard error, as in the reference: state must not
+truncate quietly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any
+
+_CLASSES: dict[str, type] = {}
+
+
+def register(cls: type) -> type:
+    """Register a dataclass/enum for decoding (idempotent; name-keyed)."""
+    _CLASSES[cls.__name__] = cls
+    return cls
+
+
+def register_module(module) -> None:
+    """Register every dataclass and Enum defined in `module`."""
+    for name in dir(module):
+        obj = getattr(module, name)
+        if isinstance(obj, type) and obj.__module__ == module.__name__:
+            if dataclasses.is_dataclass(obj) or issubclass(obj, enum.Enum):
+                register(obj)
+
+
+# dataclass -> its field names, looked up once per class (a journal encodes
+# thousands of pods per drain).
+_FIELD_NAMES: dict[type, tuple[str, ...]] = {}
+
+
+def encode(obj: Any) -> Any:
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if isinstance(obj, enum.Enum):
+        return {"!e": type(obj).__name__, "v": obj.value}
+    cls = type(obj)
+    names = _FIELD_NAMES.get(cls)
+    if names is None and dataclasses.is_dataclass(cls):
+        names = _FIELD_NAMES[cls] = tuple(f.name for f in dataclasses.fields(cls))
+    if names is not None:
+        doc: dict[str, Any] = {"!t": cls.__name__}
+        for name in names:
+            doc[name] = encode(getattr(obj, name))
+        return doc
+    if isinstance(obj, list):
+        return [encode(x) for x in obj]
+    if isinstance(obj, tuple):
+        return {"!u": [encode(x) for x in obj]}
+    if isinstance(obj, (set, frozenset)):
+        return {"!s": sorted(encode(x) for x in obj)}
+    if isinstance(obj, dict):
+        if all(isinstance(k, str) for k in obj):
+            return {k: encode(v) for k, v in obj.items()}
+        return {"!d": [[encode(k), encode(v)] for k, v in obj.items()]}
+    raise TypeError(f"cannot encode {type(obj).__name__}: {obj!r}")
+
+
+def decode(doc: Any) -> Any:
+    if doc is None or isinstance(doc, (bool, int, float, str)):
+        return doc
+    if isinstance(doc, list):
+        return [decode(x) for x in doc]
+    if isinstance(doc, dict):
+        if "!e" in doc:
+            return _lookup(doc["!e"])(doc["v"])
+        if "!t" in doc:
+            cls = _lookup(doc["!t"])
+            fields = {f.name: f for f in dataclasses.fields(cls)}
+            kept = {k: decode(v) for k, v in doc.items() if k in fields}
+            obj = cls(**{k: v for k, v in kept.items() if fields[k].init})
+            for k, v in kept.items():
+                if not fields[k].init:
+                    setattr(obj, k, v)
+            return obj
+        if "!s" in doc:
+            return set(decode(x) for x in doc["!s"])
+        if "!u" in doc:
+            return tuple(decode(x) for x in doc["!u"])
+        if "!d" in doc:
+            return {decode(k): decode(v) for k, v in doc["!d"]}
+        return {k: decode(v) for k, v in doc.items()}
+    raise TypeError(f"cannot decode {type(doc).__name__}: {doc!r}")
+
+
+def _lookup(name: str) -> type:
+    cls = _CLASSES.get(name)
+    if cls is None:
+        raise KeyError(
+            f"serde: type {name!r} not registered — a document from a newer "
+            "schema, or a type the port does not have"
+        )
+    return cls

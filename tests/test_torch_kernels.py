@@ -1363,3 +1363,150 @@ def test_scan_drain_on_card_counts_one_launch_per_chunk(cuda):
     assert bindings == cpu_bindings and np.array_equal(stats.free_after, cpu_stats.free_after)
     for f in ("dispatches", "device_roundtrips", "scan_chunks", "scanned_waves"):
         assert getattr(stats, f) == getattr(cpu_stats, f), f
+
+
+# ---- B6: the sweep launch ------------------------------------------------------
+
+SWEEP_CASES = ["dense", "spread"]
+
+
+def sweep_case(case, k):
+    """(snapshot, free_stack [W, N, R], steps, params_stack [K, 5]): a scan
+    case's steps (its trailing null wave included), each from the carry the
+    plain scan entered it with, as a scan drain's journal records them, and
+    K weight rows (odd rows worst-fit)."""
+    from grove_tpu_torch.solver.reference import scan_solve_ref
+
+    snap, steps, okg_np, _ = scan_case(case)
+    free, cap, sched, ndid = _node_tensors(snap, "cpu")
+    entered = scan_solve_ref(free, cap, sched, ndid, batch_to(stack_batches(steps), "cpu"),
+                             SolverParams(), torch.as_tensor(okg_np), True)[3]
+    # The null wave's recorded free is zero, as the sweep pads a run.
+    entered[-1] = 0
+    return snap, entered.contiguous(), steps, stack_rows(k)
+
+
+def _sweep_vs_plain(launch, case, k, dev, plane_words=None):
+    """One sweep launch (the kernel on the card or compiled for the host)
+    against stacked_scan_solve_ref, exactly; returns the plain outputs and
+    the case."""
+    from grove_tpu_torch.solver.reference import stacked_scan_solve_ref
+
+    snap, free_stack, steps, pstack = sweep_case(case, k)
+    _, cap, sched, ndid = _node_tensors(snap, dev)
+    tb = batch_to(stack_batches(steps), dev)
+    fs, pstack = free_stack.to(dev), pstack.to(dev)
+    want = stacked_scan_solve_ref(fs, cap, sched, ndid, tb, pstack)
+    fs_k = fs.clone()
+    args, smem, out, _keep = pwm.build_sweep_args(fs_k, cap, sched, ndid, tb, pstack,
+                                                  pwm.domain_index(ndid.cpu(), dev),
+                                                  plane_words=plane_words)
+    launch(args, smem)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    for name, a, b in zip(("assigned", "ok", "placement_score"),
+                          (out["assigned"], out["ok"], out["score"]), want):
+        assert torch.equal(a, b), f"sweep {name}: kernel != plain at {torch.nonzero(a != b)[:8].tolist()}"
+    assert torch.equal(fs_k, fs), "the sweep launch wrote its recorded free"
+    ok = want[1].cpu()
+    assert ok[:-1].any(dim=2).all() and not ok[-1].any(), "every wave but the null one admits"
+    return want, (snap, free_stack, steps, pstack)
+
+
+def _card_sweep_launch(args, smem):
+    fn = build.load("place_wave").place_wave_sweep_launch
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    assert fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream, smem) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def host_sweep(host_lib):
+    fn = host_lib.place_wave_sweep_launch
+    fn.argtypes = [ctypes.POINTER(pwm.PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    def launch(args, smem):
+        assert fn(ctypes.byref(args), None, smem) == 0
+
+    return launch
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("staging", ["whole", "chunked"])
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_kernel_source_on_host_sweep_equals_plain(host_sweep, case, staging, k):
+    words = None
+    if staging == "chunked":
+        words = min_plane_words(batch_to(scan_case(case)[1][0], "cpu"))
+    _sweep_vs_plain(host_sweep, case, k, "cpu", plane_words=words)
+
+
+def _sweep_rows_vs_single_launches(launch_sweep, launch_single, case, dev):
+    """Row (w, k) of the sweep launch equals a single place_wave launch of
+    wave w from its recorded free under row k, bit for bit."""
+    want, (snap, free_stack, steps, pstack) = _sweep_vs_plain(launch_sweep, case, 3, dev)
+    _, cap, sched, ndid = _node_tensors(snap, dev)
+    domains = pwm.domain_index(ndid.cpu(), dev)
+    for w, batch in enumerate(steps):
+        for k in range(pstack.shape[0]):
+            free = free_stack[w].clone().to(dev)
+            args, smem, out, _ = pwm.build_args(free, cap, sched, ndid, batch_to(batch, dev),
+                                                params_row(pstack[k]), None, domains)
+            launch_single(args, smem)
+            for name, a, b in zip(FIELDS, (out["assigned"], out["ok"], out["score"]), want):
+                assert torch.equal(a, b[w, k].to(dev)), f"row ({w}, {k}) {name}: sweep != single"
+
+
+def test_kernel_source_on_host_sweep_rows_equal_single_launches(host_sweep, host_kernel):
+    _sweep_rows_vs_single_launches(host_sweep, host_kernel, "spread", "cpu")
+
+
+def test_wrapper_fills_sweep_args():
+    snap, free_stack, steps, pstack = sweep_case("dense", 4)
+    _, cap, sched, ndid = _node_tensors(snap, "cpu")
+    tb = batch_to(stack_batches(steps), "cpu")
+    w_len, n, r = free_stack.shape
+    g, mg, _ = steps[0].group_req.shape
+    mp = steps[0].pod_group.shape[1]
+    dom = pwm.domain_index(ndid, "cpu")
+    single = pwm.build_args(free_stack[0], cap, sched, ndid, batch_to(steps[0], "cpu"),
+                            SolverParams(), None, dom)[3]
+    args, smem, out, keep = pwm.build_sweep_args(free_stack, cap, sched, ndid, tb, pstack, dom)
+    assert (args.W, args.K, args.T) == (w_len, 4, 0) and smem == pwm.PLANE_BYTES
+    assert args.free_in == free_stack.data_ptr() and args.st_free_in == n * r
+    assert (args.st_group_req, args.st_pod_group, args.st_gang_valid) == (g * mg * r, g * mp, g)
+    assert (args.st_capacity, args.st_dom_nodes, args.st_cand_idx) == (0, 0, 0)
+    assert (args.st_assigned, args.st_ok, args.st_score) == (0, 0, 0), "rows by block"
+    assert args.st_ginv == g * pwm.INV_BYTES and keep["ginv"].numel() == w_len * g * pwm.INV_BYTES
+    assert args.st_okg_in == 0 and args.okg_in is None and args.ok_global is None
+    assert out["assigned"].shape == (w_len, 4, g, mp) and out["ok"].shape == (w_len, 4, g)
+    assert not out["ok"].any() and "free_after" not in out
+    for name in ("tables", "agg", "feas2", "nword", "entries", "undo", "norm_free"):
+        assert keep[name].numel() == w_len * 4 * single[name].numel(), name
+    assert keep["carry"].numel() == w_len * 4 * n * r, "each block copies its step's free"
+    with pytest.raises(ValueError, match="leading step axis"):
+        pwm.build_sweep_args(free_stack[:2], cap, sched, ndid, tb, pstack, dom)
+    with pytest.raises(ValueError, match="params_stack"):
+        pwm.build_sweep_args(free_stack, cap, sched, ndid, tb, torch.zeros((4, 3)), dom)
+
+
+def test_wrapper_refuses_cpu_tensors_for_the_sweep():
+    snap, free_stack, steps, pstack = sweep_case("dense", 2)
+    _, cap, sched, ndid = _node_tensors(snap, "cpu")
+    with pytest.raises(ValueError, match="CUDA device only"):
+        pwm.place_wave_stacked_scan(free_stack, cap, sched, ndid,
+                                    batch_to(stack_batches(steps), "cpu"), pstack,
+                                    domains=pwm.domain_index(ndid, "cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_sweep_kernel_equals_plain(cuda, case):
+    _sweep_vs_plain(_card_sweep_launch, case, 3, cuda)
+
+
+@pytest.mark.gpu
+def test_sweep_rows_equal_single_launches_on_card(cuda):
+    _sweep_rows_vs_single_launches(_card_sweep_launch, _card_launch, "spread", cuda)

@@ -171,10 +171,11 @@ def test_convert_carries_the_pruning_config():
     )
     with pytest.raises(ValueError, match="unknown PruningConfig"):
         pruning_config_from_reference({"bogus": 1})
-    with pytest.raises(ValueError, match="no pad_ladder"):
-        pruning_config_from_reference(
-            dataclasses.asdict(rp.PruningConfig(enabled=True, pad_ladder=(64, 128)))
-        )
+    # The pad ladder carries over (replay builds its config from a journal's
+    # recorded padLadder).
+    assert pruning_config_from_reference(
+        dataclasses.asdict(rp.PruningConfig(enabled=True, pad_ladder=(64, 128)))
+    ) == pp.PruningConfig(enabled=True, pad_ladder=(64, 128))
 
 
 def _drains(name, wave_size=8):

@@ -11,7 +11,10 @@
     (the 320-node bench at wave sizes 4 and 16, the contended fleet) and
     pruned (escalations that confirm, and adoptions re-chained mid-scan);
   - the fallbacks, the argument checks, latency_percentiles' edge cases and
-    scan_config_from_reference.
+    scan_config_from_reference;
+  - B6's plain version, stacked_scan_solve_ref, equals JAX
+    stacked_scan_solve_fn (the tuning sweep's run batcher) at tolerance 0,
+    a trailing null wave included.
 """
 
 from __future__ import annotations
@@ -36,7 +39,12 @@ from grove_tpu_torch.solver.drain import HARVEST_MODES, DrainStats, ScanConfig
 from grove_tpu_torch.solver.drain import drain_backlog as p_drain
 from grove_tpu_torch.solver.drain import plan_waves as p_plan
 from grove_tpu_torch.solver.encode import stack_batches
-from grove_tpu_torch.solver.reference import scan_pruned_solve_ref, scan_solve_ref
+from grove_tpu_torch.solver.core import stacked_scan_solve
+from grove_tpu_torch.solver.reference import (
+    scan_pruned_solve_ref,
+    scan_solve_ref,
+    stacked_scan_solve_ref,
+)
 from test_torch_host import PORT, REF, _bench, _contended, expand_all
 
 LEDGER = ("admitted", "pods_bound", "waves", "dispatches", "device_roundtrips", "scan_chunks",
@@ -371,3 +379,42 @@ def test_stack_batches_stacks_every_field():
             assert x is None
         else:
             assert np.array_equal(x[0], a) and np.array_equal(x[1], b) and x.dtype == a.dtype
+
+
+# ---- B6's plain version (the tuning sweep's stacked scan) -------------------------
+
+
+def test_stacked_scan_ref_equals_jax_stacked_scan_fn():
+    """stacked_scan_solve_ref against JAX stacked_scan_solve_fn on a chunk of
+    same-shape waves, each from its own free, with a trailing null wave
+    (zero free, all-invalid batch), at K = 3, tolerance 0."""
+    rs, ref_steps, _ = scan_chunk()
+    w = len(ref_steps)
+    rng = np.random.default_rng(7)
+    free = np.asarray(rs.free, np.float32)
+    free_stack = np.stack([free * (rng.random(free.shape[0]) < 0.8)[:, None].astype(np.float32)
+                           for _ in range(w)])
+    free_stack[-1] = 0
+    stack = np.exp(rng.normal(0, 0.5, size=(3, 5))).astype(np.float32)
+    stack[0] = 1
+    stack *= np.asarray([1.0, 4.0, 2.0, 8.0, 1.5], np.float32)
+    stack[1, 0] *= -1
+    jbatch = _jax_batch(ref_steps)
+    want = rc.stacked_scan_solve_fn()(
+        jnp.asarray(free_stack), jnp.asarray(rs.capacity), jnp.asarray(rs.schedulable),
+        jnp.asarray(rs.node_domain_id), jbatch,
+        rc.SolverParams(*(jnp.asarray(stack[:, i]) for i in range(5))), coarse_dmax=None)
+    pbatch = _port_stacked(ref_steps)
+    got = stacked_scan_solve_ref(torch.as_tensor(free_stack), torch.as_tensor(rs.capacity),
+                                 torch.as_tensor(rs.schedulable),
+                                 torch.as_tensor(rs.node_domain_id), pbatch,
+                                 torch.as_tensor(stack))
+    for f, a, b in zip(("assigned", "ok", "placement_score"),
+                       (want.assigned, want.ok, want.placement_score), got):
+        a, b = np.asarray(a), b.numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    ok = got[1].numpy()
+    assert ok[:-1].any() and not ok[-1].any(), "the null wave admits nothing"
+    entry = stacked_scan_solve(free_stack, rs.capacity, rs.schedulable, rs.node_domain_id,
+                               pbatch, stack, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(entry, got))

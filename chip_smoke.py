@@ -95,14 +95,36 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               (candidate waves: the recorded gather, one dense B5 launch on
               its arrays), and the JAX-recorded journal committed under
               tests/data replayed and swept, all with 0 divergences
- 10. kernels  one JSON line: per kernel variant its launches on the main
+ 10. warm     the warm path (solver/warm.py): the 5120-node backlog drained
+              twice, chained, through a fresh WarmPath whose shape history
+              lies in a temporary directory — both drains bind what phase 4
+              bound, their free_after bitwise equal; the cold drain prepares
+              one launch per distinct (shape, pad) (lowerings ==
+              exec_cache_misses), the warm drain none, every lookup a hit
+              (waves + keys), every gang's rows reused (1250 hits), the
+              carry donated; the first wave through the cache against a
+              direct place_wave launch and phase 3's plain version on the
+              same inputs, and the same entry replayed on the non-dyadic
+              snapshot against its direct launch, tolerance 0; phase 3's
+              spread backlog, its 8 waves chained twice through one fresh
+              cache (waves 0 and 1 share a spread entry), every wave and
+              the final carry equal to direct launches; the
+              wave_size 32 scan drain (chunks padded to 16, 8, 16, 16) and
+              the 20480-node pruned chained drain, cold then warm: the
+              bindings of phases 8 and 5, no preparation when warm; a second
+              WarmPath prewarmed from the history file prepares every
+              recorded shape and then drains with none; the cold and warm
+              walls, encode, dispatch and compile seconds, capture ms per
+              entry, and per-wave dispatch, direct launch against replay
+ 11. kernels  one JSON line: per kernel variant its launches on the main
               path, its error against the plain version, its time, the
               plain version's time, its bound and a library call's time
- 11. the last line: {"ok": true, "device": {...}}
+ 12. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -493,6 +515,8 @@ def main() -> int:
     phase_done("3, exact")
 
     # ---- 4. the main path: full drain through the kernel ---------------------
+    # (the garbage of the phases above collected first, outside the timing)
+    gc.collect()
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -512,7 +536,8 @@ def main() -> int:
     n_pods = sum(len(b) for b in bindings.values())
     print(f"drain: gangs {len(gangs_b)} gangs_admitted {stats.admitted} pods {len(pods_b)} "
           f"pods_bound {stats.pods_bound} ({n_pods} bindings) waves {stats.waves} "
-          f"launches {launches['dense']} drain_s {drain_s:.4f} (encode {stats.encode_s:.4f}, "
+          f"launches {launches['dense']} wall {drain_s:.4f} (the warm pre-pass compile_s "
+          f"{stats.compile_s:.4f} + drain_s {stats.total_s:.4f}: encode {stats.encode_s:.4f}, "
           f"dispatch {stats.dispatch_s:.4f}, harvest {stats.harvest_s:.4f}, "
           f"decode {stats.decode_s:.4f}) on {card}")
 
@@ -682,7 +707,14 @@ def main() -> int:
 
     phase_done("9, sweep")
 
-    # ---- 10. kernels line ----------------------------------------------------
+    # ---- 10. warm: the launch cache, row reuse and device-resident state -----
+    warm_phase(dev, card, snap_b, gangs_b, pods_b, bindings, stats, plan_b, encode_wave,
+               dom_b, plain["bench wave 0"][0], snap_nd, sc["chained32"], snap_4,
+               scale_bindings[4.0, "pruned"], pruning, (gangs_sp, pods_sp))
+
+    phase_done("10, warm")
+
+    # ---- 11. kernels line ----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": [
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
@@ -714,6 +746,256 @@ def main() -> int:
 
 
 NAMES = ("assigned", "ok", "placement_score", "free_after", "ok_global")
+
+
+def warm_phase(dev, card, snap, gangs, pods, chained, chained_stats, planned, encode_wave,
+               domains, plain_wave0, snap_nd, chained32, snap_4, pruned_chained_4, pruning,
+               spread_backlog):
+    """Phase 10: the warm path on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.kernels.place_wave import domain_index, place_wave, reset_launches
+    from grove_tpu_torch.solver.core import SolverParams, batch_to, decode_bindings
+    from grove_tpu_torch.solver.drain import (
+        ScanConfig,
+        class_runs,
+        drain_backlog,
+        plan_waves,
+        scan_chunks,
+    )
+    from grove_tpu_torch.solver.warm import ExecutableCache, WarmPath
+
+    from grove_tpu_torch.solver.encode import encode_gangs
+
+    params = SolverParams()
+    n_keys = len({ws[1:] for ws in planned})
+    gidx = {g.name: i for i, g in enumerate(gangs)}
+
+    def encode_gangs_wave(ws):
+        wave, (mg, ms, mp), pad = ws
+        return encode_gangs(wave, pods, snap, max_groups=mg, max_sets=ms, max_pods=mp,
+                            pad_gangs_to=pad, global_index_of=gidx)
+    tmp = tempfile.mkdtemp(prefix="grove-warm-")
+    try:
+        wp = WarmPath()
+        wp.executables.history_path = os.path.join(tmp, "solve-shapes.json")
+
+        def drain(label, path, fleet=snap, **kw):
+            gc.collect()  # the phases' garbage, outside the timing
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            b, st = drain_backlog(gangs, pods, fleet, params=params, warm_path=path, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(place_wave.variant_launches)
+            check(sum(launches.values()) == st.dispatches,
+                  f"warm[{label}]: launches {launches} for {st.dispatches} dispatches")
+            print(f"warm[{label}]: wall {wall:.4f} s (compile_s {st.compile_s:.4f} + drain_s "
+                  f"{st.total_s:.4f}: encode {st.encode_s:.4f}, prune {st.prune_s:.4f}, dispatch "
+                  f"{st.dispatch_s:.4f}, harvest {st.harvest_s:.4f}, decode {st.decode_s:.4f}), "
+                  f"waves {st.waves}, lowerings {st.lowerings}, exec hits {st.exec_cache_hits} "
+                  f"misses {st.exec_cache_misses}, encode reuse {st.encode_reuse_hits}/"
+                  f"{st.encode_reuse_hits + st.encode_reuse_misses}, donated {st.donated}, "
+                  f"launches {launches} on {card}")
+            return b, st
+
+        # 1. The bench pair, chained, 5120 nodes.
+        b_cold, cold = drain("cold, 5120 nodes", wp, wave_size=256)
+        captures_cold = list(wp.executables.capture_seconds())
+        b_warm, warm = drain("warm, 5120 nodes", wp, wave_size=256)
+        for label, b, st in (("cold", b_cold, cold), ("warm", b_warm, warm)):
+            check(b == chained and list(b) == list(chained),
+                  f"warm[{label}]: bindings differ from phase 4's chained drain")
+            check(st.waves == chained_stats.waves and st.admitted == len(gangs),
+                  f"warm[{label}]: {st.admitted}/{len(gangs)} admitted in {st.waves} waves")
+        check(np.array_equal(cold.free_after, warm.free_after)
+              and np.array_equal(cold.free_after, chained_stats.free_after),
+              "warm: free_after differs between the cold, the warm and phase 4's drain")
+        check(cold.lowerings == cold.exec_cache_misses == n_keys,
+              f"warm[cold]: {cold.lowerings} lowerings, {cold.exec_cache_misses} misses for "
+              f"{n_keys} distinct (shape, pad)")
+        check(warm.lowerings == 0 and warm.exec_cache_misses == 0
+              and warm.exec_cache_hits == warm.waves + n_keys,
+              f"warm[warm]: {warm.lowerings} lowerings, {warm.exec_cache_misses} misses, "
+              f"{warm.exec_cache_hits} hits (expected {warm.waves + n_keys})")
+        check(warm.encode_reuse_hits == len(gangs) and warm.encode_reuse_misses == 0
+              and warm.donated, f"warm[warm]: encode reuse {warm.encode_reuse_hits}/"
+              f"{warm.encode_reuse_misses}, donated {warm.donated}")
+        print(f"warm[capture]: {len(captures_cold)} entries, ms per capture "
+              f"{[round(1e3 * x, 3) for x in captures_cold]}; cold drain compile_s "
+              f"{cold.compile_s:.4f} beside its drain_s {cold.total_s:.4f}, warm encode_s "
+              f"{warm.encode_s:.4f} against cold {cold.encode_s:.4f} on {card}")
+
+        # 2. A replay against a direct launch and the plain version, tolerance
+        # 0: the first wave through the drain's entry (donated key), then the
+        # same entry on the non-dyadic snapshot.
+        cache = wp.executables
+        t_len = len(gangs)
+        for label, fleet, want in (("bench wave 0", snap, plain_wave0),
+                                   ("bench wave 0 on non-dyadic free", snap_nd, None)):
+            tb = batch_to(encode_wave(planned[0], fleet), dev)
+            free = torch.as_tensor(fleet.free, dtype=torch.float32, device=dev)
+            node = (torch.as_tensor(fleet.capacity, device=dev),
+                    torch.as_tensor(fleet.schedulable, device=dev),
+                    torch.as_tensor(fleet.node_domain_id, device=dev))
+            dom = domains if fleet is snap else domain_index(fleet.node_domain_id, dev)
+            okg = torch.zeros(t_len, dtype=torch.bool, device=dev)
+            lowerings = cache.lowerings
+            got = cache.solve(free, *node, tb, params, okg, donate=True, device=dev,
+                              domains=dom)
+            direct = place_wave(free.clone(), *node, tb, params, okg.clone(), domains=dom)
+            torch.cuda.synchronize()
+            check(cache.lowerings == lowerings, f"warm[{label}]: the replay prepared an entry")
+            for nm, a, b in zip(NAMES, got, direct):
+                check(torch.equal(a, b), f"warm[{label}]: replay != direct launch on {nm}")
+            if want is not None:
+                for nm, a, b in zip(NAMES, got, want):
+                    check(torch.equal(a, b), f"warm[{label}]: replay != plain on {nm}")
+            print(f"warm[{label}]: replay == direct launch"
+                  + (" == plain version" if want is not None else "")
+                  + f" on {', '.join(NAMES)}, tolerance 0")
+
+        # The 7 waves chained through one carry, every wave enqueued before
+        # any is read (several waves of one entry in flight): direct launches
+        # against replays, per-wave dispatch (host seconds to enqueue) and
+        # every wave's planes and the final carry compared bit for bit; the
+        # direct chain decodes to phase 4's bindings.
+        waves = [encode_gangs_wave(ws) for ws in planned]
+        node = tuple(torch.as_tensor(x, device=dev)
+                     for x in (snap.capacity, snap.schedulable, snap.node_domain_id))
+        dispatch, outs = {}, {}
+        for mode in ("direct", "replay", "direct", "replay"):
+            free = torch.as_tensor(snap.free, dtype=torch.float32, device=dev)
+            okg = torch.zeros(t_len, dtype=torch.bool, device=dev)
+            tbs = [batch_to(b, dev) for b, _ in waves]
+            torch.cuda.synchronize()
+            times, planes = [], []
+            for tb in tbs:
+                t0 = time.perf_counter()
+                if mode == "direct":
+                    out = place_wave(free, *node, tb, params, okg, domains=domains)
+                else:
+                    out = cache.solve(free, *node, tb, params, okg, donate=True, device=dev,
+                                      domains=domains)
+                    free, okg = out.free_after, out.ok_global
+                times.append(time.perf_counter() - t0)
+                planes.append(out[:3])
+            torch.cuda.synchronize()
+            dispatch[mode], outs[mode] = times, (planes, free, okg)
+        (d_planes, d_free, d_okg), (r_planes, r_free, r_okg) = outs["direct"], outs["replay"]
+        for w, (a, b) in enumerate(zip(d_planes, r_planes)):
+            for nm, x, y in zip(NAMES, a, b):
+                check(torch.equal(x, y), f"warm[chain]: wave {w} {nm}: replay != direct")
+        check(torch.equal(d_free, r_free) and torch.equal(d_okg, r_okg),
+              "warm[chain]: the final carry differs between replays and direct launches")
+        direct_bindings = {}
+        for (_, decode), (asg, ok, _) in zip(waves, d_planes):
+            direct_bindings.update(decode_bindings(ok.cpu().numpy(), asg.cpu().numpy(), decode,
+                                                   snap))
+        check(direct_bindings == chained,
+              "warm[chain]: the direct launches' bindings differ from the cached drain's")
+        print(f"warm[chain of {len(waves)} waves]: replays == direct launches on every wave's "
+              f"assigned, ok, placement_score and the final free and ok_global; the direct "
+              f"chain binds what the cached drain bound")
+        print(f"warm[dispatch per wave]: direct ms {[round(1e3 * x, 4) for x in dispatch['direct']]}"
+              f" (sum {1e3 * sum(dispatch['direct']):.4f}); replay ms "
+              f"{[round(1e3 * x, 4) for x in dispatch['replay']]} (sum "
+              f"{1e3 * sum(dispatch['replay']):.4f}) on {card}")
+
+        # The spread backlog of phase 3 (a quarter of its sets spread across
+        # zones), its 8 waves chained twice through one fresh cache against
+        # direct launches. Waves 0 and 1 share an entry and both carry
+        # spread planes, and every entry replays again in the second round:
+        # a replay that did not zero the family rows its entry's last replay
+        # marked would differ.
+        gangs_sp, pods_sp = spread_backlog
+        gidx_sp = {g.name: i for i, g in enumerate(gangs_sp)}
+        sp_plan = plan_waves(gangs_sp, 256)
+        sp_tbs = [batch_to(encode_wave(ws, snap, pods=pods_sp, gidx=gidx_sp), dev)
+                  for ws in sp_plan]
+        check(sp_plan[0][1:] == sp_plan[1][1:] and all(
+            tb.spread_level is not None and bool((tb.spread_level >= 0).any())
+            for tb in sp_tbs[:2]), "warm[spread]: waves 0 and 1 do not share a spread key")
+        sp_cache = ExecutableCache()
+
+        def sp_chain(solve_one):
+            free = torch.as_tensor(snap.free, dtype=torch.float32, device=dev)
+            okg = torch.zeros(len(gangs_sp), dtype=torch.bool, device=dev)
+            planes = []
+            for tb in sp_tbs:
+                out = solve_one(free, tb, okg)
+                free, okg = out[3], out[4]
+                planes.append(out[:3])
+            return planes, free, okg
+
+        sp_direct = sp_chain(lambda f, tb, o: place_wave(f, *node, tb, params, o,
+                                                         domains=domains))
+        for rnd in (1, 2):
+            sp_replay = sp_chain(lambda f, tb, o: sp_cache.solve(
+                f, *node, tb, params, o, device=dev, domains=domains))
+            for w, (a, b) in enumerate(zip(sp_direct[0], sp_replay[0])):
+                for nm, x, y in zip(NAMES, a, b):
+                    check(torch.equal(x, y),
+                          f"warm[spread, round {rnd}]: wave {w} {nm}: replay != direct launch")
+            check(torch.equal(sp_direct[1], sp_replay[1]) and torch.equal(sp_direct[2],
+                                                                          sp_replay[2]),
+                  f"warm[spread, round {rnd}]: the final carry differs from direct launches")
+        sp_keys = len({(ws[1:], tb.spread_level is not None) for ws, tb in zip(sp_plan, sp_tbs)})
+        check(sp_cache.lowerings == sp_keys
+              and sp_cache.hits == 2 * len(sp_plan) - sp_keys,
+              f"warm[spread]: {sp_cache.lowerings} lowerings, {sp_cache.hits} hits for "
+              f"{len(sp_plan)} waves x 2 over {sp_keys} keys")
+        print(f"warm[spread, {len(sp_plan)} waves x 2 rounds, {sp_keys} entries]: replays == "
+              f"direct launches on every wave's assigned, ok, placement_score and the final "
+              f"free and ok_global, tolerance 0")
+
+        # 3. The scan drain at wave_size 32 (B4 entries, chunks padded with
+        # null waves) and the 20480-node pruned chained drain, cold then warm.
+        runs32 = [len(r) for r in class_runs(plan_waves(gangs, 32))]
+        padded = sorted({p for n in runs32 for _, _, p in scan_chunks(n, ScanConfig()) if p})
+        wp32 = WarmPath()
+        for label in ("cold", "warm"):
+            b, st = drain(f"scan, wave_size 32, {label}", wp32, wave_size=32, harvest="scan")
+            check(b == chained32 and list(b) == list(chained32),
+                  f"warm[scan 32, {label}]: bindings differ from phase 8's chained drain")
+            check(label == "cold" or (st.lowerings == 0 and st.exec_cache_misses == 0),
+                  f"warm[scan 32, warm]: {st.lowerings} lowerings")
+        lens = sorted({dict(k[6])["gang_valid"][0] for k in wp32.executables._entries
+                       if k[2] is not None})
+        check(lens == padded == [8, 16], f"warm[scan 32]: scan entries of lengths {lens}, "
+                                         f"expected {padded} (runs {runs32})")
+        wp4 = WarmPath()
+        for label in ("cold", "warm"):
+            b, st = drain(f"20480 nodes, pruned, {label}", wp4, fleet=snap_4, wave_size=256,
+                          pruning=pruning)
+            check(b == pruned_chained_4 and list(b) == list(pruned_chained_4),
+                  f"warm[20480 pruned, {label}]: bindings differ from phase 5's pruned drain")
+            check(label == "cold" or (st.lowerings == 0 and st.exec_cache_misses == 0),
+                  f"warm[20480 pruned, warm]: {st.lowerings} lowerings")
+
+        # 4. Prewarm: a fresh WarmPath prepares every recorded shape from the
+        # history file, then drains with no preparation.
+        with open(wp.executables.history_path) as f:
+            recorded = len(json.load(f)["shapes"])
+        fresh = WarmPath()
+        fresh.executables.history_path = wp.executables.history_path
+        t0 = time.perf_counter()
+        prepared = fresh.executables.prewarm_from_history(top_k=64)
+        prewarm_s = time.perf_counter() - t0
+        check(prepared == fresh.executables.prewarmed == recorded,
+              f"warm[prewarm]: {prepared} prepared, {recorded} recorded")
+        b, st = drain("prewarmed", fresh, wave_size=256)
+        check(b == chained and st.lowerings == 0,
+              f"warm[prewarmed]: {st.lowerings} lowerings, bindings equal {b == chained}")
+        print(f"warm[prewarm]: {prepared} of {recorded} recorded shapes in {prewarm_s:.4f} s, "
+              f"then a drain with 0 lowerings on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def time_variant(place_wave, timed, node, tb, okg, params, domains, extra, plain):
@@ -1128,10 +1410,10 @@ def sweep_phase(dev, card, timed, snap, gangs, pods, chained32, snap_4, pruned_c
     import numpy as np
     import torch
 
-    import grove_tpu_torch.tuning.sweep as sweep_mod
     from grove_tpu_torch.bench import record_drain
     from grove_tpu_torch.kernels.place_wave import domain_index, place_wave, reset_launches
-    from grove_tpu_torch.solver.core import SolverParams, stacked_solve_batch
+    from grove_tpu_torch.solver.core import SolverParams, stacked_scan_solve, stacked_solve_batch
+    from grove_tpu_torch.solver.warm import ExecutableCache
     from grove_tpu_torch.solver.drain import drain_backlog
     from grove_tpu_torch.solver.encode import GangBatch
     from grove_tpu_torch.solver.reference import params_row, stacked_scan_solve_ref
@@ -1163,11 +1445,14 @@ def sweep_phase(dev, card, timed, snap, gangs, pods, chained32, snap_4, pruned_c
               f"{dict(place_wave.variant_launches)} on {card}")
         return s
 
+    # The sweep's B6 launches go through its warm path's launch cache; the
+    # comparisons and times below launch B6 directly (real_b6).
     captured = []
-    real_b6 = sweep_mod.stacked_scan_solve
+    real_b6 = stacked_scan_solve
+    cached_b6 = ExecutableCache.solve_scan_stacked
 
-    def capture(*args, **kw):
-        out = real_b6(*args, **kw)
+    def capture(cache, *args, **kw):
+        out = cached_b6(cache, *args, **kw)
         captured.append((args, kw, out))
         return out
 
@@ -1177,11 +1462,11 @@ def sweep_phase(dev, card, timed, snap, gangs, pods, chained32, snap_4, pruned_c
         captured.clear()
         grid = default_grid(incumbent_config(records), k)
         reset_launches()
-        sweep_mod.stacked_scan_solve = capture
+        ExecutableCache.solve_scan_stacked = capture
         try:
             engine, s = wall(lambda: sweep_journal(records, grid))
         finally:
-            sweep_mod.stacked_scan_solve = real_b6
+            ExecutableCache.solve_scan_stacked = cached_b6
         launches = dict(place_wave.variant_launches)
         inc = engine.tallies["incumbent"]
         check(inc.divergences == 0 and inc.admitted == admitted_of(records),

@@ -4,7 +4,12 @@
 harvest) through grove_tpu_torch: the 5120-node synthetic cluster, the
 ~10k-pod synthetic backlog, waves of 256 gangs, every wave solved by one
 place_wave kernel launch on the card (with --portfolio P > 1 one stacked
-launch of P weight variants, the winner picked on the card). Unless
+launch of P weight variants, the winner picked on the card). The backlog is
+drained twice through one warm path (solver/warm.py, bench.py's cold/warm
+pair): the first drain prepares every shape's launch (compile_s) and fills
+the encode rows, the second replays the prepared launches and reuses every
+row (warm_*); its shape history goes to GROVE_BENCH_SHAPE_HISTORY (default
+grove-tpu-state/solve-shapes.json under the temporary directory). Unless
 --harvest chained, the same backlog is drained again with harvest="wave"
 (the host waits for every wave), so wave_p50_s / wave_p99_s are measured
 per-gang bind latencies — every gang of a wave lands at that wave's
@@ -116,9 +121,15 @@ def build_fleet(scale: float = 1.0):
 def build_scenario(scale: float = 1.0):
     """(gangs, pods_by_name, snapshot, n_nodes, setup_s) of bench.py's
     default scenario at `scale`."""
+    import gc
+
     t0 = time.perf_counter()
     gangs, pods = build_backlog(scale)
     snapshot = build_fleet(scale)
+    # The set-up's objects are long-lived: collect now, so the interpreter's
+    # first full collection over them (~0.12 s at full scale) does not land
+    # inside the first timed drain.
+    gc.collect()
     return gangs, pods, snapshot, snapshot.capacity.shape[0], time.perf_counter() - t0
 
 
@@ -161,6 +172,17 @@ def stage_fields(stats) -> dict:
     }
 
 
+def shape_history_path() -> str:
+    """bench.py's shape history file: GROVE_BENCH_SHAPE_HISTORY, by default
+    grove-tpu-state/solve-shapes.json under the temporary directory."""
+    import tempfile
+
+    return os.environ.get(
+        "GROVE_BENCH_SHAPE_HISTORY",
+        os.path.join(tempfile.gettempdir(), "grove-tpu-state", "solve-shapes.json"),
+    )
+
+
 def run_bench(scale: float = 1.0, wave_size: int = 256, device=None, portfolio: int = 1,
               baseline: bool = True, harvest: str = "wave") -> dict:
     import torch
@@ -168,6 +190,7 @@ def run_bench(scale: float = 1.0, wave_size: int = 256, device=None, portfolio: 
     from grove_tpu_torch.kernels.place_wave import place_wave
     from grove_tpu_torch.solver.core import SolverParams, resolve_device
     from grove_tpu_torch.solver.drain import drain_backlog
+    from grove_tpu_torch.solver.warm import WarmPath
 
     dev = resolve_device(device)
     gangs, pods, snapshot, n_nodes, setup_s = build_scenario(scale)
@@ -179,10 +202,19 @@ def run_bench(scale: float = 1.0, wave_size: int = 256, device=None, portfolio: 
         t0 = time.perf_counter()
         build.load("place_wave")
         build_s = time.perf_counter() - t0
+    warm_path = WarmPath()
+    warm_path.executables.history_path = shape_history_path()
     bindings, stats = drain_backlog(
         gangs, pods, snapshot, wave_size=wave_size, params=SolverParams(), device=dev,
-        portfolio=portfolio,
+        portfolio=portfolio, warm_path=warm_path,
     )
+    launches_cold = dict(place_wave.variant_launches)
+    warm_bindings, warm_stats = drain_backlog(
+        gangs, pods, snapshot, wave_size=wave_size, params=SolverParams(), device=dev,
+        portfolio=portfolio, warm_path=warm_path,
+    )
+    if set(warm_bindings) != set(bindings):
+        raise RuntimeError("bench: the warm drain admitted another set than the cold")
     total_s = stats.total_s
     admitted = stats.admitted
 
@@ -213,19 +245,38 @@ def run_bench(scale: float = 1.0, wave_size: int = 256, device=None, portfolio: 
         "device_wait_s": round(stats.harvest_s, 4),
         "decode_s": round(stats.decode_s, 4),
         "solver_score": round(float(np.mean(stats.scores)), 4) if stats.scores else None,
+        # The cold drain pays the launch preparation (compile_s); the warm
+        # drain of the same shapes must prepare nothing and reuse every row.
+        "compile_s": round(stats.compile_s, 4),
+        "cold_total_s": round(stats.compile_s + stats.total_s, 4),
+        "compile_cache_hits": stats.exec_cache_hits,
+        "compile_cache_misses": stats.exec_cache_misses,
+        "lowerings": stats.lowerings,
+        "encode_reuse_hits": stats.encode_reuse_hits,
+        "donated": stats.donated,
+        "warm_total_s": round(warm_stats.compile_s + warm_stats.total_s, 4),
+        "warm_compile_s": round(warm_stats.compile_s, 4),
+        "warm_drain_s": round(warm_stats.total_s, 4),
+        "warm_encode_s": round(warm_stats.encode_s, 4),
+        "warm_dispatch_s": round(warm_stats.dispatch_s, 4),
+        "warm_device_wait_s": round(warm_stats.harvest_s, 4),
+        "warm_compile_cache_hits": warm_stats.exec_cache_hits,
+        "warm_compile_cache_misses": warm_stats.exec_cache_misses,
+        "warm_encode_reuse_hits": warm_stats.encode_reuse_hits,
+        "warm_lowerings": warm_stats.lowerings,
         "harvest": harvest,
         "device": str(dev),
     }
     if dev.type == "cuda":
         out["kernel_launches"] = {
-            k: n - launches0[k] for k, n in place_wave.variant_launches.items()
+            k: n - launches0[k] for k, n in launches_cold.items()
         }
     if harvest == "wave":
         # The same backlog again, the host waiting for every wave: measured
         # per-gang bind latencies (bench.py's GROVE_BENCH_HARVEST=wave).
         wave_bindings, wstats = drain_backlog(
             gangs, pods, snapshot, wave_size=wave_size, params=SolverParams(), device=dev,
-            portfolio=portfolio, harvest="wave",
+            portfolio=portfolio, harvest="wave", warm_path=warm_path,
         )
         if set(wave_bindings) != set(bindings):
             raise RuntimeError("bench: the wave harvest admitted another set than the chained")

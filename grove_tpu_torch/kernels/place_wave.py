@@ -38,6 +38,11 @@ the SMs, each wave from its own recorded free with no carry between them;
 row (w, k) equals a single launch of wave w under row k. Its plain version
 is solver/reference.py `stacked_scan_solve_ref`.
 
+`PreparedLaunch` is the warm path's entry (solver/warm.py `ExecutableCache`):
+one of these launches with every buffer owned and allocated once, captured
+once as a CUDA graph and replayed per call; a replay counts as a launch of
+its variant.
+
 The kernels launch on PyTorch's current stream and do not synchronise;
 `free` and `ok_global` are updated in place. `place_wave.launches` counts the
 launches (one per wave, or per scan chunk, the prologue included), and
@@ -49,7 +54,11 @@ place_wave_stacked, "scan" and "scan_pruned" for place_wave_scan,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
+import time
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -271,7 +280,7 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     blocks = K * w_len if stacked else 1  # chain blocks, each with its own scratch
     out = {
         "assigned": empty(rows + (g, mp), i32),
-        "ok": torch.zeros(rows + (g,), dtype=b8, device=dev),
+        "ok": empty(rows + (g,), b8),
         "score": empty(rows + (g,), f32),
     }
     if profile:
@@ -280,8 +289,7 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     # One copy of every per-gang scratch array for each weight variant.
     scratch = {
         "carry": empty((blocks * n * r,), f32) if cand_idx is not None or stacked else None,
-        "family_used": (torch.zeros((blocks * g * n,), dtype=torch.uint8, device=dev)
-                        if spread else None),
+        "family_used": empty((blocks * g * n,), torch.uint8) if spread else None,
         "spread_pen": empty((blocks * n,), f32) if spread else None,
         "tables": empty((blocks * levels * n * (r + mg),), f32),
         "agg": empty((blocks * n * k_max,), f32),
@@ -314,6 +322,7 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     }
     for name in shapes:
         tensors[name] = getattr(batch, name)
+    zero_launch_state(tensors)
     weights = {}
     if not stacked:
         weights = {k: float(getattr(params, k))
@@ -353,11 +362,8 @@ def place_wave(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         free, capacity, schedulable, node_domain_id, batch, params, ok_global, domains,
         cand_idx, cand_count, profile is not None,
     )
-    fn = lib.place_wave_launch
-    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(free.device).cuda_stream
-    rc = fn(ctypes.byref(args), stream, smem, int(profile is not None))
+    rc = _call_launch(lib, "place_wave_launch", args, stream, smem, int(profile is not None))
     if rc != 0:
         raise RuntimeError(f"place_wave: kernel launch failed with CUDA error {rc}")
     place_wave.launches += 1
@@ -392,11 +398,8 @@ def place_wave_stacked(free, capacity, schedulable, node_domain_id, batch: GangB
         free, capacity, schedulable, node_domain_id, batch, None, ok_global, domains,
         params_stack=params_stack, select=select,
     )
-    fn = lib.place_wave_stacked_launch
-    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(free.device).cuda_stream
-    rc = fn(ctypes.byref(args), stream, smem, int(select))
+    rc = _call_launch(lib, "place_wave_stacked_launch", args, stream, smem, int(select))
     if rc != 0:
         raise RuntimeError(f"place_wave_stacked: kernel launch failed with CUDA error {rc}")
     place_wave.launches += 1
@@ -482,11 +485,8 @@ def place_wave_scan(free, capacity, schedulable, node_domain_id, stacked_batch: 
         free, capacity, schedulable, node_domain_id, stacked_batch, params, ok_global, domains,
         cand_idx, retain,
     )
-    fn = lib.place_wave_scan_launch
-    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(free.device).cuda_stream
-    rc = fn(ctypes.byref(args), stream, smem)
+    rc = _call_launch(lib, "place_wave_scan_launch", args, stream, smem, None)
     if rc != 0:
         raise RuntimeError(f"place_wave_scan: kernel launch failed with CUDA error {rc}")
     place_wave.launches += 1
@@ -548,16 +548,231 @@ def place_wave_stacked_scan(free_stack, capacity, schedulable, node_domain_id,
     lib = _library()
     args, smem, out, _keep = build_sweep_args(free_stack, capacity, schedulable, node_domain_id,
                                               stacked_batch, params_stack, domains)
-    fn = lib.place_wave_sweep_launch
-    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(free_stack.device).cuda_stream
-    rc = fn(ctypes.byref(args), stream, smem)
+    rc = _call_launch(lib, "place_wave_sweep_launch", args, stream, smem, None)
     if rc != 0:
         raise RuntimeError(f"place_wave_stacked_scan: kernel launch failed with CUDA error {rc}")
     place_wave.launches += 1
     place_wave.variant_launches["stacked_scan"] += 1
     return out["assigned"], out["ok"], out["score"]
+
+
+# The kernel's dtype of every input a prepared launch owns (build_args'
+# checks), by name: the node tensors, the DomainIndex, the gather map, the
+# carry, the weight stack and every GangBatch plane.
+INPUT_DTYPES = {
+    "free": torch.float32, "free_stack": torch.float32, "cand_idx": torch.int32,
+    "capacity": torch.float32, "schedulable": torch.bool, "node_domain_id": torch.int32,
+    "dom_count": torch.int32, "dom_offsets": torch.int32, "dom_nodes": torch.int32,
+    "group_req": torch.float32, "group_total": torch.int32, "group_required": torch.int32,
+    "group_valid": torch.bool, "set_member": torch.bool, "set_req_level": torch.int32,
+    "set_pref_level": torch.int32, "set_valid": torch.bool, "set_pinned": torch.int32,
+    "pod_group": torch.int32, "pod_rank": torch.int32, "gang_valid": torch.bool,
+    "group_order": torch.int32, "depends_on": torch.int32, "global_index": torch.int32,
+    "depends_global": torch.int32, "reuse_nodes": torch.bool, "group_node_ok": torch.bool,
+    "spread_level": torch.int32, "spread_family": torch.int32, "spread_avoid": torch.bool,
+    "ok_global": torch.bool, "params_stack": torch.float32,
+}
+# Inputs that stay the same tensor from call to call (node state, domain
+# index, gather maps, weights): a replay copies them only when the caller
+# hands over another tensor, or the same one changed in place.
+STATIC_INPUTS = frozenset((
+    "capacity", "schedulable", "node_domain_id", "dom_count", "dom_offsets", "dom_nodes",
+    "cand_idx", "params_stack",
+))
+WEIGHTS = ("w_tight", "w_pref", "w_reuse", "w_reserve", "w_spread")
+# The buffers of build_args that a launch reads before it writes them, and
+# so expects zeroed: the verdicts (a gang gated on a gang its wave has not
+# reached reads ok 0) and the spread family rows (only the scan kinds zero
+# theirs themselves, at each step). build_args zeroes them for a direct
+# launch; a prepared launch zeroes them at the head of every replay.
+LAUNCH_ZEROED = ("ok", "family_used")
+
+
+def zero_launch_state(tensors: dict) -> None:
+    """Zero `tensors`' LAUNCH_ZEROED buffers (build_args' keepalive) on the
+    current stream."""
+    for name in LAUNCH_ZEROED:
+        t = tensors.get(name)
+        if t is not None:
+            t.zero_()
+
+
+# The launch of each kind of prepared launch: (library function, its last
+# argument, or None when it takes none).
+_KIND_LAUNCH = {
+    "single": ("place_wave_launch", 0),
+    "stacked": ("place_wave_stacked_launch", 0),
+    "scan": ("place_wave_scan_launch", None),
+    "sweep": ("place_wave_sweep_launch", None),
+}
+
+
+def _call_launch(lib, name, args, stream, smem, extra) -> int:
+    """One of the library's launch functions on `stream`; `extra` is its
+    last int argument (profile or select), None for those without one.
+    Returns the CUDA error code (0: launched or captured)."""
+    fn = getattr(lib, name)
+    tail = [] if extra is None else [ctypes.c_int]
+    fn.argtypes = [ctypes.POINTER(PlaceWaveArgs), ctypes.c_void_p, ctypes.c_int, *tail]
+    fn.restype = ctypes.c_int
+    return fn(ctypes.byref(args), stream, smem, *([] if extra is None else [extra]))
+
+
+def _copy_in(dst: torch.Tensor, src) -> None:
+    """`src` (a tensor anywhere, or a numpy array) into `dst` on the current
+    stream, without blocking: host data goes through pinned memory (a copy
+    from pageable memory would wait for the launches already queued)."""
+    if not torch.is_tensor(src):
+        src = torch.from_numpy(np.ascontiguousarray(src))
+    if src.device != dst.device:
+        src = src.contiguous()
+        if not src.is_pinned():
+            src = src.pin_memory()
+    dst.copy_(src, non_blocking=True)
+
+
+class PreparedLaunch:
+    """One shape key's launch on the card, prepared once and replayed
+    (solver/warm.py `ExecutableCache` holds one per key).
+
+    Every tensor the kernel reads or writes belongs to the entry: its inputs
+    (`inputs`, zeros of the key's shapes and the kernel's dtypes: node
+    tensors, DomainIndex, gather map, carry, ok_global, weight stack, batch
+    planes), its outputs and its scratch, all allocated once. The launch
+    sequence — the prologue and the chain kernel, as the direct wrappers
+    above launch them — is captured once as a CUDA graph, which bakes in
+    every pointer. A call copies the caller's inputs into the entry on the
+    current stream, replays the graph and leaves the results in `out` (and
+    the carry in `inputs["free"]`, `inputs["ok_global"]`): the caller copies
+    them out before the entry's next replay.
+
+    Each graph zeroes the LAUNCH_ZEROED buffers before its launch, so a
+    replay starts from the state a direct launch's fresh buffers give it.
+    The single-variant kinds ("single", "scan") read their weights from the
+    argument struct, by value, so each distinct weight row gets its own
+    graph over the same buffers (`graphs`). A pruned single launch is
+    captured with its whole candidate axis as `cand_count`: the count only
+    bounds the remap of `assigned`, and no gang is ever assigned a pad row
+    (pad rows are unschedulable). A pruned scan's per-step counts are read
+    from the card and recomputed from the gather maps at each call.
+
+    A caller holds `use()` across run() and its copies out: it serialises
+    the entry's users, across threads and streams.
+
+    Capturing needs the card; a failed capture or replay raises."""
+
+    def __init__(self, kind: str, shapes: dict, device, *, retain: bool = False):
+        if kind not in _KIND_LAUNCH:
+            raise ValueError(f"PreparedLaunch: unknown kind {kind!r}")
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError("PreparedLaunch: a prepared launch lives on a CUDA device")
+        self.kind, self.device, self.retain = kind, device, retain
+        self.inputs = {name: torch.zeros(shape, dtype=INPUT_DTYPES[name], device=device)
+                       for name, shape in shapes.items()}
+        t = self.inputs
+        pruned = "cand_idx" in t
+        batch = GangBatch(*(t.get(f) for f in GangBatch._fields))
+        domains = DomainIndex(t["dom_count"], t["dom_offsets"], t["dom_nodes"])
+        zero = dict.fromkeys(WEIGHTS, 0.0)
+        params = type("Weights", (), zero)
+        if kind == "single":
+            self.variant = "pruned" if pruned else "dense"
+            n = t["capacity"].shape[0]
+            built = build_args(t["free"], t["capacity"], t["schedulable"], t["node_domain_id"],
+                               batch, params, t.get("ok_global"), domains, t.get("cand_idx"),
+                               n if pruned else None)
+        elif kind == "stacked":
+            self.variant = "stacked"
+            built = build_args(t["free"], t["capacity"], t["schedulable"], t["node_domain_id"],
+                               batch, None, None, domains, params_stack=t["params_stack"])
+        elif kind == "scan":
+            self.variant = "scan_pruned" if pruned else "scan"
+            built = build_scan_args(t["free"], t["capacity"], t["schedulable"],
+                                    t["node_domain_id"], batch, params, t.get("ok_global"),
+                                    domains, t.get("cand_idx"), retain)
+        else:
+            self.variant = "stacked_scan"
+            built = build_sweep_args(t["free_stack"], t["capacity"], t["schedulable"],
+                                     t["node_domain_id"], batch, t["params_stack"], domains)
+        self.args, self.smem, self.out, self._keep = built
+        self.graphs: dict = {}  # weight row (None: weights on the card) -> (graph, args)
+        self.capture_s: list[float] = []  # wall seconds of each capture
+        # Static input -> (weak reference to its source tensor, its version).
+        self._last: dict = {}
+        self._lock = threading.Lock()
+        self._released = torch.cuda.Event()  # recorded when the last user let go
+
+    @contextlib.contextmanager
+    def use(self):
+        """Hold the entry: the current stream waits for the previous user's
+        work on the entry (its replay and copies out, on whatever stream),
+        and the next user waits for this one's."""
+        with self._lock:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._released)
+            try:
+                yield self
+            finally:
+                self._released.record(stream)
+
+    def weights_of(self, params):
+        """The graph key of a call's weights: the row for the kinds that
+        read them from the argument struct, else None."""
+        if self.kind in ("stacked", "sweep"):
+            return None
+        return tuple(float(getattr(params, k)) for k in WEIGHTS)
+
+    def capture(self, weights) -> None:
+        """Capture the launch under `weights` (a weight row, or None) on a
+        side stream; the graph's kernels do not run."""
+        args = PlaceWaveArgs.from_buffer_copy(self.args)
+        if weights is not None:
+            for k, w in zip(WEIGHTS, weights):
+                setattr(args, k, w)
+        lib = _library()
+        name, extra = _KIND_LAUNCH[self.kind]
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                zero_launch_state(self._keep)
+                rc = _call_launch(lib, name, args, stream.cuda_stream, self.smem, extra)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        if rc != 0:
+            raise RuntimeError(f"PreparedLaunch: capture of {name} failed with CUDA error {rc}")
+        self.graphs[weights] = (graph, args)
+        self.capture_s.append(time.perf_counter() - t0)
+
+    def run(self, sources: dict, params=None) -> dict:
+        """Copy `sources` (name -> tensor or numpy array, one per input) into
+        the entry, replay the graph of these weights (captured now if new)
+        and return the entry's outputs. Counts one launch of the variant."""
+        for name, buf in self.inputs.items():
+            src = sources[name]
+            if name in STATIC_INPUTS and torch.is_tensor(src):
+                last = self._last.get(name)
+                if last is not None and last[0]() is src and last[1] == src._version:
+                    continue
+                self._last[name] = (weakref.ref(src), src._version)
+            _copy_in(buf, src)
+        if self.kind == "scan" and "cand_idx" in self.inputs:
+            nf = self.inputs["free"].shape[0]
+            torch.sum(self.inputs["cand_idx"] < nf, dim=1, dtype=torch.int32,
+                      out=self._keep["cand_counts"])
+        weights = self.weights_of(params)
+        if weights not in self.graphs:
+            self.capture(weights)
+        self.graphs[weights][0].replay()
+        place_wave.launches += 1
+        place_wave.variant_launches[self.variant] += 1
+        return self.out
 
 
 def _library():

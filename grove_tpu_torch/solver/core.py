@@ -351,6 +351,7 @@ def solve(
     device=None,
     pruning=None,
     mesh_axis: int = 1,
+    warm=None,
 ) -> SolveResult:
     """The serving entry (core.py `solve`, unsharded): snapshot (numpy) ->
     device -> one solve, or a portfolio of them.
@@ -376,28 +377,32 @@ def solve(
     the node axis of the mesh a journaled solve ran under: the candidate pad
     is rounded to a multiple of it (the port itself solves on one card).
 
+    `warm` (a solver.warm.WarmPath; None = the process-shared one): the
+    snapshot's node tensors (and its DomainIndex) come from the warm path's
+    device cache, so an unchanged snapshot uploads nothing, and
+    single-variant solves, dense and pruned, go through its launch cache;
+    `warm.prune` counts the pruned solves.
+
     `device` None means the card; "cpu" runs the plain PyTorch versions."""
     from grove_tpu_torch.parallel.portfolio import portfolio_solve
+    from grove_tpu_torch.solver.warm import default_warm_path
 
     dev = resolve_device(device)
     params = params or SolverParams()
+    warm = warm if warm is not None else default_warm_path()
 
     def on(x, dtype):
         # A copy of the caller's tensor: the kernels update their carry in place.
         t = tensor_on(x, dtype, dev)
         return t.clone() if t is x else t
 
-    free0 = on(snapshot.free if free is None else free, torch.float32)
-    capacity = on(snapshot.capacity, torch.float32)
-    sched = on(snapshot.schedulable if schedulable is None else schedulable, torch.bool)
-    node_domain_id = on(snapshot.node_domain_id, torch.int32)
     okg = None if ok_global is None else on(ok_global, torch.bool)
-    tbatch = batch_to(batch, dev)
-    domains = None
-    if dev.type == "cuda":
-        from grove_tpu_torch.kernels.place_wave import domain_index
-
-        domains = domain_index(snapshot.node_domain_id, dev)
+    # Cached tensors: no launch may write them (the portfolio's below get
+    # copies).
+    free0, capacity, sched, node_domain_id = warm.device.snapshot_arrays(
+        snapshot, free=free, schedulable=schedulable, device=dev)
+    domains = warm.device.domain_index(snapshot.node_domain_id, dev) if dev.type == "cuda" \
+        else None
     escalate = escalate_portfolio > portfolio
     prune = (pruning is not None and pruning.enabled and portfolio == 1 and free is None
              and schedulable is None)
@@ -407,27 +412,57 @@ def solve(
     if escalate:
         # Escalation re-solves from the state the first solve entered with.
         entry = (free0.clone(), None if okg is None else okg.clone())
+    tbatch = None
 
     def psolve(width, free_in, okg_in):
+        nonlocal tbatch
+        if tbatch is None:
+            tbatch = batch_to(batch, dev)
         return portfolio_solve(free_in, capacity, sched, node_domain_id, tbatch, params, width,
                                okg_in, device=dev, domains=domains)
 
     result = None
+    pruned_ok = None  # the pruned verdicts, to grade an escalated re-solve
     if prune:
         from grove_tpu_torch.solver.pruning import lossy_rejections, plan_candidates
 
+        pstats = warm.prune
         plan = plan_candidates(snapshot, batch, pruning, mesh_axis=mesh_axis)
-        if plan is not None:
-            # On copies of the carry: a lossy rejection re-solves dense from it.
-            presult = solve_batch(free0.clone(), None, None, None, batch, params,
-                                  None if okg is None else okg.clone(), device=dev, plan=plan)
-            if not lossy_rejections(plan, valid, presult.ok.cpu().numpy()).any():
+        if plan is None:
+            pstats.dense_fallbacks += 1
+        else:
+            # The launch cache leaves the carry as it was: a lossy rejection
+            # re-solves dense from it.
+            cache = warm.device
+            presult = warm.executables.solve(
+                free0, cache.device_array(plan.capacity, torch.float32, dev),
+                cache.device_array(plan.schedulable, torch.bool, dev),
+                cache.device_array(plan.node_domain_id, torch.int32, dev),
+                plan.gather_batch(batch), params, okg, device=dev,
+                domains=cache.domain_index(plan.node_domain_id, dev)
+                if dev.type == "cuda" else None,
+                cand_idx=plan.padded_idx(),
+                cand_count=plan.count,
+            )
+            pstats.pruned_solves += 1
+            pstats.last_candidate_nodes = plan.count
+            pstats.last_candidate_pad = plan.pad
+            pstats.last_fleet_nodes = plan.fleet_pad
+            pruned_ok = presult.ok.cpu().numpy()
+            if lossy_rejections(plan, valid, pruned_ok).any():
+                pstats.escalations += 1
+            else:
                 result = presult
-    if result is None and portfolio > 1:
-        result = psolve(portfolio, free0, okg)
-    elif result is None:
-        result = solve_batch(free0, capacity, sched, node_domain_id, tbatch, params, okg,
-                             device=dev, domains=domains)
+    if result is None:
+        if portfolio > 1:
+            result = psolve(portfolio, free0.clone(), okg)
+        else:
+            result = warm.executables.solve(free0, capacity, sched, node_domain_id, batch,
+                                            params, okg, device=dev, domains=domains)
+        if pruned_ok is not None:
+            # The escalated re-solve: did the full fleet change a verdict?
+            if bool(np.any(result.ok.cpu().numpy() != pruned_ok)):
+                warm.prune.escalations_adopted += 1
     if escalate and bool((valid & ~result.ok.cpu().numpy()).any()):
         return psolve(escalate_portfolio, *entry)
     return result

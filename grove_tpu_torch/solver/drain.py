@@ -60,8 +60,21 @@ candidate list. A failure to journal never breaks the drain (the JAX
 package's rule); it shows as journaled_waves < waves and the recorder's
 `dropped`.
 
-Warm paths, meshes, faults, the streaming drain (`drain_stream`) and the
-degradation ladder of the JAX package are later slices of the port.
+Warm path (`warm_path`, solver/warm.py; the process-shared one by default):
+single-variant solves go through its launch cache — on the card one
+prepared launch per shape key, replayed as a CUDA graph — and a pre-pass,
+which is not timed, prepares every planned shape (and, for "scan"
+and "resident", every chunk length) without running it, with encodes that
+bypass the row cache. The timed encodes reuse each gang's rows from the
+previous drain of the same spec and snapshot (`encode_reuse_*`), node state
+comes from the warm path's device cache, and `donate` (default: on for the
+card) marks the carry as not retained. A second drain of a backlog then
+prepares nothing: DrainStats counts `lowerings`, `exec_cache_*` and
+`encode_reuse_*` per drain. Portfolio drains bypass the launch cache, as in
+the JAX package; their pre-pass has nothing to prepare.
+
+Meshes, faults, the streaming drain (`drain_stream`) and the degradation
+ladder of the JAX package are later slices of the port.
 """
 
 from __future__ import annotations
@@ -76,9 +89,6 @@ from grove_tpu_torch.solver.core import (
     SolverParams,
     decode_bindings,
     resolve_device,
-    scan_pruned_solve,
-    scan_solve,
-    solve_batch,
     stack_on,
 )
 from grove_tpu_torch.solver.encode import encode_gangs, gang_shape, next_pow2, stack_batches
@@ -86,8 +96,9 @@ from grove_tpu_torch.solver.pruning import (
     PruningConfig,
     lossy_rejections,
     plan_candidates,
-    stack_plans,
+    stack_plan_arrays,
 )
+from grove_tpu_torch.solver.warm import default_warm_path, donation_default, gang_row_digest
 
 HARVEST_MODES = ("chained", "wave", "pipeline", "scan", "resident")
 
@@ -113,6 +124,7 @@ class ScanConfig:
 class DrainStats:
     """Phase breakdown of one drain (host wall seconds unless noted)."""
 
+    compile_s: float = 0.0  # the warm pre-pass: every (shape, pad) launch prepared
     encode_s: float = 0.0  # host dense encode, all waves
     prune_s: float = 0.0  # host candidate-plan cutting, all waves
     dispatch_s: float = 0.0  # upload + launch of every wave or chunk (no waiting)
@@ -125,6 +137,14 @@ class DrainStats:
     admitted: int = 0
     pods_bound: int = 0
     scores: list = field(default_factory=list)  # per admitted gang
+    # Warm-path counters, as deltas of this drain (the caches are shared):
+    # launch-cache traffic, entries prepared, and per-gang encode-row reuse.
+    exec_cache_hits: int = 0
+    exec_cache_misses: int = 0
+    lowerings: int = 0
+    encode_reuse_hits: int = 0
+    encode_reuse_misses: int = 0
+    donated: bool = False  # the carry was not retained (warm.py donation)
     # Candidate pruning: waves solved on a candidate axis, the largest
     # candidate count and pad among them, and the escalation ledger (a
     # lossy-rejected wave re-solves dense; `escalations_adopted` counts the
@@ -169,7 +189,7 @@ class DrainStats:
         wait for the card: reported, not in hostTotalS), the round-trip
         ledger, and host milliseconds per wave."""
         host_total = (self.encode_s + self.prune_s + self.dispatch_s + self.decode_s
-                      + self.bind_s)
+                      + self.bind_s + self.journal_s)
         doc = {
             "hostEncodeS": round(self.encode_s, 6),
             "hostPrefilterS": round(self.prune_s, 6),
@@ -177,6 +197,7 @@ class DrainStats:
             "hostHarvestS": round(self.harvest_s, 6),
             "hostDecodeS": round(self.decode_s, 6),
             "hostBindS": round(self.bind_s, 6),
+            "hostJournalS": round(self.journal_s, 6),
             "hostTotalS": round(host_total, 6),
             "hostHotPathS": round(self.encode_s + self.prune_s + self.decode_s + self.bind_s, 6),
             "dispatches": self.dispatches,
@@ -246,15 +267,20 @@ class _WavePipeline:
     the module docstring); an adoption re-chains every wave still in flight,
     so the bindings are the same under every discipline."""
 
-    def __init__(self, *, gangs, pods_by_name, snapshot, params, stats, dev, pruning=None,
-                 portfolio=1, retire_lag=None, record_stamps=False, scan=None, recorder=None):
+    def __init__(self, *, gangs, pods_by_name, snapshot, params, stats, dev, warm_path,
+                 pruning=None, portfolio=1, donate=False, retire_lag=None, record_stamps=False,
+                 scan=None, recorder=None):
         self.pods_by_name = pods_by_name
         self.snapshot = snapshot
         self.params = params
         self.stats = stats
         self.dev = dev
+        self.wp = warm_path
         self.pruning = pruning
         self.portfolio, self.pstack = portfolio, None
+        # Single-variant solves go through the launch cache; the portfolio's
+        # stacked launch with its select does not (the JAX package's rule).
+        self.use_exec_cache = portfolio == 1
         if portfolio > 1:
             from grove_tpu_torch.parallel.portfolio import params_population
 
@@ -267,18 +293,23 @@ class _WavePipeline:
         # Escalation re-solves from each pruned wave's entering carry, and
         # a journaled wave records its own.
         self.retain_carries = pruning is not None or self.recorder is not None
+        self.donate = bool(donate and self.use_exec_cache and not self.retain_carries)
+        stats.donated = self.donate
         self.gidx = {g.name: i for i, g in enumerate(gangs)}
-        self.capacity = torch.as_tensor(snapshot.capacity, device=dev)
-        self.schedulable = torch.as_tensor(snapshot.schedulable, device=dev)
-        self.node_domain_id = torch.as_tensor(snapshot.node_domain_id, device=dev)
-        self.domains = None
-        if dev.type == "cuda":
-            from grove_tpu_torch.kernels.place_wave import domain_index
-
-            self.domains = domain_index(snapshot.node_domain_id, dev)
-        # The wave carry. On the card each launch updates both in place.
-        self.free = torch.as_tensor(snapshot.free, dtype=torch.float32, device=dev)
+        # Node state from the warm path's device cache: a drain of a
+        # snapshot already seen uploads none of it.
+        cache = warm_path.device
+        self.capacity = cache.device_array(snapshot.capacity, torch.float32, dev)
+        self.schedulable = cache.device_array(snapshot.schedulable, torch.bool, dev)
+        self.node_domain_id = cache.device_array(snapshot.node_domain_id, torch.int32, dev)
+        self.domains = cache.domain_index(snapshot.node_domain_id, dev) if dev.type == "cuda" \
+            else None
+        # The wave carry (a copy: the portfolio's launches update it in place).
+        self.free = cache.device_array(snapshot.free, torch.float32, dev).clone()
         self.ok_g = torch.zeros((len(gangs),), dtype=torch.bool, device=dev)
+        self.epoch = snapshot.encode_epoch()
+        self._warmed: set = set()
+        self._scan_warmed: set = set()
         self.inflight: list[dict] = []
         self.bindings: dict[str, dict[str, str]] = {}
         self._last_event = None  # the newest event behind a host copy
@@ -294,30 +325,118 @@ class _WavePipeline:
 
     # ---- encode + candidate plan ---------------------------------------------
 
+    def encode_wave(self, ws, reuse_rows: bool = True):
+        """Encode one planned wave; `reuse_rows` reads and fills the warm
+        path's row cache under (spec digest, snapshot epoch) keys."""
+        wave, (mg_c, ms_c, mp_c), pad = ws
+        row_keys = None
+        if reuse_rows:
+            row_keys = [(gang_row_digest(g, self.pods_by_name), self.epoch) for g in wave]
+        return encode_gangs(
+            wave, self.pods_by_name, self.snapshot, max_groups=mg_c, max_sets=ms_c,
+            max_pods=mp_c, pad_gangs_to=pad, global_index_of=self.gidx,
+            row_cache=self.wp.encode_rows if reuse_rows else None, row_keys=row_keys,
+        )
+
+    def cut_plan(self, batch, count: bool = True):
+        """The wave's candidate plan (None: solve dense), cut against the
+        initial snapshot: free only shrinks while draining, so these
+        candidates cover every later state. `count=False` (the warm
+        pre-pass) keeps the cut out of prune_s."""
+        if self.pruning is None or not self.use_exec_cache:
+            return None
+        tp = time.perf_counter()
+        plan = plan_candidates(self.snapshot, batch, self.pruning)
+        if count:
+            self.stats.prune_s += time.perf_counter() - tp
+        return plan
+
+    def pruned_inputs(self, plan, batch) -> tuple:
+        """(batch on the candidate axis, capacity, schedulable,
+        node_domain_id, gather map, DomainIndex or None): the static tensors
+        ride the device cache, so a plan seen before uploads nothing."""
+        cache, dev = self.wp.device, self.dev
+        return (
+            plan.gather_batch(batch),
+            cache.device_array(plan.capacity, torch.float32, dev),
+            cache.device_array(plan.schedulable, torch.bool, dev),
+            cache.device_array(plan.node_domain_id, torch.int32, dev),
+            plan.padded_idx(),
+            cache.domain_index(plan.node_domain_id, dev) if dev.type == "cuda" else None,
+        )
+
     def _encode_rec(self, ws) -> dict:
         """Encode one planned wave (and cut its plan) into an in-flight
         record, not yet dispatched."""
         stats = self.stats
-        wave, (mg_c, ms_c, mp_c), pad = ws
         te = time.perf_counter()
-        batch, decode = encode_gangs(
-            wave, self.pods_by_name, self.snapshot, max_groups=mg_c, max_sets=ms_c,
-            max_pods=mp_c, pad_gangs_to=pad, global_index_of=self.gidx,
-        )
-        tp = time.perf_counter()
-        stats.encode_s += tp - te
-        plan = None
-        if self.pruning is not None:
-            # Cut against the initial snapshot: free only shrinks while
-            # draining, so these candidates cover every later state.
-            plan = plan_candidates(self.snapshot, batch, self.pruning)
-            stats.prune_s += time.perf_counter() - tp
+        batch, decode = self.encode_wave(ws)
+        stats.encode_s += time.perf_counter() - te
+        plan = self.cut_plan(batch)
         if plan is not None:
             stats.pruned_waves += 1
             stats.candidate_nodes = max(stats.candidate_nodes, plan.count)
             stats.candidate_pad = max(stats.candidate_pad, plan.pad)
-        return {"members": wave, "shape": ws[1], "pad": pad, "batch": batch, "decode": decode,
-                "plan": plan, "escalated": False}
+        return {"members": ws[0], "shape": ws[1], "pad": ws[2], "batch": batch,
+                "decode": decode, "plan": plan, "escalated": False}
+
+    # ---- the warm pre-pass ---------------------------------------------------
+
+    def warm_shape(self, ws) -> bool:
+        """Prepare (never run) the launch this wave's shape needs; False
+        when this engine already did, or the drain bypasses the cache. The
+        encode bypasses the row cache, so the timed encodes stay a true
+        measurement (they fill the cache for the next drain)."""
+        if ws[1:] in self._warmed or not self.use_exec_cache:
+            return False
+        self._warmed.add(ws[1:])
+        warm_batch, _ = self.encode_wave(ws, reuse_rows=False)
+        zeros_okg = torch.zeros_like(self.ok_g)
+        plan = self.cut_plan(warm_batch, count=False)
+        cache = self.wp.executables
+        if plan is not None:
+            pb, cap_p, sched_p, ndid_p, cand, _ = self.pruned_inputs(plan, warm_batch)
+            cache.ensure_compiled(self.free, cap_p, sched_p, ndid_p, pb, self.params, zeros_okg,
+                                  donate=self.donate, device=self.dev, cand_idx=cand)
+        else:
+            cache.ensure_compiled(self.free, self.capacity, self.schedulable,
+                                  self.node_domain_id, warm_batch, self.params, zeros_okg,
+                                  donate=self.donate, device=self.dev)
+        return True
+
+    def warm_scan(self, class_waves: list) -> bool:
+        """Prepare (never run) the scan launches a run of same-shape waves
+        will need, one per padded chunk length; True when any was new to
+        this engine. Sub-runs that a presence or pad split leaves can still
+        be prepared at dispatch (the common uniform run is assumed)."""
+        scan = self.scan
+        if scan is None or not scan.enabled or not self.use_exec_cache:
+            return False
+        lens = {padded for _, _, padded in scan_chunks(len(class_waves), scan) if padded}
+        lens = {n for n in lens if (class_waves[0][1:], n) not in self._scan_warmed}
+        if not lens:
+            return False
+        for n in lens:
+            self._scan_warmed.add((class_waves[0][1:], n))
+        warm_batch, _ = self.encode_wave(class_waves[0], reuse_rows=False)
+        zeros_okg = torch.zeros_like(self.ok_g)
+        plan = self.cut_plan(warm_batch, count=False)
+        cache = self.wp.executables
+        for n in lens:
+            if plan is not None:
+                cache.ensure_compiled_scan(
+                    self.free, plan.capacity, plan.schedulable, plan.node_domain_id,
+                    plan.gather_batch(warm_batch), self.params, zeros_okg, n,
+                    retain=self.retain_carries, donate=self.donate, device=self.dev,
+                    cand_idx=plan.padded_idx(),
+                )
+            else:
+                cache.ensure_compiled_scan(
+                    self.free, self.capacity, self.schedulable, self.node_domain_id, warm_batch,
+                    self.params, zeros_okg, n, retain=self.retain_carries, donate=self.donate,
+                    device=self.dev,
+                )
+        return True
 
     # ---- dispatch ------------------------------------------------------------
 
@@ -330,10 +449,17 @@ class _WavePipeline:
                 self.params, self.portfolio, ok_g, pstack=self.pstack, device=self.dev,
                 domains=self.domains,
             )
-        return solve_batch(
-            free, self.capacity, self.schedulable, self.node_domain_id, rec["batch"],
-            self.params, ok_g, device=self.dev, domains=self.domains, plan=plan,
-        )
+        cache = self.wp.executables
+        if plan is not None:
+            if "pruned_inputs" not in rec:
+                rec["pruned_inputs"] = self.pruned_inputs(plan, rec["batch"])
+            pb, cap_p, sched_p, ndid_p, cand, dom_p = rec["pruned_inputs"]
+            return cache.solve(free, cap_p, sched_p, ndid_p, pb, self.params, ok_g,
+                               donate=False, device=self.dev, domains=dom_p, cand_idx=cand,
+                               cand_count=plan.count)
+        return cache.solve(free, self.capacity, self.schedulable, self.node_domain_id,
+                           rec["batch"], self.params, ok_g, donate=self.donate,
+                           device=self.dev, domains=self.domains)
 
     def _stage(self, holder: dict, planes, free_in=None) -> None:
         """Copy verdict planes toward the host right behind their launch: on
@@ -362,8 +488,8 @@ class _WavePipeline:
         rec.pop("scan_pos", None)
         self.stats.dispatches += 1
         if self.retain_carries:
-            # Copies: the launch updates the carry in place.
-            rec["free_in"], rec["okg_in"] = self.free.clone(), self.ok_g.clone()
+            # The launch cache never writes its inputs: the carry itself is kept.
+            rec["free_in"], rec["okg_in"] = self.free, self.ok_g
         res = self._solve(rec, self.free, self.ok_g, rec["plan"])
         self._stage(rec, (res.ok, res.placement_score, res.assigned), rec.get("free_in"))
         self.free, self.ok_g = res.free_after, res.ok_global
@@ -411,8 +537,6 @@ class _WavePipeline:
                 self.submit(ws)
             return
         recs = [self._encode_rec(ws) for ws in class_waves]
-        min_run = max(1, int(scan.min_waves_per_class))
-        max_len = max(1, int(scan.max_scan_len))
         i = 0
         while i < len(recs):
             j = i
@@ -420,9 +544,9 @@ class _WavePipeline:
             while j < len(recs) and self._scan_subkey(recs[j]) == key:
                 j += 1
             run = recs[i:j]
-            for k in range(0, len(run), max_len):
-                chunk = run[k : k + max_len]
-                if len(chunk) < min_run:
+            for k, m, padded in scan_chunks(len(run), scan):
+                chunk = run[k : k + m]
+                if padded is None:
                     for rec in chunk:
                         self._dispatch_one(rec)
                 else:
@@ -432,19 +556,27 @@ class _WavePipeline:
 
     def _solve_scan_chunk(self, run: list[dict], free_in, okg_in):
         """Stack one run's batches (and plans) on a leading wave axis and
-        solve the run as one scan from the given carry. No null waves pad
-        the axis: the port has no compile cache to share shapes with."""
+        solve the run as one scan from the given carry. The wave axis is
+        padded to its next power of two with null waves (no gang valid: the
+        carry passes through, nothing scatters into ok_global), so chunk
+        lengths share launches the way gang pads do (drain.py
+        `_solve_scan_chunk`)."""
+        w_pad = next_pow2(len(run))
+        cache = self.wp.executables
         if run[0]["plan"] is not None:
-            sp = stack_plans([r["plan"] for r in run], [r["batch"] for r in run], self.dev)
-            return scan_pruned_solve(
-                free_in, sp.cand_idx, sp.capacity, sp.schedulable, sp.node_domain_id, sp.batch,
-                self.params, okg_in, retain=self.retain_carries, device=self.dev,
-                domains=sp.domains,
+            cand, cap, sched, ndid, pbatch = stack_plan_arrays(
+                [r["plan"] for r in run], [r["batch"] for r in run], pad_to=w_pad)
+            return cache.solve_scan_pruned(
+                free_in, cand, cap, sched, ndid, pbatch, self.params, okg_in,
+                retain=self.retain_carries, donate=self.donate, device=self.dev,
+                domains=self.wp.device.domain_index(ndid, self.dev)
+                if self.dev.type == "cuda" else None,
             )
-        return scan_solve(
+        return cache.solve_scan(
             free_in, self.capacity, self.schedulable, self.node_domain_id,
-            stack_batches([r["batch"] for r in run]), self.params, okg_in,
-            retain=self.retain_carries, device=self.dev, domains=self.domains,
+            stack_batches([r["batch"] for r in run], pad_to=w_pad), self.params, okg_in,
+            retain=self.retain_carries, donate=self.donate, device=self.dev,
+            domains=self.domains,
         )
 
     def _commit_scan_chunk(self, run: list[dict], res) -> None:
@@ -529,8 +661,6 @@ class _WavePipeline:
                 rec2["escalated"] = False
                 self._dispatch(rec2)
             return
-        min_run = max(1, int(scan.min_waves_per_class))
-        max_len = max(1, int(scan.max_scan_len))
 
         def key(rec):
             return rec["shape"], rec["pad"], self._scan_subkey(rec)
@@ -542,11 +672,11 @@ class _WavePipeline:
             while j < n and key(self.inflight[j]) == key(self.inflight[i]):
                 j += 1
             run = self.inflight[i:j]
-            for k in range(0, len(run), max_len):
-                chunk = run[k : k + max_len]
+            for k, m, padded in scan_chunks(len(run), scan):
+                chunk = run[k : k + m]
                 for rec2 in chunk:
                     rec2["escalated"] = False
-                if len(chunk) < min_run:
+                if padded is None:
                     for rec2 in chunk:
                         self._dispatch(rec2)
                     continue
@@ -571,8 +701,7 @@ class _WavePipeline:
         stats.escalations += 1
         stats.dispatches += 1
         th = time.perf_counter()
-        # Copies: the launch updates its carry in place.
-        dense = self._solve(rec, rec["free_in"].clone(), rec["okg_in"].clone(), None)
+        dense = self._solve(rec, rec["free_in"], rec["okg_in"], None)
         held: dict = {}
         self._stage(held, (dense.ok, dense.placement_score, dense.assigned))
         if held["event"] is not None:
@@ -706,6 +835,20 @@ class _WavePipeline:
             self._retire_next()
 
 
+def scan_chunks(n: int, scan: ScanConfig) -> list[tuple[int, int, int | None]]:
+    """The chunks a run of `n` same-shape waves splits into under `scan`:
+    (start, length, padded length), the padded length the next power of two
+    of a chunk fused into one scan launch, or None for a chunk shorter than
+    min_waves_per_class, which dispatches wave by wave."""
+    min_run = max(1, int(scan.min_waves_per_class))
+    max_len = max(1, int(scan.max_scan_len))
+    out = []
+    for k in range(0, n, max_len):
+        length = min(max_len, n - k)
+        out.append((k, length, next_pow2(length) if length >= min_run else None))
+    return out
+
+
 def class_runs(planned):
     """Consecutive same-(shape, pad) runs of planned waves: plan_waves emits
     each class's waves together within a rank, so these are the scan's
@@ -733,6 +876,8 @@ def drain_backlog(
     portfolio: int = 1,
     recorder=None,
     device=None,
+    warm_path=None,
+    donate: bool | None = None,
 ) -> tuple[dict[str, dict[str, str]], DrainStats]:
     """Admit a whole backlog; returns ({gang: {pod: node}}, DrainStats).
 
@@ -745,14 +890,20 @@ def drain_backlog(
     described in the module docstring; `portfolio` > 1 solves every wave
     under that many weight variants (pruning is then off). `recorder` (a
     trace.recorder.TraceRecorder; single-variant drains only) journals every
-    committed wave, as the module docstring says. `device` None means the
-    card; "cpu" runs the plain PyTorch versions."""
+    committed wave, as the module docstring says.
+
+    `warm_path` (solver.warm.WarmPath; None = the process-shared one) holds
+    the launch cache, the encode rows and the device cache the drain goes
+    through; an untimed pre-pass prepares every planned shape first
+    (DrainStats.compile_s); `donate` None means on for the card.
+    `device` None means the card; "cpu" runs the plain PyTorch versions."""
     if harvest not in HARVEST_MODES:
         raise ValueError(f"harvest must be one of {'|'.join(HARVEST_MODES)}, got {harvest!r}")
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     dev = resolve_device(device)
     params = params or SolverParams()
+    wp = warm_path if warm_path is not None else default_warm_path()
     if pruning is not None and not pruning.enabled:
         pruning = None
     scan_cfg = None
@@ -763,22 +914,36 @@ def drain_backlog(
             harvest, scan_cfg = "pipeline", None
     if portfolio > 1:
         pruning = None  # the JAX package never prunes a portfolio solve
+    if donate is None:
+        donate = donation_default(dev)
     stats = DrainStats(gangs=len(gangs), harvest=harvest,
                        depth=depth if harvest in ("pipeline", "scan") else 0,
                        portfolio=portfolio)
     if not gangs:
         return {}, stats
+    # The warm path's counters are shared: report this drain's deltas.
+    exec0 = (wp.executables.hits, wp.executables.misses, wp.executables.lowerings)
+    rows0 = (wp.encode_rows.hits, wp.encode_rows.misses)
     waves = plan_waves(gangs, wave_size)
     retire_lag = {"chained": None, "wave": 0, "pipeline": depth, "scan": depth,
                   "resident": None}[harvest]
     engine = _WavePipeline(
         gangs=gangs, pods_by_name=pods_by_name, snapshot=snapshot, params=params, stats=stats,
-        dev=dev, pruning=pruning, portfolio=portfolio, retire_lag=retire_lag,
-        record_stamps=harvest in ("wave", "pipeline", "scan"), scan=scan_cfg, recorder=recorder,
+        dev=dev, warm_path=wp, pruning=pruning, portfolio=portfolio, donate=bool(donate),
+        retire_lag=retire_lag, record_stamps=harvest in ("wave", "pipeline", "scan"),
+        scan=scan_cfg, recorder=recorder,
     )
+    fused = harvest in ("scan", "resident")
+    t0 = time.perf_counter()
+    for ws in waves:
+        engine.warm_shape(ws)
+    if fused:
+        for run in class_runs(waves):
+            engine.warm_scan(run)
+    stats.compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     engine.t0 = t0
-    if harvest in ("scan", "resident"):
+    if fused:
         for run in class_runs(waves):
             engine.submit_scan(run)
     else:
@@ -787,4 +952,17 @@ def drain_backlog(
     engine.flush()
     stats.free_after = engine.free.cpu().numpy()
     stats.total_s = time.perf_counter() - t0
+    stats.exec_cache_hits = wp.executables.hits - exec0[0]
+    stats.exec_cache_misses = wp.executables.misses - exec0[1]
+    stats.lowerings = wp.executables.lowerings - exec0[2]
+    stats.encode_reuse_hits = wp.encode_rows.hits - rows0[0]
+    stats.encode_reuse_misses = wp.encode_rows.misses - rows0[1]
+    if stats.pruned_waves:
+        wp.prune.pruned_solves += stats.pruned_waves
+        wp.prune.escalations += stats.escalations
+        wp.prune.escalations_adopted += stats.escalations_adopted
+        wp.prune.last_candidate_nodes = stats.candidate_nodes
+        wp.prune.last_candidate_pad = stats.candidate_pad
+        wp.prune.last_fleet_nodes = int(snapshot.free.shape[0])
+    wp.record_drain(stats)
     return engine.bindings, stats

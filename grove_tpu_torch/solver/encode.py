@@ -21,7 +21,7 @@ and placement is count allocation, not per-pod assignment.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -93,22 +93,35 @@ class GangDecodeInfo:
     gang_names: list[str]
     # per gang, per pod slot: pod name ("" for padding)
     pod_names: list[list[str]]
+    group_names: list[list[str]]
+    # The decode's slot arrays, built once (slot_arrays).
+    _slots: tuple | None = field(default=None, repr=False, compare=False)
 
     def slot_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(slot_gang i32 [S], slot_col i32 [S], slot_pod object [S]) over the
         NON-EMPTY pod-name slots, row-major (sorted by gang); decode_bindings
         gathers admitted (gang, slot) pairs against these."""
-        if not self.pod_names:
-            empty = np.zeros((0,), dtype=np.int32)
-            return empty, empty, np.zeros((0,), dtype=object)
-        pod_arr = np.asarray(self.pod_names, dtype=object)  # [G, MP]
-        gi, sj = np.nonzero(pod_arr != "")
-        return gi.astype(np.int32), sj.astype(np.int32), pod_arr[gi, sj]
+        if self._slots is None:
+            if self.pod_names:
+                pod_arr = np.asarray(self.pod_names, dtype=object)  # [G, MP]
+                gi, sj = np.nonzero(pod_arr != "")
+                self._slots = (gi.astype(np.int32), sj.astype(np.int32), pod_arr[gi, sj])
+            else:
+                empty = np.zeros((0,), dtype=np.int32)
+                self._slots = (empty, empty, np.zeros((0,), dtype=object))
+        return self._slots
 
 
-def stack_batches(batches: list) -> GangBatch:
+def stack_batches(batches: list, pad_to: int | None = None) -> GangBatch:
     """Batches of one shape stacked field by field on a leading [W] axis
-    (a scan chunk's input; drain.py `_solve_scan_chunk`'s stack_tree)."""
+    (a scan chunk's input; drain.py `_solve_scan_chunk`'s stack_tree).
+    `pad_to` appends null waves — every field zero, so no gang is valid —
+    up to that many steps."""
+    batches = list(batches)
+    if pad_to is not None and pad_to > len(batches):
+        null = GangBatch(*(None if x is None else np.zeros_like(np.asarray(x))
+                           for x in batches[0]))
+        batches += [null] * (pad_to - len(batches))
     return GangBatch(*(
         None if fields[0] is None else np.stack([np.asarray(x) for x in fields])
         for fields in zip(*batches)
@@ -236,6 +249,39 @@ def _seed_reuse_row(
     return reuse_arr
 
 
+# Shared rank table for the pod-slot fill: slicing a prebuilt arange is
+# cheaper than allocating one per group; grown on demand for outsized gangs.
+_RANKS = np.arange(4096, dtype=np.int32)
+
+
+def _ranks(n: int) -> np.ndarray:
+    global _RANKS
+    if n > _RANKS.shape[0]:
+        _RANKS = np.arange(max(n, 2 * _RANKS.shape[0]), dtype=np.int32)
+    return _RANKS[:n]
+
+
+# GangBatch fields that depend only on one gang's spec (+ snapshot epoch +
+# bound-node pins): exactly the rows the encode-row cache may reuse. The
+# rest (depends_on, global_index, depends_global, the base-gang gate, the
+# reuse and spread seeds) depend on the batch's composition and are always
+# recomputed.
+_ROW_FIELDS = (
+    "group_req",
+    "group_total",
+    "group_required",
+    "group_valid",
+    "set_member",
+    "set_req_level",
+    "set_pref_level",
+    "set_valid",
+    "set_pinned",
+    "pod_group",
+    "pod_rank",
+    "group_order",
+)
+
+
 def encode_gangs(
     gangs: list[PodGang],
     pods_by_name: dict[str, Pod],
@@ -250,10 +296,12 @@ def encode_gangs(
     global_index_of: dict[str, int] | None = None,
     reuse_nodes_by_gang: dict[str, list[int]] | None = None,
     spread_avoid_by_gang: dict[str, list[int]] | None = None,
+    row_cache=None,
+    row_keys: list | None = None,
 ) -> tuple[GangBatch, GangDecodeInfo]:
     """Flatten gang CRs into the padded batch + decode info (the JAX
-    package's encode_gangs without its encode-row cache; the output is the
-    same array for array).
+    package's encode_gangs, its vectorized fill; the output is the same
+    array for array, with and without the row cache).
 
     A scaled gang whose base gang is neither in this batch (at an earlier
     index), nor in `global_index_of`, nor in `scheduled_gangs` (names of
@@ -275,6 +323,16 @@ def encode_gangs(
 
     `spread_avoid_by_gang`: gang name -> node indices sibling replicas occupy
     in the store (replica spread seed).
+
+    `row_cache` / `row_keys` (solver/warm.py `EncodeRowCache`, and per gang
+    a key that folds in its spec digest and the snapshot's encode_epoch()):
+    each gang's spec rows are kept under (row key, resource axis, bound-node
+    signature) at the bucket dims they were encoded under. A gang whose key
+    recurs copies its rows from the cache instead of walking its spec; a
+    hit whose dims differ from this batch's (bucket drift) is demoted and
+    re-encoded. The constraint walk is memoized by the row key alone, so a
+    demoted gang still skips it. Batch-positional fields are always
+    recomputed.
     """
     g_count = pad_gangs_to if pad_gangs_to is not None else len(gangs)
     if g_count < len(gangs):
@@ -319,8 +377,54 @@ def encode_gangs(
 
     mg = max_groups or max((len(g.spec.pod_groups) for g in gangs), default=1) or 1
     mp = max_pods or max((g.total_pods() for g in gangs), default=1) or 1
-    sets_and_ok = [_sets_of(g) for g in gangs]
-    ms = max_sets or max((len(s[0]) for s in sets_and_ok), default=1) or 1
+    # Row reuse: resolve cache entries before the spec walk, so hits skip
+    # _sets_of (the stored n_sets feeds the ms default).
+    bound_map = bound_nodes_by_group or {}
+    row_entries: list = [None] * len(gangs)
+    row_full_keys: list = [None] * len(gangs)
+    cached = row_cache is not None and row_keys is not None
+    if cached:
+        if len(row_keys) != len(gangs):
+            raise ValueError("row_keys length must match gangs")
+        for gi, gang in enumerate(gangs):
+            bound = bound_map.get(gang.name)
+            bound_sig = (
+                tuple(sorted((grp, tuple(idxs)) for grp, idxs in bound.items())) if bound else ()
+            )
+            row_full_keys[gi] = (row_keys[gi], r, bound_sig)
+            row_entries[gi] = row_cache.peek(row_full_keys[gi])
+
+    def _sets_resolve(gi: int, gang: PodGang):
+        # The constraint walk per (spec digest, snapshot epoch): exactly the
+        # row key, which folds in everything _sets_of reads.
+        if cached:
+            hit = row_cache.peek_sets(row_keys[gi])
+            if hit is not None:
+                return hit
+        out = _sets_of(gang)
+        if cached:
+            row_cache.put_sets(row_keys[gi], out)
+        return out
+
+    sets_and_ok = [
+        None if row_entries[gi] is not None else _sets_resolve(gi, g)
+        for gi, g in enumerate(gangs)
+    ]
+    ms = max_sets or max(
+        (
+            row_entries[gi]["n_sets"] if row_entries[gi] is not None else len(sets_and_ok[gi][0])
+            for gi in range(len(gangs))
+        ),
+        default=1,
+    ) or 1
+    # Demote hits whose bucket dims drifted: the stored rows are shaped by
+    # the bucket they were encoded under.
+    for gi in range(len(gangs)):
+        if row_entries[gi] is not None and row_entries[gi]["dims"] != (mg, ms, mp):
+            row_entries[gi] = None
+            sets_and_ok[gi] = _sets_resolve(gi, gangs[gi])
+    all_sets = [None if s is None else s[0] for s in sets_and_ok]
+    sets_resolvable = [None if s is None else s[1] for s in sets_and_ok]
 
     batch = GangBatch(
         group_req=np.zeros((g_count, mg, r), dtype=np.float32),
@@ -342,36 +446,67 @@ def encode_gangs(
         # reuse_nodes / group_node_ok / spread_* stay None unless some gang
         # needs them: the dense [G, N] planes only materialize when in play.
     )
-    decode = GangDecodeInfo(gang_names=[], pod_names=[])
+    decode = GangDecodeInfo(gang_names=[], pod_names=[], group_names=[])
     gang_index = {g.name: i for i, g in enumerate(gangs)}
+    scheduled_gangs = scheduled_gangs or set()
     selector_masks: np.ndarray | None = None  # bool [G, MG, N], lazy
     reuse_arr: np.ndarray | None = None  # bool [G, N], lazy
     # One O(N) label scan per UNIQUE selector / toleration set, not per group.
     selector_rows: dict[tuple, np.ndarray] = {}
     toleration_rows: dict[tuple, np.ndarray] = {}
     tainted_idx = snapshot.tainted_node_indices(_BLOCKING_EFFECTS)
-    bound_map = bound_nodes_by_group or {}
     # Normalize per resource before summing — raw units are incomparable.
     cap_scale = snapshot.cap_scale()
     n_nodes = snapshot.capacity.shape[0]
 
+    # Hits are applied batched after the loop (one fancy-index copy per
+    # field), and misses store their rows the same way (miss_puts).
+    hit_rows: list[tuple[int, dict]] = []
+    miss_puts: list[tuple] = []
     for gi, gang in enumerate(gangs):
-        all_sets, resolvable = sets_and_ok[gi]
+        entry = row_entries[gi]
+        if entry is not None:
+            # The spec (and the snapshot epoch in the key) is unchanged since
+            # the rows were built: reuse them, skip the spec walk. The
+            # entry's name lists are private to the cache and only read.
+            row_cache.hits += 1
+            decode.gang_names.append(gang.name)
+            decode.pod_names.append(entry["pod_names"])
+            decode.group_names.append(entry["group_names"])
+            batch.gang_valid[gi] = entry["resolvable"]
+            hit_rows.append((gi, entry))
+            if entry["sel_rows"]:
+                if selector_masks is None:
+                    selector_masks = np.ones((g_count, mg, n_nodes), dtype=bool)
+                for k, sel_row in entry["sel_rows"].items():
+                    selector_masks[gi, k] = sel_row
+            _encode_cross_batch_fields(
+                batch, gi, gang, gang_index, scheduled_gangs, global_index_of
+            )
+            reuse_arr = _seed_reuse_row(
+                reuse_arr, gi, gang, reuse_nodes_by_gang, snapshot, g_count
+            )
+            continue
+        if cached:
+            row_cache.misses += 1
         if len(gang.spec.pod_groups) > mg:
             raise ValueError(f"gang {gang.name}: {len(gang.spec.pod_groups)} groups > bucket {mg}")
         if gang.total_pods() > mp:
             raise ValueError(f"gang {gang.name}: {gang.total_pods()} pods > bucket {mp}")
         decode.gang_names.append(gang.name)
         pod_names: list[str] = []
-        batch.gang_valid[gi] = resolvable
+        group_names: list[str] = []
+        miss_sel_rows: dict[int, np.ndarray] = {}
+        batch.gang_valid[gi] = sets_resolvable[gi]
         reuse_arr = _seed_reuse_row(
             reuse_arr, gi, gang, reuse_nodes_by_gang, snapshot, g_count
         )
         _encode_cross_batch_fields(
-            batch, gi, gang, gang_index, scheduled_gangs or set(), global_index_of
+            batch, gi, gang, gang_index, scheduled_gangs, global_index_of
         )
         slot = 0
         for k, grp in enumerate(gang.spec.pod_groups):
+            group_names.append(grp.name)
             refs = [ref.name for ref in grp.pod_references]
             batch.group_total[gi, k] = len(refs)
             batch.group_required[gi, k] = min(grp.min_replicas, len(refs))
@@ -418,16 +553,17 @@ def encode_gangs(
                             toleration_rows[tkey] = tol_row
                         row = row & tol_row
                     selector_masks[gi, k] = row
+                    miss_sel_rows[k] = row
             nr = len(refs)
             batch.pod_group[gi, slot : slot + nr] = k
-            batch.pod_rank[gi, slot : slot + nr] = np.arange(nr, dtype=np.int32)
+            batch.pod_rank[gi, slot : slot + nr] = _ranks(nr)
             pod_names.extend(refs)
             slot += nr
-        if len(all_sets) > ms:
-            raise ValueError(f"gang {gang.name}: {len(all_sets)} pack-sets > bucket {ms}")
+        if len(all_sets[gi]) > ms:
+            raise ValueError(f"gang {gang.name}: {len(all_sets[gi])} pack-sets > bucket {ms}")
         gang_bound = bound_map.get(gang.name, {})
         req_constrained: set[int] = set()
-        for si, (members, req_l, pref_l, pin_names) in enumerate(all_sets):
+        for si, (members, req_l, pref_l, pin_names) in enumerate(all_sets[gi]):
             batch.set_valid[gi, si] = True
             batch.set_req_level[gi, si] = req_l
             batch.set_pref_level[gi, si] = pref_l
@@ -457,6 +593,42 @@ def encode_gangs(
         )
         pod_names += [""] * (mp - len(pod_names))
         decode.pod_names.append(pod_names)
+        decode.group_names.append(group_names)
+        if cached:
+            miss_puts.append((gi, len(all_sets[gi]), pod_names, group_names, miss_sel_rows))
+
+    if hit_rows:
+        # Entries stored together share their field stacks (_stacks, _row):
+        # hits grouped by stack apply with one gather + assign per field.
+        groups: dict[int, tuple] = {}
+        for gi, entry in hit_rows:
+            sd = entry["_stacks"]
+            rec = groups.setdefault(id(sd), (sd, [], []))
+            rec[1].append(gi)
+            rec[2].append(entry["_row"])
+        for sd, gis, js in groups.values():
+            gi_arr = np.asarray(gis, dtype=np.intp)
+            j_arr = np.asarray(js, dtype=np.intp)
+            for fname in _ROW_FIELDS:
+                getattr(batch, fname)[gi_arr] = sd[fname][j_arr]
+    if miss_puts:
+        midx = np.fromiter((m[0] for m in miss_puts), dtype=np.intp, count=len(miss_puts))
+        # One contiguous copy per field for every miss gang; each stored row
+        # is a view into the stack, which nothing writes after this point.
+        stacks = {f: getattr(batch, f)[midx].copy() for f in _ROW_FIELDS}
+        for j, (gi, n_sets, pod_names_j, group_names_j, sel_rows_j) in enumerate(miss_puts):
+            rows = {f: stacks[f][j] for f in _ROW_FIELDS}
+            rows.update(
+                dims=(mg, ms, mp),
+                n_sets=n_sets,
+                resolvable=bool(sets_resolvable[gi]),
+                pod_names=list(pod_names_j),
+                group_names=list(group_names_j),
+                sel_rows=sel_rows_j,
+                _stacks=stacks,
+                _row=j,
+            )
+            row_cache.put(row_full_keys[gi], rows)
 
     if selector_masks is not None:
         batch = batch._replace(group_node_ok=selector_masks)

@@ -56,6 +56,32 @@ def _level_domain_free(sched_free: np.ndarray, node_domain_id: np.ndarray, lvl: 
     return acc
 
 
+@dataclass
+class PruneStats:
+    """Pruning counters a WarmPath carries (grove_tpu/solver/pruning.py
+    `PruneStats`): pruned solves, the escalation ledger and the last
+    candidate axis, under the JAX package's stats() names."""
+
+    pruned_solves: int = 0
+    dense_fallbacks: int = 0  # pruning requested but not worthwhile
+    escalations: int = 0  # lossy rejection -> dense re-solve
+    escalations_adopted: int = 0  # dense re-solve changed a verdict
+    last_candidate_nodes: int = 0
+    last_candidate_pad: int = 0
+    last_fleet_nodes: int = 0
+
+    def stats(self) -> dict:
+        return {
+            "pruneSolves": self.pruned_solves,
+            "pruneDenseFallbacks": self.dense_fallbacks,
+            "pruneEscalations": self.escalations,
+            "pruneEscalationsAdopted": self.escalations_adopted,
+            "pruneCandidateNodes": self.last_candidate_nodes,
+            "pruneCandidatePad": self.last_candidate_pad,
+            "pruneFleetNodes": self.last_fleet_nodes,
+        }
+
+
 @dataclass(frozen=True)
 class PruningConfig:
     """The `solver.pruning` config block."""
@@ -189,26 +215,41 @@ class StackedPlans(NamedTuple):
     domains: object  # kernels.place_wave.DomainIndex with [W, ...] fields on the card, else None
 
 
-def stack_plans(plans: list, batches: list, device) -> StackedPlans:
-    """Stack the plans of a scan chunk (same pad, same fleet) and their
-    gathered batches on a leading [W] axis in host memory, then upload each
-    array once, without blocking (drain.py `_solve_scan_chunk`'s pruned
-    branch). On the card the stacked DomainIndex comes along."""
+def stack_plan_arrays(plans: list, batches: list, pad_to: int | None = None) -> tuple:
+    """A scan chunk's plans (same pad, same fleet) and their gathered
+    batches stacked on a leading [W] axis in host memory: (cand_idx,
+    capacity, schedulable, node_domain_id, batch). `pad_to` appends null
+    waves up to that many steps (drain.py `_solve_scan_chunk`): every
+    gather-map slot past the fleet (gathers read 0, scatters drop), zero
+    node tensors and an all-zero batch, so the step admits nothing and the
+    carry passes through."""
+    idx = [p.padded_idx() for p in plans]
+    cap = [np.asarray(p.capacity, np.float32) for p in plans]
+    sched = [np.asarray(p.schedulable, bool) for p in plans]
+    ndid = [np.asarray(p.node_domain_id, np.int32) for p in plans]
+    gathered = [p.gather_batch(b) for p, b in zip(plans, batches)]
+    extra = 0 if pad_to is None else max(0, pad_to - len(plans))
+    if extra:
+        idx += [np.full_like(idx[0], plans[0].fleet_pad)] * extra
+        cap += [np.zeros_like(cap[0])] * extra
+        sched += [np.zeros_like(sched[0])] * extra
+        ndid += [np.zeros_like(ndid[0])] * extra
+    return (np.stack(idx), np.stack(cap), np.stack(sched), np.stack(ndid),
+            stack_batches(gathered, pad_to=pad_to))
+
+
+def stack_plans(plans: list, batches: list, device, pad_to: int | None = None) -> StackedPlans:
+    """stack_plan_arrays, each array uploaded once without blocking; on the
+    card the stacked DomainIndex comes along."""
     from grove_tpu_torch.solver.core import batch_to, to_device
 
     device = torch.device(device)
-    host = (
-        np.stack([p.padded_idx() for p in plans]),
-        np.stack([np.asarray(p.capacity, np.float32) for p in plans]),
-        np.stack([np.asarray(p.schedulable, bool) for p in plans]),
-        np.stack([np.asarray(p.node_domain_id, np.int32) for p in plans]),
-    )
+    *host, gathered = stack_plan_arrays(plans, batches, pad_to)
     domains = None
     if device.type == "cuda":
         from grove_tpu_torch.kernels.place_wave import domain_index_stacked
 
         domains = domain_index_stacked(host[3], device)
-    gathered = stack_batches([p.gather_batch(b) for p, b in zip(plans, batches)])
     return StackedPlans(*(to_device(x, device) for x in host), batch_to(gathered, device),
                         domains)
 

@@ -56,23 +56,61 @@ class ClusterSnapshot:
     # toleration matching happen against these at encode time.
     node_labels: list[dict] = field(default_factory=list)
     node_taints: list[list] = field(default_factory=list)
+    # Memos of the derived views below: the snapshot is immutable for its
+    # lifetime, so each is computed once and read by every encode and
+    # decode against it.
+    _cap_scale: np.ndarray | None = field(default=None, repr=False, compare=False)
+    _node_names_arr: np.ndarray | None = field(default=None, repr=False, compare=False)
+    _tainted_idx: dict | None = field(default=None, repr=False, compare=False)
+    _encode_epoch: tuple | None = field(default=None, repr=False, compare=False)
 
     def cap_scale(self) -> np.ndarray:
         """Per-resource capacity maxima (score normalization, encode group
         ordering)."""
-        return np.maximum(self.capacity.max(axis=0), 1e-9)
+        if self._cap_scale is None:
+            self._cap_scale = np.maximum(self.capacity.max(axis=0), 1e-9)
+        return self._cap_scale
 
     def node_names_arr(self) -> np.ndarray:
         """node_names as an object array (decode gathers through it)."""
-        return np.asarray(self.node_names, dtype=object)
+        if self._node_names_arr is None:
+            self._node_names_arr = np.asarray(self.node_names, dtype=object)
+        return self._node_names_arr
 
     def tainted_node_indices(self, blocking_effects) -> list[int]:
-        """Indices of nodes carrying scheduling-blocking taints."""
-        return [
-            i
-            for i, taints in enumerate(self.node_taints)
-            if any(t.get("effect") in blocking_effects for t in taints)
-        ]
+        """Indices of nodes carrying scheduling-blocking taints, per
+        effects set."""
+        key = tuple(sorted(blocking_effects))
+        if self._tainted_idx is None:
+            self._tainted_idx = {}
+        if key not in self._tainted_idx:
+            self._tainted_idx[key] = [
+                i
+                for i, taints in enumerate(self.node_taints)
+                if any(t.get("effect") in blocking_effects for t in taints)
+            ]
+        return self._tainted_idx[key]
+
+    def encode_epoch(self) -> tuple:
+        """Hashable digest of every snapshot input the encode reads: the
+        resource axis, capacity (group ordering), the domain map (pack-set
+        pins), node labels (selector rows) and node taints (toleration
+        rows). The encode-row cache (solver/warm.py) keys rows on it, so a
+        row is never reused against a snapshot it was not built for."""
+        if self._encode_epoch is None:
+            import hashlib
+
+            h = hashlib.blake2b(digest_size=16)
+            h.update(repr(self.resource_names).encode())
+            h.update(np.ascontiguousarray(self.capacity).tobytes())
+            h.update(np.ascontiguousarray(self.node_domain_id).tobytes())
+            for labels in self.node_labels:
+                h.update(repr(sorted(labels.items())).encode())
+            for taints in self.node_taints:
+                if taints:
+                    h.update(repr(taints).encode())
+            self._encode_epoch = (self.capacity.shape, h.hexdigest())
+        return self._encode_epoch
 
     @property
     def free(self) -> np.ndarray:

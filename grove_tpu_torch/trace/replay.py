@@ -12,6 +12,11 @@ Any divergence is reported as a structured diff.
 The port solves on one card. A recorded mesh fingerprint sets only the
 candidate pad's axis: the JAX package negotiates the pad divisible by the
 mesh's node axis, and the sharded solve equals the unsharded one.
+
+Every solve goes through one warm path (solver/warm.py `WarmPath`, a fresh
+one per replay unless the caller passes its own): a shape seen before
+replays its prepared launch, and each fleet's node state and DomainIndex
+are uploaded once.
 """
 
 from __future__ import annotations
@@ -23,15 +28,17 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from grove_tpu_torch.api.types import ClusterTopology
+import torch
+
 from grove_tpu_torch.solver.core import (
     SolverParams,
     decode_bindings,
     resolve_device,
     solve,
-    solve_batch,
 )
 from grove_tpu_torch.solver.encode import encode_gangs
 from grove_tpu_torch.solver.pruning import PruningConfig, plan_from_indices
+from grove_tpu_torch.solver.warm import default_warm_path
 from grove_tpu_torch.state.cluster import ClusterSnapshot, Node, build_snapshot
 from grove_tpu_torch.trace import recorder as _recorder  # noqa: F401  (registers the types)
 from grove_tpu_torch.utils import serde
@@ -203,6 +210,7 @@ def solve_wave_record(
     wave: dict,
     snapshot: ClusterSnapshot,
     *,
+    warm=None,
     params: SolverParams | None = None,
     portfolio: int | None = None,
     escalate_portfolio: int | None = None,
@@ -210,8 +218,11 @@ def solve_wave_record(
 ) -> tuple[dict, dict, dict, float]:
     """Re-encode + re-solve one wave record against `snapshot`; returns
     (plan, ok_by_name, scores_by_name, solve_seconds). The solver config
-    defaults to the recorded fingerprint. `device` None means the card."""
+    defaults to the recorded fingerprint. `warm` (a solver.warm.WarmPath;
+    None = the process-shared one) holds the launch and device caches the
+    solve goes through. `device` None means the card."""
     dev = resolve_device(device)
+    warm = warm if warm is not None else default_warm_path()
     cfg = wave["solver"]
     pruning = pruning_of(cfg)
     params = params if params is not None else SolverParams(*cfg["params"])
@@ -227,9 +238,17 @@ def solve_wave_record(
         plan = plan_from_indices(snapshot, candidates, pruning,
                                  int(np.asarray(batch.gang_valid).shape[0]),
                                  mesh_axis=recorded_node_axis(cfg))
-        free = free_override if free_override is not None else snapshot.free
-        result = solve_batch(np.asarray(free, np.float32), None, None, None, batch, params,
-                             None, device=dev, plan=plan)
+        free = np.asarray(free_override if free_override is not None else snapshot.free,
+                          np.float32)
+        cache = warm.device
+        result = warm.executables.solve(
+            free, cache.device_array(plan.capacity, torch.float32, dev),
+            cache.device_array(plan.schedulable, torch.bool, dev),
+            cache.device_array(plan.node_domain_id, torch.int32, dev), plan.gather_batch(batch),
+            params, None, device=dev,
+            domains=cache.domain_index(plan.node_domain_id, dev) if dev.type == "cuda" else None,
+            cand_idx=plan.padded_idx(), cand_count=plan.count,
+        )
     else:
         result = solve(
             snapshot,
@@ -242,6 +261,7 @@ def solve_wave_record(
             device=dev,
             pruning=pruning,
             mesh_axis=recut_node_axis(cfg, int(snapshot.capacity.shape[0])),
+            warm=warm,
         )
     ok_np = result.ok.cpu().numpy()
     score_np = result.placement_score.cpu().numpy()
@@ -287,11 +307,15 @@ def diff_wave(wave: dict, plan: dict, ok: dict, scores: dict) -> list[dict]:
     return divergences
 
 
-def replay_journal(records: list[dict], *, device=None) -> ReplayReport:
+def replay_journal(records: list[dict], *, warm_path=None, device=None) -> ReplayReport:
     """Replay every wave record in `records` (as `recorder.read_journal`
-    returns them) and diff it against its recorded plan. Raises ValueError
-    when a wave references a fleet digest the journal does not contain
-    (dropped under queue pressure, or a hand-pruned segment set)."""
+    returns them) through one warm path (`warm_path`, a fresh WarmPath when
+    None) and diff it against its recorded plan. Raises ValueError when a
+    wave references a fleet digest the journal does not contain (dropped
+    under queue pressure, or a hand-pruned segment set)."""
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    warm = warm_path if warm_path is not None else WarmPath()
     fleets: dict[str, dict] = {}
     bases: dict = {}
     report = ReplayReport()
@@ -311,7 +335,7 @@ def replay_journal(records: list[dict], *, device=None) -> ReplayReport:
                 "cannot replay"
             )
         snapshot = snapshot_from_wave(rec, fleet, bases=bases)
-        plan, ok, scores, elapsed = solve_wave_record(rec, snapshot, device=device)
+        plan, ok, scores, elapsed = solve_wave_record(rec, snapshot, warm=warm, device=device)
         report.waves.append(WaveReplay(
             index=index,
             wave=rec.get("wave", "?"),

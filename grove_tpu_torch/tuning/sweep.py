@@ -25,6 +25,12 @@ resident drain journals are solved as one launch of B6 (stacked_scan_solve:
 W waves x K rows, each wave from its recorded entering free, no carry
 between them), their lengths padded to powers of two with null waves (zero
 free, all-invalid batch: they admit nothing).
+
+Every launch goes through one warm path (solver/warm.py `WarmPath`; a fresh
+one unless the caller passes its own): the B6 and B5 launches through its
+launch cache (`solve_scan_stacked`, `solve_stacked`), the production
+fallbacks through `solve(warm=)`, each fleet's node state and DomainIndex
+uploaded once.
 """
 
 from __future__ import annotations
@@ -33,14 +39,13 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from grove_tpu_torch.solver.core import (
     SolverParams,
     decode_bindings,
     resolve_device,
     solve,
-    stacked_scan_solve,
-    stacked_solve_batch,
 )
 from grove_tpu_torch.solver.encode import GangBatch
 from grove_tpu_torch.solver.pruning import lossy_rejections, plan_candidates, plan_from_indices
@@ -193,16 +198,21 @@ class SweepEngine:
     """Replays journal records once, scoring every active config per wave.
 
     Feed it record batches with `consume`; restrict the grid between batches
-    with `keep`. Fleet records are cached across batches. `device` None
-    means the card; "cpu" runs the plain versions."""
+    with `keep`. Fleet records are cached across batches. `warm_path` (a
+    solver.warm.WarmPath, a fresh one when None) holds the launch, device
+    and encode caches every solve goes through. `device` None means the
+    card; "cpu" runs the plain versions."""
 
-    def __init__(self, configs: list, *, device=None) -> None:
+    def __init__(self, configs: list, *, warm_path=None, device=None) -> None:
+        from grove_tpu_torch.solver.warm import WarmPath
+
         if not configs:
             raise ValueError("sweep needs at least one config")
         names = [c.name for c in configs]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate config names in grid: {names}")
         self.dev = resolve_device(device)
+        self.warm = warm_path if warm_path is not None else WarmPath()
         self.configs = list(configs)
         self.tallies: dict[str, ConfigTally] = {c.name: ConfigTally(c) for c in configs}
         self.waves_seen = 0
@@ -211,7 +221,6 @@ class SweepEngine:
         self.fallback_solves = 0  # production-semantics per-row re-solves
         self._fleets: dict[str, dict] = {}
         self._bases: dict = {}  # snapshot_from_wave's per-fleet snapshots
-        self._domains: dict = {}
 
     # ---- grid management ---------------------------------------------------
 
@@ -228,18 +237,17 @@ class SweepEngine:
         return np.asarray([[float(w) for w in self.configs[i].weights] for i in sel],
                           dtype=np.float32)
 
-    def _domains_of(self, key, node_domain_id):
-        """The DomainIndex of a node axis on the card, built once per key (a
-        fleet's; None: a plan's, built each time), None on the CPU."""
-        if self.dev.type != "cuda":
-            return None
-        from grove_tpu_torch.kernels.place_wave import domain_index
-
-        if key is None:
-            return domain_index(node_domain_id, self.dev)
-        if key not in self._domains:
-            self._domains[key] = domain_index(node_domain_id, self.dev)
-        return self._domains[key]
+    def _node_state(self, capacity, schedulable, node_domain_id):
+        """(capacity, schedulable, node_domain_id, DomainIndex or None) from
+        the warm path's device cache: a fleet (or plan) seen before uploads
+        nothing."""
+        cache, dev = self.warm.device, self.dev
+        return (
+            cache.device_array(capacity, torch.float32, dev),
+            cache.device_array(schedulable, torch.bool, dev),
+            cache.device_array(node_domain_id, torch.int32, dev),
+            cache.domain_index(node_domain_id, dev) if dev.type == "cuda" else None,
+        )
 
     # ---- consumption -------------------------------------------------------
 
@@ -374,11 +382,11 @@ class SweepEngine:
             sbatch = GangBatch(*(None if leaf0 is None else stack([p.batch[i] for p in run])
                                  for i, leaf0 in enumerate(run[0].batch)))
             snap = run[0].snapshot
-            result = stacked_scan_solve(
-                stack([p.free_np for p in run], np.float32), snap.capacity, snap.schedulable,
-                snap.node_domain_id, sbatch, self._param_stack(stackable), device=self.dev,
-                domains=self._domains_of((run[0].rec["fleet"], run[0].rec["padNodesTo"]),
-                                         snap.node_domain_id),
+            cap, sched, ndid, domains = self._node_state(snap.capacity, snap.schedulable,
+                                                         snap.node_domain_id)
+            result = self.warm.executables.solve_scan_stacked(
+                stack([p.free_np for p in run], np.float32), cap, sched, ndid, sbatch,
+                self._param_stack(stackable), device=self.dev, domains=domains,
             )
             self.scan_stacked_solves += 1
             ok_wk = result.ok.cpu().numpy()
@@ -433,18 +441,19 @@ class SweepEngine:
             pstack = self._param_stack(stackable)
             if pplan is not None:
                 # The dense stacked launch on the plan's gathered arrays.
-                result = stacked_solve_batch(
-                    pplan.gather_free(prep.free_np), pplan.capacity, pplan.schedulable,
-                    pplan.node_domain_id, pplan.gather_batch(batch), pstack, device=self.dev,
-                    domains=self._domains_of(None, pplan.node_domain_id),
+                cap, sched, ndid, domains = self._node_state(
+                    pplan.capacity, pplan.schedulable, pplan.node_domain_id)
+                result = self.warm.executables.solve_stacked(
+                    pplan.gather_free(prep.free_np), cap, sched, ndid,
+                    pplan.gather_batch(batch), pstack, device=self.dev, domains=domains,
                 )
                 assigned_k = pplan.remap_assigned(result.assigned.cpu().numpy())
             else:
-                result = stacked_solve_batch(
-                    prep.free_np, snapshot.capacity, snapshot.schedulable,
-                    snapshot.node_domain_id, batch, pstack, device=self.dev,
-                    domains=self._domains_of((rec["fleet"], rec["padNodesTo"]),
-                                             snapshot.node_domain_id),
+                cap, sched, ndid, domains = self._node_state(
+                    snapshot.capacity, snapshot.schedulable, snapshot.node_domain_id)
+                result = self.warm.executables.solve_stacked(
+                    prep.free_np, cap, sched, ndid, batch, pstack, device=self.dev,
+                    domains=domains,
                 )
                 assigned_k = result.assigned.cpu().numpy()
             self.stacked_solves += 1
@@ -479,7 +488,7 @@ class SweepEngine:
         result = solve(
             prep.snapshot, prep.batch, config.solver_params(), free=prep.free_override,
             portfolio=config.portfolio, escalate_portfolio=config.escalate_portfolio,
-            device=self.dev, pruning=prep.pruning,
+            device=self.dev, pruning=prep.pruning, warm=self.warm,
         )
         return (result.ok.cpu().numpy(), result.assigned.cpu().numpy(),
                 result.placement_score.cpu().numpy())
@@ -497,8 +506,9 @@ class SweepEngine:
         }
 
 
-def sweep_journal(records: list, configs: list, *, device=None) -> SweepEngine:
+def sweep_journal(records: list, configs: list, *, warm_path=None,
+                  device=None) -> SweepEngine:
     """One-shot sweep of a whole journal under a fixed grid."""
-    engine = SweepEngine(configs, device=device)
+    engine = SweepEngine(configs, warm_path=warm_path, device=device)
     engine.consume(records)
     return engine

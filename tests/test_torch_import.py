@@ -63,3 +63,9 @@ def test_bench_refuses_to_run_without_a_card():
         [sys.executable, "-c", env_probe], cwd=REPO, capture_output=True, text=True, timeout=300
     )
     assert "raised no CUDA device" in out.stdout, out.stdout + out.stderr
+
+
+def test_warm_path_module_is_checked():
+    """The warm path (solver/warm.py) is among the modules probed above."""
+    assert "grove_tpu_torch.solver.warm" in MODULES
+    assert _imported_forbidden("grove_tpu_torch.solver.warm") == []

@@ -1027,6 +1027,52 @@ def test_kernel_source_on_host_rows_equal_single_launches(host_kernel, host_stac
             assert torch.equal(a, b[k]), f"row {k} {name}: stacked != single launch"
 
 
+@pytest.mark.parametrize("kind", ["single", "stacked"])
+@pytest.mark.parametrize("case", ["bench_spread", "spread_pack"])
+def test_kernel_source_on_host_reused_buffers_after_reset_equal_fresh(host_kernel, host_stacked,
+                                                                       kind, case):
+    """A prepared launch (solver/warm.py's launch cache) keeps one set of
+    buffers from replay to replay and zeroes pwm.LAUNCH_ZEROED at the head
+    of each. Two launches on one set of buffers, reset before the second,
+    each equal a launch on fresh buffers; without the reset a third reads
+    the spread family rows the earlier ones marked, and differs."""
+    gangs, pods, snap = SCENARIOS[case](PORT)
+    batch, _ = PORT.encode_gangs(gangs, pods, snap)
+    assert batch.spread_level is not None
+    tb = batch_to(batch, "cpu")
+    stacked = kind == "stacked"
+    pstack = stack_rows(2) if stacked else None
+
+    def prepared():
+        free, cap, sched, ndid = _node_tensors(snap, "cpu")
+        built = pwm.build_args(free, cap, sched, ndid, tb, None if stacked else SolverParams(),
+                               None, pwm.domain_index(ndid, "cpu"), params_stack=pstack)
+        return free, free.clone(), built
+
+    def launch(free, free0, built):
+        args, smem, out, _ = built
+        free.copy_(free0)
+        if stacked:
+            host_stacked(args, smem, False)
+        else:
+            host_kernel(args, smem)
+        after = out["free_after"] if stacked else free
+        return [t.clone() for t in (out["assigned"], out["ok"], out["score"], after)]
+
+    want = launch(*prepared())
+    reused = prepared()
+    got = [launch(*reused)]
+    pwm.zero_launch_state(reused[2][3])
+    got.append(launch(*reused))
+    for run, planes in enumerate(got):
+        for name, a, b in zip(FIELDS, planes, want):
+            assert torch.equal(a, b), f"launch {run} on reused buffers: {name} != a fresh launch"
+    stale = launch(*reused)
+    assert any(not torch.equal(a, b) for a, b in zip(stale, want)), (
+        "the case does not show the family rows an earlier launch left"
+    )
+
+
 def test_stacked_wrapper_refuses_a_candidate_plan():
     _, snap, batch, plan = pruned_cases()[0]
     pt = plan.tensors("cpu")

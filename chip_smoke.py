@@ -116,10 +116,45 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               recorded shape and then drains with none; the cold and warm
               walls, encode, dispatch and compile seconds, capture ms per
               entry, and per-wave dispatch, direct launch against replay
- 11. kernels  one JSON line: per kernel variant its launches on the main
-              path, its error against the plain version, its time, the
-              plain version's time, its bound and a library call's time
- 12. the last line: {"ok": true, "device": {...}}
+ 11. stream   bench.py's stream scenario (solver/stream.py drain_stream):
+              the 25 s trace at base rate 12 (433 gangs, 2819 pods) on a
+              1280-node fleet at wave_size 64, depth 2, saturated, through
+              one WarmPath, each run with the counts set to 0 before it: a
+              warm-up; serial and pipelined (the same admitted set, every
+              gang admitted, one "dense" launch per wave, no preparation
+              after the warm-up, free_after == the bound requests, no node
+              over capacity, the set drain_backlog admits for the same gangs
+              in arrival order); scan and resident (class-affine forming)
+              bitwise equal to the formed serial run, the scan fused (a chunk
+              or more, half the waves or more, one "scan" launch per chunk),
+              resident in 1 + escalations round trips; serial and pipelined
+              bindings, free_after and ledger equal to a plain serial run on
+              the CPU, formed serial, scan and resident to a plain formed
+              serial run (the kernels held to their plain versions at the
+              stream's own shapes); pruned at 64 candidates (escalations
+              forced): the dense run's admitted set, bindings and ledger
+              equal to the plain versions on the CPU; paced over the trace's
+              first 10 s: a latency for every admitted gang, none negative
+              (not clamped: the card's completion stamps against the host's
+              arrival instants), bind_p50_s / bind_p99_s printed
+ 12. tune     bench.py's sweep scenario's stream journal (64 nodes, the
+              10 s trace at rate 3, wave_size 8: 27 waves) recorded on the
+              card and replayed with 0 divergences; successive halving at
+              K = 16, rungs 4 (16, 8, 4, 2 survivors, the incumbent kept);
+              recommend valid with 0 bitwise and 0 journal divergences;
+              what-if +1 rack and three config variants (0 replay
+              divergences); the committed JAX stream journal
+              (tests/data/jax_stream_journal.json) replayed and swept with 0
+              divergences and recommended with the winner, gates and
+              survivors the JAX package computed (jax_stream_recommend.json),
+              the document equal to the plain versions' on the CPU
+ 13. kernels  one JSON line: per kernel variant its launches on the main
+              path (phases 4-9 as before, plus `launches_stream` and
+              `launches_tune`, the launches of phases 11 and 12, added to
+              the first row of their variant), its error against the plain
+              version, its time, the plain version's time, its bound and a
+              library call's time
+ 14. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -714,9 +749,19 @@ def main() -> int:
 
     phase_done("10, warm")
 
-    # ---- 11. kernels line ----------------------------------------------------
+    # ---- 11. stream: the streaming drain under live arrivals -----------------
+    stream_launches = stream_phase(dev, card)
+
+    phase_done("11, stream")
+
+    # ---- 12. tune: halving, recommend with its exact audit, what-if ----------
+    tune_launches = tune_phase(dev, card)
+
+    phase_done("12, tune")
+
+    # ---- 13. kernels line ----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
-    print(json.dumps({"kernels": [
+    print(json.dumps({"kernels": add_path_launches([
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
          "replaces": "grove_tpu/solver/core.py:537", "launches": launches["dense"],
          "max_abs_err": err["dense"], "ms": dense_ms0, "plain_ms": dense_plain_ms,
@@ -735,7 +780,7 @@ def main() -> int:
          "bound_ms": pf["bound"][0], "bound_by": pf["bound"][1], "library_ms": None},
         *sc["rows"],
         sw["row"],
-    ]}))
+    ], stream_launches, tune_launches)}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1694,6 +1739,286 @@ def sweep_phase(dev, card, timed, snap, gangs, pods, chained32, snap_4, pruned_c
         "w": times[0][0], "k": 16, "rows": n_rows, "plain_rows": plain_rows,
         "cut_ms": cut_ms, "cut_plain_ms": plain_ms, "cut_bound_ms": bound[0],
     }}
+
+
+STREAM_PRUNING = dict(enabled=True, max_candidates=64, min_fleet=256)
+TUNE_VARIANTS = [
+    {"weights": {"wTight": 2.0}, "name": "tight2"},
+    {"weights": {"wPref": 0.25, "wReserve": 3.0}},
+    {"escalatePortfolio": 1, "name": "noesc"},
+]
+
+
+def stream_phase(dev, card) -> dict:
+    """Phase 11: bench.py's stream scenario on the card (1280 nodes, the
+    25 s trace at base rate 12, wave_size 64, depth 2) through one WarmPath;
+    returns the launches per variant the stream runs made."""
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.bench import admitted_free, stream_world
+    from grove_tpu_torch.kernels.place_wave import VARIANTS, place_wave, reset_launches
+    from grove_tpu_torch.solver.drain import ScanConfig, drain_backlog
+    from grove_tpu_torch.solver.pruning import PruningConfig
+    from grove_tpu_torch.solver.stream import StreamConfig, drain_stream
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    events, arrivals, pods, snap = stream_world(20260804, 25.0, 12.0, 2, 16, 20)
+    n = snap.capacity.shape[0]
+    check(n == 1280 and len(events) == 317 and len(arrivals) == 433 and len(pods) == 2819,
+          f"stream: the trace is {len(events)} events, {len(arrivals)} gangs, {len(pods)} pods "
+          f"on {n} nodes")
+    cfg = StreamConfig(depth=2, wave_size=64)
+    wp = WarmPath()
+    total = dict.fromkeys(VARIANTS, 0)
+
+    def run(label, arr=arrivals, **kw):
+        """One stream on the card, the counts set to 0 before it and read after."""
+        torch.cuda.synchronize()
+        reset_launches()
+        b, s = drain_stream(arr, pods, snap, config=cfg, warm_path=wp, **kw)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in place_wave.variant_launches.items() if v}
+        for k, v in launches.items():
+            total[k] += v
+        d = s.drain
+        print(f"stream[{label}, {n} nodes]: wall {s.wall_s:.4f} s, {s.gangs_per_sec:.2f} gangs/s, "
+              f"admitted {s.admitted}/{s.offered}, waves {s.waves}, windows {s.windows}, "
+              f"dispatches {d.dispatches}, round trips {d.device_roundtrips}, scan chunks "
+              f"{d.scan_chunks} ({d.scanned_waves} waves), escalations {d.escalations} "
+              f"({d.escalations_adopted} adopted), encode {d.encode_s:.4f}, dispatch "
+              f"{d.dispatch_s:.4f}, harvest {d.harvest_s:.4f}, compile {d.compile_s:.4f} s, "
+              f"lowerings {d.lowerings}, launches {launches} on {card}")
+        check(sum(launches.values()) >= d.dispatches - d.escalations > 0,
+              f"stream[{label}]: {launches} launches for {d.dispatches} dispatches")
+        return b, s, launches
+
+    run("warm-up, pipelined")
+    b_ser, s_ser, _ = run("serial", pipeline=False)
+    b_pipe, s_pipe, l_pipe = run("pipelined")
+    check(set(b_pipe) == set(b_ser), "stream: pipelined admits another set than serial")
+    check(s_pipe.admitted == len(arrivals), f"stream: admitted {s_pipe.admitted}/{len(arrivals)}")
+    check(l_pipe.get("dense", 0) == s_pipe.waves, f"stream: launches {l_pipe} for {s_pipe.waves} waves")
+    check(s_pipe.drain.lowerings == 0, "stream: the pipelined run prepared a launch after warm-up")
+    # Stamps are the waves' completion events on the card's clock, from an
+    # event at t0: in commit order they never decrease and fall in the wall.
+    stamps = [t for _, t in s_pipe.drain.wave_latencies]
+    check(len(stamps) == s_pipe.waves and stamps[0] >= 0.0 and stamps[-1] <= s_pipe.wall_s
+          and all(a <= b for a, b in zip(stamps, stamps[1:])),
+          f"stream: wave stamps {stamps[:3]}..{stamps[-1:]} against a wall of {s_pipe.wall_s}")
+    free = admitted_free(b_pipe, pods, snap)
+    check(np.array_equal(s_pipe.drain.free_after, free),
+          "stream: free_after != snapshot free minus bound pods' requests")
+    check(bool((free >= 0).all()), "stream: a node is over capacity")
+    b_back, _ = drain_backlog([g for _, g in arrivals], pods, snap, wave_size=64,
+                              harvest="pipeline", warm_path=wp)
+    check(set(b_back) == set(b_pipe), "stream: drain_backlog admits another set than the stream")
+    print(f"stream: serial {s_ser.wall_s:.4f} s against pipelined {s_pipe.wall_s:.4f} s "
+          f"({s_ser.wall_s / s_pipe.wall_s:.4f}x), the same set, the set drain_backlog admits; "
+          f"free_after == the bound requests, no node over capacity")
+
+    b_scan, s_scan, l_scan = run("scan", scan=True)
+    b_formed, s_formed, _ = run("formed serial", pipeline=False, scan=True)
+    check(b_scan == b_formed, "stream: scan binds another way than formed serial")
+    check(s_scan.drain.scan_chunks >= 1 and 2 * s_scan.drain.scanned_waves >= s_scan.waves,
+          f"stream: the scan fused {s_scan.drain.scanned_waves}/{s_scan.waves} waves")
+    check(l_scan.get("scan", 0) == s_scan.drain.scan_chunks,
+          f"stream: launches {l_scan} for {s_scan.drain.scan_chunks} scan chunks")
+    b_res, s_res, l_res = run("resident", scan=ScanConfig(device_resident=True))
+    check(b_res == b_formed, "stream: resident binds another way than formed serial")
+    check(s_res.drain.device_roundtrips == 1 + s_res.drain.escalations,
+          f"stream: resident made {s_res.drain.device_roundtrips} round trips")
+    check(l_res.get("scan", 0) >= 1, f"stream: resident launched {l_res}")
+    # The plain versions on the CPU at the stream's own shapes (1280 nodes,
+    # the class-max gang pads of class-affine forming, the scan's chunk
+    # lengths): the card's serial and pipelined runs bind what a plain serial
+    # run binds, its formed-serial, scan and resident runs what a plain
+    # formed-serial run binds, with the same free_after and ledger.
+    cpu_ser_b, cpu_ser = drain_stream(arrivals, pods, snap, config=cfg, pipeline=False,
+                                      warm_path=WarmPath(), device="cpu")
+    cpu_formed_b, cpu_formed = drain_stream(arrivals, pods, snap, config=cfg, pipeline=False,
+                                            scan=True, warm_path=WarmPath(), device="cpu")
+    s_ledger = ("admitted", "pods_bound", "waves", "windows")
+    for label, b, s, want_b, want_s in (
+        ("serial", b_ser, s_ser, cpu_ser_b, cpu_ser),
+        ("pipelined", b_pipe, s_pipe, cpu_ser_b, cpu_ser),
+        ("formed serial", b_formed, s_formed, cpu_formed_b, cpu_formed),
+        ("scan", b_scan, s_scan, cpu_formed_b, cpu_formed),
+        ("resident", b_res, s_res, cpu_formed_b, cpu_formed),
+    ):
+        check(b == want_b and np.array_equal(s.drain.free_after, want_s.drain.free_after)
+              and all(getattr(s, k) == getattr(want_s, k) for k in s_ledger),
+              f"stream[{label}]: the run on the card != the plain versions on the CPU")
+    check(all(getattr(s_formed.drain, k) == getattr(cpu_formed.drain, k)
+              for k in ("dispatches", "device_roundtrips", "escalations")),
+          "stream[formed serial]: the card's ledger != the plain versions'")
+    print("stream: serial, pipelined, formed serial, scan and resident bindings, free_after "
+          "and ledger == the plain versions on the CPU at the stream's shapes")
+
+    pruning = PruningConfig(**STREAM_PRUNING)
+    b_pr, s_pr, l_pr = run("pruned, 64 candidates", pruning=pruning)
+    check(s_pr.drain.escalations >= 1 and s_pr.drain.pruned_waves == s_pr.waves,
+          f"stream: the pruned run escalated {s_pr.drain.escalations} times")
+    check(set(b_pr) == set(b_pipe), "stream: the pruned run admits another set than the dense run")
+    check(l_pr.get("pruned", 0) >= 1, f"stream: the pruned run launched {l_pr}")
+    cpu_b, cpu_s = drain_stream(arrivals, pods, snap, config=cfg, pruning=pruning,
+                                warm_path=WarmPath(), device="cpu")
+    ledger = ("waves", "windows")
+    d_ledger = ("dispatches", "device_roundtrips", "escalations", "escalations_adopted",
+                "pruned_waves", "candidate_pad")
+    check(b_pr == cpu_b and all(getattr(s_pr, k) == getattr(cpu_s, k) for k in ledger)
+          and all(getattr(s_pr.drain, k) == getattr(cpu_s.drain, k) for k in d_ledger),
+          "stream: the pruned run on the card != the plain versions on the CPU")
+    print(f"stream[pruned]: {s_pr.drain.escalations} escalations ({s_pr.drain.escalations_adopted} "
+          f"adopted), the dense run's admitted set, bindings and ledger == the plain versions "
+          f"on the CPU")
+
+    cut = [(t, g) for t, g in arrivals if t < 10.0]
+    _, s_paced, _ = run("paced, the first 10 s", arr=cut, pace=True)
+    # The latencies are not clamped: a negative one is a misanchored card clock.
+    check(len(s_paced.bind_latencies) == s_paced.admitted > 0
+          and min(s_paced.bind_latencies) >= 0.0,
+          f"stream[paced]: {len(s_paced.bind_latencies)} latencies for {s_paced.admitted} "
+          f"gangs, the least {min(s_paced.bind_latencies, default=None)}")
+    pct = s_paced.bind_percentiles((50.0, 99.0))
+    print(f"stream[paced]: {len(cut)} gangs over {cut[-1][0]:.3f} s, bind_p50_s {pct[50.0]:.6f}, "
+          f"bind_p99_s {pct[99.0]:.6f}, wall {s_paced.wall_s:.4f} s on {card}")
+    print(f"stream launches: {total}")
+    for v in ("dense", "scan", "pruned"):
+        check(total[v] > 0, f"stream: kernel variant {v!r} was never launched")
+    return total
+
+
+def tune_phase(dev, card) -> dict:
+    """Phase 12: bench.py's sweep scenario's stream journal recorded on the
+    card, replayed, searched, recommended and what-if'd; the committed JAX
+    stream journal replayed, swept and recommended; returns the launches
+    per variant the tuning runs made."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from grove_tpu_torch.bench import record_stream, stream_world
+    from grove_tpu_torch.kernels.place_wave import VARIANTS, place_wave, reset_launches
+    from grove_tpu_torch.solver.stream import StreamConfig
+    from grove_tpu_torch.solver.warm import WarmPath
+    from grove_tpu_torch.trace.recorder import read_journal
+    from grove_tpu_torch.trace.replay import replay_journal
+    from grove_tpu_torch.trace.whatif import whatif_configs, whatif_journal
+    from grove_tpu_torch.tuning import (
+        default_grid,
+        incumbent_config,
+        recommend,
+        successive_halving,
+        sweep_journal,
+    )
+
+    def strip(doc):
+        if isinstance(doc, dict):
+            return {k: strip(v) for k, v in doc.items() if "Seconds" not in k}
+        if isinstance(doc, list):
+            return [strip(v) for v in doc]
+        return doc
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t_phase = time.perf_counter()
+    _, arrivals, pods, snap = stream_world(7, 10.0, 3.0, 1, 4, 8)
+    root = tempfile.mkdtemp(prefix="chip-smoke-tune-")
+    try:
+        _, s, rec, records = record_stream(arrivals, pods, snap, os.path.join(root, "stream"),
+                                           config=StreamConfig(depth=2, wave_size=8))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    waves = sum(1 for r in records if r.get("kind") == "wave")
+    check(s.drain.journaled_waves == s.waves == waves == 27 and rec.dropped == 0,
+          f"tune: {s.drain.journaled_waves}/{s.waves} waves journaled, {rec.dropped} dropped")
+    wp = WarmPath()
+    rep = replay_journal(records, warm_path=wp)
+    check(rep.divergence_count == 0, f"tune: replay diverged {rep.to_doc()}")
+    grid = default_grid(incumbent_config(records), 16)
+    t0 = time.perf_counter()
+    engine, schedule = successive_halving(records, grid, rungs=4, warm_path=wp)
+    halving_s = time.perf_counter() - t0
+    survivors = [len(r["configs"]) for r in schedule]
+    check(survivors == [16, 8, 4, 2] and all("incumbent" in r["configs"] for r in schedule)
+          and "incumbent" in {c.name for c in engine.configs},
+          f"tune: halving kept {survivors}, the incumbent dropped")
+    t0 = time.perf_counter()
+    doc = recommend(records, k=16, rungs=4, warm_path=wp)
+    recommend_s = time.perf_counter() - t0
+    val = doc["validation"]
+    check(doc["valid"] and val["bitwiseReplay"]["divergences"] == 0
+          and val["journalReplayDivergences"] == 0,
+          f"tune: recommend {doc.get('failedGates')} {val['bitwiseReplay']}")
+    wj = whatif_journal(records, add_rack_count=1, warm_path=wp).to_doc()
+    check(wj["waves"] == waves and wj["counterfactual"]["admitted"] >= wj["recorded"]["admitted"],
+          f"tune: what-if +1 rack {wj['recorded']} -> {wj['counterfactual']}")
+    wc = whatif_configs(records, TUNE_VARIANTS, warm_path=wp).to_doc()
+    check(wc["replayDivergences"] == 0 and len(wc["variants"]) == 3,
+          f"tune: what-if configs diverged {wc['replayDivergences']}")
+    print(f"tune[stream journal, {waves} waves, 64 nodes]: replay 0 divergences; halving K=16 "
+          f"rungs 4 {survivors} in {halving_s:.4f} s; recommend {doc['winner']['name']} valid in "
+          f"{recommend_s:.4f} s (audit {val['exactAudit']['winner']['admitted']}/"
+          f"{val['exactAudit']['winner']['exactAdmitted']}); what-if +1 rack admitted "
+          f"{wj['recorded']['admitted']} -> {wj['counterfactual']['admitted']}; three variants, "
+          f"0 replay divergences, on {card}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    jax_records = read_journal(os.path.join(here, "tests", "data", "jax_stream_journal.json"))
+    with open(os.path.join(here, "tests", "data", "jax_stream_recommend.json")) as f:
+        verdict = json.load(f)
+    rep = replay_journal(jax_records, warm_path=wp)
+    check(rep.divergence_count == 0, f"tune: the JAX journal's replay diverged {rep.to_doc()}")
+    sw = sweep_journal(jax_records, default_grid(incumbent_config(jax_records), 16), warm_path=wp)
+    check(sw.tallies["incumbent"].divergences == 0, "tune: the JAX journal's sweep diverged")
+    jdoc = recommend(jax_records, k=verdict["k"], rungs=verdict["rungs"], warm_path=wp)
+    got = {
+        "winner": jdoc["winner"]["name"],
+        "valid": jdoc["valid"],
+        "failedGates": jdoc.get("failedGates", []),
+        "bitwiseDivergences": jdoc["validation"]["bitwiseReplay"]["divergences"],
+        "journalReplayDivergences": jdoc["validation"]["journalReplayDivergences"],
+        "admittedPass": jdoc["validation"]["exactAudit"]["admittedPass"],
+        "survivorsPerRung": [len(r["configs"]) for r in jdoc["rungs"]],
+        "winnerAdmitted": jdoc["winnerTally"]["admitted"],
+        "incumbentAdmitted": jdoc["incumbentTally"]["admitted"],
+    }
+    want = {k: verdict[k] for k in got}
+    check(got == want, f"tune: the JAX journal's recommend {got} != the JAX package's {want}")
+    launches = dict(place_wave.variant_launches)
+    cpu_doc = recommend(jax_records, k=verdict["k"], rungs=verdict["rungs"], device="cpu")
+    check(strip(cpu_doc) == strip(jdoc), "tune: recommend on the card != the plain versions")
+    print(f"tune[JAX-recorded stream journal, {verdict['waves']} waves]: replay and sweep K=16 0 "
+          f"divergences; recommend {got['winner']} valid, gates and survivors "
+          f"{got['survivorsPerRung']} == the JAX package's; the document == the plain versions "
+          f"on the CPU; phase {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    for v in ("dense", "stacked"):
+        check(launches[v] > 0, f"tune: kernel variant {v!r} was never launched")
+    return {k: launches.get(k, 0) for k in VARIANTS}
+
+
+def add_path_launches(rows, stream, tune) -> list:
+    """The kernels line's rows with the stream and tune phases' launches
+    added to the first row of each variant (B5's row takes "stacked" and
+    "portfolio")."""
+    variants_of = {
+        "place_wave(B1+B2, dense, 5120 nodes)": ("dense",),
+        "place_wave(B1+B2+B3, pruned)": ("pruned",),
+        "place_wave_stacked(B5, K=4, select)": ("stacked", "portfolio"),
+        "place_wave_scan(B4, dense)": ("scan",),
+        "place_wave_scan(B4, pruned)": ("scan_pruned",),
+        "place_wave_stacked_scan(B6)": ("stacked_scan",),
+    }
+    out = []
+    for row in rows:
+        variants = variants_of.get(row["name"], ())
+        s = sum(stream.get(v, 0) for v in variants)
+        t = sum(tune.get(v, 0) for v in variants)
+        out.append({**row, "launches": row["launches"] + s + t, "launches_stream": s,
+                    "launches_tune": t})
+    return out
 
 
 def cap_t(x):

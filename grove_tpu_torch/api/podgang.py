@@ -75,6 +75,9 @@ class PodGang:
     name: str
     spec: PodGangSpec = field(default_factory=PodGangSpec)
     pcs_name: str = ""
+    # SLO tier of the set's template (every gang of a set shares it); ""
+    # ranks as "standard". The streaming drain's tenancy order_key reads it.
+    slo_class: str = ""
     pcs_replica_index: int = 0
     # For scaled gangs: the base gang that must schedule first
     # (grove.io/base-podgang label; podclique/components/pod/syncflow.go:347-387).

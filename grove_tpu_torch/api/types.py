@@ -236,6 +236,9 @@ class PodCliqueSetTemplateSpec:
 
     cliques: list[PodCliqueTemplateSpec] = field(default_factory=list)
     pod_clique_scaling_group_configs: list[PodCliqueScalingGroupConfig] = field(default_factory=list)
+    # SLO tier (`sloClass`: latency, standard, batch-preemptible): "" on
+    # load, defaulting fills "standard"; every gang of the set carries it.
+    slo_class: str = ""
     topology_constraint: Optional[TopologyConstraint] = None
 
     @classmethod
@@ -246,6 +249,7 @@ class PodCliqueSetTemplateSpec:
                 PodCliqueScalingGroupConfig.from_dict(c)
                 for c in d.get("podCliqueScalingGroups", d.get("podCliqueScalingGroupConfigs", [])) or []
             ],
+            slo_class=d.get("sloClass", ""),
             topology_constraint=TopologyConstraint.from_dict(d.get("topologyConstraint")),
         )
 

@@ -35,18 +35,35 @@ dense drain resident (scan launches, one harvest), with their round-trip
 ledgers, host stages and launches, and whether each admits the set its
 chained counterpart admits.
 
---scenario sweep drives bench.py's sweep scenario (`run_sweep_bench`) on the
-port, without its stream trace and `recommend` (later slices of the port):
-the default scenario's backlog drained with harvest="scan" at waves of 32
-(40 waves), once without and once with the flight recorder attached (the
-record overhead), then the journal replayed once (the single-config replay
-wall), replayed once per config of a K = 16 grid (the serial baseline) and
-swept once under the whole grid (B5 for single waves, B6 for each run of
-same-shape waves). One JSON line with the walls, the sweep's ratio to the
-single replay (bench.py's target: <= 3.0), the engine's counters, the
-incumbent row's divergences and the launches of each kernel variant.
+--scenario stream drives bench.py's streaming scenario (`run_stream_bench`):
+a live arrival trace (arrival_process(20260804, 25 s, base rate 12): 317
+events, 433 gangs, 2819 pods) admitted by drain_stream on a 1280-node fleet
+(2 zones x 2 blocks x 16 racks x 20 hosts) at wave_size 64, depth 2, every
+run through one warm path: a warm-up, then serial, pipelined (admitted-set
+parity with serial), paced (arrivals visible at their offsets: measured
+time-to-bind p50/p99), scan with class-affine forming against the formed
+serial run (bitwise), and resident (bitwise; 1 + escalations round trips).
+One JSON line with bench.py's keys and each run's launches per kernel
+variant. bench.py's GROVE_HOST_REFERENCE host-loop A/B is left out: the port
+keeps no retained host loops to compare with.
 
-  --scale S         default: cluster racks and backlog size times S (1.0)
+--scenario sweep drives bench.py's sweep scenario (`run_sweep_bench`): a
+stream trace (arrival_process(7, 10 s, base rate 3), 58 gangs) streamed on
+a 64-node fleet at wave_size 8, depth 2, journaled by the port's recorder
+(27 waves), then replayed once cold and once timed (the single-config
+replay), replayed once per config of a K = 16 grid (the serial baseline),
+searched by successive halving over the grid at rungs 4 (cold, then timed)
+and run through `recommend` (the bitwise-replay and exact-audit gates), with
+bench.py's keys. Its second part, "scan_journal", is the default scenario's
+backlog drained with harvest="scan" at waves of 32 (40 waves), without and
+with the recorder (the record overhead), replayed, replayed per config
+(serial K = 16) and swept under the whole grid (B5 for single waves, B6 for
+each run of same-shape waves), with the engine's counters, the incumbent
+row's divergences and the launches of each kernel variant.
+
+  --scale S         default: cluster racks and backlog size times S (1.0);
+                    stream: trace seconds and racks per block times S;
+                    sweep: trace seconds and the scan journal's scenario times S
   --portfolio P     default: weight variants per wave and per solve (1)
   --no-baseline     default: skip the greedy baseline and the quality fields
   --harvest H       default: "wave" re-drains for measured latencies; "chained" skips it
@@ -487,7 +504,7 @@ def record_drain(gangs, pods, snapshot, path: str, **drain_kw):
     return bindings, stats, rec, records, walls
 
 
-def serial_replay(records, config, device) -> None:
+def serial_replay(records, config, device, warm_path=None) -> None:
     """Replay every wave of `records` under one sweep config (the serial
     baseline of tuning: one replay per config)."""
     from grove_tpu_torch.trace.replay import snapshot_from_wave, solve_wave_record
@@ -499,13 +516,327 @@ def serial_replay(records, config, device) -> None:
         elif r.get("kind") == "wave":
             snap = snapshot_from_wave(r, fleets[r["fleet"]], bases=bases)
             solve_wave_record(r, snap, params=config.solver_params(), portfolio=config.portfolio,
-                              escalate_portfolio=config.escalate_portfolio, device=device)
+                              escalate_portfolio=config.escalate_portfolio, device=device,
+                              warm=warm_path)
 
 
 SWEEP_WAVE_SIZE = 32  # the journal's waves: 40 at full scale, runs [11, 8, 10, 11]
 
 
+def launch_counter(dev):
+    """(reset, read) of the kernel's per-variant launch counts (None on the
+    CPU, where no kernel launches)."""
+    if dev.type != "cuda":
+        return (lambda: None), (lambda: None)
+    from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
+
+    return reset_launches, (lambda: dict(place_wave.variant_launches))
+
+
+def stream_world(seed: int, duration: float, rate: float, zones: int, racks: int, hosts: int):
+    """(events, arrivals, pods, snapshot): an arrival trace and the fleet of
+    `zones` x 2 blocks x `racks` racks x `hosts` hosts it streams onto."""
+    from grove_tpu_torch.sim.workloads import (
+        arrival_process,
+        bench_topology,
+        expand_arrivals,
+        synthetic_cluster,
+    )
+    from grove_tpu_torch.state import build_snapshot
+
+    topo = bench_topology()
+    nodes = synthetic_cluster(zones=zones, blocks_per_zone=2, racks_per_block=racks,
+                              hosts_per_rack=hosts)
+    events = arrival_process(seed, duration_s=duration, base_rate=rate)
+    arrivals, pods = expand_arrivals(events, topo)
+    return events, arrivals, pods, build_snapshot(nodes, topo)
+
+
+# bench.py's stream settings: the trace's seed, seconds and base rate, the
+# fleet's racks per block, the wave size and the pipeline depth.
+STREAM_SEED, STREAM_DURATION_S, STREAM_RATE = 20260804, 25.0, 12.0
+STREAM_RACKS, STREAM_WAVE_SIZE, STREAM_DEPTH = 16, 64, 2
+
+
+def run_stream_bench(scale: float = 1.0, device=None) -> dict:
+    """bench.py's `run_stream_bench` on the port: the runs of the module
+    docstring over one trace and one warm path, walls on the host clock
+    (each run ends with every wave retired). `scale` cuts the trace's
+    seconds and the fleet's racks per block; the rate stays bench.py's."""
+    import torch
+
+    from grove_tpu_torch.solver.core import resolve_device
+    from grove_tpu_torch.solver.drain import ScanConfig
+    from grove_tpu_torch.solver.stream import StreamConfig, drain_stream
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    duration = STREAM_DURATION_S * scale
+    racks = max(1, round(STREAM_RACKS * scale))
+    events, arrivals, pods, snapshot = stream_world(STREAM_SEED, duration, STREAM_RATE, 2,
+                                                    racks, 20)
+    setup_s = time.perf_counter() - t0
+    cfg = StreamConfig(depth=STREAM_DEPTH, wave_size=STREAM_WAVE_SIZE)
+    wp = WarmPath()
+    reset, read = launch_counter(dev)
+    launches = {}
+
+    def run(label, pipeline=True, pace=False, scan=None):
+        reset()
+        out = drain_stream(arrivals, pods, snapshot, config=cfg, warm_path=wp,
+                           pipeline=pipeline, pace=pace, scan=scan, device=dev)
+        launches[label] = read()
+        return out
+
+    _, s_warm = run("warmup")  # prepares every shape of the trace
+    b_serial, s_serial = run("serial", pipeline=False)
+    b_pipe, s_pipe = run("pipeline")
+    parity = set(b_serial) == set(b_pipe)
+    speedup = s_serial.wall_s / s_pipe.wall_s if s_pipe.wall_s > 0 else 0.0
+    _, s_paced = run("paced", pace=True)
+    paced_pct = s_paced.bind_percentiles((50.0, 99.0)) or {}
+    b_scan, s_scan = run("scan", scan=True)
+    b_formed, s_formed = run("formed_serial", pipeline=False, scan=True)
+    scan_parity = b_scan == b_formed
+    fused_frac = s_scan.drain.scanned_waves / s_scan.drain.waves if s_scan.drain.waves else 0.0
+    scan_fused = s_scan.drain.scan_chunks >= 1 and fused_frac >= 0.5
+    b_res, s_res = run("resident", scan=ScanConfig(device_resident=True))
+    resident_parity = b_res == b_formed
+    resident_ledger_ok = s_res.drain.device_roundtrips == 1 + s_res.drain.escalations
+
+    def per_wave_ms(d):
+        # Host participation per wave (the stage ledger's hostTotalS).
+        return 1000.0 * d.host_stages()["hostTotalS"] / d.waves if d.waves else None
+
+    target_speedup = 1.3
+    gates = parity and scan_parity and scan_fused and resident_parity and resident_ledger_ok
+    out = {
+        "scenario": "stream",
+        "metric": "stream_pipeline_speedup",
+        "unit": "x",
+        "value": speedup,
+        # >= 1.0: the >= 1.3x pipelined-throughput target holds and every
+        # parity, fusion and ledger gate held (bench.py's definition).
+        "vs_baseline": (speedup / target_speedup) * (1.0 if gates else 0.0),
+        "host_cpus": len(os.sched_getaffinity(0)),
+        "nodes": int(snapshot.capacity.shape[0]),
+        "setup_s": setup_s,
+        "trace_duration_s": duration,
+        "trace_base_rate": STREAM_RATE,
+        "trace_seed": STREAM_SEED,
+        "arrival_events": len(events),
+        "gangs_offered": s_pipe.offered,
+        "pods_offered": len(pods),
+        "depth": STREAM_DEPTH,
+        "wave_size": STREAM_WAVE_SIZE,
+        "warmup_wall_s": s_warm.wall_s,
+        "warmup_compile_s": s_warm.drain.compile_s,
+        "warmup_lowerings": s_warm.drain.lowerings,
+        "admitted_parity": parity,
+        "serial_admitted": s_serial.admitted,
+        "pipeline_admitted": s_pipe.admitted,
+        "serial_wall_s": s_serial.wall_s,
+        "pipeline_wall_s": s_pipe.wall_s,
+        "serial_gangs_per_sec": s_serial.gangs_per_sec,
+        "pipeline_gangs_per_sec": s_pipe.gangs_per_sec,
+        "pipeline_waves": s_pipe.waves,
+        "pipeline_windows": s_pipe.windows,
+        "pipeline_lowerings": s_pipe.drain.lowerings,
+        "pipeline_encode_s": s_pipe.drain.encode_s,
+        "pipeline_dispatch_s": s_pipe.drain.dispatch_s,
+        "pipeline_harvest_s": s_pipe.drain.harvest_s,
+        "pipeline_decode_s": s_pipe.drain.decode_s,
+        "host_stages_serial": s_serial.drain.host_stages(),
+        "host_stages_pipeline": s_pipe.drain.host_stages(),
+        "host_stages_paced": s_paced.drain.host_stages(),
+        "host_stages_scan": s_scan.drain.host_stages(),
+        "scan_bitwise_parity": scan_parity,
+        "scan_admitted": s_scan.admitted,
+        "scan_wall_s": s_scan.wall_s,
+        "scan_gangs_per_sec": s_scan.gangs_per_sec,
+        "scan_fused_gate": scan_fused,
+        "fused_wave_fraction": fused_frac,
+        "device_roundtrips_scan": s_scan.drain.device_roundtrips,
+        "device_roundtrips_pipelined": s_pipe.drain.device_roundtrips,
+        "dispatches_scan": s_scan.drain.dispatches,
+        "dispatches_pipelined": s_pipe.drain.dispatches,
+        "scan_chunks": s_scan.drain.scan_chunks,
+        "scanned_waves": s_scan.drain.scanned_waves,
+        "scan_escalations": s_scan.drain.escalations,
+        "host_per_wave_ms_scan": per_wave_ms(s_scan.drain),
+        "host_per_wave_ms_pipelined": per_wave_ms(s_pipe.drain),
+        "resident_bitwise_parity": resident_parity,
+        "resident_ledger_ok": resident_ledger_ok,
+        "resident_admitted": s_res.admitted,
+        "resident_wall_s": s_res.wall_s,
+        "device_roundtrips_resident": s_res.drain.device_roundtrips,
+        "dispatches_resident": s_res.drain.dispatches,
+        "resident_escalations": s_res.drain.escalations,
+        "resident_scan_chunks": s_res.drain.scan_chunks,
+        "host_per_wave_ms_resident": per_wave_ms(s_res.drain),
+        "host_stages_resident": s_res.drain.host_stages(),
+        "host_stages_formed_serial": s_formed.drain.host_stages(),
+        "host_blocked_serial_s": s_serial.drain.harvest_s,
+        "host_blocked_pipeline_s": s_pipe.drain.harvest_s,
+        "paced_admitted": s_paced.admitted,
+        "paced_wall_s": s_paced.wall_s,
+        "paced_bind_p50_s": paced_pct.get(50.0),
+        "paced_bind_p99_s": paced_pct.get(99.0),
+        "launches": launches if dev.type == "cuda" else None,
+        "device": str(dev),
+    }
+    if dev.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(dev)
+        out["card"] = card_line()
+    return out
+
+
+def record_stream(arrivals, pods, snapshot, path: str, **stream_kw):
+    """drain_stream with a flight recorder journaling into `path`:
+    (bindings, stats, recorder, records)."""
+    from grove_tpu_torch.solver.stream import drain_stream
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+
+    rec = TraceRecorder(path, max_records_per_file=64)
+    rec.start()
+    try:
+        bindings, stats = drain_stream(arrivals, pods, snapshot, recorder=rec, **stream_kw)
+    finally:
+        rec.stop()
+    return bindings, stats, rec, read_journal(path)
+
+
+# bench.py's sweep settings: the stream trace's seed, seconds and base rate,
+# and the halving's rungs.
+SWEEP_SEED, SWEEP_DURATION_S, SWEEP_RATE, SWEEP_RUNGS = 7, 10.0, 3.0, 4
+
+
 def run_sweep_bench(scale: float = 1.0, k: int = 16, device=None) -> dict:
+    """bench.py's `run_sweep_bench` on the port (the stream journal, the
+    single and serial replays, halving and `recommend`), then the 40-wave
+    scan journal's sweep (`scan_journal`, `run_scan_journal_sweep`).
+    `scale` cuts the trace's seconds and the scan journal's scenario."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from grove_tpu_torch.solver.core import resolve_device
+    from grove_tpu_torch.solver.stream import StreamConfig
+    from grove_tpu_torch.solver.warm import WarmPath
+    from grove_tpu_torch.trace.recorder import journal_stats
+    from grove_tpu_torch.trace.replay import replay_journal
+    from grove_tpu_torch.tuning import (
+        default_grid,
+        incumbent_config,
+        recommend,
+        successive_halving,
+    )
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    reset, read = launch_counter(dev)
+    duration = SWEEP_DURATION_S * scale
+    _, arrivals, pods, snapshot = stream_world(SWEEP_SEED, duration, SWEEP_RATE, 1, 4, 8)
+    rungs = SWEEP_RUNGS
+    journal = tempfile.mkdtemp(prefix="grove-torch-sweep-stream-")
+    try:
+        _, sstats, rec, records = record_stream(
+            arrivals, pods, snapshot, journal, config=StreamConfig(depth=2, wave_size=8),
+            device=dev)
+        jstats = journal_stats(journal)
+    finally:
+        shutil.rmtree(journal, ignore_errors=True)
+    waves = sum(1 for r in records if r.get("kind") == "wave")
+    # One warm path for every phase, as bench.py shares one.
+    wp = WarmPath()
+    replay_journal(records, warm_path=wp, device=dev)  # cold
+    t0 = time.perf_counter()
+    rep = replay_journal(records, warm_path=wp, device=dev)
+    sync()
+    t_single = time.perf_counter() - t0
+    incumbent = incumbent_config(records)
+    grid = default_grid(incumbent, k)
+    t0 = time.perf_counter()
+    for cfg in grid:
+        serial_replay(records, cfg, dev, warm_path=wp)
+    sync()
+    t_serial = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    successive_halving(records, default_grid(incumbent, k), rungs=rungs, warm_path=wp,
+                       device=dev)
+    sync()
+    t_sweep_cold = time.perf_counter() - t0
+    reset()
+    t0 = time.perf_counter()
+    engine, schedule = successive_halving(records, default_grid(incumbent, k), rungs=rungs,
+                                          warm_path=wp, device=dev)
+    sync()
+    t_sweep = time.perf_counter() - t0
+    halving_launches = read()
+    reset()
+    t0 = time.perf_counter()
+    rec_doc = recommend(records, k=k, rungs=rungs, warm_path=wp, device=dev)
+    sync()
+    t_recommend = time.perf_counter() - t0
+    recommend_launches = read()
+    ratio = t_sweep / t_single if t_single > 0 else float("inf")
+    ok = ratio <= 3.0 and rec_doc["valid"] and rep.divergence_count == 0
+    out = {
+        "scenario": "sweep",
+        "metric": "sweep_vs_single_replay",
+        "unit": "x",
+        "value": ratio,
+        "vs_baseline": 3.0 / ratio if ratio > 0 else 0.0,
+        "gate_pass": ok,
+        "k": k,
+        "rungs": rungs,
+        "trace": {
+            "duration_s": duration,
+            "rate": SWEEP_RATE,
+            "seed": SWEEP_SEED,
+            "nodes": int(snapshot.capacity.shape[0]),
+            "gangs_offered": sstats.offered,
+            "gangs_admitted": sstats.admitted,
+            "waves": waves,
+            "journal_records": len(records),
+            "recorder_dropped": jstats["dropped"] + rec.dropped,
+            "stream_wall_s": sstats.wall_s,
+        },
+        "single_replay_s": t_single,
+        "serial_grid_s": t_serial,
+        "sweep_cold_s": t_sweep_cold,
+        "sweep_s": t_sweep,
+        "recommend_s": t_recommend,
+        "serial_vs_sweep": t_serial / t_sweep if t_sweep > 0 else None,
+        "replay_divergences": rep.divergence_count,
+        "sweep_stacked_solves": engine.stacked_solves,
+        "sweep_scan_stacked_solves": engine.scan_stacked_solves,
+        "sweep_fallback_solves": engine.fallback_solves,
+        "survivors_per_rung": [len(r["configs"]) for r in schedule],
+        "winner": rec_doc["winner"]["name"],
+        "winner_valid": rec_doc["valid"],
+        "winner_bitwise_divergences": rec_doc["validation"]["bitwiseReplay"]["divergences"],
+        "journal_replay_divergences": rec_doc["validation"]["journalReplayDivergences"],
+        "exact_audit": rec_doc["validation"]["exactAudit"],
+        "host_cpus": os.cpu_count(),
+        "launches_halving": halving_launches,
+        "launches_recommend": recommend_launches,
+        "scan_journal": run_scan_journal_sweep(scale, k, dev),
+        "device": str(dev),
+    }
+    if dev.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(dev)
+        out["card"] = card_line()
+    return out
+
+
+def run_scan_journal_sweep(scale: float = 1.0, k: int = 16, device=None) -> dict:
     """Record the backlog's scan drain at SWEEP_WAVE_SIZE, then replay it
     once, once per config (serial) and as one sweep of K configs; walls on
     the host clock after a cold pass of each, every solve on the card."""
@@ -528,18 +859,7 @@ def run_sweep_bench(scale: float = 1.0, k: int = 16, device=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    def launches():
-        if dev.type != "cuda":
-            return None
-        from grove_tpu_torch.kernels.place_wave import place_wave
-
-        return dict(place_wave.variant_launches)
-
-    def reset():
-        if dev.type == "cuda":
-            from grove_tpu_torch.kernels.place_wave import reset_launches
-
-            reset_launches()
+    reset, launches = launch_counter(dev)
 
     drain_backlog(gangs, pods, snapshot, **kw)  # warm-up: the build, first launches
     sync()
@@ -575,8 +895,7 @@ def run_sweep_bench(scale: float = 1.0, k: int = 16, device=None) -> dict:
     sync()
     sweep_s = time.perf_counter() - t0
     doc = engine.to_doc()
-    out = {
-        "scenario": "sweep",
+    return {
         "nodes": int(n_nodes),
         "gangs": len(gangs),
         "pods": len(pods),
@@ -609,17 +928,13 @@ def run_sweep_bench(scale: float = 1.0, k: int = 16, device=None) -> dict:
         "incumbent_divergences": engine.tallies["incumbent"].divergences,
         "incumbent_admitted": engine.tallies["incumbent"].admitted,
         "launches": launches(),
-        "device": str(dev),
     }
-    if dev.type == "cuda":
-        out["device_name"] = torch.cuda.get_device_name(dev)
-        out["card"] = card_line()
-    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", choices=("default", "scale", "sweep"), default="default")
+    ap.add_argument("--scenario", choices=("default", "scale", "sweep", "stream"),
+                    default="default")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
     ap.add_argument("--no-baseline", dest="baseline", action="store_false")
@@ -633,6 +948,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.scenario == "sweep":
         out = run_sweep_bench(args.scale, k=args.k, device=args.device)
+    elif args.scenario == "stream":
+        out = run_stream_bench(args.scale, device=args.device)
     elif args.scenario == "scale":
         out = run_scale_bench(
             tuple(float(x) for x in args.scales.split(",") if x.strip()),

@@ -90,6 +90,7 @@ def expand_podcliqueset(pcs: PodCliqueSet, topology: ClusterTopology | None = No
             pcs_replica_index=pcs_replica,
             base_podgang_name=base_name,
             scaled_index=scaled_index,
+            slo_class=tmpl.slo_class,
             spec=PodGangSpec(
                 topology_constraint=translate_pack_constraint(tmpl.topology_constraint, topology),
                 # Replica spread: base gangs only, as a node-label key.

@@ -13,6 +13,8 @@ level.
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
 from typing import Any
 
 from grove_tpu_torch.api import PodCliqueSet, default_podcliqueset
@@ -424,3 +426,158 @@ def mixed_backlog(
     for i in range(n_preferred):
         out.append(preferred_pcs(f"mix-pref-{i}", pods=preferred_pods, cpu=cpu))
     return out
+
+
+# --- live arrival traffic (the streaming drain's input) -------------------------
+#
+# A trace of gang workloads that ARRIVE: bursty, diurnally modulated,
+# heavy-tailed and multi-tenant. The generator is deterministic in its seed
+# (timestamps, tenants, kinds, sizes and names), so serial and pipelined
+# streaming runs see identical offered work, and a trace equals the JAX
+# package's for the same arguments draw for draw.
+
+
+@dataclass(frozen=True)
+class ArrivalEvent:
+    """One gang-workload arrival in a generated trace."""
+
+    t: float  # seconds offset from stream start
+    name: str  # PCS name (unique within the trace)
+    tenant: str
+    kind: str  # frontend | disagg | train
+    size: int  # worker replicas (train; heavy-tailed), else the fixed shape
+    slo_class: str = "standard"  # latency | standard | batch-preemptible
+
+
+def _slo_pick(seed: int, tenant: str, seq: int, slo_mix: tuple) -> str:
+    """Stable per-(tenant, seq) SLO-class draw, keyed on a hash rather than
+    the trace's generator: turning slo_mix on changes only the slo_class
+    column, and each tenant's class sequence converges to the mix."""
+    import hashlib
+
+    digest = hashlib.blake2b(f"{seed}:{tenant}:{seq}".encode(), digest_size=8).digest()
+    u = int.from_bytes(digest, "big") / 2.0**64
+    total = sum(w for _, w in slo_mix)
+    acc = 0.0
+    for cls, w in slo_mix:
+        acc += w / total
+        if u < acc:
+            return cls
+    return slo_mix[-1][0]
+
+
+def arrival_process(
+    seed: int,
+    duration_s: float = 30.0,
+    base_rate: float = 4.0,  # gangs/sec, mean of the diurnal cycle
+    diurnal_amplitude: float = 0.5,  # 0 = flat rate
+    diurnal_period_s: float = 20.0,  # one "day" of the modulation
+    burst_rate: float = 0.1,  # burst episodes/sec (0 = pure Poisson)
+    burst_size_mean: float = 6.0,  # mean extra arrivals per episode
+    burst_span_s: float = 0.5,  # episode arrivals land inside this span
+    pareto_alpha: float = 1.6,  # train-gang size tail (smaller = heavier)
+    max_workers: int = 16,  # train-gang size cap (keeps gangs admissible)
+    tenants: int = 6,
+    active_tenants: int = 3,  # concurrently-active tenant subset size
+    tenant_churn_s: float = 10.0,  # active-set rotation period
+    mix: tuple = (("frontend", 0.45), ("disagg", 0.35), ("train", 0.20)),
+    slo_mix: tuple | None = None,  # ((slo_class, weight), ...) per-tenant mix
+) -> list[ArrivalEvent]:
+    """Deterministic arrival trace: an inhomogeneous Poisson process (the
+    diurnal rate by thinning) plus compound burst episodes, truncated-Pareto
+    train-gang sizes and a rotating active-tenant window. Events are sorted
+    by offset; names embed (kind, tenant, seq). The numpy draws, their order
+    and the rounding are the JAX package's (sim/workloads.py), so a trace is
+    bitwise the same."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    two_pi = 2.0 * math.pi
+
+    def rate(t: float) -> float:
+        if diurnal_amplitude <= 0.0:
+            return base_rate
+        return base_rate * (1.0 + diurnal_amplitude * math.sin(two_pi * t / diurnal_period_s))
+
+    # Base process: thinning against the diurnal peak rate.
+    lam_max = base_rate * (1.0 + max(0.0, diurnal_amplitude))
+    times: list[float] = []
+    t = 0.0
+    while True:
+        t += float(rng.exponential(1.0 / lam_max)) if lam_max > 0 else duration_s
+        if t >= duration_s:
+            break
+        if float(rng.uniform()) * lam_max <= rate(t):
+            times.append(t)
+    # Burst episodes: each drops a geometric-sized clump inside burst_span_s.
+    if burst_rate > 0:
+        bt = 0.0
+        while True:
+            bt += float(rng.exponential(1.0 / burst_rate))
+            if bt >= duration_s:
+                break
+            clump = int(rng.geometric(1.0 / max(1.0, burst_size_mean)))
+            offs = rng.uniform(0.0, burst_span_s, size=clump)
+            times.extend(min(duration_s, bt + float(o)) for o in np.sort(offs))
+    times.sort()
+
+    tenant_names = [f"tenant{i}" for i in range(max(1, tenants))]
+    window_size = max(1, min(active_tenants, len(tenant_names)))
+    kinds = [k for k, _ in mix]
+    weights = np.asarray([w for _, w in mix], dtype=np.float64)
+    weights = weights / weights.sum()
+
+    events: list[ArrivalEvent] = []
+    tenant_seq: dict[str, int] = {}
+    for i, at in enumerate(times):
+        # Tenant churn: the active window slides one tenant per churn period.
+        window = int(at // tenant_churn_s) if tenant_churn_s > 0 else 0
+        active = [tenant_names[(window + j) % len(tenant_names)] for j in range(window_size)]
+        tenant = active[int(rng.integers(0, len(active)))]
+        kind = kinds[int(rng.choice(len(kinds), p=weights))]
+        if kind == "train":
+            size = min(max_workers, 1 + int(rng.pareto(pareto_alpha) * 2.0))
+        elif kind == "disagg":
+            size = 18  # disagg_pcs pod count (fixed shape)
+        else:
+            size = 4  # frontend_pcs pod count (fixed shape)
+        seq = tenant_seq.get(tenant, 0)
+        tenant_seq[tenant] = seq + 1
+        slo = _slo_pick(seed, tenant, seq, slo_mix) if slo_mix else "standard"
+        events.append(ArrivalEvent(t=round(float(at), 6), name=f"{kind[0]}-{tenant}-{i:05d}",
+                                   tenant=tenant, kind=kind, size=size, slo_class=slo))
+    return events
+
+
+def arrival_pcs(ev: ArrivalEvent) -> PodCliqueSet:
+    """The PodCliqueSet of one arrival event (pure in the event)."""
+    if ev.kind == "frontend":
+        pcs = frontend_pcs(ev.name)
+    elif ev.kind == "disagg":
+        pcs = disagg_pcs(ev.name)
+    else:
+        # train: a rack-packed all-or-nothing gang, heavy-tailed worker count.
+        pcs = _pcs(ev.name, cliques=[_clique("w", ev.size, "1", tpu=1, min_available=ev.size)],
+                   constraint_domain="rack")
+    if ev.slo_class:
+        # Expansion carries the template's class into every gang of the set.
+        pcs.spec.template.slo_class = ev.slo_class
+    return pcs
+
+
+def expand_arrivals(events: list[ArrivalEvent],
+                    topology: ClusterTopology | None = None) -> tuple[list, dict]:
+    """ArrivalEvents -> ([(t_offset, PodGang)], {pod name: Pod}) for the
+    streaming drain. The gangs of one event share its offset in expansion
+    order, which places a base gang before every gang scaled from it."""
+    from grove_tpu_torch.orchestrator import expand_podcliqueset
+
+    topo = topology or bench_topology()
+    arrivals: list = []
+    pods: dict = {}
+    for ev in events:
+        ds = expand_podcliqueset(arrival_pcs(ev), topo)
+        for g in ds.podgangs:
+            arrivals.append((ev.t, g))
+        pods.update({p.name: p for p in ds.pods})
+    return arrivals, pods

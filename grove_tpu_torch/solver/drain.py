@@ -73,8 +73,14 @@ prepares nothing: DrainStats counts `lowerings`, `exec_cache_*` and
 `encode_reuse_*` per drain. Portfolio drains bypass the launch cache, as in
 the JAX package; their pre-pass has nothing to prepare.
 
-Meshes, faults, the streaming drain (`drain_stream`) and the degradation
-ladder of the JAX package are later slices of the port.
+The streaming drain (solver/stream.py `drain_stream`) drives the same
+engine through its hooks: `submit(ws)` dispatches and retires down to the
+pipeline depth, `submit_scan(run, retire=False)` enqueues a run's chunks
+without retiring between them, `retire_due()`
+says when the stream's own loop should retire, `on_commit` is called at
+each commit with the wave's bindings and stamp, and `wave_prefix` names the
+journaled waves ("stream-000000", ...). Meshes, faults and the degradation
+ladder of the JAX package are a later slice of the port, for both drains.
 """
 
 from __future__ import annotations
@@ -113,10 +119,11 @@ class ScanConfig:
     max_scan_len: int = 32
     # Runs (and chunks) shorter than this dispatch wave by wave.
     min_waves_per_class: int = 2
-    # Carried for the streaming drain, `drain_stream` (a later slice of the
-    # port): waves planned up to this many windows ahead reorder by shape class.
+    # The streaming drain (`drain_stream`, saturated): waves planned up to
+    # this many windows ahead reorder by shape class (class-affine forming).
     affinity_lookahead: int = 4
-    # Carried for `drain_stream`: its resident saturated mode.
+    # `drain_stream`, saturated: retire nothing until the trace is exhausted,
+    # then harvest everything with one wait.
     device_resident: bool = False
 
 
@@ -171,9 +178,10 @@ class DrainStats:
     scan_chunks: int = 0
     scanned_waves: int = 0
     scan_rechains: int = 0
-    # "wave", "pipeline" and "scan": (gangs admitted in the wave, seconds
-    # since the drain began at which its verdicts were on the host), in
-    # commit order.
+    # "wave", "pipeline" and "scan": (gangs admitted in the wave, its stamp:
+    # seconds since the drain began at which the wave completed — on the
+    # card its last event's time on the card's clock, on the CPU the host's
+    # clock at its fetch), in commit order.
     wave_latencies: list = field(default_factory=list)
     portfolio: int = 1  # weight variants per wave
     # Waves journaled to a flight recorder, and the host seconds journaling
@@ -269,7 +277,7 @@ class _WavePipeline:
 
     def __init__(self, *, gangs, pods_by_name, snapshot, params, stats, dev, warm_path,
                  pruning=None, portfolio=1, donate=False, retire_lag=None, record_stamps=False,
-                 scan=None, recorder=None):
+                 scan=None, recorder=None, wave_prefix="drain", on_commit=None):
         self.pods_by_name = pods_by_name
         self.snapshot = snapshot
         self.params = params
@@ -288,6 +296,10 @@ class _WavePipeline:
             self.pstack = stack_on(params_population(portfolio, base=params), dev)
         self.retire_lag = retire_lag
         self.record_stamps = record_stamps
+        # Journaled wave ids are f"{wave_prefix}-{seq:06d}"; on_commit(members,
+        # wave_bindings, stamp_s) runs at every commit (the stream's clock).
+        self.wave_prefix = wave_prefix
+        self.on_commit = on_commit
         self.scan = scan if portfolio == 1 else None
         self.recorder = recorder if portfolio == 1 else None
         # Escalation re-solves from each pruned wave's entering carry, and
@@ -313,7 +325,8 @@ class _WavePipeline:
         self.inflight: list[dict] = []
         self.bindings: dict[str, dict[str, str]] = {}
         self._last_event = None  # the newest event behind a host copy
-        self.t0 = time.perf_counter()  # restamped by drain_backlog
+        self.t0 = time.perf_counter()  # the clock origin; both drains call start_clock()
+        self._t0_event = None  # on the card: a timing event recorded at t0
         if self.recorder is not None:
             # Wave ids in commit order, the gangs admitted by earlier waves,
             # and the running allocation table: wave k journals the state
@@ -322,6 +335,18 @@ class _WavePipeline:
             self.scheduled_admitted: set[str] = set()
             self._alloc = np.array(snapshot.allocated, copy=True)
             self._cap_np = np.asarray(snapshot.capacity)
+
+    def start_clock(self) -> float:
+        """Set the clock origin t0 (host perf_counter) and, on the card, a
+        timing event recorded at it on the idle stream: a wave's stamp is
+        then its completion event's time since that event on the card's
+        clock, not the moment the host fetched it."""
+        if self.dev.type == "cuda":
+            torch.cuda.current_stream(self.dev).synchronize()
+            self._t0_event = torch.cuda.Event(enable_timing=True)
+            self._t0_event.record()
+        self.t0 = time.perf_counter()
+        return self.t0
 
     # ---- encode + candidate plan ---------------------------------------------
 
@@ -475,7 +500,7 @@ class _WavePipeline:
         host = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in planes]
         for h, p in zip(host, planes):
             h.copy_(p, non_blocking=True)
-        event = torch.cuda.Event()
+        event = torch.cuda.Event(enable_timing=True)
         event.record()
         holder["host"], holder["event"] = host, event
         self._last_event = event
@@ -502,10 +527,14 @@ class _WavePipeline:
         self.stats.waves += 1
         self.inflight.append(rec)
 
+    def retire_due(self) -> bool:
+        """Waves past the pipeline depth, waiting to retire (a caller that
+        owns its retirement loop, the streaming drain, polls this)."""
+        return self.retire_lag is not None and len(self.inflight) > self.retire_lag
+
     def _retire_down(self) -> None:
-        if self.retire_lag is not None:
-            while len(self.inflight) > self.retire_lag:
-                self._retire_next()
+        while self.retire_due():
+            self._retire_next()
 
     def submit(self, ws) -> None:
         """Encode + dispatch one planned wave, then retire down to the
@@ -525,16 +554,19 @@ class _WavePipeline:
             return ("dense", presence)
         return ("pruned", presence, plan.pad, plan.fleet_pad)
 
-    def submit_scan(self, class_waves: list) -> None:
+    def submit_scan(self, class_waves: list, retire: bool = True) -> None:
         """Encode a run of same-(shape, pad) planned waves and dispatch it as
         scan chunks of up to `max_scan_len` waves, one launch each. Runs
         (and sub-runs split by _scan_subkey) shorter than
         `min_waves_per_class` dispatch wave by wave. Records retire as
-        usual, each chunk fetched once."""
+        usual (after each chunk unless `retire` is False), each chunk
+        fetched once."""
         scan = self.scan
         if scan is None or not scan.enabled:
             for ws in class_waves:
-                self.submit(ws)
+                self._dispatch_one(self._encode_rec(ws))
+                if retire:
+                    self._retire_down()
             return
         recs = [self._encode_rec(ws) for ws in class_waves]
         i = 0
@@ -551,7 +583,8 @@ class _WavePipeline:
                         self._dispatch_one(rec)
                 else:
                     self._dispatch_scan_chunk(chunk)
-                self._retire_down()
+                if retire:
+                    self._retire_down()
             i = j
 
     def _solve_scan_chunk(self, run: list[dict], free_in, okg_in):
@@ -610,12 +643,16 @@ class _WavePipeline:
     # ---- retirement ----------------------------------------------------------
 
     def _host_planes(self, holder: dict) -> None:
-        """The staged planes as numpy arrays (their copies are complete)."""
+        """The staged planes as numpy arrays (their copies are complete) and,
+        on the card, `done_s`: when the launch and copies completed, in
+        seconds since t0 on the card's clock."""
         planes = [p.numpy() for p in holder.pop("host")]
         holder["ok_np"], holder["score_np"], holder["assigned_np"] = planes[:3]
         if len(planes) > 3:
             holder["free_in_np"] = planes[3]
-        holder.pop("event", None)
+        event = holder.pop("event", None)
+        if event is not None and self._t0_event is not None:
+            holder["done_s"] = self._t0_event.elapsed_time(event) / 1e3
 
     def _fetch(self, rec: dict) -> None:
         """Make this wave's verdicts host-visible: wait on its own event
@@ -631,6 +668,7 @@ class _WavePipeline:
             rec["ok_np"] = group["ok_np"][i]
             rec["score_np"] = group["score_np"][i]
             rec["assigned_np"] = group["assigned_np"][i]
+            rec["done_s"] = group.get("done_s")
             if "free_in_np" in group:
                 rec["free_in_np"] = group["free_in_np"][i]
         else:
@@ -707,6 +745,7 @@ class _WavePipeline:
         if held["event"] is not None:
             held["event"].synchronize()
         self._host_planes(held)
+        rec["done_s"] = held.get("done_s")  # stamped when its re-solve completed
         stats.device_roundtrips += 1
         stats.harvest_s += time.perf_counter() - th
         if np.array_equal(held["ok_np"], rec["ok_np"]):
@@ -723,7 +762,9 @@ class _WavePipeline:
             lossy = lossy_rejections(rec["plan"], rec["batch"].gang_valid, rec["ok_np"])
             if bool(lossy.any()):
                 self._escalate(rec)
-        stamp = time.perf_counter() - self.t0
+        stamp = rec.get("done_s")
+        if stamp is None:
+            stamp = time.perf_counter() - self.t0
         if self.record_stamps:
             stats.wave_latencies.append((int(rec["ok_np"].sum()), stamp))
         td = time.perf_counter()
@@ -743,6 +784,10 @@ class _WavePipeline:
             self.scheduled_admitted.update(wave_bindings)
             self.commit_seq += 1
             stats.journal_s += time.perf_counter() - tj
+        if self.on_commit is not None:
+            tb = time.perf_counter()
+            self.on_commit(rec["members"], wave_bindings, stamp)
+            stats.bind_s += time.perf_counter() - tb
 
     def _journal(self, rec: dict, wave_bindings: dict) -> None:
         """Journal the committed wave (drain.py `_journal`): a monotonic id
@@ -766,7 +811,7 @@ class _WavePipeline:
             plan = rec["plan"]
             journaled = self.recorder.capture_wave(
                 now=time.time(),
-                wave=f"drain-{self.commit_seq:06d}",
+                wave=f"{self.wave_prefix}-{self.commit_seq:06d}",
                 snapshot=snap,
                 gangs=members,
                 pods_by_name=self.pods_by_name,
@@ -941,8 +986,7 @@ def drain_backlog(
         for run in class_runs(waves):
             engine.warm_scan(run)
     stats.compile_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    engine.t0 = t0
+    t0 = engine.start_clock()
     if fused:
         for run in class_runs(waves):
             engine.submit_scan(run)

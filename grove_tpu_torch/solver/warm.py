@@ -974,7 +974,11 @@ class WarmPath:
     prune: PruneStats = field(default_factory=PruneStats)
     # The last drain through this warm path (drain_backlog reports at exit).
     last_drain: dict = field(default_factory=dict)
-    # Cumulative round-trip ledger across every drain through this path.
+    # The last streaming run (StreamStats.to_doc), and its per-gang
+    # time-to-bind samples, bounded: a long stream loses its oldest samples.
+    last_stream: dict = field(default_factory=dict)
+    stream_bind_samples: object = None  # collections.deque, made on first use
+    # Cumulative round-trip ledger across every drain and stream through this path.
     drain_dispatches_total: int = 0
     drain_device_roundtrips_total: int = 0
 
@@ -995,6 +999,16 @@ class WarmPath:
             doc["waveP50S"] = round(pct[50.0], 4)
             doc["waveP99S"] = round(pct[99.0], 4)
         self.last_drain = doc
+
+    def record_stream(self, doc: dict, bind_latencies=()) -> None:
+        """Fold one StreamStats doc into the observable surface and queue its
+        time-to-bind samples."""
+        from collections import deque
+
+        self.last_stream = dict(doc)
+        if self.stream_bind_samples is None:
+            self.stream_bind_samples = deque(maxlen=65536)
+        self.stream_bind_samples.extend(float(x) for x in bind_latencies)
 
     def stats(self) -> dict:
         out = {}

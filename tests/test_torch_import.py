@@ -69,3 +69,41 @@ def test_warm_path_module_is_checked():
     """The warm path (solver/warm.py) is among the modules probed above."""
     assert "grove_tpu_torch.solver.warm" in MODULES
     assert _imported_forbidden("grove_tpu_torch.solver.warm") == []
+
+
+def test_streaming_and_tuning_modules_are_checked():
+    """The streaming drain, the exact audit, the search and what-if are among
+    the modules probed above."""
+    new = ("grove_tpu_torch.solver.stream", "grove_tpu_torch.quality.exact",
+           "grove_tpu_torch.quality.audit", "grove_tpu_torch.tuning.search",
+           "grove_tpu_torch.trace.whatif")
+    assert set(new) <= set(MODULES)
+    assert _imported_forbidden(*new) == []
+
+
+@pytest.mark.parametrize("entry", ["drain_stream", "recommend", "audit_config", "whatif_journal"])
+def test_streaming_and_tuning_entry_points_need_the_card_unless_asked(entry):
+    """Without a card each entry point raises unless the caller asks for the
+    CPU: no quiet fallback."""
+    import torch
+
+    from grove_tpu_torch.quality.audit import audit_config
+    from grove_tpu_torch.solver.core import SolverParams
+    from grove_tpu_torch.solver.stream import drain_stream
+    from grove_tpu_torch.state import build_snapshot
+    from grove_tpu_torch.sim.workloads import bench_topology, synthetic_cluster
+    from grove_tpu_torch.trace.recorder import read_journal
+    from grove_tpu_torch.trace.whatif import whatif_journal
+    from grove_tpu_torch.tuning import recommend
+
+    assert not torch.cuda.is_available()
+    journal = str(REPO / "tests" / "data" / "jax_stream_journal.json")
+    calls = {
+        "drain_stream": lambda: drain_stream(
+            [], {}, build_snapshot(synthetic_cluster(1, 1, 1, 2), bench_topology())),
+        "recommend": lambda: recommend(read_journal(journal), k=2, rungs=1),
+        "audit_config": lambda: audit_config(tuple(SolverParams()), seeds=(11,)),
+        "whatif_journal": lambda: whatif_journal(read_journal(journal), add_rack_count=1),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()

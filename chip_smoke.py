@@ -148,13 +148,48 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               divergences and recommended with the winner, gates and
               survivors the JAX package computed (jax_stream_recommend.json),
               the document equal to the plain versions' on the CPU
- 13. kernels  one JSON line: per kernel variant its launches on the main
-              path (phases 4-9 as before, plus `launches_stream` and
-              `launches_tune`, the launches of phases 11 and 12, added to
-              the first row of their variant), its error against the plain
-              version, its time, the plain version's time, its bound and a
-              library call's time
- 14. the last line: {"ok": true, "device": {...}}
+ 13. chaos    bench.py's chaos scenario on the card (run_chaos_bench: 192
+              nodes, the 12 s trace at rate 8, wave_size 32, resident
+              scanned dispatch with forming and pruning, the standard fault
+              schedule, the ladder armed) through one WarmPath: the chaos
+              run binds as the fault-free baseline (no wave is pruned at
+              192 nodes: the same bindings and free capacity after; with a
+              pruned wave, the same admitted set), binds no pod twice,
+              journals every fire as a `fault.injected` record, explains
+              every retry, timeout and ladder failure by the fires, steps
+              each of resident, scan, pruning and pipeline down at least
+              once and ends with the ladder closed; the armed run without
+              faults has zero retries, timeouts and step-downs and the
+              baseline's bindings; the chaos journal replays on the card
+              with 0 divergences; the recorder survives an injected ENOSPC
+              (degraded latched, then cleared, drops counted); baseline and
+              chaos bind_p99_s and their ratio printed. Then the same
+              schedule on phase 11's 1280-node, 433-gang trace (wave_size
+              64): the armed run without faults quiet and with the
+              baseline's bindings (its wall beside the baseline's), the
+              chaos run with no pruned wave and the baseline's bindings and
+              free capacity after, no double bind, the fault accounting,
+              the ladder's counters printed. Then a real hang: a spin
+              (torch.cuda._sleep) enqueued ahead of one launch of a
+              pipelined drain and of a resident one, the watchdog at a third
+              of the spin: timeouts counted through the wave's event
+              query(), the fault-free bindings
+ 14. defrag   bench.py's defrag scenario at scale 1 (256 nodes, 32
+              squatters): the big gang refused before the plan and admitted
+              after it, the warm re-plan preparing no launch, the plan's
+              moves equal to the plain versions' on the CPU; plan_rescue of
+              the squatters on two cordoned racks, hold_usage True and
+              False: moves onto schedulable nodes only, no node over
+              capacity, equal to the plain versions'; then at scale 20
+              (5120 nodes, 640 squatters) on the card alone: plan_solve_s,
+              candidates_evaluated, pods_migrated, the admission gates
+ 15. kernels  one JSON line: per kernel variant its launches on the main
+              path (phases 4-9 as before, plus `launches_stream`,
+              `launches_tune`, `launches_chaos` and `launches_defrag`, the
+              launches of phases 11-14, added to the first row of their
+              variant), its error against the plain version, its time, the
+              plain version's time, its bound and a library call's time
+ 16. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -759,7 +794,17 @@ def main() -> int:
 
     phase_done("12, tune")
 
-    # ---- 13. kernels line ----------------------------------------------------
+    # ---- 13. chaos: faults, the ladder and the watchdog on the card ----------
+    chaos_launches = chaos_phase(dev, card)
+
+    phase_done("13, chaos")
+
+    # ---- 14. defrag: the migration and rescue planners on the card -----------
+    defrag_launches = defrag_phase(dev, card)
+
+    phase_done("14, defrag")
+
+    # ---- 15. kernels line ----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": add_path_launches([
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
@@ -780,7 +825,8 @@ def main() -> int:
          "bound_ms": pf["bound"][0], "bound_by": pf["bound"][1], "library_ms": None},
         *sc["rows"],
         sw["row"],
-    ], stream_launches, tune_launches)}))
+    ], {"stream": stream_launches, "tune": tune_launches, "chaos": chaos_launches,
+        "defrag": defrag_launches})}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1999,10 +2045,264 @@ def tune_phase(dev, card) -> dict:
     return {k: launches.get(k, 0) for k in VARIANTS}
 
 
-def add_path_launches(rows, stream, tune) -> list:
-    """The kernels line's rows with the stream and tune phases' launches
-    added to the first row of each variant (B5's row takes "stacked" and
-    "portfolio")."""
+def chaos_phase(dev, card) -> dict:
+    """Phase 13: bench.py's chaos scenario on the card, the same schedule on
+    phase 11's trace, and a real hang caught by the watchdog; returns the
+    launches per variant of the drains it counted."""
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.bench import (
+        CHAOS_P99_CAP,
+        chaos_faults,
+        chaos_resilience,
+        double_bound,
+        fault_accounting,
+        run_chaos_bench,
+        same_as_baseline,
+        stream_world,
+    )
+    from grove_tpu_torch.kernels.place_wave import VARIANTS, place_wave, reset_launches
+    from grove_tpu_torch.solver.drain import ScanConfig, drain_backlog
+    from grove_tpu_torch.solver.pruning import PruningConfig
+    from grove_tpu_torch.solver.resilience import DegradationLadder, ResilienceConfig
+    from grove_tpu_torch.solver.stream import StreamConfig, drain_stream
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(VARIANTS, 0)
+
+    def add(counts):
+        for k, v in (counts or {}).items():
+            total[k] += v
+
+    out = run_chaos_bench(device=dev)
+    for counts in out["launches"].values():
+        add(counts)
+    gates = out["gates"]
+    print(f"chaos[192 nodes]: {out['gangs_offered']} gangs, {out['pods_offered']} pods; "
+          f"gates {gates}; fired {out['faults_fired']}, journaled {out['faults_journaled']}, "
+          f"retries {out['wave_retries']}, watchdog timeouts {out['watchdog_timeouts']}, "
+          f"cancelled {out['waves_cancelled']}, re-dispatches {out['wave_redispatches']}, "
+          f"replay divergences {out['replay_divergences']} over {out['journaled_waves']} waves")
+    print(f"chaos: ladder {out['ladder_rungs']}, step-downs {out['step_downs']}, step-ups "
+          f"{out['step_ups']}; armed without faults {out['armed_resilience']}, armed "
+          f"lowerings {out['armed_lowerings']}, chaos lowerings {out['chaos_lowerings']}")
+    print(f"chaos: baseline bind_p99_s {out['baseline_bind_p99_s']:.6f}, chaos bind_p99_s "
+          f"{out['chaos_bind_p99_s']:.6f}, ratio {out['value']:.4f} (bench cap {CHAOS_P99_CAP}); "
+          f"walls {out['baseline_wall_s']:.4f} / {out['chaos_wall_s']:.4f} s; recorder "
+          f"{out['recorder_enospc']}; launches {out['launches']} on {card}")
+    for gate in ("zero_lost_gangs", "zero_double_bound_pods", "faults_journaled",
+                 "fault_accounting", "armed_without_faults_quiet", "ladder_recovered",
+                 "ladder_walked_to_pipeline", "journal_replays_bitwise",
+                 "recorder_counting_drops"):
+        check(gates[gate], f"chaos: gate {gate} failed")
+    check(out["launches"]["chaos"].get("scan", 0) + out["launches"]["chaos"].get(
+          "scan_pruned", 0) >= 1 and out["launches"]["chaos"].get("dense", 0) >= 1,
+          f"chaos: the chaos run launched {out['launches']['chaos']}")
+
+    # The same schedule at full size: phase 11's trace on 1280 nodes.
+    _, arrivals, pods, snap = stream_world(20260804, 25.0, 12.0, 2, 16, 20)
+    cfg = StreamConfig(depth=2, wave_size=64)
+    kw = dict(config=cfg, pruning=PruningConfig(enabled=True, min_fleet=64), pipeline=True,
+              scan=ScanConfig(device_resident=True))
+    wp = WarmPath()
+
+    def run(**extra):
+        torch.cuda.synchronize()
+        reset_launches()
+        b, st = drain_stream(arrivals, pods, snap, warm_path=wp, **kw, **extra)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in place_wave.variant_launches.items() if v}
+        add(counts)
+        return b, st, counts
+
+    run()  # warm-up
+    b_base, s_base, _ = run()
+    # The ladder armed without faults: the cost of arming (watchdog polls of
+    # each wave's event instead of one blocking wait), and no real error.
+    quiet = DegradationLadder(chaos_resilience())
+    b_armed, s_armed, _ = run(resilience=quiet)
+    check(b_armed == b_base and not any(s_armed.drain.resilience_doc().values())
+          and quiet.wave_failures == 0 and quiet.fully_closed(),
+          f"chaos[1280]: the armed run without faults {s_armed.drain.resilience_doc()}")
+    print(f"chaos[1280]: armed without faults wall {s_armed.wall_s:.4f} s (harvest "
+          f"{s_armed.drain.harvest_s:.4f}) against the baseline's {s_base.wall_s:.4f} s "
+          f"(harvest {s_base.drain.harvest_s:.4f}), bind_p99_s "
+          f"{s_armed.bind_percentiles((99.0,))[99.0]:.6f} against "
+          f"{s_base.bind_percentiles((99.0,))[99.0]:.6f}; the baseline's bindings")
+    inj = chaos_faults()
+    lad = DegradationLadder(chaos_resilience())
+    b_chaos, s_chaos, l_chaos = run(faults=inj, resilience=lad)
+    check(s_chaos.drain.pruned_waves == 0 and same_as_baseline(b_chaos, s_chaos.drain, b_base,
+                                                                s_base.drain),
+          f"chaos[1280]: the chaos run ({s_chaos.drain.pruned_waves} pruned waves) binds "
+          f"otherwise than the baseline")
+    check(not double_bound(b_chaos), "chaos[1280]: a pod is bound twice")
+    check(inj.total_fired() > 0 and fault_accounting(inj, s_chaos.drain, lad),
+          f"chaos[1280]: {inj.stats()} does not explain {s_chaos.drain.resilience_doc()} and "
+          f"{lad.wave_failures} ladder failures")
+    print(f"chaos[1280 nodes, {len(arrivals)} gangs]: admitted {s_chaos.admitted}, the "
+          f"baseline's bindings and free capacity after, no double bind, fired {inj.total_fired()} == accounted; "
+          f"{s_chaos.drain.resilience_doc()}, ladder {lad.counters()}, closed "
+          f"{lad.fully_closed()}; bind_p99_s baseline "
+          f"{s_base.bind_percentiles((99.0,))[99.0]:.6f}, chaos "
+          f"{s_chaos.bind_percentiles((99.0,))[99.0]:.6f}; launches {l_chaos} on {card}")
+
+    # A real hang: a spin of known length ahead of one launch of a
+    # pipelined drain, and of a resident one (whose single batched wait
+    # polls the newest event and, past the deadline, hands each wave to the
+    # per-wave watchdog); the watchdog at a third of the spin must catch it
+    # through the wave's event (no injector is installed) and re-dispatch
+    # until it clears.
+    gangs = [g for _, g in arrivals]
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(int(2e8))
+    e1.record()
+    torch.cuda.synchronize()
+    hz = 2e8 / (e0.elapsed_time(e1) / 1e3)
+    spin_s, watchdog_s = 0.6, 0.2
+    res = ResilienceConfig(enabled=True, watchdog_seconds=watchdog_s, max_wave_retries=12)
+    wp_h = WarmPath()
+    b_plain = drain_backlog(gangs, pods, snap, wave_size=64, warm_path=wp_h)[0]
+    cache = wp_h.executables
+    for harvest, spin_at in (("pipeline", 4), ("resident", 2)):
+        dkw = dict(wave_size=64, harvest=harvest, depth=2, warm_path=wp_h, resilience=res)
+        b_h0, s_h0 = drain_backlog(gangs, pods, snap, **dkw)
+        check(not any(s_h0.resilience_doc().values()),
+              f"hang[{harvest}]: the armed run {s_h0.resilience_doc()}")
+        calls = [0]
+
+        def spun(launch):
+            def wrapped(*a, **k):
+                calls[0] += 1
+                if calls[0] == spin_at:
+                    torch.cuda._sleep(int(spin_s * hz))  # ahead of this launch
+                return launch(*a, **k)
+            return wrapped
+
+        cache.solve, cache.solve_scan = spun(cache.solve), spun(cache.solve_scan)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            b_h, s_h = drain_backlog(gangs, pods, snap, **dkw)
+            torch.cuda.synchronize()
+            add({k: v for k, v in place_wave.variant_launches.items() if v})
+        finally:
+            del cache.solve, cache.solve_scan
+        check(s_h.waves >= 6 and calls[0] >= spin_at,
+              f"hang[{harvest}]: {s_h.waves} waves, {calls[0]} launches")
+        check(s_h.watchdog_timeouts >= 1 and s_h.wave_redispatches == s_h.watchdog_timeouts,
+              f"hang[{harvest}]: {s_h.resilience_doc()}")
+        check(b_h == b_h0 == b_plain and np.array_equal(s_h.free_after, s_h0.free_after),
+              f"hang[{harvest}]: the bindings differ from the fault-free run")
+        print(f"hang[{harvest}]: a {spin_s} s spin ({int(spin_s * hz)} cycles at "
+              f"{hz / 1e9:.3f} GHz) ahead of launch {spin_at} of {s_h0.dispatches} "
+              f"({s_h.waves} waves), watchdog {watchdog_s} s: {s_h.resilience_doc()}, drain "
+              f"wall {s_h.total_s:.4f} s against {s_h0.total_s:.4f} s without the spin, "
+              f"harvest {s_h.harvest_s:.4f} s, round trips {s_h.device_roundtrips} against "
+              f"{s_h0.device_roundtrips}; the fault-free bindings on {card}")
+    print(f"chaos launches: {total}; phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def defrag_phase(dev, card) -> dict:
+    """Phase 14: bench.py's defrag scenario at scale 1 with its plan held to
+    the plain versions on the CPU, plan_rescue on two cordoned racks, then
+    scale 20 on the card alone; returns the launches per variant of the
+    planning runs."""
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.bench import defrag_world, run_defrag_bench
+    from grove_tpu_torch.kernels.place_wave import VARIANTS, place_wave, reset_launches
+    from grove_tpu_torch.sim.workloads import BLOCK_KEY, RACK_KEY
+    from grove_tpu_torch.solver.defrag import plan_migrations, plan_rescue
+    from grove_tpu_torch.solver.warm import WarmPath
+    from grove_tpu_torch.state import build_snapshot
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(VARIANTS, 0)
+    keys = ("plan_solve_s", "plan_wall_s", "candidates_evaluated", "pods_migrated",
+            "gangs_moved", "capacity_recovered", "frag_score_before", "frag_score_after",
+            "big_gang_admitted_before", "big_gang_admitted_after", "plan_lowerings",
+            "warm_replan_lowerings", "warm_replan_solve_s", "vs_baseline")
+    for scale in (1.0, 20.0):
+        out = run_defrag_bench(scale, device=dev)
+        for k, v in out["plan_launches"].items():
+            total[k] += v
+        print(f"defrag[{out['nodes']} nodes, {out['squat_gangs']} squatters]: "
+              f"{ {k: out[k] for k in keys} }, plan launches "
+              f"{ {k: v for k, v in out['plan_launches'].items() if v} } on {card}")
+        check(out["big_gang_admitted_before"] == 0 and out["big_gang_admitted_after"] >= 1,
+              f"defrag[{scale}]: the big gang admitted {out['big_gang_admitted_before']} times "
+              f"before the plan, {out['big_gang_admitted_after']} after it")
+        check(out["warm_replan_lowerings"] == 0 and out["warm_replan_same_moves"],
+              f"defrag[{scale}]: the warm re-plan prepared {out['warm_replan_lowerings']} "
+              f"launches or moved otherwise")
+        check(out["plan_launches"]["dense"] >= out["candidates_evaluated"] > 0,
+              f"defrag[{scale}]: {out['plan_launches']} for {out['candidates_evaluated']} "
+              f"candidates")
+        if scale != 1.0:
+            continue
+        # The plan against the plain versions on the CPU, on the same world.
+        topo, nodes, gangs, pods, _, _ = defrag_world(1.0)
+        want = plan_migrations(nodes, topo, gangs, dict(pods), warm=WarmPath(),
+                               max_moves=len(gangs), device="cpu")
+        got = plan_migrations(nodes, topo, gangs, dict(pods), warm=WarmPath(),
+                              max_moves=len(gangs), device=dev)
+        check([(m.gang, m.bindings) for m in got.moves]
+              == [(m.gang, m.bindings) for m in want.moves]
+              and got.pods_migrated == out["pods_migrated"],
+              "defrag: the plan on the card != the plain versions' on the CPU")
+        # Rescue: cordon two racks, re-place the squatters bound there.
+        racks: dict = {}
+        for n in nodes:
+            racks.setdefault((n.labels[BLOCK_KEY], n.labels[RACK_KEY]), set()).add(n.name)
+        cordoned = set().union(*(racks[k] for k in sorted(racks)[:2]))
+        for n in nodes:
+            n.schedulable = n.name not in cordoned
+        stranded = [g for g in gangs
+                    if any(pods[r.name].node_name in cordoned
+                           for grp in g.spec.pod_groups for r in grp.pod_references)]
+        for hold in (True, False):
+            torch.cuda.synchronize()
+            reset_launches()
+            moves = plan_rescue(nodes, topo, stranded, pods, warm=WarmPath(), hold_usage=hold,
+                                device=dev)
+            torch.cuda.synchronize()
+            for k, v in place_wave.variant_launches.items():
+                total[k] += v
+            plain = plan_rescue(nodes, topo, stranded, pods, warm=WarmPath(), hold_usage=hold,
+                                device="cpu")
+            check([(m.gang, m.bindings) for m in moves] == [(m.gang, m.bindings) for m in plain],
+                  f"rescue[hold_usage={hold}]: the card's moves != the plain versions'")
+            targets = {t for m in moves for t in m.bindings.values()}
+            check({m.gang for m in moves} == {g.name for g in stranded}
+                  and not targets & cordoned,
+                  f"rescue[hold_usage={hold}]: moves {[(m.gang, m.bindings) for m in moves]}")
+            moved = {p: t for m in moves for p, t in m.bindings.items()}
+            bound = []
+            for pod in pods.values():
+                q = type(pod)(**vars(pod))
+                q.node_name = moved.get(pod.name, pod.node_name)
+                bound.append(q)
+            snap = build_snapshot(nodes, topo, bound_pods=bound)
+            check(bool((snap.free >= -1e-3).all()), f"rescue[hold_usage={hold}]: over capacity")
+            print(f"rescue[hold_usage={hold}]: {len(stranded)} squatters on 2 cordoned racks "
+                  f"moved onto schedulable nodes, no node over capacity, == the plain versions")
+        for n in nodes:
+            n.schedulable = True
+    print(f"defrag launches: {total}; phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def add_path_launches(rows, paths: dict) -> list:
+    """The kernels line's rows with each later phase's launches (`paths`:
+    phase name -> launches per variant) added to the first row of each
+    variant (B5's row takes "stacked" and "portfolio"), and shown per phase
+    as `launches_<phase>`."""
     variants_of = {
         "place_wave(B1+B2, dense, 5120 nodes)": ("dense",),
         "place_wave(B1+B2+B3, pruned)": ("pruned",),
@@ -2014,10 +2314,9 @@ def add_path_launches(rows, stream, tune) -> list:
     out = []
     for row in rows:
         variants = variants_of.get(row["name"], ())
-        s = sum(stream.get(v, 0) for v in variants)
-        t = sum(tune.get(v, 0) for v in variants)
-        out.append({**row, "launches": row["launches"] + s + t, "launches_stream": s,
-                    "launches_tune": t})
+        extra = {f"launches_{name}": sum(counts.get(v, 0) for v in variants)
+                 for name, counts in paths.items()}
+        out.append({**row, "launches": row["launches"] + sum(extra.values()), **extra})
     return out
 
 

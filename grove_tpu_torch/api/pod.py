@@ -17,3 +17,13 @@ class Pod:
     pclq_fqn: str = ""
     podgang_name: str = ""
     node_name: Optional[str] = None  # set for pods already bound
+
+    @property
+    def is_scheduled(self) -> bool:
+        return self.node_name is not None
+
+    @property
+    def is_active(self) -> bool:
+        """Not terminal and not being deleted. The port's pods carry no
+        lifecycle (phase, deletion stamp), so every pod is active."""
+        return True

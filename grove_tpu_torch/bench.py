@@ -61,9 +61,28 @@ with the recorder (the record overhead), replayed, replayed per config
 each run of same-shape waves), with the engine's counters, the incumbent
 row's divergences and the launches of each kernel variant.
 
+--scenario chaos drives bench.py's chaos scenario (`run_chaos_bench`): the
+12 s trace (arrival_process(20260804, 12 s, base rate 8): 175 gangs, 1117
+pods) streamed onto 192 nodes (1 zone x 2 blocks x 8 racks x 12 hosts) at
+wave_size 32, depth 2, resident scanned dispatch with forming and pruning
+(min_fleet 64), under the standard fault schedule (16 dispatch errors after
+2, 3 harvest hangs after 6) with the ladder armed (one retry per wave,
+breakers at 2 failures, 0.02 s probation): warm-up, baseline, the armed run
+without faults, the chaos run journaled and replayed, and the recorder's
+ENOSPC probe, with bench.py's gates and keys plus the replay's and the
+fault accounting's.
+
+--scenario defrag drives bench.py's defrag scenario (`run_defrag_bench`):
+one squatter gang scattered into every rack, the rack-packed big gang
+unplaceable until the migration planner consolidates them; the plan's
+solve time, moves, the big gang admitted after them and a warm re-plan with
+no preparation.
+
   --scale S         default: cluster racks and backlog size times S (1.0);
                     stream: trace seconds and racks per block times S;
-                    sweep: trace seconds and the scan journal's scenario times S
+                    sweep: trace seconds and the scan journal's scenario times S;
+                    defrag: blocks times S
+                    (1: 256 nodes, 20: 5120 nodes)
   --portfolio P     default: weight variants per wave and per solve (1)
   --no-baseline     default: skip the greedy baseline and the quality fields
   --harvest H       default: "wave" re-drains for measured latencies; "chained" skips it
@@ -73,6 +92,9 @@ row's divergences and the launches of each kernel variant.
   --min-fleet M     scale: smallest fleet that prunes (default 256)
   --k K             sweep: configs in the grid (default 16)
   --device D        "cuda" (default) or "cpu" (plain PyTorch versions)
+
+GROVE_FAULTS (faults/__init__.py's syntax) installs the port's fault
+injector for the run, as the JAX package's manager does from its env.
 """
 
 from __future__ import annotations
@@ -931,9 +953,405 @@ def run_scan_journal_sweep(scale: float = 1.0, k: int = 16, device=None) -> dict
     }
 
 
+# bench.py's chaos settings: the trace, the fleet (1 zone x 2 blocks x 8
+# racks x 12 hosts), the stream config, the pruning floor, the standard fault
+# schedule and the ladder (run_chaos_bench).
+CHAOS_SEED, CHAOS_DURATION_S, CHAOS_RATE = 20260804, 12.0, 8.0
+CHAOS_RACKS, CHAOS_HOSTS, CHAOS_WAVE_SIZE, CHAOS_DEPTH = 8, 12, 32, 2
+CHAOS_MIN_FLEET = 64
+CHAOS_P99_CAP = 10.0
+
+
+def chaos_faults(seed: int = CHAOS_SEED):
+    """The standard fault schedule: 16 dispatch errors after the first 2
+    evaluations (with one retry per wave, 8 retry-exhausted waves: 2 breaker
+    trips on each of resident, scan, pruning and pipeline), then 3 harvest
+    hangs after 6 evaluations."""
+    from grove_tpu_torch.faults import FaultInjector, SiteSpec
+
+    return FaultInjector({
+        "solver.dispatch": SiteSpec(kind="error", rate=1.0, count=16, after=2),
+        "solver.harvest": SiteSpec(kind="timeout", rate=1.0, count=3, after=6),
+    }, seed=seed)
+
+
+def chaos_resilience():
+    """The chaos ladder's config: a 30 s watchdog, one retry per wave,
+    breakers that open on 2 failures in 300 s, and 0.02 s of probation."""
+    from grove_tpu_torch.solver.resilience import ResilienceConfig
+
+    return ResilienceConfig(enabled=True, watchdog_seconds=30.0, max_wave_retries=1,
+                            breaker_threshold=2, breaker_window_seconds=300.0,
+                            probation_seconds=0.02)
+
+
+def fault_accounting(injector, drain_stats, ladder) -> bool:
+    """Every retry, timeout and ladder failure of a run explained by the
+    injector's fires: each dispatch fire is a retry or ends a wave's budget
+    (a ladder failure); each harvest fire is a watchdog timeout, and a
+    wave's fetch that spends its budget on them is a ladder failure (its
+    timeouts less its re-dispatches). No real error or hang is left over."""
+    fired = {site: st["fired"] for site, st in injector.stats()["sites"].items()}
+    d = drain_stats
+    dispatch_failures = fired.get("solver.dispatch", 0) - d.wave_retries
+    hang_failures = d.watchdog_timeouts - d.wave_redispatches
+    return (d.watchdog_timeouts == fired.get("solver.harvest", 0)
+            and ladder.wave_failures == dispatch_failures + hang_failures)
+
+
+def same_as_baseline(bindings, drain_stats, base_bindings, base_stats) -> bool:
+    """A faulted run against the fault-free one: without a pruned wave every
+    rung of the ladder binds bitwise alike (scanned == per-wave, a
+    re-dispatch re-solves from its retained entering carry), so the
+    bindings and the fleet's free capacity after must be equal. A pruned
+    wave may bind other nodes than its dense step-down (the admitted set
+    stays), so then only the admitted set is held."""
+    if drain_stats.pruned_waves or base_stats.pruned_waves:
+        return set(bindings) == set(base_bindings)
+    return bindings == base_bindings and np.array_equal(drain_stats.free_after,
+                                                       base_stats.free_after)
+
+
+def double_bound(bindings) -> list:
+    """Pods bound by more than one gang's bindings."""
+    seen: dict[str, int] = {}
+    for gang_bindings in bindings.values():
+        for pod_name in gang_bindings:
+            seen[pod_name] = seen.get(pod_name, 0) + 1
+    return sorted(p for p, n in seen.items() if n > 1)
+
+
+def recorder_enospc_probe(seed: int = CHAOS_SEED) -> dict:
+    """One injected ENOSPC into a recorder's segment write (its own injector
+    and recorder): the writer must survive in counting-drops mode, latch
+    `degraded`, clear it at the next good write, and stamp the episode into
+    the later segments."""
+    import tempfile
+
+    from grove_tpu_torch import faults as faults_mod
+    from grove_tpu_torch.faults import FaultInjector, SiteSpec
+    from grove_tpu_torch.trace.recorder import TraceRecorder, journal_stats
+
+    path = tempfile.mkdtemp(prefix="grove-chaos-enospc-")
+    inj = FaultInjector({"recorder.write": SiteSpec(kind="enospc", rate=1.0, count=1)},
+                        seed=seed)
+    rec = TraceRecorder(path, max_records_per_file=4)
+    faults_mod.install(inj)
+    latched = False
+    try:
+        rec.start()
+        for k in range(12):
+            rec.capture_action(float(k), "chaos.probe", f"obj-{k}")
+            if k == 3:
+                rec.flush()  # the first segment: the injected ENOSPC
+                latched = rec.degraded
+        rec.flush()
+    finally:
+        rec.stop()
+        faults_mod.install(None)
+    st = journal_stats(path)
+    return {"write_errors": rec.write_errors, "dropped": rec.dropped,
+            "degraded_latched": latched, "degraded_cleared": not rec.degraded,
+            "journal_write_errors": st["writeErrors"], "journal_degraded": st["degraded"],
+            "survived": (rec.write_errors >= 1 and rec.dropped >= 1 and latched
+                         and not rec.degraded and st["writeErrors"] >= 1 and st["degraded"])}
+
+
+def run_chaos_bench(device=None) -> dict:
+    """bench.py's `run_chaos_bench` on the port: the streaming drain under the
+    standard fault schedule with the degradation ladder armed, starting at
+    the top rung (resident scanned dispatch, class-affine forming, pruning).
+
+    Phases over one warm path: a warm-up; the fault-free BASELINE; the same
+    run with the ladder ARMED and no injector (zero retries, timeouts and
+    step-downs, the baseline's bindings: no real error is absorbed, and the
+    armed, undonated launches are prepared here); CHAOS, with the injector,
+    a flight recorder journaling every wave and every fire, and the ladder
+    stepping down and back up on probation; the chaos journal REPLAYED;
+    the recorder's ENOSPC probe. `vs_baseline` is 1.0 only when every gate
+    holds. The trace is bench.py's 12 s one, uncut (its
+    GROVE_BENCH_CHAOS_SOAK long trace is not ported)."""
+    import tempfile
+    import time as _time
+
+    import torch
+
+    from grove_tpu_torch.solver.core import resolve_device
+    from grove_tpu_torch.solver.drain import ScanConfig
+    from grove_tpu_torch.solver.pruning import PruningConfig
+    from grove_tpu_torch.solver.resilience import DegradationLadder
+    from grove_tpu_torch.solver.stream import StreamConfig, drain_stream
+    from grove_tpu_torch.solver.warm import WarmPath
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+    from grove_tpu_torch.trace.replay import replay_journal
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    events, arrivals, pods, snapshot = stream_world(
+        CHAOS_SEED, CHAOS_DURATION_S, CHAOS_RATE, 1, CHAOS_RACKS, CHAOS_HOSTS)
+    setup_s = time.perf_counter() - t0
+    cfg = StreamConfig(depth=CHAOS_DEPTH, wave_size=CHAOS_WAVE_SIZE)
+    pruning = PruningConfig(enabled=True, min_fleet=CHAOS_MIN_FLEET)
+    scan_cfg = ScanConfig(device_resident=True)
+    wp = WarmPath()
+    reset, read = launch_counter(dev)
+    launches = {}
+
+    def run(label, **kw):
+        reset()
+        out = drain_stream(arrivals, pods, snapshot, config=cfg, warm_path=wp, pruning=pruning,
+                           pipeline=True, scan=scan_cfg, device=dev, **kw)
+        launches[label] = read()
+        return out
+
+    run("warmup")
+    b_base, s_base = run("baseline")
+    quiet = DegradationLadder(chaos_resilience(), clock=_time.monotonic)
+    b_armed, s_armed = run("armed", resilience=quiet)
+    armed_quiet = (b_armed == b_base and not any(s_armed.drain.resilience_doc().values())
+                   and quiet.wave_failures == 0
+                   and sum(c["stepDowns"] for c in quiet.counters().values()) == 0)
+
+    injector = chaos_faults()
+    ladder = DegradationLadder(chaos_resilience(), clock=_time.monotonic)
+    trace_dir = tempfile.mkdtemp(prefix="grove-chaos-trace-")
+    recorder = TraceRecorder(trace_dir)
+    recorder.start()
+    injector.recorder = recorder  # fires journal as action records
+    try:
+        b_chaos, s_chaos = run("chaos", faults=injector, resilience=ladder, recorder=recorder)
+        recorder.flush()
+    finally:
+        recorder.stop()
+
+    lost = sorted(set(b_base) - set(b_chaos))
+    extra = sorted(set(b_chaos) - set(b_base))
+    same_placements = same_as_baseline(b_chaos, s_chaos.drain, b_base, s_base.drain)
+    doubles = double_bound(b_chaos)
+    records = read_journal(trace_dir)
+    journaled_faults = sum(1 for r in records
+                           if r.get("kind") == "action" and r.get("action") == "fault.injected")
+    fired = injector.total_fired()
+    counters = ladder.counters()
+    step_downs = sum(c["stepDowns"] for c in counters.values())
+    step_ups = sum(c["stepUps"] for c in counters.values())
+    walked = all(counters[r]["stepDowns"] >= 1
+                 for r in ("resident", "scan", "pruning", "pipeline"))
+    replay = replay_journal(records, warm_path=wp, device=dev)
+    p99_base = (s_base.bind_percentiles((99.0,)) or {}).get(99.0, 0.0)
+    p99_chaos = (s_chaos.bind_percentiles((99.0,)) or {}).get(99.0, 0.0)
+    inflation = p99_chaos / p99_base if p99_base > 0 else None
+    enospc = recorder_enospc_probe()
+    gates = {
+        "zero_lost_gangs": not lost and not extra and same_placements,
+        "zero_double_bound_pods": not doubles,
+        "faults_journaled": journaled_faults == fired and fired > 0,
+        "fault_accounting": fault_accounting(injector, s_chaos.drain, ladder),
+        "armed_without_faults_quiet": armed_quiet,
+        "ladder_recovered": ladder.fully_closed() and step_downs > 0 and step_ups > 0,
+        "ladder_walked_to_pipeline": walked,
+        "journal_replays_bitwise": replay.divergence_count == 0,
+        "p99_inflation_bounded": inflation is not None and inflation <= CHAOS_P99_CAP,
+        "recorder_counting_drops": enospc["survived"],
+    }
+    out = {
+        "scenario": "chaos",
+        "metric": "chaos_bind_p99_inflation",
+        "unit": "x",
+        "value": inflation,
+        "vs_baseline": 1.0 if all(gates.values()) else 0.0,
+        "gates": gates,
+        "host_cpus": len(os.sched_getaffinity(0)),
+        "nodes": int(snapshot.capacity.shape[0]),
+        "setup_s": setup_s,
+        "trace_duration_s": CHAOS_DURATION_S,
+        "trace_seed": CHAOS_SEED,
+        "gangs_offered": s_chaos.offered,
+        "pods_offered": len(pods),
+        "baseline_admitted": s_base.admitted,
+        "chaos_admitted": s_chaos.admitted,
+        "lost_gangs": lost[:8],
+        "same_placements": same_placements,
+        "double_bound_pods": doubles[:8],
+        "faults_fired": fired,
+        "faults_journaled": journaled_faults,
+        "fault_sites": injector.stats()["sites"],
+        "wave_retries": s_chaos.drain.wave_retries,
+        "watchdog_timeouts": s_chaos.drain.watchdog_timeouts,
+        "waves_cancelled": s_chaos.drain.waves_cancelled,
+        "wave_redispatches": s_chaos.drain.wave_redispatches,
+        "armed_resilience": s_armed.drain.resilience_doc(),
+        "armed_lowerings": s_armed.drain.lowerings,
+        "chaos_lowerings": s_chaos.drain.lowerings,
+        "ladder": ladder.stats(),
+        "ladder_rungs": counters,
+        "step_downs": step_downs,
+        "step_ups": step_ups,
+        "journaled_waves": s_chaos.drain.journaled_waves,
+        "replay_divergences": replay.divergence_count,
+        "baseline_bind_p99_s": p99_base,
+        "chaos_bind_p99_s": p99_chaos,
+        "p99_cap": CHAOS_P99_CAP,
+        "baseline_wall_s": s_base.wall_s,
+        "chaos_wall_s": s_chaos.wall_s,
+        "host_stages_chaos": s_chaos.drain.host_stages(),
+        "recorder_enospc": enospc,
+        "launches": launches if dev.type == "cuda" else None,
+        "device": str(dev),
+    }
+    if dev.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(dev)
+        out["card"] = card_line()
+    return out
+
+
+def defrag_world(scale: float = 1.0, hosts_per_rack: int = 8, racks_per_block: int = 4):
+    """bench.py's defrag world: round(8 * scale) blocks of `racks_per_block`
+    racks of `hosts_per_rack` hosts, one 2-pod squatter gang bound into
+    every rack (the state churn leaves behind), and the rack-packed big
+    gang. Returns (topo, nodes, squatter gangs, squatter pods, big gangs,
+    every pod)."""
+    from grove_tpu_torch.orchestrator import expand_podcliqueset
+    from grove_tpu_torch.sim.workloads import (
+        BLOCK_KEY,
+        RACK_KEY,
+        bench_topology,
+        fragmented_backlog,
+        synthetic_cluster,
+    )
+
+    blocks = max(1, round(8 * scale))
+    topo = bench_topology()
+    nodes = synthetic_cluster(zones=1, blocks_per_zone=blocks, racks_per_block=racks_per_block,
+                              hosts_per_rack=hosts_per_rack)
+    squat_pcs, big_pcs = fragmented_backlog(blocks * racks_per_block,
+                                            hosts_per_rack=hosts_per_rack)
+    rack_nodes: dict[tuple[str, str], list[str]] = {}
+    for n in nodes:
+        rack_nodes.setdefault((n.labels[BLOCK_KEY], n.labels[RACK_KEY]), []).append(n.name)
+    rack_list = sorted(rack_nodes)
+    gangs, pods = [], {}
+    for i, pcs in enumerate(squat_pcs):
+        ds = expand_podcliqueset(pcs, topo)
+        gangs.extend(ds.podgangs)
+        for j, pod in enumerate(ds.pods):
+            pod.node_name = rack_nodes[rack_list[i]][j]
+            pods[pod.name] = pod
+    ds_big = expand_podcliqueset(big_pcs, topo)
+    all_pods = dict(pods)
+    all_pods.update({p.name: p for p in ds_big.pods})
+    return topo, nodes, gangs, pods, ds_big.podgangs, all_pods
+
+
+def admit_gangs(gangs, pods, snapshot, warm_path, device) -> int:
+    """How many of `gangs` one solve() admits on `snapshot`."""
+    from grove_tpu_torch.solver.core import SolverParams, decode_bindings, solve
+    from grove_tpu_torch.solver.encode import encode_gangs
+
+    batch, decode = encode_gangs(gangs, pods, snapshot)
+    res = solve(snapshot, batch, SolverParams(), warm=warm_path, device=device)
+    return len(decode_bindings(res.ok.cpu().numpy(), res.assigned.cpu().numpy(), decode,
+                               snapshot))
+
+
+def run_defrag_bench(scale: float = 1.0, device=None) -> dict:
+    """bench.py's `run_defrag_bench` on the port: a fleet with one squatter
+    gang scattered into every rack, where the rack-packed big gang fails
+    admission despite ample total free capacity. The migration planner's
+    plan (every candidate solve through solve() and the warm path), its
+    moves executed, the big gang admitted after them, and a re-plan of the
+    restored state that must prepare no launch. `scale` 1 is 256 nodes and
+    32 squatters, 20 is 5120 nodes and 640."""
+    import torch
+
+    from grove_tpu_torch.solver.core import resolve_device
+    from grove_tpu_torch.solver.defrag import fragmentation_report, plan_migrations
+    from grove_tpu_torch.solver.encode import next_pow2
+    from grove_tpu_torch.solver.warm import WarmPath
+    from grove_tpu_torch.state import build_snapshot
+
+    dev = resolve_device(device)
+    topo, nodes, gangs, pods, big_gangs, all_pods = defrag_world(scale)
+    pad = next_pow2(len(nodes))
+    snap_before = build_snapshot(nodes, topo, bound_pods=list(pods.values()), pad_nodes_to=pad)
+    rep_before = fragmentation_report(snap_before)
+    wp = WarmPath()
+    reset, read = launch_counter(dev)
+    admitted_before = admit_gangs(big_gangs, all_pods, snap_before, wp, dev)
+    reset()
+    t0 = time.perf_counter()
+    plan = plan_migrations(nodes, topo, gangs, dict(pods), warm=wp, max_moves=len(gangs),
+                           device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    plan_wall_s = time.perf_counter() - t0
+    plan_launches = read()
+    out: dict = {
+        "scenario": "defrag",
+        "nodes": len(nodes),
+        "racks": len(gangs),
+        "squat_gangs": len(gangs),
+        "frag_score_before": rep_before.score,
+        "big_gang_admitted_before": admitted_before,
+        "plan_wall_s": plan_wall_s,
+        "device": str(dev),
+    }
+    if plan is None:
+        out.update(error="planner produced no improving plan", value=None, vs_baseline=0.0)
+        return out
+    orig = {name: p.node_name for name, p in pods.items()}
+    for mv in plan.moves:
+        for pod_name, target in mv.bindings.items():
+            pods[pod_name].node_name = target
+    snap_after = build_snapshot(nodes, topo, bound_pods=list(pods.values()), pad_nodes_to=pad)
+    rep_after = fragmentation_report(snap_after)
+    admitted_after = admit_gangs(big_gangs, all_pods, snap_after, wp, dev)
+    # Re-plan the restored fragmented state: the same shapes, no preparation.
+    for name, node_name in orig.items():
+        pods[name].node_name = node_name
+    low0 = wp.executables.lowerings
+    plan2 = plan_migrations(nodes, topo, gangs, dict(pods), warm=wp, max_moves=len(gangs),
+                            device=dev)
+    warm_lowerings = wp.executables.lowerings - low0
+    for mv in plan.moves:  # leave the cluster defragmented
+        for pod_name, target in mv.bindings.items():
+            pods[pod_name].node_name = target
+    target_plan_s = 1.0  # bench.py's latency bar
+    recovered_ok = 1.0 if admitted_after >= 1 and admitted_before == 0 else 0.0
+    out.update({
+        "metric": "defrag_plan_solve_s",
+        "unit": "s",
+        "value": plan.solve_s,
+        "vs_baseline": (target_plan_s / plan.solve_s) * recovered_ok if plan.solve_s > 0 else 0.0,
+        "plan_solve_s": plan.solve_s,
+        "plan_encode_s": plan.encode_s,
+        "plan_decode_s": plan.decode_s,
+        "plan_lowerings": plan.lowerings,
+        "candidates_evaluated": plan.candidates_evaluated,
+        "pods_migrated": plan.pods_migrated,
+        "gangs_moved": len(plan.moves),
+        "capacity_recovered": plan.capacity_recovered,
+        "capacity_recovered_per_pod": plan.efficiency,
+        "binding_level": plan.binding_level,
+        "binding_resource": plan.binding_resource,
+        "frag_score_after": rep_after.score,
+        "big_gang_admitted_after": admitted_after,
+        "warm_replan_lowerings": warm_lowerings,
+        "warm_replan_solve_s": None if plan2 is None else plan2.solve_s,
+        "warm_replan_same_moves": plan2 is not None and [(m.gang, m.bindings) for m in plan2.moves]
+        == [(m.gang, m.bindings) for m in plan.moves],
+        "plan_launches": plan_launches,
+    })
+    if dev.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(dev)
+        out["card"] = card_line()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scenario", choices=("default", "scale", "sweep", "stream"),
+    ap.add_argument("--scenario",
+                    choices=("default", "scale", "sweep", "stream", "chaos", "defrag"),
                     default="default")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
@@ -946,7 +1364,14 @@ def main(argv=None) -> int:
     ap.add_argument("--k", type=int, default=16)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    if args.scenario == "sweep":
+    from grove_tpu_torch import faults
+
+    faults.install(faults.from_config(None))  # GROVE_FAULTS arms the port's injector
+    if args.scenario == "chaos":
+        out = run_chaos_bench(device=args.device)
+    elif args.scenario == "defrag":
+        out = run_defrag_bench(args.scale, device=args.device)
+    elif args.scenario == "sweep":
         out = run_sweep_bench(args.scale, k=args.k, device=args.device)
     elif args.scenario == "stream":
         out = run_stream_bench(args.scale, device=args.device)

@@ -581,3 +581,31 @@ def expand_arrivals(events: list[ArrivalEvent],
             arrivals.append((ev.t, g))
         pods.update({p.name: p for p in ds.pods})
     return arrivals, pods
+
+
+def fragmented_backlog(
+    racks: int,
+    hosts_per_rack: int = 8,
+    squat_pods_per_rack: int = 2,
+    tpu_per_host: int = 8,
+) -> tuple[list[PodCliqueSet], PodCliqueSet]:
+    """Defrag-scenario workloads: (squatters, large rack-packed gang).
+
+    One squatter PCS per rack — `squat_pods_per_rack` full-host pods each.
+    With every squatter bound in a DIFFERENT rack, every rack keeps
+    `hosts_per_rack - squat_pods_per_rack` free hosts, so the large gang
+    (`hosts_per_rack` full-host pods, REQUIRED rack pack) fails admission
+    even though total free capacity is several racks' worth — until the
+    migration planner consolidates the squatters."""
+    squatters = [
+        _pcs(f"frag-squat-{i}",
+             [_clique("sq", squat_pods_per_rack, cpu="4", tpu=tpu_per_host,
+                      min_available=squat_pods_per_rack)])
+        for i in range(racks)
+    ]
+    big = _pcs(
+        "frag-big",
+        [_clique("big", hosts_per_rack, cpu="4", tpu=tpu_per_host, min_available=hosts_per_rack)],
+        constraint_domain="rack",
+    )
+    return squatters, big

@@ -73,14 +73,40 @@ prepares nothing: DrainStats counts `lowerings`, `exec_cache_*` and
 `encode_reuse_*` per drain. Portfolio drains bypass the launch cache, as in
 the JAX package; their pre-pass has nothing to prepare.
 
+Resilience (`faults`, `resilience`; faults/__init__.py,
+solver/resilience.py): the engine evaluates the `solver.dispatch` fault
+site before every launch (a wave, a scan chunk, a re-chained wave or
+chunk) and `solver.harvest` before every fetch. A failed dispatch is
+retried up to `max_wave_retries` times from the same carry (the solve is
+deterministic); exhaustion raises `WaveFault` for the caller's ladder. A
+wave whose verdicts are not on the host within `watchdog_s` of its
+dispatch — on the card, its CUDA event's `query()` still false, polled
+without blocking; on the CPU there is no event and so no probe — or whose
+injected harvest timeout fires, is cancelled and re-dispatched, on the
+same stream, from its retained entering carry without advancing the live
+carry (later waves already chained off the original output, and the
+re-dispatch's free_after lands in a fresh buffer). The chained and
+resident disciplines' one batched wait polls the newest event against the
+oldest wave's deadline instead of blocking; past it, every wave retires
+through its own probe. Arming faults or a
+ladder retains every wave's entering carry, so donation is off and the
+launch-cache keys change as the JAX package's `donate` key part does.
+With resilience off (`max_wave_retries` 0 and no injector) a raw error
+propagates unchanged; no path continues on a plain version after a kernel
+error. `drain_backlog` consults the ladder once, at construction: open
+rungs step it down (resident -> scan -> pipeline -> wave, pruning off,
+portfolio 1); the streaming drain reconciles the engine with the ladder
+between waves (`set_scan`, `set_retire_lag`, `set_pruning`). `mesh` (a
+parallel.mesh.MeshConfig) never shards on one card: a requested mesh
+counts one fallback (`DrainStats.shard_fallbacks`) and solves unsharded.
+
 The streaming drain (solver/stream.py `drain_stream`) drives the same
-engine through its hooks: `submit(ws)` dispatches and retires down to the
-pipeline depth, `submit_scan(run, retire=False)` enqueues a run's chunks
-without retiring between them, `retire_due()`
+engine through its hooks: `submit(ws, retire)` dispatches and (by default)
+retires down to the pipeline depth, `submit_scan(run, retire=False)`
+enqueues a run's chunks without retiring between them, `retire_due()`
 says when the stream's own loop should retire, `on_commit` is called at
 each commit with the wave's bindings and stamp, and `wave_prefix` names the
-journaled waves ("stream-000000", ...). Meshes, faults and the degradation
-ladder of the JAX package are a later slice of the port, for both drains.
+journaled waves ("stream-000000", ...).
 """
 
 from __future__ import annotations
@@ -91,6 +117,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from grove_tpu_torch import faults as faults_mod
 from grove_tpu_torch.solver.core import (
     SolverParams,
     decode_bindings,
@@ -98,15 +125,38 @@ from grove_tpu_torch.solver.core import (
     stack_on,
 )
 from grove_tpu_torch.solver.encode import encode_gangs, gang_shape, next_pow2, stack_batches
+from grove_tpu_torch.parallel.mesh import mesh_requested, resolve_layout
 from grove_tpu_torch.solver.pruning import (
     PruningConfig,
     lossy_rejections,
     plan_candidates,
     stack_plan_arrays,
 )
+from grove_tpu_torch.solver.resilience import ladder_for
 from grove_tpu_torch.solver.warm import default_warm_path, donation_default, gang_row_digest
 
 HARVEST_MODES = ("chained", "wave", "pipeline", "scan", "resident")
+
+
+class WaveFault(RuntimeError):
+    """A wave failed past its retry budget. `in_flight` tells the caller
+    whether the wave is still queued in the engine (a retirement failure —
+    do NOT resubmit) or never made it in (a dispatch failure — resubmit
+    after stepping the ladder down). Callers without a ladder see it
+    propagate like any other error."""
+
+    def __init__(self, message: str, *, in_flight: bool, fatal: bool = False):
+        super().__init__(message)
+        self.in_flight = in_flight
+        # fatal: the carry chain can no longer be trusted (an escalation
+        # re-chain died past its retry budget mid-adoption); the caller must
+        # surface the error, not degrade around it.
+        self.fatal = fatal
+        # A fused submit (submit_scan) that failed mid-run sets this to the
+        # planned waves NOT yet enqueued (the failed one onward, in order):
+        # the caller resubmits exactly these, wave by wave, under the
+        # stepped-down config, so a chunk failure never drops arrivals.
+        self.pending: list | None = None
 
 
 @dataclass(frozen=True)
@@ -191,6 +241,24 @@ class DrainStats:
     # The fleet's free capacity after the last wave, as the solver left it
     # (copied to the host once every wave has retired and the card is idle).
     free_after: np.ndarray | None = None
+    # Mesh: requested meshes that solved unsharded (always, on one card).
+    shard_fallbacks: int = 0
+    # Resilience ledger: dispatch retries paid inside the engine, watchdog
+    # timeouts observed on in-flight waves, waves cancelled (timeout ->
+    # cancel -> re-dispatch), and the re-dispatches. Zero on a healthy run.
+    wave_retries: int = 0
+    watchdog_timeouts: int = 0
+    waves_cancelled: int = 0
+    wave_redispatches: int = 0
+
+    def resilience_doc(self) -> dict:
+        """The fault-recovery counters of this run (the JAX package's keys)."""
+        return {
+            "waveRetries": self.wave_retries,
+            "watchdogTimeouts": self.watchdog_timeouts,
+            "wavesCancelled": self.waves_cancelled,
+            "waveRedispatches": self.wave_redispatches,
+        }
 
     def host_stages(self) -> dict:
         """The host-stage ledger: seconds per host stage (harvest is the
@@ -277,7 +345,8 @@ class _WavePipeline:
 
     def __init__(self, *, gangs, pods_by_name, snapshot, params, stats, dev, warm_path,
                  pruning=None, portfolio=1, donate=False, retire_lag=None, record_stamps=False,
-                 scan=None, recorder=None, wave_prefix="drain", on_commit=None):
+                 scan=None, recorder=None, wave_prefix="drain", on_commit=None, faults=None,
+                 watchdog_s=None, max_wave_retries=0, clock=None, watchdog_poll_s=0.001):
         self.pods_by_name = pods_by_name
         self.snapshot = snapshot
         self.params = params
@@ -302,9 +371,19 @@ class _WavePipeline:
         self.on_commit = on_commit
         self.scan = scan if portfolio == 1 else None
         self.recorder = recorder if portfolio == 1 else None
-        # Escalation re-solves from each pruned wave's entering carry, and
-        # a journaled wave records its own.
-        self.retain_carries = pruning is not None or self.recorder is not None
+        # Fault injection: the process-installed injector unless the caller
+        # passed one, None when disabled (the per-wave check is one `is`).
+        inj = faults if faults is not None else faults_mod.active()
+        self.faults = inj if inj.enabled else None
+        self.watchdog_s = watchdog_s
+        self.max_wave_retries = int(max_wave_retries)
+        self.clock = clock if clock is not None else time.perf_counter
+        self.watchdog_poll_s = watchdog_poll_s
+        # Entering carries are kept per wave for the escalation re-solves,
+        # for journaling and for the watchdog's re-dispatch.
+        self.retain_carries = (pruning is not None or self.recorder is not None
+                               or self.faults is not None or watchdog_s is not None
+                               or self.max_wave_retries > 0)
         self.donate = bool(donate and self.use_exec_cache and not self.retain_carries)
         stats.donated = self.donate
         self.gidx = {g.name: i for i, g in enumerate(gangs)}
@@ -402,8 +481,12 @@ class _WavePipeline:
             stats.pruned_waves += 1
             stats.candidate_nodes = max(stats.candidate_nodes, plan.count)
             stats.candidate_pad = max(stats.candidate_pad, plan.pad)
+        # `seq` is restamped at dispatch (a resubmitted wave keeps its place);
+        # `pruning` is the config the plan was cut under, which the journal
+        # records even if the ladder has stepped pruning down by the commit.
         return {"members": ws[0], "shape": ws[1], "pad": ws[2], "batch": batch,
-                "decode": decode, "plan": plan, "escalated": False}
+                "decode": decode, "plan": plan, "escalated": False, "seq": stats.waves,
+                "pruning": self.pruning if plan is not None else None}
 
     # ---- the warm pre-pass ---------------------------------------------------
 
@@ -469,6 +552,10 @@ class _WavePipeline:
         if self.pstack is not None:
             from grove_tpu_torch.parallel.portfolio import portfolio_solve
 
+            if self.retain_carries:
+                # The stacked launch updates its carry in place: a retained
+                # entering carry must outlive it (re-dispatch, escalation).
+                free, ok_g = free.clone(), ok_g.clone()
             return portfolio_solve(
                 free, self.capacity, self.schedulable, self.node_domain_id, rec["batch"],
                 self.params, self.portfolio, ok_g, pstack=self.pstack, device=self.dev,
@@ -505,24 +592,107 @@ class _WavePipeline:
         holder["host"], holder["event"] = host, event
         self._last_event = event
 
-    def _dispatch(self, rec: dict) -> None:
-        """Dispatch (or re-dispatch) one wave from the current carry and
-        advance the carry; a per-wave dispatch supersedes any scan chunk the
-        record was part of."""
+    def _dispatch(self, rec: dict, *, free_in=None, okg_in=None, advance: bool = True) -> None:
+        """Dispatch (or re-dispatch) one wave; updates the record in place.
+        By default it solves from the current carry and advances it. The
+        watchdog's re-dispatch passes the wave's retained entering carry and
+        `advance=False`: later waves already chained off the original
+        output, the solve is deterministic, and the result lands in fresh
+        buffers (the launch cache copies its outputs out), so the live
+        carry is never touched. A per-wave dispatch supersedes any scan
+        chunk the record was part of."""
+        if self.faults is not None:
+            self.faults.maybe_raise("solver.dispatch", wave=rec.get("seq", -1))
         rec.pop("scan_group", None)
         rec.pop("scan_pos", None)
+        if free_in is None:
+            free_in, okg_in = self.free, self.ok_g
         self.stats.dispatches += 1
         if self.retain_carries:
             # The launch cache never writes its inputs: the carry itself is kept.
-            rec["free_in"], rec["okg_in"] = self.free, self.ok_g
-        res = self._solve(rec, self.free, self.ok_g, rec["plan"])
+            rec["free_in"], rec["okg_in"] = free_in, okg_in
+        res = self._solve(rec, free_in, okg_in, rec["plan"])
         self._stage(rec, (res.ok, res.placement_score, res.assigned), rec.get("free_in"))
-        self.free, self.ok_g = res.free_after, res.ok_global
+        rec["dispatched_at"] = self.clock()
+        rec["cancelled"] = False
+        if advance:
+            self.free, self.ok_g = res.free_after, res.ok_global
+
+    def _dispatch_with_retry(self, attempt, what: str, *, in_flight: bool):
+        """Run `attempt()`, a dispatch, with up to `max_wave_retries`
+        immediate retries from the same carry (the solve is deterministic).
+        Past the budget: the raw error with resilience off, else WaveFault."""
+        attempts = 0
+        while True:
+            try:
+                return attempt()
+            except Exception as e:  # noqa: BLE001 — retry budget, then surface
+                if attempts >= self.max_wave_retries:
+                    if self.max_wave_retries == 0 and self.faults is None:
+                        raise  # resilience off: the raw error, unchanged
+                    raise WaveFault(f"{what} failed after {attempts} retries: {e}",
+                                    in_flight=in_flight) from e
+                attempts += 1
+                self.stats.wave_retries += 1
+
+    # ---- watchdog: timeout -> cancel -> re-dispatch --------------------------
+
+    def cancel_wave(self, rec: dict) -> bool:
+        """Cancel an in-flight wave: drop its host view so the next fetch
+        reads the re-dispatch. A second cancel is a no-op (False)."""
+        if rec.get("cancelled"):
+            return False
+        rec["cancelled"] = True
+        rec["ok_np"] = None
+        self.stats.waves_cancelled += 1
+        return True
+
+    def _redispatch(self, rec: dict) -> None:
+        """Re-dispatch a cancelled wave from its retained entering carry, on
+        the same stream (it queues behind the cancelled launch, whose pinned
+        copies are dropped), without advancing the carry."""
+        if rec.get("free_in") is None:
+            raise WaveFault("cannot re-dispatch: entering carry not retained", in_flight=True)
+        self.stats.wave_redispatches += 1
+        self._dispatch_with_retry(
+            lambda: self._dispatch(rec, free_in=rec["free_in"], okg_in=rec["okg_in"],
+                                   advance=False),
+            "wave dispatch", in_flight=True)
+
+    def _wave_hung(self, rec: dict) -> bool:
+        """Is this wave hung past the watchdog deadline? An injected
+        `solver.harvest` timeout is checked first. On the card the probe is
+        the CUDA event behind the wave's (or its chunk's) host copies:
+        `query()` never blocks; a wave that completes while polled harvests
+        normally. On the CPU there is no event, so no probe: the fetch
+        proceeds."""
+        if self.faults is not None and self.faults.maybe_timeout(
+                "solver.harvest", wave=rec.get("seq", -1)):
+            return True
+        if self.watchdog_s is None:
+            return False
+        holder = rec.get("scan_group") or rec
+        event = holder.get("event")
+        if event is None:
+            return False
+        return not self._ready_by(event, rec.get("dispatched_at", 0.0) + self.watchdog_s)
+
+    def _ready_by(self, event, deadline: float) -> bool:
+        """Poll `event.query()` until the event completes (True) or the
+        engine clock reaches `deadline` (False)."""
+        while not event.query():
+            if self.clock() >= deadline:
+                return False
+            time.sleep(self.watchdog_poll_s)
+        return True
 
     def _dispatch_one(self, rec: dict) -> None:
-        """Dispatch one encoded record and enqueue it for retirement."""
+        """Dispatch one encoded record and enqueue it for retirement;
+        `stats.waves` advances only on success, so a caller resubmitting
+        after WaveFault(in_flight=False) never counts a wave twice."""
+        rec["seq"] = self.stats.waves
         ts = time.perf_counter()
-        self._dispatch(rec)
+        self._dispatch_with_retry(lambda: self._dispatch(rec), "wave dispatch", in_flight=False)
         self.stats.dispatch_s += time.perf_counter() - ts
         self.stats.waves += 1
         self.inflight.append(rec)
@@ -536,11 +706,13 @@ class _WavePipeline:
         while self.retire_due():
             self._retire_next()
 
-    def submit(self, ws) -> None:
-        """Encode + dispatch one planned wave, then retire down to the
-        pipeline depth."""
+    def submit(self, ws, retire: bool = True) -> None:
+        """Encode + dispatch one planned wave, then (by default) retire down
+        to the pipeline depth. With `retire=False` a failure unambiguously
+        means the wave was not enqueued (the streaming drain resubmits it)."""
         self._dispatch_one(self._encode_rec(ws))
-        self._retire_down()
+        if retire:
+            self._retire_down()
 
     # ---- the scan (B4) -------------------------------------------------------
 
@@ -578,11 +750,23 @@ class _WavePipeline:
             run = recs[i:j]
             for k, m, padded in scan_chunks(len(run), scan):
                 chunk = run[k : k + m]
-                if padded is None:
-                    for rec in chunk:
-                        self._dispatch_one(rec)
-                else:
-                    self._dispatch_scan_chunk(chunk)
+                try:
+                    if padded is None:
+                        for off, rec in enumerate(chunk):
+                            try:
+                                self._dispatch_one(rec)
+                            except WaveFault as e:
+                                if not e.in_flight and e.pending is None:
+                                    e.pending = class_waves[i + k + off:]
+                                raise
+                    else:
+                        self._dispatch_scan_chunk(chunk)
+                except WaveFault as e:
+                    # Nothing of the failed chunk (or wave) was enqueued:
+                    # hand the tail back for the caller to resubmit.
+                    if not e.in_flight and e.pending is None:
+                        e.pending = class_waves[i + k:]
+                    raise
                 if retire:
                     self._retire_down()
             i = j
@@ -617,20 +801,34 @@ class _WavePipeline:
         for the chunk, every record a step of it) and advance the carry."""
         group: dict = {}
         self._stage(group, (res.ok, res.placement_score, res.assigned), res.free_in)
+        now = self.clock()
         for i, rec in enumerate(run):
             rec.update(
                 ok_np=None,
+                # The chunk's retained step carries: escalation and
+                # re-dispatch inputs of each of its waves.
                 free_in=res.free_in[i] if self.retain_carries else None,
                 okg_in=res.okg_in[i] if self.retain_carries else None,
+                dispatched_at=now,
+                cancelled=False,
                 scan_group=group,
                 scan_pos=i,
             )
         self.free, self.ok_g = res.free_after, res.ok_global
 
     def _dispatch_scan_chunk(self, run: list[dict]) -> None:
-        """Dispatch one chunk as a scan, then enqueue its records."""
+        """Dispatch one chunk as a scan (with the per-wave retry budget),
+        then enqueue its records."""
         ts = time.perf_counter()
-        res = self._solve_scan_chunk(run, self.free, self.ok_g)
+        for i, rec in enumerate(run):
+            rec["seq"] = self.stats.waves + i
+
+        def attempt():
+            if self.faults is not None:
+                self.faults.maybe_raise("solver.dispatch", wave=run[0]["seq"])
+            return self._solve_scan_chunk(run, self.free, self.ok_g)
+
+        res = self._dispatch_with_retry(attempt, "scan chunk dispatch", in_flight=False)
         self._commit_scan_chunk(run, res)
         self.inflight.extend(run)
         stats = self.stats
@@ -661,22 +859,37 @@ class _WavePipeline:
         if rec.get("ok_np") is not None:
             return
         th = time.perf_counter()
-        group = rec.get("scan_group")
-        if group is not None:
-            self._fetch_scan_group(group)
-            i = rec["scan_pos"]
-            rec["ok_np"] = group["ok_np"][i]
-            rec["score_np"] = group["score_np"][i]
-            rec["assigned_np"] = group["assigned_np"][i]
-            rec["done_s"] = group.get("done_s")
-            if "free_in_np" in group:
-                rec["free_in_np"] = group["free_in_np"][i]
-        else:
-            if rec["event"] is not None:
-                rec["event"].synchronize()
-            self._host_planes(rec)
-            self.stats.device_roundtrips += 1
-        self.stats.harvest_s += time.perf_counter() - th
+        try:
+            # The watchdog: a hung wave is cancelled and re-dispatched from
+            # its retained entering carry, up to max_wave_retries times;
+            # exhaustion raises WaveFault(in_flight=True) with the wave
+            # still at the queue head.
+            attempts = 0
+            while self._wave_hung(rec):
+                self.stats.watchdog_timeouts += 1
+                self.cancel_wave(rec)
+                if attempts >= self.max_wave_retries:
+                    raise WaveFault(f"wave hung past watchdog after {attempts} re-dispatches",
+                                    in_flight=True)
+                attempts += 1
+                self._redispatch(rec)
+            group = rec.get("scan_group")
+            if group is not None:
+                self._fetch_scan_group(group)
+                i = rec["scan_pos"]
+                rec["ok_np"] = group["ok_np"][i]
+                rec["score_np"] = group["score_np"][i]
+                rec["assigned_np"] = group["assigned_np"][i]
+                rec["done_s"] = group.get("done_s")
+                if "free_in_np" in group:
+                    rec["free_in_np"] = group["free_in_np"][i]
+            else:
+                if rec["event"] is not None:
+                    rec["event"].synchronize()
+                self._host_planes(rec)
+                self.stats.device_roundtrips += 1
+        finally:
+            self.stats.harvest_s += time.perf_counter() - th
 
     def _fetch_scan_group(self, group: dict) -> None:
         """One wait for a scan chunk's planes (the first retiring record of
@@ -718,6 +931,8 @@ class _WavePipeline:
                     for rec2 in chunk:
                         self._dispatch(rec2)
                     continue
+                if self.faults is not None:
+                    self.faults.maybe_raise("solver.dispatch", wave=chunk[0]["seq"])
                 res = self._solve_scan_chunk(chunk, self.free, self.ok_g)
                 self._commit_scan_chunk(chunk, res)
                 self.stats.dispatches += 1
@@ -752,8 +967,18 @@ class _WavePipeline:
             return
         stats.escalations_adopted += 1
         rec.update(held, plan=None)  # dense verdicts: fleet ordinals already
-        self.free, self.ok_g = dense.free_after, dense.ok_global
-        self._rechain_inflight()
+
+        def rechain():
+            # Restarts from the adoption point on every attempt, so a
+            # dispatch fault mid-re-chain retries it whole.
+            self.free, self.ok_g = dense.free_after, dense.ok_global
+            self._rechain_inflight()
+
+        try:
+            self._dispatch_with_retry(rechain, "escalation re-chain", in_flight=True)
+        except WaveFault as e:
+            e.fatal = True  # a half re-chained carry no ladder rung can fix
+            raise
 
     def _finalize(self, rec: dict) -> None:
         """Escalate if needed, then commit: stamp, decode, bind."""
@@ -826,7 +1051,7 @@ class _WavePipeline:
                 params=self.params,
                 portfolio=1,
                 escalate_portfolio=1,
-                pruning=self.pruning if plan is not None else None,
+                pruning=rec["pruning"] if plan is not None else None,
                 plan=wave_bindings,
                 ok_by_name={g.name: bool(rec["ok_np"][i]) for i, g in enumerate(members)},
                 valid_by_name={g.name: bool(rec["batch"].gang_valid[i])
@@ -853,23 +1078,27 @@ class _WavePipeline:
         """Make every in-flight wave's verdicts host-visible with one wait on
         the newest event (every earlier copy is ahead of it on the stream):
         the single round trip of the chained and resident disciplines. A
-        no-op when nothing is unfetched."""
-        plain = [r for r in self.inflight
-                 if r.get("scan_group") is None and r.get("ok_np") is None]
-        groups: dict[int, dict] = {}
-        for r in self.inflight:
-            g = r.get("scan_group")
-            if g is not None and g.get("ok_np") is None:
-                groups[id(g)] = g
-        if not plain and not groups:
+        no-op when nothing is unfetched. With the watchdog armed, the wait
+        polls that event against the oldest unfetched wave's deadline; past
+        it nothing is fetched here, and each wave retires through `_fetch`,
+        whose watchdog probes the wave's own event."""
+        unfetched = [r for r in self.inflight if (r.get("scan_group") or r).get("ok_np") is None]
+        if not unfetched:
             return
+        holders = list({id(h): h for h in (r.get("scan_group") or r for r in unfetched)}.values())
         th = time.perf_counter()
-        if self._last_event is not None:
-            self._last_event.synchronize()
-        for holder in plain + list(groups.values()):
-            self._host_planes(holder)
-        self.stats.harvest_s += time.perf_counter() - th
-        self.stats.device_roundtrips += 1
+        try:
+            if self._last_event is not None:
+                if self.watchdog_s is None:
+                    self._last_event.synchronize()
+                elif not self._ready_by(self._last_event, self.watchdog_s + min(
+                        r.get("dispatched_at", 0.0) for r in unfetched)):
+                    return
+            for holder in holders:
+                self._host_planes(holder)
+            self.stats.device_roundtrips += 1
+        finally:
+            self.stats.harvest_s += time.perf_counter() - th
 
     def flush(self) -> None:
         """Retire everything still in flight; the chained and resident
@@ -878,6 +1107,26 @@ class _WavePipeline:
             self.harvest_inflight()
         while self.inflight:
             self._retire_next()
+
+    # ---- degradation-ladder hooks (solver/resilience.py) ---------------------
+    #
+    # Each rung maps to one engine mutation, applied between waves by the
+    # streaming drain; every one preserves the admitted set (scanned == per-wave
+    # bitwise, pruned == dense admitted-equal through escalation, and the
+    # retire lag only moves where the host blocks).
+
+    def set_scan(self, scan) -> None:
+        """scan <-> per-wave dispatch for runs submitted from now on."""
+        self.scan = scan if self.use_exec_cache else None
+
+    def set_retire_lag(self, lag: int | None) -> None:
+        """pipeline <-> serial: where the host blocks, never what it binds."""
+        self.retire_lag = lag
+
+    def set_pruning(self, pruning) -> None:
+        """pruned <-> dense for waves submitted from now on (plans are cut
+        against the initial snapshot, a superset of every later state)."""
+        self.pruning = pruning if self.use_exec_cache else None
 
 
 def scan_chunks(n: int, scan: ScanConfig) -> list[tuple[int, int, int | None]]:
@@ -923,6 +1172,9 @@ def drain_backlog(
     device=None,
     warm_path=None,
     donate: bool | None = None,
+    mesh=None,
+    faults=None,
+    resilience=None,
 ) -> tuple[dict[str, dict[str, str]], DrainStats]:
     """Admit a whole backlog; returns ({gang: {pod: node}}, DrainStats).
 
@@ -941,7 +1193,16 @@ def drain_backlog(
     the launch cache, the encode rows and the device cache the drain goes
     through; an untimed pre-pass prepares every planned shape first
     (DrainStats.compile_s); `donate` None means on for the card.
-    `device` None means the card; "cpu" runs the plain PyTorch versions."""
+    `device` None means the card; "cpu" runs the plain PyTorch versions.
+
+    `resilience` (a solver.resilience ResilienceConfig or a shared
+    DegradationLadder) arms the engine's watchdog and dispatch retries, and
+    the ladder's open rungs step the drain down once, at construction
+    (resident -> scan -> pipeline -> wave, pruning off, portfolio 1);
+    stepping down mid-run is the streaming drain's. `faults` (a
+    faults.FaultInjector; None = the process-installed one) threads the
+    engine's fault sites. `mesh` (a parallel.mesh.MeshConfig) solves
+    unsharded on one card and counts the fallback."""
     if harvest not in HARVEST_MODES:
         raise ValueError(f"harvest must be one of {'|'.join(HARVEST_MODES)}, got {harvest!r}")
     if depth < 1:
@@ -951,6 +1212,24 @@ def drain_backlog(
     wp = warm_path if warm_path is not None else default_warm_path()
     if pruning is not None and not pruning.enabled:
         pruning = None
+    ladder = ladder_for(resilience)
+    watchdog_s, max_wave_retries = None, 0
+    if ladder is not None:
+        watchdog_s = ladder.config.watchdog_seconds
+        max_wave_retries = ladder.config.max_wave_retries
+        # The open rungs, applied once (the JAX drain's order of consults).
+        if not ladder.allows("mesh"):
+            mesh = None
+        if not ladder.allows("pruning"):
+            pruning = None
+        if harvest == "resident" and not ladder.allows("resident"):
+            harvest = "scan"
+        if harvest == "scan" and not ladder.allows("scan"):
+            harvest = "pipeline"
+        if harvest == "pipeline" and not ladder.allows("pipeline"):
+            harvest = "wave"
+        if portfolio > 1 and not ladder.allows("portfolio"):
+            portfolio = 1
     scan_cfg = None
     if harvest in ("scan", "resident"):
         scan_cfg = scan if scan is not None else ScanConfig()
@@ -961,9 +1240,13 @@ def drain_backlog(
         pruning = None  # the JAX package never prunes a portfolio solve
     if donate is None:
         donate = donation_default(dev)
+    shard_fallback = 0
+    if mesh is not None and portfolio == 1:
+        resolve_layout(mesh, int(snapshot.free.shape[0]))  # None on one card
+        shard_fallback = int(mesh_requested(mesh))
     stats = DrainStats(gangs=len(gangs), harvest=harvest,
                        depth=depth if harvest in ("pipeline", "scan") else 0,
-                       portfolio=portfolio)
+                       portfolio=portfolio, shard_fallbacks=shard_fallback)
     if not gangs:
         return {}, stats
     # The warm path's counters are shared: report this drain's deltas.
@@ -976,7 +1259,8 @@ def drain_backlog(
         gangs=gangs, pods_by_name=pods_by_name, snapshot=snapshot, params=params, stats=stats,
         dev=dev, warm_path=wp, pruning=pruning, portfolio=portfolio, donate=bool(donate),
         retire_lag=retire_lag, record_stamps=harvest in ("wave", "pipeline", "scan"),
-        scan=scan_cfg, recorder=recorder,
+        scan=scan_cfg, recorder=recorder, faults=faults, watchdog_s=watchdog_s,
+        max_wave_retries=max_wave_retries,
     )
     fused = harvest in ("scan", "resident")
     t0 = time.perf_counter()

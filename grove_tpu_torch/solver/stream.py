@@ -55,10 +55,19 @@ the time counted in `DrainStats.compile_s`; the launch cache, device cache,
 candidate pruning with its escalation and the recorder behave as in
 drain_backlog.
 
-Like the port's drain_backlog, the streaming drain has no `mesh`, `faults`
-or `resilience` (the degradation ladder) yet: the ladder slice of the port
-brings all three to both drains. The JAX loop's ladder branches are all
-guarded by `ladder is not None`, so without them it runs this loop.
+The degradation ladder (`resilience`, solver/resilience.py) is where the
+always-on loop earns its keep: before each dispatch the loop reconciles
+the engine with the breaker states (an open `scan` rung dispatches wave by
+wave, an open `pruning` rung solves dense, an open `pipeline` rung retires
+serially, an open `resident` rung retires at the pipeline depth), and a
+wave that fails past the engine's own watchdog and retry budget charges the
+first active rung, so repeated failures walk the loop down to the dense,
+serial, per-wave configuration and probation walks it back up. A dispatch
+failure is resubmitted (a fused run's not-yet-enqueued waves, from
+`WaveFault.pending`, one by one) under the stepped-down config; a
+retirement failure leaves the wave at the queue head and retries it with
+fresh budget; at the bottom of the ladder the failure re-raises. Every rung
+admits the same set, so faults change latency, never placements.
 """
 
 from __future__ import annotations
@@ -69,7 +78,15 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from grove_tpu_torch.solver.core import SolverParams, resolve_device
-from grove_tpu_torch.solver.drain import DrainStats, ScanConfig, _WavePipeline, plan_waves
+from grove_tpu_torch.parallel.mesh import mesh_requested, resolve_layout
+from grove_tpu_torch.solver.drain import (
+    DrainStats,
+    ScanConfig,
+    WaveFault,
+    _WavePipeline,
+    plan_waves,
+)
+from grove_tpu_torch.solver.resilience import ladder_for
 from grove_tpu_torch.solver.warm import default_warm_path, donation_default
 
 
@@ -133,6 +150,10 @@ class StreamStats:
         if pct is not None:
             doc["bindP50S"] = round(pct[50.0], 4)
             doc["bindP99S"] = round(pct[99.0], 4)
+        # The fault-recovery ledger, only when something fired.
+        res = self.drain.resilience_doc()
+        if any(res.values()):
+            doc.update(res)
         return doc
 
 
@@ -151,6 +172,9 @@ def drain_stream(
     pace: bool = False,
     order_key=None,
     device=None,
+    mesh=None,
+    faults=None,
+    resilience=None,
 ) -> tuple[dict[str, dict[str, str]], StreamStats]:
     """Admit a live arrival trace; returns ({gang: {pod: node}}, StreamStats).
 
@@ -165,7 +189,10 @@ def drain_stream(
     scaled gangs, e.g. a tenancy tier) stable-sorts the queue before each
     window is sliced. `warm_path` None is the process-shared WarmPath;
     `pruning` and `recorder` as in drain_backlog (the carry is donated on
-    the card unless a plan or the recorder retains it). `device` None means
+    the card unless a plan, the recorder or resilience retains it).
+    `resilience` (a ResilienceConfig or a shared DegradationLadder) and
+    `faults` (a faults.FaultInjector; None = the process-installed one): see
+    the module docstring; `mesh` as in drain_backlog. `device` None means
     the card; "cpu" runs the plain PyTorch versions."""
     cfg = config or StreamConfig()
     params = params or SolverParams()
@@ -173,10 +200,15 @@ def drain_stream(
     wp = warm_path if warm_path is not None else default_warm_path()
     if pruning is not None and not getattr(pruning, "enabled", False):
         pruning = None
+    ladder = ladder_for(resilience)
     if cfg.depth < 1:
         raise ValueError(f"streaming depth must be >= 1, got {cfg.depth}")
     if cfg.wave_size < 1:
         raise ValueError(f"streaming waveSize must be >= 1, got {cfg.wave_size}")
+    shard_fallback = 0
+    if mesh is not None:
+        resolve_layout(mesh, int(snapshot.free.shape[0]))  # None on one card
+        shard_fallback = int(mesh_requested(mesh))
 
     # Fusion needs the pipelined engine; class-affine forming does not (it is
     # a function of the requested scan config, so a serial baseline handed
@@ -190,13 +222,13 @@ def drain_stream(
     affine = None
     if requested_scan is not None and not pace and int(requested_scan.affinity_lookahead) > 0:
         affine = requested_scan
-    resident = base_scan is not None and base_scan.device_resident and not pace
+    resident_req = base_scan is not None and base_scan.device_resident and not pace
 
     gangs_all = [g for _, g in arrivals]
     stats = StreamStats(
         offered=len(gangs_all),
         depth=cfg.depth if pipeline else 0,
-        mode=("resident" if resident else "scan" if base_scan is not None
+        mode=("resident" if resident_req else "scan" if base_scan is not None
               else ("pipeline" if pipeline else "serial")),
         paced=bool(pace),
     )
@@ -204,6 +236,7 @@ def drain_stream(
     dstats.gangs = len(gangs_all)
     dstats.harvest = stats.mode if pipeline else "wave"
     dstats.depth = stats.depth
+    dstats.shard_fallbacks = shard_fallback
     if not gangs_all:
         return {}, stats
 
@@ -218,39 +251,138 @@ def drain_stream(
                 # anchored after t0 shows as a negative latency.
                 stats.bind_latencies.append(wall - avail[g.name])
 
+    # The ladder's starting configuration and the engine's watchdog arms.
+    base_lag = cfg.depth if pipeline else 0
+    base_pruning = pruning
+    scan_cfg = base_scan
+    watchdog_s, max_wave_retries = None, 0
+    if ladder is not None:
+        watchdog_s = ladder.config.watchdog_seconds
+        max_wave_retries = ladder.config.max_wave_retries
+        if scan_cfg is not None and not ladder.allows("scan"):
+            scan_cfg = None
+        ladder.allows("mesh")  # consulted as the JAX loop does; one card has no layout
+        if not ladder.allows("pruning"):
+            pruning = None
+
+    def _effective_lag(scan_armed: bool) -> int | None:
+        """Where the host blocks: serial (0) with the pipeline rung open,
+        resident (None: retire at the final flush) when requested with the
+        resident rung and the scan dispatch up, else the pipelined depth."""
+        if ladder is not None and not ladder.allows("pipeline"):
+            return 0
+        if resident_req and scan_armed and (ladder is None or ladder.allows("resident")):
+            return None
+        return base_lag
+
     engine = _WavePipeline(
         gangs=gangs_all, pods_by_name=pods_by_name, snapshot=snapshot, params=params,
         stats=dstats, dev=dev, warm_path=wp, pruning=pruning, donate=donation_default(dev),
-        retire_lag=None if resident else (cfg.depth if pipeline else 0),
-        record_stamps=True, scan=base_scan, recorder=recorder, wave_prefix="stream",
-        on_commit=on_commit,
+        retire_lag=_effective_lag(scan_cfg is not None), record_stamps=True, scan=scan_cfg,
+        recorder=recorder, wave_prefix="stream", on_commit=on_commit, faults=faults,
+        watchdog_s=watchdog_s, max_wave_retries=max_wave_retries,
     )
 
+    def _active_rungs() -> tuple:
+        """The rungs at full config: the ones a new failure can step down
+        (attribution order is resilience.SUBSYSTEMS)."""
+        active = []
+        if resident_req and engine.retire_lag is None and engine.scan is not None:
+            active.append("resident")
+        if engine.scan is not None:
+            active.append("scan")
+        if engine.pruning is not None:
+            active.append("pruning")
+        if engine.retire_lag != 0:
+            active.append("pipeline")
+        return tuple(active)
+
+    def _reconcile_ladder() -> None:
+        """Engine config <- breaker states: step open rungs down, step
+        probation-expired rungs back up (a half-open trial: the next wave
+        runs at full config; its outcome closes or re-opens the breaker).
+        One card has no layout, so the `mesh` rung is never consulted here
+        (the JAX loop consults it only around a layout)."""
+        engine.set_scan(base_scan if ladder.allows("scan") else None)
+        engine.set_pruning(base_pruning if ladder.allows("pruning") else None)
+        engine.set_retire_lag(_effective_lag(engine.scan is not None))
+
+    def _charge(e: WaveFault) -> None:
+        """A wave failed past the engine's retry budget: charge the first
+        active rung and step the engine down, or re-raise when there is no
+        ladder, the fault is fatal, or no rung is left."""
+        if ladder is None or e.fatal:
+            raise e
+        if ladder.record_failure(active=_active_rungs()) is None:
+            raise e  # the bottom of the ladder, still failing
+        _reconcile_ladder()
+
+    def _retire_down(to_lag: bool) -> None:
+        """Retire down to the pipeline depth (or everything, at the final
+        flush) under the ladder: a retirement failure leaves the wave at the
+        queue head, steps the ladder down, and the next attempt retries it
+        with fresh watchdog budget — a hung wave degrades the loop, it never
+        loses a gang."""
+        if not to_lag and engine.retire_lag is None:
+            engine.harvest_inflight()
+        while engine.retire_due() if to_lag else engine.inflight:
+            try:
+                engine._retire_next()
+                if ladder is not None:
+                    ladder.record_success()
+            except WaveFault as e:
+                _charge(e)
+
     def _submit(ws) -> None:
-        # Lazy preparation of a first-seen shape's launch.
-        tc = time.perf_counter()
-        if engine.warm_shape(ws):
-            dstats.compile_s += time.perf_counter() - tc
-        engine.submit(ws)
+        # retire=False: a failure here means the wave was NOT enqueued, so
+        # the same wave is resubmitted under the stepped-down config.
+        while True:
+            try:
+                if ladder is not None:
+                    _reconcile_ladder()
+                tc = time.perf_counter()  # lazy preparation of a first-seen shape
+                if engine.warm_shape(ws):
+                    dstats.compile_s += time.perf_counter() - tc
+                engine.submit(ws, retire=False)
+                if ladder is not None:
+                    ladder.record_success()
+                break
+            except WaveFault as e:
+                _charge(e)
+        _retire_down(to_lag=True)
 
     # Fusion buffer: consecutive same-class planned waves awaiting one
     # scanned dispatch (only ever filled while saturated with the scan on).
     run_buf: list = []
 
     def _submit_run(run: list) -> None:
-        """Dispatch a same-class run fused; runs shorter than
+        """Dispatch a same-class run fused; a failure past the retry budget
+        charges the ladder and resubmits exactly the not-yet-enqueued tail
+        (wave by wave once the scan rung is open). Runs shorter than
         min_waves_per_class go wave by wave."""
-        if engine.scan is None or len(run) < max(1, int(engine.scan.min_waves_per_class)):
-            for ws in run:
-                _submit(ws)
-            return
-        tc = time.perf_counter()
-        warmed = engine.warm_shape(run[0])
-        warmed = engine.warm_scan(run) or warmed
-        if warmed:
-            dstats.compile_s += time.perf_counter() - tc
-        engine.submit_scan(run, retire=False)
-        engine._retire_down()
+        pending = run
+        while pending:
+            if ladder is not None:
+                _reconcile_ladder()
+            if engine.scan is None or len(pending) < max(1, int(engine.scan.min_waves_per_class)):
+                for ws in pending:
+                    _submit(ws)
+                return
+            try:
+                tc = time.perf_counter()
+                warmed = engine.warm_shape(pending[0])
+                warmed = engine.warm_scan(pending) or warmed
+                if warmed:
+                    dstats.compile_s += time.perf_counter() - tc
+                engine.submit_scan(pending, retire=False)
+                if ladder is not None:
+                    ladder.record_success()
+                pending = []
+            except WaveFault as e:
+                rest = e.pending if e.pending is not None else pending
+                _charge(e)
+                pending = rest
+            _retire_down(to_lag=True)
 
     def _flush_run() -> None:
         if run_buf:
@@ -262,9 +394,12 @@ def drain_stream(
         cross-window fused runs while the scan is on (saturated), a class
         change or a full chunk flushing the run; wave by wave otherwise."""
         if engine.scan is not None and not pace:
+            # The chunk length is the requested config's: a flush below can
+            # step the scan rung down mid-list (engine.scan None), and the
+            # buffered run then goes wave by wave in the same order.
+            max_len = max(1, int(base_scan.max_scan_len))
             for ws in planned:
-                if run_buf and (run_buf[0][1:] != ws[1:]
-                                or len(run_buf) >= max(1, int(engine.scan.max_scan_len))):
+                if run_buf and (run_buf[0][1:] != ws[1:] or len(run_buf) >= max_len):
                     _flush_run()
                 run_buf.append(ws)
         else:
@@ -292,7 +427,8 @@ def drain_stream(
                 out.extend((ws[0], ws[1], pad) for ws in members)
         return out
 
-    # Planned waves of up to (1 + affinity_lookahead) windows awaiting reorder.
+    # Planned waves of up to (1 + affinity_lookahead) windows awaiting
+    # reorder: a function of the requested scan config, never of the ladder.
     wave_buf: list = []
     buf_windows = 0
     lookahead = int(affine.affinity_lookahead) if affine is not None else 0
@@ -346,13 +482,16 @@ def drain_stream(
             if engine.inflight:
                 # The host is idle until the next arrival: retire the oldest
                 # wave in flight now rather than wait on it later.
-                engine._retire_next()
+                try:
+                    engine._retire_next()
+                except WaveFault as e:
+                    _charge(e)
             else:
                 next_due = (t0 + arrivals[i][0]) if i < n else now
                 time.sleep(min(POLL_S, max(0.0, next_due - now)))
     _flush_group()  # the trace is exhausted: any partial look-ahead group
     _flush_run()  # ... and any fused run still buffering
-    engine.flush()  # resident: one wait harvests every wave first
+    _retire_down(to_lag=False)  # resident: one wait harvests every wave first
     dstats.free_after = engine.free.cpu().numpy()
     stats.wall_s = time.perf_counter() - t0
     dstats.total_s = stats.wall_s

@@ -410,6 +410,11 @@ class TraceRecorder:
             nonlocal dirty, last_flush, segment, seg_digests
             if segment:
                 try:
+                    # The `recorder.write` fault site (an injected ENOSPC
+                    # takes the counting-drops path below).
+                    from grove_tpu_torch import faults as faults_mod
+
+                    faults_mod.active().maybe_raise("recorder.write", records=len(segment))
                     atomic_write_json(
                         os.path.join(self.path, f"segment-{seq:06d}.json"),
                         {

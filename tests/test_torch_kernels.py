@@ -1556,3 +1556,87 @@ def test_sweep_kernel_equals_plain(cuda, case):
 @pytest.mark.gpu
 def test_sweep_rows_equal_single_launches_on_card(cuda):
     _sweep_rows_vs_single_launches(_card_sweep_launch, _card_launch, "spread", cuda)
+
+
+# ---- resilience on the card: re-dispatch from retained carries ------------------
+
+
+@pytest.mark.gpu
+def test_redispatch_from_retained_carry_equals_original_on_card(cuda):
+    """A wave re-dispatched (watchdog path) from its retained entering carry,
+    with two successors already enqueued on the carry it produced, gives
+    the original launch's verdicts at tolerance 0 and leaves the live carry
+    — object and values — untouched."""
+    from grove_tpu_torch.solver.drain import DrainStats, _WavePipeline, plan_waves
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    gangs, pods, snap = _bench(PORT, n=(18, 12, 15))
+    stats = DrainStats()
+    eng = _WavePipeline(gangs=gangs, pods_by_name=pods, snapshot=snap, params=SolverParams(),
+                        stats=stats, dev=cuda, warm_path=WarmPath(), retire_lag=None,
+                        max_wave_retries=1)
+    assert eng.retain_carries and not eng.donate
+    for ws in plan_waves(gangs, 16)[:3]:
+        eng.submit(ws, retire=False)
+    torch.cuda.synchronize()
+    live, okg = eng.free, eng.ok_g
+    live_copy, okg_copy = live.clone(), okg.clone()
+    rec = eng.inflight[0]
+    first = [h.clone() for h in rec["host"]]
+    free_in_copy = rec["free_in"].clone()
+    eng.cancel_wave(rec)
+    eng._redispatch(rec)
+    rec["event"].synchronize()
+    for a, b in zip(rec["host"], first):
+        assert torch.equal(a, b)
+    assert eng.free is live and torch.equal(live, live_copy) and torch.equal(eng.ok_g, okg_copy)
+    assert torch.equal(rec["free_in"], free_in_copy)
+    eng.flush()
+    assert stats.wave_redispatches == 1 and stats.waves == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("harvest", ["scan", "pipeline"])
+def test_retained_chunk_under_injected_harvest_timeout_equals_fault_free_on_card(cuda, harvest):
+    """A B4 chunk launched with retain=True (faults armed) whose first wave's
+    fetch is hit by an injected harvest timeout: that wave re-dispatches
+    alone from the chunk's retained step carry, the chunk's other waves keep
+    their fetch, and the bindings and free_after equal the fault-free run."""
+    from grove_tpu_torch.faults import FaultInjector, SiteSpec
+    from grove_tpu_torch.solver.drain import ScanConfig
+    from grove_tpu_torch.solver.resilience import ResilienceConfig
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    gangs, pods, snap = _bench(PORT, n=(18, 12, 15))
+    kw = dict(wave_size=8, harvest=harvest, depth=2, scan=ScanConfig(max_scan_len=4))
+    base, base_stats = drain_backlog(gangs, pods, snap, warm_path=WarmPath(), **kw)
+    inj = FaultInjector({"solver.harvest": SiteSpec(kind="timeout", count=1)}, seed=0)
+    pwm.reset_launches()
+    got, stats = drain_backlog(gangs, pods, snap, warm_path=WarmPath(), faults=inj,
+                               resilience=ResilienceConfig(enabled=True, max_wave_retries=1),
+                               **kw)
+    assert got == base
+    assert np.array_equal(stats.free_after, base_stats.free_after)
+    assert (stats.watchdog_timeouts, stats.wave_redispatches) == (1, 1)
+    assert not stats.donated
+    if harvest == "scan":
+        assert stats.scan_chunks >= 1 and pwm.place_wave.variant_launches["scan"] >= 1
+        assert pwm.place_wave.variant_launches["dense"] >= 1  # the re-dispatch
+
+
+@pytest.mark.gpu
+def test_plan_migrations_on_card_equals_plain(cuda):
+    from grove_tpu_torch.bench import defrag_world
+    from grove_tpu_torch.solver.defrag import plan_migrations
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    topo, nodes, gangs, pods, _, _ = defrag_world(0.25)
+    want = plan_migrations(nodes, topo, gangs, dict(pods), warm=WarmPath(),
+                           max_moves=len(gangs), device="cpu")
+    pwm.reset_launches()
+    got = plan_migrations(nodes, topo, gangs, dict(pods), warm=WarmPath(),
+                          max_moves=len(gangs))
+    assert pwm.place_wave.variant_launches["dense"] == got.candidates_evaluated > 0
+    assert [(m.gang, m.bindings) for m in got.moves] == [(m.gang, m.bindings) for m in want.moves]
+    assert (got.pods_migrated, got.capacity_recovered) == (want.pods_migrated,
+                                                           want.capacity_recovered)

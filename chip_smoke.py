@@ -183,13 +183,31 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               capacity, equal to the plain versions'; then at scale 20
               (5120 nodes, 640 squatters) on the card alone: plan_solve_s,
               candidates_evaluated, pods_migrated, the admission gates
- 15. kernels  one JSON line: per kernel variant its launches on the main
+ 15. serving  the port's GroveController (recorder on) under the Simulator
+              on the card: (a) bench.py's default backlog (900 sets, 1250
+              gangs, 10,000 pods) on its 5120-node fleet until every pod is
+              Ready — every gang's base scheduled, no node over capacity as
+              the sum of its pods' requests, every set Available, the
+              journal replayed on the CPU's plain versions with 0
+              divergences (the first floors wave alone if it took more
+              than 60 s); per tick its wall, reconcile phases and host
+              stages, the solve passes and launches printed; (b) bench.py's
+              replay scenario (16 nodes of 8 cpus, 5 rack-packed jobs): 0
+              divergences, at least one "portfolio" launch for the
+              rejected job, OFF/ON walls, the document equal to the CPU
+              run's, seconds aside; (c) a 256-node churn world (contended
+              backlog with priority classes, a node death, a cordon, a
+              revocation notice, defrag on) under a card controller and a
+              CPU controller in lockstep: the stores equal after every
+              step, the journals equal, seconds aside
+ 16. kernels  one JSON line: per kernel variant its launches on the main
               path (phases 4-9 as before, plus `launches_stream`,
-              `launches_tune`, `launches_chaos` and `launches_defrag`, the
-              launches of phases 11-14, added to the first row of their
-              variant), its error against the plain version, its time, the
-              plain version's time, its bound and a library call's time
- 16. the last line: {"ok": true, "device": {...}}
+              `launches_tune`, `launches_chaos`, `launches_defrag` and
+              `launches_serving`, the launches of phases 11-15, added to
+              the first row of their variant), its error against the plain
+              version, its time, the plain version's time, its bound and a
+              library call's time
+ 17. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -804,7 +822,12 @@ def main() -> int:
 
     phase_done("14, defrag")
 
-    # ---- 15. kernels line ----------------------------------------------------
+    # ---- 15. serving: GroveController under the Simulator on the card ---------
+    serving_launches = serving_phase(dev, card)
+
+    phase_done("15, serving")
+
+    # ---- 16. kernels line ----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": add_path_launches([
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
@@ -826,7 +849,7 @@ def main() -> int:
         *sc["rows"],
         sw["row"],
     ], {"stream": stream_launches, "tune": tune_launches, "chaos": chaos_launches,
-        "defrag": defrag_launches})}))
+        "defrag": defrag_launches, "serving": serving_launches})}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2295,6 +2318,91 @@ def defrag_phase(dev, card) -> dict:
         for n in nodes:
             n.schedulable = True
     print(f"defrag launches: {total}; phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def serving_phase(dev, card) -> dict:
+    """Phase 15: the port's GroveController under the Simulator on the card —
+    (a) bench.py's default backlog served on its 5120-node fleet until every
+    pod is Ready, its journal replayed on the CPU's plain versions; (b)
+    bench.py's replay scenario (recorder OFF/ON, replay, +1-rack what-if)
+    against the same scenario on the CPU; (c) the 256-node churn world under
+    a card controller and a CPU controller in lockstep, the stores equal
+    after every step. Returns the launches per variant of the three runs."""
+    import torch
+
+    from grove_tpu_torch.bench import (
+        replay_doc_core,
+        run_replay_bench,
+        run_serving_bench,
+        run_serving_lockstep,
+    )
+    from grove_tpu_torch.kernels.place_wave import VARIANTS, place_wave, reset_launches
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(VARIANTS, 0)
+
+    def count(launches):
+        for k, v in (launches or {}).items():
+            total[k] += v
+
+    # (a) full size. run_serving_bench zeroes the counts before the first
+    # tick and reads them after the last.
+    a = run_serving_bench(device=dev)
+    count(a["launches"])
+    log = a.pop("tick_log")
+    for t in log:
+        print(f"serving[tick {t['now']:.0f}]: wall {t['wall_s']:.4f} s, pods {t['pods']} bound "
+              f"{t['bound']} ready {t['ready']}, phases "
+              f"{ {k: round(v, 4) for k, v in t['phases_s'].items()} }"
+              + (f", host stages {t['host_stages']}" if "host_stages" in t else ""))
+    print(f"serving[5120 nodes, 10k pods]: { {k: v for k, v in a.items()} } on {card}")
+    check(a["gangs_base_scheduled"] == a["gangs"] == 1250,
+          f"serving: {a['gangs_base_scheduled']}/{a['gangs']} gangs scheduled")
+    check(not a["overcommitted_nodes"], f"serving: nodes over capacity {a['overcommitted_nodes']}")
+    check(a["sim_s_to_all_ready"] is not None and a["pcs_available"] == a["podcliquesets"],
+          f"serving: ready at {a['sim_s_to_all_ready']}, "
+          f"{a['pcs_available']}/{a['podcliquesets']} PodCliqueSets available")
+    check(a["replayed_waves"] >= 1 and a["divergences"] == 0,
+          f"serving: CPU replay of {a['replayed_waves']}/{a['journal_waves']} waves, "
+          f"{a['divergences']} divergences")
+    check(a["ok"], "serving: a gate failed")
+    print(f"serving: journal replayed on the CPU's plain versions ({a['replay_scope']}: "
+          f"{a['replayed_waves']}/{a['journal_waves']} waves, first floors wave "
+          f"{a['first_floors_gangs']} gangs in {a['first_floors_replay_s']:.2f} s), "
+          f"0 divergences")
+
+    # (b) bench.py's replay scenario, on the card and then on the CPU.
+    sync(dev)
+    reset_launches()
+    b = run_replay_bench(device=dev)
+    sync(dev)
+    b_launches = dict(place_wave.variant_launches)
+    count(b_launches)
+    print(f"replay scenario: { {k: v for k, v in b.items() if k != 'recorder_stats'} }, "
+          f"launches { {k: v for k, v in b_launches.items() if v} } on {card}")
+    check(b["value"] == 0, f"replay scenario: {b['value']} divergences")
+    check(b_launches["portfolio"] >= 1,
+          f"replay scenario: no portfolio launch for the rejected job ({b_launches})")
+    b_cpu = run_replay_bench(device="cpu")
+    check(replay_doc_core(b) == replay_doc_core(b_cpu),
+          "replay scenario: the card's document != the CPU's (wall-clock keys aside)")
+    print(f"replay scenario: OFF {b['drain_wall_off_s']:.4f} s, ON {b['drain_wall_on_s']:.4f} s "
+          f"(overhead {b['record_overhead_frac']:.4f}); == the CPU's document, seconds aside")
+
+    # (c) the churn world, card against CPU, step by step.
+    sync(dev)
+    reset_launches()
+    c = run_serving_lockstep(devices=(dev, "cpu"))
+    sync(dev)
+    c_launches = dict(place_wave.variant_launches)
+    count(c_launches)
+    print(f"lockstep[card == CPU, {c['nodes']} nodes]: {c}, card launches "
+          f"{ {k: v for k, v in c_launches.items() if v} }")
+    check(not c["overcommitted_nodes"] and c["bound"] > 0,
+          f"lockstep: bound {c['bound']}, over capacity {c['overcommitted_nodes']}")
+    print(f"serving launches: {total}; phase {time.perf_counter() - t_phase:.1f} s")
     return total
 
 

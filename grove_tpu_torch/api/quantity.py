@@ -4,7 +4,10 @@ Parity target: resource requests in PodSpecs, e.g. `cpu: 10m`, `memory: 1Gi`,
 `nvidia.com/gpu: 8` (reference sample workloads, operator/samples/**.yaml). We
 normalize every quantity to a float in base units (cores for cpu, bytes for
 memory, count for extended resources) so cluster snapshots are dense float32
-arrays (see grove_tpu_torch/state/cluster.py).
+tensors (see grove_tpu/state/cluster.py).
+
+The port's copy of grove_tpu/api/quantity.py, whole; it imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -50,3 +53,13 @@ def parse_quantity(value: str | int | float) -> float:
     if suffix in _DECIMAL_SUFFIXES:
         return base * _DECIMAL_SUFFIXES[suffix]
     raise ValueError(f"unknown quantity suffix {suffix!r} in {value!r}")
+
+
+def format_quantity(value: float) -> str:
+    """Render a float back into a compact quantity string (for status display)."""
+    if value == int(value):
+        return str(int(value))
+    milli = value * 1000
+    if milli == int(milli):
+        return f"{int(milli)}m"
+    return repr(value)

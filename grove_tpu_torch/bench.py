@@ -78,16 +78,32 @@ unplaceable until the migration planner consolidates them; the plan's
 solve time, moves, the big gang admitted after them and a warm re-plan with
 no preparation.
 
+--scenario replay drives bench.py's replay scenario (`run_replay_bench`, its
+keys) through the port's GroveController under the Simulator: 16 nodes of 8
+cpus, 5 rack-packed jobs (one rack too many), drained with the recorder off
+and on (the record overhead), the journal replayed (the divergences) and a
++1-rack what-if over it; solves, the replay and the what-if on the card.
+
+--scenario serving serves bench.py's default backlog (900 sets, 1250 gangs,
+10,000 pods) on its 5120-node fleet through GroveController (recorder on)
+under the Simulator until every pod is Ready (`run_serving_bench`): ticks,
+sim seconds to all-bound and all-Ready, each tick's wall, reconcile phases
+and host stages, the solve passes, launches per variant, the floors wave's
+solve time by CUDA events, and the gates (every gang scheduled, no node over
+capacity, every set Available, the journal replayed on the CPU's plain
+versions with 0 divergences).
+
   --scale S         default: cluster racks and backlog size times S (1.0);
                     stream: trace seconds and racks per block times S;
                     sweep: trace seconds and the scan journal's scenario times S;
-                    defrag: blocks times S
+                    defrag: blocks times S; replay: racks times S;
+                    serving: racks per block times S
                     (1: 256 nodes, 20: 5120 nodes)
   --portfolio P     default: weight variants per wave and per solve (1)
   --no-baseline     default: skip the greedy baseline and the quality fields
   --harvest H       default: "wave" re-drains for measured latencies; "chained" skips it
   --scales A,B,..   scale: fleet scales (default 1,2,4)
-  --backlog-frac F  scale: backlog size times F (default 1.0)
+  --backlog-frac F  scale, serving: backlog size times F (default 1.0)
   --prune-max K     scale: candidate budget (default 8191)
   --min-fleet M     scale: smallest fleet that prunes (default 256)
   --k K             sweep: configs in the grid (default 16)
@@ -1348,10 +1364,581 @@ def run_defrag_bench(scale: float = 1.0, device=None) -> dict:
     return out
 
 
+# ---- the serving path: GroveController under the Simulator -----------------------
+
+# Reconcile phases timed per tick by the serving bench (GroveController.reconcile's
+# calls, in order).
+RECONCILE_PHASES = ("sync_workload", "rolling_updates", "revocation_tick", "solve_pending",
+                    "update_statuses", "gang_termination", "maybe_defrag")
+# Keys of the replay document that carry wall-clock time or a temporary path;
+# a card run and a CPU run agree on every other key.
+REPLAY_WALL_KEYS = ("drain_wall_off_s", "drain_wall_on_s", "record_overhead_frac",
+                    "vs_baseline", "recorded_solve_s", "replayed_solve_s")
+RECORDER_WALL_KEYS = ("path", "segmentsWritten", "manifestWrites", "queueDepth")
+# The controller's counters and in-flight maps a serving comparison holds
+# equal beside the store.
+CONTROLLER_COUNTERS = ("solve_pass_counts", "quality_counts", "resilience_counts",
+                       "defrag_counts", "rollout_counts", "revocation_counts",
+                       "_defrag_migrating", "_defrag_migrated_at", "_preempted_for_at",
+                       "_reclaimed_for_at", "_pending_since", "_aging_boost",
+                       "_reclaim_evicting", "_rollout_replacing", "last_admission_scores")
+# A serving run's CPU replay: past this many seconds for the first floors
+# wave the other waves are left out.
+REPLAY_BUDGET_S = 60.0
+SERVING_MAX_TICKS = 40
+
+
+def plain_view(o):
+    """A structural, order-keeping view of a host object (dataclasses by
+    type name and field, enums by value, numpy scalars as Python values);
+    a managed secret's random token is left out."""
+    import dataclasses
+    import enum
+
+    if o is None or isinstance(o, (bool, str)):
+        return o
+    if isinstance(o, enum.Enum):
+        return o.value
+    if isinstance(o, (int, float, np.integer, np.floating, np.bool_)):
+        return o.item() if hasattr(o, "item") else o
+    if dataclasses.is_dataclass(o):
+        return (type(o).__name__, [(f.name, plain_view(getattr(o, f.name)))
+                                   for f in dataclasses.fields(o) if f.name != "token"])
+    if isinstance(o, dict):
+        return [(k if isinstance(k, str) else plain_view(k), plain_view(v)) for k, v in o.items()]
+    if isinstance(o, (list, tuple)) or hasattr(o, "maxlen"):
+        return [plain_view(x) for x in o]
+    if isinstance(o, (set, frozenset)):
+        return sorted(plain_view(x) for x in o)
+    return repr(o)
+
+
+def store_view(cluster, ctrl) -> dict:
+    """Everything a serving run leaves in the store, and the controller's
+    counters and tenancy ledger: each node, PodCliqueSet (with its status),
+    PodClique, scaling group, PodGang, pod and managed resource, the events
+    list in order."""
+    doc = {k: plain_view(getattr(cluster, k)) for k in (
+        "nodes", "podcliquesets", "podcliques", "scaling_groups", "podgangs", "pods",
+        "services", "hpas", "service_accounts", "roles", "role_bindings", "secrets",
+        "scale_overrides", "events")}
+    doc["events_total"] = cluster.events_total
+    for k in CONTROLLER_COUNTERS:
+        doc["ctrl." + k] = plain_view(getattr(ctrl, k))
+    doc["ctrl.tenancy_ledger"] = ctrl.tenancy_ledger.snapshot()
+    return doc
+
+
+def serving_state(cluster, ctrl) -> dict:
+    """The part of `store_view` a step changes, cheap enough to compare
+    after every step: each pod's node, phase, readiness, gates, stamps and
+    index, each node's schedulable and revocation state, each gang's phase,
+    conditions and score, each PodClique's and PodCliqueSet's status, the
+    events list and the controller's counters."""
+    doc = {
+        "pods": [(p.name, p.node_name, p.phase.value, p.ready, tuple(p.scheduling_gates),
+                  p.deletion_timestamp, p.started_at, p.crashlooping, p.pod_index)
+                 for p in cluster.pods.values()],
+        "nodes": [(n.name, n.schedulable, n.revocable, n.revocation_deadline)
+                  for n in cluster.nodes.values()],
+        "podgangs": [(g.name, plain_view(g.status)) for g in cluster.podgangs.values()],
+        "podcliques": [(c.metadata.name, plain_view(c.status))
+                       for c in cluster.podcliques.values()],
+        "podcliquesets": [(p.metadata.name, plain_view(p.status))
+                          for p in cluster.podcliquesets.values()],
+        "events": list(cluster.events),
+        "events_total": cluster.events_total,
+    }
+    for k in CONTROLLER_COUNTERS:
+        doc["ctrl." + k] = plain_view(getattr(ctrl, k))
+    return doc
+
+
+def first_difference(a, b, path: str = "") -> str:
+    """Where two views first differ, as a path and the two values."""
+    if type(a) is not type(b):
+        return f"{path}: {a!r} != {b!r}"
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return f"{path}: length {len(a)} != {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_difference(x, y, f"{path}[{i}]")
+    if isinstance(a, dict):
+        for k in a:
+            if a[k] != b.get(k):
+                return first_difference(a[k], b.get(k), f"{path}.{k}")
+    return f"{path}: {a!r:.200} != {b!r:.200}"
+
+
+def strip_wall(x, keys=("solveSeconds", "planSolveSeconds", "planEncodeSeconds",
+                        "planDecodeSeconds")):
+    """A document (or journal) without its wall-clock fields."""
+    if isinstance(x, dict):
+        return {k: strip_wall(v, keys) for k, v in x.items() if k not in keys}
+    if isinstance(x, list):
+        return [strip_wall(v, keys) for v in x]
+    return x
+
+
+def node_overcommit(cluster) -> list[str]:
+    """Nodes whose bound, active pods request more than the node holds, as
+    the sum of the pods' requests (independent of any snapshot)."""
+    used: dict[str, dict[str, float]] = {}
+    for p in cluster.pods.values():
+        if p.is_scheduled and p.is_active:
+            acc = used.setdefault(p.node_name, {})
+            for res, qty in p.spec.total_requests().items():
+                acc[res] = acc.get(res, 0.0) + qty
+    return sorted(name for name, acc in used.items()
+                  if name not in cluster.nodes
+                  or any(q > cluster.nodes[name].capacity.get(r, 0.0) + 1e-6
+                         for r, q in acc.items()))
+
+
+def timed_reconcile(ctrl) -> dict:
+    """Time each reconcile phase of `ctrl` (RECONCILE_PHASES): the returned
+    dict accumulates seconds per phase until the caller clears it."""
+    spent = {name: 0.0 for name in RECONCILE_PHASES}
+
+    def wrap(name):
+        fn = getattr(ctrl, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+
+        setattr(ctrl, name, timed)
+
+    for name in RECONCILE_PHASES:
+        wrap(name)
+    return spent
+
+
+def serving_world(scale: float = 1.0, frac: float = 1.0):
+    """(topology, nodes, backlog): bench.py's default scenario as a serving
+    workload — the synthetic cluster (4 zones x 4 blocks x 16 x `scale`
+    racks x 20 hosts; 5120 nodes at 1) and the synthetic backlog at `frac`
+    of its size (900 PodCliqueSets, 1250 gangs, 10,000 pods at 1)."""
+    from grove_tpu_torch.sim.workloads import bench_topology, synthetic_backlog, synthetic_cluster
+
+    nodes = synthetic_cluster(racks_per_block=max(1, round(16 * scale)))
+    backlog = synthetic_backlog(n_disagg=max(1, round(350 * frac)),
+                                n_agg=max(1, round(250 * frac)),
+                                n_frontend=max(1, round(300 * frac)))
+    return bench_topology(), nodes, backlog
+
+
+def replay_first_floors_then_rest(records) -> dict:
+    """Replay the journal's first floors wave alone on the CPU's plain
+    versions, then, if that took no more than REPLAY_BUDGET_S, every other
+    wave: (waves replayed of the journal's waves, divergences, seconds)."""
+    from grove_tpu_torch.trace.replay import replay_journal
+
+    waves = [r for r in records if r.get("kind") == "wave"]
+    fleets = [r for r in records if r.get("kind") == "fleet"]
+    first = next((r for r in waves if r.get("wave") == "floors"), None)
+    out = {"journal_waves": len(waves), "replayed_waves": 0, "divergences": 0,
+           "replay_s": 0.0, "replay_scope": "none"}
+    if first is None:
+        return out
+    t0 = time.perf_counter()
+    rep = replay_journal(fleets + [first], device="cpu")
+    first_s = time.perf_counter() - t0
+    out.update(replayed_waves=len(rep.waves), divergences=rep.divergence_count,
+               replay_s=first_s, first_floors_replay_s=first_s,
+               first_floors_gangs=rep.waves[0].gangs if rep.waves else 0)
+    rest = [r for r in waves if r is not first]
+    if first_s <= REPLAY_BUDGET_S and rest:
+        t0 = time.perf_counter()
+        rep2 = replay_journal(fleets + rest, device="cpu")
+        out["replay_s"] += time.perf_counter() - t0
+        out["replayed_waves"] += len(rep2.waves)
+        out["divergences"] += rep2.divergence_count
+    out["replay_scope"] = ("every wave" if out["replayed_waves"] == len(waves)
+                           else "first floors wave")
+    return out
+
+
+def time_wave_solve(records, dev) -> tuple[float, int]:
+    """The journal's first floors wave re-solved on the card through its own
+    WarmPath: (ms per solve by CUDA events, after one untimed solve; the
+    wave's gangs). A solve here is solve() on the recorded snapshot and
+    batch: the batch's upload, the launch and its verdicts."""
+    import torch
+
+    from grove_tpu_torch.solver.core import SolverParams, solve
+    from grove_tpu_torch.solver.warm import WarmPath
+    from grove_tpu_torch.trace.replay import encode_wave_record, snapshot_from_wave
+
+    fleets = {r["digest"]: r for r in records if r.get("kind") == "fleet"}
+    wave = next(r for r in records if r.get("kind") == "wave" and r.get("wave") == "floors")
+    snap = snapshot_from_wave(wave, fleets[wave["fleet"]])
+    batch, decode = encode_wave_record(wave, snap)
+    params = SolverParams(*wave["solver"]["params"])
+    warm = WarmPath()
+    solve(snap, batch, params, device=dev, warm=warm)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    e0.record()
+    for _ in range(5):
+        solve(snap, batch, params, device=dev, warm=warm)
+    e1.record()
+    torch.cuda.synchronize(dev)
+    return e0.elapsed_time(e1) / 5, len(decode.gang_names)
+
+
+def run_serving_bench(scale: float = 1.0, frac: float = 1.0, device=None) -> dict:
+    """The serving path at bench.py's default size: apply the synthetic
+    backlog to a `Cluster` of the synthetic fleet and run `GroveController`
+    (recorder on) under `Simulator` until every pod is Ready. Reports ticks,
+    the sim seconds to all-bound and all-Ready, each tick's wall, its
+    reconcile phases and host stages (encodeS, solveS, decodeS), the solve
+    passes, the launches per kernel variant; gates: every gang's base
+    scheduled, no node over capacity, every pod Ready, every PodCliqueSet
+    Available, and the journal replayed on the CPU's plain versions with 0
+    divergences (`replay_first_floors_then_rest`)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from grove_tpu_torch.orchestrator.controller import GroveController
+    from grove_tpu_torch.orchestrator.store import Cluster
+    from grove_tpu_torch.sim.simulator import Simulator
+    from grove_tpu_torch.solver.core import resolve_device
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    topo, nodes, backlog = serving_world(scale, frac)
+    cluster = Cluster()
+    for n in nodes:
+        cluster.nodes[n.name] = n
+    journal = tempfile.mkdtemp(prefix="grove-serving-journal-")
+    rec = TraceRecorder(journal)
+    rec.start()
+    ctrl = GroveController(cluster=cluster, topology=topo, device=dev, recorder=rec)
+    sim = Simulator(cluster=cluster, controller=ctrl)
+    spent = timed_reconcile(ctrl)
+    for pcs in backlog:
+        cluster.podcliquesets[pcs.metadata.name] = pcs
+    setup_s = time.perf_counter() - t0
+    reset, read = launch_counter(dev)
+    reset()
+    ticks, bound_at, ready_at = [], None, None
+    passes = dict(ctrl.solve_pass_counts)
+    try:
+        while len(ticks) < SERVING_MAX_TICKS:
+            for k in spent:
+                spent[k] = 0.0
+            t1 = time.perf_counter()
+            sim.step()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            now_passes = dict(ctrl.solve_pass_counts)
+            solved = now_passes != passes
+            passes = now_passes
+            active = [p for p in cluster.pods.values() if p.is_active]
+            tick = {"now": sim.now, "wall_s": wall, "phases_s": dict(spent),
+                    "pods": len(active), "bound": sum(p.is_scheduled for p in active),
+                    "ready": sum(p.ready for p in active)}
+            if solved:
+                tick["host_stages"] = dict(ctrl.last_host_stages)
+            ticks.append(tick)
+            if bound_at is None and active and tick["bound"] == len(active):
+                bound_at = sim.now
+            if active and tick["ready"] == len(active):
+                ready_at = sim.now
+                break
+    finally:
+        rec.stop()
+    launches = read()
+    records = read_journal(journal)
+    shutil.rmtree(journal, ignore_errors=True)
+    gangs = list(cluster.podgangs.values())
+    scheduled = sum(1 for g in gangs if g.is_base_gang_scheduled())
+    available = sum(1 for p in cluster.podcliquesets.values()
+                    if p.status.available_replicas == p.spec.replicas)
+    over = node_overcommit(cluster)
+    replay = replay_first_floors_then_rest(records)
+    walls = [t["wall_s"] for t in ticks]
+    out = {
+        "scenario": "serving",
+        "device": str(dev),
+        "nodes": len(nodes),
+        "podcliquesets": len(backlog),
+        "gangs": len(gangs),
+        "pods": len(cluster.pods),
+        "setup_s": setup_s,
+        "ticks": len(ticks),
+        "sim_s_to_all_bound": bound_at,
+        "sim_s_to_all_ready": ready_at,
+        "wall_s_total": sum(walls),
+        "wall_s_per_tick_mean": sum(walls) / max(1, len(walls)),
+        "wall_s_per_tick_max": max(walls, default=0.0),
+        "tick_log": ticks,
+        "solve_pass_counts": dict(ctrl.solve_pass_counts),
+        "quality_counts": dict(ctrl.quality_counts),
+        "launches": launches,
+        "gangs_base_scheduled": scheduled,
+        "pcs_available": available,
+        "overcommitted_nodes": over,
+        "journal_records": len(records),
+        "recorder_dropped": rec.dropped,
+        **replay,
+    }
+    if dev.type == "cuda" and replay["replayed_waves"]:
+        out["floors_wave_solve_ms"], out["floors_wave_gangs"] = time_wave_solve(records, dev)
+    out["ok"] = bool(scheduled == len(gangs) and not over and ready_at is not None
+                     and available == len(backlog) and rec.dropped == 0
+                     and replay["replayed_waves"] >= 1 and replay["divergences"] == 0)
+    if dev.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(dev)
+        out["card"] = card_line()
+    return out
+
+
+def replay_world(scale: float = 1.0):
+    """bench.py's replay scenario: (topology, fleet builder, backlog
+    builder). 4 x `scale` racks (at least 2) of 4 hosts with 8 cpus, and one
+    rack-packed 4-pod job per rack plus one: the backlog overfills the fleet
+    by a rack, so the recorded window holds rejections."""
+    from grove_tpu_torch.sim.workloads import _clique, _pcs, bench_topology, synthetic_cluster
+
+    racks, hosts = max(2, round(4 * scale)), 4
+
+    def fleet():
+        return synthetic_cluster(zones=1, blocks_per_zone=1, racks_per_block=racks,
+                                 hosts_per_rack=hosts, cpu=8.0, tpu=0.0)
+
+    def backlog():
+        return [_pcs(f"job{i}", cliques=[_clique("w", hosts, "8")], constraint_domain="rack")
+                for i in range(racks + 1)]
+
+    return bench_topology(), fleet, backlog
+
+
+def run_replay_bench(scale: float = 1.0, device=None) -> dict:
+    """bench.py's `run_replay_bench` on the port, with its keys: the replay
+    world drained by `GroveController` under `Simulator` with the recorder
+    OFF and ON (the overhead), the journal replayed (the divergences) and a
+    +1-rack what-if over it (the counterfactual). Solves, the replay and the
+    what-if run on `device` (None = the card)."""
+    import shutil
+    import tempfile
+
+    from grove_tpu_torch.orchestrator.controller import GroveController
+    from grove_tpu_torch.orchestrator.store import Cluster
+    from grove_tpu_torch.sim.simulator import Simulator
+    from grove_tpu_torch.solver.core import resolve_device
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+    from grove_tpu_torch.trace.replay import replay_journal
+    from grove_tpu_torch.trace.whatif import whatif_journal
+
+    dev = resolve_device(device)
+    topo, fleet, backlog = replay_world(scale)
+
+    def drain(recorder):
+        cluster = Cluster()
+        for n in fleet():
+            cluster.nodes[n.name] = n
+        ctrl = GroveController(cluster=cluster, topology=topo, recorder=recorder, device=dev)
+        sim = Simulator(cluster=cluster, controller=ctrl)
+        for pcs in backlog():
+            cluster.podcliquesets[pcs.metadata.name] = pcs
+        t0 = time.perf_counter()
+        sim.run_until(
+            lambda: all(p.ready for p in cluster.pods.values() if p.is_scheduled)
+            and any(p.is_scheduled for p in cluster.pods.values()),
+            timeout=120.0,
+        )
+        wall = time.perf_counter() - t0
+        admitted = sum(1 for g in cluster.podgangs.values() if g.is_base_gang_scheduled())
+        return wall, admitted, len(cluster.podgangs)
+
+    # Warm-up drain: builds the kernels and fills the process caches, so the
+    # OFF/ON comparison measures recording, not first-call costs.
+    drain(None)
+    wall_off, admitted_off, gangs_total = drain(None)
+    journal_dir = tempfile.mkdtemp(prefix="grove-trace-bench-")
+    recorder = TraceRecorder(journal_dir)
+    recorder.start()
+    try:
+        wall_on, admitted_on, _ = drain(recorder)
+    finally:
+        recorder.stop()
+    overhead = (wall_on - wall_off) / wall_off if wall_off > 0 else 0.0
+    records = read_journal(journal_dir)
+    replay = replay_journal(records, device=dev)
+    whatif = whatif_journal(records, add_rack_count=1, device=dev)
+    shutil.rmtree(journal_dir, ignore_errors=True)
+    rep_doc = replay.to_doc()
+    wi_doc = whatif.to_doc()
+    divergences = rep_doc["divergences"]
+    ok = divergences == 0 and overhead < 0.05 and admitted_on == admitted_off
+    out = {
+        "scenario": "replay",
+        "metric": "replay_divergence_total",
+        "unit": "count",
+        "value": divergences,
+        "vs_baseline": 1.0 if ok else 0.0,
+        "gangs": gangs_total,
+        "gangs_admitted": admitted_on,
+        "drain_wall_off_s": wall_off,
+        "drain_wall_on_s": wall_on,
+        "record_overhead_frac": overhead,
+        "journal_records": len(records),
+        "journal_waves": rep_doc["waves"],
+        "recorder_stats": recorder.stats(),
+        "recorded_solve_s": rep_doc["recordedSolveSeconds"],
+        "replayed_solve_s": rep_doc["replayedSolveSeconds"],
+        "whatif_add_racks": 1,
+        "whatif_recorded_admitted_ratio": wi_doc["recorded"]["admittedRatio"],
+        "whatif_cf_admitted_ratio": wi_doc["counterfactual"]["admittedRatio"],
+        "whatif_admitted_delta": wi_doc["delta"]["admitted"],
+        "whatif_admitted_ratio_delta": wi_doc["delta"]["admittedRatio"],
+        "whatif_score_delta": wi_doc["delta"]["meanPlacementScore"],
+    }
+    if divergences:
+        out["diverged"] = rep_doc["diverged"][:3]  # evidence, bounded
+    return out
+
+
+def replay_doc_core(doc: dict) -> dict:
+    """A replay document without its wall-clock keys and the recorder's
+    path and flush-timed counters: what a card run and a CPU run share."""
+    out = {k: v for k, v in doc.items() if k not in REPLAY_WALL_KEYS}
+    out["recorder_stats"] = {k: v for k, v in doc["recorder_stats"].items()
+                             if k not in RECORDER_WALL_KEYS}
+    return out
+
+
+CHURN_FAULTS = ((4.0, "kill_node", "z0b0r0h0"), (6.0, "cordon", "z0b1r1h3"),
+                (8.0, "revoke_node", "z1b0r2h5"))
+
+
+def churn_world():
+    """(topology, nodes, backlog, controller settings, simulator settings,
+    scripted faults): a 256-node fleet (2 zones x 2 blocks x 4 racks x 16 hosts, 4 TPUs each)
+    under a contended backlog with priority classes — 40 disaggregated sets
+    ("low"), 30 aggregated sets ("high"; together they ask more TPUs than
+    the fleet holds, so high-priority gangs preempt), 20 frontends — with a
+    scripted node death, a cordon and a revocation notice (6 s of grace, so
+    it expires inside the run), and defrag on."""
+    from grove_tpu_torch.sim.workloads import (aggregated_pcs, bench_topology, disagg_pcs,
+                                               frontend_pcs, synthetic_cluster)
+
+    nodes = synthetic_cluster(zones=2, blocks_per_zone=2, racks_per_block=4,
+                              hosts_per_rack=16, tpu=4.0)
+    backlog = []
+    for i in range(40):
+        pcs = disagg_pcs(f"disagg-{i}")
+        pcs.spec.template.priority_class_name = "low"
+        backlog.append(pcs)
+    for i in range(30):
+        pcs = aggregated_pcs(f"agg-{i}")
+        pcs.spec.template.priority_class_name = "high"
+        backlog.append(pcs)
+    backlog += [frontend_pcs(f"fe-{i}") for i in range(20)]
+    ctl = {"priority_classes": {"high": 100, "low": 0}, "defrag_enabled": True,
+           "defrag_threshold": 0.05, "defrag_interval_seconds": 5.0,
+           "defrag_max_concurrent": 2}
+    return bench_topology(), nodes, backlog, ctl, {"revocation_grace_s": 6.0}, CHURN_FAULTS
+
+
+def same_views(views: list[dict], when: str) -> None:
+    """Raise AssertionError at the first key where a view differs from the
+    first one."""
+    for v in views[1:]:
+        if v != views[0]:
+            key = next(k for k in views[0] if views[0][k] != v[k])
+            raise AssertionError(f"stores differ {when}: "
+                                 + first_difference(views[0][key], v[key], key))
+
+
+def run_serving_lockstep(devices=("cuda", "cpu"), steps: int = 20, world=churn_world) -> dict:
+    """The same serving world under one controller per device, stepped in
+    lockstep: after every `Simulator.step` the stores must be equal
+    (`serving_state`: each pod's node, phase, readiness and gates, each
+    gang's phase and conditions, each PodCliqueSet's status, the events
+    list), and at the end the whole stores (`store_view`) and the journals,
+    seconds aside. Raises AssertionError at the first difference."""
+    import shutil
+    import tempfile
+
+    from grove_tpu_torch.orchestrator.controller import GroveController
+    from grove_tpu_torch.orchestrator.store import Cluster
+    from grove_tpu_torch.sim.simulator import Simulator
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+
+    root = tempfile.mkdtemp(prefix="grove-lockstep-")
+    sides = []
+    for i, dev in enumerate(devices):
+        topo, nodes, backlog, ctl, sim_settings, faults = world()
+        cluster = Cluster()
+        for n in nodes:
+            cluster.nodes[n.name] = n
+        rec = TraceRecorder(os.path.join(root, f"side{i}"))
+        rec.start()
+        ctrl = GroveController(cluster=cluster, topology=topo, device=dev, recorder=rec, **ctl)
+        sim = Simulator(cluster=cluster, controller=ctrl, **sim_settings)
+        for at, action, target in faults:
+            sim.schedule_fault(at, action, target)
+        for pcs in backlog:
+            cluster.podcliquesets[pcs.metadata.name] = pcs
+        sides.append((cluster, ctrl, sim, rec))
+    walls = [0.0] * len(sides)
+    try:
+        for step in range(steps):
+            views = []
+            for i, (cluster, ctrl, sim, _) in enumerate(sides):
+                t0 = time.perf_counter()
+                sim.step()
+                walls[i] += time.perf_counter() - t0
+                views.append(serving_state(cluster, ctrl))
+            same_views(views, f"after step {step + 1}")
+        same_views([store_view(cluster, ctrl) for cluster, ctrl, *_ in sides], "at the end")
+    finally:
+        for *_, rec in sides:
+            rec.stop()
+    journals = [strip_wall(read_journal(rec.path)) for *_, rec in sides]
+    shutil.rmtree(root, ignore_errors=True)
+    for j in journals[1:]:
+        if j != journals[0]:
+            i = next(i for i, (a, b) in enumerate(zip(journals[0], j)) if a != b) \
+                if len(j) == len(journals[0]) else min(len(j), len(journals[0]))
+            raise AssertionError(f"journals differ at record {i}")
+    cluster, ctrl, sim, _ = sides[0]
+    active = [p for p in cluster.pods.values() if p.is_active]
+    return {
+        "steps": steps,
+        "nodes": len(cluster.nodes),
+        "pods": len(active),
+        "bound": sum(p.is_scheduled for p in active),
+        "ready": sum(p.ready for p in active),
+        "events": cluster.events_total,
+        "journal_records": len(journals[0]),
+        "journal_waves": sum(1 for r in journals[0] if r.get("kind") == "wave"),
+        "solve_pass_counts": dict(ctrl.solve_pass_counts),
+        "preemptions": sum(1 for r in journals[0] if r.get("action") == "preemption"),
+        "defrag_counts": dict(ctrl.defrag_counts),
+        "revocation_counts": dict(ctrl.revocation_counts),
+        "defrag_score": ctrl.defrag_last.get("score"),
+        "overcommitted_nodes": node_overcommit(cluster),
+        "walls_s": walls,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario",
-                    choices=("default", "scale", "sweep", "stream", "chaos", "defrag"),
+                    choices=("default", "scale", "sweep", "stream", "chaos", "defrag", "replay",
+                             "serving"),
                     default="default")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
@@ -1367,7 +1954,11 @@ def main(argv=None) -> int:
     from grove_tpu_torch import faults
 
     faults.install(faults.from_config(None))  # GROVE_FAULTS arms the port's injector
-    if args.scenario == "chaos":
+    if args.scenario == "replay":
+        out = run_replay_bench(args.scale, device=args.device)
+    elif args.scenario == "serving":
+        out = run_serving_bench(args.scale, args.backlog_frac, device=args.device)
+    elif args.scenario == "chaos":
         out = run_chaos_bench(device=args.device)
     elif args.scenario == "defrag":
         out = run_defrag_bench(args.scale, device=args.device)

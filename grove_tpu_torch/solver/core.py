@@ -489,6 +489,26 @@ def _solve_pruned(free, batch, params, ok_global, dev, plan) -> SolveResult:
     return SolveResult(*out)
 
 
+def fetch_result(result: SolveResult) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A solve's (ok bool [G], assigned i32 [G, MP], placement_score f32 [G])
+    as numpy arrays. From the card the three planes travel as one byte
+    buffer, so the host reads them in a single copy (one synchronisation)."""
+    # The 4-byte planes first, so each view below starts aligned.
+    planes = (result.assigned, result.placement_score, result.ok)
+    if not planes[0].is_cuda:
+        return result.ok.cpu().numpy(), planes[0].cpu().numpy(), planes[1].cpu().numpy()
+    flat = [t.contiguous().view(torch.uint8).reshape(-1) for t in planes]
+    host = torch.cat(flat).cpu().numpy()
+    out, at = [], 0
+    for t, f in zip(planes, flat):
+        n = f.numel()
+        dtype = {torch.bool: np.bool_, torch.int32: np.int32, torch.float32: np.float32}[t.dtype]
+        out.append(host[at:at + n].view(dtype).reshape(tuple(t.shape)))
+        at += n
+    assigned, score, ok = out
+    return ok, assigned, score
+
+
 def decode_bindings(ok, assigned, decode_info, snapshot) -> dict[str, dict[str, str]]:
     """(ok [G], assigned [G, MP]) -> {gang: {pod: node}} for admitted gangs.
 

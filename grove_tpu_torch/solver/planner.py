@@ -29,16 +29,17 @@ def build_pending_subgang(
     `bound_counts`: group name -> pods already bound (shrinks the gang floor,
     PodGroup.MinReplicas semantics, scheduler podgang.go:80-84).
     """
-    # The port's PodGang carries no namespace, queue or priority class (the
-    # encoder reads none of them).
     sub = PodGang(
         name=gang.name,
+        namespace=gang.namespace,
         pcs_name=gang.pcs_name,
         pcs_replica_index=gang.pcs_replica_index,
         base_podgang_name=gang.base_podgang_name,
         scaled_index=gang.scaled_index,
+        queue=gang.queue,
         slo_class=gang.slo_class,
     )
+    sub.spec.priority_class_name = gang.spec.priority_class_name
     sub.spec.topology_constraint = gang.spec.topology_constraint
     sub.spec.spread_key = gang.spec.spread_key
     for grp in gang.spec.pod_groups:

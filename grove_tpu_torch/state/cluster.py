@@ -35,6 +35,13 @@ class Node:
     # k8s taints ({"key", "value", "effect"}); NoSchedule/NoExecute block
     # placement unless the pod tolerates them (we ARE the scheduler).
     taints: list[dict] = field(default_factory=list)
+    # Spot/preemptible capacity: a revocable node can receive a revocation
+    # notice (revocation_deadline = sim/wall time the capacity disappears).
+    # A pending notice makes the node unschedulable for new placement —
+    # build_snapshot masks it — while existing bindings keep running until
+    # the controller migrates or evicts them or the deadline kills the node.
+    revocable: bool = False
+    revocation_deadline: float | None = None
 
 
 @dataclass
@@ -143,7 +150,10 @@ def build_snapshot(
     capacity = np.zeros((n, r), dtype=np.float32)
     schedulable = np.zeros((n,), dtype=bool)
     for i, node in enumerate(nodes):
-        schedulable[i] = node.schedulable
+        # A revocation-pending node is masked like a cordoned one: every
+        # placement path (serving solves, defrag, rescue) reads this array,
+        # so no new pod lands on capacity that is about to vanish.
+        schedulable[i] = node.schedulable and node.revocation_deadline is None
         for j, res in enumerate(resource_names):
             capacity[i, j] = node.capacity.get(res, 0.0)
 
@@ -208,3 +218,10 @@ def apply_binding(snap: ClusterSnapshot, pod: Pod) -> None:
     """Account a bound pod's requests against its node."""
     idx = snap.node_index(pod.node_name)
     snap.allocated[idx] += pod_request_vector(pod, snap.resource_names)
+
+
+def release_binding(snap: ClusterSnapshot, pod: Pod) -> None:
+    """Return a bound pod's requests to its node (clamped at 0)."""
+    idx = snap.node_index(pod.node_name)
+    snap.allocated[idx] -= pod_request_vector(pod, snap.resource_names)
+    np.maximum(snap.allocated[idx], 0.0, out=snap.allocated[idx])

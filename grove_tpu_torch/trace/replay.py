@@ -33,6 +33,7 @@ import torch
 from grove_tpu_torch.solver.core import (
     SolverParams,
     decode_bindings,
+    fetch_result,
     resolve_device,
     solve,
 )
@@ -263,9 +264,8 @@ def solve_wave_record(
             mesh_axis=recut_node_axis(cfg, int(snapshot.capacity.shape[0])),
             warm=warm,
         )
-    ok_np = result.ok.cpu().numpy()
-    score_np = result.placement_score.cpu().numpy()
-    plan = decode_bindings(ok_np, result.assigned.cpu().numpy(), decode, snapshot)
+    ok_np, assigned_np, score_np = fetch_result(result)
+    plan = decode_bindings(ok_np, assigned_np, decode, snapshot)
     elapsed = time.perf_counter() - t0
     ok = dict(zip(decode.gang_names, (bool(x) for x in ok_np)))
     scores = dict(zip(decode.gang_names, (float(x) for x in score_np)))

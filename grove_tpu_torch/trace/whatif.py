@@ -36,7 +36,9 @@ from grove_tpu_torch.trace.replay import (
 from grove_tpu_torch.utils import serde
 
 
-def clone_racks(nodes: list[Node], topology, count: int = 1) -> list[Node]:
+def clone_racks(
+    nodes: list[Node], topology, count: int = 1, *, tag: str = "whatif"
+) -> list[Node]:
     """`nodes` + `count` cloned racks. The template is the rack of the LAST
     node (narrowest non-host level of `topology`); clones keep its
     capacity/labels/taints shape with a fresh rack label value and fresh
@@ -60,10 +62,10 @@ def clone_racks(nodes: list[Node], topology, count: int = 1) -> list[Node]:
     for i in range(count):
         for j, src in enumerate(template):
             labels = dict(src.labels)
-            labels[rack_key] = f"whatif-r{i}"
+            labels[rack_key] = f"{tag}-r{i}"
             out.append(
                 Node(
-                    name=f"whatif{i}h{j}",
+                    name=f"{tag}{i}h{j}",
                     capacity=dict(src.capacity),
                     labels=labels,
                     schedulable=True,

@@ -9,12 +9,12 @@ Encoding rules:
   primitives/list/str-key dict pass through.
 
 Decoding maps each tag onto the registered port type of that name. The
-port's types are cut down to what placement reads, so a document written
-by the JAX package carries fields the port's type lacks (a Pod's labels and
-phase, a PodGang's queue and status, ...): those are dropped without being
-decoded, and the fields the port's type has are kept. A tag with no port
-type of that name is a hard error, as in the reference: state must not
-truncate quietly.
+port's host model has every field of the JAX package's (a Pod's lifecycle,
+a PodGang's queue and status, a Node's revocation state), so a document
+written by either package decodes whole; a field the port's type lacks
+would be dropped without being decoded. A tag with no port type of that
+name is a hard error, as in the reference: state must not truncate
+quietly.
 """
 
 from __future__ import annotations

@@ -107,3 +107,38 @@ def test_streaming_and_tuning_entry_points_need_the_card_unless_asked(entry):
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+SERVING_MODULES = (
+    "grove_tpu_torch.api.constants", "grove_tpu_torch.api.resources",
+    "grove_tpu_torch.orchestrator.controller", "grove_tpu_torch.orchestrator.store",
+    "grove_tpu_torch.orchestrator.startup", "grove_tpu_torch.orchestrator.status",
+    "grove_tpu_torch.orchestrator.queues", "grove_tpu_torch.orchestrator.rollout",
+    "grove_tpu_torch.tenancy", "grove_tpu_torch.tenancy.slo", "grove_tpu_torch.tenancy.aging",
+    "grove_tpu_torch.tenancy.ledger", "grove_tpu_torch.solver.escalation",
+    "grove_tpu_torch.utils.backoff", "grove_tpu_torch.initc.agent",
+    "grove_tpu_torch.sim.simulator",
+)
+
+
+def test_serving_path_modules_are_checked():
+    """The controller, the simulator and the host model they need are among
+    the modules probed above, and together import neither JAX nor
+    grove_tpu."""
+    assert set(SERVING_MODULES) <= set(MODULES)
+    assert _imported_forbidden(*SERVING_MODULES) == []
+
+
+def test_controller_needs_the_card_unless_asked():
+    env_probe = (
+        "import torch; assert not torch.cuda.is_available()\n"
+        "from grove_tpu_torch.orchestrator.controller import GroveController\n"
+        "from grove_tpu_torch.orchestrator.store import Cluster\n"
+        "from grove_tpu_torch.sim.workloads import bench_topology\n"
+        "try:\n    GroveController(cluster=Cluster(), topology=bench_topology())\n"
+        "except RuntimeError as e:\n    print('raised', e)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", env_probe], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert "raised no CUDA device" in out.stdout, out.stdout + out.stderr

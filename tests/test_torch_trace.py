@@ -268,8 +268,17 @@ def test_codec_drops_fields_the_port_lacks_and_refuses_unknown_tags():
     pod = next(iter(pods.values()))
     port_pod = p_serde.decode(r_serde.encode(pod))
     assert port_pod.spec.total_requests() == pod.spec.total_requests()
-    with pytest.raises(KeyError, match="not registered"):
-        p_serde.decode({"!t": "PodGangStatus", "phase": "Pending"})
+    # The port's host model carries every field of the JAX package's Pod and
+    # PodGang (status, queue, phase, gates, ...): a JAX document round-trips
+    # through the port's codec unchanged.
+    assert p_serde.encode(port_gang) == doc
+    assert p_serde.encode(port_pod) == r_serde.encode(pod)
+    assert type(p_serde.decode({"!t": "PodGangStatus", "phase": {"!e": "PodGangPhase",
+                                                                 "v": "Pending"}})).__module__ \
+        == "grove_tpu_torch.api.podgang"
+    # A field the port's type lacks is still dropped without being decoded.
+    extra = dict(r_serde.encode(pod), no_such_field={"!t": "NoSuchType"})
+    assert p_serde.decode(extra) == port_pod
     with pytest.raises(KeyError, match="not registered"):
         p_serde.decode([{"!t": "NoSuchType"}])
     assert p_serde.decode({"!u": [1, {"!s": [2, 3]}], "!d": 0}) == (1, {2, 3})

@@ -194,20 +194,48 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               stages, the solve passes and launches printed; (b) bench.py's
               replay scenario (16 nodes of 8 cpus, 5 rack-packed jobs): 0
               divergences, at least one "portfolio" launch for the
-              rejected job, OFF/ON walls, the document equal to the CPU
-              run's, seconds aside; (c) a 256-node churn world (contended
+              rejected job, the document equal to the CPU run's, seconds
+              aside, and bench.py's record-overhead gate: four windows of
+              back-to-back drains, OFF, ON, ON, OFF (3 s sets the count;
+              each ON window timed through its recorder's flush, so the
+              writer's rendering and I/O are inside; every window
+              printed), (ON - OFF) / OFF over the summed walls below 0.05
+              (a failed gate fails the run after the last phase); (c) a
+              256-node churn world (contended
               backlog with priority classes, a node death, a cordon, a
               revocation notice, defrag on) under a card controller and a
               CPU controller in lockstep: the stores equal after every
               step, the journals equal, seconds aside
- 16. kernels  one JSON line: per kernel variant its launches on the main
+ 16. sidecar  the port's GREP-375 sidecar (run_sidecar_bench) served over
+              gRPC on 127.0.0.1 with the card, driven by the port's
+              BackendClient at bench.py's default size: Init, UpdateCluster
+              with 5120 nodes, 1250 SyncPodGang (10,000 pods), Solve;
+              ReleasePods of one pod and of a whole gang, its
+              OnPodGangDelete and re-sync, the incremental Solve (64
+              SyncPodGang RPCs answered while the first Solve's device
+              phase is parked on its gRPC worker thread); then a
+              contended Solve (the replay world, escalation to a portfolio
+              of 4). Every gang admitted by the first Solve, no node over
+              capacity, 0 new lowerings in the second, at least one
+              "portfolio" launch, every SolveResponse equal to an
+              in-process CPU servicer's for the same sequence; each
+              Solve's solve_micros, host stages and CUDA-event ms, and the
+              syncs' count and wall printed
+ 17. cells    bench.py's cells scenario (run_cells_bench: 32 nodes, the
+              25 s trace at rate 4, chunks of 12) with every cell's stream
+              drain on the card: every gate (zero lost, zero double-bound,
+              zero oversubscribed node-ticks, the recovery replay verified
+              with 0 divergences, bindings disjoint, the busiest cell's
+              share shrinking over 1, 2 and 4 cells), the document equal
+              to the CPU run's, wall-clock keys aside
+ 18. kernels  one JSON line: per kernel variant its launches on the main
               path (phases 4-9 as before, plus `launches_stream`,
-              `launches_tune`, `launches_chaos`, `launches_defrag` and
-              `launches_serving`, the launches of phases 11-15, added to
-              the first row of their variant), its error against the plain
-              version, its time, the plain version's time, its bound and a
-              library call's time
- 17. the last line: {"ok": true, "device": {...}}
+              `launches_tune`, `launches_chaos`, `launches_defrag`,
+              `launches_serving`, `launches_sidecar` and `launches_cells`,
+              the launches of phases 11-17, added to the first row of their
+              variant), its error against the plain version, its time, the
+              plain version's time, its bound and a library call's time
+ 19. the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -227,6 +255,13 @@ H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # times are held against.
 WAVE_MS_BEFORE = (113.929, 42.452, 138.592, 103.108, 18.229, 113.476, 42.446)
 SCALE_PRUNING = dict(enabled=True, max_candidates=8191, min_fleet=256)
+
+
+# Gates that fail the run only after every phase has run and printed.
+GATE_FAILURES: list[str] = []
+# Seconds of drains in each of phase 15 (b)'s record-overhead windows:
+# several of the recorder's 1 s flush intervals.
+REPLAY_WINDOW_S = 3.0
 
 
 def check(ok: bool, message: str) -> None:
@@ -827,7 +862,17 @@ def main() -> int:
 
     phase_done("15, serving")
 
-    # ---- 16. kernels line ----------------------------------------------------
+    # ---- 16. sidecar: the GREP-375 backend over gRPC on the card --------------
+    sidecar_launches = sidecar_phase(dev, card)
+
+    phase_done("16, sidecar")
+
+    # ---- 17. cells: sharded reconcile cells with journal recovery ------------
+    cells_launches = cells_phase(dev, card)
+
+    phase_done("17, cells")
+
+    # ---- 18. kernels line ----------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": add_path_launches([
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
@@ -849,8 +894,10 @@ def main() -> int:
         *sc["rows"],
         sw["row"],
     ], {"stream": stream_launches, "tune": tune_launches, "chaos": chaos_launches,
-        "defrag": defrag_launches, "serving": serving_launches})}))
+        "defrag": defrag_launches, "serving": serving_launches, "sidecar": sidecar_launches,
+        "cells": cells_launches})}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
+    check(not GATE_FAILURES, "; ".join(GATE_FAILURES))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -2373,10 +2420,12 @@ def serving_phase(dev, card) -> dict:
           f"{a['first_floors_gangs']} gangs in {a['first_floors_replay_s']:.2f} s), "
           f"0 divergences")
 
-    # (b) bench.py's replay scenario, on the card and then on the CPU.
+    # (b) bench.py's replay scenario, on the card and then on the CPU. The
+    # record-overhead gate reads four windows of back-to-back drains, OFF,
+    # ON, ON, OFF, each ON window timed through its recorder's flush.
     sync(dev)
     reset_launches()
-    b = run_replay_bench(device=dev)
+    b = run_replay_bench(device=dev, window_s=REPLAY_WINDOW_S)
     sync(dev)
     b_launches = dict(place_wave.variant_launches)
     count(b_launches)
@@ -2388,8 +2437,19 @@ def serving_phase(dev, card) -> dict:
     b_cpu = run_replay_bench(device="cpu")
     check(replay_doc_core(b) == replay_doc_core(b_cpu),
           "replay scenario: the card's document != the CPU's (wall-clock keys aside)")
-    print(f"replay scenario: OFF {b['drain_wall_off_s']:.4f} s, ON {b['drain_wall_on_s']:.4f} s "
-          f"(overhead {b['record_overhead_frac']:.4f}); == the CPU's document, seconds aside")
+    for side, drains, wall in b["record_windows"]:
+        print(f"replay scenario window {side.upper()}: {drains} drains in {wall:.6f} s, "
+              f"{wall / drains:.6f} s a drain")
+    print(f"replay scenario: OFF {b['drain_wall_off_s']:.6f} s, ON {b['drain_wall_on_s']:.6f} s "
+          f"a drain, overhead {b['record_overhead_frac']:.4f} (gate < 0.05) on {card}; "
+          f"== the CPU's document, seconds aside")
+    if b["vs_baseline"] != 1.0:
+        # The run goes on through every phase and then fails (main()).
+        GATE_FAILURES.append(
+            f"replay scenario: bench.py's gate failed (overhead "
+            f"{b['record_overhead_frac']:.4f}, admitted {b['gangs_admitted']}/{b['gangs']}, "
+            f"divergences {b['value']})")
+        print(f"FAILED: {GATE_FAILURES[-1]}")
 
     # (c) the churn world, card against CPU, step by step.
     sync(dev)
@@ -2404,6 +2464,78 @@ def serving_phase(dev, card) -> dict:
           f"lockstep: bound {c['bound']}, over capacity {c['overcommitted_nodes']}")
     print(f"serving launches: {total}; phase {time.perf_counter() - t_phase:.1f} s")
     return total
+
+
+def sidecar_phase(dev, card) -> dict:
+    """Phase 16: the port's GREP-375 sidecar on the card at bench.py's
+    default size, over gRPC, against an in-process CPU servicer (see
+    bench.run_sidecar_bench). Returns the launches per variant."""
+    from grove_tpu_torch.bench import run_sidecar_bench
+
+    t_phase = time.perf_counter()
+    d = run_sidecar_bench(device=dev)
+    print(f"sidecar[{d['nodes']} nodes, {d['gangs']} gangs, {d['pods']} pods]: "
+          f"{d['sync_rpcs']} SyncPodGang RPCs in {d['sync_wall_s']:.4f} s, "
+          f"{d['inflight_sync_rpcs']} more in {d['inflight_sync_wall_s']:.4f} s while the "
+          f"first Solve's device phase was parked, sequence "
+          f"{d['sequence_wall_s']:.4f} s; Solve admitted {d['admitted']} of "
+          f"{d['gangs_solved']}; contended {d['contended_admitted']}/{d['contended_gangs']}; "
+          f"lowerings {d['lowerings']}; launches { {k: v for k, v in d['launches'].items() if v} } "
+          f"(contended { {k: v for k, v in d['contended_launches'].items() if v} }) on {card}")
+    for name, micros, st in zip(("first", "incremental", "contended"), d["solve_micros"],
+                                d["stages"]):
+        print(f"sidecar Solve[{name}]: solve_micros {micros}, stages "
+              f"{ {k: round(v, 6) if isinstance(v, float) else v for k, v in st.items()} }")
+    print(f"sidecar: CPU servicer's responses equal: {d['cpu_equal']} ({d['cpu_s']:.2f} s on "
+          f"the CPU's plain versions); gates {d['gates']}")
+    for gate, ok in d["gates"].items():
+        check(ok, f"sidecar: gate {gate} failed ({ {k: v for k, v in d.items() if k != 'stages'} })")
+    print(f"sidecar phase {time.perf_counter() - t_phase:.1f} s")
+    return d["launches"]
+
+
+def cells_phase(dev, card) -> dict:
+    """Phase 17: bench.py's cells scenario with every cell's stream drain on
+    the card, its gates, and its document against the CPU run's. Returns
+    the launches per variant."""
+    import torch
+
+    from grove_tpu_torch.bench import cells_doc_core, run_cells_bench
+    from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    d = run_cells_bench(device=dev)
+    torch.cuda.synchronize(dev)
+    launches = dict(place_wave.variant_launches)
+    t_card = time.perf_counter() - t_phase
+    kr = d["kill_resume"]
+    print(f"cells[{d['nodes']} nodes, {d['gangs_offered']} gangs, chunks of "
+          f"{d['crash_check_every']}]: kill/resume precrash bound {kr['precrash_bound']}, "
+          f"resumed {kr['resumed_bound']}, survivor {kr['survivor_bound']}, replay "
+          f"{kr['replay']}, audits {kr['audit_cell0']} {kr['audit_cell1']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {t_card:.1f} s on {card}")
+    for sc in d["scaling"]:
+        per = {c: (v["gangs_offered"], v["gangs_admitted"], v["dispatches"], v["host_total_s"])
+               for c, v in sc["per_cell"].items()}
+        print(f"cells[{sc['cells']}]: per cell (offered, admitted, dispatches, host s) {per}; "
+              f"aggregate admitted {sc['aggregate_admitted']}, dispatches "
+              f"{sc['aggregate_dispatches']}, busiest cell offered {sc['max_cell_gangs_offered']}")
+    for gate, ok in d["gates"].items():
+        check(ok, f"cells: gate {gate} failed")
+    check(d["vs_baseline"] == 1.0, f"cells: vs_baseline {d['vs_baseline']}")
+    check(kr["replay"]["divergences"] == 0 and kr["replay"]["verified"],
+          f"cells: recovery replay {kr['replay']}")
+    check(not kr["lost_gangs"] and not kr["double_bound_gangs"],
+          f"cells: lost {kr['lost_gangs']}, double-bound {kr['double_bound_gangs']}")
+    check(launches["dense"] >= 1, f"cells: no dense launch ({launches})")
+    d_cpu = run_cells_bench(device="cpu")
+    check(cells_doc_core(d) == cells_doc_core(d_cpu),
+          "cells: the card's document != the CPU's (wall-clock keys aside)")
+    print(f"cells: every gate green, == the CPU's document (wall-clock keys aside); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def add_path_launches(rows, paths: dict) -> list:

@@ -1,4 +1,4 @@
-"""Workload API surface: core types, scheduler IR, naming, defaulting."""
+"""Workload API surface: core types, scheduler IR, naming, defaulting, validation."""
 
 from grove_tpu_torch.api.types import (  # noqa: F401
     AutoScalingConfig,
@@ -43,3 +43,4 @@ from grove_tpu_torch.api.podgang import (  # noqa: F401
     TopologyPackConstraint,
 )
 from grove_tpu_torch.api.defaulting import default_podcliqueset  # noqa: F401
+from grove_tpu_torch.api.validation import ValidationError, validate_podcliqueset, validate_update  # noqa: F401

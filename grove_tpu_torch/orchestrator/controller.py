@@ -1109,8 +1109,10 @@ class GroveController:
         )
         if self.recorder is not None:
             # Flight-recorder capture BEFORE the binding loop mutates the
-            # pods: the journal holds the pre-solve input closure. The serde
-            # deep copy happens here (synchronously); file I/O does not.
+            # pods: the journal holds the pre-solve input closure. Only the
+            # copies of what the binding loop changes are made here (the
+            # pods, the allocation table); the record's JSON and the file
+            # I/O are the writer thread's.
             try:
                 self.recorder.capture_wave(
                     now=now,

@@ -24,10 +24,18 @@ forensics — replay re-solves wave records only. The port's drains journal
 their waves here (solver/drain.py); a port journal and a JAX one share the
 schema and the fleet digests.
 
-Hot-path discipline: `capture_wave` runs on the reconcile thread but only
-serde-encodes (a deep copy into plain JSON types — the pods mutate right
-after the solve, so the copy must be synchronous); file I/O happens on the
-bounded-queue writer thread. A full queue DROPS the record and counts it
+Hot-path discipline: `capture_wave` runs on the commit path, so it only
+copies what changes after the solve — each referenced pod (`_pod_copy`: the
+binding loop replaces a pod's node, gates and phase; containers are copied,
+specs and conditions are replaced wholesale, never edited in place, the
+convention solver/warm.py's row cache relies on too) and the allocated rows —
+and keeps the rest as given: the gang objects (the controller builds its
+sub-gangs per pass, drains never edit their backlog) and the per-wave maps.
+The writer thread renders each record to JSON text once, when it first
+writes the segment holding it (`_wave_text`, `serde.dumps`), so the journal
+holds the pre-bind closure, byte for byte the record the JAX recorder writes
+at capture time, and a segment rewritten at each flush re-encodes nothing.
+File I/O happens there too. A full queue DROPS the record and counts it
 (`dropped`) rather than blocking a solve.
 """
 
@@ -39,6 +47,7 @@ import json
 import os
 import queue
 import threading
+from json.encoder import encode_basestring_ascii as _quote
 from typing import Any, Optional
 
 import numpy as np
@@ -48,7 +57,7 @@ from grove_tpu_torch.api import podgang as podgang_mod
 from grove_tpu_torch.api import types as types_mod
 from grove_tpu_torch.state import cluster as state_mod
 from grove_tpu_torch.utils import serde
-from grove_tpu_torch.utils.fsio import atomic_write_json
+from grove_tpu_torch.utils.fsio import atomic_write_json, atomic_write_text
 
 # Journal schema, the JAX package's: either package reads the other's
 # journals. The replayer refuses a mismatched version outright: a silent
@@ -58,6 +67,113 @@ SCHEMA_VERSION = 1
 
 _SEGMENT_GLOB = "segment-*.json"
 _MANIFEST = "manifest.json"
+
+
+def _pod_copy(pod):
+    """What serde reads of a pod at capture time, cheaply: a shallow copy of
+    its instance dict (cheaper than copy.copy) with the containers that can
+    be edited in place copied too."""
+    c = object.__new__(type(pod))
+    d = pod.__dict__.copy()
+    d["labels"] = dict(pod.labels)
+    d["annotations"] = dict(pod.annotations)
+    d["env"] = dict(pod.env)
+    d["conditions"] = list(pod.conditions)
+    d["scheduling_gates"] = list(pod.scheduling_gates)
+    c.__dict__ = d
+    return c
+
+
+def _wave_text(c: dict, digest: str) -> str:
+    """The JSON text of one capture's wave record (TraceRecorder.capture_wave's
+    copies and per-wave inputs): `json.dumps` of the record the JAX recorder
+    builds, field for field and in its order; rendered on the writer
+    thread."""
+    gangs = c["gangs"]
+    ok_by_name, valid_by_name, scores = c["ok_by_name"], c["valid_by_name"], c["scores"]
+    names = {g.name for g in gangs}
+    rejections = {}
+    for name in names:
+        if _jsonable(ok_by_name.get(name, False)):
+            continue
+        rejections[name] = (
+            "rejected (capacity/constraints)"
+            if _jsonable(valid_by_name.get(name, False))
+            else "not solver-valid (gated base or unresolvable constraint)"
+        )
+    mesh, pruning = c["mesh"], c["pruning"]
+    head = {
+        "kind": "wave",
+        "now": float(c["now"]),
+        "wave": c["wave"],
+        "fleet": digest,
+        "padNodesTo": c["pad_nodes"],
+        "resources": c["resources"],
+        "allocated": c["allocated"],
+    }
+    # "gangs" and "pods" go between head and tail, rendered by serde.dumps.
+    tail = {
+        "scheduled": sorted(c["scheduled"]),
+        "boundNodes": {
+            g: {grp: list(map(int, idx)) for grp, idx in per.items()}
+            for g, per in c["bound_nodes"].items()
+            if g in names
+        },
+        "reuseNodes": {
+            g: list(map(int, idx)) for g, idx in c["reuse_nodes"].items() if g in names
+        },
+        "spreadAvoid": {
+            g: list(map(int, idx)) for g, idx in c["spread_avoid"].items() if g in names
+        },
+        "maxGroups": c["max_groups"],
+        "maxSets": c["max_sets"],
+        "maxPods": c["max_pods"],
+        "padGangsTo": c["pad_gangs_to"],
+        "solver": {
+            "params": [float(w) for w in c["params"]],
+            "portfolio": int(c["portfolio"]),
+            "escalatePortfolio": int(c["escalate_portfolio"]),
+            # Mesh fingerprint (parallel/mesh.SolveLayout.fingerprint): the
+            # device-mesh layout the recorded solve ran under. The sharded
+            # solve is bitwise-equal to the unsharded one, so a replay host
+            # with fewer devices still replays bitwise — but the pruning
+            # candidate pad is negotiated mesh-divisible, so replay needs the
+            # recorded node-axis size to rebuild the exact launch shape
+            # (trace/replay.py).
+            "mesh": None
+            if not mesh or int(mesh.get("node", 1)) <= 1
+            else {"portfolio": int(mesh.get("portfolio", 1)), "node": int(mesh["node"])},
+            # Candidate-pruning fingerprint: replay must route through the
+            # same pruned path (pruned placements legitimately differ from
+            # dense ones) for bitwise equivalence.
+            "pruning": None
+            if pruning is None or not getattr(pruning, "enabled", False)
+            else {
+                "enabled": True,
+                "maxCandidates": int(pruning.max_candidates),
+                "padLadder": [int(x) for x in pruning.pad_ladder],
+                "minPad": int(pruning.min_pad),
+                "minFleet": int(pruning.min_fleet),
+            },
+        },
+        "plan": {g: dict(b) for g, b in c["plan"].items()},
+        "ok": {n: bool(_jsonable(ok_by_name.get(n, False))) for n in sorted(names)},
+        "valid": {n: bool(_jsonable(valid_by_name.get(n, False))) for n in sorted(names)},
+        "scores": {n: float(_jsonable(scores.get(n, 0.0))) for n in sorted(names)},
+        "rejections": rejections,
+        "solveSeconds": float(c["solve_seconds"]),
+    }
+    if c["free_rows"]:
+        tail["freeRows"] = {
+            str(n): [float(v) for v in row] for n, row in c["free_rows"].items()
+        }
+    if c["candidates"] is not None:
+        tail["candidates"] = [int(i) for i in c["candidates"]]
+    gangs = "[" + ", ".join([serde.dumps(g) for g in gangs]) + "]"
+    pods = "{" + ", ".join([_quote(n) + ": " + serde.dumps(p) for n, p in c["pods"].items()]) + "}"
+    return (json.dumps(head)[:-1] + ', "gangs": ' + gangs + ', "pods": ' + pods + ", "
+            + json.dumps(tail)[1:])
+
 
 for _m in (types_mod, pod_mod, podgang_mod, state_mod):
     serde.register_module(_m)
@@ -116,6 +232,18 @@ def fleet_digest_of(snapshot) -> tuple[str, dict]:
     return digest, payload
 
 
+def _same_fleet(a, b) -> bool:
+    """True when two snapshots give equal `fleet_payload`s: its inputs,
+    compared as they are."""
+    n = len(a.node_names)
+    return (a.node_names == b.node_names and a.resource_names == b.resource_names
+            and np.array_equal(a.capacity[:n], b.capacity[:n])
+            and np.array_equal(a.schedulable[:n], b.schedulable[:n])
+            and a.node_labels == b.node_labels and a.node_taints == b.node_taints
+            and (a.topology is b.topology
+                 or a.topology.levels_doc() == b.topology.levels_doc()))
+
+
 class TraceRecorder:
     """Bounded-queue journal writer with atomic segment rotation."""
 
@@ -136,6 +264,10 @@ class TraceRecorder:
         self._stop = threading.Event()
         self._flush_now = threading.Event()
         self._flush_done = threading.Event()
+        # Set once the writer has read and rewritten the manifest: start()
+        # returns after that, so the writer's start-up file I/O never
+        # overlaps the solves it journals.
+        self._ready = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # counters (stats(), journal_stats)
         self.recorded = 0
@@ -167,9 +299,16 @@ class TraceRecorder:
         # (`journal_truncated`, RecoveryReport.truncated).
         self.pruned_segments = 0
         self.pruned_waves = 0
-        # fleet digests already enqueued this process (the writer re-emits
-        # per segment from its own payload cache).
-        self._announced: set[str] = set()
+        # Fleet records the writer derived from captured waves (counted in
+        # `recorded`, as the JAX recorder counts the fleet records it
+        # enqueues beside its waves); written by the writer thread only.
+        self.fleets_recorded = 0
+        # (snapshot, its fleet_digest_of) of the last wave; writer thread.
+        self._last_fleet: tuple | None = None
+        # Wakes the writer: a flush, a stop, or a queue half full. Records
+        # otherwise wait for the flush interval, when the writer renders and
+        # writes them in one pass.
+        self._wake = threading.Event()
 
     # ---- lifecycle ---------------------------------------------------------------
 
@@ -180,15 +319,18 @@ class TraceRecorder:
         # Non-daemon: stop() joins; a daemon killed mid-rename could strand
         # a temp file (harmless) but a clean join never does.
         self._stop.clear()
+        self._ready.clear()
         self._thread = threading.Thread(
             target=self._writer, name="grove-trace-writer", daemon=False
         )
         self._thread.start()
+        self._ready.wait(timeout=10.0)
 
     def stop(self) -> None:
         if self._thread is None:
             return
         self._stop.set()
+        self._wake.set()
         self._thread.join()
         self._thread = None
 
@@ -197,6 +339,7 @@ class TraceRecorder:
         trace flow step calls this each reconcile, bounding journal staleness
         by the reconcile cadence instead of the flush interval)."""
         self._flush_now.set()
+        self._wake.set()
 
     def flush(self, timeout: float = 5.0) -> bool:
         """Synchronous flush: block until the writer has drained what was
@@ -207,6 +350,7 @@ class TraceRecorder:
             return False
         self._flush_done.clear()
         self._flush_now.set()
+        self._wake.set()
         return self._flush_done.wait(timeout)
 
     # ---- capture (reconcile thread) ----------------------------------------------
@@ -219,6 +363,8 @@ class TraceRecorder:
             self.dropped += 1
             return False
         self.recorded += 1
+        if self._queue.qsize() * 2 >= self._queue.maxsize:
+            self._wake.set()
         if rec.get("kind") == "wave":
             self.waves += 1
         elif rec.get("kind") == "action":
@@ -264,8 +410,11 @@ class TraceRecorder:
         mesh: dict | None = None,  # mesh fingerprint {portfolio, node} | None
     ) -> bool:
         """Journal one solve wave — the full encode+solve input closure plus
-        the resulting plan. Serde-encoding here IS the synchronous deep copy;
-        the pods mutate (bind) immediately after the solve.
+        the resulting plan. The pods mutate (bind) right after the solve and
+        a drain's allocation table advances, so those are copied here; the
+        writer thread renders the record from the copies (`_wave_text`).
+        The per-wave maps (plan, verdicts, scores, seeds) are read there as
+        given: every caller builds them for the wave and leaves them be.
 
         The pipelined drain (solver/drain._WavePipeline) journals waves whose
         entering state is NOT the snapshot: `allocated_override` is the
@@ -275,124 +424,59 @@ class TraceRecorder:
         plan was cut with (plans are cut against the INITIAL free, so replay
         must not re-cut them against the wave's entering free). Replay
         (trace/replay.py) prefers these over the snapshot-derived state."""
-        digest, payload = fleet_digest_of(snapshot)
-        if digest not in self._announced:
-            if self.record(payload):
-                self._announced.add(digest)
-            else:
-                return False  # fleet dropped: a wave referencing it is unreplayable
-        names = {g.name for g in gangs}
-        ref_names = {
+        ref_names = sorted({
             r.name
             for g in gangs
             for grp in g.spec.pod_groups
             for r in grp.pod_references
             if r.name in pods_by_name
-        }
+        })
+        alloc = np.asarray(snapshot.allocated if allocated_override is None
+                           else allocated_override)
         n_real = len(snapshot.node_names)
-        alloc_src = np.asarray(
-            snapshot.allocated if allocated_override is None else allocated_override
-        )
         # The rows with any allocation, found in one pass (f32 -> the same
         # Python floats float() gives).
         allocated = {
-            snapshot.node_names[i]: alloc_src[i].tolist()
-            for i in np.flatnonzero(alloc_src[:n_real].any(axis=1)).tolist()
+            snapshot.node_names[i]: alloc[i].tolist()
+            for i in np.flatnonzero(alloc[:n_real].any(axis=1)).tolist()
         }
-        rejections = {}
-        for name in names:
-            if _jsonable(ok_by_name.get(name, False)):
-                continue
-            rejections[name] = (
-                "rejected (capacity/constraints)"
-                if _jsonable(valid_by_name.get(name, False))
-                else "not solver-valid (gated base or unresolvable constraint)"
-            )
-        rec = {
+        return self.record({
             "kind": "wave",
-            "now": float(now),
-            "wave": wave,
-            "fleet": digest,
-            "padNodesTo": int(snapshot.capacity.shape[0]),
-            "resources": list(snapshot.resource_names),
-            "allocated": allocated,
-            "gangs": [serde.encode(g) for g in gangs],
-            "pods": {n: serde.encode(pods_by_name[n]) for n in sorted(ref_names)},
-            "scheduled": sorted(scheduled_names),
-            "boundNodes": {
-                g: {grp: list(map(int, idx)) for grp, idx in per.items()}
-                for g, per in bound_nodes.items()
-                if g in names
+            "_snapshot": snapshot,
+            "_capture": {
+                "now": now, "wave": wave, "pad_nodes": int(snapshot.capacity.shape[0]),
+                "resources": list(snapshot.resource_names), "allocated": allocated,
+                "gangs": list(gangs),
+                "pods": {n: _pod_copy(pods_by_name[n]) for n in ref_names},
+                "scheduled": list(scheduled_names), "bound_nodes": bound_nodes,
+                "reuse_nodes": reuse_nodes, "spread_avoid": spread_avoid,
+                "max_groups": max_groups, "max_sets": max_sets, "max_pods": max_pods,
+                "pad_gangs_to": pad_gangs_to, "params": params, "portfolio": portfolio,
+                "escalate_portfolio": escalate_portfolio, "pruning": pruning, "plan": plan,
+                "ok_by_name": ok_by_name, "valid_by_name": valid_by_name, "scores": scores,
+                "solve_seconds": solve_seconds, "free_rows": free_rows,
+                "candidates": candidates, "mesh": mesh,
             },
-            "reuseNodes": {
-                g: list(map(int, idx))
-                for g, idx in reuse_nodes.items()
-                if g in names
-            },
-            "spreadAvoid": {
-                g: list(map(int, idx))
-                for g, idx in spread_avoid.items()
-                if g in names
-            },
-            "maxGroups": max_groups,
-            "maxSets": max_sets,
-            "maxPods": max_pods,
-            "padGangsTo": pad_gangs_to,
-            "solver": {
-                "params": [float(w) for w in params],
-                "portfolio": int(portfolio),
-                "escalatePortfolio": int(escalate_portfolio),
-                # Mesh fingerprint (parallel/mesh.SolveLayout.fingerprint):
-                # the device-mesh layout the recorded solve ran under. The
-                # sharded solve is bitwise-equal to the unsharded one, so a
-                # replay host with fewer devices (a 1-device mesh replaying
-                # an 8-device plan) still replays bitwise — but the pruning
-                # candidate pad is negotiated mesh-divisible, so replay
-                # needs the recorded node-axis size to rebuild the exact
-                # executable shape (trace/replay.py).
-                "mesh": None
-                if not mesh or int(mesh.get("node", 1)) <= 1
-                else {
-                    "portfolio": int(mesh.get("portfolio", 1)),
-                    "node": int(mesh["node"]),
-                },
-                # Candidate-pruning fingerprint: replay must route through
-                # the same pruned path (pruned placements legitimately
-                # differ from dense ones) for bitwise equivalence.
-                "pruning": None
-                if pruning is None or not getattr(pruning, "enabled", False)
-                else {
-                    "enabled": True,
-                    "maxCandidates": int(pruning.max_candidates),
-                    "padLadder": [int(x) for x in pruning.pad_ladder],
-                    "minPad": int(pruning.min_pad),
-                    "minFleet": int(pruning.min_fleet),
-                },
-            },
-            "plan": {g: dict(b) for g, b in plan.items()},
-            "ok": {n: bool(_jsonable(ok_by_name.get(n, False))) for n in sorted(names)},
-            "valid": {
-                n: bool(_jsonable(valid_by_name.get(n, False))) for n in sorted(names)
-            },
-            "scores": {
-                n: float(_jsonable(scores.get(n, 0.0))) for n in sorted(names)
-            },
-            "rejections": rejections,
-            "solveSeconds": float(solve_seconds),
-        }
-        if free_rows:
-            rec["freeRows"] = {
-                str(n): [float(v) for v in row] for n, row in free_rows.items()
-            }
-        if candidates is not None:
-            rec["candidates"] = [int(i) for i in candidates]
-        return self.record(rec)
+        })
+
+    def _fleet_of(self, snapshot) -> tuple[str, dict]:
+        """fleet_digest_of(snapshot), or the last wave's when its snapshot
+        holds the same fleet: a controller builds a new snapshot of an
+        unchanged fleet for every wave, and comparing the payload's inputs
+        costs a fraction of the digest's JSON; writer thread."""
+        last = self._last_fleet
+        if last is not None and _same_fleet(snapshot, last[0]):
+            return last[1]
+        hit = fleet_digest_of(snapshot)
+        self._last_fleet = (snapshot, hit)
+        return hit
 
     # ---- writer thread -----------------------------------------------------------
 
     def _writer(self) -> None:
         seq = self._next_seq()
-        segment: list[dict] = []
+        segment: list[dict] = []  # the records (a rendered capture: a stub)
+        texts: list[str] = []  # the JSON text of segment[:len(texts)]
         seg_digests: set[str] = set()
         fleets: dict[str, dict] = {}  # every fleet payload seen this process
         dirty = False
@@ -403,11 +487,14 @@ class TraceRecorder:
         # from the prior process's manifest (entries for pruned files drop;
         # unmanifested segments — written before the manifest existed — are
         # summarized once from disk here, never again per write).
-        manifest = self._seed_manifest()
-        self._write_manifest(manifest)
+        try:
+            manifest = self._seed_manifest()
+            self._write_manifest(manifest)
+        finally:
+            self._ready.set()
 
         def write_segment() -> None:
-            nonlocal dirty, last_flush, segment, seg_digests
+            nonlocal dirty, last_flush, segment, texts, seg_digests
             if segment:
                 try:
                     # The `recorder.write` fault site (an injected ENOSPC
@@ -415,25 +502,36 @@ class TraceRecorder:
                     from grove_tpu_torch import faults as faults_mod
 
                     faults_mod.active().maybe_raise("recorder.write", records=len(segment))
-                    atomic_write_json(
+                    # Render the records new to this segment; a wave
+                    # capture leaves the stub its manifest row reads.
+                    for k in range(len(texts), len(segment)):
+                        r = segment[k]
+                        if "_capture" in r:
+                            texts.append(_wave_text(r["_capture"], r["fleet"]))
+                            segment[k] = {"kind": "wave", "wave": r["_capture"]["wave"]}
+                        else:
+                            texts.append(json.dumps(r))
+                    # json.dumps of {"version", "records", <counters>}, with
+                    # the records' texts spliced in.
+                    counters = json.dumps({
+                        # Recorder-state counters AT WRITE TIME (cumulative
+                        # for this process): lets an offline reader (the
+                        # tuning sweep, journal_stats) tell a truncated
+                        # journal — records dropped under queue pressure —
+                        # from a genuinely quiet day. Additive field: replay
+                        # ignores it, old segments read as 0.
+                        "recorderDropped": self.dropped,
+                        "recorderRecorded": self.recorded + self.fleets_recorded,
+                        # Counting-drops mode ledger: segments the writer
+                        # could NOT persist (ENOSPC et al). > 0 tells an
+                        # offline reader the journal has a HOLE even when
+                        # the queue never overflowed.
+                        "recorderWriteErrors": self.write_errors,
+                    })
+                    atomic_write_text(
                         os.path.join(self.path, f"segment-{seq:06d}.json"),
-                        {
-                            "version": SCHEMA_VERSION,
-                            "records": segment,
-                            # Recorder-state counters AT WRITE TIME (cumulative
-                            # for this process): lets an offline reader
-                            # (the tuning sweep, journal_stats) tell a
-                            # truncated journal — records dropped under queue
-                            # pressure — from a genuinely quiet day. Additive
-                            # field: replay ignores it, old segments read as 0.
-                            "recorderDropped": self.dropped,
-                            "recorderRecorded": self.recorded,
-                            # Counting-drops mode ledger: segments the writer
-                            # could NOT persist (ENOSPC et al). > 0 tells an
-                            # offline reader the journal has a HOLE even when
-                            # the queue never overflowed.
-                            "recorderWriteErrors": self.write_errors,
-                        },
+                        json.dumps({"version": SCHEMA_VERSION})[:-1] + ', "records": ['
+                        + ", ".join(texts) + "], " + counters[1:],
                     )
                     self.segments_written += 1
                     self.degraded = False
@@ -451,29 +549,39 @@ class TraceRecorder:
                     self.dropped += len(segment)
                     self._last_write_error = str(e)
                     segment = []
+                    texts = []
                     seg_digests = set()
             dirty = False
             last_flush = _time.monotonic()
 
         def rotate() -> None:
-            nonlocal seq, segment, seg_digests
+            nonlocal seq, segment, texts, seg_digests
             write_segment()
             seq += 1
             segment = []
+            texts = []
             seg_digests = set()
             if self._prune(manifest):
                 self._write_manifest(manifest)
 
         while True:
-            try:
-                rec = self._queue.get(timeout=0.2)
-            except queue.Empty:
-                rec = None
-            if rec is not None:
+            self._wake.wait(timeout=self.flush_interval_seconds)
+            self._wake.clear()
+            while True:  # drain the queue before honoring flush/stop
+                try:
+                    rec = self._queue.get_nowait()
+                except queue.Empty:
+                    break
                 if rec.get("kind") == "fleet":
                     fleets[rec["digest"]] = rec
                     # Emitted into a segment only when a wave references it.
                 else:
+                    if "_capture" in rec:
+                        d, payload = self._fleet_of(rec.pop("_snapshot"))
+                        if d not in fleets:
+                            fleets[d] = payload
+                            self.fleets_recorded += 1
+                        rec["fleet"] = d
                     d = rec.get("fleet")
                     if d and d not in seg_digests and d in fleets:
                         segment.append(fleets[d])
@@ -482,7 +590,6 @@ class TraceRecorder:
                     dirty = True
                 if len(segment) >= self.max_records_per_file:
                     rotate()
-                continue  # drain the queue before honoring flush/stop
             want_flush = self._flush_now.is_set()
             interval_due = (
                 _time.monotonic() - last_flush >= self.flush_interval_seconds
@@ -605,7 +712,7 @@ class TraceRecorder:
         """JSON-able recorder state."""
         doc = {
             "path": self.path,
-            "recorded": self.recorded,
+            "recorded": self.recorded + self.fleets_recorded,
             "dropped": self.dropped,
             "waves": self.waves,
             "actions": self.actions,

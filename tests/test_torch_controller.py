@@ -51,6 +51,7 @@ from grove_tpu_torch.trace.recorder import TraceRecorder as PRec
 from grove_tpu_torch.trace.recorder import read_journal as p_read
 from grove_tpu_torch.trace.replay import replay_journal as p_replay
 from grove_tpu_torch.utils import serde as p_serde
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 for _m in (p_types_mod, p_pod_mod, p_podgang_mod, p_state_mod, p_resources_mod):
     p_serde.register_module(_m)

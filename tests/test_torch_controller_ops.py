@@ -33,6 +33,7 @@ from grove_tpu.api.types import TopologyDomain, get_condition
 from grove_tpu.sim import workloads as r_wl
 from grove_tpu.state import Node as RNode
 from grove_tpu_torch.trace.replay import replay_journal as p_replay
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 
 def journals_agree(s) -> list[dict]:

@@ -45,6 +45,7 @@ from grove_tpu_torch.solver.encode import encode_gangs as p_encode
 from grove_tpu_torch.solver.warm import WarmPath as PWarm
 from grove_tpu_torch.state import build_snapshot as p_snapshot
 from grove_tpu_torch.state.cluster import pod_request_vector as p_request
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 PKG = {
     "jax": dict(wl=r_wl, expand=r_expand, defrag=r_defrag, warm=RWarm, snap=r_snapshot,

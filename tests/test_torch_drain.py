@@ -13,6 +13,7 @@ from grove_tpu_torch.solver.drain import drain_backlog as p_drain
 from grove_tpu_torch.solver.drain import plan_waves as p_plan
 from grove_tpu_torch.state import pod_request_vector
 from test_torch_host import _bench, _contended, PORT, REF
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 
 def _drain_pair(build, wave_size):

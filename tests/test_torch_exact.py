@@ -23,6 +23,7 @@ from grove_tpu_torch.quality import exact as p_exact
 from grove_tpu_torch.solver.core import SolverParams
 from grove_tpu_torch.solver.warm import WarmPath
 from grove_tpu_torch.tuning.sweep import SweepConfig, default_grid
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -18,6 +18,7 @@ import pytest
 
 from grove_tpu import faults as r_faults
 from grove_tpu_torch import faults as p_faults
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 PKGS = {"jax": r_faults, "port": p_faults}
 # The sites the port's modules evaluate (solver/drain.py, trace/recorder.py).

@@ -31,6 +31,7 @@ from grove_tpu.api import pod as r_pod
 from grove_tpu.api import types as r_types
 from grove_tpu.sim import workloads as r_wl
 from grove_tpu.solver import encode as r_enc
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -10,6 +10,7 @@ import sys
 
 import jax  # noqa: F401  (JAX stays on the CPU: conftest forces the platform)
 import pytest
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "grove_tpu_torch"
@@ -142,3 +143,34 @@ def test_controller_needs_the_card_unless_asked():
         [sys.executable, "-c", env_probe], cwd=REPO, capture_output=True, text=True, timeout=300
     )
     assert "raised no CUDA device" in out.stdout, out.stdout + out.stderr
+
+
+SIDECAR_AND_CELLS_MODULES = (
+    "grove_tpu_torch.backend", "grove_tpu_torch.backend.service",
+    "grove_tpu_torch.backend.client", "grove_tpu_torch.backend.proto.scheduler_backend_pb2",
+    "grove_tpu_torch.runtime", "grove_tpu_torch.runtime.config", "grove_tpu_torch.runtime.lease",
+    "grove_tpu_torch.api.validation", "grove_tpu_torch.utils.metrics",
+    "grove_tpu_torch.utils.platform", "grove_tpu_torch.cells", "grove_tpu_torch.cells.cell",
+    "grove_tpu_torch.cells.coordinator", "grove_tpu_torch.cells.partition",
+)
+
+
+def test_sidecar_and_cells_modules_are_checked():
+    """The sidecar (service, client, the proto module), the runtime config
+    and lease, validation, metrics, the CUDA platform probe and the cells are
+    among the modules probed above, and together import neither JAX nor
+    grove_tpu."""
+    assert set(SIDECAR_AND_CELLS_MODULES) <= set(MODULES)
+    assert _imported_forbidden(*SIDECAR_AND_CELLS_MODULES) == []
+
+
+def test_platform_probe_refuses_cuda_without_a_card():
+    import torch
+
+    from grove_tpu_torch.utils.platform import describe_device
+
+    assert not torch.cuda.is_available()
+    assert describe_device("cpu").startswith("cpu")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            describe_device(device)

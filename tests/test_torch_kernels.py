@@ -45,6 +45,7 @@ from grove_tpu_torch.solver.reference import (
 )
 from test_torch_host import PORT, SCENARIOS, _bench
 from test_torch_solver import pinned_bench_small
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 FIELDS = ("assigned", "ok", "placement_score", "free_after", "ok_global")
 KERNEL_SCENARIOS = sorted(SCENARIOS)

@@ -53,6 +53,7 @@ from grove_tpu.solver import planner as r_planner
 from grove_tpu.state import cluster as r_state
 from grove_tpu.tenancy import slo as r_slo
 from grove_tpu.utils import backoff as r_backoff
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 EXAMPLES = sorted(p.name for p in (REPO / "examples").glob("*.yaml")

@@ -31,6 +31,7 @@ from grove_tpu_torch.solver.reference import xla_sum_ref
 from grove_tpu_torch.state import pod_request_vector
 from test_torch_host import PORT, REF, _bench, _contended, build_pair
 from test_torch_solver import assert_exact
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 BASE = rc.SolverParams(w_tight=1.5, w_pref=3.0, w_reuse=2.5, w_reserve=6.0, w_spread=1.25)
 

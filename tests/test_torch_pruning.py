@@ -35,6 +35,7 @@ from grove_tpu_torch.solver import reference as pref
 from grove_tpu_torch.solver.drain import drain_backlog as p_drain
 from grove_tpu_torch.state import pod_request_vector
 from test_torch_host import PORT, REF, _contended, expand_all
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 CFG = dict(enabled=True, max_candidates=60, min_fleet=16, min_pad=8)
 BUDGET40 = dict(enabled=True, max_candidates=40, min_fleet=16, min_pad=8)

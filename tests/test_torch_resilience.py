@@ -25,6 +25,7 @@ from grove_tpu.solver import resilience as r_res
 from grove_tpu_torch import faults as p_faults
 from grove_tpu_torch.solver import resilience as p_res
 from grove_tpu_torch.solver.drain import DrainStats, WaveFault, _WavePipeline
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 MODS = (r_res, p_res)
 

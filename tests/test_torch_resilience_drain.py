@@ -38,6 +38,7 @@ from grove_tpu_torch.solver.stream import StreamConfig as PStreamConfig
 from grove_tpu_torch.solver.stream import drain_stream as p_stream
 from grove_tpu_torch.solver.warm import WarmPath as PWarm
 from grove_tpu_torch.state import build_snapshot as p_snapshot
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 SEED = 20260804
 PKG = {

@@ -53,6 +53,7 @@ from grove_tpu_torch.state import build_snapshot as p_snapshot
 from grove_tpu_torch.trace.recorder import TraceRecorder as PRecorder
 from grove_tpu_torch.trace.recorder import read_journal
 from grove_tpu_torch.trace.replay import replay_journal
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 SEED = 20260804
 PKG = {

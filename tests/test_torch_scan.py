@@ -46,6 +46,7 @@ from grove_tpu_torch.solver.reference import (
     stacked_scan_solve_ref,
 )
 from test_torch_host import PORT, REF, _bench, _contended, expand_all
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 LEDGER = ("admitted", "pods_bound", "waves", "dispatches", "device_roundtrips", "scan_chunks",
           "scanned_waves", "scan_rechains", "escalations", "escalations_adopted",

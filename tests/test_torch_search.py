@@ -41,6 +41,7 @@ from grove_tpu_torch.trace import recorder as p_rec
 from grove_tpu_torch.tuning import search as p_search
 from grove_tpu_torch.tuning.sweep import default_grid as p_grid
 from grove_tpu_torch.tuning.sweep import incumbent_config as p_incumbent
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 STREAM_JOURNAL = DATA / "jax_stream_journal.json"

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from grove_tpu_torch import bench as p_bench
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 
 def small_churn_world():
@@ -108,3 +109,45 @@ def test_card_run_equals_cpu_run_step_by_step(cuda):
     out = p_bench.run_serving_lockstep(devices=(cuda, "cpu"), steps=12,
                                        world=small_churn_world)
     assert out["bound"] > 0 and out["overcommitted_nodes"] == []
+
+
+def test_replay_scenario_windows_keep_the_document():
+    """run_replay_bench(window_s=...): four timed windows, OFF, ON, ON, OFF,
+    of one drain count set by the first, listed as `record_windows`; the
+    overhead is bench.py's formula on their summed walls, and every other
+    key is the one-drain windows' document's."""
+    one = p_bench.run_replay_bench(device="cpu")
+    win = p_bench.run_replay_bench(device="cpu", window_s=0.5)
+    assert "record_windows" not in one
+    sides = [w[0] for w in win["record_windows"]]
+    counts = {w[1] for w in win["record_windows"]}
+    assert sides == ["off", "on", "on", "off"] and len(counts) == 1 and counts.pop() >= 2
+    n = win["record_windows"][0][1]
+    off = sum(w[2] for w in win["record_windows"] if w[0] == "off") / (2 * n)
+    on = sum(w[2] for w in win["record_windows"] if w[0] == "on") / (2 * n)
+    assert win["drain_wall_off_s"] == off and win["drain_wall_on_s"] == on
+    assert win["record_overhead_frac"] == (on - off) / off
+    assert p_bench.replay_doc_core(win) == p_bench.replay_doc_core(one)
+
+
+def test_replay_scenario_times_the_recorder_through_its_flush(monkeypatch):
+    """An ON window ends with recorder.flush(): what the writer does for the
+    window's drains lands inside its wall. A flush made 1 s slower shows
+    in the ON drain wall."""
+    import time
+
+    from grove_tpu_torch.trace import recorder as p_rec
+
+    flushes = []
+    real_flush = p_rec.TraceRecorder.flush
+
+    def slow_flush(self, timeout=5.0):
+        flushes.append(self.path)
+        time.sleep(1.0)
+        return real_flush(self, timeout)
+
+    monkeypatch.setattr(p_rec.TraceRecorder, "flush", slow_flush)
+    doc = p_bench.run_replay_bench(device="cpu")
+    assert len(flushes) == 2  # the two ON windows; the recorded drain stops
+    assert doc["drain_wall_on_s"] >= doc["drain_wall_off_s"] + 0.8
+    assert doc["record_overhead_frac"] > 0.05 and doc["vs_baseline"] == 0.0

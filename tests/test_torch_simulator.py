@@ -28,6 +28,7 @@ from grove_tpu.orchestrator.expansion import INITC_CONTAINER_NAME
 from grove_tpu_torch import faults as p_faults
 from grove_tpu_torch.initc import agent as p_agent
 from grove_tpu_torch.trace.replay import replay_journal as p_replay
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -18,6 +18,7 @@ from grove_tpu_torch.convert import from_reference
 from grove_tpu_torch.solver import core as pc
 from grove_tpu_torch.solver import reference as pref
 from test_torch_host import REF, SCENARIOS, build_pair
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 FIELDS = ("assigned", "ok", "placement_score", "free_after", "ok_global")
 

@@ -37,6 +37,7 @@ from grove_tpu_torch.solver.drain import ScanConfig as PScan
 from grove_tpu_torch.solver.drain import drain_backlog as p_drain
 from grove_tpu_torch.solver.warm import WarmPath as PWarmPath
 from grove_tpu_torch.state import build_snapshot as p_snapshot
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 SLO_MIX = (("latency", 0.3), ("standard", 0.5), ("batch-preemptible", 0.2))
 COUNTERS = ("waves", "dispatches", "device_roundtrips", "scan_chunks", "scanned_waves",

@@ -31,6 +31,7 @@ from grove_tpu_torch.trace import recorder as p_rec
 from grove_tpu_torch.trace.replay import replay_journal
 from test_torch_search import STREAM_JOURNAL, STREAM_WAVES, cut_journal, waves_of
 from test_torch_stream import SLO_MIX, fleet, trace
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 WAVE_FIELDS = ("wave", "ok", "plan", "scores", "valid", "freeRows", "candidates", "scheduled",
                "allocated", "fleet", "solver", "padGangsTo", "maxGroups", "maxSets", "maxPods",

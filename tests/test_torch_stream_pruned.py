@@ -29,6 +29,7 @@ from grove_tpu_torch.trace.replay import replay_journal
 from test_torch_search import waves_of
 from test_torch_stream import fleet, trace
 from test_torch_stream_journal import WAVE_FIELDS, recorded
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 PRUNED = dict(enabled=True, min_fleet=16, max_candidates=8, min_pad=8)
 COUNTERS = ("waves", "dispatches", "device_roundtrips", "scan_chunks", "scanned_waves",

@@ -25,6 +25,7 @@ from grove_tpu.tuning import incumbent_config as r_incumbent
 from grove_tpu.tuning import sweep_journal as r_sweep
 from grove_tpu_torch.tuning import default_grid, incumbent_config, sweep_journal
 from test_torch_trace import PRUNED, jax_drain_journal, waves_of
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 TALLY = ("waves", "gangs", "admitted", "score_sum", "divergences", "escalations", "plans")
 COUNTERS = ("waves_seen", "stacked_solves", "scan_stacked_solves", "fallback_solves")

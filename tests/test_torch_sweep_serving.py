@@ -11,6 +11,14 @@ verdicts and scores are the same.
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_sweep_serving.py --write-card-journal
 
 re-records the committed journal.
+
+Under several pytest workers, a worker recording the JAX controller journal
+here once died in native code and xdist counted the test it was running as
+failed: a long-lived worker had cached so many compiled JAX programs that
+it held the kernel's limit of memory mappings, and the next program could
+not be mapped. Every port module that runs the JAX package now releases
+them at its start and end (tests/torch_jax_programs.py); the last test here
+pins that.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import shutil
 import sys
 import tempfile
 
-import jax  # noqa: F401  (JAX stays on the CPU: conftest forces the platform)
+import jax  # JAX stays on the CPU: conftest forces the platform
 import pytest
 
 from grove_tpu.solver import pruning as rp
@@ -31,6 +39,8 @@ from grove_tpu_torch.trace import recorder as p_rec
 from grove_tpu_torch.trace.replay import replay_journal
 from test_torch_sweep import _assert_sweep_equal
 from test_torch_trace import waves_of
+from torch_jax_programs import _release_jax_programs  # noqa: F401
+from torch_jax_programs import memory_mappings, release_jax_programs
 
 CARD_JOURNAL = pathlib.Path(__file__).resolve().parent / "data" / "jax_card_journal.json"
 
@@ -132,6 +142,41 @@ def test_port_replays_jax_controller_journal_exactly(journals, name):
     report = replay_journal(records, device="cpu")
     assert len(report.waves) == len(waves)
     assert report.divergence_count == 0, report.to_doc()
+
+
+def test_a_worker_full_of_compiled_programs_releases_them_and_records(tmp_path):
+    """The state a long-lived worker leaves is set first: a few hundred
+    compiled programs in JAX's jit caches and a drain's executables in the
+    JAX package's process-shared WarmPath, each holding memory mappings.
+    Releasing them as the module fixture does returns the process to the
+    mappings it held before, and the journal fixture's recording then runs
+    with its pins, its rejection and its escalation."""
+    import jax.numpy as jnp
+
+    import grove_tpu.solver.warm as r_warm
+    from grove_tpu.orchestrator import expand_podcliqueset
+    from grove_tpu.sim.workloads import _clique, _pcs, bench_topology, synthetic_cluster
+    from grove_tpu.solver.drain import drain_backlog
+    from grove_tpu.state import build_snapshot
+
+    release_jax_programs()
+    base = memory_mappings()
+    for i in range(150):
+        jax.jit(lambda x, i=i: jnp.sin(x) * i + jnp.cos(x * i))(jnp.ones((i + 1,)))
+    topo = bench_topology()
+    ds = expand_podcliqueset(_pcs("p0", cliques=[_clique("w", 2, "16")]), topo)
+    drain_backlog(ds.podgangs, {p.name: p for p in ds.pods},
+                  build_snapshot(synthetic_cluster(zones=1, blocks_per_zone=1,
+                                                   racks_per_block=2), topo), wave_size=2)
+    assert r_warm._DEFAULT_WARM_PATH is not None
+    leaked = memory_mappings()
+    assert leaked > base + 500, (base, leaked)
+    release_jax_programs()
+    assert r_warm._DEFAULT_WARM_PATH is None
+    assert memory_mappings() < base + (leaked - base) // 4, (base, leaked, memory_mappings())
+    waves = waves_of(jax_controller_journal(tmp_path / "controller"))
+    assert waves[0]["solver"]["escalatePortfolio"] == 4
+    assert any(w["boundNodes"] for w in waves) and any(w["rejections"] for w in waves)
 
 
 @pytest.mark.parametrize("k", [4, 8])

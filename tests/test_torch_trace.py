@@ -24,6 +24,7 @@ are in tests/test_torch_sweep.py.
 
 from __future__ import annotations
 
+import enum
 import json
 import os
 
@@ -50,6 +51,7 @@ from grove_tpu_torch.trace.replay import (
 )
 from grove_tpu_torch.utils import serde as p_serde
 from test_torch_host import PORT, REF, _bench, expand_all
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 # The backlogs of tests/test_tuning.py `_problem`: 160 nodes (one zone, two
 # blocks, four racks each), 26 PodCliqueSets.
@@ -392,6 +394,56 @@ def test_port_segments_rotate_and_replay_standalone(tmp_path):
     assert replayed >= 2
     manifest = p_rec.read_manifest(rec.path)
     assert manifest["waves"] == stats.waves and not p_rec.journal_truncated(rec.path)
+
+
+class _StrEnum(str, enum.Enum):
+    A = "a\u00e9"
+
+
+class _IntEnum(enum.IntEnum):
+    B = 7
+
+
+class _Enum(enum.Enum):
+    C = (1, "c")
+
+
+ODD_VALUES = [1, -2.5, float("nan"), float("inf"), -float("inf"), True, None, "é\n\"q",
+              (1, "a"), {1: 2, "a": (3,)}, {"b": {2.0: None}}, {3, 1}, frozenset(), [],
+              {}, (), [[1, "x"], {"k": [None, 0.1]}], _StrEnum.A, _IntEnum.B, _Enum.C,
+              {"e": [_StrEnum.A, _IntEnum.B]}, {_IntEnum.B: _Enum.C}]
+
+
+@pytest.mark.parametrize("value", ODD_VALUES, ids=range(len(ODD_VALUES)))
+def test_serde_dumps_is_json_dumps_of_encode(value):
+    assert p_serde.dumps(value) == json.dumps(p_serde.encode(value))
+
+
+def test_serde_dumps_of_gangs_and_pods_is_json_dumps_of_encode():
+    gangs, pods, _ = problem(PORT, racks_per_block=2, n=(3, 2, 2))
+    pods = list(pods.values()) if isinstance(pods, dict) else list(pods)
+    pods[0].conditions.append(p_serde._lookup("Condition")(type="Ready", status="True"))
+    for obj in gangs + pods:
+        assert p_serde.dumps(obj) == json.dumps(p_serde.encode(obj)), obj.name
+
+
+def test_port_segments_are_json_dumps_of_their_records(tmp_path):
+    """The writer renders each record once and splices the texts into every
+    rewrite of its segment: each segment on disk is byte for byte
+    json.dumps of the document it holds, across flushes and rotation."""
+    gangs, pods, snap = problem(PORT, racks_per_block=2, n=(4, 3, 3))
+    rec = p_rec.TraceRecorder(str(tmp_path / "j"), max_records_per_file=5, max_files=64)
+    rec.start()
+    p_drain(gangs[: len(gangs) // 2], pods, snap, wave_size=4, recorder=rec, device="cpu")
+    assert rec.flush()  # a segment written, then rewritten with more records
+    rec.capture_action(1.0, "preempt", "gang-x", reason="test")
+    p_drain(gangs[len(gangs) // 2:], pods, snap, wave_size=4, recorder=rec, device="cpu")
+    rec.stop()
+    segments = sorted(f for f in os.listdir(rec.path) if f.startswith("segment-"))
+    assert len(segments) >= 2 and rec.segments_written > len(segments), rec.stats()
+    for seg in segments:
+        text = open(os.path.join(rec.path, seg)).read()
+        assert text == json.dumps(json.loads(text)), seg
 
 
 def test_port_recorder_bounded_queue_drops_and_counts(tmp_path):

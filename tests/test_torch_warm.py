@@ -63,6 +63,7 @@ from test_torch_host import (
     mk_nodes,
     topology,
 )
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 ROW_COUNTERS = ("hits", "misses", "sets_hits", "sets_misses")
 EXEC_COUNTERS = ("hits", "misses", "lowerings")

@@ -39,6 +39,7 @@ from grove_tpu_torch.solver.drain import drain_backlog as p_drain
 from grove_tpu_torch.solver.drain import plan_waves as p_plan
 from test_torch_host import PORT, REF, _bench
 from test_torch_scan import adopt_fleet, bench_small
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 WARM = ("exec_cache_hits", "exec_cache_misses", "lowerings", "encode_reuse_hits",
         "encode_reuse_misses", "donated")

@@ -24,6 +24,7 @@ from grove_tpu_torch.solver.core import SolverParams as PParams
 from grove_tpu_torch.trace import recorder as p_rec
 from grove_tpu_torch.trace import whatif as p_whatif
 from test_torch_search import STREAM_JOURNAL, strip_seconds, waves_of
+from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 VARIANTS = [
     {"weights": {"wTight": 2.0}, "name": "tight2"},

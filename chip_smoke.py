@@ -195,11 +195,13 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               replay scenario (16 nodes of 8 cpus, 5 rack-packed jobs): 0
               divergences, at least one "portfolio" launch for the
               rejected job, the document equal to the CPU run's, seconds
-              aside, and bench.py's record-overhead gate: four windows of
-              back-to-back drains, OFF, ON, ON, OFF (3 s sets the count;
-              each ON window timed through its recorder's flush, so the
-              writer's rendering and I/O are inside; every window
-              printed), (ON - OFF) / OFF over the summed walls below 0.05
+              aside, and bench.py's record-overhead gate: three rounds of
+              windows of back-to-back drains, OFF, ON, ON, OFF (the first
+              1 s sets the count; each ON window timed through its
+              recorder's flush, so the render at capture (the C renderer,
+              utils/csrc/serde_render.c) and the writer's I/O are inside;
+              every window printed, with the recorder's split), (ON - OFF)
+              / OFF over the summed walls below 0.05
               (a failed gate fails the run after the last phase); (c) a
               256-node churn world (contended
               backlog with priority classes, a node death, a cordon, a
@@ -259,9 +261,11 @@ SCALE_PRUNING = dict(enabled=True, max_candidates=8191, min_fleet=256)
 
 # Gates that fail the run only after every phase has run and printed.
 GATE_FAILURES: list[str] = []
-# Seconds of drains in each of phase 15 (b)'s record-overhead windows:
-# several of the recorder's 1 s flush intervals.
-REPLAY_WINDOW_S = 3.0
+# Phase 15 (b)'s record-overhead reading: rounds of OFF, ON, ON, OFF windows,
+# the first OFF window REPLAY_WINDOW_S seconds of drains (the recorder's
+# flush interval) setting the count for the others: twelve windows in all.
+REPLAY_WINDOW_S = 1.0
+REPLAY_ROUNDS = 3
 
 
 def check(ok: bool, message: str) -> None:
@@ -2421,15 +2425,16 @@ def serving_phase(dev, card) -> dict:
           f"0 divergences")
 
     # (b) bench.py's replay scenario, on the card and then on the CPU. The
-    # record-overhead gate reads four windows of back-to-back drains, OFF,
-    # ON, ON, OFF, each ON window timed through its recorder's flush.
+    # record-overhead gate reads three rounds of windows of back-to-back
+    # drains, OFF, ON, ON, OFF, each ON window timed through its recorder's
+    # flush.
     sync(dev)
     reset_launches()
-    b = run_replay_bench(device=dev, window_s=REPLAY_WINDOW_S)
+    b = run_replay_bench(device=dev, window_s=REPLAY_WINDOW_S, rounds=REPLAY_ROUNDS)
     sync(dev)
     b_launches = dict(place_wave.variant_launches)
     count(b_launches)
-    print(f"replay scenario: { {k: v for k, v in b.items() if k != 'recorder_stats'} }, "
+    print(f"replay scenario: { {k: v for k, v in b.items() if k not in ('recorder_stats', 'record_windows', 'record_split')} }, "
           f"launches { {k: v for k, v in b_launches.items() if v} } on {card}")
     check(b["value"] == 0, f"replay scenario: {b['value']} divergences")
     check(b_launches["portfolio"] >= 1,
@@ -2437,9 +2442,20 @@ def serving_phase(dev, card) -> dict:
     b_cpu = run_replay_bench(device="cpu")
     check(replay_doc_core(b) == replay_doc_core(b_cpu),
           "replay scenario: the card's document != the CPU's (wall-clock keys aside)")
-    for side, drains, wall in b["record_windows"]:
+    for side, drains, wall, gc_s, collections in b["record_windows"]:
         print(f"replay scenario window {side.upper()}: {drains} drains in {wall:.6f} s, "
-              f"{wall / drains:.6f} s a drain")
+              f"{wall / drains:.6f} s a drain; the collector paused {gc_s:.6f} s "
+              f"in {collections} collections")
+    split = b["record_split"]
+    from grove_tpu_torch.utils import serde
+
+    print("replay scenario: the recorder's ms a drain over the ON windows (renderer "
+          f"{os.path.basename(serde.renderer_file or 'not loaded')}: "
+          + ", ".join(f"{part} {v['s'] * 1e3 / split['drains']:.4f} ({v['n']})"
+                      for part, v in split["parts"].items())
+          + f"; {split['drains']} drains); collector pauses ON "
+          f"{sum(w[3] for w in b['record_windows'] if w[0] == 'on'):.6f} s, OFF "
+          f"{sum(w[3] for w in b['record_windows'] if w[0] == 'off'):.6f} s")
     print(f"replay scenario: OFF {b['drain_wall_off_s']:.6f} s, ON {b['drain_wall_on_s']:.6f} s "
           f"a drain, overhead {b['record_overhead_frac']:.4f} (gate < 0.05) on {card}; "
           f"== the CPU's document, seconds aside")

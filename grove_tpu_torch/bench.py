@@ -83,6 +83,9 @@ keys) through the port's GroveController under the Simulator: 16 nodes of 8
 cpus, 5 rack-packed jobs (one rack too many), drained with the recorder off
 and on (the record overhead), the journal replayed (the divergences) and a
 +1-rack what-if over it; solves, the replay and the what-if on the card.
+With --window-s S > 0 the record overhead is read on --rounds R rounds of
+OFF, ON, ON, OFF windows (the first S seconds of drains), every window and
+the recorder's cost by part listed.
 
 --scenario serving serves bench.py's default backlog (900 sets, 1250 gangs,
 10,000 pods) on its 5120-node fleet through GroveController (recorder on)
@@ -107,6 +110,8 @@ versions with 0 divergences).
   --prune-max K     scale: candidate budget (default 8191)
   --min-fleet M     scale: smallest fleet that prunes (default 256)
   --k K             sweep: configs in the grid (default 16)
+  --window-s S      replay: seconds of drains in the first window (0: one drain)
+  --rounds R        replay: rounds of OFF, ON, ON, OFF windows (1)
   --device D        "cuda" (default) or "cpu" (plain PyTorch versions)
 
 GROVE_FAULTS (faults/__init__.py's syntax) installs the port's fault
@@ -1821,7 +1826,8 @@ RECONCILE_PHASES = ("sync_workload", "rolling_updates", "revocation_tick", "solv
 # Keys of the replay document that carry wall-clock time or a temporary path;
 # a card run and a CPU run agree on every other key.
 REPLAY_WALL_KEYS = ("drain_wall_off_s", "drain_wall_on_s", "record_overhead_frac",
-                    "vs_baseline", "recorded_solve_s", "replayed_solve_s", "record_windows")
+                    "vs_baseline", "recorded_solve_s", "replayed_solve_s", "record_windows",
+                    "record_split")
 RECORDER_WALL_KEYS = ("path", "segmentsWritten", "manifestWrites", "queueDepth")
 # The controller's counters and in-flight maps a serving comparison holds
 # equal beside the store.
@@ -2171,24 +2177,30 @@ def replay_world(scale: float = 1.0):
     return bench_topology(), fleet, backlog
 
 
-def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0) -> dict:
+def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
+                     rounds: int = 1) -> dict:
     """bench.py's `run_replay_bench` on the port, with its keys: the replay
     world drained by `GroveController` under `Simulator` with the recorder
     OFF and ON (the overhead), the journal of one recorded drain replayed
     (the divergences) and a +1-rack what-if over it (the counterfactual).
     Solves, the replay and the what-if run on `device` (None = the card).
 
-    The overhead is bench.py's formula and 0.05 gate on four timed windows
-    after the warm-up, in the order OFF, ON, ON, OFF, each of the same
-    number of back-to-back drains: (ON - OFF) / OFF over their summed walls.
-    An ON window is timed through `recorder.flush()`, so every record its
-    drains captured has been built, serde-encoded and written to disk inside
-    it; the recorder's start and stop stay outside, as in bench.py. The
-    collector runs as it would. With `window_s` 0 a window is one drain;
-    with `window_s` > 0 the first OFF window drains until `window_s` seconds
-    have passed (several flush intervals: a serving process's steady state)
-    and sets the count for the others, and the document also lists every
-    window, `record_windows` ([side, drains, wall_s])."""
+    The overhead is bench.py's formula and 0.05 gate on timed windows after
+    the warm-up, `rounds` rounds in the order OFF, ON, ON, OFF, each window
+    of the same number of back-to-back drains: (ON - OFF) / OFF over their
+    summed walls. An ON window is timed through `recorder.flush()`, so every
+    record its drains captured has been built, serde-encoded and written to
+    disk inside it; the recorder's start and stop stay outside, as in
+    bench.py. The collector runs as it would. With `window_s` 0 a window is
+    one drain; with `window_s` > 0 the first OFF window drains until
+    `window_s` seconds have passed (at least one flush interval) and sets
+    the count for the others, and the document also lists every window,
+    `record_windows` ([side, drains, wall_s, gc_pause_s, collections]: the
+    collector's pauses inside it, read through `gc.callbacks`), and
+    `record_split`, the recorder's seconds and counts by part summed
+    over the ON windows (TraceRecorder.stats(split=True)) with their
+    drains."""
+    import gc
     import shutil
     import tempfile
 
@@ -2196,7 +2208,7 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0) -> 
     from grove_tpu_torch.orchestrator.store import Cluster
     from grove_tpu_torch.sim.simulator import Simulator
     from grove_tpu_torch.solver.core import resolve_device
-    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+    from grove_tpu_torch.trace.recorder import SPLIT_PARTS, TraceRecorder, read_journal
     from grove_tpu_torch.trace.replay import replay_journal
     from grove_tpu_torch.trace.whatif import whatif_journal
 
@@ -2219,12 +2231,25 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0) -> 
         admitted = sum(1 for g in cluster.podgangs.values() if g.is_base_gang_scheduled())
         return admitted, len(cluster.podgangs)
 
+    split = {part: {"s": 0.0, "n": 0} for part in SPLIT_PARTS}
+    pauses = [0.0, 0, 0.0]  # seconds, collections, start of the current one
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            pauses[2] = time.perf_counter()
+        else:
+            pauses[0] += time.perf_counter() - pauses[2]
+            pauses[1] += 1
+
     def window(side, count):
-        """(wall_s, drains, admitted counts) of one timed window."""
+        """(wall_s, drains, admitted counts, gc pause s, collections) of one
+        timed window."""
         journal_dir = tempfile.mkdtemp(prefix="grove-trace-bench-")
         recorder = TraceRecorder(journal_dir) if side == "on" else None
         if recorder is not None:
             recorder.start()
+        pauses[:2] = [0.0, 0]
+        gc.callbacks.append(on_gc)
         try:
             admitted = []
             t0 = time.perf_counter()
@@ -2234,22 +2259,27 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0) -> 
                 raise RuntimeError("replay bench: the recorder did not flush in 60 s")
             wall = time.perf_counter() - t0
         finally:
+            gc.callbacks.remove(on_gc)
             if recorder is not None:
                 recorder.stop()
+                for part, v in recorder.stats(split=True)["split"].items():
+                    split[part]["s"] += v["s"]
+                    split[part]["n"] += v["n"]
             shutil.rmtree(journal_dir, ignore_errors=True)
-        return wall, len(admitted), admitted
+        return wall, len(admitted), admitted, pauses[0], pauses[1]
 
     # Warm-up drain: builds the kernels and fills the process caches, so the
     # OFF/ON comparison measures recording, not first-call costs.
     drain(None)
     windows, admitted_seen = [], set()
     count = 1 if window_s <= 0 else 0
-    for side in ("off", "on", "on", "off"):
-        wall, count, admitted = window(side, count)
-        windows.append([side, count, wall])
+    for side in ("off", "on", "on", "off") * max(1, int(rounds)):
+        wall, count, admitted, gc_s, gcs = window(side, count)
+        windows.append([side, count, wall, gc_s, gcs])
         admitted_seen.update(admitted)
-    wall_off = sum(w for s, _, w in windows if s == "off") / (2 * count)
-    wall_on = sum(w for s, _, w in windows if s == "on") / (2 * count)
+    n_side = sum(1 for w in windows if w[0] == "off") * count
+    wall_off = sum(w[2] for w in windows if w[0] == "off") / n_side
+    wall_on = sum(w[2] for w in windows if w[0] == "on") / n_side
     overhead = (wall_on - wall_off) / wall_off if wall_off > 0 else 0.0
 
     # The recorded drain: its journal is the one replayed.
@@ -2294,6 +2324,7 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0) -> 
     }
     if window_s > 0:
         out["record_windows"] = windows
+        out["record_split"] = {"drains": n_side, "parts": split}
     if divergences:
         out["diverged"] = rep_doc["diverged"][:3]  # evidence, bounded
     return out
@@ -2440,12 +2471,17 @@ def main(argv=None) -> int:
     ap.add_argument("--min-fleet", type=int, default=256)
     ap.add_argument("--k", type=int, default=16)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--window-s", type=float, default=0.0,
+                    help="replay: seconds of drains in the first OFF window (0: one drain)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="replay: rounds of OFF, ON, ON, OFF windows")
     args = ap.parse_args(argv)
     from grove_tpu_torch import faults
 
     faults.install(faults.from_config(None))  # GROVE_FAULTS arms the port's injector
     if args.scenario == "replay":
-        out = run_replay_bench(args.scale, device=args.device)
+        out = run_replay_bench(args.scale, device=args.device, window_s=args.window_s,
+                               rounds=args.rounds)
     elif args.scenario == "cells":
         out = run_cells_bench(device=args.device)
     elif args.scenario == "sidecar":

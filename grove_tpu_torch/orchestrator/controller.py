@@ -1109,10 +1109,9 @@ class GroveController:
         )
         if self.recorder is not None:
             # Flight-recorder capture BEFORE the binding loop mutates the
-            # pods: the journal holds the pre-solve input closure. Only the
-            # copies of what the binding loop changes are made here (the
-            # pods, the allocation table); the record's JSON and the file
-            # I/O are the writer thread's.
+            # pods: the journal holds the pre-solve input closure. The
+            # record's JSON is rendered here (the C renderer, utils/csrc);
+            # the file I/O is the writer thread's.
             try:
                 self.recorder.capture_wave(
                     now=now,

@@ -1,9 +1,9 @@
-"""The decision flight recorder: journal every solve wave off the hot path
-(grove_tpu/trace/recorder.py counterpart).
+"""The decision flight recorder: journal every solve wave, its file I/O off
+the hot path (grove_tpu/trace/recorder.py counterpart).
 
 The journal is a directory of SELF-CONTAINED segment files, each an atomic
 JSON document `{"version": N, "records": [...]}` written via the shared
-temp-file+rename primitive (`utils/fsio.atomic_write_json`) — readers never
+temp-file+rename primitive (`utils/fsio.atomic_write_chunks`) — readers never
 see a torn segment, and rotation/pruning cannot corrupt older ones. Two
 record kinds matter to replay:
 
@@ -24,18 +24,17 @@ forensics — replay re-solves wave records only. The port's drains journal
 their waves here (solver/drain.py); a port journal and a JAX one share the
 schema and the fleet digests.
 
-Hot-path discipline: `capture_wave` runs on the commit path, so it only
-copies what changes after the solve — each referenced pod (`_pod_copy`: the
-binding loop replaces a pod's node, gates and phase; containers are copied,
-specs and conditions are replaced wholesale, never edited in place, the
-convention solver/warm.py's row cache relies on too) and the allocated rows —
-and keeps the rest as given: the gang objects (the controller builds its
-sub-gangs per pass, drains never edit their backlog) and the per-wave maps.
-The writer thread renders each record to JSON text once, when it first
-writes the segment holding it (`_wave_text`, `serde.dumps`), so the journal
-holds the pre-bind closure, byte for byte the record the JAX recorder writes
-at capture time, and a segment rewritten at each flush re-encodes nothing.
-File I/O happens there too. A full queue DROPS the record and counts it
+Hot-path discipline: `capture_wave` runs on the commit path, before the
+binding loop edits the pods, and renders the wave record to its JSON text
+there (`_wave_text`; `serde.dumpb`, the C renderer of utils/csrc: byte for
+byte the record the JAX recorder builds at capture time). So nothing is
+copied, and the queue holds bytes,
+which the collector does not track: a capture that waited a flush interval
+for the writer as an object graph (pod copies) was promoted into the oldest
+generation and made full collections come sooner. The writer thread keeps
+each record's bytes and writes a segment as the bytes it already holds plus
+the new ones, so a flush costs the new records and the file write, not a
+re-encoding of the segment. A full queue DROPS the record and counts it
 (`dropped`) rather than blocking a solve.
 """
 
@@ -47,7 +46,7 @@ import json
 import os
 import queue
 import threading
-from json.encoder import encode_basestring_ascii as _quote
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -57,7 +56,7 @@ from grove_tpu_torch.api import podgang as podgang_mod
 from grove_tpu_torch.api import types as types_mod
 from grove_tpu_torch.state import cluster as state_mod
 from grove_tpu_torch.utils import serde
-from grove_tpu_torch.utils.fsio import atomic_write_json, atomic_write_text
+from grove_tpu_torch.utils.fsio import atomic_write_chunks
 
 # Journal schema, the JAX package's: either package reads the other's
 # journals. The replayer refuses a mismatched version outright: a silent
@@ -66,29 +65,19 @@ from grove_tpu_torch.utils.fsio import atomic_write_json, atomic_write_text
 SCHEMA_VERSION = 1
 
 _SEGMENT_GLOB = "segment-*.json"
+# A segment's text up to its first record.
+_SEGMENT_HEAD = (json.dumps({"version": SCHEMA_VERSION})[:-1] + ', "records": [').encode()
+# The parts of TraceRecorder.stats(split=True), in the order of a record's
+# way to disk.
+SPLIT_PARTS = ("capture", "render", "segment", "manifest")
 _MANIFEST = "manifest.json"
 
 
-def _pod_copy(pod):
-    """What serde reads of a pod at capture time, cheaply: a shallow copy of
-    its instance dict (cheaper than copy.copy) with the containers that can
-    be edited in place copied too."""
-    c = object.__new__(type(pod))
-    d = pod.__dict__.copy()
-    d["labels"] = dict(pod.labels)
-    d["annotations"] = dict(pod.annotations)
-    d["env"] = dict(pod.env)
-    d["conditions"] = list(pod.conditions)
-    d["scheduling_gates"] = list(pod.scheduling_gates)
-    c.__dict__ = d
-    return c
-
-
-def _wave_text(c: dict, digest: str) -> str:
+def _wave_text(c: dict, digest: str) -> bytes:
     """The JSON text of one capture's wave record (TraceRecorder.capture_wave's
-    copies and per-wave inputs): `json.dumps` of the record the JAX recorder
-    builds, field for field and in its order; rendered on the writer
-    thread."""
+    inputs), as bytes: `json.dumps` of the record the JAX recorder builds,
+    field for field and in its order, its gangs and pods rendered from the
+    objects (`serde.dumpb`)."""
     gangs = c["gangs"]
     ok_by_name, valid_by_name, scores = c["ok_by_name"], c["valid_by_name"], c["scores"]
     names = {g.name for g in gangs}
@@ -102,7 +91,7 @@ def _wave_text(c: dict, digest: str) -> str:
             else "not solver-valid (gated base or unresolvable constraint)"
         )
     mesh, pruning = c["mesh"], c["pruning"]
-    head = {
+    rec = {
         "kind": "wave",
         "now": float(c["now"]),
         "wave": c["wave"],
@@ -110,9 +99,8 @@ def _wave_text(c: dict, digest: str) -> str:
         "padNodesTo": c["pad_nodes"],
         "resources": c["resources"],
         "allocated": c["allocated"],
-    }
-    # "gangs" and "pods" go between head and tail, rendered by serde.dumps.
-    tail = {
+        "gangs": c["gangs"],
+        "pods": c["pods"],
         "scheduled": sorted(c["scheduled"]),
         "boundNodes": {
             g: {grp: list(map(int, idx)) for grp, idx in per.items()}
@@ -164,15 +152,12 @@ def _wave_text(c: dict, digest: str) -> str:
         "solveSeconds": float(c["solve_seconds"]),
     }
     if c["free_rows"]:
-        tail["freeRows"] = {
+        rec["freeRows"] = {
             str(n): [float(v) for v in row] for n, row in c["free_rows"].items()
         }
     if c["candidates"] is not None:
-        tail["candidates"] = [int(i) for i in c["candidates"]]
-    gangs = "[" + ", ".join([serde.dumps(g) for g in gangs]) + "]"
-    pods = "{" + ", ".join([_quote(n) + ": " + serde.dumps(p) for n, p in c["pods"].items()]) + "}"
-    return (json.dumps(head)[:-1] + ', "gangs": ' + gangs + ', "pods": ' + pods + ", "
-            + json.dumps(tail)[1:])
+        rec["candidates"] = [int(i) for i in c["candidates"]]
+    return serde.dumpb(rec)
 
 
 for _m in (types_mod, pod_mod, podgang_mod, state_mod):
@@ -234,13 +219,15 @@ def fleet_digest_of(snapshot) -> tuple[str, dict]:
 
 def _same_fleet(a, b) -> bool:
     """True when two snapshots give equal `fleet_payload`s: its inputs,
-    compared as they are."""
+    compared as they are (equal topology levels give equal levels_doc)."""
     n = len(a.node_names)
     return (a.node_names == b.node_names and a.resource_names == b.resource_names
-            and np.array_equal(a.capacity[:n], b.capacity[:n])
-            and np.array_equal(a.schedulable[:n], b.schedulable[:n])
+            and a.capacity.dtype == b.capacity.dtype
+            and a.capacity[:n].tobytes() == b.capacity[:n].tobytes()
+            and a.schedulable[:n].tobytes() == b.schedulable[:n].tobytes()
             and a.node_labels == b.node_labels and a.node_taints == b.node_taints
             and (a.topology is b.topology
+                 or a.topology.levels == b.topology.levels
                  or a.topology.levels_doc() == b.topology.levels_doc()))
 
 
@@ -299,15 +286,25 @@ class TraceRecorder:
         # (`journal_truncated`, RecoveryReport.truncated).
         self.pruned_segments = 0
         self.pruned_waves = 0
-        # Fleet records the writer derived from captured waves (counted in
+        # Fleet records captured beside their first wave (counted in
         # `recorded`, as the JAX recorder counts the fleet records it
-        # enqueues beside its waves); written by the writer thread only.
+        # enqueues beside its waves), and their digests.
         self.fleets_recorded = 0
-        # (snapshot, its fleet_digest_of) of the last wave; writer thread.
+        self._announced: set[str] = set()
+        # (snapshot, its fleet_digest_of) of the last wave.
         self._last_fleet: tuple | None = None
+        # The recorder's cost by part, [seconds, count] each (stats(split=
+        # True)), every part on one clock, time.perf_counter. On the commit
+        # path: "capture" (the fleet digest, the allocated rows, the pod
+        # names, the enqueue) and "render" (the wave's JSON text). On the
+        # writer thread, its wall seconds, its waits for the GIL included
+        # (so at most what it took from the commit path's thread): "segment"
+        # (taking records off the queue, the other records' JSON, a segment
+        # file written) and "manifest".
+        self._split = {part: [0.0, 0] for part in SPLIT_PARTS}
         # Wakes the writer: a flush, a stop, or a queue half full. Records
-        # otherwise wait for the flush interval, when the writer renders and
-        # writes them in one pass.
+        # otherwise wait for the flush interval, when the writer writes them
+        # in one pass.
         self._wake = threading.Event()
 
     # ---- lifecycle ---------------------------------------------------------------
@@ -411,10 +408,8 @@ class TraceRecorder:
     ) -> bool:
         """Journal one solve wave — the full encode+solve input closure plus
         the resulting plan. The pods mutate (bind) right after the solve and
-        a drain's allocation table advances, so those are copied here; the
-        writer thread renders the record from the copies (`_wave_text`).
-        The per-wave maps (plan, verdicts, scores, seeds) are read there as
-        given: every caller builds them for the wave and leaves them be.
+        a drain's allocation table advances, so the record is rendered to its
+        JSON text here (`_wave_text`), and the writer thread only writes it.
 
         The pipelined drain (solver/drain._WavePipeline) journals waves whose
         entering state is NOT the snapshot: `allocated_override` is the
@@ -424,6 +419,8 @@ class TraceRecorder:
         plan was cut with (plans are cut against the INITIAL free, so replay
         must not re-cut them against the wave's entering free). Replay
         (trace/replay.py) prefers these over the snapshot-derived state."""
+        t0 = time.perf_counter()
+        digest, payload = self._fleet_of(snapshot)
         ref_names = sorted({
             r.name
             for g in gangs
@@ -440,30 +437,49 @@ class TraceRecorder:
             snapshot.node_names[i]: alloc[i].tolist()
             for i in np.flatnonzero(alloc[:n_real].any(axis=1)).tolist()
         }
-        return self.record({
-            "kind": "wave",
-            "_snapshot": snapshot,
-            "_capture": {
-                "now": now, "wave": wave, "pad_nodes": int(snapshot.capacity.shape[0]),
-                "resources": list(snapshot.resource_names), "allocated": allocated,
-                "gangs": list(gangs),
-                "pods": {n: _pod_copy(pods_by_name[n]) for n in ref_names},
-                "scheduled": list(scheduled_names), "bound_nodes": bound_nodes,
-                "reuse_nodes": reuse_nodes, "spread_avoid": spread_avoid,
-                "max_groups": max_groups, "max_sets": max_sets, "max_pods": max_pods,
-                "pad_gangs_to": pad_gangs_to, "params": params, "portfolio": portfolio,
-                "escalate_portfolio": escalate_portfolio, "pruning": pruning, "plan": plan,
-                "ok_by_name": ok_by_name, "valid_by_name": valid_by_name, "scores": scores,
-                "solve_seconds": solve_seconds, "free_rows": free_rows,
-                "candidates": candidates, "mesh": mesh,
-            },
-        })
+        t1 = time.perf_counter()
+        text = _wave_text({
+            "now": now, "wave": wave, "pad_nodes": int(snapshot.capacity.shape[0]),
+            "resources": list(snapshot.resource_names), "allocated": allocated,
+            "gangs": gangs, "pods": {n: pods_by_name[n] for n in ref_names},
+            "scheduled": scheduled_names, "bound_nodes": bound_nodes,
+            "reuse_nodes": reuse_nodes, "spread_avoid": spread_avoid,
+            "max_groups": max_groups, "max_sets": max_sets, "max_pods": max_pods,
+            "pad_gangs_to": pad_gangs_to, "params": params, "portfolio": portfolio,
+            "escalate_portfolio": escalate_portfolio, "pruning": pruning, "plan": plan,
+            "ok_by_name": ok_by_name, "valid_by_name": valid_by_name, "scores": scores,
+            "solve_seconds": solve_seconds, "free_rows": free_rows,
+            "candidates": candidates, "mesh": mesh,
+        }, digest)
+        t2 = time.perf_counter()
+        rec = {"kind": "wave", "wave": wave, "fleet": digest, "_text": text}
+        new_fleet = digest not in self._announced
+        if new_fleet:
+            # The fleet rides with the first wave that references it; the
+            # writer re-emits it into every segment holding such a wave.
+            rec["_fleet"] = payload
+        ok = self.record(rec)
+        if ok and new_fleet:
+            self._announced.add(digest)
+            self.fleets_recorded += 1
+        split = self._split
+        split["capture"][0] += t1 - t0 + time.perf_counter() - t2
+        split["capture"][1] += 1
+        split["render"][0] += t2 - t1
+        split["render"][1] += 1
+        return ok
+
+    def _charge(self, part: str, t0: float, count: int = 1) -> None:
+        """Add the writer thread's seconds since `t0` to `part`."""
+        acc = self._split[part]
+        acc[0] += time.perf_counter() - t0
+        acc[1] += count
 
     def _fleet_of(self, snapshot) -> tuple[str, dict]:
         """fleet_digest_of(snapshot), or the last wave's when its snapshot
         holds the same fleet: a controller builds a new snapshot of an
         unchanged fleet for every wave, and comparing the payload's inputs
-        costs a fraction of the digest's JSON; writer thread."""
+        costs a fraction of the digest's JSON."""
         last = self._last_fleet
         if last is not None and _same_fleet(snapshot, last[0]):
             return last[1]
@@ -475,14 +491,14 @@ class TraceRecorder:
 
     def _writer(self) -> None:
         seq = self._next_seq()
-        segment: list[dict] = []  # the records (a rendered capture: a stub)
-        texts: list[str] = []  # the JSON text of segment[:len(texts)]
+        segment: list[dict] = []  # the records (a wave: a stub)
+        chunks: list[bytes] = []  # their JSON texts and the ", " between them
         seg_digests: set[str] = set()
         fleets: dict[str, dict] = {}  # every fleet payload seen this process
+        fleet_texts: dict[str, bytes] = {}
         dirty = False
-        import time as _time
 
-        last_flush = _time.monotonic()
+        last_flush = time.monotonic()
         # seq -> manifest entry for every segment currently on disk, seeded
         # from the prior process's manifest (entries for pruned files drop;
         # unmanifested segments — written before the manifest existed — are
@@ -493,8 +509,14 @@ class TraceRecorder:
         finally:
             self._ready.set()
 
+        def add(rec: dict, text: bytes) -> None:
+            if chunks:
+                chunks.append(b", ")
+            chunks.append(text)
+            segment.append(rec)
+
         def write_segment() -> None:
-            nonlocal dirty, last_flush, segment, texts, seg_digests
+            nonlocal dirty, last_flush, segment, chunks, seg_digests
             if segment:
                 try:
                     # The `recorder.write` fault site (an injected ENOSPC
@@ -502,17 +524,9 @@ class TraceRecorder:
                     from grove_tpu_torch import faults as faults_mod
 
                     faults_mod.active().maybe_raise("recorder.write", records=len(segment))
-                    # Render the records new to this segment; a wave
-                    # capture leaves the stub its manifest row reads.
-                    for k in range(len(texts), len(segment)):
-                        r = segment[k]
-                        if "_capture" in r:
-                            texts.append(_wave_text(r["_capture"], r["fleet"]))
-                            segment[k] = {"kind": "wave", "wave": r["_capture"]["wave"]}
-                        else:
-                            texts.append(json.dumps(r))
-                    # json.dumps of {"version", "records", <counters>}, with
-                    # the records' texts spliced in.
+                    t0 = time.perf_counter()
+                    # json.dumps of {"version", "records", <counters>}: the
+                    # records' texts written as they are.
                     counters = json.dumps({
                         # Recorder-state counters AT WRITE TIME (cumulative
                         # for this process): lets an offline reader (the
@@ -528,11 +542,11 @@ class TraceRecorder:
                         # the queue never overflowed.
                         "recorderWriteErrors": self.write_errors,
                     })
-                    atomic_write_text(
+                    atomic_write_chunks(
                         os.path.join(self.path, f"segment-{seq:06d}.json"),
-                        json.dumps({"version": SCHEMA_VERSION})[:-1] + ', "records": ['
-                        + ", ".join(texts) + "], " + counters[1:],
+                        [_SEGMENT_HEAD, *chunks, ("], " + counters[1:]).encode()],
                     )
+                    self._charge("segment", t0)
                     self.segments_written += 1
                     self.degraded = False
                     manifest[seq] = _manifest_entry(seq, segment)
@@ -549,17 +563,17 @@ class TraceRecorder:
                     self.dropped += len(segment)
                     self._last_write_error = str(e)
                     segment = []
-                    texts = []
+                    chunks = []
                     seg_digests = set()
             dirty = False
-            last_flush = _time.monotonic()
+            last_flush = time.monotonic()
 
         def rotate() -> None:
-            nonlocal seq, segment, texts, seg_digests
+            nonlocal seq, segment, chunks, seg_digests
             write_segment()
             seq += 1
             segment = []
-            texts = []
+            chunks = []
             seg_digests = set()
             if self._prune(manifest):
                 self._write_manifest(manifest)
@@ -567,6 +581,7 @@ class TraceRecorder:
         while True:
             self._wake.wait(timeout=self.flush_interval_seconds)
             self._wake.clear()
+            t0 = time.perf_counter()
             while True:  # drain the queue before honoring flush/stop
                 try:
                     rec = self._queue.get_nowait()
@@ -576,23 +591,26 @@ class TraceRecorder:
                     fleets[rec["digest"]] = rec
                     # Emitted into a segment only when a wave references it.
                 else:
-                    if "_capture" in rec:
-                        d, payload = self._fleet_of(rec.pop("_snapshot"))
-                        if d not in fleets:
-                            fleets[d] = payload
-                            self.fleets_recorded += 1
-                        rec["fleet"] = d
+                    payload = rec.pop("_fleet", None)
+                    if payload is not None:
+                        fleets[rec["fleet"]] = payload
                     d = rec.get("fleet")
                     if d and d not in seg_digests and d in fleets:
-                        segment.append(fleets[d])
+                        if d not in fleet_texts:
+                            fleet_texts[d] = json.dumps(fleets[d]).encode()
+                        add(fleets[d], fleet_texts[d])
                         seg_digests.add(d)
-                    segment.append(rec)
+                    text = rec.pop("_text", None)
+                    add(rec, json.dumps(rec).encode() if text is None else text)
                     dirty = True
                 if len(segment) >= self.max_records_per_file:
-                    rotate()
+                    self._charge("segment", t0, count=0)
+                    rotate()  # charges its own write
+                    t0 = time.perf_counter()
+            self._charge("segment", t0, count=0)
             want_flush = self._flush_now.is_set()
             interval_due = (
-                _time.monotonic() - last_flush >= self.flush_interval_seconds
+                time.monotonic() - last_flush >= self.flush_interval_seconds
             )
             if dirty and (want_flush or interval_due):
                 write_segment()
@@ -681,6 +699,7 @@ class TraceRecorder:
         return manifest
 
     def _write_manifest(self, manifest: dict[int, dict]) -> None:
+        t0 = time.perf_counter()
         entries = [manifest[s] for s in sorted(manifest)]
         last_wave = None
         for e in entries:
@@ -688,9 +707,9 @@ class TraceRecorder:
             if rng:
                 last_wave = rng[1]
         try:
-            atomic_write_json(
+            atomic_write_chunks(
                 os.path.join(self.path, _MANIFEST),
-                {
+                [json.dumps({
                     "version": SCHEMA_VERSION,
                     "segments": entries,
                     "lastWave": last_wave,
@@ -700,16 +719,19 @@ class TraceRecorder:
                     # incomplete (journal_truncated / recovery flags it).
                     "prunedSegments": self.pruned_segments,
                     "prunedWaves": self.pruned_waves,
-                },
+                }).encode()],
             )
             self.manifest_writes += 1
+            self._charge("manifest", t0)
         except OSError:
             # Derived data: replay falls back to scanning segments; the
             # journal itself is NOT degraded by a missing manifest.
             self.manifest_write_errors += 1
 
-    def stats(self) -> dict:
-        """JSON-able recorder state."""
+    def stats(self, split: bool = False) -> dict:
+        """JSON-able recorder state (the JAX recorder's keys); with `split`,
+        also "split": {part: {"s": seconds, "n": count}} for each of
+        SPLIT_PARTS."""
         doc = {
             "path": self.path,
             "recorded": self.recorded + self.fleets_recorded,
@@ -727,6 +749,8 @@ class TraceRecorder:
         }
         if self._last_write_error:
             doc["lastWriteError"] = self._last_write_error
+        if split:
+            doc["split"] = {p: {"s": s, "n": n} for p, (s, n) in self._split.items()}
         return doc
 
 

@@ -16,19 +16,41 @@ def atomic_write_json(path: str, doc: Any) -> None:
     """
     # One encode, one write: json.dump writes piece by piece, which costs
     # seconds on a journal segment of megabytes.
-    atomic_write_text(path, json.dumps(doc))
+    atomic_write_chunks(path, [json.dumps(doc).encode()])
 
 
-def atomic_write_text(path: str, text: str) -> None:
-    """Write `text` to `path` via temp-file + rename (atomic on POSIX), as
-    atomic_write_json does."""
+def atomic_write_chunks(path: str, chunks) -> None:
+    """Write the concatenation of the byte strings `chunks` to `path` via
+    temp-file + rename (atomic on POSIX; on any failure the target is left
+    untouched and the temp file removed). The chunks go to the file as they
+    are, a batch per `os.writev` call (one system call, not one per chunk),
+    so a writer that keeps a file's bytes rewrites it without joining or
+    encoding them again."""
     d = os.path.dirname(path) or "."
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, prefix=".atomic-")
     try:
-        with os.fdopen(fd, "w") as f:
-            f.write(text)
+        try:
+            pending = [memoryview(c) for c in chunks if len(c)]
+            i = 0
+            while i < len(pending):
+                written = os.writev(fd, pending[i:i + _IOV_MAX])
+                # Step past what was written; a chunk written in part keeps
+                # its tail.
+                while written:
+                    if written >= len(pending[i]):
+                        written -= len(pending[i])
+                        i += 1
+                    else:
+                        pending[i] = pending[i][written:]
+                        written = 0
+        finally:
+            os.close(fd)
         os.replace(tmp, path)
-    finally:
+    except BaseException:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        raise
+
+
+_IOV_MAX = os.sysconf("SC_IOV_MAX") if hasattr(os, "sysconf") else 1024

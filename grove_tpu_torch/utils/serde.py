@@ -22,7 +22,9 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import threading
 from json.encoder import encode_basestring_ascii as _quote
+from pathlib import Path
 from typing import Any
 
 _CLASSES: dict[str, type] = {}
@@ -77,126 +79,70 @@ def encode(obj: Any) -> Any:
 
 def dumps(obj: Any) -> str:
     """`json.dumps(encode(obj))`, byte for byte, without building the
-    encoded document: each dataclass gets a renderer of its own, compiled
-    once, and plain values go straight to JSON text. A type with no fast
-    rule (a set) takes the general path for its subtree."""
-    return _render(obj)
+    encoded document (`dumpb`, decoded)."""
+    return dumpb(obj).decode("ascii")
 
 
-def _render(obj: Any) -> str:
-    r = _RENDER.get(type(obj))
+def dumpb(obj: Any) -> bytes:
+    """`json.dumps(encode(obj)).encode()`, rendered by the C renderer
+    (csrc/serde_render.c, built at first use like the CUDA kernels; a build
+    that fails raises). The renderer hands a value it has no rule for (a
+    set, a plain Enum, an unknown type) back to `_general`."""
+    r = _renderer
     if r is None:
-        r = _renderer(type(obj))
+        r = _load_renderer()
     return r(obj)
 
 
-def _render_float(o: float) -> str:
-    # json.dumps's float rule (allow_nan=True).
-    if o != o:
-        return "NaN"
-    if o == _INF:
-        return "Infinity"
-    if o == -_INF:
-        return "-Infinity"
-    return float.__repr__(o)
+def _general(obj: Any) -> str:
+    return json.dumps(encode(obj))
 
 
-def _render_list(o: list) -> str:
-    if not o:
-        return "[]"
-    if _PLAIN.issuperset(map(type, o)):
-        return _plain_dumps(o)  # plain values: json's own encoder
-    return "[" + ", ".join([_render(x) for x in o]) + "]"
+# type -> what the C renderer does with an object of exactly that type: 0
+# hand it to `_general`, 1 a list, 2 a tuple, 3 a dict, or for a dataclass
+# (b'{"!t": <name>', field names, b', <name>: ' per field). Filled at a
+# type's first sight (`_classify`), in encode's order of checks.
+_KINDS: dict[type, Any] = {list: 1, tuple: 2, dict: 3}
 
 
-def _render_dict(o: dict) -> str:
-    if not o:
-        return "{}"
-    if _STR.issuperset(map(type, o)) and _PLAIN.issuperset(map(type, o.values())):
-        return _plain_dumps(o)
-    if all(isinstance(k, str) for k in o):
-        return "{" + ", ".join([_quote(k) + ": " + _render(v) for k, v in o.items()]) + "}"
-    return '{"!d": [' + ", ".join(
-        ["[" + _render(k) + ", " + _render(v) + "]" for k, v in o.items()]) + "]}"
-
-
-def _render_tuple(o: tuple) -> str:
-    return '{"!u": ' + _render_list(o) + "}"
-
-
-def _render_general(o: Any) -> str:
-    return json.dumps(encode(o))
-
-
-def _renderer(cls: type):
-    """The renderer of `cls`, made and kept on first use."""
-    # encode() passes a subclass of a plain type through (a str or int
-    # Enum): json.dumps writes it as its plain value.
-    for base, plain in ((str, _quote), (int, int.__repr__), (float, _render_float)):
-        if issubclass(cls, base):
-            _RENDER[cls] = plain
-            return plain
-    names = _FIELD_NAMES.get(cls)
-    if names is None and dataclasses.is_dataclass(cls):
-        names = _FIELD_NAMES[cls] = tuple(f.name for f in dataclasses.fields(cls))
-    if names is not None:
-        # Each field's text: a str, None, bool or empty container inline,
-        # anything else by its type's renderer.
-        template = ('{"!t": ' + _quote(cls.__name__)
-                    + "".join(", " + _quote(n) + ": %s" for n in names) + "}")
-        values = "".join(
-            f"'null' if (v := o.{n}) is None else q(v) if (t := type(v)) is str"
-            " else ('true' if v else 'false') if t is bool"
-            " else (render_list(v) if v else '[]') if t is list"
-            " else (render_dict(v) if v else '{}') if t is dict"
-            " else (get(t) or make(t))(v), " for n in names)
-        body = f"{template!r} % ({values})" if names else repr(template)
-        scope = {"q": _quote, "get": _RENDER.get, "make": _renderer,
-                 "render_list": _render_list, "render_dict": _render_dict}
-        exec(f"def render_{cls.__name__}(o):\n    return {body}\n", scope)
-        r = scope[f"render_{cls.__name__}"]
-    elif issubclass(cls, enum.Enum):
-        head = '{"!e": ' + _quote(cls.__name__) + ', "v": '
-
-        def r(o, head=head):  # encode() leaves an Enum's value as it is
-            return head + json.dumps(o.value) + "}"
+def _classify(cls: type) -> Any:
+    if issubclass(cls, enum.Enum):
+        kind: Any = 0
     else:
-        r = _render_general
-    _RENDER[cls] = r
-    return r
+        names = _FIELD_NAMES.get(cls)
+        if names is None and dataclasses.is_dataclass(cls):
+            names = _FIELD_NAMES[cls] = tuple(f.name for f in dataclasses.fields(cls))
+        if names is not None:
+            kind = (('{"!t": ' + _quote(cls.__name__)).encode(), names,
+                    tuple((", " + _quote(n) + ": ").encode() for n in names))
+        elif issubclass(cls, tuple):
+            kind = 2
+        else:  # a list or dict subclass takes encode's way (its own iteration)
+            kind = 0
+    _KINDS[cls] = kind
+    return kind
 
 
-_INF = float("inf")
-_PLAIN = frozenset((str, int, float, bool, type(None)))
-_STR = frozenset((str,))
+_renderer = None
+_renderer_lock = threading.Lock()
+# The loaded renderer's file (under grove_tpu_torch/_build/), once built.
+renderer_file: str | None = None
 
 
-def _plain_encoder():
-    """json.dumps's own C encoder, made once (json.dumps makes one per
-    call); json.dumps itself where the C encoder is missing."""
-    from json import encoder as j
+def _load_renderer():
+    global _renderer, renderer_file
+    with _renderer_lock:
+        if _renderer is None:
+            from grove_tpu_torch.kernels import build
 
-    if j.c_make_encoder is None:
-        return json.dumps
-    try:  # 3.12's signature; earlier ones also take the float formatter
-        c = j.c_make_encoder(None, None, _quote, None, ": ", ", ", False, False, True)
-    except TypeError:
-        c = j.c_make_encoder(None, None, _quote, None, _render_float, ": ", ", ",
-                             False, False, True)
-    return lambda o: "".join(c(o, 0))
+            mod = build.load_extension("_serde_render", _CSRC / "serde_render.c")
+            mod.configure(_KINDS, _classify, _general)
+            renderer_file = mod.__file__
+            _renderer = mod.render
+    return _renderer
 
 
-_plain_dumps = _plain_encoder()
-_RENDER: dict[type, Any] = {
-    str: _quote,
-    int: int.__repr__,
-    float: _render_float,
-    bool: lambda o: "true" if o else "false",
-    type(None): lambda o: "null",
-    list: _render_list,
-    dict: _render_dict,
-    tuple: _render_tuple,
-}
+_CSRC = Path(__file__).resolve().parent / "csrc"
 
 
 def decode(doc: Any) -> Any:

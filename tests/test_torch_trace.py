@@ -24,6 +24,7 @@ are in tests/test_torch_sweep.py.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import json
 import os
@@ -408,10 +409,33 @@ class _Enum(enum.Enum):
     C = (1, "c")
 
 
+@dataclasses.dataclass
+class _Inner:
+    x: float = 0.5
+    tags: tuple = ("t",)
+
+
+@dataclasses.dataclass
+class _Outer:
+    name: str = "o"
+    inner: list = dataclasses.field(default_factory=lambda: [_Inner(), _Inner(x=-0.0)])
+    keys: dict = dataclasses.field(default_factory=lambda: {1: "one", "two": 2})
+    big: int = 2**80
+    nothing: object = None
+
+
+@dataclasses.dataclass
+class _Empty:
+    pass
+
+
 ODD_VALUES = [1, -2.5, float("nan"), float("inf"), -float("inf"), True, None, "é\n\"q",
               (1, "a"), {1: 2, "a": (3,)}, {"b": {2.0: None}}, {3, 1}, frozenset(), [],
               {}, (), [[1, "x"], {"k": [None, 0.1]}], _StrEnum.A, _IntEnum.B, _Enum.C,
-              {"e": [_StrEnum.A, _IntEnum.B]}, {_IntEnum.B: _Enum.C}]
+              {"e": [_StrEnum.A, _IntEnum.B]}, {_IntEnum.B: _Enum.C},
+              2**63, -(2**70), 1e-310, np.float64(2.25), "", "\x00\x1f\x7f\"\\/\t",
+              "☃ snow \U0001F600", [[], {}, ()], {3: 4, None: 5}, {frozenset({1})},
+              _Outer(), [_Outer(), _Empty()], _Empty(), {"k": _Outer()}]
 
 
 @pytest.mark.parametrize("value", ODD_VALUES, ids=range(len(ODD_VALUES)))

@@ -195,13 +195,16 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               replay scenario (16 nodes of 8 cpus, 5 rack-packed jobs): 0
               divergences, at least one "portfolio" launch for the
               rejected job, the document equal to the CPU run's, seconds
-              aside, and bench.py's record-overhead gate: three rounds of
-              windows of back-to-back drains, OFF, ON, ON, OFF (the first
-              1 s sets the count; each ON window timed through its
+              aside, and bench.py's record-overhead gate: 24 rounds of
+              0.25 s windows of back-to-back drains, OFF, ON, ON, OFF and
+              ON, OFF, OFF, ON in turn (an untimed calibration window sets the count; the warm-up runs
+              one recorded drain; each ON window timed through its
               recorder's flush, so the render at capture (the C renderer,
               utils/csrc/serde_render.c) and the writer's I/O are inside;
-              every window printed, with the recorder's split), (ON - OFF)
-              / OFF over the summed walls below 0.05
+              every window printed with the draining thread's CPU seconds
+              and context switches, and the recorder's split with the
+              writer thread's CPU), (ON - OFF) / OFF over the summed walls
+              below 0.05
               (a failed gate fails the run after the last phase); (c) a
               256-node churn world (contended
               backlog with priority classes, a node death, a cordon, a
@@ -230,14 +233,28 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               with 0 divergences, bindings disjoint, the busiest cell's
               share shrinking over 1, 2 and 4 cells), the document equal
               to the CPU run's, wall-clock keys aside
- 18. kernels  one JSON line: per kernel variant its launches on the main
+ 18. operator (a) bench.py's tenancy scenario (run_tenancy_bench: 192
+              nodes, 200 tenants, the 75 s trace at 1.6 arrivals a second,
+              an org quota of 64 CPU, the chaos and the recorder) through
+              the port's Manager on the card: every gate, the journal
+              replayed on the card and on the CPU's plain versions with 0
+              divergences, the document equal to the CPU run's, wall-clock
+              keys aside; (b) the operator binary (`python -m
+              grove_tpu_torch.runtime`, examples/operator-config.yaml with
+              `cluster.source: kwok`) in a subprocess on the card: its
+              probes answer, examples/simple1.yaml goes in through the
+              admission webhook over TLS and is scheduled and Ready on the
+              KWOK fleet, /statusz shows the solves on the card and the
+              child's launches, SIGTERM stops it with exit code 0
+ then         one JSON line: per kernel variant its launches on the main
               path (phases 4-9 as before, plus `launches_stream`,
               `launches_tune`, `launches_chaos`, `launches_defrag`,
-              `launches_serving`, `launches_sidecar` and `launches_cells`,
-              the launches of phases 11-17, added to the first row of their
-              variant), its error against the plain version, its time, the
-              plain version's time, its bound and a library call's time
- 19. the last line: {"ok": true, "device": {...}}
+              `launches_serving`, `launches_sidecar`, `launches_cells`,
+              `launches_tenancy` and `launches_operator`, the launches of
+              phases 11-18, added to the first row of their variant), its
+              error against the plain version, its time, the plain
+              version's time, its bound and a library call's time; then
+              the last line: {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -261,11 +278,19 @@ SCALE_PRUNING = dict(enabled=True, max_candidates=8191, min_fleet=256)
 
 # Gates that fail the run only after every phase has run and printed.
 GATE_FAILURES: list[str] = []
-# Phase 15 (b)'s record-overhead reading: rounds of OFF, ON, ON, OFF windows,
-# the first OFF window REPLAY_WINDOW_S seconds of drains (the recorder's
-# flush interval) setting the count for the others: twelve windows in all.
-REPLAY_WINDOW_S = 1.0
-REPLAY_ROUNDS = 3
+# Phase 15 (b)'s record-overhead reading: an untimed calibration window of
+# REPLAY_WINDOW_S seconds of drains sets the count, then REPLAY_ROUNDS rounds
+# of windows of that count, OFF, ON, ON, OFF and ON, OFF, OFF, ON in turn: 96
+# short windows in about 24 s, each side in each place of a round equally
+# often, so the host's drift over the reading and any bias of the place
+# cancel and its window-to-window noise averages over twice the windows of a
+# 12 s reading, each ON window
+# still flushed inside its timing (a quarter of the recorder's 1 s flush
+# interval: four times the writes per drain that production pays).
+REPLAY_WINDOW_S = 0.25
+REPLAY_ROUNDS = 24
+# Phase 18 (a): bench.py's tenancy trace, at its full 75 s.
+TENANCY_DURATION_S = 75.0
 
 
 def check(ok: bool, message: str) -> None:
@@ -876,7 +901,12 @@ def main() -> int:
 
     phase_done("17, cells")
 
-    # ---- 18. kernels line ----------------------------------------------------
+    # ---- 18. the operator: the tenancy bench and the Manager binary ---------
+    tenancy_launches, operator_launches = operator_phase(dev, card)
+
+    phase_done("18, operator")
+
+    # ---- kernels line --------------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": add_path_launches([
         {"name": "place_wave(B1+B2, dense, 5120 nodes)", "route": "cuda", "source": src,
@@ -899,7 +929,8 @@ def main() -> int:
         sw["row"],
     ], {"stream": stream_launches, "tune": tune_launches, "chaos": chaos_launches,
         "defrag": defrag_launches, "serving": serving_launches, "sidecar": sidecar_launches,
-        "cells": cells_launches})}))
+        "cells": cells_launches, "tenancy": tenancy_launches,
+        "operator": operator_launches})}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     check(not GATE_FAILURES, "; ".join(GATE_FAILURES))
     print(json.dumps({"ok": True, "device": {
@@ -2425,16 +2456,17 @@ def serving_phase(dev, card) -> dict:
           f"0 divergences")
 
     # (b) bench.py's replay scenario, on the card and then on the CPU. The
-    # record-overhead gate reads three rounds of windows of back-to-back
-    # drains, OFF, ON, ON, OFF, each ON window timed through its recorder's
-    # flush.
+    # record-overhead gate reads REPLAY_ROUNDS rounds of windows of
+    # back-to-back drains, OFF, ON, ON, OFF and ON, OFF, OFF, ON in turn, each
+    # ON window timed through its recorder's flush, after an untimed
+    # calibration window.
     sync(dev)
     reset_launches()
     b = run_replay_bench(device=dev, window_s=REPLAY_WINDOW_S, rounds=REPLAY_ROUNDS)
     sync(dev)
     b_launches = dict(place_wave.variant_launches)
     count(b_launches)
-    print(f"replay scenario: { {k: v for k, v in b.items() if k not in ('recorder_stats', 'record_windows', 'record_split')} }, "
+    print(f"replay scenario: { {k: v for k, v in b.items() if k not in ('recorder_stats', 'record_windows', 'record_split', 'record_calibration')} }, "
           f"launches { {k: v for k, v in b_launches.items() if v} } on {card}")
     check(b["value"] == 0, f"replay scenario: {b['value']} divergences")
     check(b_launches["portfolio"] >= 1,
@@ -2442,10 +2474,14 @@ def serving_phase(dev, card) -> dict:
     b_cpu = run_replay_bench(device="cpu")
     check(replay_doc_core(b) == replay_doc_core(b_cpu),
           "replay scenario: the card's document != the CPU's (wall-clock keys aside)")
-    for side, drains, wall, gc_s, collections in b["record_windows"]:
+    cal_drains, cal_wall = b["record_calibration"]
+    print(f"replay scenario calibration (untimed, in neither sum): {cal_drains} drains in "
+          f"{cal_wall:.6f} s")
+    for side, drains, wall, gc_s, collections, cpu, vcs, ivcs in b["record_windows"]:
         print(f"replay scenario window {side.upper()}: {drains} drains in {wall:.6f} s, "
-              f"{wall / drains:.6f} s a drain; the collector paused {gc_s:.6f} s "
-              f"in {collections} collections")
+              f"{wall / drains:.6f} s a drain; the draining thread's CPU {cpu:.6f} s, "
+              f"switches {vcs} voluntary {ivcs} involuntary; the collector paused "
+              f"{gc_s:.6f} s in {collections} collections")
     split = b["record_split"]
     from grove_tpu_torch.utils import serde
 
@@ -2453,7 +2489,9 @@ def serving_phase(dev, card) -> dict:
           f"{os.path.basename(serde.renderer_file or 'not loaded')}: "
           + ", ".join(f"{part} {v['s'] * 1e3 / split['drains']:.4f} ({v['n']})"
                       for part, v in split["parts"].items())
-          + f"; {split['drains']} drains); collector pauses ON "
+          + f"; {split['drains']} drains; the writer thread's CPU "
+          f"{split['writer_cpu_s'] * 1e3 / split['drains']:.4f}, switches "
+          f"{split['writer_switches']}); collector pauses ON "
           f"{sum(w[3] for w in b['record_windows'] if w[0] == 'on'):.6f} s, OFF "
           f"{sum(w[3] for w in b['record_windows'] if w[0] == 'off'):.6f} s")
     print(f"replay scenario: OFF {b['drain_wall_off_s']:.6f} s, ON {b['drain_wall_on_s']:.6f} s "
@@ -2552,6 +2590,72 @@ def cells_phase(dev, card) -> dict:
     print(f"cells: every gate green, == the CPU's document (wall-clock keys aside); phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def operator_phase(dev, card) -> tuple[dict, dict]:
+    """Phase 18: (a) bench.py's tenancy scenario at full size through the
+    port's Manager on the card: every gate, the journal replayed on the
+    CPU's plain versions with 0 divergences, the document == the CPU run's;
+    (b) the operator binary (`python -m grove_tpu_torch.runtime`, KWOK
+    source) in a subprocess on the card: it boots, its probes answer, a
+    PodCliqueSet goes in through the admission webhook over TLS and is
+    scheduled, /statusz shows the solves on the card, SIGTERM stops it with
+    exit code 0. Returns the launches per variant of (a) and of (b)."""
+    import torch
+
+    from grove_tpu_torch.bench import run_operator_binary, run_tenancy_bench, tenancy_doc_core
+    from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    a = run_tenancy_bench(device=dev, duration_s=TENANCY_DURATION_S, cpu_replay=True)
+    torch.cuda.synchronize(dev)
+    a_launches = dict(place_wave.variant_launches)
+    print(f"tenancy[192 nodes, {a['tenant_count']} tenants, {a['trace_duration_s']} s trace at "
+          f"1.6 arrivals/s]: gates {a['gates']}; offered {a['workloads_offered']}, bound "
+          f"{a['workloads_bound']}, spread {a['value']}, tiers "
+          f"{ {k: v['p99_bind_s'] for k, v in a['tiers'].items()} } p99 s, ledger "
+          f"{a['ledger_totals']}, faults {len(a['faults'])}, budget peak "
+          f"{a['budget_peak_in_flight']}/{a['budget_cap']}; {a['sim_seconds']} sim s in "
+          f"{a['wall_s']:.3f} s; replay on the card {a['replay_divergences']} divergences "
+          f"over {a['replay_waves']} waves, on the CPU {a['cpu_replay_divergences']} over "
+          f"{a['cpu_replay_waves']}; launches { {k: v for k, v in a_launches.items() if v} } "
+          f"on {card}")
+    for gate, ok in a["gates"].items():
+        check(ok, f"tenancy: gate {gate} failed")
+    check(a["vs_baseline"] == 1.0, f"tenancy: vs_baseline {a['vs_baseline']}")
+    check(a["cpu_replay_divergences"] == 0 and a["cpu_replay_waves"] == a["replay_waves"] > 0,
+          f"tenancy: CPU replay {a['cpu_replay_divergences']} divergences over "
+          f"{a['cpu_replay_waves']} waves")
+    check(a_launches["dense"] >= 1, f"tenancy: no dense launch ({a_launches})")
+    a_cpu = run_tenancy_bench(device="cpu", duration_s=TENANCY_DURATION_S)
+    core = tenancy_doc_core(a)
+    core.pop("cpu_replay_divergences")
+    core.pop("cpu_replay_waves")
+    check(core == tenancy_doc_core(a_cpu),
+          "tenancy: the card's document != the CPU's (wall-clock keys aside)")
+    print(f"tenancy: every gate green, == the CPU's document (wall-clock keys aside); "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    t_b = time.perf_counter()
+    b = run_operator_binary(device=None)
+    solver = b["statusz_solver"]
+    b_launches = dict(b["launches"])
+    print(f"operator binary[{b['command']}]: booted in {b['boot_s']:.3f} s, probes "
+          f"{b['probe']}, {b['kwok_nodes']} KWOK nodes at {b['fleet_s']:.3f} s; "
+          f"{b['workload']} admitted over TLS ({b['admission']['patch_ops']} patch ops, "
+          f"{b['admission']['wall_s']:.4f} s), scheduled and Ready ({b['pods']} pods, "
+          f"{b['podgangs']} gangs) in {b['schedule_s']:.3f} s; /statusz solver device "
+          f"{solver['device']['type']} {solver['device']['name']}, host stages "
+          f"{solver.get('hostStages')}, launches { {k: v for k, v in b_launches.items() if v} }; "
+          f"exit {b['exit_code']} (stopped cleanly: {b['stopped_cleanly']}); "
+          f"{time.perf_counter() - t_b:.1f} s on {card}")
+    check(solver["device"]["type"] == "cuda", f"operator: solves on {solver['device']}")
+    check(b_launches["dense"] >= 1, f"operator: no dense launch in the child ({b_launches})")
+    check(b["exit_code"] == 0 and b["stopped_cleanly"], "operator: did not stop cleanly")
+    print(f"operator phase {time.perf_counter() - t_phase:.1f} s")
+    return a_launches, b_launches
 
 
 def add_path_launches(rows, paths: dict) -> list:

@@ -9,6 +9,9 @@ package's names so each has a findable counterpart:
 
   api/, state/, orchestrator/, sim/,  host model and serving path, copied
   tenancy/, initc/
+  runtime/, api/admission.py,         the operator binary: python -m
+  api/webhook.py, cluster/            grove_tpu_torch.runtime (Manager,
+                                      admission webhooks, KWOK/watch source)
   solver/encode.py                    GangBatch + encode_gangs
   solver/reference.py                 plain PyTorch versions of the solve
   kernels/                            the CUDA kernel, its builder and wrapper
@@ -16,3 +19,5 @@ package's names so each has a findable counterpart:
   convert.py                          the JAX package's arrays -> the port's
   bench.py                            python -m grove_tpu_torch.bench
 """
+
+from grove_tpu_torch.version import VERSION as __version__  # noqa: E402,F401

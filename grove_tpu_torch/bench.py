@@ -84,8 +84,15 @@ cpus, 5 rack-packed jobs (one rack too many), drained with the recorder off
 and on (the record overhead), the journal replayed (the divergences) and a
 +1-rack what-if over it; solves, the replay and the what-if on the card.
 With --window-s S > 0 the record overhead is read on --rounds R rounds of
-OFF, ON, ON, OFF windows (the first S seconds of drains), every window and
-the recorder's cost by part listed.
+windows, OFF, ON, ON, OFF and ON, OFF, OFF, ON in turn (the first S seconds
+of drains, untimed, set the count), every window and the recorder's cost by
+part listed; with --aa the ON windows run without a recorder (an A/A
+reading: the estimator's own spread).
+
+--scenario tenancy drives bench.py's tenancy scenario (`run_tenancy_bench`)
+through the port's Manager under the Simulator on 192 nodes: 200 churning
+tenants, a --duration-s trace (75 s) at 1.6 arrivals a second under an org
+quota of 64 CPU, mid-trace chaos and the recorder, with bench.py's gates.
 
 --scenario serving serves bench.py's default backlog (900 sets, 1250 gangs,
 10,000 pods) on its 5120-node fleet through GroveController (recorder on)
@@ -111,7 +118,9 @@ versions with 0 divergences).
   --min-fleet M     scale: smallest fleet that prunes (default 256)
   --k K             sweep: configs in the grid (default 16)
   --window-s S      replay: seconds of drains in the first window (0: one drain)
-  --rounds R        replay: rounds of OFF, ON, ON, OFF windows (1)
+  --rounds R        replay: rounds of windows, the order turning about (1)
+  --aa              replay: ON windows without a recorder
+  --duration-s T    tenancy: the arrival trace's seconds (75)
   --device D        "cuda" (default) or "cpu" (plain PyTorch versions)
 
 GROVE_FAULTS (faults/__init__.py's syntax) installs the port's fault
@@ -1827,7 +1836,7 @@ RECONCILE_PHASES = ("sync_workload", "rolling_updates", "revocation_tick", "solv
 # a card run and a CPU run agree on every other key.
 REPLAY_WALL_KEYS = ("drain_wall_off_s", "drain_wall_on_s", "record_overhead_frac",
                     "vs_baseline", "recorded_solve_s", "replayed_solve_s", "record_windows",
-                    "record_split")
+                    "record_split", "record_calibration")
 RECORDER_WALL_KEYS = ("path", "segmentsWritten", "manifestWrites", "queueDepth")
 # The controller's counters and in-flight maps a serving comparison holds
 # equal beside the store.
@@ -2177,30 +2186,128 @@ def replay_world(scale: float = 1.0):
     return bench_topology(), fleet, backlog
 
 
+# The order of the windows in the record-overhead reading's rounds, even
+# rounds first: over an even number of rounds each side holds each place of
+# a round equally often, so a drift inside a round or a bias of the place
+# falls on both sides alike.
+ROUND_ORDERS = (("off", "on", "on", "off"), ("on", "off", "off", "on"))
+
+
+def read_record_overhead(drain, new_recorder, *, window_s: float = 0.0, rounds: int = 1,
+                         aa: bool = False, clock=time.perf_counter) -> dict:
+    """The record-overhead reading of `run_replay_bench`: bench.py's formula,
+    (ON - OFF) / OFF over the summed walls of `rounds` rounds of timed
+    windows, OFF, ON, ON, OFF and ON, OFF, OFF, ON in turn (ROUND_ORDERS),
+    each of the same number of calls of
+    `drain(recorder)` (which returns what it admitted; `recorder` is None
+    OFF). An ON window starts a recorder from `new_recorder()` outside its
+    timing, times its drains and then `recorder.flush()` inside it, and
+    stops it outside; the recorder's `stats(split=True)` add up into
+    "split". With `window_s` 0 a window is one drain; with `window_s` > 0 an
+    untimed calibration window (no recorder) drains until `window_s`
+    seconds have passed, sets the count and is in neither sum. With `aa`
+    the ON windows run without a recorder. `clock` times the windows.
+    Returns {"windows": [[side, drains, wall_s, gc_pause_s, collections,
+    cpu_s, voluntary switches, involuntary switches], ...] (the collector's
+    pauses inside the window, read through `gc.callbacks`; the draining
+    thread's CPU seconds, `time.thread_time`, and its context switches,
+    `getrusage(RUSAGE_THREAD)`), "calibration":
+    [drains, wall_s] or None, "wall_off", "wall_on" (seconds a drain),
+    "overhead", "admitted" (the set of what the drains admitted), "split":
+    {"drains", "parts", "writer_cpu_s", "writer_switches"}}."""
+    import gc
+    import shutil
+
+    from grove_tpu_torch.trace.recorder import SPLIT_PARTS
+
+    split = {part: {"s": 0.0, "n": 0} for part in SPLIT_PARTS}
+    writer = [0.0, 0, 0]  # the writer threads' CPU seconds and switches
+    pauses = [0.0, 0, 0.0]  # seconds, collections, start of the current one
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            pauses[2] = time.perf_counter()
+        else:
+            pauses[0] += time.perf_counter() - pauses[2]
+            pauses[1] += 1
+
+    def window(side, count):
+        recorder = new_recorder() if side == "on" and not aa else None
+        if recorder is not None:
+            recorder.start()
+        pauses[:2] = [0.0, 0]
+        gc.callbacks.append(on_gc)
+        try:
+            admitted = []
+            ru0 = thread_rusage()
+            cpu0 = time.thread_time()
+            t0 = clock()
+            while len(admitted) < count or (count == 0 and clock() - t0 < window_s):
+                admitted.append(drain(recorder))
+            if recorder is not None and not recorder.flush(timeout=60.0):
+                raise RuntimeError("replay bench: the recorder did not flush in 60 s")
+            wall = clock() - t0
+            cpu = time.thread_time() - cpu0
+            ru1 = thread_rusage()
+        finally:
+            gc.callbacks.remove(on_gc)
+            if recorder is not None:
+                recorder.stop()
+                st = recorder.stats(split=True)
+                for part, v in st["split"].items():
+                    split[part]["s"] += v["s"]
+                    split[part]["n"] += v["n"]
+                writer[0] += st["writerCpuSeconds"]
+                writer[1] += st["writerSwitches"][0]
+                writer[2] += st["writerSwitches"][1]
+                shutil.rmtree(recorder.path, ignore_errors=True)
+        return ([side, len(admitted), wall, pauses[0], pauses[1], cpu, ru1[0] - ru0[0],
+                 ru1[1] - ru0[1]], admitted)
+
+    windows, admitted_seen = [], set()
+    count, calibration = 1, None
+    if window_s > 0:
+        w, admitted = window("off", 0)
+        count, calibration = w[1], [w[1], w[2]]
+        admitted_seen.update(admitted)
+    for r in range(max(1, int(rounds))):
+        for side in ROUND_ORDERS[r % 2]:
+            w, admitted = window(side, count)
+            windows.append(w)
+            admitted_seen.update(admitted)
+    n_side = sum(1 for w in windows if w[0] == "off") * count
+    wall_off = sum(w[2] for w in windows if w[0] == "off") / n_side
+    wall_on = sum(w[2] for w in windows if w[0] == "on") / n_side
+    # bench.py's formula (run_replay_bench), on the seconds a drain.
+    overhead = (wall_on - wall_off) / wall_off if wall_off > 0 else 0.0
+    return {"windows": windows, "calibration": calibration, "wall_off": wall_off,
+            "wall_on": wall_on, "overhead": overhead, "admitted": admitted_seen,
+            "split": {"drains": n_side, "parts": split, "writer_cpu_s": writer[0],
+                      "writer_switches": writer[1:]}}
+
+
 def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
-                     rounds: int = 1) -> dict:
+                     rounds: int = 1, aa: bool = False) -> dict:
     """bench.py's `run_replay_bench` on the port, with its keys: the replay
     world drained by `GroveController` under `Simulator` with the recorder
     OFF and ON (the overhead), the journal of one recorded drain replayed
     (the divergences) and a +1-rack what-if over it (the counterfactual).
     Solves, the replay and the what-if run on `device` (None = the card).
 
-    The overhead is bench.py's formula and 0.05 gate on timed windows after
-    the warm-up, `rounds` rounds in the order OFF, ON, ON, OFF, each window
-    of the same number of back-to-back drains: (ON - OFF) / OFF over their
-    summed walls. An ON window is timed through `recorder.flush()`, so every
-    record its drains captured has been built, serde-encoded and written to
-    disk inside it; the recorder's start and stop stay outside, as in
-    bench.py. The collector runs as it would. With `window_s` 0 a window is
-    one drain; with `window_s` > 0 the first OFF window drains until
-    `window_s` seconds have passed (at least one flush interval) and sets
-    the count for the others, and the document also lists every window,
-    `record_windows` ([side, drains, wall_s, gc_pause_s, collections]: the
-    collector's pauses inside it, read through `gc.callbacks`), and
-    `record_split`, the recorder's seconds and counts by part summed
-    over the ON windows (TraceRecorder.stats(split=True)) with their
-    drains."""
-    import gc
+    The overhead is bench.py's formula and 0.05 gate, read by
+    `read_record_overhead` (`window_s`, `rounds`, `aa`) after a warm-up of
+    one drain without the recorder and one with a recorder that is flushed
+    and stopped, untimed: the recorder path's first-use costs are paid
+    there, as bench.py's warm-up drain pays XLA's compiles. An ON window is
+    timed through `recorder.flush()`, so every record its drains captured
+    has been rendered and written to disk inside it; the recorder's start
+    and stop stay outside, as in bench.py; the collector runs as it would.
+    Many short windows, in rounds whose order turns about, cancel more of
+    the host's drift than a few long ones; a window shorter than the recorder's flush interval
+    still flushes at its end, so it charges more writes per drain, not
+    fewer. With `window_s` > 0 the document also holds
+    `record_calibration`, `record_windows` and `record_split` (see
+    read_record_overhead), and with `aa` `record_aa` True."""
     import shutil
     import tempfile
 
@@ -2208,7 +2315,7 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
     from grove_tpu_torch.orchestrator.store import Cluster
     from grove_tpu_torch.sim.simulator import Simulator
     from grove_tpu_torch.solver.core import resolve_device
-    from grove_tpu_torch.trace.recorder import SPLIT_PARTS, TraceRecorder, read_journal
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
     from grove_tpu_torch.trace.replay import replay_journal
     from grove_tpu_torch.trace.whatif import whatif_journal
 
@@ -2231,56 +2338,27 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
         admitted = sum(1 for g in cluster.podgangs.values() if g.is_base_gang_scheduled())
         return admitted, len(cluster.podgangs)
 
-    split = {part: {"s": 0.0, "n": 0} for part in SPLIT_PARTS}
-    pauses = [0.0, 0, 0.0]  # seconds, collections, start of the current one
+    def new_recorder():
+        return TraceRecorder(tempfile.mkdtemp(prefix="grove-trace-bench-"))
 
-    def on_gc(phase, _info):
-        if phase == "start":
-            pauses[2] = time.perf_counter()
-        else:
-            pauses[0] += time.perf_counter() - pauses[2]
-            pauses[1] += 1
-
-    def window(side, count):
-        """(wall_s, drains, admitted counts, gc pause s, collections) of one
-        timed window."""
-        journal_dir = tempfile.mkdtemp(prefix="grove-trace-bench-")
-        recorder = TraceRecorder(journal_dir) if side == "on" else None
-        if recorder is not None:
-            recorder.start()
-        pauses[:2] = [0.0, 0]
-        gc.callbacks.append(on_gc)
-        try:
-            admitted = []
-            t0 = time.perf_counter()
-            while len(admitted) < count or (count == 0 and time.perf_counter() - t0 < window_s):
-                admitted.append(drain(recorder)[0])
-            if recorder is not None and not recorder.flush(timeout=60.0):
-                raise RuntimeError("replay bench: the recorder did not flush in 60 s")
-            wall = time.perf_counter() - t0
-        finally:
-            gc.callbacks.remove(on_gc)
-            if recorder is not None:
-                recorder.stop()
-                for part, v in recorder.stats(split=True)["split"].items():
-                    split[part]["s"] += v["s"]
-                    split[part]["n"] += v["n"]
-            shutil.rmtree(journal_dir, ignore_errors=True)
-        return wall, len(admitted), admitted, pauses[0], pauses[1]
-
-    # Warm-up drain: builds the kernels and fills the process caches, so the
-    # OFF/ON comparison measures recording, not first-call costs.
+    # Warm-up: one drain without the recorder (builds the kernels and fills
+    # the process caches) and one with a recorder, flushed and stopped (the
+    # recorder path's first use: its renderer, its writer thread, its file
+    # I/O), so the OFF/ON comparison measures recording, not first-call
+    # costs.
     drain(None)
-    windows, admitted_seen = [], set()
-    count = 1 if window_s <= 0 else 0
-    for side in ("off", "on", "on", "off") * max(1, int(rounds)):
-        wall, count, admitted, gc_s, gcs = window(side, count)
-        windows.append([side, count, wall, gc_s, gcs])
-        admitted_seen.update(admitted)
-    n_side = sum(1 for w in windows if w[0] == "off") * count
-    wall_off = sum(w[2] for w in windows if w[0] == "off") / n_side
-    wall_on = sum(w[2] for w in windows if w[0] == "on") / n_side
-    overhead = (wall_on - wall_off) / wall_off if wall_off > 0 else 0.0
+    warm_rec = new_recorder()
+    warm_rec.start()
+    try:
+        drain(warm_rec)
+        warm_rec.flush(timeout=60.0)
+    finally:
+        warm_rec.stop()
+        shutil.rmtree(warm_rec.path, ignore_errors=True)
+    reading = read_record_overhead(lambda rec: drain(rec)[0], new_recorder,
+                                   window_s=window_s, rounds=rounds, aa=aa)
+    windows, admitted_seen = reading["windows"], reading["admitted"]
+    wall_off, wall_on, overhead = reading["wall_off"], reading["wall_on"], reading["overhead"]
 
     # The recorded drain: its journal is the one replayed.
     journal_dir = tempfile.mkdtemp(prefix="grove-trace-bench-")
@@ -2323,11 +2401,27 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
         "whatif_score_delta": wi_doc["delta"]["meanPlacementScore"],
     }
     if window_s > 0:
+        out["record_calibration"] = reading["calibration"]
         out["record_windows"] = windows
-        out["record_split"] = {"drains": n_side, "parts": split}
+        out["record_split"] = reading["split"]
+    if aa:
+        out["record_aa"] = True
     if divergences:
         out["diverged"] = rep_doc["diverged"][:3]  # evidence, bounded
     return out
+
+
+def thread_rusage() -> tuple[int, int]:
+    """The calling thread's voluntary and involuntary context switches so
+    far (getrusage(RUSAGE_THREAD); (0, 0) where the platform has no
+    per-thread reading)."""
+    import resource
+
+    who = getattr(resource, "RUSAGE_THREAD", None)
+    if who is None:
+        return 0, 0
+    ru = resource.getrusage(who)
+    return ru.ru_nvcsw, ru.ru_nivcsw
 
 
 def replay_doc_core(doc: dict) -> dict:
@@ -2455,11 +2549,550 @@ def run_serving_lockstep(devices=("cuda", "cpu"), steps: int = 20, world=churn_w
     }
 
 
+# bench.py's tenancy defaults (its GROVE_BENCH_TENANCY_* knobs unset, no
+# soak): the arrival rate a second, the tenants, how long a bound workload
+# holds, the sim seconds the backlog may drain after the trace, the trace's
+# seed, the org's CPU quota and the fairness spread's cap. The quota sits
+# below peak offered demand (rate * ~7 cpu * hold) so the tiers contend
+# during the trace, but high enough that the backlog drains inside the tail.
+TENANCY_DURATION_S = 75.0
+TENANCY_RATE = 1.6
+TENANCY_TENANTS = 200
+TENANCY_HOLD_S = 12.0
+TENANCY_TAIL_CAP_S = 240.0
+TENANCY_SEED = 20260804
+TENANCY_ORG_QUOTA = 64.0
+TENANCY_SPREAD_CAP = 0.25
+
+
+def run_tenancy_bench(device=None, *, duration_s: float = TENANCY_DURATION_S,
+                      cpu_replay: bool = False) -> dict:
+    """bench.py's `run_tenancy_bench` on the port, with its keys and gates:
+    hundreds of churning tenants with a mixed SLO-class arrival trace pushed
+    through the port's Manager reconcile loop under the Simulator, on the
+    sim clock, every solve on `device` (None = the card), at bench.py's
+    defaults (the TENANCY_* constants; `duration_s` seconds of trace) on 192
+    nodes (1 x 2 x 8 x 12).
+
+    One run, all surfaces: tenant queues under one borrowing org quota sized
+    below peak demand, workloads departing TENANCY_HOLD_S after they bind,
+    deterministic mid-trace chaos (node kill, un-cordon, pod fail), a flight
+    recorder on the controller, and the fairness ledger read back at the
+    end. Gates (vs_baseline is 1.0 only when all hold): the fairness spread
+    bounded by TENANCY_SPREAD_CAP, tier p99 time-to-bind ordered latency <
+    standard < batch-preemptible, the disruption budget never exceeded,
+    reclaims exercised, zero lost gangs, zero oversubscribed ticks, the
+    chaos injected and healed, and the journal replayed with zero
+    divergences. With `cpu_replay` the journal is also replayed on the CPU's
+    plain versions, and the document adds "cpu_replay_divergences" and
+    "cpu_replay_waves"."""
+    import shutil
+    import tempfile
+
+    from grove_tpu_torch.api import constants
+    from grove_tpu_torch.runtime.config import parse_operator_config
+    from grove_tpu_torch.runtime.manager import Manager
+    from grove_tpu_torch.sim.simulator import Simulator
+    from grove_tpu_torch.sim.workloads import (
+        arrival_pcs,
+        arrival_process,
+        synthetic_cluster,
+    )
+    from grove_tpu_torch.tenancy import quantile
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+    from grove_tpu_torch.trace.replay import replay_journal
+
+    duration, n_tenants = float(duration_s), TENANCY_TENANTS
+
+    events = arrival_process(
+        TENANCY_SEED,
+        duration_s=duration,
+        base_rate=TENANCY_RATE,
+        tenants=n_tenants,
+        active_tenants=max(4, n_tenants // 16),
+        tenant_churn_s=max(0.25, duration / max(1, n_tenants)),
+        slo_mix=(
+            ("latency", 0.2),
+            ("standard", 0.5),
+            ("batch-preemptible", 0.3),
+        ),
+    )
+    tenant_names = sorted({ev.tenant for ev in events})
+    # Every tenant's quota covers the LARGEST single workload (disagg, 17
+    # cpu) so latency gangs — in-quota only — are always eventually
+    # admissible, while a tenant running more than one workload at once has
+    # to borrow; the org envelope below peak demand is what makes the tiers
+    # contend (borrowers queue and get reclaimed, in-quota latency cuts
+    # through).
+    queues: dict = {"org": {"resources": {"cpu": {"quota": str(TENANCY_ORG_QUOTA)}}}}
+    for t in tenant_names:
+        queues[t] = {"parentQueue": "org", "resources": {"cpu": {"quota": "18"}}}
+    cfg, errors = parse_operator_config(
+        {
+            "servers": {"healthPort": -1, "metricsPort": -1},
+            "backend": {"enabled": False},
+            "scheduling": {"queues": queues},
+            "tenancy": {
+                "enabled": True,
+                "agingHalfLifeSeconds": 5.0,
+                "agingMaxBoost": 4,
+            },
+            # Budget for a whole disagg family (base + 2 scaled gangs) with
+            # one slot spare — whole-set reclaims fit, partials never happen.
+            "defrag": {"maxConcurrentMigrations": 4},
+        }
+    )
+    if errors:
+        raise ValueError(f"operator config invalid: {errors}")
+    m = Manager(cfg, device=device)
+    for node in synthetic_cluster(
+        zones=1, blocks_per_zone=2, racks_per_block=8, hosts_per_rack=12
+    ):
+        m.cluster.nodes[node.name] = node
+    sim = Simulator(m.cluster, m.controller)
+    trace_dir = tempfile.mkdtemp(prefix="grove-tenancy-trace-")
+    recorder = TraceRecorder(trace_dir)
+    recorder.start()
+    m.controller.recorder = recorder
+
+    pending_events = list(events)
+    applied: dict[str, float] = {}  # workload -> sim time applied
+    bound_at: dict[str, float] = {}
+    delete_at: dict[str, float] = {}
+    budget_peak = 0
+    budget_samples = 0
+    oversubscribed_ticks = 0
+    fault_log: list[dict] = []
+    killed_node: str | None = None
+    uncordoned = False
+    failed_pod: str | None = None
+    kill_at = duration / 3.0
+    uncordon_at = duration / 2.0
+    fail_pod_at = 2.0 * duration / 3.0
+    dt = 1.0
+    wall0 = time.perf_counter()
+    try:
+        while True:
+            now_next = sim.now + dt
+            while pending_events and pending_events[0].t <= now_next:
+                ev = pending_events.pop(0)
+                pcs = arrival_pcs(ev)
+                pcs.metadata.annotations[constants.ANNOTATION_QUEUE] = ev.tenant
+                m.apply_podcliqueset(pcs)
+                applied[ev.name] = now_next
+            for name, at in list(delete_at.items()):
+                if at <= now_next:
+                    m.delete_podcliqueset(name)
+                    del delete_at[name]
+            # Deterministic chaos: targets are pure functions of sim state,
+            # which is itself deterministic in the seed.
+            if killed_node is None and now_next >= kill_at:
+                busy: dict[str, int] = {}
+                for p in m.cluster.pods.values():
+                    if p.is_active and p.is_scheduled:
+                        busy[p.node_name] = busy.get(p.node_name, 0) + 1
+                if busy:
+                    killed_node = min(
+                        busy, key=lambda n: (-busy[n], n)
+                    )  # busiest node, name-tiebroken
+                    sim.kill_node(killed_node)
+                    fault_log.append(
+                        {"t": now_next, "action": "kill_node", "target": killed_node}
+                    )
+            if (
+                killed_node is not None
+                and not uncordoned
+                and now_next >= uncordon_at
+            ):
+                sim.uncordon(killed_node)
+                uncordoned = True
+                fault_log.append(
+                    {"t": now_next, "action": "uncordon", "target": killed_node}
+                )
+            if failed_pod is None and now_next >= fail_pod_at:
+                victim = min(
+                    (
+                        p.name
+                        for p in m.cluster.pods.values()
+                        if p.is_active and p.is_scheduled
+                    ),
+                    default=None,
+                )
+                if victim is not None:
+                    failed_pod = victim
+                    sim.fail_pod(victim)
+                    fault_log.append(
+                        {"t": now_next, "action": "fail_pod", "target": victim}
+                    )
+            sim.step(dt)
+            # Fresh FLOOR binds start the hold clock (churn departures).
+            # Operational = every base gang scheduled; scaled gangs beyond
+            # minAvailable are elastic extras, and holding a workload open
+            # for them would deadlock the org quota on partial families.
+            bases_by_pcs: dict[str, list] = {}
+            for g in m.cluster.podgangs.values():
+                if not g.is_scaled:
+                    bases_by_pcs.setdefault(g.pcs_name, []).append(g)
+            for name in list(applied):
+                if name in bound_at or name not in m.cluster.podcliquesets:
+                    continue
+                bases = bases_by_pcs.get(name, [])
+                if bases and all(g.is_base_gang_scheduled() for g in bases):
+                    bound_at[name] = sim.now
+                    delete_at[name] = sim.now + TENANCY_HOLD_S
+            # Disruption budget + double-bind detectors, every tick.
+            in_flight = m.controller.disrupted_now()
+            budget_peak = max(budget_peak, in_flight)
+            budget_samples += 1
+            used: dict[str, dict[str, float]] = {}
+            for p in m.cluster.pods.values():
+                if p.is_active and p.is_scheduled:
+                    node_used = used.setdefault(p.node_name, {})
+                    for r, q in p.spec.total_requests().items():
+                        node_used[r] = node_used.get(r, 0.0) + q
+            for n, res in used.items():
+                cap = m.cluster.nodes[n].capacity
+                if any(q > cap.get(r, 0.0) + 1e-6 for r, q in res.items()):
+                    oversubscribed_ticks += 1
+                    break
+            if not pending_events and not m.cluster.podcliquesets:
+                break
+            if sim.now >= duration + TENANCY_TAIL_CAP_S:
+                break
+        recorder.flush()
+    finally:
+        recorder.stop()
+    wall_s = time.perf_counter() - wall0
+
+    led = m.controller.tenancy_ledger
+    pooled = led.tier_latencies()
+    tiers = {
+        cls: {
+            "samples": len(samples),
+            "p50_bind_s": round(quantile(samples, 0.50), 3),
+            "p99_bind_s": round(quantile(samples, 0.99), 3),
+        }
+        for cls, samples in sorted(pooled.items())
+    }
+    p99 = {cls: d["p99_bind_s"] for cls, d in tiers.items()}
+    tier_ordered = (
+        all(cls in p99 for cls in ("latency", "standard", "batch-preemptible"))
+        and p99["latency"] < p99["standard"] < p99["batch-preemptible"]
+    )
+    # Fairness on the FLOOR contract: per-tenant fraction of offered
+    # workloads whose base gangs bound. Gang-level ledger ratios are
+    # reported too but not gated — elastic extras deleted with their family
+    # before binding depress them by design, not by unfairness.
+    tenant_of = {ev.name: ev.tenant for ev in events}
+    floor_offered: dict[str, int] = {}
+    floor_bound: dict[str, int] = {}
+    for name in applied:
+        t = tenant_of[name]
+        floor_offered[t] = floor_offered.get(t, 0) + 1
+        if name in bound_at:
+            floor_bound[t] = floor_bound.get(t, 0) + 1
+    ratios = {
+        t: floor_bound.get(t, 0) / n
+        for t, n in floor_offered.items()
+        if n >= 2
+    }
+    spread = (max(ratios.values()) - min(ratios.values())) if ratios else None
+    gang_ratios = [
+        st.admitted_ratio() for st in led.tenants.values() if st.submitted >= 2
+    ]
+    gang_spread = (max(gang_ratios) - min(gang_ratios)) if gang_ratios else None
+    lost = sorted(n for n in applied if n not in bound_at)
+    stranded = sorted(
+        p.name
+        for p in m.cluster.pods.values()
+        if p.is_active
+        and p.is_scheduled
+        and not m.cluster.nodes[p.node_name].schedulable
+    )
+
+    records = read_journal(trace_dir)
+    report = replay_journal(records, device=m.device)
+    cpu_report = replay_journal(records, device="cpu") if cpu_replay else None
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    reclaim_records = [
+        r
+        for r in records
+        if r.get("kind") == "action" and r.get("action") == "quota-reclaim"
+    ]
+
+    gates = {
+        "fairness_spread_bounded": (
+            len(ratios) >= 5 and spread is not None and spread <= TENANCY_SPREAD_CAP
+        ),
+        "tier_p99_ordered": tier_ordered,
+        "budget_never_exceeded": budget_peak <= m.controller.defrag_max_concurrent,
+        "reclaims_exercised": led.totals["reclaims"] >= 1,
+        "zero_lost_gangs": not lost and not m.cluster.podcliquesets,
+        "zero_oversubscribed_ticks": oversubscribed_ticks == 0,
+        "chaos_injected_and_healed": len(fault_log) >= 3 and not stranded,
+        "replay_bit_identical": report.divergence_count == 0,
+    }
+    doc = {
+        "scenario": "tenancy",
+        "metric": "tenancy_fair_spread",
+        "unit": "ratio",
+        "value": round(spread, 4) if spread is not None else None,
+        "vs_baseline": 1.0 if all(gates.values()) else 0.0,
+        "gates": gates,
+        "soak": False,
+        "host_cpus": len(os.sched_getaffinity(0)),
+        "trace_seed": TENANCY_SEED,
+        "trace_duration_s": duration,
+        "sim_seconds": round(sim.now, 1),
+        "wall_s": round(wall_s, 3),
+        "workloads_offered": len(events),
+        "workloads_bound": len(bound_at),
+        "tenant_count": len(led.tenants),
+        "tenants_rated": len(ratios),
+        "fair_spread_cap": TENANCY_SPREAD_CAP,
+        "gang_admitted_ratio_spread": (
+            round(gang_spread, 4) if gang_spread is not None else None
+        ),
+        "tiers": tiers,
+        "ledger_totals": dict(led.totals),
+        "budget_peak_in_flight": budget_peak,
+        "budget_cap": m.controller.defrag_max_concurrent,
+        "budget_samples": budget_samples,
+        "oversubscribed_ticks": oversubscribed_ticks,
+        "faults": fault_log,
+        "lost_gangs": lost[:8],
+        "stranded_pods": stranded[:8],
+        "reclaim_decisions_journaled": len(reclaim_records),
+        "replay_divergences": report.divergence_count,
+        "replay_waves": len(report.waves),
+    }
+    if cpu_report is not None:
+        doc["cpu_replay_divergences"] = cpu_report.divergence_count
+        doc["cpu_replay_waves"] = len(cpu_report.waves)
+    return doc
+
+
+# The tenancy document's keys that read the host's clock or its CPUs.
+TENANCY_WALL_KEYS = ("wall_s", "host_cpus")
+
+
+def tenancy_doc_core(doc: dict) -> dict:
+    """A tenancy document without its wall-clock and host keys: what a card
+    run, a CPU run and the JAX package's run share."""
+    return {k: v for k, v in doc.items() if k not in TENANCY_WALL_KEYS}
+
+
+def json_patch(doc, ops: list):
+    """`doc` with the RFC 6902 "add"/"replace" operations `ops` applied (the
+    ones the mutating webhook answers with), as a new document."""
+    import copy
+
+    out = copy.deepcopy(doc)
+    for op in ops:
+        if op["op"] not in ("add", "replace"):
+            raise ValueError(f"json_patch: unsupported op {op['op']!r}")
+        tokens = [t.replace("~1", "/").replace("~0", "~") for t in op["path"].split("/")[1:]]
+        parent = out
+        for t in tokens[:-1]:
+            parent = parent[int(t)] if isinstance(parent, list) else parent[t]
+        last = tokens[-1]
+        if isinstance(parent, list):
+            if last == "-":
+                parent.append(op["value"])
+            elif op["op"] == "add":
+                parent.insert(int(last), op["value"])
+            else:
+                parent[int(last)] = op["value"]
+        else:
+            parent[last] = op["value"]
+    return out
+
+
+def operator_config_doc(workdir: str, kwok_nodes: int = 24) -> dict:
+    """examples/operator-config.yaml as the operator binary's smoke run
+    takes it: `cluster.source: kwok` with `kwok_nodes` fabricated nodes
+    (hosts of 8 CPU, 4 to a rack), the probe/API and webhook ports picked by
+    the kernel, the hosted sidecar on a free port, JSON logs, a 50 ms
+    reconcile interval, the flight recorder on, and every path it writes
+    under `workdir`."""
+    import yaml
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "examples", "operator-config.yaml")) as f:
+        doc = yaml.safe_load(f)
+    doc["log"]["format"] = "json"
+    doc["leaderElection"]["leaseFile"] = os.path.join(workdir, "leader.lease")
+    doc["servers"].update(bindAddress="127.0.0.1", healthPort=0, metricsPort=-1, webhookPort=0,
+                          tlsCertDir=os.path.join(workdir, "certs"))
+    doc["controllers"]["reconcileIntervalSeconds"] = 0.05
+    doc["solver"]["shapeHistoryPath"] = os.path.join(workdir, "solve-shapes.json")
+    doc["trace"].update(enabled=True, path=os.path.join(workdir, "trace"))
+    doc["persistence"]["path"] = os.path.join(workdir, "state.json")
+    doc["backend"]["port"] = 0
+    doc["cluster"].update(source="kwok", kwokNodes=int(kwok_nodes), kwokHostsPerRack=4,
+                          runningDelaySeconds=0.05, readyDelaySeconds=0.05)
+    return doc
+
+
+def run_operator_binary(device=None, *, kwok_nodes: int = 24, workload: str = "simple1.yaml",
+                        timeout_s: float = 120.0) -> dict:
+    """The operator binary as a user runs it: `python -m
+    grove_tpu_torch.runtime --config <operator_config_doc>` in a subprocess
+    (with `--device` when `device` is given; without it the solves run on the
+    card). Waits for its "manager started" log line, reads /healthz and
+    /readyz, waits for the KWOK fleet in /api/v1/nodes, sends
+    examples/<workload> through the admission webhook over HTTPS (pinned to
+    the binary's self-signed certificate): /webhook/v1/default's JSON patch
+    applied, then /webhook/v1/validate; posts the admitted object to
+    /api/v1/podcliquesets and waits until every pod is bound to a KWOK node
+    and Ready and every PodGang is Starting or Running; reads /statusz;
+    sends SIGTERM and waits for exit code 0. Returns the walls of each
+    step, the counts, /statusz's "solver" section (its "device" holds the
+    child's kernel launches) and the exit code; raises with the child's
+    log on any failure."""
+    import base64
+    import queue
+    import shutil
+    import signal
+    import subprocess
+    import sys
+    import tempfile
+    import threading
+    import urllib.request
+
+    import yaml
+
+    from grove_tpu_torch.runtime.certs import pinned_client_context
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    workdir = tempfile.mkdtemp(prefix="grove-operator-")
+    cfg_path = os.path.join(workdir, "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(operator_config_doc(workdir, kwok_nodes), f)
+    cmd = [sys.executable, "-m", "grove_tpu_torch.runtime", "--config", cfg_path]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    lines: list[str] = []
+    started: queue.Queue = queue.Queue()
+
+    def read_log():
+        for line in proc.stderr:
+            lines.append(line)
+            try:
+                doc = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(doc, dict) and doc.get("msg") == "manager started":
+                started.put(doc)
+
+    reader = threading.Thread(target=read_log, daemon=True)
+    reader.start()
+
+    def fail(msg):
+        raise RuntimeError(f"operator binary: {msg}\n--- its log ---\n{''.join(lines[-60:])}")
+
+    def http(port, path, body=None, method=None, ctx=None, scheme="http"):
+        req = urllib.request.Request(f"{scheme}://127.0.0.1:{port}{path}", data=body,
+                                     method=method)
+        if body is not None:
+            req.add_header("Content-Type", "application/json")
+        with urllib.request.urlopen(req, timeout=10, context=ctx) as r:
+            return r.status, r.read().decode()
+
+    def get(port, path):
+        return json.loads(http(port, path)[1])
+
+    def wait(what, cond, limit):
+        deadline = time.perf_counter() + limit
+        while time.perf_counter() < deadline:
+            if proc.poll() is not None:
+                fail(f"exited {proc.returncode} while waiting for {what}")
+            got = cond()
+            if got:
+                return got
+            time.sleep(0.05)
+        fail(f"timed out after {limit} s waiting for {what}")
+
+    out: dict = {"command": " ".join(cmd[1:]), "kwok_nodes": kwok_nodes}
+    try:
+        start = wait("the 'manager started' line",
+                     lambda: started.get_nowait() if not started.empty() else None, timeout_s)
+        out["boot_s"] = time.perf_counter() - t0
+        hp, wp = start["health_port"], start["webhook_port"]
+        out["probe"] = {p: http(hp, p)[0] for p in ("/healthz", "/readyz")}
+        if set(out["probe"].values()) != {200}:
+            fail(f"probes answered {out['probe']}")
+        wait("the KWOK fleet", lambda: len(get(hp, "/api/v1/nodes")) == kwok_nodes, timeout_s)
+        out["fleet_s"] = time.perf_counter() - t0
+
+        with open(os.path.join(root, "examples", workload)) as f:
+            obj = yaml.safe_load(f)
+        ctx = pinned_client_context(os.path.join(workdir, "certs", "webhook", "tls.crt"))
+        t_adm = time.perf_counter()
+
+        def review(path, o, uid):
+            body = json.dumps({"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+                               "request": {"uid": uid, "operation": "CREATE", "object": o}})
+            return json.loads(http(wp, path, body.encode(), "POST", ctx, "https")[1])["response"]
+
+        mutated = review("/webhook/v1/default", obj, "smoke-default")
+        if not mutated.get("allowed"):
+            fail(f"the mutating webhook refused {workload}: {mutated}")
+        ops = json.loads(base64.b64decode(mutated["patch"])) if mutated.get("patch") else []
+        admitted = json_patch(obj, ops)
+        validated = review("/webhook/v1/validate", admitted, "smoke-validate")
+        if not validated.get("allowed"):
+            fail(f"the validating webhook refused {workload}: {validated}")
+        out["admission"] = {"patch_ops": len(ops), "allowed": True, "tls": True,
+                            "wall_s": time.perf_counter() - t_adm}
+        name = json.loads(http(hp, "/api/v1/podcliquesets", json.dumps(admitted).encode(),
+                               "POST")[1])["name"]
+        t_apply = time.perf_counter()
+
+        def scheduled():
+            names = get(hp, "/api/v1/pods")
+            if not names:
+                return None
+            pods = [get(hp, f"/api/v1/pods/{n}") for n in names]
+            if not all(p.get("ready") and str(p.get("node_name") or "").startswith("kwok-")
+                       for p in pods):
+                return None
+            gangs = [get(hp, f"/api/v1/podgangs/{g}") for g in get(hp, "/api/v1/podgangs")]
+            if not gangs or any(g.get("status", {}).get("phase") not in ("Starting", "Running")
+                                for g in gangs):
+                return None
+            return len(pods), len(gangs)
+
+        out["pods"], out["podgangs"] = wait(f"{name} scheduled and Ready", scheduled, timeout_s)
+        out["workload"] = name
+        out["schedule_s"] = time.perf_counter() - t_apply
+        statusz = get(hp, "/statusz")
+        out["statusz_solver"] = statusz["solver"]
+        out["statusz_warm_path"] = statusz.get("warmPath")
+        out["launches"] = statusz["solver"]["device"]["launches"]
+        proc.send_signal(signal.SIGTERM)
+        out["exit_code"] = proc.wait(timeout=60)
+        if out["exit_code"] != 0:
+            fail(f"exit code {out['exit_code']} after SIGTERM")
+        reader.join(timeout=10)
+        out["stopped_cleanly"] = any('"manager stopped"' in line for line in lines)
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario",
                     choices=("default", "scale", "sweep", "stream", "chaos", "defrag", "replay",
-                             "serving", "cells", "sidecar"),
+                             "serving", "cells", "sidecar", "tenancy"),
                     default="default")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
@@ -2474,14 +3107,21 @@ def main(argv=None) -> int:
     ap.add_argument("--window-s", type=float, default=0.0,
                     help="replay: seconds of drains in the first OFF window (0: one drain)")
     ap.add_argument("--rounds", type=int, default=1,
-                    help="replay: rounds of OFF, ON, ON, OFF windows")
+                    help="replay: rounds of windows, OFF, ON, ON, OFF and ON, OFF, OFF, "
+                    "ON in turn")
+    ap.add_argument("--aa", action="store_true",
+                    help="replay: ON windows without a recorder (an A/A reading)")
+    ap.add_argument("--duration-s", type=float, default=TENANCY_DURATION_S,
+                    help="tenancy: the arrival trace's seconds (default bench.py's 75)")
     args = ap.parse_args(argv)
     from grove_tpu_torch import faults
 
     faults.install(faults.from_config(None))  # GROVE_FAULTS arms the port's injector
-    if args.scenario == "replay":
+    if args.scenario == "tenancy":
+        out = run_tenancy_bench(device=args.device, duration_s=args.duration_s)
+    elif args.scenario == "replay":
         out = run_replay_bench(args.scale, device=args.device, window_s=args.window_s,
-                               rounds=args.rounds)
+                               rounds=args.rounds, aa=args.aa)
     elif args.scenario == "cells":
         out = run_cells_bench(device=args.device)
     elif args.scenario == "sidecar":

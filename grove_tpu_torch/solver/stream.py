@@ -100,10 +100,8 @@ class StreamConfig:
     wave_size: int = 64
     # Paced mode: how long the oldest queued gang waits for companions.
     max_wait_s: float = 0.05
-
-
-# Paced mode: the longest idle sleep while waiting for the next arrival.
-POLL_S = 0.005
+    # Paced mode: the longest idle sleep while waiting for the next arrival.
+    poll_s: float = 0.005
 
 
 @dataclass
@@ -488,7 +486,7 @@ def drain_stream(
                     _charge(e)
             else:
                 next_due = (t0 + arrivals[i][0]) if i < n else now
-                time.sleep(min(POLL_S, max(0.0, next_due - now)))
+                time.sleep(min(cfg.poll_s, max(0.0, next_due - now)))
     _flush_group()  # the trace is exhausted: any partial look-ahead group
     _flush_run()  # ... and any fused run still buffering
     _retire_down(to_lag=False)  # resident: one wait harvests every wave first

@@ -45,6 +45,7 @@ import hashlib
 import json
 import os
 import queue
+import resource
 import threading
 import time
 from typing import Any, Optional
@@ -302,6 +303,13 @@ class TraceRecorder:
         # (taking records off the queue, the other records' JSON, a segment
         # file written) and "manifest".
         self._split = {part: [0.0, 0] for part in SPLIT_PARTS}
+        # The writer thread's own CPU seconds (time.thread_time) and its
+        # voluntary and involuntary context switches (getrusage of the
+        # thread), read in that thread after each pass, beside its wall
+        # parts: wall well above CPU is time spent waiting (the GIL, the
+        # disk, the scheduler), not work. Readings of this process's
+        # threads only.
+        self._writer_cpu = [0.0, 0, 0]
         # Wakes the writer: a flush, a stop, or a queue half full. Records
         # otherwise wait for the flush interval, when the writer writes them
         # in one pass.
@@ -490,6 +498,14 @@ class TraceRecorder:
     # ---- writer thread -----------------------------------------------------------
 
     def _writer(self) -> None:
+        cpu0 = time.thread_time()
+
+        def read_cpu() -> None:
+            self._writer_cpu[0] = time.thread_time() - cpu0
+            ru = resource.getrusage(resource.RUSAGE_THREAD)
+            self._writer_cpu[1:] = [ru.ru_nvcsw - ru0.ru_nvcsw, ru.ru_nivcsw - ru0.ru_nivcsw]
+
+        ru0 = resource.getrusage(resource.RUSAGE_THREAD)
         seq = self._next_seq()
         segment: list[dict] = []  # the records (a wave: a stub)
         chunks: list[bytes] = []  # their JSON texts and the ", " between them
@@ -614,6 +630,7 @@ class TraceRecorder:
             )
             if dirty and (want_flush or interval_due):
                 write_segment()
+            read_cpu()
             if want_flush:
                 self._flush_now.clear()
                 self._flush_done.set()  # flush(): everything enqueued before
@@ -623,6 +640,7 @@ class TraceRecorder:
         write_segment()
         if self._prune(manifest):
             self._write_manifest(manifest)
+        read_cpu()
 
     def _segments(self) -> list[str]:
         return sorted(glob.glob(os.path.join(self.path, _SEGMENT_GLOB)))
@@ -731,7 +749,9 @@ class TraceRecorder:
     def stats(self, split: bool = False) -> dict:
         """JSON-able recorder state (the JAX recorder's keys); with `split`,
         also "split": {part: {"s": seconds, "n": count}} for each of
-        SPLIT_PARTS."""
+        SPLIT_PARTS, and the writer thread's own CPU seconds and its
+        voluntary and involuntary context switches ("writerCpuSeconds",
+        "writerSwitches"), as of its last pass."""
         doc = {
             "path": self.path,
             "recorded": self.recorded + self.fleets_recorded,
@@ -751,6 +771,8 @@ class TraceRecorder:
             doc["lastWriteError"] = self._last_write_error
         if split:
             doc["split"] = {p: {"s": s, "n": n} for p, (s, n) in self._split.items()}
+            doc["writerCpuSeconds"] = self._writer_cpu[0]
+            doc["writerSwitches"] = self._writer_cpu[1:]
         return doc
 
 

@@ -36,3 +36,15 @@ def describe_device(device=None) -> str:
         return "cpu (the plain PyTorch versions)"
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return f"{torch.cuda.get_device_name(index)}; power limit: {card_line()}"
+
+
+def ensure_usable_backend(device=None) -> tuple[str, str]:
+    """The operator binary's platform check (the JAX package's
+    `ensure_usable_backend` probes its accelerator and falls back to the
+    CPU; this one never falls back): resolve `device` (None: the card,
+    raising RuntimeError without one; "cpu" only when the caller asked for
+    it) and return (platform, description), platform "cuda" or "cpu"."""
+    from grove_tpu_torch.solver.core import resolve_device
+
+    dev = resolve_device(device)
+    return dev.type, describe_device(dev)

@@ -145,6 +145,44 @@ def _load_renderer():
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
 
+def load_renderer():
+    """Build (at first use) and load the C renderer; a failed build raises.
+    The manager calls this at start, so its first journaled wave does not
+    wait for the compiler."""
+    return _renderer if _renderer is not None else _load_renderer()
+
+
+def _camel(name: str) -> str:
+    parts = name.split("_")
+    return parts[0] + "".join(w.capitalize() for w in parts[1:])
+
+
+def to_k8s(obj: Any) -> Any:
+    """Dataclass -> k8s-wire-shaped plain dict: camelCase keys, enum values,
+    empty/None fields dropped (CR status subresource convention). The watch
+    driver's status push renders PodCliqueSet status with it, as the
+    reference persists it through the apiserver (reconcilestatus.go)."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out: dict[str, Any] = {}
+        for f in dataclasses.fields(obj):
+            v = to_k8s(getattr(obj, f.name))
+            if v is None or v == [] or v == {}:
+                continue
+            out[_camel(f.name)] = v
+        return out
+    if isinstance(obj, (list, tuple)):
+        return [to_k8s(x) for x in obj]
+    if isinstance(obj, dict):
+        return {str(k): to_k8s(v) for k, v in obj.items()}
+    if isinstance(obj, (set, frozenset)):
+        return sorted(to_k8s(x) for x in obj)
+    raise TypeError(f"cannot render {type(obj).__name__} for the k8s wire")
+
+
 def decode(doc: Any) -> Any:
     if doc is None or isinstance(doc, (bool, int, float, str)):
         return doc

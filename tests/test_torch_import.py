@@ -174,3 +174,40 @@ def test_platform_probe_refuses_cuda_without_a_card():
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             describe_device(device)
+
+
+OPERATOR_MODULES = (
+    "grove_tpu_torch.runtime.manager", "grove_tpu_torch.runtime.__main__",
+    "grove_tpu_torch.runtime.flow", "grove_tpu_torch.runtime.persistence",
+    "grove_tpu_torch.runtime.certs", "grove_tpu_torch.api.admission",
+    "grove_tpu_torch.api.webhook", "grove_tpu_torch.cluster", "grove_tpu_torch.cluster.kwok",
+    "grove_tpu_torch.cluster.watch", "grove_tpu_torch.initc", "grove_tpu_torch.initc.__main__",
+    "grove_tpu_torch.utils.errors", "grove_tpu_torch.utils.logging",
+    "grove_tpu_torch.utils.concurrent", "grove_tpu_torch.version",
+)
+
+
+def test_operator_modules_are_checked():
+    """The Manager and its binary, admission and the webhooks, the KWOK and
+    watch sources, persistence, the certs, the initc binary and the helpers
+    are among the modules probed above, and together import neither JAX nor
+    grove_tpu."""
+    assert set(OPERATOR_MODULES) <= set(MODULES)
+    assert _imported_forbidden(*OPERATOR_MODULES) == []
+
+
+@pytest.mark.parametrize("module", ["grove_tpu_torch.runtime.manager",
+                                    "grove_tpu_torch.api.webhook",
+                                    "grove_tpu_torch.cluster.kwok"])
+def test_operator_entry_modules_load_no_jax_alone(module):
+    assert _imported_forbidden(module) == []
+
+
+def test_operator_binary_builds_nothing_at_import():
+    """Importing the Manager and its binary neither builds nor loads the
+    kernels or the C helpers: the Manager builds them at start()."""
+    import grove_tpu_torch.runtime.__main__  # noqa: F401
+    import grove_tpu_torch.runtime.manager  # noqa: F401
+    from grove_tpu_torch.kernels import build
+
+    assert build._libs == {}

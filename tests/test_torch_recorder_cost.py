@@ -13,7 +13,7 @@ utils/serde.py, utils/fsio.py) and the replay bench's windowed reading
   - a segment written in chunks, with writes that land in part, holds the
     bytes it was given, and a failed write leaves nothing behind;
   - run_replay_bench with rounds: the windows in the order OFF, ON, ON, OFF
-    per round, each of the same count, bench.py's formula on their sums.
+    and ON, OFF, OFF, ON in turn, each of the same count, bench.py's formula on their sums.
 """
 
 from __future__ import annotations
@@ -174,7 +174,7 @@ def test_a_failed_chunk_write_leaves_the_file_and_no_temporary(tmp_path, monkeyp
 def test_replay_bench_rounds_of_windows():
     doc = p_bench.run_replay_bench(device="cpu", window_s=0.05, rounds=2)
     windows = doc["record_windows"]
-    assert [w[0] for w in windows] == ["off", "on", "on", "off"] * 2
+    assert [w[0] for w in windows] == ["off", "on", "on", "off", "on", "off", "off", "on"]
     assert len({w[1] for w in windows}) == 1 and windows[0][1] >= 1
     assert all(w[3] >= 0.0 and w[4] >= 0 for w in windows)
     drains = sum(w[1] for w in windows if w[0] == "on")

@@ -148,6 +148,8 @@ def test_replay_scenario_times_the_recorder_through_its_flush(monkeypatch):
 
     monkeypatch.setattr(p_rec.TraceRecorder, "flush", slow_flush)
     doc = p_bench.run_replay_bench(device="cpu")
-    assert len(flushes) == 2  # the two ON windows; the recorded drain stops
+    # The warm-up's recorded drain (untimed) and the two ON windows; the
+    # recorded drain stops.
+    assert len(flushes) == 3
     assert doc["drain_wall_on_s"] >= doc["drain_wall_off_s"] + 0.8
     assert doc["record_overhead_frac"] > 0.05 and doc["vs_baseline"] == 0.0

@@ -246,12 +246,35 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               admission webhook over TLS and is scheduled and Ready on the
               KWOK fleet, /statusz shows the solves on the card and the
               child's launches, SIGTERM stops it with exit code 0
+ 19. kubernetes (a) bench.py's rollout scenario (run_rollout_bench: 64
+              nodes, every other one revocable, the 90 s trace at 1.2
+              arrivals a second from 60 tenants, a make-before-break
+              rollout of a 36-pod resident under two revocation storms, the
+              recorder) through the port's Manager on the card: every gate,
+              the journal replayed on the card and on the CPU's plain
+              versions with 0 divergences, the document equal to the CPU
+              run's, wall-clock keys aside; (b) the operator binary on
+              `cluster.source: kubernetes` in a subprocess on the card
+              against tests/fixture_apiserver.py (loaded by path; stdlib
+              only): leader election through a KubeLease, the webhook
+              configurations' caBundle patched at boot, examples/simple1.yaml
+              applied as a PodCliqueSet CR and admitted by the binary's
+              webhooks (TLS verified against that caBundle), watched in,
+              solved, its 13 pods created and bound through the binding
+              subresource, Ready with its status written back; `python -m
+              grove_tpu_torch.cli get pods` lists them; /statusz shows the
+              solves on the card; SIGTERM releases the lease and exits 0;
+              (c) `cli tune sweep --k 4 --rungs 2` over phase 15 (b)'s
+              journal on the card, its document equal to `--device cpu`'s,
+              seconds aside; the phase prints its own seconds
  then         one JSON line: per kernel variant its launches on the main
               path (phases 4-9 as before, plus `launches_stream`,
               `launches_tune`, `launches_chaos`, `launches_defrag`,
               `launches_serving`, `launches_sidecar`, `launches_cells`,
-              `launches_tenancy` and `launches_operator`, the launches of
-              phases 11-18, added to the first row of their variant), its
+              `launches_tenancy`, `launches_operator`, `launches_rollout`
+              and `launches_kubernetes`, the launches of phases 11-19 ((b)
+              and (c) in `launches_kubernetes`), added to the first row of
+              their variant), its
               error against the plain version, its time, the plain
               version's time, its bound and a library call's time; then
               the last line: {"ok": true, "device": {...}}
@@ -264,6 +287,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -291,6 +315,8 @@ REPLAY_WINDOW_S = 0.25
 REPLAY_ROUNDS = 24
 # Phase 18 (a): bench.py's tenancy trace, at its full 75 s.
 TENANCY_DURATION_S = 75.0
+# Phase 15 (b) keeps its recorded drain's journal here for phase 19 (c).
+PHASE15_JOURNAL = os.path.join(tempfile.gettempdir(), f"chip-smoke-replay-{os.getpid()}")
 
 
 def check(ok: bool, message: str) -> None:
@@ -906,6 +932,11 @@ def main() -> int:
 
     phase_done("18, operator")
 
+    # ---- 19. kubernetes: the rollout bench, the apiserver source, the CLI ---
+    rollout_launches, kubernetes_launches = kubernetes_phase(dev, card)
+
+    phase_done("19, kubernetes")
+
     # ---- kernels line --------------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": add_path_launches([
@@ -930,7 +961,8 @@ def main() -> int:
     ], {"stream": stream_launches, "tune": tune_launches, "chaos": chaos_launches,
         "defrag": defrag_launches, "serving": serving_launches, "sidecar": sidecar_launches,
         "cells": cells_launches, "tenancy": tenancy_launches,
-        "operator": operator_launches})}))
+        "operator": operator_launches, "rollout": rollout_launches,
+        "kubernetes": kubernetes_launches})}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     check(not GATE_FAILURES, "; ".join(GATE_FAILURES))
     print(json.dumps({"ok": True, "device": {
@@ -2462,7 +2494,8 @@ def serving_phase(dev, card) -> dict:
     # calibration window.
     sync(dev)
     reset_launches()
-    b = run_replay_bench(device=dev, window_s=REPLAY_WINDOW_S, rounds=REPLAY_ROUNDS)
+    b = run_replay_bench(device=dev, window_s=REPLAY_WINDOW_S, rounds=REPLAY_ROUNDS,
+                         journal_dir=PHASE15_JOURNAL)
     sync(dev)
     b_launches = dict(place_wave.variant_launches)
     count(b_launches)
@@ -2603,7 +2636,7 @@ def operator_phase(dev, card) -> tuple[dict, dict]:
     exit code 0. Returns the launches per variant of (a) and of (b)."""
     import torch
 
-    from grove_tpu_torch.bench import run_operator_binary, run_tenancy_bench, tenancy_doc_core
+    from grove_tpu_torch.bench import manager_doc_core, run_operator_binary, run_tenancy_bench
     from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
 
     t_phase = time.perf_counter()
@@ -2630,10 +2663,10 @@ def operator_phase(dev, card) -> tuple[dict, dict]:
           f"{a['cpu_replay_waves']} waves")
     check(a_launches["dense"] >= 1, f"tenancy: no dense launch ({a_launches})")
     a_cpu = run_tenancy_bench(device="cpu", duration_s=TENANCY_DURATION_S)
-    core = tenancy_doc_core(a)
+    core = manager_doc_core(a)
     core.pop("cpu_replay_divergences")
     core.pop("cpu_replay_waves")
-    check(core == tenancy_doc_core(a_cpu),
+    check(core == manager_doc_core(a_cpu),
           "tenancy: the card's document != the CPU's (wall-clock keys aside)")
     print(f"tenancy: every gate green, == the CPU's document (wall-clock keys aside); "
           f"{time.perf_counter() - t_phase:.1f} s")
@@ -2656,6 +2689,290 @@ def operator_phase(dev, card) -> tuple[dict, dict]:
     check(b["exit_code"] == 0 and b["stopped_cleanly"], "operator: did not stop cleanly")
     print(f"operator phase {time.perf_counter() - t_phase:.1f} s")
     return a_launches, b_launches
+
+def fixture_apiserver():
+    """tests/fixture_apiserver.py, loaded by path: a stdlib-only in-process
+    apiserver (list/watch, the binding subresource, leases, the grove.io CRs
+    with their admission webhooks) that imports nothing of the repo."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixture_apiserver.py")
+    spec = importlib.util.spec_from_file_location("fixture_apiserver", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def without_seconds(doc):
+    """`doc` without the keys that hold seconds (wall-clock readings)."""
+    if isinstance(doc, dict):
+        return {k: without_seconds(v) for k, v in doc.items() if "Seconds" not in k}
+    if isinstance(doc, list):
+        return [without_seconds(v) for v in doc]
+    return doc
+
+
+def kube_operator_binary(device=None, nodes: int = 16, timeout_s: float = 120.0) -> dict:
+    """Phase 19 (b): `python -m grove_tpu_torch.runtime` on the card against
+    a FixtureApiServer: `cluster.source: kubernetes` through a kubeconfig
+    that points at the fixture, leader election on (a KubeLease), the
+    webhook port set and the rendered webhook configurations waiting for
+    their caBundle. The boot patch must land; examples/simple1.yaml applied
+    as a PodCliqueSet CR goes through the apiserver's admission (the
+    binary's webhooks, TLS verified against the patched caBundle), is
+    watched in, solved, created and bound through the binding subresource,
+    made Ready by a kubelet stand-in, and its status written back;
+    `python -m grove_tpu_torch.cli get pods` lists its pods; /statusz shows
+    the solves on the card (on `device` when given: "cpu" runs the plain
+    versions); SIGTERM releases the lease and exits 0. Returns what it saw,
+    with the child's launches per variant."""
+    import base64
+    import queue
+    import shutil
+    import signal
+    import threading
+    import urllib.request
+
+    import yaml
+
+    from grove_tpu_torch.deploy import _render_webhook_objects
+
+    fx = fixture_apiserver()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip-smoke-kube-")
+    api = fx.FixtureApiServer()
+    proc = None
+    lines: list[str] = []
+    out: dict = {"nodes": nodes}
+    t0 = time.perf_counter()
+    try:
+        for i in range(nodes):
+            api.add_node(fx.k8s_node(f"n{i}", cpu="32", memory="128Gi", labels={
+                "topology.kubernetes.io/zone": "z0", "topology.kubernetes.io/block": "b0",
+                "topology.kubernetes.io/rack": f"r{i % 4}"}))
+        for doc in _render_webhook_objects("grove-system"):
+            plural = doc["kind"].lower() + "s"
+            if plural in api.webhookconfigs:
+                api.webhookconfigs[plural][doc["metadata"]["name"]] = doc
+        kubeconfig = os.path.join(work, "kubeconfig")
+        with open(kubeconfig, "w") as f:
+            yaml.safe_dump({
+                "current-context": "fixture",
+                "clusters": [{"name": "c", "cluster": {"server": api.url}}],
+                "users": [{"name": "u", "user": {"token": "fixture-token"}}],
+                "contexts": [{"name": "fixture", "context": {"cluster": "c", "user": "u"}}],
+            }, f)
+        cfg_path = os.path.join(work, "config.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump({
+                "log": {"format": "json"},
+                "servers": {"bindAddress": "127.0.0.1", "healthPort": 0, "metricsPort": -1,
+                            "webhookPort": 0, "tlsCertDir": os.path.join(work, "certs")},
+                "backend": {"enabled": False},
+                "controllers": {"reconcileIntervalSeconds": 0.05},
+                "leaderElection": {"enabled": True, "leaseDurationSeconds": 15.0,
+                                   "renewDeadlineSeconds": 10.0},
+                "solver": {"shapeHistoryPath": os.path.join(work, "solve-shapes.json")},
+                "persistence": {"path": os.path.join(work, "state.json")},
+                "cluster": {"source": "kubernetes", "kubeconfig": kubeconfig},
+            }, f)
+        cmd = [sys.executable, "-m", "grove_tpu_torch.runtime", "--config", cfg_path]
+        if device is not None:
+            cmd += ["--device", str(device)]
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        started: queue.Queue = queue.Queue()
+
+        def read_log():
+            for line in proc.stderr:
+                lines.append(line)
+                try:
+                    doc = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(doc, dict) and doc.get("msg") == "manager started":
+                    started.put(doc)
+
+        threading.Thread(target=read_log, daemon=True).start()
+
+        def wait(what, cond):
+            deadline = time.perf_counter() + timeout_s
+            while time.perf_counter() < deadline:
+                check(proc.poll() is None, f"kubernetes: the binary exited {proc.returncode} "
+                      f"waiting for {what}\n{''.join(lines[-40:])}")
+                got = cond()
+                if got:
+                    return got
+                time.sleep(0.05)
+            raise AssertionError(f"kubernetes: timed out waiting for {what}\n"
+                                 f"{''.join(lines[-40:])}")
+
+        boot = wait("'manager started'", lambda: None if started.empty() else started.get())
+        out["boot_s"] = time.perf_counter() - t0
+        check(boot.get("leader") is True, f"kubernetes: not the leader at boot ({boot})")
+        hp, wp = boot["health_port"], boot["webhook_port"]
+        with open(os.path.join(work, "certs", "webhook", "tls.crt"), "rb") as f:
+            bundle = base64.b64encode(f.read()).decode()
+        patched = [wh["clientConfig"].get("caBundle") == bundle
+                   for objs in api.webhookconfigs.values() for obj in objs.values()
+                   for wh in obj["webhooks"]]
+        check(patched and all(patched), "kubernetes: the boot caBundle patch did not land")
+        lease = api.leases.get("grove-tpu-operator-leader", {}).get("spec", {})
+        check(bool(lease.get("holderIdentity")), f"kubernetes: no lease holder ({lease})")
+        out["lease_holder"] = lease["holderIdentity"]
+        api.webhook_service_urls["grove-tpu-operator-webhook"] = f"https://127.0.0.1:{wp}"
+        with open(os.path.join(root, "examples", "simple1.yaml")) as f:
+            doc = yaml.safe_load(f)
+        t_apply = time.perf_counter()
+        api.apply_pcs(doc)
+        check(not api.admission_denials, f"kubernetes: admission denied {api.admission_denials}")
+        stored = api.podcliquesets["simple1"]
+        check(stored["spec"]["template"]["cliques"][0]["spec"].get("minAvailable") is not None,
+              "kubernetes: the stored CR is not the defaulted object")
+
+        def served():
+            for name, pod in sorted(api.pods.items()):
+                if pod.get("spec", {}).get("nodeName"):
+                    conds = pod.get("status", {}).get("conditions", [])
+                    if not any(c["type"] == "Ready" and c["status"] == "True" for c in conds):
+                        api.advance_pod(name)
+            status = api.podcliquesets["simple1"].get("status", {})
+            return status if (len(api.binding_log) >= 13
+                              and status.get("availableReplicas") == 1) else None
+
+        status = wait("simple1 bound, Ready and its status written back", served)
+        out["schedule_s"] = time.perf_counter() - t_apply
+        out["bindings"] = len(api.binding_log)
+        out["created_pods"] = len(api.created_pods)
+        out["gang_statuses"] = sorted(g["name"] for g in status.get("podGangStatuses", []))
+        check(out["bindings"] == 13 and all(api.pods[p]["spec"].get("nodeName")
+                                            for p, _ in api.binding_log),
+              f"kubernetes: {out['bindings']} bindings")
+        cli = subprocess.run([sys.executable, "-m", "grove_tpu_torch.cli", "--server",
+                              f"http://127.0.0.1:{hp}", "get", "pods"], cwd=root,
+                             capture_output=True, text=True, timeout=120)
+        listed = [ln.split()[0] for ln in cli.stdout.splitlines()[1:] if ln.strip()]
+        check(cli.returncode == 0 and sorted(listed) == sorted(p for p, _ in api.binding_log),
+              f"kubernetes: `cli get pods` exit {cli.returncode}: {cli.stdout[:400]} "
+              f"{cli.stderr[-400:]}")
+        out["cli_pods"] = len(listed)
+        with urllib.request.urlopen(f"http://127.0.0.1:{hp}/statusz", timeout=10) as r:
+            statusz = json.loads(r.read())
+        out["device"] = statusz["solver"]["device"]
+        out["launches"] = dict(statusz["solver"]["device"]["launches"])
+        out["watch"] = statusz["resilience"].get("watch")
+        proc.send_signal(signal.SIGTERM)
+        out["exit_code"] = proc.wait(timeout=60)
+        out["lease_released"] = "grove-tpu-operator-leader" not in api.leases or not (
+            api.leases["grove-tpu-operator-leader"]["spec"].get("holderIdentity"))
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        api.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def kubernetes_phase(dev, card) -> tuple[dict, dict]:
+    """Phase 19: (a) bench.py's rollout scenario at full size (64 nodes,
+    every other one revocable, the 90 s trace, a make-before-break rollout
+    under two revocation storms) through the port's Manager on the card:
+    every gate, the journal replayed on the card and on the CPU's plain
+    versions with 0 divergences, the document == the CPU run's, wall-clock
+    keys aside; (b) the operator binary on `cluster.source: kubernetes`
+    against a fixture apiserver (kube_operator_binary); (c) the CLI's `tune
+    sweep` over phase 15 (b)'s journal on the card, its verdict == the same
+    verb's with `--device cpu`. Returns the launches per variant of (a) and
+    of (b) with (c)."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from grove_tpu_torch.bench import manager_doc_core, run_rollout_bench
+    from grove_tpu_torch.cli.main import main as cli_main
+    from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    a = run_rollout_bench(device=dev, cpu_replay=True)
+    torch.cuda.synchronize(dev)
+    a_launches = dict(place_wave.variant_launches)
+    print(f"rollout[64 nodes, {a['revocable_nodes']} revocable, {a['trace_duration_s']} s "
+          f"trace]: gates {a['gates']}; offered {a['workloads_offered']}, bound "
+          f"{a['workloads_bound']}, resident ready {a['resident_pods_ready']}, rollout "
+          f"{a['rollout_counts']}, revocations {a['revocation_counts']}, budget peak "
+          f"{a['budget_peak_in_flight']}/{a['budget_cap']}, tiers "
+          f"{ {k: v['p99_bind_s'] for k, v in a['tiers'].items()} } p99 s; {a['sim_seconds']} "
+          f"sim s in {a['wall_s']:.3f} s; replay on the card {a['replay_divergences']} "
+          f"divergences over {a['replay_waves']} waves, on the CPU "
+          f"{a['cpu_replay_divergences']} over {a['cpu_replay_waves']}; launches "
+          f"{ {k: v for k, v in a_launches.items() if v} } on {card}")
+    for gate, ok in a["gates"].items():
+        check(ok, f"rollout: gate {gate} failed")
+    check(a["vs_baseline"] == 1.0, f"rollout: vs_baseline {a['vs_baseline']}")
+    check(a["cpu_replay_divergences"] == 0 and a["cpu_replay_waves"] == a["replay_waves"] > 0,
+          f"rollout: CPU replay {a['cpu_replay_divergences']} divergences over "
+          f"{a['cpu_replay_waves']} waves")
+    check(a_launches["dense"] >= 1, f"rollout: no dense launch ({a_launches})")
+    a_cpu = run_rollout_bench(device="cpu")
+    core = manager_doc_core(a)
+    core.pop("cpu_replay_divergences")
+    core.pop("cpu_replay_waves")
+    check(core == manager_doc_core(a_cpu),
+          "rollout: the card's document != the CPU's (wall-clock keys aside)")
+    print(f"rollout: every gate green, == the CPU's document (wall-clock keys aside); "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    t_b = time.perf_counter()
+    b = kube_operator_binary()
+    b_launches = dict(b["launches"])
+    print(f"kubernetes binary: booted in {b['boot_s']:.3f} s against a fixture apiserver of "
+          f"{b['nodes']} nodes, the lease held, the caBundle patched; simple1 admitted by the "
+          f"binary's webhooks, {b['created_pods']} pods created and {b['bindings']} bound "
+          f"through the binding subresource, Ready with its status written back (gangs "
+          f"{b['gang_statuses']}) in {b['schedule_s']:.3f} s; `cli get pods` listed "
+          f"{b['cli_pods']}; /statusz device {b['device']['type']} {b['device']['name']}, watch "
+          f"{b['watch']}, launches { {k: v for k, v in b_launches.items() if v} }; exit "
+          f"{b['exit_code']}, lease released {b['lease_released']}; "
+          f"{time.perf_counter() - t_b:.1f} s on {card}")
+    check(b["device"]["type"] == "cuda", f"kubernetes: solves on {b['device']}")
+    check(b_launches["dense"] >= 1, f"kubernetes: no dense launch in the child ({b_launches})")
+    check(b["exit_code"] == 0 and b["lease_released"],
+          f"kubernetes: exit {b['exit_code']}, lease released {b['lease_released']}")
+
+    t_c = time.perf_counter()
+    argv = ["tune", "sweep", "--path", PHASE15_JOURNAL, "--k", "4", "--rungs", "2", "--json"]
+    verdicts = {}
+    try:
+        for device in ("cuda", "cpu"):
+            text = io.StringIO()
+            torch.cuda.synchronize(dev)
+            reset_launches()
+            with contextlib.redirect_stdout(text):
+                code = cli_main(["--device", device, *argv])
+            torch.cuda.synchronize(dev)
+            if device == "cuda":
+                c_launches = dict(place_wave.variant_launches)
+            body = text.getvalue()
+            check(code == 0, f"tune[{device}]: exit {code}: {body[-400:]}")
+            verdicts[device] = without_seconds(json.loads(body[:body.rindex("}") + 1]))
+    finally:
+        shutil.rmtree(PHASE15_JOURNAL, ignore_errors=True)
+    print(f"tune (cli) over phase 15 (b)'s journal: winner {verdicts['cuda']['winner']['name']}, "
+          f"valid {verdicts['cuda']['valid']}, launches "
+          f"{ {k: v for k, v in c_launches.items() if v} }; "
+          f"{time.perf_counter() - t_c:.1f} s on {card}")
+    check(verdicts["cuda"] == verdicts["cpu"], "tune: the card's verdict != --device cpu's")
+    check(sum(c_launches.values()) >= 1, f"tune: no launch on the card ({c_launches})")
+    print(f"kubernetes phase {time.perf_counter() - t_phase:.1f} s")
+    return a_launches, {k: b_launches.get(k, 0) + c_launches.get(k, 0)
+                        for k in set(b_launches) | set(c_launches)}
 
 
 def add_path_launches(rows, paths: dict) -> list:

@@ -94,6 +94,13 @@ through the port's Manager under the Simulator on 192 nodes: 200 churning
 tenants, a --duration-s trace (75 s) at 1.6 arrivals a second under an org
 quota of 64 CPU, mid-trace chaos and the recorder, with bench.py's gates.
 
+--scenario rollout drives bench.py's rollout scenario (`run_rollout_bench`)
+through the port's Manager under the Simulator on 64 nodes, every other one
+revocable: a --duration-s trace (90 s) at 1.2 arrivals a second from 60
+tenants, a make-before-break rolling update of a 36-pod resident, two
+revocation storms (3, then 8 busy revocable nodes, the second inside the
+eviction lead) and the recorder, with bench.py's gates.
+
 --scenario serving serves bench.py's default backlog (900 sets, 1250 gangs,
 10,000 pods) on its 5120-node fleet through GroveController (recorder on)
 under the Simulator until every pod is Ready (`run_serving_bench`): ticks,
@@ -120,7 +127,7 @@ versions with 0 divergences).
   --window-s S      replay: seconds of drains in the first window (0: one drain)
   --rounds R        replay: rounds of windows, the order turning about (1)
   --aa              replay: ON windows without a recorder
-  --duration-s T    tenancy: the arrival trace's seconds (75)
+  --duration-s T    tenancy, rollout: the arrival trace's seconds (75, 90)
   --device D        "cuda" (default) or "cpu" (plain PyTorch versions)
 
 GROVE_FAULTS (faults/__init__.py's syntax) installs the port's fault
@@ -2287,7 +2294,7 @@ def read_record_overhead(drain, new_recorder, *, window_s: float = 0.0, rounds: 
 
 
 def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
-                     rounds: int = 1, aa: bool = False) -> dict:
+                     rounds: int = 1, aa: bool = False, journal_dir: str | None = None) -> dict:
     """bench.py's `run_replay_bench` on the port, with its keys: the replay
     world drained by `GroveController` under `Simulator` with the recorder
     OFF and ON (the overhead), the journal of one recorded drain replayed
@@ -2307,7 +2314,9 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
     still flushes at its end, so it charges more writes per drain, not
     fewer. With `window_s` > 0 the document also holds
     `record_calibration`, `record_windows` and `record_split` (see
-    read_record_overhead), and with `aa` `record_aa` True."""
+    read_record_overhead), and with `aa` `record_aa` True. With
+    `journal_dir` the recorded drain journals there and the journal is kept
+    (else into a temporary directory that is removed)."""
     import shutil
     import tempfile
 
@@ -2361,7 +2370,8 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
     wall_off, wall_on, overhead = reading["wall_off"], reading["wall_on"], reading["overhead"]
 
     # The recorded drain: its journal is the one replayed.
-    journal_dir = tempfile.mkdtemp(prefix="grove-trace-bench-")
+    keep = journal_dir is not None
+    journal_dir = journal_dir if keep else tempfile.mkdtemp(prefix="grove-trace-bench-")
     recorder = TraceRecorder(journal_dir)
     recorder.start()
     try:
@@ -2372,7 +2382,8 @@ def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,
     records = read_journal(journal_dir)
     replay = replay_journal(records, device=dev)
     whatif = whatif_journal(records, add_rack_count=1, device=dev)
-    shutil.rmtree(journal_dir, ignore_errors=True)
+    if not keep:
+        shutil.rmtree(journal_dir, ignore_errors=True)
     rep_doc = replay.to_doc()
     wi_doc = whatif.to_doc()
     divergences = rep_doc["divergences"]
@@ -2872,14 +2883,395 @@ def run_tenancy_bench(device=None, *, duration_s: float = TENANCY_DURATION_S,
     return doc
 
 
-# The tenancy document's keys that read the host's clock or its CPUs.
-TENANCY_WALL_KEYS = ("wall_s", "host_cpus")
+# The tenancy and rollout documents' keys that read the host's clock or its
+# CPUs.
+MANAGER_WALL_KEYS = ("wall_s", "host_cpus")
 
 
-def tenancy_doc_core(doc: dict) -> dict:
-    """A tenancy document without its wall-clock and host keys: what a card
-    run, a CPU run and the JAX package's run share."""
-    return {k: v for k, v in doc.items() if k not in TENANCY_WALL_KEYS}
+def manager_doc_core(doc: dict) -> dict:
+    """A tenancy or rollout document without its wall-clock and host keys:
+    what a card run, a CPU run and the JAX package's run share."""
+    return {k: v for k, v in doc.items() if k not in MANAGER_WALL_KEYS}
+
+
+# bench.py's rollout defaults (its GROVE_BENCH_ROLLOUT_* knobs unset, no
+# soak): the trace's seconds, the arrival rate a second, the tenants, how
+# long a bound workload holds, the sim seconds the run may go on after the
+# trace, the trace's seed, the latency tier's p99 time-to-bind cap, and the
+# busy revocable nodes each of the two storms hits.
+ROLLOUT_DURATION_S = 90.0
+ROLLOUT_RATE = 1.2
+ROLLOUT_TENANTS = 60
+ROLLOUT_HOLD_S = 10.0
+ROLLOUT_TAIL_CAP_S = 300.0
+ROLLOUT_SEED = 20260805
+ROLLOUT_LAT_P99_S = 30.0
+ROLLOUT_STORM1_NODES = 3
+ROLLOUT_STORM2_NODES = 8
+
+
+def run_rollout_bench(device=None, *, duration_s: float = ROLLOUT_DURATION_S,
+                       cpu_replay: bool = False) -> dict:
+    """bench.py's `run_rollout_bench` on the port, with its keys and gates,
+    every solve on `device` (None = the card), at bench.py's defaults (the
+    ROLLOUT_* constants; `duration_s` seconds of trace) on 64 nodes (1 x 2 x
+    4 x 8), every other node revocable. The fleet-lifecycle chaos gate: a
+    make-before-break rolling update of a long-lived resident workload
+    OVERLAPPING a revocation storm on the revocable (spot) slice of the
+    fleet, with a churning multi-tier arrival trace underneath — all through
+    the Manager's reconcile loop on the sim clock, flight-recorded.
+
+    Storm shape: wave 1 serves standard-grace notices on busy revocable
+    nodes (the controller has room to rescue residents make-before-break);
+    wave 2 serves short-grace notices (deadline already inside the eviction
+    lead — the provider barely warned us), which MUST resolve by slo-ordered
+    eviction. Between the waves the resident's generation hash changes with
+    the make-before-break annotation set.
+
+    Gates (vs_baseline is 1.0 only when ALL hold):
+      - generation fully rolled: the rolling update ENDED, >= 1 MBB cutover
+        committed, and no resident pod still carries the old template hash;
+      - zero lost gangs: every offered arrival workload reached its floor
+        binds and completed its hold; the resident is whole and ready;
+      - zero oversubscribed ticks (double-bind detector, sampled per tick);
+      - the shared disruption budget is NEVER exceeded at any sampled tick;
+      - >= 1 revocation absorbed by make-before-break migration AND >= 1 by
+        slo-ordered eviction;
+      - latency-tier p99 time-to-bind bounded (the storm + rollout must not
+        starve the latency tier);
+      - replay: zero divergences re-solving the journal.
+
+    With `cpu_replay` the journal is also replayed on the CPU's plain
+    versions, and the document adds "cpu_replay_divergences" and
+    "cpu_replay_waves"."""
+    import shutil
+    import tempfile
+
+    from grove_tpu_torch.api import constants
+    from grove_tpu_torch.orchestrator import expansion as _exp
+    from grove_tpu_torch.runtime.config import parse_operator_config
+    from grove_tpu_torch.runtime.manager import Manager
+    from grove_tpu_torch.sim.simulator import Simulator
+    from grove_tpu_torch.sim.workloads import (
+        _clique,
+        _pcs,
+        arrival_pcs,
+        arrival_process,
+        synthetic_cluster,
+    )
+    from grove_tpu_torch.tenancy import quantile
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+    from grove_tpu_torch.trace.replay import replay_journal
+
+    duration = float(duration_s)
+
+    events = arrival_process(
+        ROLLOUT_SEED,
+        duration_s=duration,
+        base_rate=ROLLOUT_RATE,
+        tenants=ROLLOUT_TENANTS,
+        active_tenants=max(4, ROLLOUT_TENANTS // 8),
+        tenant_churn_s=max(0.5, duration / max(1, ROLLOUT_TENANTS)),
+        slo_mix=(
+            ("latency", 0.25),
+            ("standard", 0.5),
+            ("batch-preemptible", 0.25),
+        ),
+    )
+    tenant_names = sorted({ev.tenant for ev in events})
+    # Generous quotas: tenancy is on for the tier ledger (latency p99 gate),
+    # not for contention — the storm and the rollout are the stressors here.
+    queues: dict = {"org": {"resources": {"cpu": {"quota": "4096"}}}}
+    for t in tenant_names:
+        queues[t] = {"parentQueue": "org", "resources": {"cpu": {"quota": "128"}}}
+    queues["resident-q"] = {
+        "parentQueue": "org", "resources": {"cpu": {"quota": "512"}}
+    }
+    cfg, errors = parse_operator_config(
+        {
+            "servers": {"healthPort": -1, "metricsPort": -1},
+            "backend": {"enabled": False},
+            "scheduling": {"queues": queues},
+            "tenancy": {"enabled": True},
+            "defrag": {"maxConcurrentMigrations": 4},
+            # The MBB machinery itself is opted into per-workload via the
+            # grove.io/rollout-strategy annotation; the section here wires
+            # the surge what-if + backoff knobs through the config path.
+            "rollout": {"surgeRacks": 1, "deadlineSeconds": 120.0},
+        }
+    )
+    if errors:
+        raise ValueError(f"operator config invalid: {errors}")
+    m = Manager(cfg, device=device)
+    for node in synthetic_cluster(
+        zones=1, blocks_per_zone=2, racks_per_block=4, hosts_per_rack=8
+    ):
+        m.cluster.nodes[node.name] = node
+    # The revocable (spot) slice: every other node, interleaved across the
+    # fleet — spot capacity mixed into the same racks as on-demand, so the
+    # packing solver lands real work on it (a name-ordered tail slice would
+    # sit idle and the storm would have nothing to hit).
+    names_sorted = sorted(m.cluster.nodes)
+    revocable_slice = set(names_sorted[1::2])
+    for n in revocable_slice:
+        m.cluster.nodes[n].revocable = True
+    sim = Simulator(m.cluster, m.controller)
+    trace_dir = tempfile.mkdtemp(prefix="grove-rollout-trace-")
+    recorder = TraceRecorder(trace_dir)
+    recorder.start()
+    m.controller.recorder = recorder
+
+    # The long-lived resident the rolling update targets: 6 replicas of
+    # {srv x4 @8cpu, aux x2 @4cpu} — 36 pods, opted into make-before-break.
+    resident = _pcs(
+        "resident",
+        cliques=[_clique("srv", 4, "8"), _clique("aux", 2, "4")],
+        replicas=6,
+    )
+    resident.metadata.annotations[constants.ANNOTATION_QUEUE] = "resident-q"
+    resident.metadata.annotations[constants.ANNOTATION_ROLLOUT_STRATEGY] = (
+        constants.ROLLOUT_STRATEGY_MAKE_BEFORE_BREAK
+    )
+    resident = m.apply_podcliqueset(resident)
+
+    pending_events = list(events)
+    applied: dict[str, float] = {}
+    bound_at: dict[str, float] = {}
+    delete_at: dict[str, float] = {}
+    budget_peak = 0
+    budget_samples = 0
+    oversubscribed_ticks = 0
+    fault_log: list[dict] = []
+    update_pushed = False
+    storm_done = [False, False]
+    update_at = duration * 0.3
+    storm1_at = duration * 0.4
+    storm2_at = duration * 0.6
+    dt = 1.0
+    wall0 = time.perf_counter()
+
+    def _busy_revocable(k: int) -> list[str]:
+        """The k busiest revocable nodes not yet under a notice — a pure
+        function of (deterministic) sim state."""
+        busy: dict[str, int] = {}
+        for p in m.cluster.pods.values():
+            if p.is_active and p.is_scheduled and p.node_name in revocable_slice:
+                busy[p.node_name] = busy.get(p.node_name, 0) + 1
+        alive = [
+            n
+            for n in busy
+            if m.cluster.nodes[n].schedulable
+            and m.cluster.nodes[n].revocation_deadline is None
+        ]
+        return sorted(alive, key=lambda n: (-busy[n], n))[:k]
+
+    try:
+        while True:
+            now_next = sim.now + dt
+            while pending_events and pending_events[0].t <= now_next:
+                ev = pending_events.pop(0)
+                pcs = arrival_pcs(ev)
+                pcs.metadata.annotations[constants.ANNOTATION_QUEUE] = ev.tenant
+                m.apply_podcliqueset(pcs)
+                applied[ev.name] = now_next
+            for name, at in list(delete_at.items()):
+                if at <= now_next:
+                    m.delete_podcliqueset(name)
+                    del delete_at[name]
+            if not update_pushed and now_next >= update_at:
+                # Generation change: new image on the srv clique of the
+                # STORED object — the controller's reconcile picks up the
+                # hash change, and the MBB annotation routes it through
+                # orchestrator/rollout.py.
+                live = m.cluster.podcliquesets["resident"]
+                for tmpl in live.spec.template.cliques:
+                    if tmpl.name == "srv":
+                        for c in tmpl.spec.pod_spec.containers:
+                            c.image = c.image.rsplit(":", 1)[0] + ":v2"
+                update_pushed = True
+                fault_log.append(
+                    {"t": now_next, "action": "rolling_update", "target": "resident"}
+                )
+            if not storm_done[0] and now_next >= storm1_at:
+                for n in _busy_revocable(ROLLOUT_STORM1_NODES):
+                    sim.revoke_node(n)
+                    fault_log.append(
+                        {"t": now_next, "action": "revoke_node", "target": n,
+                         "grace_s": sim.revocation_grace_s}
+                    )
+                storm_done[0] = True
+            if not storm_done[1] and now_next >= storm2_at:
+                # Short-grace wave: the deadline lands inside the eviction
+                # lead, so migration never gets a turn — the slo-ordered
+                # eviction ladder MUST absorb these.
+                sim.revocation_grace_s = (
+                    m.controller.revocation_eviction_lead_seconds
+                )
+                for n in _busy_revocable(ROLLOUT_STORM2_NODES):
+                    sim.revoke_node(n)
+                    fault_log.append(
+                        {"t": now_next, "action": "revoke_node", "target": n,
+                         "grace_s": sim.revocation_grace_s}
+                    )
+                storm_done[1] = True
+            sim.step(dt)
+            bases_by_pcs: dict[str, list] = {}
+            for g in m.cluster.podgangs.values():
+                if not g.is_scaled:
+                    bases_by_pcs.setdefault(g.pcs_name, []).append(g)
+            for name in list(applied):
+                if name in bound_at or name not in m.cluster.podcliquesets:
+                    continue
+                bases = bases_by_pcs.get(name, [])
+                if bases and all(g.is_base_gang_scheduled() for g in bases):
+                    bound_at[name] = sim.now
+                    delete_at[name] = sim.now + ROLLOUT_HOLD_S
+            in_flight = m.controller.disrupted_now()
+            budget_peak = max(budget_peak, in_flight)
+            budget_samples += 1
+            used: dict[str, dict[str, float]] = {}
+            for p in m.cluster.pods.values():
+                if p.is_active and p.is_scheduled:
+                    node_used = used.setdefault(p.node_name, {})
+                    for r, q in p.spec.total_requests().items():
+                        node_used[r] = node_used.get(r, 0.0) + q
+            for n, res in used.items():
+                cap = m.cluster.nodes[n].capacity
+                if any(q > cap.get(r, 0.0) + 1e-6 for r, q in res.items()):
+                    oversubscribed_ticks += 1
+                    break
+            prog = m.cluster.podcliquesets["resident"].status.rolling_update_progress
+            rc = m.controller.revocation_counts
+            drained = not pending_events and len(m.cluster.podcliquesets) == 1
+            rolled = (
+                update_pushed
+                and prog is not None
+                and prog.update_ended_at is not None
+            )
+            if (
+                drained
+                and rolled
+                and rc["migrated"] >= 1
+                and rc["evicted"] >= 1
+                and sum(
+                    1
+                    for p in m.cluster.pods.values()
+                    if p.pclq_fqn.startswith("resident-")
+                    and p.is_active
+                    and p.ready
+                ) == 36
+            ):
+                break
+            if sim.now >= duration + ROLLOUT_TAIL_CAP_S:
+                break
+        recorder.flush()
+    finally:
+        recorder.stop()
+    wall_s = time.perf_counter() - wall0
+
+    live_resident = m.cluster.podcliquesets["resident"]
+    prog = live_resident.status.rolling_update_progress
+    want_hash = _exp.compute_pod_template_hash(
+        live_resident.clique_template("srv"),
+        live_resident.spec.template.priority_class_name,
+    )
+    resident_pods = [
+        p
+        for p in m.cluster.pods.values()
+        if p.pclq_fqn.startswith("resident-") and p.is_active
+    ]
+    stale_resident = [
+        p.name
+        for p in resident_pods
+        if p.pclq_fqn.endswith("-srv") and p.pod_template_hash != want_hash
+    ]
+    resident_ready = sum(1 for p in resident_pods if p.ready)
+    rollout_counts = dict(m.controller.rollout_counts)
+    rc = dict(m.controller.revocation_counts)
+
+    led = m.controller.tenancy_ledger
+    pooled = led.tier_latencies()
+    tiers = {
+        cls: {
+            "samples": len(samples),
+            "p50_bind_s": round(quantile(samples, 0.50), 3),
+            "p99_bind_s": round(quantile(samples, 0.99), 3),
+        }
+        for cls, samples in sorted(pooled.items())
+    }
+    lat_p99 = tiers.get("latency", {}).get("p99_bind_s")
+    lost = sorted(n for n in applied if n not in bound_at)
+
+    records = read_journal(trace_dir)
+    report = replay_journal(records, device=m.device)
+    cpu_report = replay_journal(records, device="cpu") if cpu_replay else None
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    action_counts: dict[str, int] = {}
+    for r in records:
+        if r.get("kind") == "action":
+            a = r.get("action", "")
+            if a.startswith(("rollout.", "revocation.", "chaos.")):
+                action_counts[a] = action_counts.get(a, 0) + 1
+
+    gates = {
+        "generation_rolled": (
+            update_pushed
+            and prog is not None
+            and prog.update_ended_at is not None
+            and rollout_counts["cutovers"] >= 1
+            and not stale_resident
+        ),
+        "zero_lost_gangs": (
+            not lost
+            and len(m.cluster.podcliquesets) == 1
+            and resident_ready == 36
+        ),
+        "zero_oversubscribed_ticks": oversubscribed_ticks == 0,
+        "budget_never_exceeded": budget_peak <= m.controller.defrag_max_concurrent,
+        "revocations_migrated_and_evicted": (
+            rc["migrated"] >= 1 and rc["evicted"] >= 1
+        ),
+        "latency_p99_bounded": (
+            lat_p99 is not None and lat_p99 <= ROLLOUT_LAT_P99_S
+        ),
+        "replay_bit_identical": report.divergence_count == 0,
+    }
+    doc = {
+        "scenario": "rollout",
+        "metric": "rollout_chaos_gates_green",
+        "unit": "bool",
+        "value": 1.0 if all(gates.values()) else 0.0,
+        "vs_baseline": 1.0 if all(gates.values()) else 0.0,
+        "gates": gates,
+        "soak": False,
+        "host_cpus": len(os.sched_getaffinity(0)),
+        "trace_seed": ROLLOUT_SEED,
+        "trace_duration_s": duration,
+        "sim_seconds": round(sim.now, 1),
+        "wall_s": round(wall_s, 3),
+        "workloads_offered": len(events),
+        "workloads_bound": len(bound_at),
+        "lost_gangs": lost[:8],
+        "resident_pods_ready": resident_ready,
+        "resident_stale_pods": stale_resident[:8],
+        "rollout_counts": rollout_counts,
+        "revocation_counts": rc,
+        "revocable_nodes": len(revocable_slice),
+        "budget_peak_in_flight": budget_peak,
+        "budget_cap": m.controller.defrag_max_concurrent,
+        "budget_samples": budget_samples,
+        "oversubscribed_ticks": oversubscribed_ticks,
+        "latency_p99_cap_s": ROLLOUT_LAT_P99_S,
+        "tiers": tiers,
+        "faults": fault_log,
+        "lifecycle_actions_journaled": action_counts,
+        "replay_divergences": report.divergence_count,
+        "replay_waves": len(report.waves),
+    }
+    if cpu_report is not None:
+        doc["cpu_replay_divergences"] = cpu_report.divergence_count
+        doc["cpu_replay_waves"] = len(cpu_report.waves)
+    return doc
 
 
 def json_patch(doc, ops: list):
@@ -3092,7 +3484,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario",
                     choices=("default", "scale", "sweep", "stream", "chaos", "defrag", "replay",
-                             "serving", "cells", "sidecar", "tenancy"),
+                             "serving", "cells", "sidecar", "tenancy", "rollout"),
                     default="default")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
@@ -3111,14 +3503,19 @@ def main(argv=None) -> int:
                     "ON in turn")
     ap.add_argument("--aa", action="store_true",
                     help="replay: ON windows without a recorder (an A/A reading)")
-    ap.add_argument("--duration-s", type=float, default=TENANCY_DURATION_S,
-                    help="tenancy: the arrival trace's seconds (default bench.py's 75)")
+    ap.add_argument("--duration-s", type=float, default=None,
+                    help="tenancy, rollout: the arrival trace's seconds (default bench.py's "
+                    "75 and 90)")
     args = ap.parse_args(argv)
     from grove_tpu_torch import faults
 
     faults.install(faults.from_config(None))  # GROVE_FAULTS arms the port's injector
     if args.scenario == "tenancy":
-        out = run_tenancy_bench(device=args.device, duration_s=args.duration_s)
+        out = run_tenancy_bench(device=args.device, duration_s=(
+            TENANCY_DURATION_S if args.duration_s is None else args.duration_s))
+    elif args.scenario == "rollout":
+        out = run_rollout_bench(device=args.device, duration_s=(
+            ROLLOUT_DURATION_S if args.duration_s is None else args.duration_s))
     elif args.scenario == "replay":
         out = run_replay_bench(args.scale, device=args.device, window_s=args.window_s,
                                rounds=args.rounds, aa=args.aa)

@@ -6,8 +6,8 @@ Code threads named *sites* through the stack —
   solver.dispatch    a wave's launch raises (solver/drain._WavePipeline)
   solver.harvest     a dispatched wave hangs; the watchdog must recover
   bind.commit        the gang-bind commit fails mid-gang (controller)
-  kube.request       the apiserver wire call returns 409/5xx
-  watch.disconnect   the watch stream drops
+  kube.request       the apiserver wire call returns 409/5xx (kubernetes.py)
+  watch.disconnect   the watch stream drops (kubernetes.py reader loop)
   recorder.write     the journal segment write hits ENOSPC (trace/recorder)
   sim.node_death     schedulable chaos-script node kill (simulator)
   sim.node_revocation  a revocable node gets a revocation notice
@@ -18,9 +18,7 @@ Code threads named *sites* through the stack —
 decision is a pure function of (site seed, evaluation index): two runs with
 the same spec see the SAME fault schedule regardless of thread interleaving
 across sites, and the same schedule as the JAX package's injector given the
-same specs and seed. The port's modules evaluate `solver.dispatch`,
-`solver.harvest` and `recorder.write`; the other sites belong to modules
-not ported yet.
+same specs and seed. The port's modules evaluate every site above.
 
 Gating: code calls `active()`, which returns a disabled no-op singleton
 unless an injector was installed (`install`, or `from_config` with the

@@ -19,8 +19,7 @@ The port's manager solves on the card: `device` (None = the card, raising
 without one; "cpu" = the plain PyTorch versions, asked for by the caller)
 goes to its GroveController and its hosted sidecar, and start() builds the
 CUDA kernels and the C renderer before it serves, failing loudly when a
-build fails. The kube-apiserver source (`cluster.source: kubernetes`) is
-not ported yet: such a config raises at start(), and nothing falls back.
+build fails.
 """
 
 from __future__ import annotations
@@ -608,8 +607,8 @@ class Manager:
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._http_servers: list[http.server.ThreadingHTTPServer] = []
-        # FileLease (the apiserver-backed lease comes with the kubernetes
-        # source, which is not ported).
+        # FileLease, or cluster.kubernetes.KubeLease when source=kubernetes
+        # (same try_acquire/release surface).
         self._lease: Optional[FileLease] = None
         self._is_leader = not config.leader_election.enabled
         # Cellular control plane (config cells section): the partition plan
@@ -1479,6 +1478,20 @@ class Manager:
             )
         return report.to_doc()
 
+    def _kube_ctx(self):
+        """Memoized kube connection material (shared by the lease and the
+        watch source so both target the same cluster/namespace)."""
+        if getattr(self, "_kube_ctx_cache", None) is None:
+            from grove_tpu_torch.cluster.kubernetes import load_kube_context
+
+            cfg = self.config.cluster
+            self._kube_ctx_cache = load_kube_context(
+                cfg.kubeconfig or None,
+                cfg.kube_context or None,
+                cfg.kube_namespace or None,
+            )
+        return self._kube_ctx_cache
+
     def _build_device_code(self) -> None:
         """Build what the solves run before anything serves: the CUDA
         kernels (on the card) and the C renderer of the flight recorder,
@@ -1507,13 +1520,6 @@ class Manager:
         if self._started:
             return
         cfg = self.config
-        if cfg.cluster.source == "kubernetes":
-            raise GroveError(
-                code="ERR_CONFIG",
-                operation="start",
-                message="cluster.source 'kubernetes' is not ported to grove_tpu_torch "
-                "yet (ROADMAP Queue A 3b); use 'kwok' or 'none'",
-            )
         # The port's counterpart of the persistent XLA compilation cache:
         # the kernels build into _build/ (keyed by a digest of source and
         # flags, so a restart loads them), before the first solve.
@@ -1556,11 +1562,24 @@ class Manager:
                 seed=self.fault_injector.seed,
             )
         if cfg.leader_election.enabled:
-            self._lease = FileLease(
-                path=cfg.leader_election.lease_file,
-                lease_duration_seconds=cfg.leader_election.lease_duration_seconds,
-                renew_deadline_seconds=cfg.leader_election.renew_deadline_seconds,
-            )
+            if cfg.cluster.source == "kubernetes":
+                # Apiserver-backed Lease: the only store EVERY replica of a
+                # k8s Deployment can see — a file lease would leave two
+                # active managers on separate filesystems (the reference's
+                # election is apiserver-backed too, types.go:73-104).
+                from grove_tpu_torch.cluster.kubernetes import KubeLease
+
+                self._lease = KubeLease(
+                    self._kube_ctx(),
+                    lease_duration_seconds=cfg.leader_election.lease_duration_seconds,
+                    renew_deadline_seconds=cfg.leader_election.renew_deadline_seconds,
+                )
+            else:
+                self._lease = FileLease(
+                    path=cfg.leader_election.lease_file,
+                    lease_duration_seconds=cfg.leader_election.lease_duration_seconds,
+                    renew_deadline_seconds=cfg.leader_election.renew_deadline_seconds,
+                )
             self._is_leader = self._lease.try_acquire()
         self._m_leader.set(1.0 if self._is_leader else 0.0)
         if cfg.cells.enabled:
@@ -1628,7 +1647,7 @@ class Manager:
             restored = self.persistence.restore(self.cluster)
             if restored:
                 self.log.info("restored control-plane state", path=cfg.persistence.path)
-        if cfg.cluster.source == "kwok":
+        if cfg.cluster.source in ("kwok", "kubernetes"):
             # External fleets flow in through the watch path. Nodes also
             # forward to the backend sidecar when it is hosted here, so
             # external Solve RPCs see the same fleet.
@@ -1653,6 +1672,70 @@ class Manager:
             )
             self.attach_watch(fleet, backend=backend_client)
             self.log.info("kwok fleet attached", nodes=cfg.cluster.kwok_nodes)
+        elif cfg.cluster.source == "kubernetes":
+            # Live apiserver via the list/watch wire protocol; solver
+            # placements go back as pod creates + binding subresource POSTs
+            # (cluster/kubernetes.py).
+            from grove_tpu_torch.cluster.kubernetes import (
+                KubernetesWatchSource,
+                render_pod_manifest,
+            )
+
+            ctx = self._kube_ctx()
+
+            def _manifest(name: str):
+                pod = self.cluster.pods.get(name)
+                return render_pod_manifest(pod) if pod is not None else None
+
+            source = KubernetesWatchSource(
+                ctx,
+                pod_label_selector=cfg.cluster.pod_label_selector or None,
+                pod_manifest_for=_manifest,
+                watch_workloads=cfg.cluster.watch_workloads,
+                initc_kube_tokens=cfg.cluster.initc_mode == "kubernetes",
+                qps=cfg.cluster.kube_qps,
+                burst=cfg.cluster.kube_burst,
+                # Bind retry + shared backoff pacing (resilience.* block):
+                # in-call decorrelated-jitter retries on the bind push; the
+                # WatchDriver's cross-tick retry set remains the outer loop.
+                bind_retry_attempts=(
+                    cfg.resilience.bind_max_attempts
+                    if cfg.resilience.enabled
+                    else 1
+                ),
+                backoff_base_s=cfg.resilience.backoff_base_seconds,
+                backoff_cap_s=cfg.resilience.backoff_cap_seconds,
+            )
+            source.start()
+            self._kube_source = source
+            # Startup topology sync (clustertopology.go:39-51): publish the
+            # config's ClusterTopology as a CR so cluster users can kubectl
+            # get it; best-effort — a CRD-less cluster just logs.
+            if not source.sync_cluster_topology(self.topology):
+                self.log.info("ClusterTopology CR sync unavailable")
+            if self.webhook_port is not None:
+                # Complete the webhook configs deploy rendered with an empty
+                # caBundle (the cert-controller rotator analog). Failure is
+                # NOT terminal here — reconcile_once retries until it lands
+                # (failurePolicy Fail means an unpatched config is a
+                # cluster-wide PCS write outage).
+                ca = self.webhook_ca_bundle()
+                self._webhook_ca_pending = ca is None or not source.sync_webhook_ca(ca)
+                if self._webhook_ca_pending:
+                    self.log.error(
+                        "webhook caBundle patch failed; retrying each reconcile"
+                    )
+            driver = self.attach_watch(source, backend=backend_client)
+            # Workload CRs from the apiserver (kubectl apply -> watch ->
+            # admission -> store; SURVEY §3.2-3.3) — the same chain the
+            # HTTP apply path runs, so watch events can't bypass admission.
+            driver.workload_sink = self._apply_workload_event
+            driver.child_scale_sink = self._apply_child_scale_event
+            self.log.info(
+                "kubernetes cluster attached",
+                server=ctx.server,
+                namespace=ctx.namespace,
+            )
         # Accelerator preflight AFTER the cluster source attached: a boot
         # that promises auto-slice injection against a fleet with no slice
         # resource anywhere must fail HERE, not strand gangs at solve time.

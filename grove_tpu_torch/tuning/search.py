@@ -162,20 +162,22 @@ def recommend(
     *,
     k: int = 16,
     rungs: int = 3,
+    spread: float = 0.5,
+    seed: int = 0,
     audit_seeds=None,
     warm_path=None,
     device=None,
 ) -> dict:
-    """The default K-config grid around the recorded config -> halving
-    sweep -> validated recommendation: the recommended config's JSON
-    document (the gates in the module docstring). `audit_seeds` None means
-    AUDIT_SEEDS; `warm_path` None means a fresh WarmPath; `device` None
-    means the card."""
+    """The default K-config grid around the recorded config (of `spread`
+    and `seed`) -> halving sweep -> validated recommendation: the
+    recommended config's JSON document (the gates in the module docstring).
+    `audit_seeds` None means AUDIT_SEEDS; `warm_path` None means a fresh
+    WarmPath; `device` None means the card."""
     from grove_tpu_torch.solver.warm import WarmPath
 
     warm = warm_path if warm_path is not None else WarmPath()
     incumbent = incumbent_config(records)
-    grid = default_grid(incumbent, k)
+    grid = default_grid(incumbent, k, spread=spread, seed=seed)
     engine, schedule = successive_halving(records, grid, rungs=rungs, warm_path=warm,
                                           device=device)
     finalists = [engine.tallies[c.name] for c in engine.configs]

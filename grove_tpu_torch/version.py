@@ -63,6 +63,8 @@ def build_info() -> dict:
 
 
 def version_string(prog: str = "grove-tpu") -> str:
-    commit = _git_commit()
-    suffix = f" ({commit})" if commit else ""
-    return f"{prog} {VERSION}{suffix}"
+    """`prog VERSION (commit)`, then the torch and CUDA versions it runs on
+    (build_info's; "none" for a torch built without CUDA)."""
+    info = build_info()
+    suffix = f" ({info['git_commit']})" if info["git_commit"] else ""
+    return f"{prog} {VERSION}{suffix} torch {info['torch']} CUDA {info['cuda'] or 'none'}"

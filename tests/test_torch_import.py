@@ -198,7 +198,11 @@ def test_operator_modules_are_checked():
 
 @pytest.mark.parametrize("module", ["grove_tpu_torch.runtime.manager",
                                     "grove_tpu_torch.api.webhook",
-                                    "grove_tpu_torch.cluster.kwok"])
+                                    "grove_tpu_torch.cluster.kwok",
+                                    "grove_tpu_torch.cluster.kubernetes",
+                                    "grove_tpu_torch.client.typed",
+                                    "grove_tpu_torch.cli.main",
+                                    "grove_tpu_torch.deploy"])
 def test_operator_entry_modules_load_no_jax_alone(module):
     assert _imported_forbidden(module) == []
 
@@ -211,3 +215,26 @@ def test_operator_binary_builds_nothing_at_import():
     from grove_tpu_torch.kernels import build
 
     assert build._libs == {}
+
+
+_FIXTURE_PROBE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+before = set(sys.modules)
+fx = chip_smoke.fixture_apiserver()
+api = fx.FixtureApiServer()
+api.close()
+loaded = sorted(set(sys.modules) - before)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "grove_tpu"))
+print(json.dumps({"bad": bad, "repo": [m for m in loaded if m.startswith("grove")]}))
+"""
+
+
+def test_chip_smoke_loads_the_fixture_apiserver_without_jax():
+    """chip_smoke.py phase 19 loads tests/fixture_apiserver.py by path: that
+    pulls in neither JAX nor the grove_tpu package (nor any module of the
+    port)."""
+    out = subprocess.run([sys.executable, "-c", _FIXTURE_PROBE, str(REPO)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": [], "repo": []}

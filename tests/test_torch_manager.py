@@ -127,17 +127,40 @@ def statusz_core(doc: dict) -> dict:
     return out
 
 
-@pytest.fixture(scope="module")
-def twin_run(tmp_path_factory):
-    """The scripted KWOK world run by both managers step for step: simple1
-    applied at 0.5 s, the node under its first pod killed at 6 s, simple1
-    deleted at 12 s; the store views after every step, the journals and
-    statusz at the end."""
+def fresh_process_state() -> None:
+    """Reset, in both packages, the process-wide state that statusz reads or
+    that steers a solve, which an earlier test in the same worker may have
+    moved: the mesh shard-fallback ledger (statusz warmPath and solver.mesh
+    shardFallbacks), the process-shared WarmPath, and the installed fault
+    injector."""
+    import grove_tpu.parallel.mesh as r_mesh
+    import grove_tpu.solver.warm as r_warm
+    import grove_tpu_torch.parallel.mesh as p_mesh
+    import grove_tpu_torch.solver.warm as p_warm
+    from grove_tpu import faults as r_faults
+    from grove_tpu_torch import faults as p_faults
+
+    for mesh in (r_mesh, p_mesh):
+        with mesh._FALLBACK_LOCK:
+            mesh._FALLBACKS = 0
+    for warm in (r_warm, p_warm):
+        with warm._DEFAULT_LOCK:
+            warm._DEFAULT_WARM_PATH = None
+    r_faults.install(None)
+    p_faults.install(None)
+
+
+def run_twin(root: pathlib.Path) -> dict:
+    """The scripted KWOK world run by both managers step for step, from a
+    fresh process state: simple1 applied at 0.5 s, the node under its first
+    pod killed at 6 s, simple1 deleted at 12 s; the store views after every
+    step, the journals and statusz at the end."""
+    fresh_process_state()
     doc = {"servers": {"healthPort": -1, "metricsPort": -1}, "backend": {"enabled": False}}
     runs = {}
     for side in ("jax", "port"):
         d = copy.deepcopy(doc)
-        d["trace"] = {"enabled": True, "path": str(tmp_path_factory.mktemp(side) / "trace")}
+        d["trace"] = {"enabled": True, "path": str(root / side / "trace")}
         runs[side] = d
     (rm, rk), _ = twin_managers(runs["jax"])
     _, (pm, pk) = twin_managers(runs["port"])
@@ -174,6 +197,11 @@ def twin_run(tmp_path_factory):
             "managers": (rm, pm)}
 
 
+@pytest.fixture(scope="module")
+def twin_run(tmp_path_factory):
+    return run_twin(tmp_path_factory.mktemp("twin"))
+
+
 def test_reconcile_once_stores_equal_after_every_step(twin_run):
     views = twin_run["views"]
     assert twin_run["killed"] is not None
@@ -203,6 +231,45 @@ def test_statusz_equal_but_named_keys(twin_run):
     assert got["build"]["torch"] and "jax" in want["build"] and "jax" not in got["build"]
     assert got["solver"]["device"]["type"] == "cpu"
     assert got["solver"]["streaming"]["pollS"] == want["solver"]["streaming"]["pollS"]
+    assert statusz_core(got) == statusz_core(want)
+
+
+def test_statusz_equal_after_a_worker_moved_the_process_state(tmp_path):
+    """What an earlier test in the same worker leaves behind (a drain that
+    asked for a mesh it could not engage, through each package's shared
+    WarmPath: the JAX package's process-wide shard-fallback count moves)
+    does not reach the twin run's statusz."""
+    import grove_tpu.parallel.mesh as r_mesh
+    import grove_tpu.solver.warm as r_warm
+    import grove_tpu_torch.parallel.mesh as p_mesh
+    import grove_tpu_torch.solver.warm as p_warm
+    from grove_tpu.api import DEFAULT_CLUSTER_TOPOLOGY as R_TOPO
+    from grove_tpu.orchestrator import expand_podcliqueset as r_expand
+    from grove_tpu.solver.drain import drain_backlog as r_drain
+    from grove_tpu.state import build_snapshot as r_snapshot
+    from grove_tpu_torch.api import DEFAULT_CLUSTER_TOPOLOGY as P_TOPO
+    from grove_tpu_torch.orchestrator import expand_podcliqueset as p_expand
+    from grove_tpu_torch.solver.drain import drain_backlog as p_drain
+    from grove_tpu_torch.state import build_snapshot as p_snapshot
+    from torch_jax_programs import release_jax_programs
+
+    for pcs_cls, topo, expand, snapshot, wl, drain, mesh, kw in (
+            (RPCS, R_TOPO, r_expand, r_snapshot, r_wl, r_drain, r_mesh, {}),
+            (PPCS, P_TOPO, p_expand, p_snapshot, p_wl, p_drain, p_mesh, {"device": "cpu"})):
+        ds = expand(pcs_cls.from_dict(simple1_doc()), topo)
+        nodes = wl.synthetic_cluster(zones=1, blocks_per_zone=1, racks_per_block=2,
+                                     hosts_per_rack=4)
+        drain(ds.podgangs, {p.name: p for p in ds.pods}, snapshot(nodes, topo), wave_size=16,
+              mesh=mesh.MeshConfig(enabled=True, min_nodes=1 << 20), **kw)
+    assert r_mesh.shard_fallbacks() >= 1 and p_mesh.shard_fallbacks() >= 1
+    assert r_warm.default_warm_path().stats()["execMisses"] >= 1
+    assert p_warm.default_warm_path().stats()["execMisses"] >= 1
+    try:
+        run = run_twin(tmp_path)
+    finally:
+        release_jax_programs()
+    want, got = run["statusz"]
+    assert want["solver"]["mesh"]["shardFallbacks"] == 0
     assert statusz_core(got) == statusz_core(want)
 
 
@@ -488,19 +555,6 @@ def test_operator_binary_refuses_to_run_without_a_card(tmp_path):
     cfg_doc, _ = p_parse({})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PManager(cfg_doc)
-
-
-def test_kubernetes_source_is_refused_at_start(tmp_path):
-    from grove_tpu_torch.utils.errors import GroveError
-
-    cfg, errors = p_parse(local_paths({"servers": {"healthPort": -1, "metricsPort": -1},
-                                       "backend": {"enabled": False},
-                                       "cluster": {"source": "kubernetes"}}, tmp_path))
-    assert not errors
-    m = PManager(cfg, device="cpu")
-    with pytest.raises(GroveError, match="Queue A 3b"):
-        m.start()
-    m.stop()
 
 
 def test_initc_binary_gates_on_the_port_manager(tmp_path):

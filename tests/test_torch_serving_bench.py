@@ -111,12 +111,40 @@ def test_card_run_equals_cpu_run_step_by_step(cuda):
     assert out["bound"] > 0 and out["overcommitted_nodes"] == []
 
 
-def test_replay_scenario_windows_keep_the_document():
+class StepClock:
+    """A clock for `read_record_overhead` that moves only when a drain runs,
+    by STEP_S: the windows' drain count and walls are then the same on a
+    loaded host as on an idle one."""
+
+    STEP_S = 0.2
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def test_replay_scenario_windows_keep_the_document(monkeypatch):
     """run_replay_bench(window_s=...): four timed windows, OFF, ON, ON, OFF,
     of one drain count set by the first, listed as `record_windows`; the
     overhead is bench.py's formula on their summed walls, and every other
-    key is the one-drain windows' document's."""
+    key is the one-drain windows' document's. The reading runs on a clock
+    that each drain moves by StepClock.STEP_S, so the 0.5 s calibration
+    window holds three drains whatever the host's speed."""
     one = p_bench.run_replay_bench(device="cpu")
+    reading = p_bench.read_record_overhead
+
+    def on_step_clock(drain, new_recorder, **kw):
+        clock = StepClock()
+
+        def stepped(recorder):
+            clock.t += StepClock.STEP_S
+            return drain(recorder)
+
+        return reading(stepped, new_recorder, clock=clock, **kw)
+
+    monkeypatch.setattr(p_bench, "read_record_overhead", on_step_clock)
     win = p_bench.run_replay_bench(device="cpu", window_s=0.5)
     assert "record_windows" not in one
     sides = [w[0] for w in win["record_windows"]]

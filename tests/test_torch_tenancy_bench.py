@@ -46,10 +46,10 @@ def docs():
 
 def test_tenancy_document_equals_bench_py(docs):
     want, got = docs
-    core = p_bench.tenancy_doc_core(got)
+    core = p_bench.manager_doc_core(got)
     assert core.pop("cpu_replay_divergences") == 0
     assert core.pop("cpu_replay_waves") == got["replay_waves"] > 0
-    assert core == p_bench.tenancy_doc_core(want)
+    assert core == p_bench.manager_doc_core(want)
 
 
 def test_tenancy_cut_trace_exercises_every_surface(docs):

@@ -267,14 +267,22 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               (c) `cli tune sweep --k 4 --rungs 2` over phase 15 (b)'s
               journal on the card, its document equal to `--device cpu`'s,
               seconds aside; the phase prints its own seconds
+ 20. quality  bench.py's quality scenario (run_quality_bench: the mixed
+              Required/Preferred backlog on the 32-node quality cluster, 12
+              gangs, scored against the greedy baseline, drained in waves
+              of 4, and the 12-node, 4-gang exact bound) on the card at
+              portfolio 1 (B1+B2, "dense" launches) and 4 (B5, "portfolio"
+              launches), each document equal to the same call's on the
+              CPU's plain versions, the measured wave latencies aside; the
+              documents, the launches and the phase's seconds printed
  then         one JSON line: per kernel variant its launches on the main
               path (phases 4-9 as before, plus `launches_stream`,
               `launches_tune`, `launches_chaos`, `launches_defrag`,
               `launches_serving`, `launches_sidecar`, `launches_cells`,
-              `launches_tenancy`, `launches_operator`, `launches_rollout`
-              and `launches_kubernetes`, the launches of phases 11-19 ((b)
-              and (c) in `launches_kubernetes`), added to the first row of
-              their variant), its
+              `launches_tenancy`, `launches_operator`, `launches_rollout`,
+              `launches_kubernetes` and `launches_quality`, the launches of
+              phases 11-20 ((b) and (c) in `launches_kubernetes`), added to
+              the first row of their variant), its
               error against the plain version, its time, the plain
               version's time, its bound and a library call's time; then
               the last line: {"ok": true, "device": {...}}
@@ -937,6 +945,11 @@ def main() -> int:
 
     phase_done("19, kubernetes")
 
+    # ---- 20. quality: bench.py's quality scenario at portfolio 1 and 4 -------
+    quality_launches = quality_phase(dev, card)
+
+    phase_done("20, quality")
+
     # ---- kernels line --------------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": add_path_launches([
@@ -962,7 +975,7 @@ def main() -> int:
         "defrag": defrag_launches, "serving": serving_launches, "sidecar": sidecar_launches,
         "cells": cells_launches, "tenancy": tenancy_launches,
         "operator": operator_launches, "rollout": rollout_launches,
-        "kubernetes": kubernetes_launches})}))
+        "kubernetes": kubernetes_launches, "quality": quality_launches})}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     check(not GATE_FAILURES, "; ".join(GATE_FAILURES))
     print(json.dumps({"ok": True, "device": {
@@ -2973,6 +2986,51 @@ def kubernetes_phase(dev, card) -> tuple[dict, dict]:
     print(f"kubernetes phase {time.perf_counter() - t_phase:.1f} s")
     return a_launches, {k: b_launches.get(k, 0) + c_launches.get(k, 0)
                         for k in set(b_launches) | set(c_launches)}
+
+
+def quality_phase(dev, card) -> dict:
+    """Phase 20: bench.py's quality scenario (run_quality_bench) on the card
+    at portfolio 1 (B1+B2: "dense" launches) and 4 (B5: "portfolio"
+    launches), each document == the same call's on the CPU's plain
+    versions, the measured wave latencies aside. Returns the launches per
+    variant of the two card runs."""
+    import torch
+
+    from grove_tpu_torch.bench import QUALITY_WALL_KEYS, run_quality_bench
+    from grove_tpu_torch.kernels.place_wave import place_wave, reset_launches
+
+    def core(doc):
+        return {k: v for k, v in doc.items() if k not in QUALITY_WALL_KEYS}
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    for portfolio, variant in ((1, "dense"), (4, "portfolio")):
+        t_card = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        doc = run_quality_bench(portfolio, device=dev)
+        torch.cuda.synchronize(dev)
+        got = dict(place_wave.variant_launches)
+        t_cpu = time.perf_counter()
+        cpu = run_quality_bench(portfolio, device="cpu")
+        t_end = time.perf_counter()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"quality[portfolio {portfolio}]: {json.dumps(doc)}")
+        print(f"quality[portfolio {portfolio}]: launches "
+              f"{ {k: v for k, v in got.items() if v} }; card run {t_cpu - t_card:.2f} s, CPU "
+              f"run {t_end - t_cpu:.2f} s; on {card}")
+        check(core(doc) == core(cpu), f"quality[portfolio {portfolio}]: the card's document != "
+              f"the CPU's (wave latencies aside): {core(doc)} != {core(cpu)}")
+        check(got.get(variant, 0) >= 1, f"quality[portfolio {portfolio}]: no {variant} launch "
+              f"({got})")
+        check(doc["solver_gangs"] == 12 and doc["exact_gangs"] == 4
+              and doc["exact_states_explored"] > 0,
+              f"quality[portfolio {portfolio}]: sizes {doc['solver_gangs']}, "
+              f"{doc['exact_gangs']}, {doc['exact_states_explored']} states")
+    print(f"quality: both documents == the CPU's (wave latencies aside); quality phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
 
 
 def add_path_launches(rows, paths: dict) -> list:

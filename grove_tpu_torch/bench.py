@@ -101,6 +101,13 @@ tenants, a make-before-break rolling update of a 36-pod resident, two
 revocation storms (3, then 8 busy revocable nodes, the second inside the
 eviction lead) and the recorder, with bench.py's gates.
 
+--scenario quality drives bench.py's quality scenario (`run_quality_bench`):
+the mixed Required/Preferred backlog on bench.py's quality cluster (32
+nodes, 12 gangs) solved at --portfolio P and scored by the placement-quality
+report against the greedy per-pod baseline, the same backlog drained in
+waves of 4 (measured wave_p50_s/wave_p99_s), and the solver against
+quality/exact.py's branch and bound on a 12-node, 4-gang sub-instance.
+
 --scenario serving serves bench.py's default backlog (900 sets, 1250 gangs,
 10,000 pods) on its 5120-node fleet through GroveController (recorder on)
 under the Simulator until every pod is Ready (`run_serving_bench`): ticks,
@@ -116,7 +123,7 @@ versions with 0 divergences).
                     defrag: blocks times S; replay: racks times S;
                     serving: racks per block times S
                     (1: 256 nodes, 20: 5120 nodes)
-  --portfolio P     default: weight variants per wave and per solve (1)
+  --portfolio P     default, quality: weight variants per wave and per solve (1)
   --no-baseline     default: skip the greedy baseline and the quality fields
   --harvest H       default: "wave" re-drains for measured latencies; "chained" skips it
   --scales A,B,..   scale: fleet scales (default 1,2,4)
@@ -418,6 +425,101 @@ def quality_fields(gangs, pods, snapshot, admitted, portfolio, dev) -> dict:
         out[f"mixed_{who}_preferred_fraction"] = round(rep.preferred_fraction, 4)
         out[f"mixed_{who}_stranding_delta"] = round(rep.stranding_delta, 4)
     return out
+
+
+def run_quality_bench(portfolio: int = 1, device=None) -> dict:
+    """bench.py's `run_quality_bench` on the port, with its keys and
+    rounding: the placement-quality report as the headline, three
+    measurements under one solver configuration (`portfolio`, bench.py's
+    GROVE_BENCH_PORTFOLIO):
+
+      - mixed Required/Preferred backlog: solver-vs-greedy placement score
+        via quality/report.py;
+      - wave-level latency harvest of the same drain (measured p50/p99; a
+        wave's stamp on the card is its completion event);
+      - exact-solver bound: solver vs quality/exact.py branch-and-bound on
+        a small sub-instance (admitted count + locality ratios).
+
+    Solves and the drain run on `device` (None = the card)."""
+    from grove_tpu_torch.quality.exact import exact_pack
+    from grove_tpu_torch.quality.report import evaluate_placement
+    from grove_tpu_torch.sim.workloads import bench_topology, mixed_backlog, quality_cluster
+    from grove_tpu_torch.solver.core import (
+        SolverParams,
+        decode_assignments,
+        resolve_device,
+        solve,
+    )
+    from grove_tpu_torch.solver.drain import drain_backlog
+    from grove_tpu_torch.solver.encode import encode_gangs
+    from grove_tpu_torch.solver.greedy import greedy_drain
+    from grove_tpu_torch.state import build_snapshot
+
+    dev = resolve_device(device)
+    topo = bench_topology()
+
+    # Mixed Required/Preferred scenario + wave harvest on its drain.
+    nodes = quality_cluster()
+    gangs, pods = _expand(mixed_backlog())
+    snap = build_snapshot(nodes, topo)
+    batch, decode = encode_gangs(gangs, pods, snap)
+    result = solve(snap, batch, SolverParams(), portfolio=portfolio, device=dev)
+    bindings = decode_assignments(result, decode, snap)
+    solver_rep = evaluate_placement(gangs, pods, snap, bindings)
+    gstats = greedy_drain(gangs, pods, snap)
+    greedy_rep = evaluate_placement(gangs, pods, snap, gstats.bindings)
+    _, wstats = drain_backlog(
+        gangs, pods, snap, wave_size=4, portfolio=portfolio, harvest="wave", device=dev
+    )
+    wlat = (
+        np.concatenate([np.full(n, t) for n, t in wstats.wave_latencies if n > 0])
+        if any(n > 0 for n, _ in wstats.wave_latencies)
+        else np.asarray([math.inf])
+    )
+
+    # Exact bound on a small sub-instance (quality/exact.py caps: <= 10
+    # gangs x <= 16 nodes).
+    enodes = quality_cluster(blocks=1, racks_per_block=3, hosts_per_rack=4)
+    egangs, epods = _expand(mixed_backlog(n_required=2, n_preferred=2, preferred_pods=3))
+    esnap = build_snapshot(enodes, topo)
+    ebatch, edecode = encode_gangs(egangs, epods, esnap)
+    eresult = solve(esnap, ebatch, SolverParams(), portfolio=portfolio, device=dev)
+    e_bindings = decode_assignments(eresult, edecode, esnap)
+    e_solver_rep = evaluate_placement(egangs, epods, esnap, e_bindings)
+    exact = exact_pack(egangs, epods, esnap)
+
+    greedy_score = greedy_rep.mean_placement_score
+    solver_score = solver_rep.mean_placement_score
+    return {
+        "scenario": "quality",
+        "metric": "placement_quality_score",
+        "unit": "score",
+        "value": round(solver_score, 4),
+        # > 1.0 = the batched solver beats the per-pod greedy baseline on
+        # the discriminating backlog.
+        "vs_baseline": round(solver_score / greedy_score, 4) if greedy_score > 0 else 0.0,
+        "portfolio": portfolio,
+        **{f"solver_{k}": v for k, v in solver_rep.to_doc().items()},
+        **{f"greedy_{k}": v for k, v in greedy_rep.to_doc().items()},
+        "wave_p50_s": round(float(np.percentile(wlat, 50)), 4),
+        "wave_p99_s": round(float(np.percentile(wlat, 99)), 4),
+        "wave_count": wstats.waves,
+        "exact_gangs": len(egangs),
+        "exact_admitted": exact.admitted_count,
+        "exact_mean_score": round(exact.mean_score, 4),
+        "exact_states_explored": exact.states_explored,
+        "solver_admitted_vs_exact": round(e_solver_rep.admitted / exact.admitted_count, 4)
+        if exact.admitted_count
+        else None,
+        "solver_score_vs_exact": round(e_solver_rep.mean_placement_score / exact.mean_score, 4)
+        if exact.mean_score > 0
+        else None,
+    }
+
+
+# The quality document's wall-clock keys: a card run and a CPU run share the
+# rest.
+QUALITY_WALL_KEYS = ("wave_p50_s", "wave_p99_s")
 
 
 def run_scale_bench(
@@ -3484,7 +3586,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario",
                     choices=("default", "scale", "sweep", "stream", "chaos", "defrag", "replay",
-                             "serving", "cells", "sidecar", "tenancy", "rollout"),
+                             "serving", "cells", "sidecar", "tenancy", "rollout", "quality"),
                     default="default")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
@@ -3516,6 +3618,8 @@ def main(argv=None) -> int:
     elif args.scenario == "rollout":
         out = run_rollout_bench(device=args.device, duration_s=(
             ROLLOUT_DURATION_S if args.duration_s is None else args.duration_s))
+    elif args.scenario == "quality":
+        out = run_quality_bench(args.portfolio, device=args.device)
     elif args.scenario == "replay":
         out = run_replay_bench(args.scale, device=args.device, window_s=args.window_s,
                                rounds=args.rounds, aa=args.aa)

@@ -509,6 +509,13 @@ def fetch_result(result: SolveResult) -> tuple[np.ndarray, np.ndarray, np.ndarra
     return ok, assigned, score
 
 
+def decode_assignments(result: SolveResult, decode_info, snapshot) -> dict[str, dict[str, str]]:
+    """SolveResult -> {gang name: {pod name: node name}} for admitted gangs
+    (one copy from the card, fetch_result)."""
+    ok, assigned, _score = fetch_result(result)
+    return decode_bindings(ok, assigned, decode_info, snapshot)
+
+
 def decode_bindings(ok, assigned, decode_info, snapshot) -> dict[str, dict[str, str]]:
     """(ok [G], assigned [G, MP]) -> {gang: {pod: node}} for admitted gangs.
 

@@ -26,9 +26,13 @@ schema and the fleet digests.
 
 Hot-path discipline: `capture_wave` runs on the commit path, before the
 binding loop edits the pods, and renders the wave record to its JSON text
-there (`_wave_text`; `serde.dumpb`, the C renderer of utils/csrc: byte for
-byte the record the JAX recorder builds at capture time). So nothing is
-copied, and the queue holds bytes,
+there (`_wave_text`: the C renderer of utils/csrc writes the record straight
+from the capture tuple the commit path already holds, with no dict built,
+byte for byte the record the JAX recorder builds at capture time;
+`wave_record` is the general path, field by field; the text is a
+bytearray, and the writer gives a segment's texts back (`serde.recycle`)
+when it lets the segment go, so the next records take that memory and do
+not fault in new pages). So nothing is copied, and the queue holds text,
 which the collector does not track: a capture that waited a flush interval
 for the writer as an object graph (pod copies) was promoted into the oldest
 generation and made full collections come sooner. The writer thread keeps
@@ -40,11 +44,11 @@ re-encoding of the segment. A full queue DROPS the record and counts it
 
 from __future__ import annotations
 
+import collections
 import glob
 import hashlib
 import json
 import os
-import queue
 import resource
 import threading
 import time
@@ -74,95 +78,158 @@ SPLIT_PARTS = ("capture", "render", "segment", "manifest")
 _MANIFEST = "manifest.json"
 
 
-def _wave_text(c: dict, digest: str) -> bytes:
-    """The JSON text of one capture's wave record (TraceRecorder.capture_wave's
-    inputs), as bytes: `json.dumps` of the record the JAX recorder builds,
-    field for field and in its order, its gangs and pods rendered from the
-    objects (`serde.dumpb`)."""
-    gangs = c["gangs"]
-    ok_by_name, valid_by_name, scores = c["ok_by_name"], c["valid_by_name"], c["scores"]
-    names = {g.name for g in gangs}
-    rejections = {}
-    for name in names:
-        if _jsonable(ok_by_name.get(name, False)):
+# A wave's capture, as TraceRecorder.capture_wave hands it to the renderer:
+# a plain tuple in this order (utils/csrc/serde_render.c reads the slots by
+# position). `fleet` is the fleet's digest; `pad_nodes`, `resources`,
+# `alloc` (the allocation entering the wave) and `node_names` are the
+# snapshot's; `mesh` and `pruning` are their record fields (_mesh_doc,
+# _pruning_doc); the rest are capture_wave's arguments.
+CAPTURE = (
+    "now", "wave", "fleet", "pad_nodes", "resources", "alloc", "node_names", "gangs",
+    "pods_by_name", "scheduled", "bound_nodes", "reuse_nodes", "spread_avoid",
+    "max_groups", "max_sets", "max_pods", "pad_gangs_to", "params", "portfolio",
+    "escalate_portfolio", "mesh", "pruning", "plan", "ok_by_name", "valid_by_name",
+    "scores", "solve_seconds", "free_rows", "candidates",
+)
+WaveCapture = collections.namedtuple("WaveCapture", CAPTURE)
+
+
+def _mesh_doc(mesh: dict | None):
+    # Mesh fingerprint (parallel/mesh.SolveLayout.fingerprint): the
+    # device-mesh layout the recorded solve ran under. The sharded solve is
+    # bitwise-equal to the unsharded one, so a replay host with fewer
+    # devices still replays bitwise — but the pruning candidate pad is
+    # negotiated mesh-divisible, so replay needs the recorded node-axis size
+    # to rebuild the exact launch shape (trace/replay.py).
+    if not mesh or int(mesh.get("node", 1)) <= 1:
+        return None
+    return {"portfolio": int(mesh.get("portfolio", 1)), "node": int(mesh["node"])}
+
+
+def _pruning_doc(pruning):
+    # Candidate-pruning fingerprint: replay must route through the same
+    # pruned path (pruned placements legitimately differ from dense ones)
+    # for bitwise equivalence.
+    if pruning is None or not getattr(pruning, "enabled", False):
+        return None
+    return {
+        "enabled": True,
+        "maxCandidates": int(pruning.max_candidates),
+        "padLadder": [int(x) for x in pruning.pad_ladder],
+        "minPad": int(pruning.min_pad),
+        "minFleet": int(pruning.min_fleet),
+    }
+
+
+def _allocated_rows(alloc, node_names) -> dict:
+    """The rows with any allocation, by node name (f32 -> the same Python
+    floats float() gives)."""
+    alloc = np.asarray(alloc)
+    n_real = len(node_names)
+    return {node_names[i]: alloc[i].tolist()
+            for i in np.flatnonzero(alloc[:n_real].any(axis=1)).tolist()}
+
+
+def _names(c: WaveCapture) -> set:
+    return {g.name for g in c.gangs}
+
+
+def _rejections(c: WaveCapture) -> dict:
+    out = {}
+    for name in _names(c):
+        if _jsonable(c.ok_by_name.get(name, False)):
             continue
-        rejections[name] = (
+        out[name] = (
             "rejected (capacity/constraints)"
-            if _jsonable(valid_by_name.get(name, False))
+            if _jsonable(c.valid_by_name.get(name, False))
             else "not solver-valid (gated base or unresolvable constraint)"
         )
-    mesh, pruning = c["mesh"], c["pruning"]
-    rec = {
-        "kind": "wave",
-        "now": float(c["now"]),
-        "wave": c["wave"],
-        "fleet": digest,
-        "padNodesTo": c["pad_nodes"],
-        "resources": c["resources"],
-        "allocated": c["allocated"],
-        "gangs": c["gangs"],
-        "pods": c["pods"],
-        "scheduled": sorted(c["scheduled"]),
-        "boundNodes": {
-            g: {grp: list(map(int, idx)) for grp, idx in per.items()}
-            for g, per in c["bound_nodes"].items()
-            if g in names
-        },
-        "reuseNodes": {
-            g: list(map(int, idx)) for g, idx in c["reuse_nodes"].items() if g in names
-        },
-        "spreadAvoid": {
-            g: list(map(int, idx)) for g, idx in c["spread_avoid"].items() if g in names
-        },
-        "maxGroups": c["max_groups"],
-        "maxSets": c["max_sets"],
-        "maxPods": c["max_pods"],
-        "padGangsTo": c["pad_gangs_to"],
-        "solver": {
-            "params": [float(w) for w in c["params"]],
-            "portfolio": int(c["portfolio"]),
-            "escalatePortfolio": int(c["escalate_portfolio"]),
-            # Mesh fingerprint (parallel/mesh.SolveLayout.fingerprint): the
-            # device-mesh layout the recorded solve ran under. The sharded
-            # solve is bitwise-equal to the unsharded one, so a replay host
-            # with fewer devices still replays bitwise — but the pruning
-            # candidate pad is negotiated mesh-divisible, so replay needs the
-            # recorded node-axis size to rebuild the exact launch shape
-            # (trace/replay.py).
-            "mesh": None
-            if not mesh or int(mesh.get("node", 1)) <= 1
-            else {"portfolio": int(mesh.get("portfolio", 1)), "node": int(mesh["node"])},
-            # Candidate-pruning fingerprint: replay must route through the
-            # same pruned path (pruned placements legitimately differ from
-            # dense ones) for bitwise equivalence.
-            "pruning": None
-            if pruning is None or not getattr(pruning, "enabled", False)
-            else {
-                "enabled": True,
-                "maxCandidates": int(pruning.max_candidates),
-                "padLadder": [int(x) for x in pruning.pad_ladder],
-                "minPad": int(pruning.min_pad),
-                "minFleet": int(pruning.min_fleet),
-            },
-        },
-        "plan": {g: dict(b) for g, b in c["plan"].items()},
-        "ok": {n: bool(_jsonable(ok_by_name.get(n, False))) for n in sorted(names)},
-        "valid": {n: bool(_jsonable(valid_by_name.get(n, False))) for n in sorted(names)},
-        "scores": {n: float(_jsonable(scores.get(n, 0.0))) for n in sorted(names)},
-        "rejections": rejections,
-        "solveSeconds": float(c["solve_seconds"]),
-    }
-    if c["free_rows"]:
-        rec["freeRows"] = {
-            str(n): [float(v) for v in row] for n, row in c["free_rows"].items()
-        }
-    if c["candidates"] is not None:
-        rec["candidates"] = [int(i) for i in c["candidates"]]
-    return serde.dumpb(rec)
+    return out
+
+
+# The wave record's fields, in the JAX recorder's order, each the expression
+# of its value on a capture (the general path); "freeRows" and "candidates"
+# are in the record only where the capture has them (wave_record).
+_WAVE_FIELDS = {
+    "kind": lambda c: "wave",
+    "now": lambda c: float(c.now),
+    "wave": lambda c: c.wave,
+    "fleet": lambda c: c.fleet,
+    "padNodesTo": lambda c: int(c.pad_nodes),
+    "resources": lambda c: list(c.resources),
+    "allocated": lambda c: _allocated_rows(c.alloc, c.node_names),
+    "gangs": lambda c: c.gangs,
+    "pods": lambda c: {n: c.pods_by_name[n] for n in sorted({
+        r.name
+        for g in c.gangs
+        for grp in g.spec.pod_groups
+        for r in grp.pod_references
+        if r.name in c.pods_by_name
+    })},
+    "scheduled": lambda c: sorted(c.scheduled),
+    "boundNodes": lambda c: {
+        g: {grp: list(map(int, idx)) for grp, idx in per.items()}
+        for g, per in c.bound_nodes.items()
+        if g in _names(c)
+    },
+    "reuseNodes": lambda c: {
+        g: list(map(int, idx)) for g, idx in c.reuse_nodes.items() if g in _names(c)
+    },
+    "spreadAvoid": lambda c: {
+        g: list(map(int, idx)) for g, idx in c.spread_avoid.items() if g in _names(c)
+    },
+    "maxGroups": lambda c: c.max_groups,
+    "maxSets": lambda c: c.max_sets,
+    "maxPods": lambda c: c.max_pods,
+    "padGangsTo": lambda c: c.pad_gangs_to,
+    "solver": lambda c: {
+        "params": [float(w) for w in c.params],
+        "portfolio": int(c.portfolio),
+        "escalatePortfolio": int(c.escalate_portfolio),
+        "mesh": c.mesh,
+        "pruning": c.pruning,
+    },
+    "plan": lambda c: {g: dict(b) for g, b in c.plan.items()},
+    "ok": lambda c: {n: bool(_jsonable(c.ok_by_name.get(n, False))) for n in sorted(_names(c))},
+    "valid": lambda c: {n: bool(_jsonable(c.valid_by_name.get(n, False)))
+                        for n in sorted(_names(c))},
+    "scores": lambda c: {n: float(_jsonable(c.scores.get(n, 0.0))) for n in sorted(_names(c))},
+    "rejections": _rejections,
+    "solveSeconds": lambda c: float(c.solve_seconds),
+    "freeRows": lambda c: {str(n): [float(v) for v in row] for n, row in c.free_rows.items()},
+    "candidates": lambda c: [int(i) for i in c.candidates],
+}
+
+
+def wave_field(key: str, capture: tuple):
+    """The general path's value of the wave record's field `key`."""
+    return _WAVE_FIELDS[key](WaveCapture._make(capture))
+
+
+def wave_record(capture: tuple) -> dict:
+    """The wave record the JAX recorder builds, field for field and in its
+    order, from a capture (the general path: `_wave_text` renders the same
+    bytes without building it)."""
+    c = WaveCapture._make(capture)
+    rec = {key: fn(c) for key, fn in _WAVE_FIELDS.items()
+           if key not in ("freeRows", "candidates")}
+    if c.free_rows:
+        rec["freeRows"] = _WAVE_FIELDS["freeRows"](c)
+    if c.candidates is not None:
+        rec["candidates"] = _WAVE_FIELDS["candidates"](c)
+    return rec
+
+
+def _wave_text(capture: tuple) -> bytearray:
+    """The JSON text of one capture's wave record:
+    `json.dumps(serde.encode(wave_record(capture))).encode()`, rendered by the
+    C renderer from the capture as it is (`serde.render_wave`, a bytearray)."""
+    return serde.render_wave(capture, wave_field)
 
 
 for _m in (types_mod, pod_mod, podgang_mod, state_mod):
     serde.register_module(_m)
+serde.SCALAR_TYPES.update((np.bool_, np.float32, np.float64, np.int32, np.int64))
 
 
 class TraceSchemaError(ValueError):
@@ -248,7 +315,11 @@ class TraceRecorder:
         self.max_records_per_file = max(1, int(max_records_per_file))
         self.max_files = max(1, int(max_files))
         self.flush_interval_seconds = float(flush_interval_seconds)
-        self._queue: queue.Queue = queue.Queue(maxsize=max(1, int(queue_size)))
+        # Captures waiting for the writer: appended on the commit path and
+        # taken by the writer thread (deque's append and popleft are atomic),
+        # at most `queue_size` of them.
+        self._queue: collections.deque = collections.deque()
+        self._queue_size = max(1, int(queue_size))
         self._stop = threading.Event()
         self._flush_now = threading.Event()
         self._flush_done = threading.Event()
@@ -296,8 +367,9 @@ class TraceRecorder:
         self._last_fleet: tuple | None = None
         # The recorder's cost by part, [seconds, count] each (stats(split=
         # True)), every part on one clock, time.perf_counter. On the commit
-        # path: "capture" (the fleet digest, the allocated rows, the pod
-        # names, the enqueue) and "render" (the wave's JSON text). On the
+        # path: "capture" (the fleet digest, the enqueue) and "render" (the
+        # wave's JSON text, its pod names and allocated rows found as it is
+        # written). On the
         # writer thread, its wall seconds, its waits for the GIL included
         # (so at most what it took from the commit path's thread): "segment"
         # (taking records off the queue, the other records' JSON, a segment
@@ -362,13 +434,13 @@ class TraceRecorder:
 
     def record(self, rec: dict) -> bool:
         """Enqueue one journal record; False (and counted) when full."""
-        try:
-            self._queue.put_nowait(rec)
-        except queue.Full:
+        q = self._queue
+        if len(q) >= self._queue_size:
             self.dropped += 1
             return False
+        q.append(rec)
         self.recorded += 1
-        if self._queue.qsize() * 2 >= self._queue.maxsize:
+        if len(q) * 2 >= self._queue_size:
             self._wake.set()
         if rec.get("kind") == "wave":
             self.waves += 1
@@ -429,36 +501,16 @@ class TraceRecorder:
         (trace/replay.py) prefers these over the snapshot-derived state."""
         t0 = time.perf_counter()
         digest, payload = self._fleet_of(snapshot)
-        ref_names = sorted({
-            r.name
-            for g in gangs
-            for grp in g.spec.pod_groups
-            for r in grp.pod_references
-            if r.name in pods_by_name
-        })
-        alloc = np.asarray(snapshot.allocated if allocated_override is None
-                           else allocated_override)
-        n_real = len(snapshot.node_names)
-        # The rows with any allocation, found in one pass (f32 -> the same
-        # Python floats float() gives).
-        allocated = {
-            snapshot.node_names[i]: alloc[i].tolist()
-            for i in np.flatnonzero(alloc[:n_real].any(axis=1)).tolist()
-        }
         t1 = time.perf_counter()
-        text = _wave_text({
-            "now": now, "wave": wave, "pad_nodes": int(snapshot.capacity.shape[0]),
-            "resources": list(snapshot.resource_names), "allocated": allocated,
-            "gangs": gangs, "pods": {n: pods_by_name[n] for n in ref_names},
-            "scheduled": scheduled_names, "bound_nodes": bound_nodes,
-            "reuse_nodes": reuse_nodes, "spread_avoid": spread_avoid,
-            "max_groups": max_groups, "max_sets": max_sets, "max_pods": max_pods,
-            "pad_gangs_to": pad_gangs_to, "params": params, "portfolio": portfolio,
-            "escalate_portfolio": escalate_portfolio, "pruning": pruning, "plan": plan,
-            "ok_by_name": ok_by_name, "valid_by_name": valid_by_name, "scores": scores,
-            "solve_seconds": solve_seconds, "free_rows": free_rows,
-            "candidates": candidates, "mesh": mesh,
-        }, digest)
+        text = _wave_text((
+            now, wave, digest, snapshot.capacity.shape[0], snapshot.resource_names,
+            snapshot.allocated if allocated_override is None else allocated_override,
+            snapshot.node_names, gangs, pods_by_name, scheduled_names, bound_nodes,
+            reuse_nodes, spread_avoid, max_groups, max_sets, max_pods, pad_gangs_to,
+            params, portfolio, escalate_portfolio, _mesh_doc(mesh) if mesh else None,
+            None if pruning is None else _pruning_doc(pruning), plan, ok_by_name,
+            valid_by_name, scores, solve_seconds, free_rows, candidates,
+        ))
         t2 = time.perf_counter()
         rec = {"kind": "wave", "wave": wave, "fleet": digest, "_text": text}
         new_fleet = digest not in self._announced
@@ -487,10 +539,17 @@ class TraceRecorder:
         """fleet_digest_of(snapshot), or the last wave's when its snapshot
         holds the same fleet: a controller builds a new snapshot of an
         unchanged fleet for every wave, and comparing the payload's inputs
-        costs a fraction of the digest's JSON."""
+        costs a fraction of the digest's JSON (in C, serde.same_fleet; here
+        what it leaves undecided)."""
         last = self._last_fleet
-        if last is not None and _same_fleet(snapshot, last[0]):
-            return last[1]
+        if last is not None:
+            if snapshot is last[0]:
+                return last[1]
+            same = serde.same_fleet(snapshot, last[0])
+            if same is None:
+                same = _same_fleet(snapshot, last[0])
+            if same:
+                return last[1]
         hit = fleet_digest_of(snapshot)
         self._last_fleet = (snapshot, hit)
         return hit
@@ -508,7 +567,7 @@ class TraceRecorder:
         ru0 = resource.getrusage(resource.RUSAGE_THREAD)
         seq = self._next_seq()
         segment: list[dict] = []  # the records (a wave: a stub)
-        chunks: list[bytes] = []  # their JSON texts and the ", " between them
+        chunks: list = []  # their JSON texts (bytes-like) and the ", " between them
         seg_digests: set[str] = set()
         fleets: dict[str, dict] = {}  # every fleet payload seen this process
         fleet_texts: dict[str, bytes] = {}
@@ -525,7 +584,7 @@ class TraceRecorder:
         finally:
             self._ready.set()
 
-        def add(rec: dict, text: bytes) -> None:
+        def add(rec: dict, text) -> None:
             if chunks:
                 chunks.append(b", ")
             chunks.append(text)
@@ -579,6 +638,7 @@ class TraceRecorder:
                     self.dropped += len(segment)
                     self._last_write_error = str(e)
                     segment = []
+                    serde.recycle(chunks)
                     chunks = []
                     seg_digests = set()
             dirty = False
@@ -589,6 +649,9 @@ class TraceRecorder:
             write_segment()
             seq += 1
             segment = []
+            # The segment's texts go back to the renderer together (the
+            # memory of the next ones).
+            serde.recycle(chunks)
             chunks = []
             seg_digests = set()
             if self._prune(manifest):
@@ -600,8 +663,8 @@ class TraceRecorder:
             t0 = time.perf_counter()
             while True:  # drain the queue before honoring flush/stop
                 try:
-                    rec = self._queue.get_nowait()
-                except queue.Empty:
+                    rec = self._queue.popleft()
+                except IndexError:
                     break
                 if rec.get("kind") == "fleet":
                     fleets[rec["digest"]] = rec
@@ -635,9 +698,10 @@ class TraceRecorder:
                 self._flush_now.clear()
                 self._flush_done.set()  # flush(): everything enqueued before
                 # the request is now on disk (the queue drained first).
-            if self._stop.is_set() and self._queue.empty():
+            if self._stop.is_set() and not self._queue:
                 break
         write_segment()
+        serde.recycle(chunks)
         if self._prune(manifest):
             self._write_manifest(manifest)
         read_cpu()
@@ -759,7 +823,7 @@ class TraceRecorder:
             "waves": self.waves,
             "actions": self.actions,
             "segmentsWritten": self.segments_written,
-            "queueDepth": self._queue.qsize(),
+            "queueDepth": len(self._queue),
             "degraded": self.degraded,
             "writeErrors": self.write_errors,
             "manifestWrites": self.manifest_writes,

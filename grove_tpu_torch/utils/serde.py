@@ -98,6 +98,36 @@ def _general(obj: Any) -> str:
     return json.dumps(encode(obj))
 
 
+def render_wave(capture: tuple, field) -> bytearray:
+    """A journal's wave record as JSON text, rendered by the C renderer
+    straight from a capture tuple (trace/recorder.py's CAPTURE slots);
+    `field(key, capture)` gives the general path's value of a field whose
+    inputs the renderer does not take as they are. The text is a bytearray:
+    a text given back by `recycle` that nothing else holds any more, where
+    there is one, so records freed together are not faulted in anew, page by
+    page, by the next ones."""
+    if _module is None:
+        _load_renderer()
+    return _module.render_wave(capture, field)
+
+
+def recycle(texts: list) -> None:
+    """Give back the texts of `texts` (render_wave's bytearrays among other
+    chunks) that nothing but the list holds, for render_wave to reuse: the
+    journal's writer lets a segment's texts go together."""
+    if _module is not None:
+        _module.recycle(texts)
+
+
+def same_fleet(a, b):
+    """The C renderer's comparison of two snapshots' fleets (the recorder's
+    fleet digest): False or True, or None where the caller must compare the
+    topologies (or arrays the renderer cannot read) itself."""
+    if _module is None:
+        _load_renderer()
+    return _module.same_fleet(a, b)
+
+
 # type -> what the C renderer does with an object of exactly that type: 0
 # hand it to `_general`, 1 a list, 2 a tuple, 3 a dict, or for a dataclass
 # (b'{"!t": <name>', field names, b', <name>: ' per field). Filled at a
@@ -123,21 +153,28 @@ def _classify(cls: type) -> Any:
     return kind
 
 
+# Scalar types (numpy's, registered by their user) whose bool() and float()
+# equal those of their .item(): render_wave reads a verdict or a score of
+# such a type as it is, without the .item() call.
+SCALAR_TYPES: set[type] = set()
+
 _renderer = None
+_module = None
 _renderer_lock = threading.Lock()
 # The loaded renderer's file (under grove_tpu_torch/_build/), once built.
 renderer_file: str | None = None
 
 
 def _load_renderer():
-    global _renderer, renderer_file
+    global _renderer, _module, renderer_file
     with _renderer_lock:
         if _renderer is None:
             from grove_tpu_torch.kernels import build
 
             mod = build.load_extension("_serde_render", _CSRC / "serde_render.c")
-            mod.configure(_KINDS, _classify, _general)
+            mod.configure(_KINDS, _classify, _general, SCALAR_TYPES)
             renderer_file = mod.__file__
+            _module = mod
             _renderer = mod.render
     return _renderer
 

@@ -125,6 +125,21 @@ class StepClock:
         return self.t
 
 
+def read_on_step_clock(monkeypatch, clock):
+    """Run bench.read_record_overhead on `clock`, each drain moving it by
+    StepClock.STEP_S."""
+    reading = p_bench.read_record_overhead
+
+    def on_step_clock(drain, new_recorder, **kw):
+        def stepped(recorder):
+            clock.t += StepClock.STEP_S
+            return drain(recorder)
+
+        return reading(stepped, new_recorder, clock=clock, **kw)
+
+    monkeypatch.setattr(p_bench, "read_record_overhead", on_step_clock)
+
+
 def test_replay_scenario_windows_keep_the_document(monkeypatch):
     """run_replay_bench(window_s=...): four timed windows, OFF, ON, ON, OFF,
     of one drain count set by the first, listed as `record_windows`; the
@@ -133,18 +148,7 @@ def test_replay_scenario_windows_keep_the_document(monkeypatch):
     that each drain moves by StepClock.STEP_S, so the 0.5 s calibration
     window holds three drains whatever the host's speed."""
     one = p_bench.run_replay_bench(device="cpu")
-    reading = p_bench.read_record_overhead
-
-    def on_step_clock(drain, new_recorder, **kw):
-        clock = StepClock()
-
-        def stepped(recorder):
-            clock.t += StepClock.STEP_S
-            return drain(recorder)
-
-        return reading(stepped, new_recorder, clock=clock, **kw)
-
-    monkeypatch.setattr(p_bench, "read_record_overhead", on_step_clock)
+    read_on_step_clock(monkeypatch, StepClock())
     win = p_bench.run_replay_bench(device="cpu", window_s=0.5)
     assert "record_windows" not in one
     sides = [w[0] for w in win["record_windows"]]
@@ -161,20 +165,21 @@ def test_replay_scenario_windows_keep_the_document(monkeypatch):
 def test_replay_scenario_times_the_recorder_through_its_flush(monkeypatch):
     """An ON window ends with recorder.flush(): what the writer does for the
     window's drains lands inside its wall. A flush made 1 s slower shows
-    in the ON drain wall."""
-    import time
-
+    in the ON drain wall. The reading runs on a StepClock, and the flush
+    moves it by 1 s: a loaded host's stalls do not reach the walls."""
     from grove_tpu_torch.trace import recorder as p_rec
 
+    clock = StepClock()
     flushes = []
     real_flush = p_rec.TraceRecorder.flush
 
     def slow_flush(self, timeout=5.0):
         flushes.append(self.path)
-        time.sleep(1.0)
+        clock.t += 1.0
         return real_flush(self, timeout)
 
     monkeypatch.setattr(p_rec.TraceRecorder, "flush", slow_flush)
+    read_on_step_clock(monkeypatch, clock)
     doc = p_bench.run_replay_bench(device="cpu")
     # The warm-up's recorded drain (untimed) and the two ON windows; the
     # recorded drain stops.

@@ -222,8 +222,10 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               contended Solve (the replay world, escalation to a portfolio
               of 4). Every gang admitted by the first Solve, no node over
               capacity, 0 new lowerings in the second, at least one
-              "portfolio" launch, every SolveResponse equal to an
-              in-process CPU servicer's for the same sequence; each
+              "portfolio" launch; then the same sequence on a tenth of
+              the backlog (5120 nodes, 125 gangs), every gate, every
+              SolveResponse equal to an in-process CPU servicer's (the CPU
+              side at a cut depth, to keep the run within its time); each
               Solve's solve_micros, host stages and CUDA-event ms, and the
               syncs' count and wall printed
  17. cells    bench.py's cells scenario (run_cells_bench: 32 nodes, the
@@ -275,14 +277,30 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               launches), each document equal to the same call's on the
               CPU's plain versions, the measured wave latencies aside; the
               documents, the launches and the phase's seconds printed
+ 21. shard    the node-sharded solve (B7) on S = 2, 4 and 8 virtual shards of
+              the card: (a) place_wave_sharded against sharded_solve_ref on
+              the same card inputs, tolerance 0, and bitwise against the
+              single launch (B1), dense on bench wave 0 at 5120 nodes and
+              pruned on 8191 candidates of 20480 nodes in a pad of 8192,
+              each S's launch time beside B1's; on phase 3's 64-gang wave
+              on non-dyadic free capacity B7 == sharded_solve_ref, and
+              whether it also == B1 is printed; (b) bench.py's shard
+              scenario (run_shard_bench: 5120 nodes, a quarter of the
+              backlog, waves of 64, the ladder 1, 2, 4, 8) on the card,
+              every step's bindings digest equal, and equal to a plain
+              drain of the same problem on the CPU; (c) a pruned pipelined
+              drain journaled under S = 4 (bindings == the same drain
+              unsharded), replayed on the card with 0 divergences with the
+              layout rebuilt and unsharded
  then         one JSON line: per kernel variant its launches on the main
               path (phases 4-9 as before, plus `launches_stream`,
               `launches_tune`, `launches_chaos`, `launches_defrag`,
               `launches_serving`, `launches_sidecar`, `launches_cells`,
               `launches_tenancy`, `launches_operator`, `launches_rollout`,
-              `launches_kubernetes` and `launches_quality`, the launches of
-              phases 11-20 ((b) and (c) in `launches_kubernetes`), added to
-              the first row of their variant), its
+              `launches_kubernetes`, `launches_quality` and
+              `launches_shard`, the launches of phases 11-21 ((b) and (c)
+              in `launches_kubernetes` and `launches_shard`), added to the
+              first row of their variant), its
               error against the plain version, its time, the plain
               version's time, its bound and a library call's time; then
               the last line: {"ok": true, "device": {...}}
@@ -319,6 +337,9 @@ GATE_FAILURES: list[str] = []
 # 12 s reading, each ON window
 # still flushed inside its timing (a quarter of the recorder's 1 s flush
 # interval: four times the writes per drain that production pays).
+# Phase 16: the share of bench.py's default backlog whose sidecar sequence is
+# held against the CPU servicer (the full-size run keeps every other gate).
+SIDECAR_CPU_FRAC = 0.1
 REPLAY_WINDOW_S = 0.25
 REPLAY_ROUNDS = 24
 # Phase 18 (a): bench.py's tenancy trace, at its full 75 s.
@@ -950,6 +971,13 @@ def main() -> int:
 
     phase_done("20, quality")
 
+    # ---- 21. shard: the node-sharded solve (B7) on virtual shards -------------
+    nondyadic = next((snap, batch) for label, snap, batch, _ in cases if snap is snap_nd)
+    sh = shard_phase(dev, card, timed, compare, node_tensors, snap_b, first, gangs_b, snap_4,
+                     first_4, plan4, dense_bound, pruned_bound, nondyadic)
+
+    phase_done("21, shard")
+
     # ---- kernels line --------------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": add_path_launches([
@@ -971,11 +999,13 @@ def main() -> int:
          "bound_ms": pf["bound"][0], "bound_by": pf["bound"][1], "library_ms": None},
         *sc["rows"],
         sw["row"],
+        *sh["rows"],
     ], {"stream": stream_launches, "tune": tune_launches, "chaos": chaos_launches,
         "defrag": defrag_launches, "serving": serving_launches, "sidecar": sidecar_launches,
         "cells": cells_launches, "tenancy": tenancy_launches,
         "operator": operator_launches, "rollout": rollout_launches,
-        "kubernetes": kubernetes_launches, "quality": quality_launches})}))
+        "kubernetes": kubernetes_launches, "quality": quality_launches,
+        "shard": sh["launches"]})}))
     print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
     check(not GATE_FAILURES, "; ".join(GATE_FAILURES))
     print(json.dumps({"ok": True, "device": {
@@ -2568,12 +2598,16 @@ def serving_phase(dev, card) -> dict:
 
 def sidecar_phase(dev, card) -> dict:
     """Phase 16: the port's GREP-375 sidecar on the card at bench.py's
-    default size, over gRPC, against an in-process CPU servicer (see
-    bench.run_sidecar_bench). Returns the launches per variant."""
+    default size, over gRPC (see bench.run_sidecar_bench), every gate but
+    the CPU servicer's; then the same sequence on SIDECAR_CPU_FRAC of the
+    backlog on the card, every gate, its responses == an in-process CPU
+    servicer's (the CPU side at a cut depth: at full size its 162-195 s of
+    plain versions pushed the run past its time with phase 21). Returns
+    the launches per variant of the full-size run."""
     from grove_tpu_torch.bench import run_sidecar_bench
 
     t_phase = time.perf_counter()
-    d = run_sidecar_bench(device=dev)
+    d = run_sidecar_bench(device=dev, cpu_side=False)
     print(f"sidecar[{d['nodes']} nodes, {d['gangs']} gangs, {d['pods']} pods]: "
           f"{d['sync_rpcs']} SyncPodGang RPCs in {d['sync_wall_s']:.4f} s, "
           f"{d['inflight_sync_rpcs']} more in {d['inflight_sync_wall_s']:.4f} s while the "
@@ -2586,10 +2620,18 @@ def sidecar_phase(dev, card) -> dict:
                                 d["stages"]):
         print(f"sidecar Solve[{name}]: solve_micros {micros}, stages "
               f"{ {k: round(v, 6) if isinstance(v, float) else v for k, v in st.items()} }")
-    print(f"sidecar: CPU servicer's responses equal: {d['cpu_equal']} ({d['cpu_s']:.2f} s on "
-          f"the CPU's plain versions); gates {d['gates']}")
     for gate, ok in d["gates"].items():
-        check(ok, f"sidecar: gate {gate} failed ({ {k: v for k, v in d.items() if k != 'stages'} })")
+        check(ok is not False, f"sidecar: gate {gate} failed "
+              f"({ {k: v for k, v in d.items() if k != 'stages'} })")
+    t_cut = time.perf_counter()
+    c = run_sidecar_bench(1.0, SIDECAR_CPU_FRAC, device=dev)
+    print(f"sidecar[{c['nodes']} nodes, {c['gangs']} gangs, the CPU side's depth]: CPU "
+          f"servicer's responses equal: {c['cpu_equal']} ({c['cpu_s']:.2f} s on the CPU's "
+          f"plain versions; the cut run {time.perf_counter() - t_cut:.1f} s); gates "
+          f"{c['gates']}")
+    for gate, ok in c["gates"].items():
+        check(ok, f"sidecar[cut]: gate {gate} failed "
+              f"({ {k: v for k, v in c.items() if k != 'stages'} })")
     print(f"sidecar phase {time.perf_counter() - t_phase:.1f} s")
     return d["launches"]
 
@@ -3033,6 +3075,198 @@ def quality_phase(dev, card) -> dict:
     return launches
 
 
+SHARD_LADDER = (2, 4, 8)
+# Phase 21 (c): a pruning config that prunes the shard scenario's 5120-node
+# waves of 64 (1024 candidates in a pad of 2048, divisible by any S <= 8).
+SHARD_PRUNING = dict(enabled=True, max_candidates=1024, min_fleet=256)
+
+
+def shard_phase(dev, card, timed, compare, node_tensors, snap_b, first, gangs_b, snap_4,
+                first_4, plan4, dense_bound, pruned_bound, nondyadic) -> dict:
+    """Phase 21: the node-sharded solve (B7) on virtual shards of the card.
+    (a) place_wave_sharded at S = 2, 4, 8 == sharded_solve_ref on the same
+    card inputs (tolerance 0) and == the single launch (B1), dense (bench
+    wave 0, 5120 nodes) and pruned (8191 of 20480 nodes, pad 8192), with
+    each S's time beside B1's (comparison launches, not counted); (b)
+    run_shard_bench on the card, every step's digest equal and equal to a
+    plain drain of the same problem on the CPU; (c) a pruned pipelined
+    drain journaled under S = 4 replayed on the card with 0 divergences,
+    the layout rebuilt and unsharded. The launches of (b) and (c) are the
+    phase's main path. `nondyadic` (snapshot, batch) is phase 3's 64-gang
+    wave on non-dyadic free capacity, where the split sums need not be
+    exact: B7 == sharded_solve_ref there too, and whether it also equals B1
+    is printed (a finding, not a gate). Returns {"rows": the kernels line's
+    B7 rows, "launches": per variant}."""
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.bench import bindings_digest, run_shard_bench, shard_worker_problem
+    from grove_tpu_torch.kernels.place_wave import (
+        domain_index,
+        domain_index_sharded,
+        place_wave,
+        place_wave_sharded,
+        reset_launches,
+    )
+    from grove_tpu_torch.parallel import mesh as mesh_mod
+    from grove_tpu_torch.solver.core import SolverParams, batch_to
+    from grove_tpu_torch.solver.drain import drain_backlog
+    from grove_tpu_torch.solver.pruning import PruningConfig
+    from grove_tpu_torch.solver.reference import sharded_solve_ref
+    from grove_tpu_torch.solver.warm import WarmPath
+    from grove_tpu_torch.trace.recorder import TraceRecorder, read_journal
+    from grove_tpu_torch.trace.replay import replay_journal
+
+    t_phase = time.perf_counter()
+    params = SolverParams()
+    okg0 = torch.zeros(len(gangs_b), dtype=torch.bool, device=dev)
+    pt4 = plan4.tensors(dev)
+    cases = {
+        "dense": (node_tensors(snap_b), batch_to(first, dev), None, None,
+                  domain_index(snap_b.node_domain_id, dev)),
+        "pruned": ((node_tensors(snap_4)[0], pt4.capacity, pt4.schedulable, pt4.node_domain_id),
+                   batch_to(plan4.gather_batch(first_4), dev), pt4.cand_idx, plan4.count,
+                   pt4.domains),
+    }
+    rows, err = [], {}
+    for kind, (node, tb, cand, count, dom1) in cases.items():
+        extra1 = {} if cand is None else {"cand_idx": cand, "cand_count": count}
+        b1 = place_wave(node[0].clone(), *node[1:], tb, params, okg0.clone(), domains=dom1,
+                        **extra1)
+        b1_ms, _ = time_variant(place_wave, timed, node, tb, okg0, params, dom1, extra1, None)
+        ms, plain_ms, err[kind] = {}, {}, 0.0
+        n_axis = node[1].shape[0]
+        for shards in SHARD_LADDER:
+            dom_s = domain_index_sharded(node[3], shards, dev)
+            spans = [(s * n_axis // shards, (s + 1) * n_axis // shards) for s in range(shards)]
+            want, plain_ms[shards] = timed(lambda: sharded_solve_ref(
+                node[0].clone(), *node[1:], tb, params, okg0.clone(), spans, cand, count))
+            extra = {"cand_idx": cand, "cand_count": count} if cand is not None else {}
+            got = place_wave_sharded(node[0].clone(), *node[1:], tb, params, okg0.clone(),
+                                     shards=shards, domains=dom_s, **extra)
+            torch.cuda.synchronize()
+            err[kind] = max(err[kind], compare(f"B7 {kind}, S={shards}", got, want),
+                            compare(f"B7 {kind}, S={shards}, against B1", got, b1))
+
+            def launch(free, *rest, domains=None, **kw):
+                return place_wave_sharded(free, *rest, shards=shards, domains=dom_s, **kw)
+
+            ms[shards], _ = time_variant(launch, timed, node, tb, okg0, params, dom_s, extra,
+                                         None)
+            print(f"exact[B7 {kind}, S={shards}, N={n_axis}]: admitted {int(want[1].sum())}/"
+                  f"{int(tb.gang_valid.sum())} valid — kernel == plain == B1 on "
+                  f"{', '.join(NAMES)}; kernel {ms[shards]:.3f} ms (B1 {b1_ms:.3f} ms), plain "
+                  f"{plain_ms[shards]:.1f} ms on {card}")
+        bound = dense_bound if kind == "dense" else pruned_bound
+        top = SHARD_LADDER[-1]
+        rows.append({
+            "name": f"place_wave_sharded(B7, {kind})", "route": "cuda",
+            "source": "grove_tpu_torch/kernels/csrc/place_wave.cu",
+            "replaces": "grove_tpu/solver/core.py:708", "launches": 0,
+            "max_abs_err": err[kind], "ms": ms[top], "plain_ms": plain_ms[top],
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "shards": top, "ms_by_shards": {str(k): v for k, v in ms.items()},
+            "plain_ms_by_shards": {str(k): v for k, v in plain_ms.items()}, "b1_ms": b1_ms,
+        })
+
+    # Non-dyadic free capacity: the split sums' order shows in their last bits.
+    snap_nd, batch_nd = nondyadic
+    node, tb = node_tensors(snap_nd), batch_to(batch_nd, dev)
+    b1 = place_wave(node[0].clone(), *node[1:], tb, params, okg0.clone(),
+                    domains=domain_index(snap_nd.node_domain_id, dev))
+    n_axis = node[1].shape[0]
+    for shards in SHARD_LADDER:
+        spans = [(s * n_axis // shards, (s + 1) * n_axis // shards) for s in range(shards)]
+        want = sharded_solve_ref(node[0].clone(), *node[1:], tb, params, okg0.clone(), spans)
+        got = place_wave_sharded(node[0].clone(), *node[1:], tb, params, okg0.clone(),
+                                 shards=shards,
+                                 domains=domain_index_sharded(node[3], shards, dev))
+        torch.cuda.synchronize()
+        compare(f"B7 non-dyadic, S={shards}", got, want)
+        same = [nm for nm, a, b in zip(NAMES, got, b1) if torch.equal(a, b)]
+        print(f"exact[B7 non-dyadic, S={shards}, N={n_axis}, G={tb.gang_valid.shape[0]}]: kernel "
+              f"== plain on {', '.join(NAMES)}; == B1 on {', '.join(same) or 'none'}")
+
+    # (b) the shard scenario's ladder on the card: the main path.
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    t_b = time.perf_counter()
+    doc = run_shard_bench(device=dev)
+    torch.cuda.synchronize(dev)
+    launches = dict(place_wave.variant_launches)
+    t_cpu = time.perf_counter()
+    topo, nodes, gangs, pods, snap = shard_worker_problem()
+    cpu_bindings, cpu_stats = drain_backlog(gangs, pods, snap, wave_size=64, device="cpu",
+                                            warm_path=WarmPath())
+    cpu_digest = bindings_digest(cpu_bindings)
+    t_end = time.perf_counter()
+    for p in doc["points"]:
+        print(f"shard[S={p['devices_requested']}]: shard_devices {p['shard_devices']}, "
+              f"solve_total_s {p['solve_total_s']} (encode {p['encode_s']}, dispatch "
+              f"{p['dispatch_s']}, harvest {p['harvest_s']}), admitted {p['admitted']}/"
+              f"{p['gangs']}, split {[d['nodeRows'] for d in p['per_device_split']]}, "
+              f"fallbacks {p['shard_fallbacks']}, digest {p['bindings_sha256'][:16]} on {card}")
+    print(f"shard: value {doc['value']} (reported, not gated: virtual shards share the card), "
+          f"parity {doc['admitted_parity_across_devices']}, stream "
+          f"{json.dumps(doc.get('stream_remeasure'))}; card ladder {t_cpu - t_b:.2f} s, CPU "
+          f"plain drain {t_end - t_cpu:.2f} s (admitted {cpu_stats.admitted}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(doc["admitted_parity_across_devices"], "shard: the ladder's bindings digests differ")
+    # bench.py's ladder counts no fallback: one shard is one device, and
+    # 2, 4 and 8 divide the 5120-node axis.
+    check(all(p["shard_fallbacks"] == 0 for p in doc["points"]),
+          f"shard: fallbacks counted {[p['shard_fallbacks'] for p in doc['points']]}")
+    check(all(p["bindings_sha256"] == cpu_digest for p in doc["points"]),
+          "shard: the card's bindings differ from the CPU's plain drain")
+    check([p["shard_devices"] for p in doc["points"]] == [0, 2, 4, 8],
+          f"shard: shard_devices {[p['shard_devices'] for p in doc['points']]}")
+    check(launches.get("sharded", 0) > 0, f"shard: no sharded launch on the ladder ({launches})")
+
+    # (c) a pruned pipelined drain journaled under S = 4, replayed.
+    journal = tempfile.mkdtemp(prefix="chip-smoke-shard-")
+    mesh_mod.force_virtual_devices(4, dev)
+    try:
+        reset_launches()
+        rec = TraceRecorder(os.path.join(journal, "j"))
+        rec.start()
+        try:
+            pbind, pstats = drain_backlog(
+                gangs, pods, snap, wave_size=64, harvest="pipeline", recorder=rec,
+                pruning=PruningConfig(**SHARD_PRUNING), warm_path=WarmPath(), device=dev,
+                mesh=mesh_mod.MeshConfig(enabled=True, min_nodes=64))
+        finally:
+            rec.stop()
+        torch.cuda.synchronize(dev)
+        records = read_journal(os.path.join(journal, "j"))
+        rebuilt = replay_journal(records, device=dev)
+    finally:
+        mesh_mod.force_virtual_devices(0)
+    unsharded = replay_journal(records, device=dev)
+    ubind, _ = drain_backlog(gangs, pods, snap, wave_size=64, harvest="pipeline",
+                             pruning=PruningConfig(**SHARD_PRUNING), warm_path=WarmPath(),
+                             device=dev)
+    torch.cuda.synchronize(dev)
+    for k, v in place_wave.variant_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    fps = [w["solver"].get("mesh") for w in records if w.get("kind") == "wave"]
+    print(f"shard[journal, S=4, pruned {pstats.pruned_waves} waves, escalations "
+          f"{pstats.escalations}]: {pstats.journaled_waves} waves journaled (mesh {fps[:1]}), "
+          f"bindings == the unsharded pruned drain's {pbind == ubind}; replay divergences: "
+          f"layout rebuilt {rebuilt.divergence_count}, unsharded {unsharded.divergence_count}")
+    check(pbind == ubind, "shard: the pruned drain under S = 4 bound otherwise than unsharded")
+    check(pstats.shard_devices == 4 and pstats.pruned_waves > 0 and pstats.journaled_waves > 0,
+          f"shard: the journaled drain ran {pstats.shard_devices} shards, "
+          f"{pstats.pruned_waves} pruned waves, {pstats.journaled_waves} journaled")
+    check(fps and all(fp == {"portfolio": 1, "node": 4} for fp in fps),
+          f"shard: journaled mesh fingerprints {fps[:3]}")
+    check(rebuilt.divergence_count == 0 and unsharded.divergence_count == 0,
+          f"shard: replay divergences {rebuilt.divergence_count}, {unsharded.divergence_count}")
+    check(launches.get("sharded_pruned", 0) > 0,
+          f"shard: no sharded_pruned launch on the main path ({launches})")
+    print(f"shard phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"rows": rows, "launches": launches}
+
+
 def add_path_launches(rows, paths: dict) -> list:
     """The kernels line's rows with each later phase's launches (`paths`:
     phase name -> launches per variant) added to the first row of each
@@ -3045,6 +3279,8 @@ def add_path_launches(rows, paths: dict) -> list:
         "place_wave_scan(B4, dense)": ("scan",),
         "place_wave_scan(B4, pruned)": ("scan_pruned",),
         "place_wave_stacked_scan(B6)": ("stacked_scan",),
+        "place_wave_sharded(B7, dense)": ("sharded",),
+        "place_wave_sharded(B7, pruned)": ("sharded_pruned",),
     }
     out = []
     for row in rows:

@@ -108,6 +108,17 @@ report against the greedy per-pod baseline, the same backlog drained in
 waves of 4 (measured wave_p50_s/wave_p99_s), and the solver against
 quality/exact.py's branch and bound on a 12-node, 4-gang sub-instance.
 
+--scenario shard drives bench.py's shard scenario (`run_shard_bench`): one
+backlog (a quarter of the default one) drained in waves of 64 on the
+5120-node fleet under a node-sharded layout at each step of the ladder 1,
+2, 4, 8 shards. The shards are virtual shards of the one card (kernel B7's
+blocks, parallel/mesh.py `force_virtual_devices`), each step under a fresh
+device list in this process: `devices` is the number of cards (1),
+`shard_devices` the shards, `per_device_split` each shard's node rows, and
+every step's bindings digest must be equal. The top step re-measures the
+pipelined stream (`stream`). The speedup is reported, not gated: virtual
+shards share one card's SMs and split the walks, not the chain.
+
 --scenario serving serves bench.py's default backlog (900 sets, 1250 gangs,
 10,000 pods) on its 5120-node fleet through GroveController (recorder on)
 under the Simulator until every pod is Ready (`run_serving_bench`): ticks,
@@ -122,12 +133,15 @@ versions with 0 divergences).
                     sweep: trace seconds and the scan journal's scenario times S;
                     defrag: blocks times S; replay: racks times S;
                     serving: racks per block times S
-                    (1: 256 nodes, 20: 5120 nodes)
+                    (1: 256 nodes, 20: 5120 nodes);
+                    shard: racks per block times S (1: 5120 nodes)
   --portfolio P     default, quality: weight variants per wave and per solve (1)
   --no-baseline     default: skip the greedy baseline and the quality fields
   --harvest H       default: "wave" re-drains for measured latencies; "chained" skips it
   --scales A,B,..   scale: fleet scales (default 1,2,4)
-  --backlog-frac F  scale, serving: backlog size times F (default 1.0)
+  --backlog-frac F  scale, serving: backlog size times F (default 1.0);
+                    shard: of the default backlog (default 0.25)
+  --shards A,B,..   shard: the ladder of virtual shards (default 1,2,4,8)
   --prune-max K     scale: candidate budget (default 8191)
   --min-fleet M     scale: smallest fleet that prunes (default 256)
   --k K             sweep: configs in the grid (default 16)
@@ -1528,7 +1542,8 @@ def sidecar_sequence(send, nodes, specs, topology, stages=None) -> dict:
     return out
 
 
-def run_sidecar_bench(scale: float = 1.0, frac: float = 1.0, device=None) -> dict:
+def run_sidecar_bench(scale: float = 1.0, frac: float = 1.0, device=None,
+                      cpu_side: bool = True) -> dict:
     """The port's GREP-375 sidecar at bench.py's default size (at `scale` 1
     and `frac` 1: 4 zones x 4 blocks x 16 racks x 20 hosts = 5120 nodes,
     1250 PodGangs, 10,000 pods), served over gRPC on 127.0.0.1 by
@@ -1546,7 +1561,9 @@ def run_sidecar_bench(scale: float = 1.0, frac: float = 1.0, device=None) -> dic
     is parked on its gRPC worker thread (which then runs it), the contended Solve's escalation launched ("portfolio" >= 1 on
     the card), and the same RPC sequences sent to an in-process
     `TPUSchedulerBackend(device="cpu")` answer with equal SolveResponses
-    (solve_micros aside)."""
+    (solve_micros aside). `cpu_side` False skips that comparison (a caller
+    holds a cut run to the CPU servicer instead): the gate `equal_to_cpu`
+    and `cpu_equal` are then None and `ok` reads the other gates."""
     import threading
 
     import torch
@@ -1687,16 +1704,18 @@ def run_sidecar_bench(scale: float = 1.0, frac: float = 1.0, device=None) -> dic
         out.solve_micros = 0
         return out
 
-    t1 = time.perf_counter()
-    ctx = _Ctx()
-    ref = TPUSchedulerBackend(solver_config=cfg, device="cpu")
-    cpu = sidecar_sequence(lambda m, r: getattr(ref, m)(r, ctx), nodes, specs, topology)
-    c_ref = TPUSchedulerBackend(solver_config=SolverConfig(portfolio_escalation=4),
-                                device="cpu")
-    c_cpu = contended(lambda m, r: getattr(c_ref, m)(r, ctx))
-    cpu_s = time.perf_counter() - t1
-    cpu_equal = ([plain(r) for r in card["solves"]] == [plain(r) for r in cpu["solves"]]
-                 and plain(c_resp) == plain(c_cpu))
+    cpu_equal = cpu_s = None
+    if cpu_side:
+        t1 = time.perf_counter()
+        ctx = _Ctx()
+        ref = TPUSchedulerBackend(solver_config=cfg, device="cpu")
+        cpu = sidecar_sequence(lambda m, r: getattr(ref, m)(r, ctx), nodes, specs, topology)
+        c_ref = TPUSchedulerBackend(solver_config=SolverConfig(portfolio_escalation=4),
+                                    device="cpu")
+        c_cpu = contended(lambda m, r: getattr(c_ref, m)(r, ctx))
+        cpu_s = time.perf_counter() - t1
+        cpu_equal = ([plain(r) for r in card["solves"]] == [plain(r) for r in cpu["solves"]]
+                     and plain(c_resp) == plain(c_cpu))
     gates = {
         "all_admitted_uncontended": sum(g.admitted for g in first.gangs) == len(gangs),
         "no_node_over_capacity": not over,
@@ -1729,7 +1748,7 @@ def run_sidecar_bench(scale: float = 1.0, frac: float = 1.0, device=None) -> dic
         "cpu_equal": cpu_equal,
         "cpu_s": cpu_s,
         "gates": gates,
-        "ok": all(gates.values()),
+        "ok": all(v for v in gates.values() if v is not None),
     }
 
 
@@ -3582,18 +3601,164 @@ def run_operator_binary(device=None, *, kwok_nodes: int = 24, workload: str = "s
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# bench.py's shard scenario: the drain's waves, and the top step's stream
+# re-measure (its arrival trace's seconds and seed).
+SHARD_WAVE_SIZE = 64
+SHARD_STREAM_S = 8.0
+SHARD_STREAM_SEED = 20260804
+
+
+def shard_worker_problem(scale: float = 1.0, backlog_frac: float = 0.25):
+    """The shard scenario's fixed (topology, fleet, gangs, pods, snapshot)
+    (bench.py `_shard_worker_problem`): every ladder step solves the same
+    problem, so the bindings must match across shard counts."""
+    from grove_tpu_torch.sim.workloads import bench_topology, synthetic_backlog, synthetic_cluster
+    from grove_tpu_torch.state import build_snapshot
+
+    topo = bench_topology()
+    nodes = synthetic_cluster(racks_per_block=max(1, round(16 * scale)))
+    gangs, pods = _expand(synthetic_backlog(
+        n_disagg=max(1, round(350 * backlog_frac)),
+        n_agg=max(1, round(250 * backlog_frac)),
+        n_frontend=max(1, round(300 * backlog_frac)),
+    ))
+    return topo, nodes, gangs, pods, build_snapshot(nodes, topo)
+
+
+def bindings_digest(bindings: dict) -> str:
+    """sha256 of the bindings as bench.py's shard worker serialises them."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(
+        {g: dict(sorted(b.items())) for g, b in sorted(bindings.items())}).encode()).hexdigest()
+
+
+def run_shard_worker(shards: int, *, scale: float = 1.0, backlog_frac: float = 0.25,
+                     stream: bool = False, device=None, problem=None) -> dict:
+    """One ladder step of the shard scenario (bench.py `run_shard_worker`),
+    under a fresh list of `shards` virtual devices of `device` (None: the
+    card): a warm-up drain, then the measured drain, both under
+    MeshConfig(enabled, minNodes 64). With `stream` the pipelined stream is
+    re-measured (the `stream` sub-document, unsharded as bench.py's).
+    `problem` reuses shard_worker_problem's tuple."""
+    from grove_tpu_torch.parallel import mesh as mesh_mod
+    from grove_tpu_torch.solver.core import SolverParams, resolve_device
+    from grove_tpu_torch.solver.drain import drain_backlog
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    dev = resolve_device(device)
+    topo, nodes, gangs, pods, snapshot = problem or shard_worker_problem(scale, backlog_frac)
+    devices = mesh_mod.force_virtual_devices(shards, dev)
+    try:
+        wp = WarmPath()
+        mesh_cfg = mesh_mod.MeshConfig(enabled=True, min_nodes=64)
+        fallbacks0 = mesh_mod.shard_fallbacks()
+        drain_backlog(gangs, pods, snapshot, wave_size=SHARD_WAVE_SIZE, params=SolverParams(),
+                      warm_path=wp, mesh=mesh_cfg, device=dev)
+        bindings, stats = drain_backlog(gangs, pods, snapshot, wave_size=SHARD_WAVE_SIZE,
+                                        params=SolverParams(), warm_path=wp, mesh=mesh_cfg,
+                                        device=dev)
+        split = []
+        if stats.shard_devices > 1:
+            layout = mesh_cfg.layout_for(int(snapshot.free.shape[0]))
+            split = [{"device": d.id, "nodeRows": hi - lo}
+                     for d, (lo, hi) in zip(layout.mesh.flat,
+                                            layout.spans(int(snapshot.free.shape[0])))]
+        out = {
+            "devices": 1 if dev.type == "cuda" else len({str(d.device) for d in devices}),
+            "devices_requested": shards,
+            "nodes": len(nodes),
+            "node_pad": int(snapshot.free.shape[0]),
+            "gangs": len(gangs),
+            "wave_size": SHARD_WAVE_SIZE,
+            "shard_devices": stats.shard_devices,
+            "shard_fallbacks": mesh_mod.shard_fallbacks() - fallbacks0,
+            "solve_total_s": round(stats.total_s, 3),
+            "encode_s": round(stats.encode_s, 3),
+            "dispatch_s": round(stats.dispatch_s, 3),
+            "harvest_s": round(stats.harvest_s, 3),
+            "admitted": stats.admitted,
+            "pods_bound": stats.pods_bound,
+            "lowerings_measured_run": stats.lowerings,
+            "bindings_sha256": bindings_digest(bindings),
+            "per_device_split": split,
+        }
+        if stream:
+            from grove_tpu_torch.sim.workloads import arrival_process, expand_arrivals
+            from grove_tpu_torch.solver.stream import StreamConfig, drain_stream
+
+            events = arrival_process(SHARD_STREAM_SEED, duration_s=SHARD_STREAM_S,
+                                     base_rate=6.0)
+            arrivals, spods = expand_arrivals(events, topo)
+            scfg = StreamConfig(depth=2, wave_size=32)
+            drain_stream(arrivals, spods, snapshot, config=scfg, warm_path=wp, pipeline=True,
+                         device=dev)
+            b_ser, s_ser = drain_stream(arrivals, spods, snapshot, config=scfg, warm_path=wp,
+                                        pipeline=False, device=dev)
+            b_pipe, s_pipe = drain_stream(arrivals, spods, snapshot, config=scfg,
+                                          warm_path=wp, pipeline=True, device=dev)
+            out["stream"] = {
+                "gangs_offered": s_pipe.offered,
+                "admitted_parity": set(b_ser) == set(b_pipe),
+                "serial_wall_s": round(s_ser.wall_s, 3),
+                "pipeline_wall_s": round(s_pipe.wall_s, 3),
+                "pipeline_speedup": round(s_ser.wall_s / s_pipe.wall_s, 3)
+                if s_pipe.wall_s > 0 else None,
+                "host_blocked_serial_s": round(s_ser.drain.harvest_s, 3),
+                "host_blocked_pipeline_s": round(s_pipe.drain.harvest_s, 3),
+            }
+        return out
+    finally:
+        mesh_mod.force_virtual_devices(0)
+
+
+def run_shard_bench(scale: float = 1.0, backlog_frac: float = 0.25,
+                    ladder=(1, 2, 4, 8), *, stream: bool = True, device=None) -> dict:
+    """bench.py's `run_shard_bench` on the port: run_shard_worker at every
+    step of `ladder` (virtual shards of one card), the parity of the
+    bindings digests across the steps, and the top step's solve speedup
+    over the one-shard step, reported and not gated (`vs_baseline` reads
+    the parity alone: virtual shards share one card's SMs)."""
+    problem = shard_worker_problem(scale, backlog_frac)
+    points = [run_shard_worker(nd, device=device, problem=problem,
+                               stream=stream and nd == max(ladder))
+              for nd in ladder]
+    parity = len({p["bindings_sha256"] for p in points}) == 1
+    base = next((p for p in points if p["devices_requested"] == 1), points[0])
+    top = max(points, key=lambda p: p["devices_requested"])
+    speedup = base["solve_total_s"] / top["solve_total_s"] if top["solve_total_s"] > 0 else 0.0
+    out = {
+        "scenario": "shard",
+        "metric": "shard_solve_speedup",
+        "unit": "x",
+        "value": round(speedup, 3),
+        "vs_baseline": 1.0 if parity else 0.0,
+        "host_cpus": len(os.sched_getaffinity(0)),
+        "virtual_shards": True,
+        "device_ladder": list(ladder),
+        "admitted_parity_across_devices": parity,
+        "shard_scale": float(scale),
+        "points": points,
+    }
+    if top.get("stream"):
+        out["stream_remeasure"] = top["stream"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario",
                     choices=("default", "scale", "sweep", "stream", "chaos", "defrag", "replay",
-                             "serving", "cells", "sidecar", "tenancy", "rollout", "quality"),
+                             "serving", "cells", "sidecar", "tenancy", "rollout", "quality",
+                             "shard"),
                     default="default")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--portfolio", type=int, default=1)
     ap.add_argument("--no-baseline", dest="baseline", action="store_false")
     ap.add_argument("--harvest", choices=("wave", "chained"), default="wave")
     ap.add_argument("--scales", default="1,2,4")
-    ap.add_argument("--backlog-frac", type=float, default=1.0)
+    ap.add_argument("--backlog-frac", type=float, default=None)
+    ap.add_argument("--shards", default="1,2,4,8")
     ap.add_argument("--prune-max", type=int, default=8191)
     ap.add_argument("--min-fleet", type=int, default=256)
     ap.add_argument("--k", type=int, default=16)
@@ -3612,7 +3777,15 @@ def main(argv=None) -> int:
     from grove_tpu_torch import faults
 
     faults.install(faults.from_config(None))  # GROVE_FAULTS arms the port's injector
-    if args.scenario == "tenancy":
+    frac = args.backlog_frac
+    if frac is None:
+        frac = 0.25 if args.scenario == "shard" else 1.0
+    args.backlog_frac = frac
+    if args.scenario == "shard":
+        out = run_shard_bench(args.scale, frac,
+                              tuple(int(x) for x in args.shards.split(",") if x.strip()),
+                              device=args.device)
+    elif args.scenario == "tenancy":
         out = run_tenancy_bench(device=args.device, duration_s=(
             TENANCY_DURATION_S if args.duration_s is None else args.duration_s))
     elif args.scenario == "rollout":

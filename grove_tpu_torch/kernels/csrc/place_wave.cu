@@ -99,6 +99,38 @@
 // equals a single launch of wave w under row k bit for bit: the same code
 // runs on the same inputs.
 //
+// The sharded launch (B7: grove_tpu/solver/core.py:708-761 `sharded_solve_fn`
+// with grove_tpu/parallel/mesh.py:149 `SolveLayout`) is the single launch's wave with
+// its node axis split into S contiguous row spans: the same prologue, then
+// S chain blocks, launched cooperatively so that all are resident, block s
+// owning rows [s * N / S, (s + 1) * N / S) of every node tensor (when
+// pruned, of the candidate axis: it gathers and scatters only its own
+// candidate rows). Block s walks only its own nodes (a per-shard CSR of the
+// level's domains, `shard_offsets` / `shard_nodes`) into a partial per
+// (domain, column), writes the partial to an exchange buffer in device
+// memory and, after a barrier, adds the S partials in shard order: every
+// shard then holds the same domain state, the replicated verdict, with no
+// atomics in any sum. Feasibility, pick_domain and the stage-1 commits are
+// computed by every shard on that state. Stage 2 keeps the chain's
+// iterated argmax over the shard's own rows, but a pick records a
+// candidate (node, slots, score) instead of taking; the candidates are
+// exchanged, and every shard merges the S lists by (score desc, node asc),
+// lax.top_k's order, and takes min(slots, remaining) down the merged order,
+// changing only its own rows (with its own undo log). Every shard keeps its
+// own verdict rows; shard 0's are the outputs, and shard 0 alone scatters
+// into ok_global. The barrier is a generation count on a global counter
+// (zeroed at each launch); exchange buffers alternate between two halves,
+// so one barrier per exchange keeps a later write from meeting an earlier
+// read. What bounds it is the single launch's chain plus one barrier per
+// domain sum and per stage-2 phase; on virtual shards of one card it adds
+// those barriers to the same chain (it splits the walks but not their
+// longest domain). A launch across distinct cards is not in it: every
+// shard's rows and buffers lie in the one card's memory. Each shard's
+// domain sums equal the single launch's node-order sums only where the
+// partial sums are exact in f32 (the dyadic requests of the bench fleets);
+// its plain version, solver/reference.py `sharded_solve_ref`, adds in the
+// same order.
+//
 // Exactness against the JAX package and the plain PyTorch version
 // (grove_tpu_torch/solver/reference.py):
 //  - arithmetic uses the IEEE round-to-nearest intrinsics (__fadd_rn,
@@ -125,8 +157,12 @@
 #include <cuda_runtime.h>
 #define PW_WARP 32
 #define PW_FULL_MASK 0xffffffffu
+#define PW_LDCG(p) __ldcg(p)
 #else
+#include <thread>
+#include <vector>
 #define PW_WARP 1
+#define PW_LDCG(p) (*(p))
 #endif
 
 #define PW_SLOT_CAP (1 << 20)
@@ -138,6 +174,7 @@
 #define PW_NWARPS (PW_THREADS / 32)
 #define PW_EPS 1e-6f
 #define PW_INV_BYTES 2048  // global bytes per gang record (kernels/place_wave.py INV_BYTES)
+#define PW_S_MAX 8         // shards of a sharded launch (kernels/place_wave.py S_MAX)
 // A node's stage-2 word: bits 0-7 inside set s's committed required domain,
 // 8-15 inside its committed preferred domain, then these.
 #define PW_NW_SCHED (1u << 16)
@@ -226,6 +263,15 @@ struct PlaceWaveArgs {
   int64_t st_depends_on, st_global_index, st_depends_global, st_reuse_nodes;
   int64_t st_group_node_ok, st_spread_level, st_spread_family, st_spread_avoid;
   int64_t st_assigned, st_ok, st_score, st_ginv, st_free_in, st_okg_in;
+  // sharded launch: S shards of N / S rows each
+  int S;
+  int x_rows, x_words;           // exchange capacity per shard: candidates, f32 words
+  const int32_t* shard_offsets;  // [S, L, N + 1] each shard's CSR row starts
+  const int32_t* shard_nodes;    // [S, L, N] each shard's nodes, domain-major, node order
+  float* xagg;                   // [2, S, x_words] domain partials
+  int32_t* xcand;                // [2, S, x_rows, 3] stage-2 candidates (node, slots, score bits)
+  int32_t* xcnt;                 // [2, S] candidates per shard
+  unsigned* bar;                 // [1] barrier arrivals, zero at launch
 };
 
 // The step-strided arrays of a scan launch (kernels/place_wave.py STEPPED).
@@ -254,7 +300,7 @@ __device__ __forceinline__ void pw_step_args(PlaceWaveArgs& s, const PlaceWaveAr
 #ifndef PLACE_WAVE_HOST_EMULATION
 #define PW_BLOCK() ((int)blockIdx.x)
 #else
-static int pw_emu_block = 0;
+static thread_local int pw_emu_block = 0;
 #define PW_BLOCK() pw_emu_block
 #endif
 
@@ -281,10 +327,11 @@ struct PwVariant {
   float* undo;
 };
 
-template <bool kStacked, bool kSweep = false>
+template <bool kStacked, bool kSweep = false, bool kShard = false>
 __device__ __forceinline__ PwVariant pw_variant(const PlaceWaveArgs& a) {
   PwVariant V;
-  const size_t b = kStacked ? (size_t)PW_BLOCK() : 0;  // output and scratch row
+  // output and scratch row: the stacked launch's variant, the shard
+  const size_t b = kStacked || kShard ? (size_t)PW_BLOCK() : 0;
   const size_t k = kSweep ? b % (size_t)a.K : b;       // weight row
   if (kStacked) {
     const float* w = a.params_stack + 5 * k;
@@ -611,6 +658,73 @@ __device__ void pw_walk(const PlaceWaveArgs& a, int lv, int K, Stage stage, floa
   }
 }
 
+// ---- B7: the shards' barrier and exchanges ---------------------------------
+
+__device__ __forceinline__ int pw_f2i(float x) {
+  int i;
+  memcpy(&i, &x, 4);
+  return i;
+}
+
+__device__ __forceinline__ float pw_i2f(int i) {
+  float x;
+  memcpy(&x, &i, 4);
+  return x;
+}
+
+// Every block of the sharded launch waits here until all S have arrived:
+// `gen` counts this block's barriers, and the counter reaches gen * S once
+// every block has passed its gen-th. The fences order each block's writes
+// before its arrival and the others' writes before its reads.
+__device__ void pw_grid_sync(const PlaceWaveArgs& a, unsigned& gen) {
+  __syncthreads();
+  ++gen;
+  if (threadIdx.x == 0) {
+    const unsigned want = gen * (unsigned)a.S;
+#ifndef PLACE_WAVE_HOST_EMULATION
+    __threadfence();
+    atomicAdd(a.bar, 1u);
+    while (*(volatile unsigned*)a.bar < want) __nanosleep(20);
+    __threadfence();
+#else
+    __atomic_fetch_add(a.bar, 1u, __ATOMIC_SEQ_CST);
+    while (__atomic_load_n(a.bar, __ATOMIC_SEQ_CST) < want) std::this_thread::yield();
+#endif
+  }
+  __syncthreads();
+}
+
+// A domain walk of the sharded launch: the shard walks its own nodes (its
+// CSR is the level's in `a`) into its partial in the exchange buffer, then,
+// past the barrier, out[d * K + k] = the S partials added in shard order.
+// Unsharded it is pw_walk into `out`.
+template <bool kShard, class Stage, class Prof>
+__device__ void pw_walk_x(const PlaceWaveArgs& a, int lv, int K, Stage stage, float* out,
+                          float* plane, Prof& prof, int stage_sec, int walk_sec, int shard,
+                          unsigned& gen, int& xpar) {
+  if constexpr (!kShard) {
+    pw_walk(a, lv, K, stage, out, plane, prof, stage_sec, walk_sec);
+  } else {
+    float* mine = a.xagg + ((size_t)xpar * a.S + shard) * a.x_words;
+    const int D = a.dom_count[lv];
+    if (a.dom_offsets[(size_t)lv * (a.N + 1) + D] == 0) {
+      // No node of this shard lies in a domain of the level: a zero partial.
+      for (int k = threadIdx.x; k < D * K; k += blockDim.x) mine[k] = 0.f;
+    } else {
+      pw_walk(a, lv, K, stage, mine, plane, prof, stage_sec, walk_sec);
+    }
+    pw_grid_sync(a, gen);
+    const float* x0 = a.xagg + (size_t)xpar * a.S * a.x_words;
+    for (int k = threadIdx.x; k < D * K; k += blockDim.x) {
+      float acc = PW_LDCG(x0 + k);
+      for (int s = 1; s < a.S; ++s) acc = __fadd_rn(acc, PW_LDCG(x0 + (size_t)s * a.x_words + k));
+      out[k] = acc;
+    }
+    __syncthreads();
+    xpar ^= 1;
+  }
+}
+
 // ---- prologue: one gang's invariants ----------------------------------------
 __device__ void pw_gang_invariants(const PlaceWaveArgs& a, int gi) {
   PwGangInv& v = *(PwGangInv*)(a.ginv + (size_t)gi * PW_INV_BYTES);
@@ -719,10 +833,12 @@ __global__ void place_wave_scan_prologue(const PlaceWaveArgs a) { pw_scan_invari
 // ---- the chain: every gang of the wave, in batch order ----------------------
 // (the scan: every gang of each step in turn, the steps in order; the sweep,
 // kStacked && kScan: one step per block)
-template <bool kProfile, bool kStacked, bool kScan>
+template <bool kProfile, bool kStacked, bool kScan, bool kShard = false>
 __global__ void __launch_bounds__(PW_THREADS)
 place_wave_kernel(const PlaceWaveArgs a0) {
+#ifndef PLACE_WAVE_HOST_EMULATION
   extern __shared__ float pw_plane[];  // a.plane_words f32 for the walks
+#endif
   __shared__ PwGangInv s_inv[2];
   __shared__ float cap_scale[PW_R_MAX];
   __shared__ float red_v[32];
@@ -734,12 +850,16 @@ place_wave_kernel(const PlaceWaveArgs a0) {
   __shared__ int s_n_entries;
   __shared__ float s_best_v;
   __shared__ int s_best_i;
+  __shared__ int s_ncand;  // the sharded launch: this phase's candidates
 
   const int tid = threadIdx.x;
   const int NT = blockDim.x;
   const int lane = tid % PW_WARP, warp = tid / PW_WARP;
   const int NW = (NT + PW_WARP - 1) / PW_WARP;
   constexpr bool kSweep = kStacked && kScan;
+  const int shard = kShard ? PW_BLOCK() : 0;
+  unsigned bar_gen = 0;  // barriers this block has passed (sharded)
+  int xpar = 0;          // the exchange buffers' half in use (sharded)
   const int step_lo = kSweep ? PW_BLOCK() / a0.K : 0;
   const int step_hi = kSweep ? step_lo + 1 : (kScan ? a0.W : 1);
   for (int step = step_lo; step < step_hi; ++step) {
@@ -752,12 +872,20 @@ place_wave_kernel(const PlaceWaveArgs a0) {
       // place for this step's head to read.
       __syncthreads();
       pw_step_args(a_step, a0, step);
+    } else if constexpr (kShard) {
+      // The shard walks its own nodes: its CSR stands in for the level's.
+      a_step = a0;
+      a_step.dom_offsets = a0.shard_offsets + (size_t)shard * a0.L * (a0.N + 1);
+      a_step.dom_nodes = a0.shard_nodes + (size_t)shard * a0.L * a0.N;
     }
-    const PlaceWaveArgs& a = kScan ? a_step : a0;
+    const PlaceWaveArgs& a = kScan || kShard ? a_step : a0;
     const int N = a.N, R = a.R, L = a.L, MG = a.MG, MS = a.MS, MP = a.MP;
+    // The rows this block owns: all of them but in the sharded launch.
+    const int row_lo = kShard ? shard * (N / a.S) : 0;
+    const int row_hi = kShard ? row_lo + N / a.S : N;
     const bool pruned = a.cand_idx != nullptr;
     const bool spread = a.spread_level != nullptr;
-    const PwVariant V = pw_variant<kStacked, kSweep>(a);
+    const PwVariant V = pw_variant<kStacked, kSweep, kShard>(a);
     float* free_s = pruned || kStacked ? V.carry : a.free_io;  // [N, R] the wave's carry
     PwProf<kProfile> prof;
     prof.start(a.prof ? a.prof + (size_t)a.G * PW_NSEC : nullptr);
@@ -784,7 +912,7 @@ place_wave_kernel(const PlaceWaveArgs a0) {
     }
     if (pruned) {
       // B3 gather (gather_free, mode="fill"): pad rows point past the fleet.
-      for (int k = tid; k < N * R; k += NT) {
+      for (int k = row_lo * R + tid; k < row_hi * R; k += NT) {
         const int src = a.cand_idx[k / R];
         free_s[k] = (src >= 0 && src < a.NF) ? a.free_io[(size_t)src * R + k % R] : 0.f;
       }
@@ -798,7 +926,8 @@ place_wave_kernel(const PlaceWaveArgs a0) {
     }
     // Each carry row's normalised free capacity, kept beside the carry and
     // recomputed wherever a row changes: stage 2 reads it once per node.
-    for (int i = tid; i < N; i += NT) V.norm_free[i] = pw_norm_free(free_s + (size_t)i * R, cap_scale, R);
+    for (int i = row_lo + tid; i < row_hi; i += NT)
+      V.norm_free[i] = pw_norm_free(free_s + (size_t)i * R, cap_scale, R);
     __syncthreads();
     prof.mark(PW_SEC_SETUP);
 
@@ -845,9 +974,10 @@ place_wave_kernel(const PlaceWaveArgs a0) {
           auto stage = [&](int i, float* dst, int) {
             dst[0] = (seed[i] || (fam >= 0 && fam_row[i])) ? 1.f : 0.f;
           };
-          pw_walk(a, lvc, 1, stage, V.agg, pw_plane, prof, PW_SEC_SPREAD, PW_SEC_SPREAD);
+          pw_walk_x<kShard>(a, lvc, 1, stage, V.agg, pw_plane, prof, PW_SEC_SPREAD, PW_SEC_SPREAD,
+                            shard, bar_gen, xpar);
         }
-        for (int i = tid; i < N; i += NT) {
+        for (int i = row_lo + tid; i < row_hi; i += NT) {
           const int s_dom = a.node_domain_id[(size_t)lvc * N + i];
           const bool pen = s_lvl >= 0 && s_dom >= 0 && V.agg[pw_clip(s_dom, 0, N - 1)] > 0.5f;
           V.spread_pen[i] = pen ? 1.f : 0.f;
@@ -873,8 +1003,8 @@ place_wave_kernel(const PlaceWaveArgs a0) {
             for (int j = 0; j < ng; ++j)
               dst[(size_t)(R + j) * P] = pw_node_slots(v, fr, gno, tg[j], i, N, R);
           };
-          pw_walk(a, lv, R + ng, stage, V.tables + (size_t)lv * N * (R + MG), pw_plane, prof,
-                  PW_SEC_TABLES, PW_SEC_TABLES);
+          pw_walk_x<kShard>(a, lv, R + ng, stage, V.tables + (size_t)lv * N * (R + MG), pw_plane,
+                            prof, PW_SEC_TABLES, PW_SEC_TABLES, shard, bar_gen, xpar);
         }
         for (int s2 = 0; s2 < MS; ++s2) {
           if (!v.need_table[s2]) continue;  // block-uniform
@@ -945,7 +1075,8 @@ place_wave_kernel(const PlaceWaveArgs a0) {
             }
             if (spread) dst[(size_t)c_spread * P] = V.spread_pen[i];
           };
-          pw_walk(a, lv, K, stage, V.agg, pw_plane, prof, PW_SEC_S1_NODES, PW_SEC_S1_WALKS);
+          pw_walk_x<kShard>(a, lv, K, stage, V.agg, pw_plane,
+                            prof, PW_SEC_S1_NODES, PW_SEC_S1_WALKS, shard, bar_gen, xpar);
           float best_v = -INFINITY;
           int best_i = INT32_MAX;
           const int D = a.dom_count[lv];
@@ -995,7 +1126,7 @@ place_wave_kernel(const PlaceWaveArgs a0) {
       unsigned committed = 0;
       for (int s = 0; s < MS; ++s)
         if (s_creq[s] >= 0) committed |= 1u << s;
-      for (int i = tid; i < N; i += NT) {
+      for (int i = row_lo + tid; i < row_hi; i += NT) {
         unsigned in_req = 0, in_pref = 0;
         for (int s = 0; s < MS; ++s) {
           const int cr = s_creq[s], cp = s_cpref[s];
@@ -1028,7 +1159,7 @@ place_wave_kernel(const PlaceWaveArgs a0) {
         float bv = -INFINITY;
         int bi = INT32_MAX;
   #pragma unroll 4
-        for (int i = tid; i < N; i += NT) {
+        for (int i = row_lo + tid; i < row_hi; i += NT) {
           const unsigned w = (unsigned)V.nword[i];
           bool nok = (w & PW_NW_SCHED) && (mb & committed & ~w & 0xffu) == 0;
           if (nok && gno) nok = gno[(size_t)g * N + i] != 0;
@@ -1053,9 +1184,12 @@ place_wave_kernel(const PlaceWaveArgs a0) {
         }
         pw_warp_argmax(bv, bi);
         if (lane == 0) { wb_v[0][warp] = bv; wb_i[0][warp] = bi; }
-        if (tid == 0) s_rem[0] = total;
+        if (tid == 0) { s_rem[0] = total; s_ncand = 0; }
         __syncthreads();
         prof.mark(PW_SEC_S2_SCORE);
+        // The sharded launch: the shard's candidates, in its own best-first
+        // order, until their slots cover the phase's total.
+        int32_t* xc = kShard ? a.xcand + ((size_t)xpar * a.S + shard) * a.x_rows * 3 : nullptr;
         // Top-k as iterated argmax: the best node by (score desc, index asc)
         // takes min(slots, remaining) until the phase's total is placed. Only
         // the warp that owns the taken node rescans; one barrier per take.
@@ -1071,8 +1205,16 @@ place_wave_kernel(const PlaceWaveArgs a0) {
             if (pw_better(wb_v[cur][w], wb_i[cur][w], bv2, node)) { bv2 = wb_v[cur][w]; node = wb_i[cur][w]; }
           pw_warp_argmax(bv2, node);
           if (node == INT32_MAX) break;  // block-uniform: no node has slots left
-          if (warp == (node % NT) / PW_WARP) {
-            if (lane == 0) {
+          if (warp == ((node - row_lo) % NT) / PW_WARP) {
+            if (kShard && lane == 0) {
+              const int sl = V.a_slots[node];
+              s_rem[nxt] = rem - sl;
+              V.a_slots[node] = 0;
+              int32_t* c = xc + 3 * s_ncand++;
+              c[0] = node;
+              c[1] = sl;
+              c[2] = pw_f2i(V.a_score[node]);
+            } else if (lane == 0) {
               const int sl = V.a_slots[node];
               const int take = sl < rem ? sl : rem;
               s_rem[nxt] = rem - take;
@@ -1092,7 +1234,7 @@ place_wave_kernel(const PlaceWaveArgs a0) {
             pw_syncwarp();
             float wv = -INFINITY;
             int wi = INT32_MAX;
-            for (int i = tid; i < N; i += NT)
+            for (int i = row_lo + tid; i < row_hi; i += NT)
               if (V.a_slots[i] > 0 && pw_better(V.a_score[i], i, wv, wi)) { wv = V.a_score[i]; wi = i; }
             pw_warp_argmax(wv, wi);
             if (lane == 0) { wb_v[nxt][warp] = wv; wb_i[nxt][warp] = wi; }
@@ -1101,6 +1243,52 @@ place_wave_kernel(const PlaceWaveArgs a0) {
             wb_i[nxt][warp] = wb_i[cur][warp];
           }
           __syncthreads();
+        }
+        if constexpr (kShard) {
+          // Exchange the candidates; every shard merges the S lists by
+          // (score desc, node asc) and takes down the merged order,
+          // changing its own rows only. Every shard logs every entry.
+          if (tid == 0) a.xcnt[xpar * a.S + shard] = s_ncand;
+          pw_grid_sync(a, bar_gen);
+          if (tid == 0) {
+            const int32_t* xb = a.xcand + (size_t)xpar * a.S * a.x_rows * 3;
+            int head[PW_S_MAX], cnt[PW_S_MAX];
+            for (int s = 0; s < a.S; ++s) { head[s] = 0; cnt[s] = PW_LDCG(a.xcnt + xpar * a.S + s); }
+            int r2 = total;
+            while (r2 > 0) {
+              int bs = -1, bn = INT32_MAX;
+              float bv = -INFINITY;
+              for (int s = 0; s < a.S; ++s) {
+                if (head[s] >= cnt[s]) continue;
+                const int32_t* c = xb + ((size_t)s * a.x_rows + head[s]) * 3;
+                const int cn = PW_LDCG(c);
+                const float cv = pw_i2f(PW_LDCG(c + 2));
+                if (bs < 0 || pw_better(cv, cn, bv, bn)) { bs = s; bn = cn; bv = cv; }
+              }
+              if (bs < 0) break;  // no shard has a candidate left
+              const int sl = PW_LDCG(xb + ((size_t)bs * a.x_rows + head[bs]) * 3 + 1);
+              ++head[bs];
+              const int take = sl < r2 ? sl : r2;
+              r2 -= take;
+              const int e = s_n_entries++;
+              ent[3 * e] = g;
+              ent[3 * e + 1] = bn;
+              ent[3 * e + 2] = take;
+              if (bn >= row_lo && bn < row_hi) {
+                for (int r = 0; r < R; ++r) {
+                  const float x = free_s[(size_t)bn * R + r];
+                  V.undo[(size_t)e * R + r] = x;
+                  free_s[(size_t)bn * R + r] = __fsub_rn(x, __fmul_rn((float)take, req[r]));
+                }
+                V.norm_free[bn] = pw_norm_free(free_s + (size_t)bn * R, cap_scale, R);
+                V.nword[bn] |= (int32_t)PW_NW_USED;
+              }
+            }
+            s_rem[0] = r2;
+          }
+          __syncthreads();
+          rem = s_rem[0];
+          xpar ^= 1;
         }
         if (total - rem < floor_req) groups_ok = false;
         prof.mark(PW_SEC_S2_TAKE);
@@ -1176,11 +1364,15 @@ place_wave_kernel(const PlaceWaveArgs a0) {
 
       // ---- all-or-nothing: a rejected gang puts back every row it took -------
       if (!gang_ok && tid == 0) {
-        for (int e = n_ent - 1; e >= 0; --e)
-          for (int r = 0; r < R; ++r)
-            free_s[(size_t)ent[3 * e + 1] * R + r] = V.undo[(size_t)e * R + r];
+        // (a shard logged undo rows for its own nodes only)
+        for (int e = n_ent - 1; e >= 0; --e) {
+          const int node = ent[3 * e + 1];
+          if (node < row_lo || node >= row_hi) continue;
+          for (int r = 0; r < R; ++r) free_s[(size_t)node * R + r] = V.undo[(size_t)e * R + r];
+        }
         for (int e = 0; e < n_ent; ++e) {
           const int node = ent[3 * e + 1];
+          if (node < row_lo || node >= row_hi) continue;
           V.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
         }
       }
@@ -1192,14 +1384,14 @@ place_wave_kernel(const PlaceWaveArgs a0) {
     if (pruned) {
       // B3 scatter (scatter_free): candidate rows back to the fleet; pad rows
       // drop; the plan's indices are unique, so no two threads share a row.
-      for (int k = tid; k < N * R; k += NT) {
+      for (int k = row_lo * R + tid; k < row_hi * R; k += NT) {
         const int dst = a.cand_idx[k / R];
         if (dst >= 0 && dst < a.NF) a.free_io[(size_t)dst * R + k % R] = free_s[k];
       }
     }
     // ---- B2 scatter-max of this wave's verdicts into ok_global ---------------
     // (the stacked launch leaves it to the select, or to nobody)
-    if (!kStacked && a.T > 0) {
+    if (!kStacked && a.T > 0 && shard == 0) {
       for (int gi = tid; gi < a.G; gi += NT) {
         const int gidx = a.global_index[gi];
         if (gidx >= 0 && V.ok[gi]) a.ok_global[pw_clip(gidx, 0, a.T - 1)] = 1;
@@ -1342,6 +1534,24 @@ extern "C" int place_wave_scan_launch(const PlaceWaveArgs* args, void* stream, i
 extern "C" int place_wave_sweep_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes) {
   return pw_launch<false, true, true>(args, (cudaStream_t)stream, smem_bytes);
 }
+
+// The sharded launch (B7): the prologue, then S chain blocks launched
+// cooperatively, so that all S are resident for the barriers.
+extern "C" int place_wave_sharded_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (args->S < 1 || args->S > PW_S_MAX) return (int)cudaErrorInvalidValue;
+  if (args->G > 0) place_wave_prologue<<<args->G, 1, 0, st>>>(*args);
+  void (*kern)(const PlaceWaveArgs) = place_wave_kernel<false, false, false, true>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  PlaceWaveArgs a = *args;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(args->S), dim3(PW_THREADS), params,
+                                    (size_t)smem_bytes, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 #else
 // The same launches for a one-thread block on the host (the CPU tests): the
 // prologue gang by gang, then the chain (block by block when stacked).
@@ -1377,6 +1587,21 @@ extern "C" int place_wave_sweep_launch(const PlaceWaveArgs* args, void*, int) {
   for (pw_emu_block = 0; pw_emu_block < args->W * args->K; ++pw_emu_block)
     place_wave_kernel<false, true, true>(*args);
   pw_emu_block = 0;
+  return 0;
+}
+
+// The sharded launch's S blocks meet at barriers, so each runs on a thread
+// of its own (the shim's walk plane must then be thread_local).
+extern "C" int place_wave_sharded_launch(const PlaceWaveArgs* args, void*, int) {
+  if (args->S < 1 || args->S > PW_S_MAX) return 1;
+  for (int gi = 0; gi < args->G; ++gi) pw_gang_invariants(*args, gi);
+  std::vector<std::thread> shards;
+  for (int s = 0; s < args->S; ++s)
+    shards.emplace_back([args, s] {
+      pw_emu_block = s;
+      place_wave_kernel<false, false, false, true>(*args);
+    });
+  for (auto& t : shards) t.join();
   return 0;
 }
 #endif

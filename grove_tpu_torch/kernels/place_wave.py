@@ -38,6 +38,15 @@ the SMs, each wave from its own recorded free with no carry between them;
 row (w, k) equals a single launch of wave w under row k. Its plain version
 is solver/reference.py `stacked_scan_solve_ref`.
 
+`place_wave_sharded` is B7 (grove_tpu/solver/core.py `sharded_solve_fn`
+with grove_tpu/parallel/mesh.py `SolveLayout`): one wave with its node
+axis (the candidate axis when pruned) split into S row spans, one chain
+block per shard in one cooperative launch, the shards exchanging domain
+partials and stage-2 candidates through device memory. Its plain version
+is solver/reference.py `sharded_solve_ref`. The shards are virtual: every
+block runs on the one card the tensors lie on; a launch across distinct
+cards is not ported.
+
 `PreparedLaunch` is the warm path's entry (solver/warm.py `ExecutableCache`):
 one of these launches with every buffer owned and allocated once, captured
 once as a CUDA graph and replayed per call; a replay counts as a launch of
@@ -49,7 +58,8 @@ launches (one per wave, or per scan chunk, the prologue included), and
 `place_wave.variant_launches` counts them per variant: "dense" and "pruned"
 for place_wave, "stacked" (select=False) and "portfolio" (select=True) for
 place_wave_stacked, "scan" and "scan_pruned" for place_wave_scan,
-"stacked_scan" for place_wave_stacked_scan.
+"stacked_scan" for place_wave_stacked_scan, "sharded" and "sharded_pruned"
+for place_wave_sharded.
 """
 
 from __future__ import annotations
@@ -73,6 +83,9 @@ R_MAX, MG_MAX, MS_MAX, L_MAX = 8, 16, 8, 8
 PLANE_BYTES = 200 * 1024
 # Global bytes of one gang's PwGangInv record (PW_INV_BYTES in the source).
 INV_BYTES = 2048
+# Shards of one sharded launch (PW_S_MAX in the source): its chain blocks
+# must all be resident at once, one per SM.
+S_MAX = 8
 
 _P = ctypes.c_void_p
 _FIELDS = [
@@ -107,6 +120,10 @@ STEPPED = (
 )
 _FIELDS += [("W", ctypes.c_int), ("free_in", _P), ("okg_in", _P), ("cand_counts", _P)]
 _FIELDS += [(f"st_{k}", ctypes.c_int64) for k in STEPPED]
+# The sharded launch's fields (B7).
+_SHARD_POINTERS = ("shard_offsets", "shard_nodes", "xagg", "xcand", "xcnt", "bar")
+_FIELDS += [(k, ctypes.c_int) for k in ("S", "x_rows", "x_words")]
+_FIELDS += [(k, _P) for k in _SHARD_POINTERS]
 # Sections of the profiled instantiation (PW_SEC_* in csrc/place_wave.cu),
 # the columns of its cycle table.
 SECTIONS = (
@@ -146,6 +163,43 @@ def domain_index_stacked(node_domain_id, device) -> DomainIndex:
     return DomainIndex(*(to_device(np.stack(x), device) for x in zip(*rows)))
 
 
+def domain_index_sharded(node_domain_id, shards: int, device) -> DomainIndex:
+    """The sharded launch's DomainIndex: `count` [L] is the level's domain
+    count, `offsets` [S, L, N + 1] and `nodes` [S, L, N] each shard's CSR
+    over its own rows [s * N / S, (s + 1) * N / S) (global node indices,
+    domain-major, node order; past a shard's positions the rows are 0)."""
+    from grove_tpu_torch.solver.core import to_device
+
+    return DomainIndex(*(to_device(x, device)
+                         for x in domain_index_sharded_arrays(node_domain_id, shards)))
+
+
+def domain_index_sharded_arrays(node_domain_id, shards: int):
+    """(count, offsets, nodes) of domain_index_sharded as numpy arrays."""
+    ndid = np.asarray(
+        node_domain_id.cpu() if torch.is_tensor(node_domain_id) else node_domain_id,
+        dtype=np.int64,
+    )
+    levels, n = ndid.shape
+    if shards < 1 or n % shards:
+        raise ValueError(f"place_wave: {n} nodes do not split into {shards} shards")
+    count = domain_index_arrays(ndid)[0]
+    offsets = np.zeros((shards, levels, n + 1), dtype=np.int32)
+    nodes = np.zeros((shards, levels, n), dtype=np.int32)
+    step = n // shards
+    for s in range(shards):
+        mine = np.zeros(n, dtype=bool)
+        mine[s * step:(s + 1) * step] = True
+        for lv in range(levels):
+            dom, d = ndid[lv], int(count[lv])
+            labeled = np.flatnonzero((dom >= 0) & mine)
+            order = labeled[np.argsort(dom[labeled], kind="stable")]
+            nodes[s, lv, : order.size] = order
+            offsets[s, lv, 1 : d + 1] = np.cumsum(np.bincount(dom[labeled], minlength=d))[:d]
+            offsets[s, lv, d + 1 :] = order.size
+    return count, offsets, nodes
+
+
 def domain_index_arrays(node_domain_id) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(count, offsets, nodes) of a DomainIndex as numpy arrays."""
     ndid = np.asarray(
@@ -181,7 +235,8 @@ def _check(name, t, dtype, shape, device):
 
 def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
                ok_global, domains: DomainIndex, cand_idx=None, cand_count=None,
-               profile=False, plane_words=None, params_stack=None, select=False, steps=None):
+               profile=False, plane_words=None, params_stack=None, select=False, steps=None,
+               shards=None):
     """Check every input, allocate outputs and scratch, and fill the kernel's
     argument struct. Returns (args, smem_bytes, outputs, keepalive).
 
@@ -204,7 +259,13 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     axis on every output and sizes the gang invariants for W * G gangs;
     with a weight stack (the sweep) each of the W * K chain blocks gets its
     own scratch, without one (the scan) the one chain reuses its scratch at
-    every step."""
+    every step.
+
+    `shards` (S, the sharded launch) splits the solve's node axis into S row
+    spans: `domains` is then domain_index_sharded's (offsets [S, L, N + 1],
+    nodes [S, L, N]), every output and scratch array gains a leading [S]
+    axis (shard s's own rows; row 0 is the result) and the exchange buffers
+    and the barrier counter are allocated."""
     dev = free.device
     nf, r = free.shape
     levels, n = node_domain_id.shape
@@ -247,8 +308,16 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     _check("schedulable", schedulable, b8, (n,), dev)
     _check("node_domain_id", node_domain_id, i32, (levels, n), dev)
     _check("dom_count", domains.count, i32, (levels,), dev)
-    _check("dom_offsets", domains.offsets, i32, (levels, n + 1), dev)
-    _check("dom_nodes", domains.nodes, i32, (levels, n), dev)
+    lead = ()
+    if shards is not None:
+        if stacked or steps is not None or profile:
+            raise ValueError("place_wave: a sharded launch is a single-variant wave")
+        if not 1 <= shards <= S_MAX or n % shards:
+            raise ValueError(f"place_wave: {shards} shards for a node axis of {n} (at most "
+                             f"{S_MAX}, dividing it)")
+        lead = (shards,)
+    _check("dom_offsets", domains.offsets, i32, lead + (levels, n + 1), dev)
+    _check("dom_nodes", domains.nodes, i32, lead + (levels, n), dev)
     shapes = {
         "group_req": (f32, (g, mg, r)), "group_total": (i32, (g, mg)),
         "group_required": (i32, (g, mg)), "group_valid": (b8, (g, mg)),
@@ -276,8 +345,9 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         return torch.empty(shape, dtype=dtype, device=dev)
 
     w_len = 1 if steps is None else steps
-    rows = (() if steps is None else (w_len,)) + ((K,) if stacked else ())
-    blocks = K * w_len if stacked else 1  # chain blocks, each with its own scratch
+    rows = (() if steps is None else (w_len,)) + ((K,) if stacked else ()) + lead
+    # chain blocks, each with its own scratch
+    blocks = K * w_len if stacked else (shards if shards is not None else 1)
     out = {
         "assigned": empty(rows + (g, mp), i32),
         "ok": empty(rows + (g,), b8),
@@ -289,6 +359,7 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     # One copy of every per-gang scratch array for each weight variant.
     scratch = {
         "carry": empty((blocks * n * r,), f32) if cand_idx is not None or stacked else None,
+        "xagg": None, "xcand": None, "xcnt": None, "bar": None,
         "family_used": empty((blocks * g * n,), torch.uint8) if spread else None,
         "spread_pen": empty((blocks * n,), f32) if spread else None,
         "tables": empty((blocks * levels * n * (r + mg),), f32),
@@ -314,11 +385,24 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         )
         scratch.update(sel_terms=empty((K * max(g, 1),), f32), sel_admitted=empty((K,), i32),
                        sel_quality=empty((K,), f32))
+    x_rows = x_words = 0
+    if shards is not None:
+        # Exchange buffers, two halves: each shard's domain partials (at most
+        # N domains of k_max columns) and its stage-2 candidates (at most its
+        # N / S rows).
+        x_rows, x_words = n // shards, n * k_max
+        scratch.update(xagg=empty((2 * shards * x_words,), f32),
+                       xcand=empty((2 * shards * x_rows * 3,), i32),
+                       xcnt=empty((2 * shards,), i32), bar=empty((1,), i32))
     tensors = {
         "free_io": free, "cand_idx": cand_idx, "capacity": capacity,
         "schedulable": schedulable, "node_domain_id": node_domain_id,
-        "dom_count": domains.count, "dom_offsets": domains.offsets,
-        "dom_nodes": domains.nodes, "ok_global": ok_global, "prof": None, **out, **scratch,
+        "dom_count": domains.count,
+        "dom_offsets": domains.offsets if shards is None else domains.offsets[0],
+        "dom_nodes": domains.nodes if shards is None else domains.nodes[0],
+        "shard_offsets": domains.offsets if shards is not None else None,
+        "shard_nodes": domains.nodes if shards is not None else None,
+        "ok_global": ok_global, "prof": None, **out, **scratch,
     }
     for name in shapes:
         tensors[name] = getattr(batch, name)
@@ -330,9 +414,9 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     args = PlaceWaveArgs(
         N=n, R=r, L=levels, G=g, MG=mg, MS=ms, MP=mp, T=t_len, NF=nf,
         cand_count=n if cand_idx is None else int(cand_count), plane_words=plane_words, K=K,
-        W=w_len, **weights,
+        W=w_len, S=shards or 1, x_rows=x_rows, x_words=x_words, **weights,
     )
-    for name in _POINTERS:
+    for name in _POINTERS + _SHARD_POINTERS:
         t = tensors.get(name)
         setattr(args, name, None if t is None else t.data_ptr())
     return args, 4 * plane_words, out, tensors
@@ -408,6 +492,31 @@ def place_wave_stacked(free, capacity, schedulable, node_domain_id, batch: GangB
         return (out["win_assigned"], out["win_ok"], out["win_score"], free, ok_global,
                 out["winner"], out["objectives"])
     return out["assigned"], out["ok"], out["score"], out["free_after"]
+
+
+def place_wave_sharded(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
+                       ok_global=None, *, shards: int, domains: DomainIndex, cand_idx=None,
+                       cand_count=None):
+    """Solve one wave on `shards` virtual shards of the card with one
+    cooperative launch (B7). Arguments as place_wave, but `domains` is the
+    sharded DomainIndex (domain_index_sharded of `node_domain_id` and
+    `shards`) and the node axis (the candidate axis when pruned) must
+    divide into the shards. Returns what place_wave returns: `free` and
+    `ok_global` updated in place, `assigned` in fleet ordinals."""
+    if not free.is_cuda:
+        raise ValueError("place_wave_sharded: the kernel runs on a CUDA device only")
+    lib = _library()
+    args, smem, out, _keep = build_args(
+        free, capacity, schedulable, node_domain_id, batch, params, ok_global, domains,
+        cand_idx, cand_count, shards=shards,
+    )
+    stream = torch.cuda.current_stream(free.device).cuda_stream
+    rc = _call_launch(lib, "place_wave_sharded_launch", args, stream, smem, None)
+    if rc != 0:
+        raise RuntimeError(f"place_wave_sharded: kernel launch failed with CUDA error {rc}")
+    place_wave.launches += 1
+    place_wave.variant_launches["sharded_pruned" if cand_idx is not None else "sharded"] += 1
+    return out["assigned"][0], out["ok"][0], out["score"][0], free, ok_global
 
 
 def build_scan_args(free, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
@@ -584,9 +693,10 @@ WEIGHTS = ("w_tight", "w_pref", "w_reuse", "w_reserve", "w_spread")
 # The buffers of build_args that a launch reads before it writes them, and
 # so expects zeroed: the verdicts (a gang gated on a gang its wave has not
 # reached reads ok 0) and the spread family rows (only the scan kinds zero
-# theirs themselves, at each step). build_args zeroes them for a direct
-# launch; a prepared launch zeroes them at the head of every replay.
-LAUNCH_ZEROED = ("ok", "family_used")
+# theirs themselves, at each step) and the sharded launch's barrier counter
+# (its blocks count their arrivals from 0). build_args zeroes them for a
+# direct launch; a prepared launch zeroes them at the head of every replay.
+LAUNCH_ZEROED = ("ok", "family_used", "bar")
 
 
 def zero_launch_state(tensors: dict) -> None:
@@ -605,6 +715,7 @@ _KIND_LAUNCH = {
     "stacked": ("place_wave_stacked_launch", 0),
     "scan": ("place_wave_scan_launch", None),
     "sweep": ("place_wave_sweep_launch", None),
+    "sharded": ("place_wave_sharded_launch", None),
 }
 
 
@@ -662,7 +773,8 @@ class PreparedLaunch:
 
     Capturing needs the card; a failed capture or replay raises."""
 
-    def __init__(self, kind: str, shapes: dict, device, *, retain: bool = False):
+    def __init__(self, kind: str, shapes: dict, device, *, retain: bool = False,
+                 shards: int | None = None):
         if kind not in _KIND_LAUNCH:
             raise ValueError(f"PreparedLaunch: unknown kind {kind!r}")
         device = torch.device(device)
@@ -677,7 +789,13 @@ class PreparedLaunch:
         domains = DomainIndex(t["dom_count"], t["dom_offsets"], t["dom_nodes"])
         zero = dict.fromkeys(WEIGHTS, 0.0)
         params = type("Weights", (), zero)
-        if kind == "single":
+        if kind == "sharded":
+            self.variant = "sharded_pruned" if pruned else "sharded"
+            n = t["capacity"].shape[0]
+            built = build_args(t["free"], t["capacity"], t["schedulable"], t["node_domain_id"],
+                               batch, params, t.get("ok_global"), domains, t.get("cand_idx"),
+                               n if pruned else None, shards=shards)
+        elif kind == "single":
             self.variant = "pruned" if pruned else "dense"
             n = t["capacity"].shape[0]
             built = build_args(t["free"], t["capacity"], t["schedulable"], t["node_domain_id"],
@@ -697,6 +815,8 @@ class PreparedLaunch:
             built = build_sweep_args(t["free_stack"], t["capacity"], t["schedulable"],
                                      t["node_domain_id"], batch, t["params_stack"], domains)
         self.args, self.smem, self.out, self._keep = built
+        if kind == "sharded":  # row 0 of the shards' rows is the result
+            self.out = {k: v[0] for k, v in self.out.items()}
         self.graphs: dict = {}  # weight row (None: weights on the card) -> (graph, args)
         self.capture_s: list[float] = []  # wall seconds of each capture
         # Static input -> (weak reference to its source tensor, its version).
@@ -786,12 +906,13 @@ def _library():
     return lib
 
 
-VARIANTS = ("dense", "pruned", "stacked", "portfolio", "scan", "scan_pruned", "stacked_scan")
+VARIANTS = ("dense", "pruned", "stacked", "portfolio", "scan", "scan_pruned", "stacked_scan",
+            "sharded", "sharded_pruned")
 
 
 def reset_launches() -> None:
     """Set every launch count of place_wave, place_wave_stacked,
-    place_wave_scan and place_wave_stacked_scan to 0."""
+    place_wave_scan, place_wave_stacked_scan and place_wave_sharded to 0."""
     place_wave.launches = 0
     place_wave.variant_launches = dict.fromkeys(VARIANTS, 0)
 

@@ -102,9 +102,10 @@ class GroveController:
     # cache then keys on the candidate pad, not the fleet pad
     # (solver/pruning.py; stats on warm.prune)
     pruning: object | None = None
-    # mesh-sharded solve (solver.mesh config; parallel/mesh.MeshConfig): on
-    # one card an enabled mesh resolves to no layout — a counted fallback
-    # (parallel/mesh.shard_fallbacks) — and every solve runs unsharded
+    # mesh-sharded solve (solver.mesh config; parallel/mesh.MeshConfig): each
+    # single-variant solve shards over the negotiated layout (B7 on the
+    # card, over virtual shards of it); an enabled mesh that resolves to no
+    # layout is a counted fallback (parallel/mesh.shard_fallbacks)
     mesh_cfg: object | None = None
     # portfolio width: >1 solves each wave under P weight variants, winner
     # kept (solver.portfolio; parallel/portfolio.py)
@@ -165,6 +166,9 @@ class GroveController:
     # decode (batch binding decode) — the serving-path slice of the drain's
     # host-stage ledger (/statusz solver.hostStages, `get solver` rows).
     last_host_stages: dict = field(default_factory=dict)
+    # Node-axis shards the last solve ran across (0 = unsharded): /statusz
+    # solver.mesh shardDevices.
+    last_shard_devices: int = 0
     # Placement-quality view of serving solves (quality/report.py
     # discipline): the last NON-EMPTY wave's aggregate — admitted ratio over
     # the solver-valid gangs it saw, mean PlacementScore of the admitted —
@@ -1004,8 +1008,7 @@ class GroveController:
         if self.mesh_cfg is not None:
             from grove_tpu_torch.parallel.mesh import resolve_layout
 
-            # One card: a requested mesh resolves to no layout (a counted
-            # fallback, parallel/mesh.py) and the solve runs unsharded.
+            # None when the mesh cannot engage (a counted fallback).
             mesh_layout = resolve_layout(
                 self.mesh_cfg, int(snapshot.free.shape[0])
             )
@@ -1038,6 +1041,9 @@ class GroveController:
                 # gathered sub-fleet; lossy rejections escalate dense.
                 pruning=pruning_eff,
                 device=self.device,
+                # A portfolio solve takes no layout (the JAX package's solve
+                # ignores it; the portfolio mesh is not ported).
+                mesh=mesh_layout if pf == 1 else None,
             )
             if ladder is not None:
                 ladder.record_success()
@@ -1078,6 +1084,7 @@ class GroveController:
             # The journaled wave must fingerprint the config that actually
             # solved, or replay rebuilds the wrong executable.
             pf, esc, pruning_eff, mesh_layout = 1, 1, None, None
+        self.last_shard_devices = mesh_layout.node_devices if mesh_layout and pf == 1 else 0
         t_decode0 = time.perf_counter()
         # One copy from the card for the whole solve: verdicts, scores and
         # assignments together.

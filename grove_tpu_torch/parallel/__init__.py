@@ -1,2 +1,3 @@
-"""Solving one wave under several weight variants (grove_tpu/parallel
-counterpart, without the device meshes)."""
+"""Solving one wave under several weight variants, and the node-sharded
+layout of the single-variant solve (grove_tpu/parallel counterpart; the
+portfolio mesh is not ported)."""

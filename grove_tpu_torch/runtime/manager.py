@@ -864,7 +864,7 @@ class Manager:
         )
         # Mesh-shard fallback ledger (parallel/mesh.py): solves that wanted
         # a multi-device layout but ran unsharded — the observable side of
-        # the solver_mesh_for/solve_layout_for no-divisible-split path.
+        # the solve_layout_for no-divisible-split path.
         self._m_shard_fallbacks = self.metrics.counter(
             "grove_solver_shard_fallbacks_total",
             "Solver mesh-layout negotiations that fell back to unsharded",
@@ -1342,8 +1342,10 @@ class Manager:
             )
         doc["pruning"].update(self.controller.warm.prune.stats())
         # Mesh-sharded solve view (parallel/mesh.py): the effective
-        # solver.mesh block plus the shard-fallback ledger (solves that
-        # wanted a multi-device layout but ran unsharded — never silent).
+        # solver.mesh block, with an enabled one the node-axis shards the
+        # last solve ran across (shardDevices, 0 = unsharded), plus the
+        # shard-fallback ledger (solves that wanted a multi-device layout but
+        # ran unsharded — never silent).
         mcfg = self.controller.mesh_cfg
         doc["mesh"] = {
             "enabled": bool(getattr(mcfg, "enabled", False)),
@@ -1352,6 +1354,7 @@ class Manager:
             doc["mesh"].update(
                 minNodes=int(mcfg.min_nodes),
                 maxDevices=int(mcfg.max_devices),
+                shardDevices=int(self.controller.last_shard_devices),
             )
         try:
             from grove_tpu_torch.parallel.mesh import shard_fallbacks

@@ -23,6 +23,13 @@ into them.
 rows, each wave from its own recorded free (B6, one launch on the card per
 call): the tuning sweep batches each run of same-shape journaled waves
 into it.
+
+`sharded_solve` solves one wave node-sharded under a parallel/mesh.py
+SolveLayout (B7, one cooperative launch on the card over the layout's
+virtual shards; `sharded_solve_ref` on the CPU), and `sharded_solve_fn`
+is its memoized entry per (donate, layout key), the launch cache's entry
+on the CPU (on the card the cache captures B7 under the layout's key).
+`solve(..., mesh=)` takes a layout, dense or pruned.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from grove_tpu_torch.solver.reference import (
     portfolio_select_ref,
     scan_pruned_solve_ref,
     scan_solve_ref,
+    sharded_solve_ref,
     solve_batch_ref,
     solve_pruned_ref,
     stacked_scan_solve_ref,
@@ -191,6 +199,72 @@ def solve_batch(
             free, capacity, schedulable, node_domain_id, tbatch, params, ok_global
         )
     return SolveResult(*out)
+
+
+def sharded_solve(free, capacity, schedulable, node_domain_id, batch: GangBatch,
+                  params: SolverParams | None = None, ok_global=None, *, layout, device=None,
+                  domains=None, cand_idx=None, cand_count=None) -> SolveResult:
+    """One wave solved node-sharded under `layout` (a parallel.mesh
+    SolveLayout; core.py `sharded_solve_fn`): the node axis (with
+    `cand_idx`/`cand_count`, the candidate axis, as solve_batch's `plan`
+    fields) splits into the layout's row spans. On the card it is one B7
+    launch (kernels/place_wave.py `place_wave_sharded`) over the layout's
+    virtual shards, updating `free` and `ok_global` in place when they
+    already lie there; `domains` is the sharded DomainIndex (built here
+    when not given). On the CPU the plain version (sharded_solve_ref). The
+    layout's device must be the solve's: a layout over distinct cards
+    raises (parallel/mesh.py WAITS_CARDS)."""
+    dev = resolve_device(device)
+    if layout.device.type != dev.type:
+        raise ValueError(f"sharded_solve: a layout on {layout.device} for a solve on {dev}")
+    params = params or SolverParams()
+    free = tensor_on(free, torch.float32, dev)
+    capacity = tensor_on(capacity, torch.float32, dev)
+    schedulable = tensor_on(schedulable, torch.bool, dev)
+    node_domain_id = tensor_on(node_domain_id, torch.int32, dev)
+    ok_global = tensor_on(ok_global, torch.bool, dev)
+    cand_idx = tensor_on(cand_idx, torch.int32, dev)
+    tbatch = batch_to(batch, dev)
+    n = capacity.shape[0]
+    count = None if cand_idx is None else int(cand_count if cand_count is not None else n)
+    if dev.type == "cuda":
+        from grove_tpu_torch.kernels.place_wave import domain_index_sharded, place_wave_sharded
+
+        if domains is None:
+            domains = domain_index_sharded(node_domain_id, layout.node_devices, dev)
+        out = place_wave_sharded(free, capacity, schedulable, node_domain_id, tbatch, params,
+                                 ok_global, shards=layout.node_devices, domains=domains,
+                                 cand_idx=cand_idx, cand_count=count)
+    else:
+        out = sharded_solve_ref(free, capacity, schedulable, node_domain_id, tbatch, params,
+                                ok_global, layout.spans(n), cand_idx, count)
+    return SolveResult(*out)
+
+
+_SHARDED_FN: dict[tuple, object] = {}
+
+
+def sharded_solve_fn(layout, donate: bool = False):
+    """The node-sharded solve pinned to `layout` (core.py
+    `sharded_solve_fn`), one per (donate, layout key): called as
+    solve_batch is, (free, capacity, schedulable, node_domain_id, batch,
+    params, ok_global, *, device, domains, cand_idx, cand_count). With
+    `donate` the launch updates the caller's free and ok_global in place
+    on the card (the JAX package donates them); without, it works on
+    copies."""
+    key = (bool(donate), layout.key())
+    fn = _SHARDED_FN.get(key)
+    if fn is None:
+        def fn(free, capacity, schedulable, node_domain_id, batch, params=None, ok_global=None,
+               **kw):
+            if not donate:
+                free = free.clone() if torch.is_tensor(free) else free
+                ok_global = ok_global.clone() if torch.is_tensor(ok_global) else ok_global
+            return sharded_solve(free, capacity, schedulable, node_domain_id, batch, params,
+                                 ok_global, layout=layout, **kw)
+
+        fn = _SHARDED_FN.setdefault(key, fn)
+    return fn
 
 
 def scan_solve(free0, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
@@ -352,9 +426,10 @@ def solve(
     pruning=None,
     mesh_axis: int = 1,
     warm=None,
+    mesh=None,
 ) -> SolveResult:
-    """The serving entry (core.py `solve`, unsharded): snapshot (numpy) ->
-    device -> one solve, or a portfolio of them.
+    """The serving entry (core.py `solve`): snapshot (numpy) -> device ->
+    one solve, or a portfolio of them.
 
     `free`/`schedulable` override the snapshot's (wave chaining: pass the
     previous result's free_after); `ok_global` threads the cross-wave verdict
@@ -375,7 +450,15 @@ def solve(
     rejected there whose plan was lossy makes the dense solve run instead,
     before any escalation (core.py `solve`'s pruned branch). `mesh_axis` is
     the node axis of the mesh a journaled solve ran under: the candidate pad
-    is rounded to a multiple of it (the port itself solves on one card).
+    is rounded to a multiple of it (a `mesh` rounds it to its own).
+
+    `mesh` (a parallel.mesh.SolveLayout, or a MeshConfig negotiated here)
+    shards the single-variant solve, dense or pruned, over the layout's
+    shards (B7 on the card, under the launch cache's layout key; pruned, the
+    candidate axis splits). A portfolio under a layout raises: the portfolio
+    mesh is not ported (parallel/mesh.py WAITS_PORTFOLIO); an escalation's
+    portfolio re-solve runs unsharded, the stacked launch on the one
+    device.
 
     `warm` (a solver.warm.WarmPath; None = the process-shared one): the
     snapshot's node tensors (and its DomainIndex) come from the warm path's
@@ -387,9 +470,17 @@ def solve(
     from grove_tpu_torch.parallel.portfolio import portfolio_solve
     from grove_tpu_torch.solver.warm import default_warm_path
 
+    from grove_tpu_torch.parallel.mesh import WAITS_PORTFOLIO, resolve_layout
+
     dev = resolve_device(device)
     params = params or SolverParams()
     warm = warm if warm is not None else default_warm_path()
+    layout = resolve_layout(mesh, int(snapshot.free.shape[0]))
+    if layout is not None:
+        if portfolio > 1:
+            raise NotImplementedError(f"a portfolio solve under a layout waits for "
+                                      f"{WAITS_PORTFOLIO}")
+        mesh_axis = layout.node_devices
 
     def on(x, dtype):
         # A copy of the caller's tensor: the kernels update their carry in place.
@@ -401,8 +492,8 @@ def solve(
     # copies).
     free0, capacity, sched, node_domain_id = warm.device.snapshot_arrays(
         snapshot, free=free, schedulable=schedulable, device=dev)
-    domains = warm.device.domain_index(snapshot.node_domain_id, dev) if dev.type == "cuda" \
-        else None
+    domains = warm.device.domain_index(snapshot.node_domain_id, dev, shards=layout and
+                                       layout.node_devices) if dev.type == "cuda" else None
     escalate = escalate_portfolio > portfolio
     prune = (pruning is not None and pruning.enabled and portfolio == 1 and free is None
              and schedulable is None)
@@ -439,10 +530,12 @@ def solve(
                 cache.device_array(plan.schedulable, torch.bool, dev),
                 cache.device_array(plan.node_domain_id, torch.int32, dev),
                 plan.gather_batch(batch), params, okg, device=dev,
-                domains=cache.domain_index(plan.node_domain_id, dev)
+                domains=cache.domain_index(plan.node_domain_id, dev,
+                                           shards=layout and layout.node_devices)
                 if dev.type == "cuda" else None,
                 cand_idx=plan.padded_idx(),
                 cand_count=plan.count,
+                layout=layout,
             )
             pstats.pruned_solves += 1
             pstats.last_candidate_nodes = plan.count
@@ -458,7 +551,8 @@ def solve(
             result = psolve(portfolio, free0.clone(), okg)
         else:
             result = warm.executables.solve(free0, capacity, sched, node_domain_id, batch,
-                                            params, okg, device=dev, domains=domains)
+                                            params, okg, device=dev, domains=domains,
+                                            layout=layout)
         if pruned_ok is not None:
             # The escalated re-solve: did the full fleet change a verdict?
             if bool(np.any(result.ok.cpu().numpy() != pruned_ok)):

@@ -96,9 +96,17 @@ propagates unchanged; no path continues on a plain version after a kernel
 error. `drain_backlog` consults the ladder once, at construction: open
 rungs step it down (resident -> scan -> pipeline -> wave, pruning off,
 portfolio 1); the streaming drain reconciles the engine with the ladder
-between waves (`set_scan`, `set_retire_lag`, `set_pruning`). `mesh` (a
-parallel.mesh.MeshConfig) never shards on one card: a requested mesh
+between waves (`set_scan`, `set_retire_lag`, `set_pruning`, and the
+mesh rung's `strip_layout` / `adopt_layout`). `mesh` (a parallel.mesh
+SolveLayout, or a MeshConfig negotiated here) shards every single-variant
+wave of the chained, wave and pipeline disciplines over the layout's
+shards (kernel B7 on the card; dense or pruned, the candidate pad
+negotiated divisible by the shards), `DrainStats.shard_devices` says how
+many, and journaled waves record the layout's fingerprint. A requested
+mesh that resolves to no layout (one device, a fleet under minNodes)
 counts one fallback (`DrainStats.shard_fallbacks`) and solves unsharded.
+The scan and resident disciplines under a layout raise
+(parallel/mesh.py WAITS_SCAN).
 
 The streaming drain (solver/stream.py `drain_stream`) drives the same
 engine through its hooks: `submit(ws, retire)` dispatches and (by default)
@@ -125,7 +133,7 @@ from grove_tpu_torch.solver.core import (
     stack_on,
 )
 from grove_tpu_torch.solver.encode import encode_gangs, gang_shape, next_pow2, stack_batches
-from grove_tpu_torch.parallel.mesh import mesh_requested, resolve_layout
+from grove_tpu_torch.parallel.mesh import WAITS_SCAN, mesh_requested, resolve_layout
 from grove_tpu_torch.solver.pruning import (
     PruningConfig,
     lossy_rejections,
@@ -241,7 +249,9 @@ class DrainStats:
     # The fleet's free capacity after the last wave, as the solver left it
     # (copied to the host once every wave has retired and the card is idle).
     free_after: np.ndarray | None = None
-    # Mesh: requested meshes that solved unsharded (always, on one card).
+    # Mesh: the node-axis shards every wave solved across (0 = unsharded),
+    # and requested meshes that solved unsharded (never silent).
+    shard_devices: int = 0
     shard_fallbacks: int = 0
     # Resilience ledger: dispatch retries paid inside the engine, watchdog
     # timeouts observed on in-flight waves, waves cancelled (timeout ->
@@ -346,7 +356,8 @@ class _WavePipeline:
     def __init__(self, *, gangs, pods_by_name, snapshot, params, stats, dev, warm_path,
                  pruning=None, portfolio=1, donate=False, retire_lag=None, record_stamps=False,
                  scan=None, recorder=None, wave_prefix="drain", on_commit=None, faults=None,
-                 watchdog_s=None, max_wave_retries=0, clock=None, watchdog_poll_s=0.001):
+                 watchdog_s=None, max_wave_retries=0, clock=None, watchdog_poll_s=0.001,
+                 layout=None):
         self.pods_by_name = pods_by_name
         self.snapshot = snapshot
         self.params = params
@@ -371,6 +382,12 @@ class _WavePipeline:
         self.on_commit = on_commit
         self.scan = scan if portfolio == 1 else None
         self.recorder = recorder if portfolio == 1 else None
+        # Node-sharded solves (parallel/mesh.py SolveLayout): every wave's
+        # launch is the layout-keyed B7 entry; single-variant drains only.
+        self.layout = layout if self.use_exec_cache else None
+        if self.layout is not None and self.scan is not None and self.scan.enabled:
+            raise NotImplementedError(f"a scanned drain under a layout waits for {WAITS_SCAN}")
+        stats.shard_devices = self.layout.node_devices if self.layout else 0
         # Fault injection: the process-installed injector unless the caller
         # passed one, None when disabled (the per-wave check is one `is`).
         inj = faults if faults is not None else faults_mod.active()
@@ -393,8 +410,8 @@ class _WavePipeline:
         self.capacity = cache.device_array(snapshot.capacity, torch.float32, dev)
         self.schedulable = cache.device_array(snapshot.schedulable, torch.bool, dev)
         self.node_domain_id = cache.device_array(snapshot.node_domain_id, torch.int32, dev)
-        self.domains = cache.domain_index(snapshot.node_domain_id, dev) if dev.type == "cuda" \
-            else None
+        self.domains = cache.domain_index(snapshot.node_domain_id, dev, shards=self.shards) \
+            if dev.type == "cuda" else None
         # The wave carry (a copy: the portfolio's launches update it in place).
         self.free = cache.device_array(snapshot.free, torch.float32, dev).clone()
         self.ok_g = torch.zeros((len(gangs),), dtype=torch.bool, device=dev)
@@ -414,6 +431,11 @@ class _WavePipeline:
             self.scheduled_admitted: set[str] = set()
             self._alloc = np.array(snapshot.allocated, copy=True)
             self._cap_np = np.asarray(snapshot.capacity)
+
+    @property
+    def shards(self) -> int | None:
+        """The layout's node-axis shards, None unsharded."""
+        return None if self.layout is None else self.layout.node_devices
 
     def start_clock(self) -> float:
         """Set the clock origin t0 (host perf_counter) and, on the card, a
@@ -450,7 +472,8 @@ class _WavePipeline:
         if self.pruning is None or not self.use_exec_cache:
             return None
         tp = time.perf_counter()
-        plan = plan_candidates(self.snapshot, batch, self.pruning)
+        plan = plan_candidates(self.snapshot, batch, self.pruning,
+                               mesh_axis=self.shards or 1)
         if count:
             self.stats.prune_s += time.perf_counter() - tp
         return plan
@@ -466,7 +489,8 @@ class _WavePipeline:
             cache.device_array(plan.schedulable, torch.bool, dev),
             cache.device_array(plan.node_domain_id, torch.int32, dev),
             plan.padded_idx(),
-            cache.domain_index(plan.node_domain_id, dev) if dev.type == "cuda" else None,
+            cache.domain_index(plan.node_domain_id, dev, shards=self.shards)
+            if dev.type == "cuda" else None,
         )
 
     def _encode_rec(self, ws) -> dict:
@@ -505,11 +529,12 @@ class _WavePipeline:
         if plan is not None:
             pb, cap_p, sched_p, ndid_p, cand, _ = self.pruned_inputs(plan, warm_batch)
             cache.ensure_compiled(self.free, cap_p, sched_p, ndid_p, pb, self.params, zeros_okg,
-                                  donate=self.donate, device=self.dev, cand_idx=cand)
+                                  donate=self.donate, device=self.dev, cand_idx=cand,
+                                  layout=self.layout)
         else:
             cache.ensure_compiled(self.free, self.capacity, self.schedulable,
                                   self.node_domain_id, warm_batch, self.params, zeros_okg,
-                                  donate=self.donate, device=self.dev)
+                                  donate=self.donate, device=self.dev, layout=self.layout)
         return True
 
     def warm_scan(self, class_waves: list) -> bool:
@@ -568,10 +593,10 @@ class _WavePipeline:
             pb, cap_p, sched_p, ndid_p, cand, dom_p = rec["pruned_inputs"]
             return cache.solve(free, cap_p, sched_p, ndid_p, pb, self.params, ok_g,
                                donate=False, device=self.dev, domains=dom_p, cand_idx=cand,
-                               cand_count=plan.count)
+                               cand_count=plan.count, layout=self.layout)
         return cache.solve(free, self.capacity, self.schedulable, self.node_domain_id,
                            rec["batch"], self.params, ok_g, donate=self.donate,
-                           device=self.dev, domains=self.domains)
+                           device=self.dev, domains=self.domains, layout=self.layout)
 
     def _stage(self, holder: dict, planes, free_in=None) -> None:
         """Copy verdict planes toward the host right behind their launch: on
@@ -1061,7 +1086,7 @@ class _WavePipeline:
                 allocated_override=self._alloc,
                 free_rows=free_rows,
                 candidates=plan.idx.tolist() if plan is not None else None,
-                mesh=None,
+                mesh=self.layout.fingerprint() if self.layout else None,
             )
             if journaled:
                 self.stats.journaled_waves += 1
@@ -1117,6 +1142,8 @@ class _WavePipeline:
 
     def set_scan(self, scan) -> None:
         """scan <-> per-wave dispatch for runs submitted from now on."""
+        if scan is not None and scan.enabled and self.layout is not None:
+            raise NotImplementedError(f"a scanned drain under a layout waits for {WAITS_SCAN}")
         self.scan = scan if self.use_exec_cache else None
 
     def set_retire_lag(self, lag: int | None) -> None:
@@ -1127,6 +1154,36 @@ class _WavePipeline:
         """pruned <-> dense for waves submitted from now on (plans are cut
         against the initial snapshot, a superset of every later state)."""
         self.pruning = pruning if self.use_exec_cache else None
+
+    def strip_layout(self) -> None:
+        """mesh-sharded -> unsharded (drain.py `strip_layout`): retire
+        everything in flight, then solve unsharded from the same carry (the
+        sharded and unsharded solves give the same verdicts, so only the
+        launches change). Counted on shard_fallbacks: a degradation is a
+        fallback that must not be silent."""
+        if self.layout is None:
+            return
+        self.flush()
+        self.layout = None
+        self.domains = self.wp.device.domain_index(self.snapshot.node_domain_id, self.dev) \
+            if self.dev.type == "cuda" else None
+        self.stats.shard_devices = 0
+        self.stats.shard_fallbacks += 1
+
+    def adopt_layout(self, layout) -> None:
+        """unsharded -> mesh-sharded (the ladder stepping back up): retire
+        in-flight waves, then solve every later wave under `layout` — the
+        inverse of strip_layout."""
+        if self.layout is not None or layout is None or not self.use_exec_cache:
+            return
+        if self.scan is not None and self.scan.enabled:
+            raise NotImplementedError(f"a scanned drain under a layout waits for {WAITS_SCAN}")
+        self.flush()
+        self.layout = layout
+        self.domains = self.wp.device.domain_index(self.snapshot.node_domain_id, self.dev,
+                                                   shards=layout.node_devices) \
+            if self.dev.type == "cuda" else None
+        self.stats.shard_devices = layout.node_devices
 
 
 def scan_chunks(n: int, scan: ScanConfig) -> list[tuple[int, int, int | None]]:
@@ -1201,8 +1258,12 @@ def drain_backlog(
     (resident -> scan -> pipeline -> wave, pruning off, portfolio 1);
     stepping down mid-run is the streaming drain's. `faults` (a
     faults.FaultInjector; None = the process-installed one) threads the
-    engine's fault sites. `mesh` (a parallel.mesh.MeshConfig) solves
-    unsharded on one card and counts the fallback."""
+    engine's fault sites. `mesh` (None | parallel.mesh.SolveLayout |
+    MeshConfig) shards every wave of a single-variant drain over the
+    layout (the module docstring); a requested mesh that resolves to none
+    solves unsharded and counts one fallback. Portfolio drains ignore it
+    (the JAX package's rule), and "scan" or "resident" under a layout
+    raise."""
     if harvest not in HARVEST_MODES:
         raise ValueError(f"harvest must be one of {'|'.join(HARVEST_MODES)}, got {harvest!r}")
     if depth < 1:
@@ -1240,10 +1301,11 @@ def drain_backlog(
         pruning = None  # the JAX package never prunes a portfolio solve
     if donate is None:
         donate = donation_default(dev)
+    layout = None
     shard_fallback = 0
     if mesh is not None and portfolio == 1:
-        resolve_layout(mesh, int(snapshot.free.shape[0]))  # None on one card
-        shard_fallback = int(mesh_requested(mesh))
+        layout = resolve_layout(mesh, int(snapshot.free.shape[0]))
+        shard_fallback = int(layout is None and mesh_requested(mesh))
     stats = DrainStats(gangs=len(gangs), harvest=harvest,
                        depth=depth if harvest in ("pipeline", "scan") else 0,
                        portfolio=portfolio, shard_fallbacks=shard_fallback)
@@ -1260,7 +1322,7 @@ def drain_backlog(
         dev=dev, warm_path=wp, pruning=pruning, portfolio=portfolio, donate=bool(donate),
         retire_lag=retire_lag, record_stamps=harvest in ("wave", "pipeline", "scan"),
         scan=scan_cfg, recorder=recorder, faults=faults, watchdog_s=watchdog_s,
-        max_wave_retries=max_wave_retries,
+        max_wave_retries=max_wave_retries, layout=layout,
     )
     fused = harvest in ("scan", "resident")
     t0 = time.perf_counter()

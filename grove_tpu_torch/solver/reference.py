@@ -25,6 +25,11 @@ same inputs and layout, op for op:
     the leading wave axis that threads (free, ok_global) from step to step.
   - B6 (core.py `stacked_scan_solve_fn`) is a loop over the leading wave
     axis of B5, each step from its own recorded free, with no carry.
+  - B7 (core.py `sharded_solve_fn` under a parallel/mesh.py SolveLayout) is
+    B1 over row spans (`sharded_solve_ref`): every domain sum is the
+    shards' partials, each in node order, added in shard order, and stage
+    2's top-k merges the shards' own best candidates by (score desc, node
+    asc) — the order kernel B7 adds and merges in.
 
 The CPU tests hold these against the JAX package, and `chip_smoke.py` holds
 the CUDA kernel (`grove_tpu_torch/kernels/place_wave.py`) against them on the
@@ -62,6 +67,44 @@ def _domain_sum(values: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor
     return out[:n].to(values.device)
 
 
+def _domain_sum_sharded(values: torch.Tensor, seg: torch.Tensor, n: int, spans) -> torch.Tensor:
+    """_domain_sum over a node axis split into row `spans` (B7): each shard
+    sums its own rows per domain in node order into a partial, then the
+    partials are added in shard order, as every shard of kernel B7 adds the
+    exchanged partials. Equal to _domain_sum where the partial sums are
+    exact in f32."""
+    # One index_add_ on the host for every shard: shard s's rows land in its
+    # own block of n + 1 rows (the last its unlabeled spill), each node added
+    # in node order, as _domain_sum adds them.
+    shard = torch.zeros(seg.shape[0], dtype=torch.long)
+    for s, (lo, hi) in enumerate(spans):
+        shard[lo:hi] = s
+    out = torch.zeros((len(spans) * (n + 1), values.shape[1]), dtype=values.dtype)
+    out.index_add_(0, seg.cpu() + shard * (n + 1), values.cpu())
+    parts = out.view(len(spans), n + 1, values.shape[1])[:, :n]
+    total = parts[0]
+    for s in range(1, len(spans)):
+        total = total + parts[s]
+    return total.to(values.device)
+
+
+def _top_k_merged(masked_score: torch.Tensor, k: int, spans):
+    """(order, score) of the k best nodes by (score desc, node asc): each
+    shard's own best k, then the shards' lists merged under the same key
+    (B7's stage-2 exchange). Equal to one stable sort of the whole axis."""
+    scores, order = [], []
+    for lo, hi in spans:
+        neg, idx = torch.sort(-masked_score[lo:hi], stable=True)
+        kk = min(hi - lo, k)
+        scores.append(-neg[:kk])
+        order.append(idx[:kk] + lo)
+    cand_s, cand_i = torch.cat(scores), torch.cat(order)
+    # Lists concatenated in shard order: a stable sort keeps the lower node
+    # first among equal scores.
+    neg, pick = torch.sort(-cand_s, stable=True)
+    return cand_i[pick[:k]], -neg[:k]
+
+
 def group_slots_ref(free: torch.Tensor, group_req: torch.Tensor) -> torch.Tensor:
     """Per-node pod capacity for each group's request vector.
 
@@ -88,8 +131,11 @@ def place_gang_ref(
     cap_scale,
     params,
     spread_avoid=None,
+    spans=None,
 ):
-    """Place one gang against `free` (core.py `_place_gang`).
+    """Place one gang against `free` (core.py `_place_gang`). `spans` (row
+    spans of a SolveLayout) sums the domains and merges the stage-2 top-k
+    shard by shard, as kernel B7 does.
 
     Returns (free_out [N,R], assigned i32 [MP], gang_ok bool [], score f32 [])."""
     dev = free.device
@@ -124,6 +170,8 @@ def place_gang_ref(
         return level.clamp(0, levels - 1).long()
 
     def agg(vals, level):
+        if spans is not None:
+            return _domain_sum_sharded(vals, seg_all[lvl_clip(level)], n, spans)
         return _domain_sum(vals, seg_all[lvl_clip(level)], n)
 
     slots_all = group_slots_ref(free, group_req)  # [MG, N]
@@ -303,9 +351,12 @@ def place_gang_ref(
         if spread_pen is not None:
             score = score - w_spread * spread_pen
         masked_score = torch.where(slots > 0, score, ninf)
-        neg_sorted, idx = torch.sort(-masked_score, stable=True)
-        top_order = idx[:k]
-        top_score = -neg_sorted[:k]
+        if spans is not None:
+            top_order, top_score = _top_k_merged(masked_score, k, spans)
+        else:
+            neg_sorted, idx = torch.sort(-masked_score, stable=True)
+            top_order = idx[:k]
+            top_score = -neg_sorted[:k]
         slots_top = torch.where(torch.isfinite(top_score), slots[top_order], 0)
         csum = torch.cumsum(slots_top, dim=0, dtype=torch.int32)
         take_top = torch.minimum(torch.clamp_min(total - (csum - slots_top), 0), slots_top)
@@ -379,10 +430,12 @@ def scatter_global_ok_ref(batch: GangBatch, ok, ok_global):
 
 
 def solve_batch_ref(
-    free0, capacity, schedulable, node_domain_id, batch: GangBatch, params, ok_global=None
+    free0, capacity, schedulable, node_domain_id, batch: GangBatch, params, ok_global=None,
+    spans=None,
 ):
     """Sequentially commit every gang of the batch (core.py
-    `solve_batch_impl`); `batch` holds tensors on free0's device.
+    `solve_batch_impl`); `batch` holds tensors on free0's device. `spans`
+    solves it node-sharded (sharded_solve_ref).
 
     Returns (assigned i32 [G, MP], ok bool [G], score f32 [G],
     free_after f32 [N, R], ok_global bool [T] or None)."""
@@ -428,6 +481,7 @@ def solve_batch_ref(
             cap_scale=cap_scale,
             params=params,
             spread_avoid=avoid,
+            spans=spans,
         )
         ok_vec = ok_vec.clone()
         ok_vec[gi] = ok
@@ -505,6 +559,29 @@ def solve_pruned_ref(
         scatter_free_ref(free, free_after, cand_idx),
         okg,
     )
+
+
+def sharded_solve_ref(free, capacity, schedulable, node_domain_id, batch: GangBatch, params,
+                      ok_global, spans, cand_idx=None, count=None):
+    """The node-sharded solve (B7: core.py `sharded_solve_fn` under a
+    parallel/mesh.py SolveLayout) over row `spans` of the solve's node axis:
+    every domain sum is the shards' partials (each in node order) added in
+    shard order, and stage 2's top-k merges each shard's best candidates by
+    (score desc, node asc). With `cand_idx`/`count` the spans split the
+    candidate axis: the fleet carry `free` is gathered span by span, solved,
+    scattered back and `assigned` remapped, as solve_pruned_ref does.
+
+    Returns what solve_batch_ref returns (assigned in fleet ordinals)."""
+    if cand_idx is None:
+        return solve_batch_ref(free, capacity, schedulable, node_domain_id, batch, params,
+                               ok_global, spans)
+    gathered = torch.cat([gather_free_ref(free, cand_idx[lo:hi]) for lo, hi in spans])
+    assigned, ok, score, free_after, okg = solve_batch_ref(
+        gathered, capacity, schedulable, node_domain_id, batch, params, ok_global, spans)
+    out = free
+    for lo, hi in spans:
+        out = scatter_free_ref(out, free_after[lo:hi], cand_idx[lo:hi])
+    return remap_assigned_ref(assigned, cand_idx, count), ok, score, out, okg
 
 
 # ---- B5: the same wave under K weight rows, and the portfolio's winner ------

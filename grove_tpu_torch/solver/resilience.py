@@ -7,7 +7,7 @@ step down aggressively and step back up on probation:
 
   resident   device-resident drain   -> scanned        (bitwise-equal)
   scan       scan launches (B4)      -> per-wave       (bitwise-equal)
-  mesh       mesh-sharded solve      -> unsharded      (one card: never armed)
+  mesh       mesh-sharded solve (B7) -> unsharded      (the same verdicts)
   pruning    candidate-pruned solve  -> dense          (admitted-equal)
   pipeline   depth-buffered harvest  -> wave-serial    (identical bindings)
   portfolio  P-variant solve         -> single-variant (escalation off)

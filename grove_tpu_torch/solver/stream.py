@@ -141,7 +141,7 @@ class StreamStats:
             "depth": self.depth,
             "mode": self.mode,
             "paced": self.paced,
-            "shardDevices": 0,  # one card, no mesh
+            "shardDevices": self.drain.shard_devices,
         }
         doc.update(self.drain.host_stages())
         pct = self.bind_percentiles((50.0, 99.0))
@@ -203,10 +203,11 @@ def drain_stream(
         raise ValueError(f"streaming depth must be >= 1, got {cfg.depth}")
     if cfg.wave_size < 1:
         raise ValueError(f"streaming waveSize must be >= 1, got {cfg.wave_size}")
+    layout = None
     shard_fallback = 0
     if mesh is not None:
-        resolve_layout(mesh, int(snapshot.free.shape[0]))  # None on one card
-        shard_fallback = int(mesh_requested(mesh))
+        layout = resolve_layout(mesh, int(snapshot.free.shape[0]))
+        shard_fallback = int(layout is None and mesh_requested(mesh))
 
     # Fusion needs the pipelined engine; class-affine forming does not (it is
     # a function of the requested scan config, so a serial baseline handed
@@ -251,7 +252,7 @@ def drain_stream(
 
     # The ladder's starting configuration and the engine's watchdog arms.
     base_lag = cfg.depth if pipeline else 0
-    base_pruning = pruning
+    base_layout, base_pruning = layout, pruning
     scan_cfg = base_scan
     watchdog_s, max_wave_retries = None, 0
     if ladder is not None:
@@ -259,7 +260,8 @@ def drain_stream(
         max_wave_retries = ladder.config.max_wave_retries
         if scan_cfg is not None and not ladder.allows("scan"):
             scan_cfg = None
-        ladder.allows("mesh")  # consulted as the JAX loop does; one card has no layout
+        if not ladder.allows("mesh"):
+            layout = None
         if not ladder.allows("pruning"):
             pruning = None
 
@@ -278,7 +280,7 @@ def drain_stream(
         stats=dstats, dev=dev, warm_path=wp, pruning=pruning, donate=donation_default(dev),
         retire_lag=_effective_lag(scan_cfg is not None), record_stamps=True, scan=scan_cfg,
         recorder=recorder, wave_prefix="stream", on_commit=on_commit, faults=faults,
-        watchdog_s=watchdog_s, max_wave_retries=max_wave_retries,
+        watchdog_s=watchdog_s, max_wave_retries=max_wave_retries, layout=layout,
     )
 
     def _active_rungs() -> tuple:
@@ -289,6 +291,8 @@ def drain_stream(
             active.append("resident")
         if engine.scan is not None:
             active.append("scan")
+        if engine.layout is not None:
+            active.append("mesh")
         if engine.pruning is not None:
             active.append("pruning")
         if engine.retire_lag != 0:
@@ -299,8 +303,16 @@ def drain_stream(
         """Engine config <- breaker states: step open rungs down, step
         probation-expired rungs back up (a half-open trial: the next wave
         runs at full config; its outcome closes or re-opens the breaker).
-        One card has no layout, so the `mesh` rung is never consulted here
-        (the JAX loop consults it only around a layout)."""
+        A layout transition flushes the in-flight waves first; a hung wave
+        blocking it leaves the layout as it is this round."""
+        try:
+            if engine.layout is not None and not ladder.allows("mesh"):
+                engine.strip_layout()
+            elif engine.layout is None and base_layout is not None and ladder.allows("mesh"):
+                engine.adopt_layout(base_layout)
+        except WaveFault as e:
+            if e.fatal:
+                raise
         engine.set_scan(base_scan if ladder.allows("scan") else None)
         engine.set_pruning(base_pruning if ladder.allows("pruning") else None)
         engine.set_retire_lag(_effective_lag(engine.scan is not None))

@@ -7,8 +7,9 @@
    and scratch, allocated once, and its launch captured once as a CUDA
    graph; every later call of the key copies its inputs in, replays the
    graph and copies the results out. The key holds `_exec_key`'s parts:
-   donation, the stacked flag, the scan tag, `coarse_dmax`, the layout
-   (always None: the port solves on one card), which optional planes are
+   donation, the stacked flag, the scan tag, `coarse_dmax`, the layout's key
+   (parallel/mesh.py SolveLayout: a sharded entry is a B7 launch, distinct
+   from the unsharded entry of the same shapes), which optional planes are
    present and every input's shape (dtypes are fixed per input), plus the
    device. `lowerings` counts the entries created (captures on the card).
    Each shape descriptor's use is recorded to a history file in the JAX
@@ -80,23 +81,26 @@ def _shape(x) -> tuple:
     return tuple(int(d) for d in x.shape)
 
 
-def _domain_shapes(ndid_shape: tuple) -> dict:
+def _domain_shapes(ndid_shape: tuple, shards: int | None = None) -> dict:
     """The DomainIndex's shapes for a node_domain_id of `ndid_shape` ([L, N],
-    or [W, L, N] for a pruned chunk's stacked plans)."""
+    or [W, L, N] for a pruned chunk's stacked plans); with `shards` the
+    sharded launch's (a CSR per shard: offsets [S, L, N + 1], nodes
+    [S, L, N])."""
     *lead, n = ndid_shape
     lead = tuple(lead)
-    return {"dom_count": lead, "dom_offsets": lead[:-1] + (lead[-1], n + 1),
-            "dom_nodes": lead + (n,)}
+    per = (shards,) if shards else ()
+    return {"dom_count": lead, "dom_offsets": per + lead[:-1] + (lead[-1], n + 1),
+            "dom_nodes": per + lead + (n,)}
 
 
 def _input_shapes(*, free, capacity, schedulable, node_domain_id, batch, ok_global=None,
-                  cand_idx=None, params_stack=None, free_key="free") -> dict:
+                  cand_idx=None, params_stack=None, free_key="free", shards=None) -> dict:
     shapes = {
         free_key: _shape(free),
         "capacity": _shape(capacity),
         "schedulable": _shape(schedulable),
         "node_domain_id": _shape(node_domain_id),
-        **_domain_shapes(_shape(node_domain_id)),
+        **_domain_shapes(_shape(node_domain_id), shards),
     }
     if cand_idx is not None:
         shapes["cand_idx"] = _shape(cand_idx)
@@ -122,7 +126,7 @@ def _exec_key(shapes: dict, coarse_dmax, donate: bool, layout=None, stacked: boo
         bool(stacked),
         scan,
         coarse_dmax,
-        layout,
+        None if layout is None else layout.key(),
         _device_key(device),
         tuple((name, shapes[name]) for name in _INPUT_ORDER if name in shapes),
     )
@@ -137,19 +141,20 @@ def _device_key(device) -> str:
 
 
 def _exec_desc(shapes: dict, coarse_dmax, donate: bool,
-               scan: Optional[tuple] = None) -> Optional[dict]:
+               scan: Optional[tuple] = None, layout=None) -> Optional[dict]:
     """JSON-able shape-bucket descriptor (the prewarm history record, warm.py
     `_exec_desc` / `_scan_desc`'s fields): a single-variant solve's, whose
     `n` is the solve's node axis (a pruned solve's candidate pad), or a
     DENSE scan's, its per-wave fields plus the scan length and the retain
     flag. Pruned scans are not recorded: their gather maps are
-    backlog-specific."""
+    backlog-specific. A sharded solve's `mesh` is [portfolio, node], the
+    JAX package's record."""
     if scan is not None and scan[0] != "dense":
         return None
     w = 1 if scan is not None else 0  # the batch planes' leading wave axis
     n, r = shapes["capacity"]
     desc = {
-        "mesh": None,
+        "mesh": None if layout is None else [layout.portfolio_devices, layout.node_devices],
         "n": int(n),
         "r": int(r),
         "levels": int(shapes["node_domain_id"][0]),
@@ -170,7 +175,29 @@ def _exec_desc(shapes: dict, coarse_dmax, donate: bool,
     return desc
 
 
-def _shapes_from_desc(desc: dict) -> dict:
+def _layout_from_desc(desc: dict):
+    """Rebuild a recorded mesh layout for prewarm (warm.py
+    `_layout_from_desc`), or None for an unsharded descriptor. Raises when
+    this process cannot host the recorded mesh; the prewarm loop then skips
+    the entry."""
+    mesh_shape = desc.get("mesh")
+    if not mesh_shape:
+        return None
+    from grove_tpu_torch.parallel.mesh import mesh_devices, solve_layout_for
+
+    p, k = int(mesh_shape[0]), int(mesh_shape[1])
+    if p != 1:
+        raise ValueError(f"unsupported prewarm mesh shape {mesh_shape}")
+    devices = mesh_devices()
+    if len(devices) < k:
+        raise ValueError(f"recorded mesh needs {k} devices, have {len(devices)}")
+    layout = solve_layout_for(desc["n"], devices[:k], count_fallback=False)
+    if layout is None or layout.node_devices != k:
+        raise ValueError(f"cannot rebuild {k}-device layout for n={desc['n']}")
+    return layout
+
+
+def _shapes_from_desc(desc: dict, shards: int | None = None) -> dict:
     """Descriptor -> the input shapes of its launch (warm.py
     `_args_from_desc` / `_scan_args_from_desc`): a scan's batch planes gain
     the leading [scan] axis."""
@@ -191,7 +218,7 @@ def _shapes_from_desc(desc: dict) -> dict:
     if desc["spread"]:
         batch.update(spread_level=(g,), spread_family=(g,), spread_avoid=(g, n))
     shapes = {"free": (n, r), "capacity": (n, r), "schedulable": (n,), "node_domain_id": (lv, n),
-              **_domain_shapes((lv, n)), **{k: lead + v for k, v in batch.items()}}
+              **_domain_shapes((lv, n), shards), **{k: lead + v for k, v in batch.items()}}
     if desc["t"] is not None:
         shapes["ok_global"] = (int(desc["t"]),)
     return shapes
@@ -276,26 +303,45 @@ class ExecutableCache:
     def solve(self, free0, capacity, schedulable, node_domain_id, batch: GangBatch,
               params: SolverParams | None = None, ok_global=None, *, coarse_dmax=None,
               donate: bool = False, device=None, domains=None, cand_idx=None,
-              cand_count: int | None = None) -> SolveResult:
+              cand_count: int | None = None, layout=None) -> SolveResult:
         """One wave through the cache (core.solve_batch's semantics). With
         `cand_idx` (i32 [CP]: each candidate's fleet row, pad rows past the
         fleet) and `cand_count` the node tensors and the batch lie on a
         candidate plan's axis and `free0`/`ok_global` are the fleet's carry;
         `assigned` comes back in fleet ordinals. `domains` (the card) is the
-        DomainIndex of `node_domain_id`, built here when not given."""
+        DomainIndex of `node_domain_id`, built here when not given. `layout`
+        (a parallel.mesh.SolveLayout) solves node-sharded (core.sharded_solve:
+        B7 on the card, under its own key); `domains` is then the sharded
+        DomainIndex (kernels.place_wave.domain_index_sharded)."""
         dev = resolve_device(device)
         params = params or SolverParams()
+        shards = None if layout is None else layout.node_devices
+        if layout is not None and layout.device.type != dev.type:
+            raise ValueError(f"solve: a layout on {layout.device} for a solve on {dev}")
         shapes = _input_shapes(free=free0, capacity=capacity, schedulable=schedulable,
                                node_domain_id=node_domain_id, batch=batch,
-                               ok_global=ok_global, cand_idx=cand_idx)
+                               ok_global=ok_global, cand_idx=cand_idx, shards=shards)
         entry = self._get_or_prepare(
-            _exec_key(shapes, coarse_dmax, donate, device=dev), "single", shapes, dev, params,
-            _exec_desc(shapes, coarse_dmax, donate),
+            _exec_key(shapes, coarse_dmax, donate, layout, device=dev),
+            "single" if layout is None else "sharded", shapes, dev, params,
+            _exec_desc(shapes, coarse_dmax, donate, layout=layout), shards=shards,
         )
         if dev.type != "cuda":
+            if layout is not None:
+                from grove_tpu_torch.solver.core import sharded_solve_fn
+
+                return sharded_solve_fn(layout, donate)(
+                    free0, capacity, schedulable, node_domain_id, batch, params, ok_global,
+                    device=dev, cand_idx=cand_idx, cand_count=cand_count)
             return self._plain_single(free0, capacity, schedulable, node_domain_id, batch,
                                       params, ok_global, cand_idx, cand_count)
-        domains = self._domains(domains, node_domain_id, dev)
+        if layout is not None:
+            if domains is None:
+                from grove_tpu_torch.kernels.place_wave import domain_index_sharded
+
+                domains = domain_index_sharded(node_domain_id, shards, dev)
+        else:
+            domains = self._domains(domains, node_domain_id, dev)
         with entry.use():
             out = entry.run(_sources(free=free0, capacity=capacity, schedulable=schedulable,
                                      node_domain_id=node_domain_id, batch=batch,
@@ -308,17 +354,20 @@ class ExecutableCache:
     def ensure_compiled(self, free0, capacity, schedulable, node_domain_id, batch: GangBatch,
                         params: SolverParams | None = None, ok_global=None, *,
                         coarse_dmax=None, donate: bool = False, device=None,
-                        cand_idx=None) -> bool:
+                        cand_idx=None, layout=None) -> bool:
         """Prepare (never run) the launch `solve` would use for these
         arguments; True when this paid a preparation, False on a hit."""
         dev = resolve_device(device)
         before = self.lowerings
+        shards = None if layout is None else layout.node_devices
         shapes = _input_shapes(free=free0, capacity=capacity, schedulable=schedulable,
                                node_domain_id=node_domain_id, batch=batch,
-                               ok_global=ok_global, cand_idx=cand_idx)
-        self._get_or_prepare(_exec_key(shapes, coarse_dmax, donate, device=dev), "single",
+                               ok_global=ok_global, cand_idx=cand_idx, shards=shards)
+        self._get_or_prepare(_exec_key(shapes, coarse_dmax, donate, layout, device=dev),
+                             "single" if layout is None else "sharded",
                              shapes, dev, params or SolverParams(),
-                             _exec_desc(shapes, coarse_dmax, donate))
+                             _exec_desc(shapes, coarse_dmax, donate, layout=layout),
+                             shards=shards)
         return self.lowerings != before
 
     def solve_stacked(self, free0, capacity, schedulable, node_domain_id, batch: GangBatch,
@@ -506,7 +555,7 @@ class ExecutableCache:
         )
         return SolveResult(*out)
 
-    def _prepare(self, kind, shapes, dev, params, retain):
+    def _prepare(self, kind, shapes, dev, params, retain, shards=None):
         """A new entry: on the card a PreparedLaunch captured under `params`
         (under its weight stack when None); on the CPU the plain version."""
         if dev.type != "cuda":
@@ -514,11 +563,12 @@ class ExecutableCache:
         from grove_tpu_torch.kernels.place_wave import PreparedLaunch
 
         with self._capture_lock:
-            entry = PreparedLaunch(kind, shapes, dev, retain=retain)
+            entry = PreparedLaunch(kind, shapes, dev, retain=retain, shards=shards)
             entry.capture(entry.weights_of(params))
         return entry
 
-    def _get_or_prepare(self, key, kind, shapes, dev, params, desc, *, retain: bool = False):
+    def _get_or_prepare(self, key, kind, shapes, dev, params, desc, *, retain: bool = False,
+                        shards: int | None = None):
         while True:
             with self._lock:
                 entry = self._entries.get(key)
@@ -542,7 +592,7 @@ class ExecutableCache:
             pending.wait()
         try:
             self.lowerings += 1
-            entry = self._prepare(kind, shapes, dev, params, retain)
+            entry = self._prepare(kind, shapes, dev, params, retain, shards)
             self._insert(key, entry)
             self.misses += 1
         finally:
@@ -606,8 +656,8 @@ class ExecutableCache:
         """Prepare the top-K most-used recorded shapes (by count) on `device`
         (None: the card) under the default weights. Returns the number of
         NEW entries. `stop` (a threading.Event) aborts between
-        preparations. A descriptor the port cannot host (a mesh, a
-        portfolio) is skipped."""
+        preparations. A descriptor the port cannot host (a portfolio, a mesh
+        this process has too few devices for) is skipped."""
         dev = resolve_device(device)
         shapes_doc = self._load_history_file()
         with self._lock:
@@ -620,15 +670,19 @@ class ExecutableCache:
             if stop is not None and stop.is_set():
                 break
             desc = entry.get("desc")
-            if not isinstance(desc, dict) or desc.get("portfolio", 1) != 1 or desc.get("mesh"):
+            if not isinstance(desc, dict) or desc.get("portfolio", 1) != 1:
                 continue
             try:
-                shapes = _shapes_from_desc(desc)
+                layout = _layout_from_desc(desc)
+                if layout is not None and (desc.get("scan") or layout.device.type != dev.type):
+                    continue  # a sharded scan waits (ROADMAP), as does another device
+                shards = None if layout is None else layout.node_devices
+                shapes = _shapes_from_desc(desc, shards)
                 scan = ("dense", bool(desc.get("retain", False))) if desc.get("scan") else None
                 key = _exec_key(shapes, desc.get("coarse_dmax"), desc.get("donate", False),
-                                scan=scan, device=dev)
-            except (KeyError, TypeError, ValueError):
-                continue  # a malformed descriptor must not stop prewarm
+                                layout, scan=scan, device=dev)
+            except (KeyError, TypeError, ValueError, NotImplementedError):
+                continue  # a malformed or unhostable descriptor must not stop prewarm
             with self._lock:
                 if key in self._entries:
                     continue
@@ -641,8 +695,9 @@ class ExecutableCache:
                 continue
             try:
                 self.lowerings += 1
-                made = self._prepare("scan" if scan else "single", shapes, dev, SolverParams(),
-                                     bool(scan and scan[1]))
+                kind = "scan" if scan else ("single" if layout is None else "sharded")
+                made = self._prepare(kind, shapes, dev, SolverParams(), bool(scan and scan[1]),
+                                     shards)
                 self._insert(key, made)
             finally:
                 with self._lock:
@@ -742,21 +797,29 @@ class SnapshotDeviceCache:
         f = self.device_array(snapshot.free if free is None else free, torch.float32, device)
         return f, cap, sched, ndid
 
-    def domain_index(self, node_domain_id, device=None):
+    def domain_index(self, node_domain_id, device=None, shards: int | None = None):
         """The DomainIndex of `node_domain_id` ([L, N], or a chunk's stacked
-        [W, L, N]) on `device`, built and uploaded once per content digest."""
-        from grove_tpu_torch.kernels.place_wave import domain_index, domain_index_stacked
+        [W, L, N]) on `device`, built and uploaded once per content digest;
+        with `shards` the sharded launch's (domain_index_sharded)."""
+        from grove_tpu_torch.kernels.place_wave import (
+            domain_index,
+            domain_index_sharded,
+            domain_index_stacked,
+        )
 
         dev = resolve_device(device)
         ndid = np.asarray(node_domain_id.cpu() if torch.is_tensor(node_domain_id)
                           else node_domain_id, dtype=np.int32)
-        key = (ndid.shape, _device_key(dev), self._digest(ndid))
+        key = (ndid.shape, _device_key(dev), self._digest(ndid), shards or None)
         cached = self._domains.get(key)
         if cached is not None:
             self._domains.move_to_end(key)
             self.domain_hits += 1
             return cached
-        built = (domain_index_stacked if ndid.ndim == 3 else domain_index)(ndid, dev)
+        if shards:
+            built = domain_index_sharded(ndid, shards, dev)
+        else:
+            built = (domain_index_stacked if ndid.ndim == 3 else domain_index)(ndid, dev)
         self._domains[key] = built
         while len(self._domains) > self._max:
             self._domains.popitem(last=False)

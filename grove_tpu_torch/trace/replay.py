@@ -9,9 +9,12 @@ by the port does: the records' gangs and pods decode onto the port's types
 (utils/serde.py), and the port's solve equals the JAX package's exactly.
 Any divergence is reported as a structured diff.
 
-The port solves on one card. A recorded mesh fingerprint sets only the
-candidate pad's axis: the JAX package negotiates the pad divisible by the
-mesh's node axis, and the sharded solve equals the unsharded one.
+A recorded mesh fingerprint is rebuilt into a layout
+(parallel/mesh.py `layout_from_fingerprint`) when this process can host it
+(enough devices, virtual ones included, on the replay's device type): the
+wave then re-solves node-sharded, as recorded. Otherwise it re-solves
+unsharded, which gives the same verdicts. Either way the fingerprint's node
+axis sets the candidate pad: the pad was negotiated divisible by it.
 
 Every solve goes through one warm path (solver/warm.py `WarmPath`, a fresh
 one per replay unless the caller passes its own): a shape seen before
@@ -175,6 +178,17 @@ def recut_node_axis(cfg: dict, n_nodes: int) -> int:
     return k if k > 1 and n_nodes % k == 0 else 1
 
 
+def recorded_layout(cfg: dict, n_nodes: int, dev):
+    """The recorded mesh as a layout this process can launch on `dev`, or
+    None (replay then solves unsharded)."""
+    from grove_tpu_torch.parallel import mesh as mesh_mod
+
+    layout = mesh_mod.layout_from_fingerprint(cfg.get("mesh"), n_nodes)
+    if layout is None or layout.device.type != dev.type:
+        return None
+    return layout
+
+
 def encode_wave_record(wave: dict, snapshot: ClusterSnapshot):
     """The wave's recorded encode closure, re-encoded: (batch, decode)."""
     gangs = [serde.decode(d) for d in wave["gangs"]]
@@ -227,6 +241,7 @@ def solve_wave_record(
     cfg = wave["solver"]
     pruning = pruning_of(cfg)
     params = params if params is not None else SolverParams(*cfg["params"])
+    layout = recorded_layout(cfg, int(snapshot.capacity.shape[0]), dev)
     t0 = time.perf_counter()
     batch, decode = encode_wave_record(wave, snapshot)
     free_override = free_override_of(wave, snapshot)
@@ -247,22 +262,27 @@ def solve_wave_record(
             cache.device_array(plan.schedulable, torch.bool, dev),
             cache.device_array(plan.node_domain_id, torch.int32, dev), plan.gather_batch(batch),
             params, None, device=dev,
-            domains=cache.domain_index(plan.node_domain_id, dev) if dev.type == "cuda" else None,
-            cand_idx=plan.padded_idx(), cand_count=plan.count,
+            domains=cache.domain_index(plan.node_domain_id, dev,
+                                       shards=layout and layout.node_devices)
+            if dev.type == "cuda" else None,
+            cand_idx=plan.padded_idx(), cand_count=plan.count, layout=layout,
         )
     else:
+        portfolio = portfolio if portfolio is not None else cfg["portfolio"]
         result = solve(
             snapshot,
             batch,
             params,
             free=free_override,
-            portfolio=portfolio if portfolio is not None else cfg["portfolio"],
+            portfolio=portfolio,
             escalate_portfolio=(escalate_portfolio if escalate_portfolio is not None
                                 else cfg["escalatePortfolio"]),
             device=dev,
             pruning=pruning,
             mesh_axis=recut_node_axis(cfg, int(snapshot.capacity.shape[0])),
             warm=warm,
+            # A portfolio re-solve takes no layout (the JAX package ignores it).
+            mesh=layout if portfolio == 1 else None,
         )
     ok_np, assigned_np, score_np = fetch_result(result)
     plan = decode_bindings(ok_np, assigned_np, decode, snapshot)

@@ -238,3 +238,28 @@ def test_chip_smoke_loads_the_fixture_apiserver_without_jax():
     out = subprocess.run([sys.executable, "-c", _FIXTURE_PROBE, str(REPO)], cwd=REPO,
                          capture_output=True, text=True, timeout=300, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": [], "repo": []}
+
+
+_SHARD_PROBE = """
+import json, sys
+from grove_tpu_torch.bench import run_shard_bench, run_shard_worker, shard_worker_problem
+from grove_tpu_torch.kernels.place_wave import domain_index_sharded, place_wave_sharded
+from grove_tpu_torch.parallel.mesh import force_virtual_devices, layout_from_fingerprint
+from grove_tpu_torch.solver.core import sharded_solve, sharded_solve_fn
+from grove_tpu_torch.solver.reference import sharded_solve_ref
+from grove_tpu_torch.kernels import build
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "grove_tpu"))
+print(json.dumps({"bad": bad, "built": sorted(build._libs)}))
+"""
+
+
+def test_mesh_the_b7_wrapper_and_the_shard_bench_import_no_jax():
+    """parallel/mesh.py, the B7 wrapper (kernels/place_wave.py
+    `place_wave_sharded`), its plain version and the shard bench pull in
+    neither JAX nor the grove_tpu package, and build no kernel at import."""
+    for module in ("grove_tpu_torch.parallel.mesh", "grove_tpu_torch.kernels.place_wave",
+                   "grove_tpu_torch.bench"):
+        assert module in MODULES
+    out = subprocess.run([sys.executable, "-c", _SHARD_PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": [], "built": []}

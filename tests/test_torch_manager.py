@@ -253,14 +253,20 @@ def test_statusz_equal_after_a_worker_moved_the_process_state(tmp_path):
     from grove_tpu_torch.state import build_snapshot as p_snapshot
     from torch_jax_programs import release_jax_programs
 
-    for pcs_cls, topo, expand, snapshot, wl, drain, mesh, kw in (
-            (RPCS, R_TOPO, r_expand, r_snapshot, r_wl, r_drain, r_mesh, {}),
-            (PPCS, P_TOPO, p_expand, p_snapshot, p_wl, p_drain, p_mesh, {"device": "cpu"})):
-        ds = expand(pcs_cls.from_dict(simple1_doc()), topo)
-        nodes = wl.synthetic_cluster(zones=1, blocks_per_zone=1, racks_per_block=2,
-                                     hosts_per_rack=4)
-        drain(ds.podgangs, {p.name: p for p in ds.pods}, snapshot(nodes, topo), wave_size=16,
-              mesh=mesh.MeshConfig(enabled=True, min_nodes=1 << 20), **kw)
+    # The port negotiates on 2 virtual devices of the CPU: one device never
+    # counts a fallback, in either package.
+    p_mesh.force_virtual_devices(2, "cpu")
+    try:
+        for pcs_cls, topo, expand, snapshot, wl, drain, mesh, kw in (
+                (RPCS, R_TOPO, r_expand, r_snapshot, r_wl, r_drain, r_mesh, {}),
+                (PPCS, P_TOPO, p_expand, p_snapshot, p_wl, p_drain, p_mesh, {"device": "cpu"})):
+            ds = expand(pcs_cls.from_dict(simple1_doc()), topo)
+            nodes = wl.synthetic_cluster(zones=1, blocks_per_zone=1, racks_per_block=2,
+                                         hosts_per_rack=4)
+            drain(ds.podgangs, {p.name: p for p in ds.pods}, snapshot(nodes, topo),
+                  wave_size=16, mesh=mesh.MeshConfig(enabled=True, min_nodes=1 << 20), **kw)
+    finally:
+        p_mesh.force_virtual_devices(0)
     assert r_mesh.shard_fallbacks() >= 1 and p_mesh.shard_fallbacks() >= 1
     assert r_warm.default_warm_path().stats()["execMisses"] >= 1
     assert p_warm.default_warm_path().stats()["execMisses"] >= 1

@@ -515,7 +515,12 @@ def test_drain_backlog_applies_open_rungs_at_construction(worlds, drains, open_r
         assert out["port"][0] == "wave"
 
 
-def test_drain_backlog_mesh_on_one_card_counts_a_fallback(worlds):
+def test_drain_backlog_mesh_on_one_card_counts_a_fallback(worlds, drains):
+    """A mesh asked of one device: the drain counts its fallback on its
+    DrainStats and solves unsharded; the process-wide ledger does not move
+    (negotiation never counts one device), as in the JAX package on one of
+    its devices."""
+    from grove_tpu.parallel import mesh as r_mesh
     from grove_tpu_torch.parallel.mesh import MeshConfig, shard_fallbacks
     from grove_tpu_torch.solver.drain import drain_backlog as p_drain
     from grove_tpu_torch.solver.warm import WarmPath as PWarm
@@ -526,7 +531,13 @@ def test_drain_backlog_mesh_on_one_card_counts_a_fallback(worlds):
     got, stats = p_drain(gangs, pods, snap, wave_size=16, warm_path=PWarm(), device="cpu",
                          mesh=MeshConfig(enabled=True, min_nodes=8))
     assert got == base
-    assert (stats.shard_fallbacks, shard_fallbacks() - n0) == (1, 1)
+    r_drain, _, _, r_wp, _ = drains["jax"]
+    rg, rp, rs = worlds["jax"]
+    r0 = r_mesh.shard_fallbacks()
+    _, rstats = r_drain(rg, rp, rs, wave_size=16, warm_path=r_wp,
+                        mesh=r_mesh.MeshConfig(enabled=True, min_nodes=8, max_devices=1))
+    assert (stats.shard_fallbacks, shard_fallbacks() - n0) == \
+        (rstats.shard_fallbacks, r_mesh.shard_fallbacks() - r0) == (1, 0)
     _, stats = p_drain(gangs, pods, snap, wave_size=16, warm_path=PWarm(), device="cpu",
                        mesh=MeshConfig(enabled=False))
     assert stats.shard_fallbacks == 0

@@ -292,18 +292,38 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               drain journaled under S = 4 (bindings == the same drain
               unsharded), replayed on the card with 0 divergences with the
               layout rebuilt and unsharded
+ 22. mesh     the portfolio mesh (B5 x B7) and the scan over shards (B4 x
+              B7) on virtual shards of the card: (a) on 8 virtual devices,
+              solver_mesh_for's (4, 2), (2, 4) and (8, 1) at P = 4, 2, 8 on
+              bench wave 0 (5120 nodes): the portfolio launch under each
+              (place_wave_stacked_sharded; the plain B5 at (8, 1)) == the
+              unsharded B5 on every output, winner and objectives included,
+              and == its plain version on the wave's first 64 (P = 8: 32)
+              gangs, each timed beside B5; (b) the drain's first two-wave
+              chunk: place_wave_scan_sharded dense at S = 2, 4, 8 (5120
+              nodes) and pruned at S = 4 (8191 of 20480 nodes in a pad of
+              8192) == B4 on every output and == its plain version on the
+              steps cut to 32 gangs, each timed beside B4; (c) the shard
+              scenario's 313 gangs drained "scan" and "resident" under 4
+              shards (digests == phase 21's plain CPU drain), streamed in
+              "scan" mode under them (== the CPU's plain formed-serial
+              stream), drained pruned in "scan" under them and at portfolio
+              4 under the (4, 2) mesh (each == the unsharded card drain):
+              the phase's main path
  then         one JSON line: per kernel variant its launches on the main
               path (phases 4-9 as before, plus `launches_stream`,
               `launches_tune`, `launches_chaos`, `launches_defrag`,
               `launches_serving`, `launches_sidecar`, `launches_cells`,
               `launches_tenancy`, `launches_operator`, `launches_rollout`,
-              `launches_kubernetes`, `launches_quality` and
-              `launches_shard`, the launches of phases 11-21 ((b) and (c)
-              in `launches_kubernetes` and `launches_shard`), added to the
-              first row of their variant), its
+              `launches_kubernetes`, `launches_quality`, `launches_shard`
+              and `launches_mesh`, the launches of phases 11-22 ((b) and (c)
+              in `launches_kubernetes` and `launches_shard`, (c) in
+              `launches_mesh`), added to the first row of their variant), its
               error against the plain version, its time, the plain
               version's time, its bound and a library call's time; then
-              the last line: {"ok": true, "device": {...}}
+              the run's seconds, phase 15 (b)'s overhead reading again and
+              nvidia-smi's card line; then the last line:
+              {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -328,6 +348,8 @@ SCALE_PRUNING = dict(enabled=True, max_candidates=8191, min_fleet=256)
 
 # Gates that fail the run only after every phase has run and printed.
 GATE_FAILURES: list[str] = []
+# Phase 15 (b)'s overhead reading, repeated on the line before the last.
+RECORD_OVERHEAD: list[float] = []
 # Phase 15 (b)'s record-overhead reading: an untimed calibration window of
 # REPLAY_WINDOW_S seconds of drains sets the count, then REPLAY_ROUNDS rounds
 # of windows of that count, OFF, ON, ON, OFF and ON, OFF, OFF, ON in turn: 96
@@ -978,6 +1000,12 @@ def main() -> int:
 
     phase_done("21, shard")
 
+    # ---- 22. mesh: the portfolio mesh (B5 x B7) and the scan over shards ------
+    mh = mesh_phase(dev, card, timed, node_tensors, snap_b, gangs_b, encode_wave, plan_b, cut,
+                    snap_4, pruning, sh["cpu_digest"])
+
+    phase_done("22, mesh")
+
     # ---- kernels line --------------------------------------------------------
     src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
     print(json.dumps({"kernels": add_path_launches([
@@ -1000,13 +1028,15 @@ def main() -> int:
         *sc["rows"],
         sw["row"],
         *sh["rows"],
+        *mh["rows"],
     ], {"stream": stream_launches, "tune": tune_launches, "chaos": chaos_launches,
         "defrag": defrag_launches, "serving": serving_launches, "sidecar": sidecar_launches,
         "cells": cells_launches, "tenancy": tenancy_launches,
         "operator": operator_launches, "rollout": rollout_launches,
         "kubernetes": kubernetes_launches, "quality": quality_launches,
-        "shard": sh["launches"]})}))
-    print(f"elapsed {time.perf_counter() - t_start:.1f}s; card: {card_line()}")
+        "shard": sh["launches"], "mesh": mh["launches"]})}))
+    print(f"elapsed {time.perf_counter() - t_start:.1f}s; phase 15 (b) record overhead "
+          f"{', '.join(f'{x:.4f}' for x in RECORD_OVERHEAD)} (gate < 0.05); card: {card_line()}")
     check(not GATE_FAILURES, "; ".join(GATE_FAILURES))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2573,6 +2603,7 @@ def serving_phase(dev, card) -> dict:
     print(f"replay scenario: OFF {b['drain_wall_off_s']:.6f} s, ON {b['drain_wall_on_s']:.6f} s "
           f"a drain, overhead {b['record_overhead_frac']:.4f} (gate < 0.05) on {card}; "
           f"== the CPU's document, seconds aside")
+    RECORD_OVERHEAD.append(b["record_overhead_frac"])
     if b["vs_baseline"] != 1.0:
         # The run goes on through every phase and then fails (main()).
         GATE_FAILURES.append(
@@ -3264,7 +3295,347 @@ def shard_phase(dev, card, timed, compare, node_tensors, snap_b, first, gangs_b,
     check(launches.get("sharded_pruned", 0) > 0,
           f"shard: no sharded_pruned launch on the main path ({launches})")
     print(f"shard phase {time.perf_counter() - t_phase:.1f} s on {card}")
-    return {"rows": rows, "launches": launches}
+    return {"rows": rows, "launches": launches, "cpu_digest": cpu_digest}
+
+
+# Phase 22: the depth the plain versions run at (gangs of a wave), and the
+# portfolio meshes of 8 virtual devices at P = 4, 2 and 8.
+MESH_PLAIN_GANGS = {4: 64, 2: 64, 8: 32}
+MESH_SHAPES = {4: (4, 2), 2: (2, 4), 8: (8, 1)}
+
+
+def mesh_phase(dev, card, timed, node_tensors, snap_b, gangs_b, encode_wave, plan_b, cut,
+               snap_4, pruning, cpu_digest) -> dict:
+    """Phase 22: the portfolio mesh (B5 x B7) and the scan over shards
+    (B4 x B7) on virtual devices of the card. (a) on 8 virtual devices,
+    solver_mesh_for gives (4, 2), (2, 4) and (8, 1) at P = 4, 2, 8 on bench
+    wave 0 (5120 nodes, 256 gangs): the portfolio launch under each mesh
+    (B5 x B7, the plain B5 at (8, 1)) == the unsharded B5 launch on every
+    output, winner and objectives included, and == its plain version at a
+    cut depth (MESH_PLAIN_GANGS gangs of the wave), each timed beside B5;
+    (b) the first two-wave chunk of the 256-gang drain, dense at S = 2, 4,
+    8 (5120 nodes) and pruned at S = 4 (8191 of 20480 nodes in a pad of
+    8192): B4 x B7 == B4 on every output, and == its plain version on the
+    chunk's waves cut to 32 gangs, each timed beside B4 (comparison
+    launches, not counted); (c) the main path: the shard scenario's 313
+    gangs drained "scan" and "resident" under 4 shards (digests == phase
+    21's plain CPU drain, `cpu_digest`) and streamed in "scan" mode (==
+    the CPU's plain formed-serial stream), and a portfolio=4 drain of them
+    under the (4, 2) mesh (== the same drain unsharded on the card), and a
+    pruned "scan" drain of them under 4 shards (== unsharded on the card).
+    Returns {"rows": the kernels line's rows, "launches": per variant}."""
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.bench import bindings_digest, shard_worker_problem
+    from grove_tpu_torch.kernels.place_wave import (
+        domain_index,
+        domain_index_sharded,
+        domain_index_stacked_sharded,
+        place_wave,
+        reset_launches,
+    )
+    from grove_tpu_torch.parallel import mesh as mesh_mod
+    from grove_tpu_torch.parallel.portfolio import params_population
+    from grove_tpu_torch.solver.core import (
+        SolverParams,
+        batch_to,
+        scan_pruned_solve,
+        scan_solve,
+        stack_on,
+        stacked_dispatch,
+    )
+    from grove_tpu_torch.solver.drain import class_runs, drain_backlog
+    from grove_tpu_torch.solver.encode import stack_batches
+    from grove_tpu_torch.solver.pruning import PruningConfig, plan_candidates, stack_plans
+    from grove_tpu_torch.solver.reference import (
+        portfolio_select_ref,
+        sharded_scan_pruned_solve_ref,
+        sharded_scan_solve_ref,
+        sharded_stacked_solve_ref,
+        stacked_solve_ref,
+    )
+    from grove_tpu_torch.solver.stream import ScanConfig, StreamConfig, drain_stream
+    from grove_tpu_torch.solver.warm import WarmPath
+
+    t_phase = time.perf_counter()
+    params = SolverParams()
+    t_len = len(gangs_b)
+    okg0 = torch.zeros(t_len, dtype=torch.bool, device=dev)
+    n, r = snap_b.capacity.shape
+    node = node_tensors(snap_b)
+    dom1 = domain_index(snap_b.node_domain_id, dev)
+    src = "grove_tpu_torch/kernels/csrc/place_wave.cu"
+
+    def exact(label, names, got, want):
+        for nm, a, b in zip(names, got, want):
+            check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                  f"mesh[{label}]: {nm} differs"
+                  + ("" if a is None or b is None else f" at {torch.nonzero(a != b)[:8].tolist()}"))
+
+    def launch_ms(fn, fresh, reps=3):
+        """ms per launch of fn(free, okg): a warm-up, then the mean of
+        `reps`, each on its own copy of the carry made before the clock."""
+        copies = [(fresh(), okg0.clone()) for _ in range(reps + 1)]
+        fn(*copies[0])
+        _, ms = timed(lambda: [fn(*c) for c in copies[1:]])
+        return ms / reps
+
+    def spans(axis, shards):
+        return [(s * axis // shards, (s + 1) * axis // shards) for s in range(shards)]
+
+    sel = ("assigned", "ok", "placement_score", "free_after", "ok_global", "winner", "objectives")
+    scan_names = ("assigned", "ok", "placement_score", "free_in", "okg_in", "free_after",
+                  "ok_global")
+
+    # ---- (a) B5 x B7 on bench wave 0 ------------------------------------------
+    first_ws = plan_b[0]
+    tb = batch_to(encode_wave(first_ws), dev)
+    mesh_mod.force_virtual_devices(8, dev)
+    pf = {}
+    try:
+        for p in (4, 2, 8):
+            layout = mesh_mod.solver_mesh_for(p, n, dev)
+            shape = (layout.portfolio_devices, layout.node_devices)
+            check(shape == MESH_SHAPES[p], f"mesh[P={p}]: solver_mesh_for gave {shape}")
+            k = layout.node_devices
+            # Built before any launch is timed (a launch given none builds its own).
+            dom = domain_index_sharded(snap_b.node_domain_id, k, dev) if k > 1 else dom1
+            pstack = stack_on(params_population(p), dev)
+
+            def portfolio(free, okg, batch=tb, layout=layout, pstack=pstack, dom=dom):
+                return stacked_dispatch(free, *node[1:], batch, pstack, okg, select=True,
+                                        device=dev, domains=dom, layout=layout)
+
+            def b5(free, okg, batch=tb, pstack=pstack):
+                return stacked_dispatch(free, *node[1:], batch, pstack, okg, select=True,
+                                        device=dev, domains=dom1)
+
+            got = portfolio(node_tensors(snap_b)[0], okg0.clone())
+            want = b5(node_tensors(snap_b)[0], okg0.clone())
+            rows = stacked_dispatch(node_tensors(snap_b)[0], *node[1:], tb, pstack, okg0.clone(),
+                                    select=False, device=dev, domains=dom, layout=layout)
+            torch.cuda.synchronize()
+            exact(f"P={p} {shape} vs B5", sel, got, want)
+            # The plain version at a cut depth, on the same card inputs.
+            g_cut = MESH_PLAIN_GANGS[p]
+            tb_cut = batch_to(encode_wave(cut(first_ws, g_cut)), dev)
+            kern_cut = portfolio(node_tensors(snap_b)[0], okg0.clone(), batch=tb_cut)
+            torch.cuda.synchronize()
+
+            def plain():
+                if k > 1:
+                    rows_p = sharded_stacked_solve_ref(node_tensors(snap_b)[0], *node[1:], tb_cut,
+                                                       pstack, okg0, spans(n, k))
+                else:
+                    rows_p = stacked_solve_ref(node_tensors(snap_b)[0], *node[1:], tb_cut, pstack,
+                                               okg0)
+                return portfolio_select_ref(*rows_p, tb_cut, okg0.clone())
+
+            want_cut, plain_ms = timed(plain)
+            exact(f"P={p} {shape}, {g_cut} gangs, vs plain", sel, kern_cut, want_cut)
+            ms = launch_ms(portfolio, lambda: node_tensors(snap_b)[0])
+            b5_ms = launch_ms(b5, lambda: node_tensors(snap_b)[0])
+            okg_np = np.zeros(t_len, bool)
+            work = [place_wave_work(encode_wave(first_ws), snap_b.node_domain_id, r, okg_np,
+                                    rows[1][j].cpu().numpy()) for j in range(p)]
+            bound = bound_of(sum(w[0] for w in work) + p * 2 * 4 * n * r,
+                             sum(w[1] for w in work))
+            pf[p] = dict(shape=shape, ms=ms, b5_ms=b5_ms, plain_ms=plain_ms, plain_gangs=g_cut,
+                         bound=bound)
+            print(f"mesh[P={p}, mesh {shape}, wave 0, G={tb.gang_valid.shape[0]}, N={n}]: "
+                  f"{'B5 x B7' if k > 1 else 'B5'} == B5 on every output (winner "
+                  f"{int(got[5])}, admitted {int(got[1].sum())}), == plain on its first "
+                  f"{g_cut} gangs (winner {int(want_cut[5])}); {ms:.3f} ms beside B5's "
+                  f"{b5_ms:.3f} ms, plain {plain_ms:.1f} ms ({g_cut} gangs), bound "
+                  f"{bound[0]:.6f} ms ({bound[1]}) on {card}")
+    finally:
+        mesh_mod.force_virtual_devices(0)
+
+    # ---- (b) B4 x B7 on the drain's first two-wave chunk ----------------------
+    chunk = next(class_runs(plan_b))[:32]
+    steps = [encode_wave(w) for w in chunk]
+    tbs = batch_to(stack_batches(steps), dev)
+    tbs_cut = batch_to(stack_batches([encode_wave(cut(w, 32)) for w in chunk]), dev)
+    fresh = lambda: node_tensors(snap_b)[0]  # noqa: E731
+    b4 = scan_solve(fresh(), *node[1:], tbs, params, okg0.clone(), retain=True, device=dev,
+                    domains=dom1)
+    # B4's work: each step under its entering ok_global and its verdicts.
+    work = [place_wave_work(s, snap_b.node_domain_id, r, b4[4][w].cpu().numpy(),
+                            b4[1][w].cpu().numpy()) for w, s in enumerate(steps)]
+    scan_bound = bound_of(sum(x[0] for x in work) + len(steps) * (4 * snap_b.capacity.size + t_len),
+                          sum(x[1] for x in work))
+    b4_ms = launch_ms(lambda f, o: scan_solve(f, *node[1:], tbs, params, o, retain=True,
+                                              device=dev, domains=dom1), fresh)
+    scan = {}
+    for shards in SHARD_LADDER:
+        layout = mesh_mod.solve_layout_for(n, mesh_mod.force_virtual_devices(shards, dev))
+        dom_sh = domain_index_sharded(snap_b.node_domain_id, shards, dev)
+        try:
+            check(layout is not None and layout.node_devices == shards,
+                  f"mesh[scan]: no {shards}-shard layout")
+            got = scan_solve(fresh(), *node[1:], tbs, params, okg0.clone(), retain=True,
+                             device=dev, domains=dom_sh, layout=layout)
+            torch.cuda.synchronize()
+            exact(f"B4 x B7, S={shards} vs B4", scan_names, got, b4)
+            kern_cut = scan_solve(fresh(), *node[1:], tbs_cut, params, okg0.clone(), retain=True,
+                                  device=dev, domains=dom_sh, layout=layout)
+            torch.cuda.synchronize()
+            want_cut, plain_ms = timed(lambda: sharded_scan_solve_ref(
+                fresh(), *node[1:], tbs_cut, params, okg0.clone(), True, spans(n, shards)))
+            exact(f"B4 x B7, S={shards}, 32 gangs a step, vs plain", scan_names, kern_cut,
+                  want_cut)
+            ms = launch_ms(lambda f, o: scan_solve(f, *node[1:], tbs, params, o, retain=True,
+                                                   device=dev, domains=dom_sh, layout=layout),
+                           fresh)
+        finally:
+            mesh_mod.force_virtual_devices(0)
+        scan[shards] = dict(ms=ms, plain_ms=plain_ms)
+        print(f"mesh[scan, {len(steps)}-wave chunk, S={shards}, N={n}]: B4 x B7 == B4 on every "
+              f"output (admitted {int(got[1].sum())}), == plain on 32 gangs a step; "
+              f"{ms:.3f} ms beside B4's {b4_ms:.3f} ms, plain {plain_ms:.1f} ms (32 gangs a "
+              f"step), bound {scan_bound[0]:.6f} ms ({scan_bound[1]}) on {card}")
+
+    # The pruned chunk at 20480 nodes, under 4 shards.
+    shards = 4
+    n4 = snap_4.capacity.shape[0]
+    fresh4 = lambda: node_tensors(snap_4)[0]  # noqa: E731
+    steps4 = [encode_wave(w, snap_4) for w in chunk]
+    plans = [plan_candidates(snap_4, b, pruning, mesh_axis=shards) for b in steps4]
+    check(all(pl is not None and pl.pad % shards == 0 for pl in plans),
+          "mesh[pruned scan]: a wave did not prune to a pad the shards divide")
+    sp = stack_plans(plans, steps4, dev)
+    dom_s = domain_index_stacked_sharded(sp.node_domain_id, shards, dev)
+    pargs = (sp.cand_idx, sp.capacity, sp.schedulable, sp.node_domain_id, sp.batch, params)
+    b4p = scan_pruned_solve(fresh4(), *pargs, okg0.clone(), retain=True, device=dev,
+                            domains=sp.domains)
+    b4p_ms = launch_ms(lambda f, o: scan_pruned_solve(f, *pargs, o, retain=True, device=dev,
+                                                      domains=sp.domains), fresh4)
+    steps4_cut = [encode_wave(cut(w, 32), snap_4) for w in chunk]
+    plans_cut = [plan_candidates(snap_4, b, pruning, mesh_axis=shards) for b in steps4_cut]
+    sp_cut = stack_plans(plans_cut, steps4_cut, dev)
+    pargs_cut = (sp_cut.cand_idx, sp_cut.capacity, sp_cut.schedulable, sp_cut.node_domain_id,
+                 sp_cut.batch, params)
+    layout = mesh_mod.solve_layout_for(plans[0].pad, mesh_mod.force_virtual_devices(shards, dev))
+    try:
+        got = scan_pruned_solve(fresh4(), *pargs, okg0.clone(), retain=True, device=dev,
+                                domains=dom_s, layout=layout)
+        torch.cuda.synchronize()
+        exact("pruned B4 x B7, S=4 vs B4", scan_names, got, b4p)
+        kern_cut = scan_pruned_solve(
+            fresh4(), *pargs_cut, okg0.clone(), retain=True, device=dev, layout=layout,
+            domains=domain_index_stacked_sharded(sp_cut.node_domain_id, shards, dev))
+        torch.cuda.synchronize()
+        want_cut, pplain_ms = timed(lambda: sharded_scan_pruned_solve_ref(
+            fresh4(), *pargs_cut, okg0.clone(), True, spans(plans_cut[0].pad, shards)))
+        exact("pruned B4 x B7, S=4, 32 gangs a step, vs plain", scan_names, kern_cut, want_cut)
+        pms = launch_ms(lambda f, o: scan_pruned_solve(f, *pargs, o, retain=True, device=dev,
+                                                       domains=dom_s, layout=layout), fresh4)
+    finally:
+        mesh_mod.force_virtual_devices(0)
+    work = [place_wave_work(pl.gather_batch(b), pl.node_domain_id, r, b4p[4][w].cpu().numpy(),
+                            b4p[1][w].cpu().numpy(), carry_bytes=b3_bytes(pl.pad, pl.count, r))
+            for w, (b, pl) in enumerate(zip(steps4, plans))]
+    pbound = bound_of(sum(x[0] for x in work) + len(steps4) * (4 * snap_4.capacity.size + t_len),
+                      sum(x[1] for x in work))
+    print(f"mesh[pruned scan, {len(steps4)}-wave chunk, S=4, {plans[0].count} of {n4} nodes in a "
+          f"pad of {plans[0].pad}]: B4 x B7 == B4 on every output (admitted "
+          f"{int(got[1].sum())}), == plain on 32 gangs a step; {pms:.3f} ms beside B4's "
+          f"{b4p_ms:.3f} ms, plain {pplain_ms:.1f} ms, bound {pbound[0]:.6f} ms ({pbound[1]}) "
+          f"on {card}")
+
+    # ---- (c) the main path: the shard backlog under the mesh ------------------
+    _topo, _nodes, gangs, pods, snap = shard_worker_problem()
+    cfg = StreamConfig(depth=2, wave_size=64)
+    arrivals = [(0.0, g) for g in gangs]
+    t_cpu = time.perf_counter()
+    cpu_stream, _ = drain_stream(arrivals, pods, snap, config=cfg, pipeline=False,
+                                 scan=ScanConfig(), device="cpu", warm_path=WarmPath())
+    cpu_stream_s = time.perf_counter() - t_cpu
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    t_main = time.perf_counter()
+    digests = {}
+    mesh_mod.force_virtual_devices(shards, dev)
+    try:
+        meshcfg = mesh_mod.MeshConfig(enabled=True, min_nodes=64)
+        for harvest in ("scan", "resident"):
+            b, st = drain_backlog(gangs, pods, snap, wave_size=64, harvest=harvest, device=dev,
+                                  warm_path=WarmPath(), mesh=meshcfg)
+            digests[harvest] = bindings_digest(b)
+            check(st.shard_devices == shards and st.scan_chunks > 0 and st.shard_fallbacks == 0,
+                  f"mesh[{harvest}]: shard_devices {st.shard_devices}, chunks {st.scan_chunks}, "
+                  f"fallbacks {st.shard_fallbacks}")
+            print(f"mesh[{harvest} drain, S={shards}, {len(gangs)} gangs]: {st.waves} waves in "
+                  f"{st.scan_chunks} chunks ({st.scanned_waves} waves), dispatches "
+                  f"{st.dispatches}, round trips {st.device_roundtrips}, drain_s "
+                  f"{st.total_s:.4f}, digest {digests[harvest][:16]} on {card}")
+        sb, sst = drain_stream(arrivals, pods, snap, config=cfg, pipeline=True, scan=ScanConfig(),
+                               device=dev, warm_path=WarmPath(), mesh=meshcfg)
+        check(sst.mode == "scan" and sst.drain.shard_devices == shards
+              and sst.drain.scan_chunks > 0,
+              f"mesh[stream]: mode {sst.mode}, shard_devices {sst.drain.shard_devices}, chunks "
+              f"{sst.drain.scan_chunks}")
+        print(f"mesh[scan stream, S={shards}]: {sst.drain.waves} waves, {sst.drain.scan_chunks} "
+              f"chunks, wall_s {sst.wall_s:.4f}; == the CPU's plain formed-serial stream "
+              f"{sb == cpu_stream} ({cpu_stream_s:.1f} s on the CPU) on {card}")
+        prb, prst = drain_backlog(gangs, pods, snap, wave_size=64, harvest="scan", device=dev,
+                                  warm_path=WarmPath(), mesh=meshcfg,
+                                  pruning=PruningConfig(**SHARD_PRUNING))
+        check(prst.shard_devices == shards and prst.pruned_waves > 0 and prst.scan_chunks > 0,
+              f"mesh[pruned scan]: shard_devices {prst.shard_devices}, pruned "
+              f"{prst.pruned_waves}, chunks {prst.scan_chunks}")
+        mesh_mod.force_virtual_devices(8, dev)
+        pb, pst = drain_backlog(gangs, pods, snap, wave_size=64, portfolio=4, device=dev,
+                                warm_path=WarmPath())
+    finally:
+        mesh_mod.force_virtual_devices(0)
+    torch.cuda.synchronize(dev)
+    main_s = time.perf_counter() - t_main
+    launches = dict(place_wave.variant_launches)
+    ub, ust = drain_backlog(gangs, pods, snap, wave_size=64, portfolio=4, device=dev,
+                            warm_path=WarmPath())
+    upb, upst = drain_backlog(gangs, pods, snap, wave_size=64, harvest="scan", device=dev,
+                              warm_path=WarmPath(), pruning=PruningConfig(**SHARD_PRUNING))
+    torch.cuda.synchronize(dev)
+    check(prb == upb and np.array_equal(prst.free_after, upst.free_after),
+          "mesh: the pruned scan drain under 4 shards differs from the unsharded one")
+    print(f"mesh[pruned scan drain, S={shards}, pad {prst.candidate_pad}]: {prst.pruned_waves} "
+          f"pruned waves in {prst.scan_chunks} chunks, escalations {prst.escalations}, == the "
+          f"unsharded pruned scan drain on the card on {card}")
+    check(digests["scan"] == digests["resident"] == cpu_digest,
+          f"mesh: scanned drains' digests {digests} != the CPU's plain drain {cpu_digest[:16]}")
+    check(sb == cpu_stream, "mesh: the scan stream under 4 shards binds otherwise than the CPU")
+    check(pb == ub and np.array_equal(pst.free_after, ust.free_after),
+          "mesh: the portfolio=4 drain under the (4, 2) mesh differs from the unsharded one")
+    check(all(launches.get(v, 0) > 0 for v in ("scan_sharded", "scan_sharded_pruned"))
+          and launches.get("portfolio_sharded", 0) == pst.waves,
+          f"mesh: main-path launches {launches}")
+    print(f"mesh[portfolio=4 drain, mesh (4, 2)]: {pst.waves} waves, admitted {pst.admitted}, == "
+          f"the unsharded B5 drain; main path {main_s:.2f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; phase {time.perf_counter() - t_phase:.1f}"
+          f" s on {card}")
+    top = SHARD_LADDER[-1]
+    return {"launches": launches, "rows": [
+        {"name": "place_wave_stacked_sharded(B5 x B7, K=4, S=2, select)", "route": "cuda",
+         "source": src, "replaces": "grove_tpu/parallel/portfolio.py:236", "launches": 0,
+         "max_abs_err": 0.0, "ms": pf[4]["ms"], "plain_ms": pf[4]["plain_ms"],
+         "plain_gangs": pf[4]["plain_gangs"], "bound_ms": pf[4]["bound"][0],
+         "bound_by": pf[4]["bound"][1], "library_ms": None, "b5_ms": pf[4]["b5_ms"],
+         "ms_by_mesh": {f"{v['shape'][0]}x{v['shape'][1]}": v["ms"] for v in pf.values()},
+         "b5_ms_by_p": {str(p): v["b5_ms"] for p, v in pf.items()}},
+        {"name": "place_wave_scan_sharded(B4 x B7, dense)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:790", "launches": 0, "max_abs_err": 0.0,
+         "ms": scan[top]["ms"], "plain_ms": scan[top]["plain_ms"], "plain_gangs": 32,
+         "bound_ms": scan_bound[0], "bound_by": scan_bound[1], "library_ms": None,
+         "shards": top, "b4_ms": b4_ms,
+         "ms_by_shards": {str(k): v["ms"] for k, v in scan.items()},
+         "plain_ms_by_shards": {str(k): v["plain_ms"] for k, v in scan.items()}},
+        {"name": "place_wave_scan_sharded(B4 x B7, pruned)", "route": "cuda", "source": src,
+         "replaces": "grove_tpu/solver/core.py:873", "launches": 0, "max_abs_err": 0.0,
+         "ms": pms, "plain_ms": pplain_ms, "plain_gangs": 32, "bound_ms": pbound[0],
+         "bound_by": pbound[1], "library_ms": None, "shards": shards, "b4_ms": b4p_ms},
+    ]}
 
 
 def add_path_launches(rows, paths: dict) -> list:
@@ -3281,6 +3652,10 @@ def add_path_launches(rows, paths: dict) -> list:
         "place_wave_stacked_scan(B6)": ("stacked_scan",),
         "place_wave_sharded(B7, dense)": ("sharded",),
         "place_wave_sharded(B7, pruned)": ("sharded_pruned",),
+        "place_wave_stacked_sharded(B5 x B7, K=4, S=2, select)": ("stacked_sharded",
+                                                                  "portfolio_sharded"),
+        "place_wave_scan_sharded(B4 x B7, dense)": ("scan_sharded",),
+        "place_wave_scan_sharded(B4 x B7, pruned)": ("scan_sharded_pruned",),
     }
     out = []
     for row in rows:

@@ -131,6 +131,21 @@
 // its plain version, solver/reference.py `sharded_solve_ref`, adds in the
 // same order.
 //
+// Two compositions of the sharded chain. The stacked launch over shards
+// (B5 x B7: grove_tpu/parallel/portfolio.py `portfolio_solve` over a
+// (portfolio, node) mesh with a node axis S > 1) is K * S chain blocks in one
+// cooperative launch, block b shard b % S of weight row b / S: each row has
+// its own barrier counter, its own exchange halves and one carry its shards
+// share (each changing its own rows), and the select kernel then ranks the
+// rows on each row's shard 0 verdicts. The scan over shards (B4 x B7:
+// grove_tpu/solver/core.py `scan_solve_fn(layout)` / `scan_pruned_solve_fn
+// (layout)`) is S chain blocks walking a chunk's W steps together; a pruned
+// step's shard gathers and scatters its own candidate rows, over the step's
+// own shard CSR. Between two steps the shards meet twice: before any tail is
+// written (every shard has read the step's gates on ok_global and gathered
+// its rows), and before the next head reads the tails. Each is the sharded
+// wave's code on the same inputs, so each row or step equals B7 bit for bit.
+//
 // Exactness against the JAX package and the plain PyTorch version
 // (grove_tpu_torch/solver/reference.py):
 //  - arithmetic uses the IEEE round-to-nearest intrinsics (__fadd_rn,
@@ -263,7 +278,11 @@ struct PlaceWaveArgs {
   int64_t st_depends_on, st_global_index, st_depends_global, st_reuse_nodes;
   int64_t st_group_node_ok, st_spread_level, st_spread_family, st_spread_avoid;
   int64_t st_assigned, st_ok, st_score, st_ginv, st_free_in, st_okg_in;
+  int64_t st_shard_offsets, st_shard_nodes;
   // sharded launch: S shards of N / S rows each
+  // (the stacked launch over shards: every exchange array and the counter
+  // gain a leading [K], one set per weight row; the scan over shards: the
+  // pruned chunk's shard CSRs are step-strided)
   int S;
   int x_rows, x_words;           // exchange capacity per shard: candidates, f32 words
   const int32_t* shard_offsets;  // [S, L, N + 1] each shard's CSR row starts
@@ -281,7 +300,8 @@ struct PlaceWaveArgs {
   X(set_member) X(set_req_level) X(set_pref_level) X(set_valid) X(set_pinned)          \
   X(pod_group) X(pod_rank) X(gang_valid) X(group_order) X(depends_on) X(global_index)  \
   X(depends_global) X(reuse_nodes) X(group_node_ok) X(spread_level) X(spread_family)   \
-  X(spread_avoid) X(assigned) X(ok) X(score) X(ginv) X(free_in) X(okg_in)
+  X(spread_avoid) X(assigned) X(ok) X(score) X(ginv) X(free_in) X(okg_in)              \
+  X(shard_offsets) X(shard_nodes)
 
 // Step w of a scan launch as the args of one wave. An absent array has
 // stride 0 and stays null. No branch: each step pointer is base + w * stride
@@ -307,7 +327,11 @@ static thread_local int pw_emu_block = 0;
 // One weight variant's weights, output rows and scratch: row k of each [K,
 // ...] array. The single launch has one (k = 0, the scalar weights). In the
 // sweep launch block b's output rows and scratch are row b of W * K (its
-// [b / K, b % K] rows) and its weights row b % K.
+// [b / K, b % K] rows) and its weights row b % K. In the sharded launch the
+// rows are the shards'. In the stacked launch over S shards block b is shard
+// b % S of weight row b / S: its output rows and scratch are row b of K * S
+// (its [b / S, b % S] rows), its weights and its carry row b / S, the carry
+// shared by the row's shards, each changing its own rows of it.
 struct PwVariant {
   float w_tight, w_pref, w_reuse, w_reserve, w_spread;
   int32_t* assigned;
@@ -330,9 +354,11 @@ struct PwVariant {
 template <bool kStacked, bool kSweep = false, bool kShard = false>
 __device__ __forceinline__ PwVariant pw_variant(const PlaceWaveArgs& a) {
   PwVariant V;
-  // output and scratch row: the stacked launch's variant, the shard
+  // output and scratch row: the stacked launch's variant, the shard, or both
   const size_t b = kStacked || kShard ? (size_t)PW_BLOCK() : 0;
-  const size_t k = kSweep ? b % (size_t)a.K : b;       // weight row
+  constexpr bool kRowShards = kStacked && kShard;
+  const size_t k = kSweep ? b % (size_t)a.K : (kRowShards ? b / (size_t)a.S : b);  // weight row
+  const size_t c = kRowShards ? k : b;                 // carry row
   if (kStacked) {
     const float* w = a.params_stack + 5 * k;
     V.w_tight = w[0]; V.w_pref = w[1]; V.w_reuse = w[2]; V.w_reserve = w[3]; V.w_spread = w[4];
@@ -344,7 +370,7 @@ __device__ __forceinline__ PwVariant pw_variant(const PlaceWaveArgs& a) {
   V.assigned = a.assigned + b * G * a.MP;
   V.ok = a.ok + b * G;
   V.score = a.score + b * G;
-  V.carry = a.carry ? a.carry + b * N * a.R : nullptr;
+  V.carry = a.carry ? a.carry + c * N * a.R : nullptr;
   V.family_used = a.family_used ? a.family_used + b * G * N : nullptr;
   V.spread_pen = a.spread_pen ? a.spread_pen + b * N : nullptr;
   V.tables = a.tables + b * a.L * N * (a.R + a.MG);
@@ -832,7 +858,9 @@ __global__ void place_wave_scan_prologue(const PlaceWaveArgs a) { pw_scan_invari
 
 // ---- the chain: every gang of the wave, in batch order ----------------------
 // (the scan: every gang of each step in turn, the steps in order; the sweep,
-// kStacked && kScan: one step per block)
+// kStacked && kScan: one step per block; kShard: the block is one shard of a
+// wave, or of each step of a scan, or of each weight row of a stacked
+// launch, and meets the other shards of its wave at the barriers)
 template <bool kProfile, bool kStacked, bool kScan, bool kShard = false>
 __global__ void __launch_bounds__(PW_THREADS)
 place_wave_kernel(const PlaceWaveArgs a0) {
@@ -857,7 +885,9 @@ place_wave_kernel(const PlaceWaveArgs a0) {
   const int lane = tid % PW_WARP, warp = tid / PW_WARP;
   const int NW = (NT + PW_WARP - 1) / PW_WARP;
   constexpr bool kSweep = kStacked && kScan;
-  const int shard = kShard ? PW_BLOCK() : 0;
+  static_assert(!(kSweep && kShard), "the sweep launch has no shards");
+  // The stacked launch over shards: block b is shard b % S of row b / S.
+  const int shard = kShard ? (kStacked ? PW_BLOCK() % a0.S : PW_BLOCK()) : 0;
   unsigned bar_gen = 0;  // barriers this block has passed (sharded)
   int xpar = 0;          // the exchange buffers' half in use (sharded)
   const int step_lo = kSweep ? PW_BLOCK() / a0.K : 0;
@@ -869,14 +899,27 @@ place_wave_kernel(const PlaceWaveArgs a0) {
     PlaceWaveArgs a_step;
     if constexpr (kScan) {
       // The previous step's tail (the carry's scatter, ok_global) is in
-      // place for this step's head to read.
+      // place for this step's head to read: in the block, and over shards
+      // once every shard has passed the barrier that follows its tail.
       __syncthreads();
+      if (kShard && step > step_lo) pw_grid_sync(a0, bar_gen);
       pw_step_args(a_step, a0, step);
     } else if constexpr (kShard) {
-      // The shard walks its own nodes: its CSR stands in for the level's.
       a_step = a0;
-      a_step.dom_offsets = a0.shard_offsets + (size_t)shard * a0.L * (a0.N + 1);
-      a_step.dom_nodes = a0.shard_nodes + (size_t)shard * a0.L * a0.N;
+    }
+    if constexpr (kShard) {
+      // The shard walks its own nodes: its CSR stands in for the level's.
+      a_step.dom_offsets = a_step.shard_offsets + (size_t)shard * a0.L * (a0.N + 1);
+      a_step.dom_nodes = a_step.shard_nodes + (size_t)shard * a0.L * a0.N;
+      if constexpr (kStacked) {
+        // Each weight row's shards exchange through their own buffers and
+        // count their own barrier.
+        const size_t row = (size_t)PW_BLOCK() / a0.S, S = a0.S;
+        a_step.xagg += row * 2 * S * a0.x_words;
+        a_step.xcand += row * 2 * S * a0.x_rows * 3;
+        a_step.xcnt += row * 2 * S;
+        a_step.bar += row;
+      }
     }
     const PlaceWaveArgs& a = kScan || kShard ? a_step : a0;
     const int N = a.N, R = a.R, L = a.L, MG = a.MG, MS = a.MS, MP = a.MP;
@@ -891,11 +934,13 @@ place_wave_kernel(const PlaceWaveArgs a0) {
     prof.start(a.prof ? a.prof + (size_t)a.G * PW_NSEC : nullptr);
     if (kScan) {
       // The entering fleet carry, before the pruned gather (fleet-shaped, as
-      // the JAX scan retains it), and a fresh set of family rows.
+      // the JAX scan retains it), and a fresh set of family rows. Over
+      // shards each block copies its share of the words.
+      const int c0 = shard * NT + tid, cs = (kShard ? a.S : 1) * NT;
       if (a.free_in && !kSweep)
-        for (int k = tid; k < a.NF * R; k += NT) a.free_in[k] = a.free_io[k];
+        for (int k = c0; k < a.NF * R; k += cs) a.free_in[k] = a.free_io[k];
       if (a.okg_in)
-        for (int k = tid; k < a.T; k += NT) a.okg_in[k] = a.ok_global[k];
+        for (int k = c0; k < a.T; k += cs) a.okg_in[k] = a.ok_global[k];
       if (spread)
         for (size_t k = tid; k < (size_t)a.G * N; k += NT) V.family_used[k] = 0;
     }
@@ -919,9 +964,9 @@ place_wave_kernel(const PlaceWaveArgs a0) {
       __syncthreads();
     } else if (kStacked) {
       // Each variant starts from its own copy of the fleet carry (the sweep:
-      // of its step's recorded free).
+      // of its step's recorded free; over shards each shard copies its rows).
       const float* src = kSweep ? a.free_in : a.free_io;
-      for (int k = tid; k < N * R; k += NT) free_s[k] = src[k];
+      for (int k = row_lo * R + tid; k < row_hi * R; k += NT) free_s[k] = src[k];
       __syncthreads();
     }
     // Each carry row's normalised free capacity, kept beside the carry and
@@ -1381,6 +1426,9 @@ place_wave_kernel(const PlaceWaveArgs a0) {
     }
 
     if (kProfile) prof.row = a.prof + (size_t)a.G * PW_NSEC;
+    // The scan over shards: every shard has read this step's gates and its
+    // entering carry before any shard writes the step's tail.
+    if (kScan && kShard) pw_grid_sync(a, bar_gen);
     if (pruned) {
       // B3 scatter (scatter_free): candidate rows back to the fleet; pad rows
       // drop; the plan's indices are unique, so no two threads share a row.
@@ -1434,13 +1482,15 @@ __device__ float pw_xla_sum(float* x, int n) {
 // has the most admitted gangs, then the highest quality, then the lowest
 // index. Its rows are copied out, its carry becomes the fleet's, and its
 // verdicts are scatter-maxed into ok_global (B2), as the single launch does.
+// Over S shards row k's verdicts are its shard 0's, output row k * S.
 __global__ void place_wave_select(const PlaceWaveArgs a) {
   __shared__ int s_win;
   const int tid = threadIdx.x, NT = blockDim.x;
   const int G = a.G, K = a.K;
+  const size_t S = a.S > 1 ? a.S : 1;
   for (int k = tid; k < K; k += NT) {
-    const uint8_t* ok = a.ok + (size_t)k * G;
-    const float* sc = a.score + (size_t)k * G;
+    const uint8_t* ok = a.ok + (size_t)k * S * G;
+    const float* sc = a.score + (size_t)k * S * G;
     float* terms = a.sel_terms + (size_t)k * G;
     int adm = 0;
     for (int g = 0; g < G; ++g) {
@@ -1463,13 +1513,13 @@ __global__ void place_wave_select(const PlaceWaveArgs a) {
     *a.winner = w;
   }
   __syncthreads();
-  const size_t w = s_win;
+  const size_t w = s_win, wr = w * S;  // the winner's carry row, its output row
   const int MP = a.MP, NR = a.N * a.R;
-  for (int i = tid; i < G * MP; i += NT) a.win_assigned[i] = a.assigned[w * G * MP + i];
+  for (int i = tid; i < G * MP; i += NT) a.win_assigned[i] = a.assigned[wr * G * MP + i];
   for (int i = tid; i < G; i += NT) {
-    const uint8_t okw = a.ok[w * G + i];
+    const uint8_t okw = a.ok[wr * G + i];
     a.win_ok[i] = okw;
-    a.win_score[i] = a.score[w * G + i];
+    a.win_score[i] = a.score[wr * G + i];
     const int gidx = a.global_index[i];
     if (a.T > 0 && gidx >= 0 && okw) a.ok_global[pw_clip(gidx, 0, a.T - 1)] = 1;
   }
@@ -1535,22 +1585,70 @@ extern "C" int place_wave_sweep_launch(const PlaceWaveArgs* args, void* stream, 
   return pw_launch<false, true, true>(args, (cudaStream_t)stream, smem_bytes);
 }
 
+// The chain blocks of a launch over shards, launched cooperatively so that
+// all are resident for the barriers. A shape whose blocks cannot all be
+// resident at once (one block of ~200 KB of shared memory per SM) returns
+// cudaErrorCooperativeLaunchTooLarge before anything is launched; the
+// wrapper names the shape. Nothing falls back.
+static int pw_coop_launch(void (*kern)(const PlaceWaveArgs), const PlaceWaveArgs* args,
+                          int blocks, cudaStream_t st, int smem_bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, PW_THREADS,
+                                                      (size_t)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  PlaceWaveArgs a = *args;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks), dim3(PW_THREADS), params,
+                                    (size_t)smem_bytes, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // The sharded launch (B7): the prologue, then S chain blocks launched
 // cooperatively, so that all S are resident for the barriers.
 extern "C" int place_wave_sharded_launch(const PlaceWaveArgs* args, void* stream, int smem_bytes) {
   cudaStream_t st = (cudaStream_t)stream;
   if (args->S < 1 || args->S > PW_S_MAX) return (int)cudaErrorInvalidValue;
   if (args->G > 0) place_wave_prologue<<<args->G, 1, 0, st>>>(*args);
-  void (*kern)(const PlaceWaveArgs) = place_wave_kernel<false, false, false, true>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  PlaceWaveArgs a = *args;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(args->S), dim3(PW_THREADS), params,
-                                    (size_t)smem_bytes, st);
-  if (err != cudaSuccess) return (int)err;
+  return pw_coop_launch(place_wave_kernel<false, false, false, true>, args, args->S, st,
+                        smem_bytes);
+}
+
+// The stacked launch over shards (B5 x B7): the prologue, then K * S chain
+// blocks in one cooperative launch, block b shard b % S of weight row b / S,
+// each row's shards meeting at their own barrier; with `select` the select
+// kernel then ranks the rows (each row's shard 0 verdicts, the shared carry).
+extern "C" int place_wave_stacked_sharded_launch(const PlaceWaveArgs* args, void* stream,
+                                                 int smem_bytes, int select) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (args->S < 1 || args->S > PW_S_MAX || args->K < 1) return (int)cudaErrorInvalidValue;
+  if (args->G > 0) place_wave_prologue<<<args->G, 1, 0, st>>>(*args);
+  int err = pw_coop_launch(place_wave_kernel<false, true, false, true>, args, args->K * args->S,
+                           st, smem_bytes);
+  if (err != 0 || !select) return err;
+  place_wave_select<<<1, PW_THREADS, 0, st>>>(*args);
   return (int)cudaGetLastError();
+}
+
+// The scan over shards (B4 x B7): the scan's prologue over the W * G gangs,
+// then S chain blocks in one cooperative launch walking the W steps together
+// (two barriers between consecutive steps: after every shard's reads of the
+// step, and after its tail).
+extern "C" int place_wave_scan_sharded_launch(const PlaceWaveArgs* args, void* stream,
+                                              int smem_bytes) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (args->S < 1 || args->S > PW_S_MAX) return (int)cudaErrorInvalidValue;
+  if (args->G > 0 && args->W > 0)
+    place_wave_scan_prologue<<<args->W * args->G, 1, 0, st>>>(*args);
+  return pw_coop_launch(place_wave_kernel<false, false, true, true>, args, args->S, st,
+                        smem_bytes);
 }
 #else
 // The same launches for a one-thread block on the host (the CPU tests): the
@@ -1592,16 +1690,39 @@ extern "C" int place_wave_sweep_launch(const PlaceWaveArgs* args, void*, int) {
 
 // The sharded launch's S blocks meet at barriers, so each runs on a thread
 // of its own (the shim's walk plane must then be thread_local).
+template <bool kStacked, bool kScan>
+static void pw_emu_blocks(const PlaceWaveArgs* args, int blocks) {
+  std::vector<std::thread> threads;
+  for (int b = 0; b < blocks; ++b)
+    threads.emplace_back([args, b] {
+      pw_emu_block = b;
+      place_wave_kernel<false, kStacked, kScan, true>(*args);
+    });
+  for (auto& t : threads) t.join();
+}
+
 extern "C" int place_wave_sharded_launch(const PlaceWaveArgs* args, void*, int) {
   if (args->S < 1 || args->S > PW_S_MAX) return 1;
   for (int gi = 0; gi < args->G; ++gi) pw_gang_invariants(*args, gi);
-  std::vector<std::thread> shards;
-  for (int s = 0; s < args->S; ++s)
-    shards.emplace_back([args, s] {
-      pw_emu_block = s;
-      place_wave_kernel<false, false, false, true>(*args);
-    });
-  for (auto& t : shards) t.join();
+  pw_emu_blocks<false, false>(args, args->S);
+  return 0;
+}
+
+// B5 x B7: K * S threads, each row's S meeting at the row's barrier.
+extern "C" int place_wave_stacked_sharded_launch(const PlaceWaveArgs* args, void*, int,
+                                                 int select) {
+  if (args->S < 1 || args->S > PW_S_MAX || args->K < 1) return 1;
+  for (int gi = 0; gi < args->G; ++gi) pw_gang_invariants(*args, gi);
+  pw_emu_blocks<true, false>(args, args->K * args->S);
+  if (select) place_wave_select(*args);
+  return 0;
+}
+
+// B4 x B7: S threads, each running the W steps.
+extern "C" int place_wave_scan_sharded_launch(const PlaceWaveArgs* args, void*, int) {
+  if (args->S < 1 || args->S > PW_S_MAX) return 1;
+  for (int b = 0; b < args->W * args->G; ++b) pw_scan_invariants(*args, b);
+  pw_emu_blocks<false, true>(args, args->S);
   return 0;
 }
 #endif

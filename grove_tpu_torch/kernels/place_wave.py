@@ -47,6 +47,17 @@ is solver/reference.py `sharded_solve_ref`. The shards are virtual: every
 block runs on the one card the tensors lie on; a launch across distinct
 cards is not ported.
 
+Two compositions of B7: `place_wave_stacked_sharded` is B5 x B7
+(grove_tpu/parallel/portfolio.py `portfolio_solve` over a (portfolio,
+node) mesh whose node axis is S > 1): K weight rows times S shards, K * S
+chain blocks in one cooperative launch, and with `select` the winner
+picked on the card; its plain version is solver/reference.py
+`sharded_stacked_solve_ref` (then `portfolio_select_ref`).
+`place_wave_scan_sharded` is B4 x B7 (grove_tpu/solver/core.py
+`scan_solve_fn(layout)` / `scan_pruned_solve_fn(layout)`): S chain blocks
+walking a chunk's W steps together; its plain versions are
+`sharded_scan_solve_ref` and `sharded_scan_pruned_solve_ref`.
+
 `PreparedLaunch` is the warm path's entry (solver/warm.py `ExecutableCache`):
 one of these launches with every buffer owned and allocated once, captured
 once as a CUDA graph and replayed per call; a replay counts as a launch of
@@ -59,7 +70,9 @@ launches (one per wave, or per scan chunk, the prologue included), and
 for place_wave, "stacked" (select=False) and "portfolio" (select=True) for
 place_wave_stacked, "scan" and "scan_pruned" for place_wave_scan,
 "stacked_scan" for place_wave_stacked_scan, "sharded" and "sharded_pruned"
-for place_wave_sharded.
+for place_wave_sharded, "stacked_sharded" (select=False) and
+"portfolio_sharded" (select=True) for place_wave_stacked_sharded,
+"scan_sharded" and "scan_sharded_pruned" for place_wave_scan_sharded.
 """
 
 from __future__ import annotations
@@ -116,7 +129,7 @@ STEPPED = (
     "set_req_level", "set_pref_level", "set_valid", "set_pinned", "pod_group", "pod_rank",
     "gang_valid", "group_order", "depends_on", "global_index", "depends_global", "reuse_nodes",
     "group_node_ok", "spread_level", "spread_family", "spread_avoid", "assigned", "ok", "score",
-    "ginv", "free_in", "okg_in",
+    "ginv", "free_in", "okg_in", "shard_offsets", "shard_nodes",
 )
 _FIELDS += [("W", ctypes.c_int), ("free_in", _P), ("okg_in", _P), ("cand_counts", _P)]
 _FIELDS += [(f"st_{k}", ctypes.c_int64) for k in STEPPED]
@@ -172,6 +185,16 @@ def domain_index_sharded(node_domain_id, shards: int, device) -> DomainIndex:
 
     return DomainIndex(*(to_device(x, device)
                          for x in domain_index_sharded_arrays(node_domain_id, shards)))
+
+
+def domain_index_stacked_sharded(node_domain_id, shards: int, device) -> DomainIndex:
+    """domain_index_sharded of each row of `node_domain_id` [W, L, N] (a
+    pruned scan chunk's plans over shards), stacked on a leading [W] axis:
+    `count` [W, L], `offsets` [W, S, L, N + 1], `nodes` [W, S, L, N]."""
+    from grove_tpu_torch.solver.core import to_device
+
+    rows = [domain_index_sharded_arrays(nd, shards) for nd in node_domain_id]
+    return DomainIndex(*(to_device(np.stack(x), device) for x in zip(*rows)))
 
 
 def domain_index_sharded_arrays(node_domain_id, shards: int):
@@ -263,9 +286,13 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
 
     `shards` (S, the sharded launch) splits the solve's node axis into S row
     spans: `domains` is then domain_index_sharded's (offsets [S, L, N + 1],
-    nodes [S, L, N]), every output and scratch array gains a leading [S]
-    axis (shard s's own rows; row 0 is the result) and the exchange buffers
-    and the barrier counter are allocated."""
+    nodes [S, L, N]), every output and scratch array gains an [S] axis after
+    the others (shard s's own rows; shard 0's are the result) and the
+    exchange buffers and the barrier counter are allocated. With a weight
+    stack (B5 x B7) the outputs are [K, S, ...], each of the K * S blocks
+    has its own scratch, each row its own exchange buffers and counter, and
+    the K carries ("free_after" [K, N, R]) are shared by each row's shards;
+    with `steps` (B4 x B7, build_scan_args) the outputs are [W, S, ...]."""
     dev = free.device
     nf, r = free.shape
     levels, n = node_domain_id.shape
@@ -310,8 +337,8 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     _check("dom_count", domains.count, i32, (levels,), dev)
     lead = ()
     if shards is not None:
-        if stacked or steps is not None or profile:
-            raise ValueError("place_wave: a sharded launch is a single-variant wave")
+        if profile or (stacked and steps is not None):
+            raise ValueError("place_wave: a sharded launch is not profiled and has no sweep")
         if not 1 <= shards <= S_MAX or n % shards:
             raise ValueError(f"place_wave: {shards} shards for a node axis of {n} (at most "
                              f"{S_MAX}, dividing it)")
@@ -347,7 +374,8 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     w_len = 1 if steps is None else steps
     rows = (() if steps is None else (w_len,)) + ((K,) if stacked else ()) + lead
     # chain blocks, each with its own scratch
-    blocks = K * w_len if stacked else (shards if shards is not None else 1)
+    s_len = shards if shards is not None else 1
+    blocks = K * w_len * s_len if stacked else s_len
     out = {
         "assigned": empty(rows + (g, mp), i32),
         "ok": empty(rows + (g,), b8),
@@ -358,7 +386,9 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
     n_ent = max(2 * mg * mp, 1)
     # One copy of every per-gang scratch array for each weight variant.
     scratch = {
-        "carry": empty((blocks * n * r,), f32) if cand_idx is not None or stacked else None,
+        # (a stacked row's shards share its carry)
+        "carry": empty(((K * w_len if stacked else blocks) * n * r,), f32)
+        if cand_idx is not None or stacked else None,
         "xagg": None, "xcand": None, "xcnt": None, "bar": None,
         "family_used": empty((blocks * g * n,), torch.uint8) if spread else None,
         "spread_pen": empty((blocks * n,), f32) if spread else None,
@@ -390,10 +420,11 @@ def build_args(free, capacity, schedulable, node_domain_id, batch: GangBatch, pa
         # Exchange buffers, two halves: each shard's domain partials (at most
         # N domains of k_max columns) and its stage-2 candidates (at most its
         # N / S rows).
+        # One set per weight row of a stacked launch.
         x_rows, x_words = n // shards, n * k_max
-        scratch.update(xagg=empty((2 * shards * x_words,), f32),
-                       xcand=empty((2 * shards * x_rows * 3,), i32),
-                       xcnt=empty((2 * shards,), i32), bar=empty((1,), i32))
+        scratch.update(xagg=empty((K * 2 * shards * x_words,), f32),
+                       xcand=empty((K * 2 * shards * x_rows * 3,), i32),
+                       xcnt=empty((K * 2 * shards,), i32), bar=empty((K,), i32))
     tensors = {
         "free_io": free, "cand_idx": cand_idx, "capacity": capacity,
         "schedulable": schedulable, "node_domain_id": node_domain_id,
@@ -512,16 +543,60 @@ def place_wave_sharded(free, capacity, schedulable, node_domain_id, batch: GangB
     )
     stream = torch.cuda.current_stream(free.device).cuda_stream
     rc = _call_launch(lib, "place_wave_sharded_launch", args, stream, smem, None)
-    if rc != 0:
-        raise RuntimeError(f"place_wave_sharded: kernel launch failed with CUDA error {rc}")
+    _raise_launch("place_wave_sharded", rc, shards)
     place_wave.launches += 1
     place_wave.variant_launches["sharded_pruned" if cand_idx is not None else "sharded"] += 1
     return out["assigned"][0], out["ok"][0], out["score"][0], free, ok_global
 
 
+# cudaErrorCooperativeLaunchTooLarge: the chain blocks of a launch over
+# shards cannot all be resident at once.
+_NOT_RESIDENT = 82
+
+
+def _raise_launch(name: str, rc: int, blocks: int, shape: str = "") -> None:
+    """Raise for a failed launch (rc != 0); a launch over shards whose
+    `blocks` cannot all be resident names its shape."""
+    if rc == _NOT_RESIDENT:
+        raise RuntimeError(f"{name}: {shape or f'{blocks} shards'} = {blocks} chain blocks "
+                           f"cannot all be resident on the card at once (one per SM)")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def place_wave_stacked_sharded(free, capacity, schedulable, node_domain_id, batch: GangBatch,
+                               params_stack, ok_global=None, *, shards: int,
+                               domains: DomainIndex, select: bool):
+    """Solve one wave under K weight rows over `shards` virtual shards of
+    the card with one cooperative launch (B5 x B7: K * S chain blocks, row
+    k's shards meeting at their own barrier), then with `select` the select
+    kernel. Arguments as place_wave_stacked, but `domains` is the sharded
+    DomainIndex (domain_index_sharded of `node_domain_id` and `shards`).
+    Returns what place_wave_stacked returns; row k equals place_wave_sharded
+    under row k's weights bit for bit."""
+    if not free.is_cuda:
+        raise ValueError("place_wave_stacked_sharded: the kernel runs on a CUDA device only")
+    lib = _library()
+    args, smem, out, _keep = build_args(
+        free, capacity, schedulable, node_domain_id, batch, None, ok_global, domains,
+        params_stack=params_stack, select=select, shards=shards,
+    )
+    stream = torch.cuda.current_stream(free.device).cuda_stream
+    rc = _call_launch(lib, "place_wave_stacked_sharded_launch", args, stream, smem, int(select))
+    k = params_stack.shape[0]
+    _raise_launch("place_wave_stacked_sharded", rc, k * shards,
+                  f"{k} weight rows x {shards} shards")
+    place_wave.launches += 1
+    place_wave.variant_launches["portfolio_sharded" if select else "stacked_sharded"] += 1
+    if select:
+        return (out["win_assigned"], out["win_ok"], out["win_score"], free, ok_global,
+                out["winner"], out["objectives"])
+    return out["assigned"][:, 0], out["ok"][:, 0], out["score"][:, 0], out["free_after"]
+
+
 def build_scan_args(free, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
                     params, ok_global, domains: DomainIndex, cand_idx=None, retain=False,
-                    plane_words=None):
+                    plane_words=None, shards=None):
     """The scan launch's args: W waves of one shape, every field of
     `stacked_batch` with a leading [W] axis. Dense, the node tensors and
     `domains` are the fleet's, shared by every step; with `cand_idx` (i32
@@ -532,7 +607,12 @@ def build_scan_args(free, capacity, schedulable, node_domain_id, stacked_batch: 
     chain's scratch. Returns (args, smem_bytes, outputs, keepalive) with
     outputs "assigned" [W, G, MP], "ok" [W, G], "score" [W, G], and with
     `retain` "free_in" [W, NF, R] and "okg_in" [W, T] (None without
-    ok_global)."""
+    ok_global).
+
+    `shards` (S, B4 x B7) splits each step's node axis into S row spans:
+    `domains` is then the fleet's domain_index_sharded, or pruned each
+    step's (domain_index_stacked_sharded: offsets [W, S, L, CP + 1]), and
+    the verdict outputs are [W, S, ...] (shard 0's rows are the result)."""
     w_len = stacked_batch.gang_valid.shape[0] if stacked_batch.gang_valid.dim() == 2 else 0
     if w_len < 1:
         raise ValueError("place_wave_scan: stacked_batch needs a leading step axis of at least 1")
@@ -542,6 +622,8 @@ def build_scan_args(free, capacity, schedulable, node_domain_id, stacked_batch: 
         stacked.update(cand_idx=cand_idx, capacity=capacity, schedulable=schedulable,
                        node_domain_id=node_domain_id, dom_count=domains.count,
                        dom_offsets=domains.offsets, dom_nodes=domains.nodes)
+        if shards is not None:
+            stacked.update(shard_offsets=domains.offsets, shard_nodes=domains.nodes)
     for name, t in stacked.items():
         if t.dim() < 1 or t.shape[0] != w_len:
             raise ValueError(f"place_wave_scan: {name} has shape {tuple(t.shape)}, expected a "
@@ -556,7 +638,7 @@ def build_scan_args(free, capacity, schedulable, node_domain_id, stacked_batch: 
     args, smem, out, keep = build_args(
         free, *node0[:3], step0, params, ok_global, node0[3],
         cand_idx[0] if pruned else None, node0[0].shape[0] if pruned else None,
-        plane_words=plane_words, steps=w_len,
+        plane_words=plane_words, steps=w_len, shards=shards,
     )
     dev, (nf, r) = free.device, free.shape
     out.update(
@@ -602,6 +684,31 @@ def place_wave_scan(free, capacity, schedulable, node_domain_id, stacked_batch: 
     place_wave.variant_launches["scan_pruned" if cand_idx is not None else "scan"] += 1
     return (out["assigned"], out["ok"], out["score"], out["free_in"], out["okg_in"], free,
             ok_global)
+
+
+def place_wave_scan_sharded(free, capacity, schedulable, node_domain_id,
+                            stacked_batch: GangBatch, params, ok_global=None, *, shards: int,
+                            domains: DomainIndex, cand_idx=None, retain=False):
+    """Solve W waves of one shape over `shards` virtual shards of the card
+    with one cooperative launch (B4 x B7): S chain blocks walk the steps
+    together, step w equal to a place_wave_sharded launch on its entering
+    carry bit for bit. Arguments as place_wave_scan, with `domains` sharded
+    (build_scan_args). Returns what place_wave_scan returns."""
+    if not free.is_cuda:
+        raise ValueError("place_wave_scan_sharded: the kernel runs on a CUDA device only")
+    lib = _library()
+    args, smem, out, _keep = build_scan_args(
+        free, capacity, schedulable, node_domain_id, stacked_batch, params, ok_global, domains,
+        cand_idx, retain, shards=shards,
+    )
+    stream = torch.cuda.current_stream(free.device).cuda_stream
+    rc = _call_launch(lib, "place_wave_scan_sharded_launch", args, stream, smem, None)
+    _raise_launch("place_wave_scan_sharded", rc, shards)
+    place_wave.launches += 1
+    place_wave.variant_launches["scan_sharded_pruned" if cand_idx is not None
+                                else "scan_sharded"] += 1
+    return (out["assigned"][:, 0], out["ok"][:, 0], out["score"][:, 0], out["free_in"],
+            out["okg_in"], free, ok_global)
 
 
 def build_sweep_args(free_stack, capacity, schedulable, node_domain_id,
@@ -716,6 +823,7 @@ _KIND_LAUNCH = {
     "scan": ("place_wave_scan_launch", None),
     "sweep": ("place_wave_sweep_launch", None),
     "sharded": ("place_wave_sharded_launch", None),
+    "scan_sharded": ("place_wave_scan_sharded_launch", None),
 }
 
 
@@ -760,8 +868,11 @@ class PreparedLaunch:
 
     Each graph zeroes the LAUNCH_ZEROED buffers before its launch, so a
     replay starts from the state a direct launch's fresh buffers give it.
-    The single-variant kinds ("single", "scan") read their weights from the
-    argument struct, by value, so each distinct weight row gets its own
+    The kinds are "single", "stacked", "scan", "sweep" and the launches over
+    shards "sharded" and "scan_sharded". The
+    single-variant kinds ("single", "scan", "sharded", "scan_sharded") read
+    their weights from the argument struct, by value, so each distinct
+    weight row gets its own
     graph over the same buffers (`graphs`). A pruned single launch is
     captured with its whole candidate axis as `cand_count`: the count only
     bounds the remap of `assigned`, and no gang is ever assigned a pad row
@@ -805,11 +916,11 @@ class PreparedLaunch:
             self.variant = "stacked"
             built = build_args(t["free"], t["capacity"], t["schedulable"], t["node_domain_id"],
                                batch, None, None, domains, params_stack=t["params_stack"])
-        elif kind == "scan":
-            self.variant = "scan_pruned" if pruned else "scan"
+        elif kind in ("scan", "scan_sharded"):
+            self.variant = kind + ("_pruned" if pruned else "")
             built = build_scan_args(t["free"], t["capacity"], t["schedulable"],
                                     t["node_domain_id"], batch, params, t.get("ok_global"),
-                                    domains, t.get("cand_idx"), retain)
+                                    domains, t.get("cand_idx"), retain, shards=shards)
         else:
             self.variant = "stacked_scan"
             built = build_sweep_args(t["free_stack"], t["capacity"], t["schedulable"],
@@ -817,6 +928,9 @@ class PreparedLaunch:
         self.args, self.smem, self.out, self._keep = built
         if kind == "sharded":  # row 0 of the shards' rows is the result
             self.out = {k: v[0] for k, v in self.out.items()}
+        elif kind == "scan_sharded":  # each step's shard 0
+            self.out = {k: v[:, 0] if k in ("assigned", "ok", "score") else v
+                        for k, v in self.out.items()}
         self.graphs: dict = {}  # weight row (None: weights on the card) -> (graph, args)
         self.capture_s: list[float] = []  # wall seconds of each capture
         # Static input -> (weak reference to its source tensor, its version).
@@ -882,7 +996,7 @@ class PreparedLaunch:
                     continue
                 self._last[name] = (weakref.ref(src), src._version)
             _copy_in(buf, src)
-        if self.kind == "scan" and "cand_idx" in self.inputs:
+        if self.kind in ("scan", "scan_sharded") and "cand_idx" in self.inputs:
             nf = self.inputs["free"].shape[0]
             torch.sum(self.inputs["cand_idx"] < nf, dim=1, dtype=torch.int32,
                       out=self._keep["cand_counts"])
@@ -907,12 +1021,14 @@ def _library():
 
 
 VARIANTS = ("dense", "pruned", "stacked", "portfolio", "scan", "scan_pruned", "stacked_scan",
-            "sharded", "sharded_pruned")
+            "sharded", "sharded_pruned", "stacked_sharded", "portfolio_sharded", "scan_sharded",
+            "scan_sharded_pruned")
 
 
 def reset_launches() -> None:
     """Set every launch count of place_wave, place_wave_stacked,
-    place_wave_scan, place_wave_stacked_scan and place_wave_sharded to 0."""
+    place_wave_scan, place_wave_stacked_scan, place_wave_sharded,
+    place_wave_stacked_sharded and place_wave_scan_sharded to 0."""
     place_wave.launches = 0
     place_wave.variant_launches = dict.fromkeys(VARIANTS, 0)
 

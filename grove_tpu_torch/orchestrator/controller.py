@@ -1041,9 +1041,10 @@ class GroveController:
                 # gathered sub-fleet; lossy rejections escalate dense.
                 pruning=pruning_eff,
                 device=self.device,
-                # A portfolio solve takes no layout (the JAX package's solve
-                # ignores it; the portfolio mesh is not ported).
-                mesh=mesh_layout if pf == 1 else None,
+                # Mesh-sharded solve (solver.mesh config): node/candidate axis
+                # split across the device mesh; a portfolio solve ignores it
+                # and negotiates its own (portfolio, node) mesh.
+                mesh=mesh_layout,
             )
             if ladder is not None:
                 ladder.record_success()

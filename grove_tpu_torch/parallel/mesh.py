@@ -9,14 +9,25 @@ The solver's parallelism axes:
               schedulable, node_domain_id, the batch's node-seed planes)
               split into contiguous row spans, one per shard.
 
-A `SolveLayout` is one negotiated (1, K) node-sharded layout. Its solve is
-kernel B7 (kernels/place_wave.py `place_wave_sharded`): one launch, K chain
-blocks, block s owning rows [s * N / K, (s + 1) * N / K); the shards sum
-their rows' domain partials, exchange them through device memory and add
-them in shard order, and merge their stage-2 candidates under lax.top_k's
-order, so every shard holds the replicated verdict and the result equals
-the unsharded solve on the fleets whose partial sums are exact
-(solver/reference.py `sharded_solve_ref` is its plain version).
+A `SolveLayout` is one negotiated (P, K) layout: K node shards, and P
+devices on the portfolio axis. The single-variant layout (1, K) comes from
+`solve_layout_for`; its solve is kernel B7 (kernels/place_wave.py
+`place_wave_sharded`): one launch, K chain blocks, block s owning rows
+[s * N / K, (s + 1) * N / K); the shards sum their rows' domain partials,
+exchange them through device memory and add them in shard order, and merge
+their stage-2 candidates under lax.top_k's order, so every shard holds the
+replicated verdict and the result equals the unsharded solve on the fleets
+whose partial sums are exact (solver/reference.py `sharded_solve_ref` is
+its plain version). Its scan is B4 x B7 (`place_wave_scan_sharded`): the K
+blocks walk a chunk's steps together.
+
+The portfolio mesh (P, K) comes from `solver_mesh_for`: a portfolio of
+weight rows is solved under it by B5 x B7 (`place_wave_stacked_sharded`)
+when K > 1, rows times shards chain blocks in one cooperative launch, and
+by the plain B5 when K = 1. On virtual devices the portfolio axis decides
+nothing but the blocks' numbering: every row runs in the one launch. It is
+negotiated only over virtual devices of the solve's own device; on
+distinct cards a portfolio solves unsharded.
 
 Devices. `mesh_devices()` lists the visible cards; after
 `force_virtual_devices(k)` it lists k virtual devices that all name the
@@ -33,11 +44,11 @@ K > 1 divides is counted on the process-wide `shard_fallbacks()` ledger
 (the first one logs its reason), once per memoized (config, axis) when
 it comes through `MeshConfig.layout_for`; the drains count every request
 that got no layout on `DrainStats.shard_fallbacks` and solve unsharded.
-The portfolio mesh (the JAX package's `factor_devices`, `solver_mesh`,
-`solver_mesh_for`) is not ported: WAITS_PORTFOLIO. The JAX layout's
-`shard_solve_args` and row ops have no counterpart: B7 splits the node
-tensors, and gathers and scatters a pruned solve's candidate rows, inside
-its launch (sharded_solve_ref on the CPU).
+`solver_mesh_for` counts a fallback where the JAX package's does: on more
+than one device, when no (portfolio, node) split divides (P, N). The JAX
+layout's `shard_solve_args` and row ops have no counterpart: B7 splits the
+node tensors, and gathers and scatters a pruned solve's candidate rows,
+inside its launch (sharded_solve_ref on the CPU).
 """
 
 from __future__ import annotations
@@ -51,10 +62,8 @@ import torch
 PORTFOLIO_AXIS = "portfolio"
 NODE_AXIS = "node"
 
-# What waits for later slices (ROADMAP.md Queue A 2): each raises when asked
-# for under a layout, naming its item.
-WAITS_PORTFOLIO = "ROADMAP Queue A 2 (a): the portfolio mesh"
-WAITS_SCAN = "ROADMAP Queue A 2 (b): the scan and resident disciplines under a layout"
+# What waits for a later slice (ROADMAP.md Queue A 2): a launch over a
+# layout of distinct cards raises, naming its item.
 WAITS_CARDS = "ROADMAP Queue A 2 (c): the launch across distinct cards"
 
 logger = logging.getLogger(__name__)
@@ -161,9 +170,10 @@ def mesh_divisible_pad(pad: int, k: int) -> int:
 
 @dataclass(frozen=True)
 class SolveLayout:
-    """One negotiated (1, K) layout for the single-variant solve: the node
-    axis of every node tensor split into K contiguous row spans, one per
-    device of the mesh's node axis.
+    """One negotiated (P, K) layout: the node axis of every node tensor
+    split into K contiguous row spans, one per device of the mesh's node
+    axis, and P devices on the portfolio axis (1 for the single-variant
+    solve; a portfolio solve's weight rows split over them).
 
     One instance is one launch family: `key()` is part of the launch-cache
     key (solver/warm.py) and the sharded-solve table (solver/core.py
@@ -215,6 +225,45 @@ class SolveLayout:
             raise ValueError(f"node axis {n} is not divisible by the layout's {k} shards")
         step = n // k
         return [(s * step, (s + 1) * step) for s in range(k)]
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Do `a` and `b` name one device (a CUDA device without an index is
+    the current card)?"""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    return ((a.index if a.index is not None else torch.cuda.current_device())
+            == (b.index if b.index is not None else torch.cuda.current_device()))
+
+
+def solver_mesh_for(portfolio: int, n_nodes: int, device) -> SolveLayout | None:
+    """The portfolio solve's layout for the problem's shape (mesh.py
+    `solver_mesh_for`): the largest portfolio axis pa over a split (pa, k)
+    of the nd devices with pa dividing `portfolio` and k dividing
+    `n_nodes`, negotiated over mesh_devices() when they are virtual devices
+    of `device`, the solve's own device. None, uncounted, on one device or
+    when mesh_devices() lists other devices (distinct cards, whose launch
+    waits for WAITS_CARDS, or virtual ones of another device): the
+    portfolio then solves unsharded on `device`. None, counted on the
+    fallback ledger, when no split divides."""
+    devices = mesh_devices()
+    dev = torch.device(device)
+    if not all(d.virtual and _same_device(d.device, dev) for d in devices):
+        return None
+    nd = len(devices)
+    if nd <= 1:
+        return None
+    for k in range(1, nd + 1):
+        if nd % k:
+            continue
+        pa = nd // k
+        if portfolio % pa == 0 and n_nodes % k == 0:
+            return SolveLayout(mesh=_grid(devices, pa, k))
+    _note_fallback(f"no (portfolio, node) split of {nd} devices divides "
+                   f"portfolio={portfolio}, nodes={n_nodes}")
+    return None
 
 
 def solve_layout_for(n_nodes: int, devices: list | None = None, *, max_devices: int = 0,

@@ -1,6 +1,5 @@
 """Portfolio gang placement: one wave solved under P weight variants at once,
-the best outcome kept (grove_tpu/parallel/portfolio.py counterpart, without
-the device mesh).
+the best outcome kept (grove_tpu/parallel/portfolio.py counterpart).
 
 The sequential-commit solver is a greedy heuristic whose quality depends on
 its score weights (SolverParams). A portfolio solves the wave under P weight
@@ -11,6 +10,16 @@ place_wave kernel, P chain blocks side by side, and the winner is picked on
 the card (kernels/place_wave.py `place_wave_stacked`); on the CPU the plain
 versions run (solver/reference.py `stacked_solve_ref`,
 `portfolio_select_ref`).
+
+Under a (portfolio, node) mesh (parallel/mesh.py `solver_mesh_for`: a
+SolveLayout of pa x k virtual devices) the node axis splits into k shards:
+the P rows are then one B5 x B7 launch, P * k chain blocks, row p's shards
+exchanging domain partials and stage-2 candidates (kernels/place_wave.py
+`place_wave_stacked_sharded`; on the CPU `sharded_stacked_solve_ref`), and
+the plain B5 when k = 1. On virtual devices the portfolio axis decides
+nothing but the blocks' numbering. The callers (solver/core.py `solve`,
+the portfolio drain) negotiate the mesh once and pass it to
+`portfolio_solve`.
 
 `tune_solve_step` goes one further: solve the portfolio, select the winner,
 and emit the next generation of weights (elite + fixed log-normal
@@ -81,7 +90,8 @@ _objective = objective_ref
 
 
 def portfolio_solve_batch(free0, capacity, schedulable, node_domain_id, batch: GangBatch,
-                          params_stack, ok_global=None, *, device=None, domains=None):
+                          params_stack, ok_global=None, *, device=None, domains=None,
+                          mesh=None):
     """Solve the same batch under every weight row; return the winner.
 
     Returns (best SolveResult, winner i32 [], objectives f32 [P]). The
@@ -95,10 +105,12 @@ def portfolio_solve_batch(free0, capacity, schedulable, node_domain_id, batch: G
     the card). On the card the solve is one stacked launch with the select
     on the card, and `free0` and `ok_global` are updated in place by the
     winner (pass copies to keep them); `domains` is the snapshot's
-    DomainIndex (built here when not given)."""
+    DomainIndex (built here when not given). `mesh` (a (pa, k) SolveLayout,
+    or None) with k > 1 splits the node axis into k shards (B5 x B7;
+    `domains` is then the sharded DomainIndex)."""
     *best, winner, objectives = stacked_dispatch(
         free0, capacity, schedulable, node_domain_id, batch, params_stack, ok_global,
-        select=True, device=device, domains=domains,
+        select=True, device=device, domains=domains, layout=mesh,
     )
     return SolveResult(*best), winner, objectives
 
@@ -122,16 +134,20 @@ def tune_solve_step(free0, capacity, schedulable, node_domain_id, batch: GangBat
 
 def portfolio_solve(free0, capacity, schedulable, node_domain_id, batch: GangBatch,
                     base_params: SolverParams, portfolio: int, ok_global=None, *,
-                    pstack=None, device=None, domains=None) -> SolveResult:
+                    pstack=None, device=None, domains=None, mesh=None) -> SolveResult:
     """One-stop portfolio solve: the population of `portfolio` variants
     around `base_params` (or the caller's `pstack`, hoisted once by a wave
-    loop), then the winner. The one entry the serving solve and the drain
-    share, so seeding and selection cannot diverge between them."""
+    loop), the mesh, then the winner. The one entry the serving solve and
+    the drain share, so seeding, layout and selection cannot diverge
+    between them.
+
+    `mesh` is the layout solver_mesh_for negotiated for (P, N), or None to
+    stay unsharded. `domains` is the DomainIndex for the mesh's node axis
+    (sharded when it is over 1; built here when not given)."""
     if pstack is None:
         pstack = params_population(portfolio, base=base_params)
     best, _winner, _objectives = portfolio_solve_batch(
         free0, capacity, schedulable, node_domain_id, batch, pstack, ok_global,
-        device=device, domains=domains,
+        device=device, domains=domains, mesh=mesh,
     )
     return best
-

@@ -29,7 +29,11 @@ SolveLayout (B7, one cooperative launch on the card over the layout's
 virtual shards; `sharded_solve_ref` on the CPU), and `sharded_solve_fn`
 is its memoized entry per (donate, layout key), the launch cache's entry
 on the CPU (on the card the cache captures B7 under the layout's key).
-`solve(..., mesh=)` takes a layout, dense or pruned.
+`solve(..., mesh=)` takes a layout, dense or pruned. Under a layout the
+scans are B4 x B7 (`scan_solve(..., layout=)`, `scan_pruned_solve(...,
+layout=)`; `scan_solve_fn(layout)` and `scan_pruned_solve_fn(layout)` are
+their memoized entries) and a stacked solve over node shards is B5 x B7
+(`stacked_dispatch(..., layout=)`, parallel/portfolio.py's portfolio mesh).
 """
 
 from __future__ import annotations
@@ -45,7 +49,10 @@ from grove_tpu_torch.solver.reference import (
     portfolio_select_ref,
     scan_pruned_solve_ref,
     scan_solve_ref,
+    sharded_scan_pruned_solve_ref,
+    sharded_scan_solve_ref,
     sharded_solve_ref,
+    sharded_stacked_solve_ref,
     solve_batch_ref,
     solve_pruned_ref,
     stacked_scan_solve_ref,
@@ -267,9 +274,19 @@ def sharded_solve_fn(layout, donate: bool = False):
     return fn
 
 
+def _check_layout(layout, dev) -> None:
+    if layout is not None and layout.device.type != dev.type:
+        raise ValueError(f"a layout on {layout.device} for a solve on {dev}")
+
+
+def _sharded(layout) -> bool:
+    """Does `layout` split the node axis (B7 and its compositions)?"""
+    return layout is not None and layout.node_devices > 1
+
+
 def scan_solve(free0, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
                params: SolverParams | None = None, ok_global=None, *, retain: bool = False,
-               device=None, domains=None) -> ScanSolveResult:
+               device=None, domains=None, layout=None) -> ScanSolveResult:
     """W waves of one shape solved in order (core.py `scan_solve_fn`): every
     field of `stacked_batch` has a leading [W] axis, and step w solves wave w
     from the (free, ok_global) step w - 1 left, so step w's rows equal
@@ -279,8 +296,14 @@ def scan_solve(free0, capacity, schedulable, node_domain_id, stacked_batch: Gang
     On the card it is one launch (kernels/place_wave.py `place_wave_scan`)
     that updates `free0` and `ok_global` in place when they already lie
     there, as the JAX package donates them; `domains` is the fleet's
-    DomainIndex (built here when not given). "cpu" runs the plain version."""
+    DomainIndex (built here when not given). "cpu" runs the plain version.
+
+    `layout` (a parallel.mesh SolveLayout) splits the node axis into its
+    shards (core.py `scan_solve_fn(layout)`): B4 x B7 on the card
+    (`place_wave_scan_sharded`, `domains` then the sharded DomainIndex),
+    `sharded_scan_solve_ref` on the CPU."""
     dev = resolve_device(device)
+    _check_layout(layout, dev)
     params = params or SolverParams()
     free0 = tensor_on(free0, torch.float32, dev)
     capacity = tensor_on(capacity, torch.float32, dev)
@@ -288,13 +311,24 @@ def scan_solve(free0, capacity, schedulable, node_domain_id, stacked_batch: Gang
     node_domain_id = tensor_on(node_domain_id, torch.int32, dev)
     ok_global = tensor_on(ok_global, torch.bool, dev)
     tbatch = batch_to(stacked_batch, dev)
+    shards = layout.node_devices if _sharded(layout) else None
     if dev.type == "cuda":
-        from grove_tpu_torch.kernels.place_wave import domain_index, place_wave_scan
+        from grove_tpu_torch.kernels import place_wave as pw
 
-        if domains is None:
-            domains = domain_index(node_domain_id, dev)
-        out = place_wave_scan(free0, capacity, schedulable, node_domain_id, tbatch, params,
-                              ok_global, domains=domains, retain=retain)
+        if shards:
+            if domains is None:
+                domains = pw.domain_index_sharded(node_domain_id, shards, dev)
+            out = pw.place_wave_scan_sharded(free0, capacity, schedulable, node_domain_id, tbatch,
+                                             params, ok_global, shards=shards, domains=domains,
+                                             retain=retain)
+        else:
+            if domains is None:
+                domains = pw.domain_index(node_domain_id, dev)
+            out = pw.place_wave_scan(free0, capacity, schedulable, node_domain_id, tbatch, params,
+                                     ok_global, domains=domains, retain=retain)
+    elif shards:
+        out = sharded_scan_solve_ref(free0, capacity, schedulable, node_domain_id, tbatch, params,
+                                     ok_global, retain, layout.spans(capacity.shape[0]))
     else:
         out = scan_solve_ref(free0, capacity, schedulable, node_domain_id, tbatch, params,
                              ok_global, retain)
@@ -304,7 +338,7 @@ def scan_solve(free0, capacity, schedulable, node_domain_id, stacked_batch: Gang
 def scan_pruned_solve(free0, cand_idx, capacity_p, schedulable_p, node_domain_id_p,
                       stacked_batch: GangBatch, params: SolverParams | None = None,
                       ok_global=None, *, retain: bool = False, device=None,
-                      domains=None) -> ScanSolveResult:
+                      domains=None, layout=None) -> ScanSolveResult:
     """The candidate-pruned scan (core.py `scan_pruned_solve_fn`): step w
     solves wave w on its own candidate axis — `cand_idx` i32 [W, CP] (each
     plan's padded_idx: candidates first, pad rows past the fleet),
@@ -313,8 +347,13 @@ def scan_pruned_solve(free0, cand_idx, capacity_p, schedulable_p, node_domain_id
     carry `free0` [N, R] at its head and scattering back at its tail;
     `assigned` comes back in fleet ordinals and the retained free_in is
     fleet-shaped. `domains` (on the card) is the plans' DomainIndex stacked
-    on a leading [W] axis (solver/pruning.py `stack_plans`)."""
+    on a leading [W] axis (solver/pruning.py `stack_plans`). `layout` splits
+    each step's candidate axis into its shards (core.py
+    `scan_pruned_solve_fn(layout)`: B4 x B7, each shard gathering and
+    scattering its own candidate rows; `domains` then
+    kernels.place_wave.domain_index_stacked_sharded's)."""
     dev = resolve_device(device)
+    _check_layout(layout, dev)
     params = params or SolverParams()
     free0 = tensor_on(free0, torch.float32, dev)
     cand_idx = tensor_on(cand_idx, torch.int32, dev)
@@ -323,18 +362,69 @@ def scan_pruned_solve(free0, cand_idx, capacity_p, schedulable_p, node_domain_id
     node_domain_id_p = tensor_on(node_domain_id_p, torch.int32, dev)
     ok_global = tensor_on(ok_global, torch.bool, dev)
     tbatch = batch_to(stacked_batch, dev)
+    shards = layout.node_devices if _sharded(layout) else None
     if dev.type == "cuda":
-        from grove_tpu_torch.kernels.place_wave import domain_index_stacked, place_wave_scan
+        from grove_tpu_torch.kernels import place_wave as pw
 
-        if domains is None:
-            domains = domain_index_stacked(node_domain_id_p, dev)
-        out = place_wave_scan(free0, capacity_p, schedulable_p, node_domain_id_p, tbatch,
-                              params, ok_global, domains=domains, cand_idx=cand_idx,
-                              retain=retain)
+        if shards:
+            if domains is None:
+                domains = pw.domain_index_stacked_sharded(node_domain_id_p, shards, dev)
+            out = pw.place_wave_scan_sharded(free0, capacity_p, schedulable_p, node_domain_id_p,
+                                             tbatch, params, ok_global, shards=shards,
+                                             domains=domains, cand_idx=cand_idx, retain=retain)
+        else:
+            if domains is None:
+                domains = pw.domain_index_stacked(node_domain_id_p, dev)
+            out = pw.place_wave_scan(free0, capacity_p, schedulable_p, node_domain_id_p, tbatch,
+                                     params, ok_global, domains=domains, cand_idx=cand_idx,
+                                     retain=retain)
+    elif shards:
+        out = sharded_scan_pruned_solve_ref(free0, cand_idx, capacity_p, schedulable_p,
+                                            node_domain_id_p, tbatch, params, ok_global, retain,
+                                            layout.spans(capacity_p.shape[1]))
     else:
         out = scan_pruned_solve_ref(free0, cand_idx, capacity_p, schedulable_p,
                                     node_domain_id_p, tbatch, params, ok_global, retain)
     return ScanSolveResult(*out)
+
+
+_SCAN_FN: dict[tuple, object] = {}
+
+
+def scan_solve_fn(layout=None, retain: bool = False, donate: bool = False):
+    """The scan pinned to `layout` (core.py `scan_solve_fn`), one per
+    (retain, donate, layout key): called as scan_solve is, (free0,
+    capacity, schedulable, node_domain_id, stacked_batch, params,
+    ok_global, *, device, domains). Without `donate` it works on copies of
+    free0 and ok_global."""
+    return _scan_fn("dense", layout, retain, donate)
+
+
+def scan_pruned_solve_fn(layout=None, retain: bool = False, donate: bool = False):
+    """The candidate-pruned scan pinned to `layout` (core.py
+    `scan_pruned_solve_fn`): called as scan_pruned_solve is, (free0,
+    cand_idx, capacity_p, schedulable_p, node_domain_id_p, stacked_batch,
+    params, ok_global, *, device, domains)."""
+    return _scan_fn("pruned", layout, retain, donate)
+
+
+def _scan_fn(kind: str, layout, retain: bool, donate: bool):
+    key = (kind, bool(retain), bool(donate), None if layout is None else layout.key())
+    fn = _SCAN_FN.get(key)
+    if fn is None:
+        solve_fn = scan_solve if kind == "dense" else scan_pruned_solve
+        okg_at = 6 if kind == "dense" else 7  # ok_global's place in the call
+
+        def fn(*args, **kw):
+            args = list(args)
+            if not donate:
+                args[0] = args[0].clone() if torch.is_tensor(args[0]) else args[0]
+                if len(args) > okg_at and torch.is_tensor(args[okg_at]):
+                    args[okg_at] = args[okg_at].clone()
+            return solve_fn(*args, retain=retain, layout=layout, **kw)
+
+        fn = _SCAN_FN.setdefault(key, fn)
+    return fn
 
 
 def stacked_scan_solve(free_stack, capacity, schedulable, node_domain_id,
@@ -386,13 +476,19 @@ def stacked_solve_batch(free0, capacity, schedulable, node_domain_id, batch: Gan
 
 
 def stacked_dispatch(free0, capacity, schedulable, node_domain_id, batch: GangBatch,
-                     params_stack, ok_global, *, select: bool, device, domains):
+                     params_stack, ok_global, *, select: bool, device, domains, layout=None):
     """The stacked solve shared by stacked_solve_batch (select=False) and
     parallel/portfolio.py's portfolio_solve_batch (select=True): the arrays
     to `device` (None = the card), then one stacked launch with the select
     on the card, or the plain versions on the CPU. Returns the kernel's
-    tuple (kernels/place_wave.py `place_wave_stacked`)."""
+    tuple (kernels/place_wave.py `place_wave_stacked`).
+
+    `layout` (a (P, K) parallel.mesh SolveLayout) with K > 1 node shards
+    makes it B5 x B7: `place_wave_stacked_sharded` on the card (`domains`
+    then the sharded DomainIndex, built here when not given),
+    `sharded_stacked_solve_ref` on the CPU; with K = 1 it is B5."""
     dev = resolve_device(device)
+    _check_layout(layout, dev)
     free0 = tensor_on(free0, torch.float32, dev)
     capacity = tensor_on(capacity, torch.float32, dev)
     schedulable = tensor_on(schedulable, torch.bool, dev)
@@ -400,15 +496,26 @@ def stacked_dispatch(free0, capacity, schedulable, node_domain_id, batch: GangBa
     ok_global = tensor_on(ok_global, torch.bool, dev)
     tbatch = batch_to(batch, dev)
     pstack = stack_on(params_stack, dev)
+    shards = layout.node_devices if _sharded(layout) else None
     if dev.type == "cuda":
-        from grove_tpu_torch.kernels.place_wave import domain_index, place_wave_stacked
+        from grove_tpu_torch.kernels import place_wave as pw
 
+        if shards:
+            if domains is None:
+                domains = pw.domain_index_sharded(node_domain_id, shards, dev)
+            return pw.place_wave_stacked_sharded(free0, capacity, schedulable, node_domain_id,
+                                                 tbatch, pstack, ok_global, shards=shards,
+                                                 domains=domains, select=select)
         if domains is None:
-            domains = domain_index(node_domain_id, dev)
-        return place_wave_stacked(free0, capacity, schedulable, node_domain_id, tbatch, pstack,
-                                  ok_global, domains=domains, select=select)
-    rows = stacked_solve_ref(free0, capacity, schedulable, node_domain_id, tbatch, pstack,
-                             ok_global)
+            domains = pw.domain_index(node_domain_id, dev)
+        return pw.place_wave_stacked(free0, capacity, schedulable, node_domain_id, tbatch, pstack,
+                                     ok_global, domains=domains, select=select)
+    if shards:
+        rows = sharded_stacked_solve_ref(free0, capacity, schedulable, node_domain_id, tbatch,
+                                         pstack, ok_global, layout.spans(capacity.shape[0]))
+    else:
+        rows = stacked_solve_ref(free0, capacity, schedulable, node_domain_id, tbatch, pstack,
+                                 ok_global)
     return portfolio_select_ref(*rows, tbatch, ok_global) if select else rows
 
 
@@ -455,10 +562,10 @@ def solve(
     `mesh` (a parallel.mesh.SolveLayout, or a MeshConfig negotiated here)
     shards the single-variant solve, dense or pruned, over the layout's
     shards (B7 on the card, under the launch cache's layout key; pruned, the
-    candidate axis splits). A portfolio under a layout raises: the portfolio
-    mesh is not ported (parallel/mesh.py WAITS_PORTFOLIO); an escalation's
-    portfolio re-solve runs unsharded, the stacked launch on the one
-    device.
+    candidate axis splits). A portfolio solve ignores it, as the JAX
+    package's does: the portfolio and an escalation's re-solve each
+    negotiate their own (portfolio, node) mesh (parallel/portfolio.py
+    `portfolio_solve`, B5 x B7 when its node axis is over 1).
 
     `warm` (a solver.warm.WarmPath; None = the process-shared one): the
     snapshot's node tensors (and its DomainIndex) come from the warm path's
@@ -470,16 +577,13 @@ def solve(
     from grove_tpu_torch.parallel.portfolio import portfolio_solve
     from grove_tpu_torch.solver.warm import default_warm_path
 
-    from grove_tpu_torch.parallel.mesh import WAITS_PORTFOLIO, resolve_layout
+    from grove_tpu_torch.parallel.mesh import resolve_layout, solver_mesh_for
 
     dev = resolve_device(device)
     params = params or SolverParams()
     warm = warm if warm is not None else default_warm_path()
-    layout = resolve_layout(mesh, int(snapshot.free.shape[0]))
+    layout = resolve_layout(mesh, int(snapshot.free.shape[0])) if portfolio == 1 else None
     if layout is not None:
-        if portfolio > 1:
-            raise NotImplementedError(f"a portfolio solve under a layout waits for "
-                                      f"{WAITS_PORTFOLIO}")
         mesh_axis = layout.node_devices
 
     def on(x, dtype):
@@ -506,11 +610,18 @@ def solve(
     tbatch = None
 
     def psolve(width, free_in, okg_in):
+        # The portfolio's own mesh, negotiated per solve as the JAX package's
+        # portfolio_solve negotiates it (a fallback counts each time).
         nonlocal tbatch
         if tbatch is None:
             tbatch = batch_to(batch, dev)
+        pmesh = solver_mesh_for(width, int(capacity.shape[0]), dev)
+        k = pmesh.node_devices if pmesh is not None else 1
+        pdomains = warm.device.domain_index(snapshot.node_domain_id, dev,
+                                            shards=k if k > 1 else None) \
+            if dev.type == "cuda" else None
         return portfolio_solve(free_in, capacity, sched, node_domain_id, tbatch, params, width,
-                               okg_in, device=dev, domains=domains)
+                               okg_in, device=dev, domains=pdomains, mesh=pmesh)
 
     result = None
     pruned_ok = None  # the pruned verdicts, to grade an escalated re-solve

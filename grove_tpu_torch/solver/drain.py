@@ -46,9 +46,11 @@ retires. Admitted sets equal the dense drain's.
 
 Portfolio (`portfolio` P > 1, the solver.portfolio knob): every wave is
 solved under P weight variants and the winner's free_after and verdicts
-chain forward — on the card one stacked launch per wave. The population is
-drawn once per drain. Portfolio drains never prune or scan (the JAX
-package's rules: "scan" and "resident" then run as "pipeline").
+chain forward — on the card one stacked launch per wave. The population and
+its (portfolio, node) mesh (parallel/mesh.py `solver_mesh_for`) are settled
+once per drain: a mesh with node shards makes every wave one B5 x B7
+launch. Portfolio drains never prune or scan (the JAX package's rules:
+"scan" and "resident" then run as "pipeline").
 
 Flight recorder (`recorder`, trace/recorder.py; single-variant drains
 only, as in the JAX package): every wave journals at commit, in commit order
@@ -99,14 +101,14 @@ portfolio 1); the streaming drain reconciles the engine with the ladder
 between waves (`set_scan`, `set_retire_lag`, `set_pruning`, and the
 mesh rung's `strip_layout` / `adopt_layout`). `mesh` (a parallel.mesh
 SolveLayout, or a MeshConfig negotiated here) shards every single-variant
-wave of the chained, wave and pipeline disciplines over the layout's
-shards (kernel B7 on the card; dense or pruned, the candidate pad
-negotiated divisible by the shards), `DrainStats.shard_devices` says how
-many, and journaled waves record the layout's fingerprint. A requested
-mesh that resolves to no layout (one device, a fleet under minNodes)
-counts one fallback (`DrainStats.shard_fallbacks`) and solves unsharded.
-The scan and resident disciplines under a layout raise
-(parallel/mesh.py WAITS_SCAN).
+wave over the layout's shards (kernel B7 on the card; dense or pruned, the
+candidate pad negotiated divisible by the shards), and every scan chunk of
+the scan and resident disciplines (B4 x B7: the shards walk the chunk's
+steps together, each step's candidate axis split when pruned);
+`DrainStats.shard_devices` says how many, and journaled waves record the
+layout's fingerprint. A requested mesh that resolves to no layout (one
+device, a fleet under minNodes) counts one fallback
+(`DrainStats.shard_fallbacks`) and solves unsharded.
 
 The streaming drain (solver/stream.py `drain_stream`) drives the same
 engine through its hooks: `submit(ws, retire)` dispatches and (by default)
@@ -133,7 +135,7 @@ from grove_tpu_torch.solver.core import (
     stack_on,
 )
 from grove_tpu_torch.solver.encode import encode_gangs, gang_shape, next_pow2, stack_batches
-from grove_tpu_torch.parallel.mesh import WAITS_SCAN, mesh_requested, resolve_layout
+from grove_tpu_torch.parallel.mesh import mesh_requested, resolve_layout, solver_mesh_for
 from grove_tpu_torch.solver.pruning import (
     PruningConfig,
     lossy_rejections,
@@ -357,7 +359,7 @@ class _WavePipeline:
                  pruning=None, portfolio=1, donate=False, retire_lag=None, record_stamps=False,
                  scan=None, recorder=None, wave_prefix="drain", on_commit=None, faults=None,
                  watchdog_s=None, max_wave_retries=0, clock=None, watchdog_poll_s=0.001,
-                 layout=None):
+                 layout=None, portfolio_mesh=None):
         self.pods_by_name = pods_by_name
         self.snapshot = snapshot
         self.params = params
@@ -383,10 +385,11 @@ class _WavePipeline:
         self.scan = scan if portfolio == 1 else None
         self.recorder = recorder if portfolio == 1 else None
         # Node-sharded solves (parallel/mesh.py SolveLayout): every wave's
-        # launch is the layout-keyed B7 entry; single-variant drains only.
+        # launch is the layout-keyed B7 entry, every scan chunk's the
+        # layout-keyed B4 x B7 entry; single-variant drains only. A
+        # portfolio's own (portfolio, node) mesh, settled once per drain.
         self.layout = layout if self.use_exec_cache else None
-        if self.layout is not None and self.scan is not None and self.scan.enabled:
-            raise NotImplementedError(f"a scanned drain under a layout waits for {WAITS_SCAN}")
+        self.pmesh = portfolio_mesh if portfolio > 1 else None
         stats.shard_devices = self.layout.node_devices if self.layout else 0
         # Fault injection: the process-installed injector unless the caller
         # passed one, None when disabled (the per-wave check is one `is`).
@@ -412,6 +415,9 @@ class _WavePipeline:
         self.node_domain_id = cache.device_array(snapshot.node_domain_id, torch.int32, dev)
         self.domains = cache.domain_index(snapshot.node_domain_id, dev, shards=self.shards) \
             if dev.type == "cuda" else None
+        pk = self.pmesh.node_devices if self.pmesh is not None else 1
+        self.pdomains = cache.domain_index(snapshot.node_domain_id, dev, shards=pk) \
+            if dev.type == "cuda" and pk > 1 else self.domains
         # The wave carry (a copy: the portfolio's launches update it in place).
         self.free = cache.device_array(snapshot.free, torch.float32, dev).clone()
         self.ok_g = torch.zeros((len(gangs),), dtype=torch.bool, device=dev)
@@ -561,13 +567,13 @@ class _WavePipeline:
                     self.free, plan.capacity, plan.schedulable, plan.node_domain_id,
                     plan.gather_batch(warm_batch), self.params, zeros_okg, n,
                     retain=self.retain_carries, donate=self.donate, device=self.dev,
-                    cand_idx=plan.padded_idx(),
+                    cand_idx=plan.padded_idx(), layout=self.layout,
                 )
             else:
                 cache.ensure_compiled_scan(
                     self.free, self.capacity, self.schedulable, self.node_domain_id, warm_batch,
                     self.params, zeros_okg, n, retain=self.retain_carries, donate=self.donate,
-                    device=self.dev,
+                    device=self.dev, layout=self.layout,
                 )
         return True
 
@@ -584,7 +590,7 @@ class _WavePipeline:
             return portfolio_solve(
                 free, self.capacity, self.schedulable, self.node_domain_id, rec["batch"],
                 self.params, self.portfolio, ok_g, pstack=self.pstack, device=self.dev,
-                domains=self.domains,
+                domains=self.pdomains, mesh=self.pmesh,
             )
         cache = self.wp.executables
         if plan is not None:
@@ -811,14 +817,14 @@ class _WavePipeline:
             return cache.solve_scan_pruned(
                 free_in, cand, cap, sched, ndid, pbatch, self.params, okg_in,
                 retain=self.retain_carries, donate=self.donate, device=self.dev,
-                domains=self.wp.device.domain_index(ndid, self.dev)
-                if self.dev.type == "cuda" else None,
+                domains=self.wp.device.domain_index(ndid, self.dev, shards=self.shards)
+                if self.dev.type == "cuda" else None, layout=self.layout,
             )
         return cache.solve_scan(
             free_in, self.capacity, self.schedulable, self.node_domain_id,
             stack_batches([r["batch"] for r in run], pad_to=w_pad), self.params, okg_in,
             retain=self.retain_carries, donate=self.donate, device=self.dev,
-            domains=self.domains,
+            domains=self.domains, layout=self.layout,
         )
 
     def _commit_scan_chunk(self, run: list[dict], res) -> None:
@@ -1142,8 +1148,6 @@ class _WavePipeline:
 
     def set_scan(self, scan) -> None:
         """scan <-> per-wave dispatch for runs submitted from now on."""
-        if scan is not None and scan.enabled and self.layout is not None:
-            raise NotImplementedError(f"a scanned drain under a layout waits for {WAITS_SCAN}")
         self.scan = scan if self.use_exec_cache else None
 
     def set_retire_lag(self, lag: int | None) -> None:
@@ -1176,8 +1180,6 @@ class _WavePipeline:
         inverse of strip_layout."""
         if self.layout is not None or layout is None or not self.use_exec_cache:
             return
-        if self.scan is not None and self.scan.enabled:
-            raise NotImplementedError(f"a scanned drain under a layout waits for {WAITS_SCAN}")
         self.flush()
         self.layout = layout
         self.domains = self.wp.device.domain_index(self.snapshot.node_domain_id, self.dev,
@@ -1262,8 +1264,8 @@ def drain_backlog(
     MeshConfig) shards every wave of a single-variant drain over the
     layout (the module docstring); a requested mesh that resolves to none
     solves unsharded and counts one fallback. Portfolio drains ignore it
-    (the JAX package's rule), and "scan" or "resident" under a layout
-    raise."""
+    (the JAX package's rule): they solve under their own (portfolio, node)
+    mesh."""
     if harvest not in HARVEST_MODES:
         raise ValueError(f"harvest must be one of {'|'.join(HARVEST_MODES)}, got {harvest!r}")
     if depth < 1:
@@ -1301,6 +1303,10 @@ def drain_backlog(
         pruning = None  # the JAX package never prunes a portfolio solve
     if donate is None:
         donate = donation_default(dev)
+    # A portfolio's (portfolio, node) mesh, negotiated once per drain as the
+    # JAX drain hoists it (a fallback counts once).
+    pmesh = solver_mesh_for(portfolio, int(snapshot.free.shape[0]), dev) \
+        if portfolio > 1 else None
     layout = None
     shard_fallback = 0
     if mesh is not None and portfolio == 1:
@@ -1322,7 +1328,7 @@ def drain_backlog(
         dev=dev, warm_path=wp, pruning=pruning, portfolio=portfolio, donate=bool(donate),
         retire_lag=retire_lag, record_stamps=harvest in ("wave", "pipeline", "scan"),
         scan=scan_cfg, recorder=recorder, faults=faults, watchdog_s=watchdog_s,
-        max_wave_retries=max_wave_retries, layout=layout,
+        max_wave_retries=max_wave_retries, layout=layout, portfolio_mesh=pmesh,
     )
     fused = harvest in ("scan", "resident")
     t0 = time.perf_counter()

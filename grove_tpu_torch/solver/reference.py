@@ -30,6 +30,11 @@ same inputs and layout, op for op:
     shards' partials, each in node order, added in shard order, and stage
     2's top-k merges the shards' own best candidates by (score desc, node
     asc) — the order kernel B7 adds and merges in.
+  - B5 x B7 (a portfolio under a (P, K) layout, parallel/portfolio.py
+    `portfolio_solve`) is B5's loop over B7 (`sharded_stacked_solve_ref`),
+    and B4 x B7 (`scan_solve_fn(layout)` / `scan_pruned_solve_fn(layout)`)
+    is B4's loop over B7 (`sharded_scan_solve_ref`,
+    `sharded_scan_pruned_solve_ref`).
 
 The CPU tests hold these against the JAX package, and `chip_smoke.py` holds
 the CUDA kernel (`grove_tpu_torch/kernels/place_wave.py`) against them on the
@@ -615,6 +620,22 @@ def stacked_solve_ref(
     return tuple(torch.stack([row[i] for row in rows]) for i in range(4))
 
 
+def sharded_stacked_solve_ref(free0, capacity, schedulable, node_domain_id, batch: GangBatch,
+                              params_stack, ok_global, spans):
+    """The stacked solve over row `spans` (B5 x B7: a portfolio solved under
+    a (P, K) layout with K > 1): row k is `sharded_solve_ref` under row k's
+    weights, every row from `free0` against the same `ok_global`, which no
+    row changes.
+
+    Returns what stacked_solve_ref returns."""
+    rows = [
+        sharded_solve_ref(free0, capacity, schedulable, node_domain_id, batch,
+                          params_row(params_stack[k]), ok_global, spans)
+        for k in range(params_stack.shape[0])
+    ]
+    return tuple(torch.stack([row[i] for row in rows]) for i in range(4))
+
+
 def xla_sum_ref(values) -> torch.Tensor:
     """The f32 sum of `values` [n] in the order XLA's CPU backend reduces
     them (its tree-reduction rewrite, as the JAX package's `_objective`
@@ -684,6 +705,20 @@ def _scan_out(rows, free_in, okg_in, free, okg, retain):
     )
 
 
+def _scan_ref(free0, stacked_batch: GangBatch, ok_global, retain, step):
+    """W steps, each `step(free, w, wave w's batch, okg)` -> (assigned, ok,
+    score, free, okg) from the carry the previous one returned; with
+    `retain` each step's entering free and ok_global are kept."""
+    free, okg = free0, ok_global
+    rows, free_in, okg_in = [], [], []
+    for w in range(stacked_batch.gang_valid.shape[0]):
+        free_in.append(free)
+        okg_in.append(okg)
+        assigned, ok, score, free, okg = step(free, w, _step(stacked_batch, w), okg)
+        rows.append((assigned, ok, score))
+    return _scan_out(rows, free_in, okg_in, free, okg, retain)
+
+
 def scan_solve_ref(free0, capacity, schedulable, node_domain_id, stacked_batch: GangBatch,
                    params, ok_global=None, retain=False):
     """W waves solved one after another, each from the carry the previous
@@ -695,16 +730,9 @@ def scan_solve_ref(free0, capacity, schedulable, node_domain_id, stacked_batch: 
     Returns (assigned i32 [W, G, MP], ok bool [W, G], score f32 [W, G],
     free_in f32 [W, N, R] or None, okg_in bool [W, T] or None, free_after,
     ok_global)."""
-    free, okg = free0, ok_global
-    rows, free_in, okg_in = [], [], []
-    for w in range(stacked_batch.gang_valid.shape[0]):
-        free_in.append(free)
-        okg_in.append(okg)
-        assigned, ok, score, free, okg = solve_batch_ref(
-            free, capacity, schedulable, node_domain_id, _step(stacked_batch, w), params, okg
-        )
-        rows.append((assigned, ok, score))
-    return _scan_out(rows, free_in, okg_in, free, okg, retain)
+    return _scan_ref(free0, stacked_batch, ok_global, retain, lambda free, w, batch, okg:
+                     solve_batch_ref(free, capacity, schedulable, node_domain_id, batch, params,
+                                     okg))
 
 
 def scan_pruned_solve_ref(free0, cand_idx, capacity_p, schedulable_p, node_domain_id_p,
@@ -719,18 +747,10 @@ def scan_pruned_solve_ref(free0, cand_idx, capacity_p, schedulable_p, node_domai
 
     Returns what scan_solve_ref returns, `assigned` in fleet ordinals."""
     nf = free0.shape[0]
-    free, okg = free0, ok_global
-    rows, free_in, okg_in = [], [], []
-    for w in range(stacked_batch.gang_valid.shape[0]):
-        free_in.append(free)
-        okg_in.append(okg)
-        count = int((cand_idx[w] < nf).sum())
-        assigned, ok, score, free, okg = solve_pruned_ref(
-            free, capacity_p[w], schedulable_p[w], node_domain_id_p[w], _step(stacked_batch, w),
-            params, okg, cand_idx[w], count,
-        )
-        rows.append((assigned, ok, score))
-    return _scan_out(rows, free_in, okg_in, free, okg, retain)
+    return _scan_ref(free0, stacked_batch, ok_global, retain, lambda free, w, batch, okg:
+                     solve_pruned_ref(free, capacity_p[w], schedulable_p[w], node_domain_id_p[w],
+                                      batch, params, okg, cand_idx[w],
+                                      int((cand_idx[w] < nf).sum())))
 
 
 def stacked_scan_solve_ref(free_stack, capacity, schedulable, node_domain_id,
@@ -748,3 +768,30 @@ def stacked_scan_solve_ref(free_stack, capacity, schedulable, node_domain_id,
         for w in range(free_stack.shape[0])
     ]
     return tuple(torch.stack([row[i] for row in rows]) for i in range(3))
+
+
+def sharded_scan_solve_ref(free0, capacity, schedulable, node_domain_id,
+                           stacked_batch: GangBatch, params, ok_global, retain, spans):
+    """The scan over row `spans` (B4 x B7: core.py `scan_solve_fn(layout)`):
+    step w is `sharded_solve_ref` on wave w from the carry step w - 1 left.
+
+    Returns what scan_solve_ref returns."""
+    return _scan_ref(free0, stacked_batch, ok_global, retain, lambda free, w, batch, okg:
+                     sharded_solve_ref(free, capacity, schedulable, node_domain_id, batch, params,
+                                       okg, spans))
+
+
+def sharded_scan_pruned_solve_ref(free0, cand_idx, capacity_p, schedulable_p, node_domain_id_p,
+                                  stacked_batch: GangBatch, params, ok_global, retain, spans):
+    """The candidate-pruned scan over row `spans` of the candidate axis
+    (B4 x B7: core.py `scan_pruned_solve_fn(layout)`): step w is
+    `sharded_solve_ref` on wave w's candidate axis, each shard gathering
+    and scattering its own candidate rows, from the fleet carry step w - 1
+    left. The retained `free_in` is fleet-shaped.
+
+    Returns what scan_solve_ref returns, `assigned` in fleet ordinals."""
+    nf = free0.shape[0]
+    return _scan_ref(free0, stacked_batch, ok_global, retain, lambda free, w, batch, okg:
+                     sharded_solve_ref(free, capacity_p[w], schedulable_p[w], node_domain_id_p[w],
+                                       batch, params, okg, spans, cand_idx[w],
+                                       int((cand_idx[w] < nf).sum())))

@@ -264,6 +264,10 @@ def drain_stream(
             layout = None
         if not ladder.allows("pruning"):
             pruning = None
+        # Consulted here as the JAX stream consults it (applied through the
+        # retire lag below): a consult reads the ladder's clock and can end
+        # a probation, so the consults' count is part of the schedule.
+        ladder.allows("pipeline")
 
     def _effective_lag(scan_armed: bool) -> int | None:
         """Where the host blocks: serial (0) with the pipeline rung open,

@@ -8,8 +8,9 @@
    graph; every later call of the key copies its inputs in, replays the
    graph and copies the results out. The key holds `_exec_key`'s parts:
    donation, the stacked flag, the scan tag, `coarse_dmax`, the layout's key
-   (parallel/mesh.py SolveLayout: a sharded entry is a B7 launch, distinct
-   from the unsharded entry of the same shapes), which optional planes are
+   (parallel/mesh.py SolveLayout: a sharded entry is a B7 launch, a sharded
+   scan's a B4 x B7 launch, each distinct from the unsharded entry of the
+   same shapes), which optional planes are
    present and every input's shape (dtypes are fixed per input), plus the
    device. `lowerings` counts the entries created (captures on the card).
    Each shape descriptor's use is recorded to a history file in the JAX
@@ -50,6 +51,8 @@ from grove_tpu_torch.solver.core import (
     SolveResult,
     SolverParams,
     StackedScanResult,
+    _check_layout,
+    _sharded,
     resolve_device,
     tensor_on,
 )
@@ -85,12 +88,12 @@ def _domain_shapes(ndid_shape: tuple, shards: int | None = None) -> dict:
     """The DomainIndex's shapes for a node_domain_id of `ndid_shape` ([L, N],
     or [W, L, N] for a pruned chunk's stacked plans); with `shards` the
     sharded launch's (a CSR per shard: offsets [S, L, N + 1], nodes
-    [S, L, N])."""
+    [S, L, N], after a stacked chunk's [W])."""
     *lead, n = ndid_shape
     lead = tuple(lead)
     per = (shards,) if shards else ()
-    return {"dom_count": lead, "dom_offsets": per + lead[:-1] + (lead[-1], n + 1),
-            "dom_nodes": per + lead + (n,)}
+    return {"dom_count": lead, "dom_offsets": lead[:-1] + per + (lead[-1], n + 1),
+            "dom_nodes": lead[:-1] + per + (lead[-1], n)}
 
 
 def _input_shapes(*, free, capacity, schedulable, node_domain_id, batch, ok_global=None,
@@ -236,6 +239,13 @@ def _stacked_shapes(shapes: dict, scan_len: int, *, pruned: bool) -> dict:
     return {k: ((int(scan_len),) + v if k in stepped else v) for k, v in shapes.items()}
 
 
+def _sharding(layout, dev) -> tuple:
+    """(layout, its node shards) for a launch on `dev`, or (None, None)
+    when `layout` splits no node axis; a layout of another device raises."""
+    _check_layout(layout, dev)
+    return (layout, layout.node_devices) if _sharded(layout) else (None, None)
+
+
 class _PlainEntry:
     """A CPU entry: the plain PyTorch version, no graph."""
 
@@ -264,7 +274,7 @@ def _sources(*, free, capacity, schedulable, node_domain_id, batch, domains, ok_
 def _params_stack_np(params_stack) -> np.ndarray:
     if torch.is_tensor(params_stack):
         return params_stack.detach().to("cpu", torch.float32).numpy()
-    return np.asarray(params_stack, dtype=np.float32)
+    return np.array(params_stack, dtype=np.float32)  # a writable copy (populations are not)
 
 
 class ExecutableCache:
@@ -430,26 +440,32 @@ class ExecutableCache:
     def solve_scan(self, free0, capacity, schedulable, node_domain_id,
                    stacked_batch: GangBatch, params: SolverParams | None = None,
                    ok_global=None, *, coarse_dmax=None, retain: bool = False,
-                   donate: bool = False, device=None, domains=None) -> ScanSolveResult:
+                   donate: bool = False, device=None, domains=None,
+                   layout=None) -> ScanSolveResult:
         """core.scan_solve through the cache: a chunk of same-shape waves as
         one launch, the carry threaded on the card. Keyed on the scan length
-        (the batch planes' leading axis) with the ("dense", retain) tag."""
+        (the batch planes' leading axis) with the ("dense", retain) tag.
+        `layout` solves it over the layout's shards (B4 x B7) under its own
+        key; `domains` is then the sharded DomainIndex."""
         dev = resolve_device(device)
+        layout, shards = _sharding(layout, dev)
         params = params or SolverParams()
         shapes = _input_shapes(free=free0, capacity=capacity, schedulable=schedulable,
                                node_domain_id=node_domain_id, batch=stacked_batch,
-                               ok_global=ok_global)
+                               ok_global=ok_global, shards=shards)
         scan = ("dense", bool(retain))
         entry = self._get_or_prepare(
-            _exec_key(shapes, coarse_dmax, donate, scan=scan, device=dev), "scan", shapes, dev,
-            params, _exec_desc(shapes, coarse_dmax, donate, scan), retain=retain,
+            _exec_key(shapes, coarse_dmax, donate, layout, scan=scan, device=dev),
+            "scan_sharded" if shards else "scan", shapes, dev, params,
+            _exec_desc(shapes, coarse_dmax, donate, scan, layout), retain=retain, shards=shards,
         )
         if dev.type != "cuda":
-            from grove_tpu_torch.solver.core import scan_solve
+            from grove_tpu_torch.solver.core import scan_solve_fn
 
-            return scan_solve(free0, capacity, schedulable, node_domain_id, stacked_batch,
-                              params, ok_global, retain=retain, device=dev)
-        domains = self._domains(domains, node_domain_id, dev)
+            return scan_solve_fn(layout, retain, donate)(
+                free0, capacity, schedulable, node_domain_id, stacked_batch, params, ok_global,
+                device=dev)
+        domains = self._domains(domains, node_domain_id, dev, shards)
         with entry.use():
             out = entry.run(_sources(free=free0, capacity=capacity, schedulable=schedulable,
                                      node_domain_id=node_domain_id, batch=stacked_batch,
@@ -460,30 +476,35 @@ class ExecutableCache:
                           stacked_batch: GangBatch, params: SolverParams | None = None,
                           ok_global=None, *, coarse_dmax=None, retain: bool = False,
                           donate: bool = False, device=None,
-                          domains=None) -> ScanSolveResult:
+                          domains=None, layout=None) -> ScanSolveResult:
         """core.scan_pruned_solve through the cache: per step the fleet carry
         gathered onto that wave's candidate axis, solved and scattered back.
-        Keyed with the ("pruned", retain) tag; never recorded to history."""
+        Keyed with the ("pruned", retain) tag; never recorded to history.
+        `layout` splits each step's candidate axis over its shards (B4 x B7,
+        `domains` then kernels.place_wave.domain_index_stacked_sharded's)."""
         dev = resolve_device(device)
+        layout, shards = _sharding(layout, dev)
         params = params or SolverParams()
         shapes = _input_shapes(free=free0, capacity=capacity_p, schedulable=schedulable_p,
                                node_domain_id=node_domain_id_p, batch=stacked_batch,
-                               ok_global=ok_global, cand_idx=cand_idx)
+                               ok_global=ok_global, cand_idx=cand_idx, shards=shards)
         scan = ("pruned", bool(retain))
         entry = self._get_or_prepare(
-            _exec_key(shapes, coarse_dmax, donate, scan=scan, device=dev), "scan", shapes, dev,
-            params, None, retain=retain,
+            _exec_key(shapes, coarse_dmax, donate, layout, scan=scan, device=dev),
+            "scan_sharded" if shards else "scan", shapes, dev, params, None, retain=retain,
+            shards=shards,
         )
         if dev.type != "cuda":
-            from grove_tpu_torch.solver.core import scan_pruned_solve
+            from grove_tpu_torch.solver.core import scan_pruned_solve_fn
 
-            return scan_pruned_solve(free0, cand_idx, capacity_p, schedulable_p,
-                                     node_domain_id_p, stacked_batch, params, ok_global,
-                                     retain=retain, device=dev)
+            return scan_pruned_solve_fn(layout, retain, donate)(
+                free0, cand_idx, capacity_p, schedulable_p, node_domain_id_p, stacked_batch,
+                params, ok_global, device=dev)
         if domains is None:
-            from grove_tpu_torch.kernels.place_wave import domain_index_stacked
+            from grove_tpu_torch.kernels import place_wave as pw
 
-            domains = domain_index_stacked(node_domain_id_p, dev)
+            domains = (pw.domain_index_stacked_sharded(node_domain_id_p, shards, dev) if shards
+                       else pw.domain_index_stacked(node_domain_id_p, dev))
         with entry.use():
             out = entry.run(_sources(free=free0, capacity=capacity_p,
                                      schedulable=schedulable_p, node_domain_id=node_domain_id_p,
@@ -494,36 +515,44 @@ class ExecutableCache:
     def ensure_compiled_scan(self, free0, capacity, schedulable, node_domain_id,
                              batch: GangBatch, params: SolverParams | None, ok_global,
                              scan_len: int, *, coarse_dmax=None, retain: bool = False,
-                             donate: bool = False, device=None, cand_idx=None) -> bool:
+                             donate: bool = False, device=None, cand_idx=None,
+                             layout=None) -> bool:
         """Prepare (never run) the scan launch of `scan_len` waves shaped
         like this one wave (warm.py `ensure_compiled_scan` over the wave's
         avals stacked to [scan_len]). With `cand_idx` the wave's node tensors
         and batch lie on one plan's candidate axis and `free0` is the fleet
-        carry. True when this paid a preparation."""
+        carry; `layout` prepares the scan over its shards. True when this
+        paid a preparation."""
         dev = resolve_device(device)
+        layout, shards = _sharding(layout, dev)
         before = self.lowerings
         pruned = cand_idx is not None
         shapes = _stacked_shapes(
             _input_shapes(free=free0, capacity=capacity, schedulable=schedulable,
                           node_domain_id=node_domain_id, batch=batch, ok_global=ok_global,
-                          cand_idx=cand_idx),
+                          cand_idx=cand_idx, shards=shards),
             scan_len, pruned=pruned,
         )
         scan = ("pruned" if pruned else "dense", bool(retain))
-        self._get_or_prepare(_exec_key(shapes, coarse_dmax, donate, scan=scan, device=dev),
-                             "scan", shapes, dev, params or SolverParams(),
-                             _exec_desc(shapes, coarse_dmax, donate, scan), retain=retain)
+        self._get_or_prepare(_exec_key(shapes, coarse_dmax, donate, layout, scan=scan,
+                                       device=dev),
+                             "scan_sharded" if shards else "scan", shapes, dev,
+                             params or SolverParams(),
+                             _exec_desc(shapes, coarse_dmax, donate, scan, layout),
+                             retain=retain, shards=shards)
         return self.lowerings != before
 
     # ---- entries -----------------------------------------------------------
 
     @staticmethod
-    def _domains(domains, node_domain_id, dev):
+    def _domains(domains, node_domain_id, dev, shards=None):
         if domains is not None:
             return domains
-        from grove_tpu_torch.kernels.place_wave import domain_index
+        from grove_tpu_torch.kernels import place_wave as pw
 
-        return domain_index(node_domain_id, dev)
+        if shards:
+            return pw.domain_index_sharded(node_domain_id, shards, dev)
+        return pw.domain_index(node_domain_id, dev)
 
     @staticmethod
     def _scan_result(entry, out) -> ScanSolveResult:
@@ -674,8 +703,8 @@ class ExecutableCache:
                 continue
             try:
                 layout = _layout_from_desc(desc)
-                if layout is not None and (desc.get("scan") or layout.device.type != dev.type):
-                    continue  # a sharded scan waits (ROADMAP), as does another device
+                if layout is not None and layout.device.type != dev.type:
+                    continue  # a layout of another device
                 shards = None if layout is None else layout.node_devices
                 shapes = _shapes_from_desc(desc, shards)
                 scan = ("dense", bool(desc.get("retain", False))) if desc.get("scan") else None
@@ -695,7 +724,9 @@ class ExecutableCache:
                 continue
             try:
                 self.lowerings += 1
-                kind = "scan" if scan else ("single" if layout is None else "sharded")
+                kind = {(False, False): "single", (False, True): "sharded",
+                        (True, False): "scan", (True, True): "scan_sharded"}[
+                            (bool(scan), layout is not None)]
                 made = self._prepare(kind, shapes, dev, SolverParams(), bool(scan and scan[1]),
                                      shards)
                 self._insert(key, made)
@@ -800,11 +831,13 @@ class SnapshotDeviceCache:
     def domain_index(self, node_domain_id, device=None, shards: int | None = None):
         """The DomainIndex of `node_domain_id` ([L, N], or a chunk's stacked
         [W, L, N]) on `device`, built and uploaded once per content digest;
-        with `shards` the sharded launch's (domain_index_sharded)."""
+        with `shards` the sharded launch's (domain_index_sharded, or
+        domain_index_stacked_sharded for a chunk)."""
         from grove_tpu_torch.kernels.place_wave import (
             domain_index,
             domain_index_sharded,
             domain_index_stacked,
+            domain_index_stacked_sharded,
         )
 
         dev = resolve_device(device)
@@ -817,7 +850,8 @@ class SnapshotDeviceCache:
             self.domain_hits += 1
             return cached
         if shards:
-            built = domain_index_sharded(ndid, shards, dev)
+            built = (domain_index_stacked_sharded if ndid.ndim == 3 else domain_index_sharded)(
+                ndid, shards, dev)
         else:
             built = (domain_index_stacked if ndid.ndim == 3 else domain_index)(ndid, dev)
         self._domains[key] = built

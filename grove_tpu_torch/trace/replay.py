@@ -281,8 +281,8 @@ def solve_wave_record(
             pruning=pruning,
             mesh_axis=recut_node_axis(cfg, int(snapshot.capacity.shape[0])),
             warm=warm,
-            # A portfolio re-solve takes no layout (the JAX package ignores it).
-            mesh=layout if portfolio == 1 else None,
+            # A portfolio re-solve ignores it, as the JAX package's does.
+            mesh=layout,
         )
     ok_np, assigned_np, score_np = fetch_result(result)
     plan = decode_bindings(ok_np, assigned_np, decode, snapshot)

@@ -17,7 +17,9 @@ version) against the JAX package's on the suite's 8 virtual CPU devices
     shards as threads meeting at the barriers) equals the plain version;
   - drains: chained, wave and pipeline (and pipelined pruned) under a
     layout, bindings, free_after and shard_devices equal to JAX's; the
-    scan disciplines under a layout raise;
+    scan disciplines under a layout equal JAX's too (more of them in
+    tests/test_torch_mesh_scan.py), a portfolio under a layout solves on
+    its own mesh (tests/test_torch_mesh_portfolio.py);
   - the stream's mesh rung: a chaos run whose faults step the mesh down
     and back up (strip_layout / adopt_layout) equals JAX's;
   - the controller's journal under a mesh equals JAX's, fingerprint
@@ -341,10 +343,19 @@ def test_sharded_pruned_solve_equals_jax_and_unsharded(shards, virtual8):
 
 
 def test_portfolio_under_a_layout_waits():
-    _, _, ps, pb = both("quality")["port"]
-    layout = p_mesh.solve_layout_for(int(ps.free.shape[0]))
-    with pytest.raises(NotImplementedError, match="portfolio mesh"):
-        p_solve(ps, pb, portfolio=4, device="cpu", warm=PWarm(), mesh=layout)
+    """A portfolio under a layout no longer waits: solve() ignores the
+    layout, as the JAX package's does, and the portfolio solves on its own
+    (4, 2) mesh, equal to JAX's and to the unsharded portfolio."""
+    w = both("quality")
+    (_, _, rs, rb), (_, _, ps, pb) = w["jax"], w["port"]
+    n = int(ps.free.shape[0])
+    want = arrays(r_solve(rs, rb, RParams(), portfolio=4, mesh=jax_layout(8, n)))
+    got = arrays(p_solve(ps, pb, portfolio=4, device="cpu", warm=PWarm(),
+                         mesh=p_mesh.solve_layout_for(n)))
+    assert_same(got, want, "portfolio=4 under a layout vs JAX")
+    p_mesh.force_virtual_devices(0)
+    assert_same(arrays(p_solve(ps, pb, portfolio=4, device="cpu", warm=PWarm())), want,
+                "portfolio=4 unsharded vs JAX")
 
 
 # ---- the kernel source on the host -----------------------------------------------
@@ -490,16 +501,24 @@ def test_sharded_drains_equal_jax(harvest, pruned):
 
 
 def test_sharded_drain_fallback_counted_and_scan_waits():
+    """A mesh under minNodes counts one fallback; the scan and resident
+    disciplines under a layout (which waited before B4 x B7) equal JAX's."""
     pg, pp, ps = drain_world("port")
     before = p_mesh.shard_fallbacks()
     _, stats = p_drain(pg, pp, ps, wave_size=16, warm_path=PWarm(), device="cpu",
                        mesh=p_mesh.MeshConfig(enabled=True, min_nodes=1 << 20))
     assert (stats.shard_devices, stats.shard_fallbacks) == (0, 1)
     assert p_mesh.shard_fallbacks() == before + 1
+    rg, rp, rs = drain_world("jax")
     for harvest in ("scan", "resident"):
-        with pytest.raises(NotImplementedError, match="scan and resident"):
-            p_drain(pg, pp, ps, wave_size=16, warm_path=PWarm(), device="cpu", harvest=harvest,
-                    mesh=p_mesh.MeshConfig(enabled=True, min_nodes=64))
+        want, rstats = r_drain(rg, rp, rs, wave_size=8, warm_path=RWarm(), harvest=harvest,
+                               mesh=r_mesh.MeshConfig(enabled=True, min_nodes=64))
+        got, pstats = p_drain(pg, pp, ps, wave_size=8, warm_path=PWarm(), device="cpu",
+                              harvest=harvest, mesh=p_mesh.MeshConfig(enabled=True, min_nodes=64))
+        assert got == want
+        assert (pstats.shard_devices, pstats.scan_chunks, pstats.dispatches) == (
+            rstats.shard_devices, rstats.scan_chunks, rstats.dispatches)
+        assert pstats.shard_devices == 8 and pstats.scan_chunks > 0
 
 
 # ---- the stream's mesh rung ----------------------------------------------------

@@ -203,7 +203,11 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               utils/csrc/serde_render.c) and the writer's I/O are inside;
               every window printed with the draining thread's CPU seconds
               and context switches, and the recorder's split with the
-              writer thread's CPU), (ON - OFF) / OFF over the summed walls
+              writer thread's CPU; the draining thread's flush per drain
+              with its parts (the wait for the writer's lock, the queue's
+              drain, the segment and manifest writes, the rest), capture +
+              render, and the writer's file steps), (ON - OFF) / OFF over
+              the summed walls
               below 0.05
               (a failed gate fails the run after the last phase); (c) a
               256-node churn world (contended
@@ -309,7 +313,12 @@ JAX or of the grove_tpu package. Phases, each fatal on failure:
               "scan" mode under them (== the CPU's plain formed-serial
               stream), drained pruned in "scan" under them and at portfolio
               4 under the (4, 2) mesh (each == the unsharded card drain):
-              the phase's main path
+              the phase's main path; (d), before (c): on the non-dyadic
+              fleet (sim/workloads.py `nondyadic_cluster`, 160 nodes, 24
+              gangs; free values and their sums inexact in f32)
+              place_wave_sharded at S = 2, 4, 8 dense and pruned, the
+              (4, 2) portfolio launch and the 3-step scan at S = 4 == their
+              plain versions and == B1, B5 and B4
  then         one JSON line: per kernel variant its launches on the main
               path (phases 4-9 as before, plus `launches_stream`,
               `launches_tune`, `launches_chaos`, `launches_defrag`,
@@ -2591,15 +2600,29 @@ def serving_phase(dev, card) -> dict:
     split = b["record_split"]
     from grove_tpu_torch.utils import serde
 
+    def per_drain(v):
+        return f"{v['s'] * 1e3 / split['drains']:.4f} ({v['n']})"
+
     print("replay scenario: the recorder's ms a drain over the ON windows (renderer "
           f"{os.path.basename(serde.renderer_file or 'not loaded')}: "
-          + ", ".join(f"{part} {v['s'] * 1e3 / split['drains']:.4f} ({v['n']})"
-                      for part, v in split["parts"].items())
+          + ", ".join(f"{part} {per_drain(v)}" for part, v in split["parts"].items()
+                      if not part.startswith("flush"))
           + f"; {split['drains']} drains; the writer thread's CPU "
           f"{split['writer_cpu_s'] * 1e3 / split['drains']:.4f}, switches "
           f"{split['writer_switches']}); collector pauses ON "
           f"{sum(w[3] for w in b['record_windows'] if w[0] == 'on'):.6f} s, OFF "
           f"{sum(w[3] for w in b['record_windows'] if w[0] == 'off'):.6f} s")
+    parts = split["parts"]
+    print(f"replay scenario: the draining thread's flush, ms a drain: flush "
+          f"{per_drain(parts['flush'])} = "
+          + " + ".join(f"{part[6:]} {per_drain(v)}" for part, v in parts.items()
+                       if part.startswith("flush."))
+          + "; capture + render "
+          f"{(parts['capture']['s'] + parts['render']['s']) * 1e3 / split['drains']:.4f}; "
+          "the writer's file steps, ms a drain: "
+          + ", ".join(f"{step} {s * 1e3 / split['drains']:.4f}"
+                      for step, s in split["file_steps"].items())
+          + f" on {card}")
     print(f"replay scenario: OFF {b['drain_wall_off_s']:.6f} s, ON {b['drain_wall_on_s']:.6f} s "
           f"a drain, overhead {b['record_overhead_frac']:.4f} (gate < 0.05) on {card}; "
           f"== the CPU's document, seconds aside")
@@ -3322,8 +3345,9 @@ def mesh_phase(dev, card, timed, node_tensors, snap_b, gangs_b, encode_wave, pla
     21's plain CPU drain, `cpu_digest`) and streamed in "scan" mode (==
     the CPU's plain formed-serial stream), and a portfolio=4 drain of them
     under the (4, 2) mesh (== the same drain unsharded on the card), and a
-    pruned "scan" drain of them under 4 shards (== unsharded on the card).
-    Returns {"rows": the kernels line's rows, "launches": per variant}."""
+    pruned "scan" drain of them under 4 shards (== unsharded on the card);
+    (d), run before (c), is nondyadic_fleet_check. Returns {"rows": the
+    kernels line's rows, "launches": per variant}."""
     import numpy as np
     import torch
 
@@ -3544,6 +3568,9 @@ def mesh_phase(dev, card, timed, node_tensors, snap_b, gangs_b, encode_wave, pla
           f"{b4p_ms:.3f} ms, plain {pplain_ms:.1f} ms, bound {pbound[0]:.6f} ms ({pbound[1]}) "
           f"on {card}")
 
+    # ---- (d) the sharded kernels on a fleet f32 holds inexactly ---------------
+    nondyadic_fleet_check(dev, card, timed)
+
     # ---- (c) the main path: the shard backlog under the mesh ------------------
     _topo, _nodes, gangs, pods, snap = shard_worker_problem()
     cfg = StreamConfig(depth=2, wave_size=64)
@@ -3636,6 +3663,163 @@ def mesh_phase(dev, card, timed, node_tensors, snap_b, gangs_b, encode_wave, pla
          "ms": pms, "plain_ms": pplain_ms, "plain_gangs": 32, "bound_ms": pbound[0],
          "bound_by": pbound[1], "library_ms": None, "shards": shards, "b4_ms": b4p_ms},
     ]}
+
+
+def nondyadic_fleet_check(dev, card, timed) -> None:
+    """Phase 22 (d): the sharded kernels on sim/workloads.py's non-dyadic
+    fleet (160 nodes with pods of 100m-multiple CPU and non-power-of-two MiB
+    memory bound on them, and the 24-gang backlog of such pods), where the
+    free values and their domain sums are inexact in f32 and a node's free
+    update rounds once: B7 at S = 2, 4, 8, dense and pruned (120
+    candidates), B5 x B7 at (4, 2) with the select, and B4 x B7 at S = 4
+    over three steps with the carries retained, each == its plain version on
+    the same card inputs at tolerance 0 and == the unsharded kernel (B1, B5,
+    B4). Comparison launches, not counted."""
+    import numpy as np
+    import torch
+
+    from grove_tpu_torch.kernels.place_wave import (
+        domain_index,
+        domain_index_sharded,
+        place_wave,
+        place_wave_sharded,
+    )
+    from grove_tpu_torch.orchestrator import expand_podcliqueset
+    from grove_tpu_torch.parallel import mesh as mesh_mod
+    from grove_tpu_torch.parallel.portfolio import params_population
+    from grove_tpu_torch.sim.workloads import bench_topology, nondyadic_backlog, nondyadic_cluster
+    from grove_tpu_torch.state import build_snapshot
+    from grove_tpu_torch.solver.core import (
+        SolverParams,
+        batch_to,
+        scan_solve,
+        stack_on,
+        stacked_dispatch,
+    )
+    from grove_tpu_torch.solver.encode import encode_gangs, stack_batches
+    from grove_tpu_torch.solver.pruning import PruningConfig, plan_candidates
+    from grove_tpu_torch.solver.reference import (
+        portfolio_select_ref,
+        sharded_scan_solve_ref,
+        sharded_solve_ref,
+        sharded_stacked_solve_ref,
+    )
+
+    t0 = time.perf_counter()
+    topo = bench_topology()
+    nodes, bound = nondyadic_cluster()
+    gangs, pods = [], {}
+    for pcs in nondyadic_backlog():
+        ds = expand_podcliqueset(pcs, topo)
+        gangs.extend(ds.podgangs)
+        pods.update({p.name: p for p in ds.pods})
+    snap = build_snapshot(nodes, topo, bound_pods=bound)
+    gidx = {g.name: i for i, g in enumerate(gangs)}
+    batch, _ = encode_gangs(gangs, pods, snap, global_index_of=gidx)
+    n = snap.capacity.shape[0]
+    check(not np.all((np.asarray(snap.free, np.float32)[:, 0] * 4) % 1 == 0),
+          "nondyadic: the fleet's free CPU lies on the quarter grid")
+    params = SolverParams()
+    okg0 = torch.zeros(len(gangs), dtype=torch.bool, device=dev)
+
+    def fresh():
+        return torch.as_tensor(snap.free, dtype=torch.float32, device=dev)
+
+    node = (fresh(), *(torch.as_tensor(np.asarray(x), device=dev)
+                       for x in (snap.capacity, snap.schedulable, snap.node_domain_id)))
+    tb = batch_to(batch, dev)
+
+    def spans(axis, shards):
+        return [(s * axis // shards, (s + 1) * axis // shards) for s in range(shards)]
+
+    def same(label, names, got, want):
+        for nm, a, b in zip(names, got, want):
+            check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                  f"nondyadic[{label}]: {nm} differs"
+                  + ("" if a is None or b is None else f" at {torch.nonzero(a != b)[:8].tolist()}"))
+
+    plain_s = 0.0
+    # B7, dense and pruned.
+    b1 = place_wave(fresh(), *node[1:], tb, params, okg0.clone(),
+                    domains=domain_index(snap.node_domain_id, dev))
+    for shards in SHARD_LADDER:
+        for pruned in (False, True):
+            if pruned:
+                plan = plan_candidates(snap, batch, PruningConfig(
+                    enabled=True, max_candidates=120, min_fleet=16, min_pad=8), mesh_axis=shards)
+                check(plan is not None and plan.pad % shards == 0,
+                      f"nondyadic: no pruned plan at S={shards}")
+                pt = plan.tensors(dev)
+                rest, tbp = (pt.capacity, pt.schedulable, pt.node_domain_id), batch_to(
+                    plan.gather_batch(batch), dev)
+                cand = (pt.cand_idx, plan.count)
+            else:
+                rest, tbp, cand = node[1:], tb, (None, None)
+            want, ms = timed(lambda: sharded_solve_ref(fresh(), *rest, tbp, params, okg0.clone(),
+                                                       spans(rest[0].shape[0], shards), *cand))
+            plain_s += ms / 1e3
+            extra = {} if cand[0] is None else {"cand_idx": cand[0], "cand_count": cand[1]}
+            got = place_wave_sharded(fresh(), *rest, tbp, params, okg0.clone(), shards=shards,
+                                     domains=domain_index_sharded(rest[2], shards, dev), **extra)
+            torch.cuda.synchronize()
+            kind = "pruned" if pruned else "dense"
+            same(f"B7 {kind}, S={shards}", NAMES, got, want)
+            if not pruned:
+                same(f"B7 dense, S={shards}, against B1", NAMES, got, b1)
+            print(f"nondyadic[B7 {kind}, S={shards}, N={n}, G={len(gangs)}]: kernel == plain"
+                  f"{' == B1' if not pruned else ''} on {', '.join(NAMES)} (admitted "
+                  f"{int(want[1].sum())}) on {card}")
+
+    sel = ("assigned", "ok", "placement_score", "free_after", "ok_global", "winner", "objectives")
+    okg = torch.as_tensor(np.random.default_rng(5).random(len(gangs)) < 0.3, device=dev)
+    pstack = stack_on(params_population(4), dev)
+    mesh_mod.force_virtual_devices(8, dev)
+    try:
+        layout = mesh_mod.solver_mesh_for(4, n, dev)
+        check((layout.portfolio_devices, layout.node_devices) == (4, 2),
+              "nondyadic: solver_mesh_for(4) is not (4, 2)")
+        got = stacked_dispatch(fresh(), *node[1:], tb, pstack, okg.clone(), select=True,
+                               device=dev, layout=layout,
+                               domains=domain_index_sharded(snap.node_domain_id, 2, dev))
+        b5 = stacked_dispatch(fresh(), *node[1:], tb, pstack, okg.clone(), select=True,
+                              device=dev, domains=domain_index(snap.node_domain_id, dev))
+        torch.cuda.synchronize()
+    finally:
+        mesh_mod.force_virtual_devices(0)
+    want, ms = timed(lambda: portfolio_select_ref(*sharded_stacked_solve_ref(
+        fresh(), *node[1:], tb, pstack, okg, spans(n, 2)), tb, okg.clone()))
+    plain_s += ms / 1e3
+    same("B5 x B7 (4, 2)", sel, got, want)
+    same("B5 x B7 (4, 2), against B5", sel, got, b5)
+    print(f"nondyadic[B5 x B7, mesh (4, 2)]: kernel == plain == B5 on every output (winner "
+          f"{int(got[5])}) on {card}")
+
+    per = -(-len(gangs) // 3)
+    shape = dict(max_groups=batch.group_req.shape[1], max_sets=batch.set_member.shape[1],
+                 max_pods=batch.pod_group.shape[1], pad_gangs_to=per)
+    steps = [encode_gangs(gangs[w * per:(w + 1) * per], pods, snap, global_index_of=gidx,
+                          **shape)[0] for w in range(3)]
+    tbs = batch_to(stack_batches(steps), dev)
+    scan_names = ("assigned", "ok", "placement_score", "free_in", "okg_in", "free_after",
+                  "ok_global")
+    b4 = scan_solve(fresh(), *node[1:], tbs, params, okg0.clone(), retain=True, device=dev,
+                    domains=domain_index(snap.node_domain_id, dev))
+    layout = mesh_mod.solve_layout_for(n, mesh_mod.force_virtual_devices(4, dev))
+    try:
+        got = scan_solve(fresh(), *node[1:], tbs, params, okg0.clone(), retain=True, device=dev,
+                         domains=domain_index_sharded(snap.node_domain_id, 4, dev),
+                         layout=layout)
+        torch.cuda.synchronize()
+    finally:
+        mesh_mod.force_virtual_devices(0)
+    want, ms = timed(lambda: sharded_scan_solve_ref(fresh(), *node[1:], tbs, params,
+                                                    okg0.clone(), True, spans(n, 4)))
+    plain_s += ms / 1e3
+    same("B4 x B7, S=4", scan_names, got, want)
+    same("B4 x B7, S=4, against B4", scan_names, got, b4)
+    print(f"nondyadic[B4 x B7, S=4, 3 steps of {per}]: kernel == plain == B4 on every output "
+          f"(admitted {int(want[1].sum())}); plain versions {plain_s:.1f} s, check "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
 
 
 def add_path_launches(rows, paths: dict) -> list:

@@ -2342,13 +2342,15 @@ def read_record_overhead(drain, new_recorder, *, window_s: float = 0.0, rounds: 
     `getrusage(RUSAGE_THREAD)`), "calibration":
     [drains, wall_s] or None, "wall_off", "wall_on" (seconds a drain),
     "overhead", "admitted" (the set of what the drains admitted), "split":
-    {"drains", "parts", "writer_cpu_s", "writer_switches"}}."""
+    {"drains", "parts", "file_steps", "writer_cpu_s", "writer_switches"}}."""
     import gc
     import shutil
 
     from grove_tpu_torch.trace.recorder import SPLIT_PARTS
+    from grove_tpu_torch.utils.fsio import FILE_STEPS
 
     split = {part: {"s": 0.0, "n": 0} for part in SPLIT_PARTS}
+    file_steps = dict.fromkeys(FILE_STEPS, 0.0)
     writer = [0.0, 0, 0]  # the writer threads' CPU seconds and switches
     pauses = [0.0, 0, 0.0]  # seconds, collections, start of the current one
 
@@ -2385,6 +2387,8 @@ def read_record_overhead(drain, new_recorder, *, window_s: float = 0.0, rounds: 
                 for part, v in st["split"].items():
                     split[part]["s"] += v["s"]
                     split[part]["n"] += v["n"]
+                for step, v in st["fileSteps"].items():
+                    file_steps[step] += v
                 writer[0] += st["writerCpuSeconds"]
                 writer[1] += st["writerSwitches"][0]
                 writer[2] += st["writerSwitches"][1]
@@ -2410,8 +2414,8 @@ def read_record_overhead(drain, new_recorder, *, window_s: float = 0.0, rounds: 
     overhead = (wall_on - wall_off) / wall_off if wall_off > 0 else 0.0
     return {"windows": windows, "calibration": calibration, "wall_off": wall_off,
             "wall_on": wall_on, "overhead": overhead, "admitted": admitted_seen,
-            "split": {"drains": n_side, "parts": split, "writer_cpu_s": writer[0],
-                      "writer_switches": writer[1:]}}
+            "split": {"drains": n_side, "parts": split, "file_steps": file_steps,
+                      "writer_cpu_s": writer[0], "writer_switches": writer[1:]}}
 
 
 def run_replay_bench(scale: float = 1.0, device=None, window_s: float = 0.0,

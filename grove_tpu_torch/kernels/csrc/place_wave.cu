@@ -151,7 +151,11 @@
 //  - arithmetic uses the IEEE round-to-nearest intrinsics (__fadd_rn,
 //    __fmul_rn, __fdiv_rn, ...), which are never contracted into FMAs, and
 //    the build passes -fmad=false with no fast math: the slot ratio
-//    floor((free + 1e-6) / max(req, 1e-9)) is a correctly rounded division;
+//    floor((free + 1e-6) / max(req, 1e-9)) is a correctly rounded division.
+//    The one fused multiply-add is stage 2's free update, free - take * req
+//    (pw_take_free), which XLA's CPU backend contracts into one (a single
+//    rounding: on free values off the dyadic grid, such as tenths of a CPU,
+//    two roundings differ in the last bit);
 //  - scores are built in the reference's operation order, and sums over the
 //    resource and pack-set axes run in index order;
 //  - top-k by (score desc, node index asc) is an iterated argmax with the
@@ -553,6 +557,13 @@ __device__ __forceinline__ float pw_norm_free(const float* free_row, const float
   float nf = 0.f;
   for (int r = 0; r < R; ++r) nf = __fadd_rn(nf, __fdiv_rn(free_row[r], cap_scale[r]));
   return __fdiv_rn(nf, (float)R);
+}
+
+// A carry value after `take` pods of request `req` leave it: free - take *
+// req rounded once, as XLA's CPU backend fuses alloc_group's free update
+// (core.py:482) into a multiply-add.
+__device__ __forceinline__ float pw_take_free(float free, int take, float req) {
+  return __fmaf_rn(-(float)take, req, free);
 }
 
 // Slots of group g on node i (carry row `free_row`), masked by the gang's
@@ -1271,7 +1282,7 @@ place_wave_kernel(const PlaceWaveArgs a0) {
               for (int r = 0; r < R; ++r) {
                 const float x = free_s[(size_t)node * R + r];
                 V.undo[(size_t)e * R + r] = x;
-                free_s[(size_t)node * R + r] = __fsub_rn(x, __fmul_rn((float)take, req[r]));
+                free_s[(size_t)node * R + r] = pw_take_free(x, take, req[r]);
               }
               V.norm_free[node] = pw_norm_free(free_s + (size_t)node * R, cap_scale, R);
               V.nword[node] |= (int32_t)PW_NW_USED;
@@ -1323,7 +1334,7 @@ place_wave_kernel(const PlaceWaveArgs a0) {
                 for (int r = 0; r < R; ++r) {
                   const float x = free_s[(size_t)bn * R + r];
                   V.undo[(size_t)e * R + r] = x;
-                  free_s[(size_t)bn * R + r] = __fsub_rn(x, __fmul_rn((float)take, req[r]));
+                  free_s[(size_t)bn * R + r] = pw_take_free(x, take, req[r]);
                 }
                 V.norm_free[bn] = pw_norm_free(free_s + (size_t)bn * R, cap_scale, R);
                 V.nword[bn] |= (int32_t)PW_NW_USED;

@@ -71,8 +71,8 @@ def synthetic_cluster(
 
 
 def _clique(name: str, replicas: int, cpu: str, tpu: int = 0,
-            min_available: int | None = None) -> dict[str, Any]:
-    requests: dict[str, Any] = {"cpu": cpu, "memory": "1Gi"}
+            min_available: int | None = None, memory: str = "1Gi") -> dict[str, Any]:
+    requests: dict[str, Any] = {"cpu": cpu, "memory": memory}
     if tpu:
         requests["google.com/tpu"] = str(tpu)
     spec: dict[str, Any] = {
@@ -181,6 +181,56 @@ def synthetic_backlog(
 # A scheduler that commits the block before checking rack nesting (greedy,
 # KAI-style Filter/Score/Permit) strands every gang on a trap; the solver's
 # nested-feasibility guard (solver/core.py) skips traps outright.
+
+
+# --- a fleet whose free capacity f32 holds inexactly ------------------------------
+#
+# On the fleets above every free value is a multiple of a power of two (CPU in
+# quarters, memory in GiB), so a domain's free sum is exact in any order. Pods
+# of 100m-multiple CPU leave free CPU in tenths, which f32 rounds: a sum's
+# last bits then depend on its order, the order a node-sharded solve adds its
+# shards' partials in.
+
+
+def nondyadic_cluster(
+    zones: int = 1, blocks_per_zone: int = 2, racks_per_block: int = 4, hosts_per_rack: int = 20,
+) -> tuple[list[Node], list]:
+    """(nodes, bound pods): synthetic_cluster's fleet with a pod bound on
+    every node but each rack's last, requesting a multiple of 100m CPU and a
+    non-power-of-two multiple of MiB of memory."""
+    from grove_tpu_torch.api.pod import Pod
+    from grove_tpu_torch.api.quantity import parse_quantity
+    from grove_tpu_torch.api.types import Container, PodSpec
+
+    nodes = synthetic_cluster(zones, blocks_per_zone, racks_per_block, hosts_per_rack)
+    bound = [
+        Pod(name=f"nd-bound-{k}", node_name=node.name, pclq_fqn="bound",
+            spec=PodSpec(containers=[Container(name="b", requests={
+                "cpu": parse_quantity(f"{100 * (k % 29 + 1)}m"),
+                "memory": parse_quantity(f"{300 * (k % 7 + 1)}Mi")})]))
+        for k, node in enumerate(nodes) if (k + 1) % hosts_per_rack
+    ]
+    return nodes, bound
+
+
+def nondyadic_backlog(n: int = 24) -> list[PodCliqueSet]:
+    """PodCliqueSets for nondyadic_cluster: pods of 100m-multiple CPU and
+    non-power-of-two MiB memory, packed into racks, blocks or nothing in
+    turn, every other one with a rack-packed scaling group."""
+    out = []
+    for i in range(n):
+        cliques = [
+            _clique("w", 2 + i % 4, f"{100 * (7 + 3 * (i % 11))}m",
+                    memory=f"{300 * (1 + i % 5)}Mi"),
+            _clique("h", 1 + i % 2, f"{100 * (3 + i % 7)}m", memory=f"{100 * (3 + i % 6)}Mi"),
+        ]
+        groups = None
+        if i % 2:
+            groups = [{"name": "g", "cliqueNames": ["w"], "replicas": 1, "minAvailable": 1,
+                       "topologyConstraint": {"packDomain": "rack"}}]
+        out.append(_pcs(f"nd-{i}", cliques=cliques, scaling_groups=groups,
+                        constraint_domain=(None, "rack", "block")[i % 3]))
+    return out
 
 
 def contended_cluster(

@@ -16,6 +16,9 @@ same inputs and layout, op for op:
     ties, as `lax.top_k` orders them);
   - short reductions over the resource and pack-set axes are summed in index
     order, as the CUDA kernel sums them;
+  - stage 2's free update, free - counts * req, is rounded once
+    (`take_free_ref`), as XLA's CPU backend contracts it into a
+    multiply-add: off the dyadic grid two roundings differ in the last bit;
   - B3 (grove_tpu/solver/pruning.py `CandidatePlan.gather_free` /
     `scatter_free` / `remap_assigned`) is torch index ops around the solve;
   - B5 (core.py `stacked_solve_batch_impl`, parallel/portfolio.py
@@ -108,6 +111,15 @@ def _top_k_merged(masked_score: torch.Tensor, k: int, spans):
     # first among equal scores.
     neg, pick = torch.sort(-cand_s, stable=True)
     return cand_i[pick[:k]], -neg[:k]
+
+
+def take_free_ref(free: torch.Tensor, counts: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
+    """free [N,R] after counts [N] pods of request req [R] leave it, rounded
+    once (core.py:482, which XLA's CPU backend fuses into a multiply-add, as
+    kernel B1's pw_take_free does): counts * req and the difference are exact
+    in f64 (a pod count below 2^10, values within 2^19 of each other, as a
+    fleet's are), so the one rounding to f32 is the multiply-add's."""
+    return (free.double() - counts.double()[:, None] * req.double()[None, :]).to(_F32)
 
 
 def group_slots_ref(free: torch.Tensor, group_req: torch.Tensor) -> torch.Tensor:
@@ -369,7 +381,7 @@ def place_gang_ref(
         counts = torch.where(valid, counts, 0)
         placed = counts.sum()
         groups_ok = groups_ok & ((placed >= required) | ~valid)
-        free_g = free_g - counts.to(_F32)[:, None] * req[None, :]
+        free_g = take_free_ref(free_g, counts, req)
         used = used | (counts > 0)
         phase_counts.append(counts)
 

@@ -3,7 +3,7 @@ the hot path (grove_tpu/trace/recorder.py counterpart).
 
 The journal is a directory of SELF-CONTAINED segment files, each an atomic
 JSON document `{"version": N, "records": [...]}` written via the shared
-temp-file+rename primitive (`utils/fsio.atomic_write_chunks`) — readers never
+temp-file+rename primitive (`utils/fsio.StagedFile`) — readers never
 see a torn segment, and rotation/pruning cannot corrupt older ones. Two
 record kinds matter to replay:
 
@@ -35,10 +35,14 @@ when it lets the segment go, so the next records take that memory and do
 not fault in new pages). So nothing is copied, and the queue holds text,
 which the collector does not track: a capture that waited a flush interval
 for the writer as an object graph (pod copies) was promoted into the oldest
-generation and made full collections come sooner. The writer thread keeps
-each record's bytes and writes a segment as the bytes it already holds plus
-the new ones, so a flush costs the new records and the file write, not a
-re-encoding of the segment. A full queue DROPS the record and counts it
+generation and made full collections come sooner. The writer keeps each
+record's bytes and each manifest entry's text, so a write costs the new
+records and the file I/O, not a re-encoding. Each pass of its thread
+stages the next files (`_Journal.stage`: the temporary file made, the open
+segment's bytes so far written) and releases the files the last writes
+replaced, so a write after a pass is one writev and one rename per file;
+flush() writes on its caller's thread, which would only wait for the
+writer's otherwise. A full queue DROPS the record and counts it
 (`dropped`) rather than blocking a solve.
 """
 
@@ -61,7 +65,7 @@ from grove_tpu_torch.api import podgang as podgang_mod
 from grove_tpu_torch.api import types as types_mod
 from grove_tpu_torch.state import cluster as state_mod
 from grove_tpu_torch.utils import serde
-from grove_tpu_torch.utils.fsio import atomic_write_chunks
+from grove_tpu_torch.utils.fsio import FILE_STEPS, TEMP_PREFIX, StagedFile
 
 # Journal schema, the JAX package's: either package reads the other's
 # journals. The replayer refuses a mismatched version outright: a silent
@@ -72,10 +76,17 @@ SCHEMA_VERSION = 1
 _SEGMENT_GLOB = "segment-*.json"
 # A segment's text up to its first record.
 _SEGMENT_HEAD = (json.dumps({"version": SCHEMA_VERSION})[:-1] + ', "records": [').encode()
+# The caller's wall inside flush(), in its order: the wait for the writer's
+# lock ("wake"), the queue's drain, the segment write, the manifest write,
+# and the rest until the return ("handback").
+FLUSH_PARTS = ("wake", "drain", "segment", "manifest", "handback")
 # The parts of TraceRecorder.stats(split=True), in the order of a record's
-# way to disk.
-SPLIT_PARTS = ("capture", "render", "segment", "manifest")
+# way to disk, then the writer's start-up and the flush with its parts.
+SPLIT_PARTS = ("capture", "render", "segment", "manifest", "startup", "flush") + tuple(
+    f"flush.{part}" for part in FLUSH_PARTS)
 _MANIFEST = "manifest.json"
+# The manifest's text up to its first segment entry.
+_MANIFEST_HEAD = (json.dumps({"version": SCHEMA_VERSION})[:-1] + ', "segments": [').encode()
 
 
 # A wave's capture, as TraceRecorder.capture_wave hands it to the renderer:
@@ -285,6 +296,26 @@ def fleet_digest_of(snapshot) -> tuple[str, dict]:
     return digest, payload
 
 
+# The JSON text of each captured fleet payload, by digest, for the process
+# (at most _FLEET_TEXTS_MAX of them): a recorder started anew, as each
+# window of the replay reading starts one, writes a fleet the process has
+# written before without encoding it again. The digest hashes the
+# payload's content; two snapshots with one digest are one fleet to the
+# capture path too (_fleet_of), which reuses the first's payload.
+_FLEET_TEXTS: dict[str, bytes] = {}
+_FLEET_TEXTS_MAX = 8
+
+
+def _fleet_text(digest: str, payload: dict) -> bytes:
+    text = _FLEET_TEXTS.get(digest)
+    if text is None:
+        text = json.dumps(payload).encode()
+        if len(_FLEET_TEXTS) >= _FLEET_TEXTS_MAX:
+            _FLEET_TEXTS.clear()
+        _FLEET_TEXTS[digest] = text
+    return text
+
+
 def _same_fleet(a, b) -> bool:
     """True when two snapshots give equal `fleet_payload`s: its inputs,
     compared as they are (equal topology levels give equal levels_doc)."""
@@ -321,8 +352,14 @@ class TraceRecorder:
         self._queue: collections.deque = collections.deque()
         self._queue_size = max(1, int(queue_size))
         self._stop = threading.Event()
+        # An asynchronous flush request (request_flush), served by the
+        # writer thread's next pass.
         self._flush_now = threading.Event()
-        self._flush_done = threading.Event()
+        # The writer's state (_Journal, from start() to stop()) and the lock
+        # each use of it holds: the writer thread's passes, and flush(),
+        # which writes on its caller's thread.
+        self._io_lock = threading.Lock()
+        self._journal: Optional[_Journal] = None
         # Set once the writer has read and rewritten the manifest: start()
         # returns after that, so the writer's start-up file I/O never
         # overlaps the solves it journals.
@@ -363,18 +400,23 @@ class TraceRecorder:
         # enqueues beside its waves), and their digests.
         self.fleets_recorded = 0
         self._announced: set[str] = set()
-        # (snapshot, its fleet_digest_of) of the last wave.
+        # (snapshot, its fleet_digest_of) of the last captured wave.
         self._last_fleet: tuple | None = None
         # The recorder's cost by part, [seconds, count] each (stats(split=
         # True)), every part on one clock, time.perf_counter. On the commit
         # path: "capture" (the fleet digest, the enqueue) and "render" (the
         # wave's JSON text, its pod names and allocated rows found as it is
-        # written). On the
-        # writer thread, its wall seconds, its waits for the GIL included
-        # (so at most what it took from the commit path's thread): "segment"
+        # written). The writer's work, wall seconds on whichever thread did
+        # it (the writer thread's waits for the GIL included): "segment"
         # (taking records off the queue, the other records' JSON, a segment
-        # file written) and "manifest".
+        # file written), "manifest" and "startup" (the writer's start-up:
+        # temporary files a killed writer left removed, the prior manifest
+        # read, the manifest written, before start() returns). On the thread that calls flush():
+        # "flush", its wall inside flush(), and "flush.<part>" for each of
+        # FLUSH_PARTS.
         self._split = {part: [0.0, 0] for part in SPLIT_PARTS}
+        # Seconds of each of fsio.FILE_STEPS over the writer's file writes.
+        self._file_steps = [0.0] * len(FILE_STEPS)
         # The writer thread's own CPU seconds (time.thread_time) and its
         # voluntary and involuntary context switches (getrusage of the
         # thread), read in that thread after each pass, beside its wall
@@ -419,16 +461,40 @@ class TraceRecorder:
         self._wake.set()
 
     def flush(self, timeout: float = 5.0) -> bool:
-        """Synchronous flush: block until the writer has drained what was
-        enqueued before this call and persisted it (replay_verify and tests
-        read the journal right after). False when no writer is running or
-        the wait timed out."""
+        """Synchronous flush: persist what was enqueued before this call and
+        return once it is on disk (replay_verify and tests read the journal
+        right after). The caller would only wait for the writer thread, so
+        it does the writer's pass itself, under the writer's lock: no
+        wake-up and no hand-back between threads stand between it and the
+        disk, and the writer thread's next pass stages the next files and
+        releases the replaced ones. False when no writer is running or its lock was not free within
+        `timeout`. Its wall goes to stats(split=True)'s "flush", in
+        FLUSH_PARTS: the wait for the writer's lock ("wake"), the queue's
+        drain, the segment write, the manifest write, and the rest until
+        the return ("handback")."""
         if self._thread is None:
             return False
-        self._flush_done.clear()
-        self._flush_now.set()
-        self._wake.set()
-        return self._flush_done.wait(timeout)
+        t0 = time.perf_counter()
+        if not self._io_lock.acquire(timeout=timeout):
+            return False
+        try:
+            journal = self._journal
+            if journal is None:  # the writer has stopped
+                return False
+            t1 = time.perf_counter()
+            journal.drain()
+            t2 = time.perf_counter()
+            t3, t4 = journal.write_segment() if journal.dirty else (t2, t2)
+        finally:
+            self._io_lock.release()
+        t5 = time.perf_counter()
+        split = self._split
+        split["flush"][0] += t5 - t0
+        split["flush"][1] += 1
+        for part, a, b in zip(FLUSH_PARTS, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
+            split[f"flush.{part}"][0] += b - a
+            split[f"flush.{part}"][1] += 1
+        return True
 
     # ---- capture (reconcile thread) ----------------------------------------------
 
@@ -536,9 +602,9 @@ class TraceRecorder:
         acc[1] += count
 
     def _fleet_of(self, snapshot) -> tuple[str, dict]:
-        """fleet_digest_of(snapshot), or the last wave's when its snapshot
-        holds the same fleet: a controller builds a new snapshot of an
-        unchanged fleet for every wave, and comparing the payload's inputs
+        """fleet_digest_of(snapshot), or the last captured wave's when its
+        snapshot holds the same fleet: a controller builds a new snapshot of
+        an unchanged fleet for every wave, and comparing the payload's inputs
         costs a fraction of the digest's JSON (in C, serde.same_fleet; here
         what it leaves undecided)."""
         last = self._last_fleet
@@ -558,152 +624,43 @@ class TraceRecorder:
 
     def _writer(self) -> None:
         cpu0 = time.thread_time()
+        ru0 = resource.getrusage(resource.RUSAGE_THREAD)
 
         def read_cpu() -> None:
             self._writer_cpu[0] = time.thread_time() - cpu0
             ru = resource.getrusage(resource.RUSAGE_THREAD)
             self._writer_cpu[1:] = [ru.ru_nvcsw - ru0.ru_nvcsw, ru.ru_nivcsw - ru0.ru_nivcsw]
 
-        ru0 = resource.getrusage(resource.RUSAGE_THREAD)
-        seq = self._next_seq()
-        segment: list[dict] = []  # the records (a wave: a stub)
-        chunks: list = []  # their JSON texts (bytes-like) and the ", " between them
-        seg_digests: set[str] = set()
-        fleets: dict[str, dict] = {}  # every fleet payload seen this process
-        fleet_texts: dict[str, bytes] = {}
-        dirty = False
-
-        last_flush = time.monotonic()
-        # seq -> manifest entry for every segment currently on disk, seeded
-        # from the prior process's manifest (entries for pruned files drop;
-        # unmanifested segments — written before the manifest existed — are
-        # summarized once from disk here, never again per write).
+        t0 = time.perf_counter()
         try:
-            manifest = self._seed_manifest()
-            self._write_manifest(manifest)
+            with self._io_lock:
+                journal = self._journal = _Journal(self)
+            self._charge("startup", t0)
         finally:
             self._ready.set()
-
-        def add(rec: dict, text) -> None:
-            if chunks:
-                chunks.append(b", ")
-            chunks.append(text)
-            segment.append(rec)
-
-        def write_segment() -> None:
-            nonlocal dirty, last_flush, segment, chunks, seg_digests
-            if segment:
-                try:
-                    # The `recorder.write` fault site (an injected ENOSPC
-                    # takes the counting-drops path below).
-                    from grove_tpu_torch import faults as faults_mod
-
-                    faults_mod.active().maybe_raise("recorder.write", records=len(segment))
-                    t0 = time.perf_counter()
-                    # json.dumps of {"version", "records", <counters>}: the
-                    # records' texts written as they are.
-                    counters = json.dumps({
-                        # Recorder-state counters AT WRITE TIME (cumulative
-                        # for this process): lets an offline reader (the
-                        # tuning sweep, journal_stats) tell a truncated
-                        # journal — records dropped under queue pressure —
-                        # from a genuinely quiet day. Additive field: replay
-                        # ignores it, old segments read as 0.
-                        "recorderDropped": self.dropped,
-                        "recorderRecorded": self.recorded + self.fleets_recorded,
-                        # Counting-drops mode ledger: segments the writer
-                        # could NOT persist (ENOSPC et al). > 0 tells an
-                        # offline reader the journal has a HOLE even when
-                        # the queue never overflowed.
-                        "recorderWriteErrors": self.write_errors,
-                    })
-                    atomic_write_chunks(
-                        os.path.join(self.path, f"segment-{seq:06d}.json"),
-                        [_SEGMENT_HEAD, *chunks, ("], " + counters[1:]).encode()],
-                    )
-                    self._charge("segment", t0)
-                    self.segments_written += 1
-                    self.degraded = False
-                    manifest[seq] = _manifest_entry(seq, segment)
-                    self._write_manifest(manifest)
-                except OSError as e:
-                    # Counting-drops mode: the journal is observability, the
-                    # solve loop is the product — a full disk must cost a
-                    # SEGMENT of records (counted), never the writer thread
-                    # (whose death would silently drop everything after) and
-                    # never a blocked solve. The segment buffer is released
-                    # so memory stays bounded while the disk is sick.
-                    self.write_errors += 1
-                    self.degraded = True
-                    self.dropped += len(segment)
-                    self._last_write_error = str(e)
-                    segment = []
-                    serde.recycle(chunks)
-                    chunks = []
-                    seg_digests = set()
-            dirty = False
-            last_flush = time.monotonic()
-
-        def rotate() -> None:
-            nonlocal seq, segment, chunks, seg_digests
-            write_segment()
-            seq += 1
-            segment = []
-            # The segment's texts go back to the renderer together (the
-            # memory of the next ones).
-            serde.recycle(chunks)
-            chunks = []
-            seg_digests = set()
-            if self._prune(manifest):
-                self._write_manifest(manifest)
-
         while True:
             self._wake.wait(timeout=self.flush_interval_seconds)
             self._wake.clear()
-            t0 = time.perf_counter()
-            while True:  # drain the queue before honoring flush/stop
-                try:
-                    rec = self._queue.popleft()
-                except IndexError:
-                    break
-                if rec.get("kind") == "fleet":
-                    fleets[rec["digest"]] = rec
-                    # Emitted into a segment only when a wave references it.
-                else:
-                    payload = rec.pop("_fleet", None)
-                    if payload is not None:
-                        fleets[rec["fleet"]] = payload
-                    d = rec.get("fleet")
-                    if d and d not in seg_digests and d in fleets:
-                        if d not in fleet_texts:
-                            fleet_texts[d] = json.dumps(fleets[d]).encode()
-                        add(fleets[d], fleet_texts[d])
-                        seg_digests.add(d)
-                    text = rec.pop("_text", None)
-                    add(rec, json.dumps(rec).encode() if text is None else text)
-                    dirty = True
-                if len(segment) >= self.max_records_per_file:
-                    self._charge("segment", t0, count=0)
-                    rotate()  # charges its own write
-                    t0 = time.perf_counter()
-            self._charge("segment", t0, count=0)
+            # A request read here has its records in the queue before the
+            # drain below; one set after the read is the next pass's (its
+            # _wake.set() makes one).
             want_flush = self._flush_now.is_set()
-            interval_due = (
-                time.monotonic() - last_flush >= self.flush_interval_seconds
-            )
-            if dirty and (want_flush or interval_due):
-                write_segment()
-            read_cpu()
             if want_flush:
                 self._flush_now.clear()
-                self._flush_done.set()  # flush(): everything enqueued before
-                # the request is now on disk (the queue drained first).
+            with self._io_lock:
+                journal.drain()
+                interval_due = (
+                    time.monotonic() - journal.last_flush >= self.flush_interval_seconds
+                )
+                if journal.dirty and (want_flush or interval_due):
+                    journal.write_segment()
+                journal.stage()
+            read_cpu()
             if self._stop.is_set() and not self._queue:
                 break
-        write_segment()
-        serde.recycle(chunks)
-        if self._prune(manifest):
-            self._write_manifest(manifest)
+        with self._io_lock:
+            journal.close()
+            self._journal = None
         read_cpu()
 
     def _segments(self) -> list[str]:
@@ -780,42 +737,14 @@ class TraceRecorder:
             manifest[seq] = _manifest_entry(seq, records)
         return manifest
 
-    def _write_manifest(self, manifest: dict[int, dict]) -> None:
-        t0 = time.perf_counter()
-        entries = [manifest[s] for s in sorted(manifest)]
-        last_wave = None
-        for e in entries:
-            rng = e.get("waveRange")
-            if rng:
-                last_wave = rng[1]
-        try:
-            atomic_write_chunks(
-                os.path.join(self.path, _MANIFEST),
-                [json.dumps({
-                    "version": SCHEMA_VERSION,
-                    "segments": entries,
-                    "lastWave": last_wave,
-                    "waves": sum(int(e.get("waves", 0)) for e in entries),
-                    # Pruning ledger: > 0 means the journal's oldest waves
-                    # were rotated away — state rebuilt from this journal is
-                    # incomplete (journal_truncated / recovery flags it).
-                    "prunedSegments": self.pruned_segments,
-                    "prunedWaves": self.pruned_waves,
-                }).encode()],
-            )
-            self.manifest_writes += 1
-            self._charge("manifest", t0)
-        except OSError:
-            # Derived data: replay falls back to scanning segments; the
-            # journal itself is NOT degraded by a missing manifest.
-            self.manifest_write_errors += 1
-
     def stats(self, split: bool = False) -> dict:
         """JSON-able recorder state (the JAX recorder's keys); with `split`,
         also "split": {part: {"s": seconds, "n": count}} for each of
-        SPLIT_PARTS, and the writer thread's own CPU seconds and its
-        voluntary and involuntary context switches ("writerCpuSeconds",
-        "writerSwitches"), as of its last pass."""
+        SPLIT_PARTS, "fileSteps": {step: seconds} for each of
+        fsio.FILE_STEPS over the writer's file writes, and the writer
+        thread's own CPU seconds and its voluntary and involuntary context
+        switches ("writerCpuSeconds", "writerSwitches"), as of its last
+        pass."""
         doc = {
             "path": self.path,
             "recorded": self.recorded + self.fleets_recorded,
@@ -835,9 +764,316 @@ class TraceRecorder:
             doc["lastWriteError"] = self._last_write_error
         if split:
             doc["split"] = {p: {"s": s, "n": n} for p, (s, n) in self._split.items()}
+            doc["fileSteps"] = dict(zip(FILE_STEPS, self._file_steps))
             doc["writerCpuSeconds"] = self._writer_cpu[0]
             doc["writerSwitches"] = self._writer_cpu[1:]
         return doc
+
+
+class _Journal:
+    """The writer's state, used under TraceRecorder._io_lock by the writer
+    thread and by flush(): the open segment (its records' texts, the counts
+    its manifest entry is made of, and its file staged ahead of the write),
+    the manifest (each segment's entry and that entry's JSON text), and the
+    fleet payloads seen. Built at the writer's start-up: temporary files a
+    killed writer left removed, the prior manifest read and written anew.
+
+    Each pass of the writer thread stages the next files (`stage`: the
+    temporary file made, the segment's bytes so far written into it) and
+    closes the descriptors of the files the writes since its last pass
+    replaced; a write after a pass is then one writev and one rename per
+    file. start() stages nothing and holds no descriptor, so a write before
+    the first pass makes its files and releases the manifest it replaces
+    itself, as one after another write without a pass between makes its
+    files. The bytes are those of json.dumps of each file's document, as a
+    whole rewrite writes them."""
+
+    def __init__(self, rec: TraceRecorder) -> None:
+        self.rec = rec
+        # A directory has one writer, so a temporary file in it is one a
+        # writer killed mid-write or between two passes left behind.
+        for p in glob.glob(os.path.join(glob.escape(rec.path), TEMP_PREFIX + "*")):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        self.seq = rec._next_seq()
+        self.fleets: dict[str, tuple[dict, bool]] = {}  # digest -> (payload, captured)
+        self.fleet_texts: dict[str, bytes] = {}  # the texts written in this writer life
+        self.segment_file: Optional[StagedFile] = None
+        self.manifest_file: Optional[StagedFile] = None
+        # The committed files on disk now, their descriptors kept open until
+        # a later commit replaces them: a rename over a file that is still
+        # open leaves the old file's deletion to that descriptor's close,
+        # which the writer thread makes off its caller's clock (`stage`).
+        self.live_segment: Optional[StagedFile] = None
+        self.live_manifest: Optional[StagedFile] = None
+        self.retired: list[StagedFile] = []  # replaced, descriptors still open
+        self._new_segment()
+        self.dirty = False
+        self.last_flush = time.monotonic()
+        # seq -> manifest entry for every segment currently on disk, seeded
+        # from the prior process's manifest (entries for pruned files drop;
+        # unmanifested segments — written before the manifest existed — are
+        # summarized once from disk here, never again per write), and each
+        # entry's JSON text.
+        self.manifest = rec._seed_manifest()
+        self.entry_texts: dict[int, bytes] = {}
+        self.write_manifest(part=None)
+        if self.live_manifest is not None:
+            self.live_manifest.close()
+            self.live_manifest = None
+
+    def _new_segment(self) -> None:
+        self.chunks: list = []  # the records' JSON texts and the ", " between them
+        self.staged = 0  # of them in segment_file
+        self.records = 0
+        self.waves = 0
+        self.wave_range: Optional[list] = None  # [first wave id, last]
+        self.digests: set[str] = set()  # the fleets written into the segment
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.rec.path, name)
+
+    def _add(self, rec: dict, text) -> None:
+        if self.chunks:
+            self.chunks.append(b", ")
+        self.chunks.append(text)
+        self.records += 1
+        kind = rec.get("kind")
+        if kind == "wave":
+            wave = rec.get("wave", "?")
+            self.waves += 1
+            if self.wave_range is None:
+                self.wave_range = [wave, wave]
+            else:
+                self.wave_range[1] = wave
+        elif kind == "fleet":
+            self.digests.add(rec["digest"])
+
+    def _fleet_text(self, digest: str) -> bytes:
+        text = self.fleet_texts.get(digest)
+        if text is None:
+            payload, captured = self.fleets[digest]
+            text = _fleet_text(digest, payload) if captured else json.dumps(payload).encode()
+            self.fleet_texts[digest] = text
+        return text
+
+    def entry(self) -> dict:
+        """The open segment's manifest entry (_manifest_entry of its
+        records)."""
+        return {
+            "file": f"segment-{self.seq:06d}.json",
+            "seq": self.seq,
+            "records": self.records,
+            "waves": self.waves,
+            "waveRange": list(self.wave_range) if self.wave_range else None,
+            "fleetDigests": sorted(self.digests),
+        }
+
+    def drain(self) -> None:
+        """Takes every queued record into the open segment (the queue is
+        drained before a flush or stop is honored), rotating at
+        max_records_per_file."""
+        rec_ = self.rec
+        queue = rec_._queue
+        t0 = time.perf_counter()
+        while True:
+            try:
+                rec = queue.popleft()
+            except IndexError:
+                break
+            if rec.get("kind") == "fleet":
+                # Written into a segment only when a wave references it.
+                self.fleets[rec["digest"]] = (rec, False)
+                continue
+            payload = rec.pop("_fleet", None)
+            if payload is not None:
+                self.fleets[rec["fleet"]] = (payload, True)
+            d = rec.get("fleet")
+            if d and d not in self.digests and d in self.fleets:
+                self._add(self.fleets[d][0], self._fleet_text(d))
+            text = rec.pop("_text", None)
+            self._add(rec, json.dumps(rec).encode() if text is None else text)
+            self.dirty = True
+            if self.records >= rec_.max_records_per_file:
+                rec_._charge("segment", t0, count=0)
+                self.rotate()  # charges its own write
+                t0 = time.perf_counter()
+        rec_._charge("segment", t0, count=0)
+
+    def write_segment(self) -> tuple[float, float]:
+        """Writes the open segment, then the manifest; returns the clock
+        after each (the clock at the return for what was not written)."""
+        rec = self.rec
+        t_seg = t_man = 0.0
+        if self.records:
+            try:
+                # The `recorder.write` fault site (an injected ENOSPC takes
+                # the counting-drops path below).
+                from grove_tpu_torch import faults as faults_mod
+
+                faults_mod.active().maybe_raise("recorder.write", records=self.records)
+                t0 = time.perf_counter()
+                # json.dumps of {"version", "records", <counters>}: the
+                # records' texts written as they are.
+                counters = json.dumps({
+                    # Recorder-state counters AT WRITE TIME (cumulative for
+                    # this process): lets an offline reader (the tuning
+                    # sweep, journal_stats) tell a truncated journal —
+                    # records dropped under queue pressure — from a
+                    # genuinely quiet day. Additive field: replay ignores
+                    # it, old segments read as 0.
+                    "recorderDropped": rec.dropped,
+                    "recorderRecorded": rec.recorded + rec.fleets_recorded,
+                    # Counting-drops mode ledger: segments the writer could
+                    # NOT persist (ENOSPC et al). > 0 tells an offline
+                    # reader the journal has a HOLE even when the queue
+                    # never overflowed.
+                    "recorderWriteErrors": rec.write_errors,
+                })
+                tail = ("], " + counters[1:]).encode()
+                f, self.segment_file = self.segment_file, None
+                if f is None:
+                    f = StagedFile(self._path(f"segment-{self.seq:06d}.json"), rec._file_steps)
+                    f.commit([_SEGMENT_HEAD, *self.chunks, tail])
+                else:
+                    f.commit([*self.chunks[self.staged:], tail])
+                self._retire(self.live_segment)
+                self.live_segment = f
+                self.staged = 0
+                rec._charge("segment", t0)
+                t_seg = time.perf_counter()
+                rec.segments_written += 1
+                rec.degraded = False
+                entry = self.manifest[self.seq] = self.entry()
+                self.entry_texts[self.seq] = json.dumps(entry).encode()
+                self.write_manifest()
+                t_man = time.perf_counter()
+            except OSError as e:
+                # Counting-drops mode: the journal is observability, the
+                # solve loop is the product — a full disk must cost a
+                # SEGMENT of records (counted), never the writer thread
+                # (whose death would silently drop everything after) and
+                # never a blocked solve. The segment buffer is released so
+                # memory stays bounded while the disk is sick.
+                if self.segment_file is not None:
+                    self.segment_file.discard()
+                    self.segment_file = None
+                rec.write_errors += 1
+                rec.degraded = True
+                rec.dropped += self.records
+                rec._last_write_error = str(e)
+                serde.recycle(self.chunks)
+                self._new_segment()
+        self.dirty = False
+        self.last_flush = time.monotonic()
+        now = time.perf_counter()
+        return t_seg or now, t_man or now
+
+    def rotate(self) -> None:
+        self.write_segment()
+        self.seq += 1
+        # The segment's texts go back to the renderer together (the memory
+        # of the next ones).
+        serde.recycle(self.chunks)
+        self._new_segment()
+        if self.rec._prune(self.manifest):
+            self.write_manifest()
+
+    def write_manifest(self, part: Optional[str] = "manifest") -> None:
+        """Writes manifest.json (json.dumps of its document: the closed
+        entries' texts kept, the open one's new); its seconds go to `part`
+        (None: the caller's). A failure is counted, and never degrades the
+        journal: the manifest is derived data, and replay falls back to
+        scanning segments."""
+        rec = self.rec
+        t0 = time.perf_counter()
+        texts = self.entry_texts
+        for seq in [s for s in texts if s not in self.manifest]:  # pruned
+            del texts[seq]
+        body: list = []
+        last_wave, waves = None, 0
+        for seq in sorted(self.manifest):
+            e = self.manifest[seq]
+            text = texts.get(seq)
+            if text is None:
+                text = texts[seq] = json.dumps(e).encode()
+            if body:
+                body.append(b", ")
+            body.append(text)
+            rng = e.get("waveRange")
+            if rng:
+                last_wave = rng[1]
+            waves += int(e.get("waves", 0))
+        tail = json.dumps({
+            "lastWave": last_wave,
+            "waves": waves,
+            # Pruning ledger: > 0 means the journal's oldest waves were
+            # rotated away — state rebuilt from this journal is incomplete
+            # (journal_truncated / recovery flags it).
+            "prunedSegments": rec.pruned_segments,
+            "prunedWaves": rec.pruned_waves,
+        })
+        f, self.manifest_file = self.manifest_file, None
+        try:
+            if f is None:
+                f = StagedFile(self._path(_MANIFEST), rec._file_steps)
+            f.commit([_MANIFEST_HEAD, *body, ("], " + tail[1:]).encode()])
+        except OSError:
+            rec.manifest_write_errors += 1
+            return
+        self._retire(self.live_manifest)
+        self.live_manifest = f
+        rec.manifest_writes += 1
+        if part is not None:
+            rec._charge(part, t0)
+
+    def _retire(self, f: Optional[StagedFile]) -> None:
+        if f is not None:
+            self.retired.append(f)
+
+    def stage(self) -> None:
+        """Closes the replaced files' descriptors and stages the next
+        writes: a temporary file holding the open segment's bytes so far (its
+        head and records), one for the manifest. A failure leaves the write
+        to make its own file, and to meet the failure there."""
+        for f in self.retired:
+            f.close()
+        self.retired = []
+        steps = self.rec._file_steps
+        try:
+            if self.segment_file is None:
+                f = StagedFile(self._path(f"segment-{self.seq:06d}.json"), steps)
+                f.write([_SEGMENT_HEAD, *self.chunks])
+                self.segment_file, self.staged = f, len(self.chunks)
+            elif self.staged < len(self.chunks):
+                n = len(self.chunks)
+                self.segment_file.write(self.chunks[self.staged:n])
+                self.staged = n
+        except OSError:  # a failed write discarded its file
+            self.segment_file = None
+        try:
+            if self.manifest_file is None:
+                self.manifest_file = StagedFile(self._path(_MANIFEST), steps)
+        except OSError:
+            pass
+
+    def close(self) -> None:
+        """The last write, pruning, and no temporary file left."""
+        self.write_segment()
+        serde.recycle(self.chunks)
+        if self.rec._prune(self.manifest):
+            self.write_manifest()
+        for f in (self.segment_file, self.manifest_file):
+            if f is not None:
+                f.discard()
+        self.segment_file = self.manifest_file = None
+        for f in (*self.retired, self.live_segment, self.live_manifest):
+            if f is not None:
+                f.close()
+        self.retired = []
+        self.live_segment = self.live_manifest = None
 
 
 def _manifest_entry(seq: int, records: list[dict]) -> dict:

@@ -250,6 +250,28 @@ def _nondyadic_doc(i):
     }
 
 
+def _nondyadic_fleet(P):
+    """sim/workloads.py's nondyadic_cluster and nondyadic_backlog (160
+    nodes, pods of 100m-multiple CPU and non-power-of-two MiB memory bound
+    on them and in the 24-gang backlog): nodes that take several pods of one
+    group, so the free update's product is inexact too. The JAX package has
+    no such function: its objects are the port's through the journal codec,
+    which both packages read."""
+    nodes, bound = p_wl.nondyadic_cluster()
+    backlog = p_wl.nondyadic_backlog()
+    if P is REF:
+        from grove_tpu.trace import recorder as _r_rec  # noqa: F401  (the codec's types)
+        from grove_tpu.utils import serde as r_serde
+        from grove_tpu_torch.trace import recorder as _p_rec  # noqa: F401
+        from grove_tpu_torch.utils import serde as p_serde
+
+        nodes, bound, backlog = (r_serde.decode(p_serde.encode(x))
+                                 for x in (nodes, bound, backlog))
+    topo = P.wl.bench_topology()
+    gangs, pods = expand_all(P, backlog, topo)
+    return gangs, pods, P.build_snapshot(nodes, topo, bound_pods=bound)
+
+
 def _nondyadic(P):
     """80 hosts of 31.7 cpu, a third of them part-filled by squatters of
     0.3-cpu steps: free capacity and its domain sums are not exact in f32,
@@ -287,6 +309,7 @@ SCENARIOS = {
     "spread_pack": lambda P: _spread(P, pack=True),
     "bench_spread": _bench_spread,
     "nondyadic": _nondyadic,
+    "nondyadic_fleet": _nondyadic_fleet,
 }
 HOST_SCENARIOS = [
     "simple1", "wl1", "wl2", "wl3", "wl4", "wl5", "wl6", "bench_small", "contended",

@@ -376,6 +376,7 @@ static inline void __syncthreads() {}
 static inline float __fadd_rn(float a, float b) { return a + b; }
 static inline float __fsub_rn(float a, float b) { return a - b; }
 static inline float __fmul_rn(float a, float b) { return a * b; }
+static inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 static inline float __fdiv_rn(float a, float b) { return a / b; }
 static long long clock64() { return 0; }
 using std::isinf;

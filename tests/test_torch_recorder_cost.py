@@ -172,7 +172,7 @@ def test_stats_split_reports_each_part(tmp_path):
     waves = sum(1 for r in records if r.get("kind") == "wave")
     assert doc["split"]["capture"]["n"] == doc["split"]["render"]["n"] == waves
     assert doc["split"]["segment"]["n"] == rec.segments_written
-    assert doc["split"]["manifest"]["n"] == rec.manifest_writes
+    assert doc["split"]["manifest"]["n"] + doc["split"]["startup"]["n"] == rec.manifest_writes
     assert all(v["s"] >= 0.0 for v in doc["split"].values())
     assert "split" not in rec.stats()
 

@@ -30,6 +30,7 @@ import yaml
 
 from grove_tpu_torch import bench as p_bench
 from grove_tpu_torch.trace import recorder as p_rec
+from grove_tpu_torch.utils.fsio import FILE_STEPS
 from torch_jax_programs import _release_jax_programs  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -81,6 +82,7 @@ class FakeRecorder:
 
     def stats(self, split=False):
         return {"split": {p: {"s": 0.001, "n": 1} for p in p_rec.SPLIT_PARTS},
+                "fileSteps": {s: 0.0005 for s in FILE_STEPS},
                 "writerCpuSeconds": 0.002, "writerSwitches": [3, 1]}
 
 
